@@ -1,0 +1,121 @@
+"""quest_tpu_torch stands alone: it imports neither JAX nor the JAX
+package, uses the CUDA card unless the CPU is asked for, and its kernel
+wrappers take their plain versions only for tensors on the CPU (where the
+launch counters stay at 0)."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import quest_tpu_torch as tq
+from quest_tpu_torch import circuit as C
+from quest_tpu_torch.ops import fused
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "quest_tpu_torch"
+_FORBIDDEN = ("jax", "jaxlib", "quest_tpu")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, quest_tpu_torch, quest_tpu_torch.interop, "
+            "quest_tpu_torch.models.circuits\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{_FORBIDDEN!r})\n"
+            "print(','.join(bad))")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == ""
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) +
+                         [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    roots = set(_imported_roots(path))
+    assert not roots & set(_FORBIDDEN), path
+
+
+def test_default_env_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default env binds it")
+    with pytest.raises(tq.QuESTError, match="device=\"cpu\""):
+        tq.createQuESTEnv()
+
+
+def test_cpu_env_is_explicit():
+    env = tq.createQuESTEnv(device="cpu")
+    assert env.device.type == "cpu"
+    assert "Backend=cpu" in tq.getEnvironmentString(env)
+
+
+def _op(rng, k):
+    a = rng.standard_normal((1, 2, 128, 128))
+    return ("winfused", k, a, a.copy(), True, True, None)
+
+
+def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
+    fused.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    n = 15
+    x = torch.from_numpy(rng.standard_normal((2, 1 << n)))
+    op = _op(rng, 8)
+    y = fused.apply_window_stack(x, op[2], op[3], None, num_qubits=n, k=8)
+    assert torch.equal(y, fused.window_pass_plain(x, op[2], op[3], None,
+                                                  num_qubits=n, k=8))
+    group = [_op(rng, 7), _op(rng, 8)]
+    y2 = fused.apply_window_megastack(x, group, num_qubits=n)
+    assert torch.equal(y2, fused.megawin_plain(x, group, num_qubits=n))
+    q = tq.createQureg(n, tq.createQuESTEnv(device="cpu"))
+    with tq.gateFusion(q):
+        for t in range(n):
+            tq.hadamard(q, t)
+    assert abs(tq.calcTotalProb(q) - 1.0) < 1e-5
+    assert fused.apply_window_stack.launches == 0
+    assert fused.apply_window_megastack.launches == 0
+
+
+def test_kernels_are_not_built_at_import():
+    assert "lib" not in fused._LIB
+
+
+def test_other_devices_raise():
+    x = torch.zeros((2, 1 << 14), device="meta")
+    op = _op(np.random.default_rng(1), 7)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused.apply_window_stack(x, op[2], op[3], None, num_qubits=14, k=7)
+
+
+def test_execute_plan_dispatches_window_passes_through_the_wrappers(
+        monkeypatch):
+    calls = []
+    real = fused.apply_window_stack
+
+    def spy(*a, **kw):
+        calls.append(kw["k"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fused, "apply_window_stack", spy)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 1 << 15)))
+    C.execute_plan(x, [_op(rng, 7), _op(rng, 8)], 15)
+    assert calls == [7, 8]
