@@ -48,9 +48,11 @@ REPS = 10              # timed launches per kernel
 DEVICE = "cuda"
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# bandwidth and the FP32 / FP64 rates of the CUDA cores (no tensor cores).
+# bandwidth and the highest rate of each type: FP32 on the CUDA cores (the
+# tensor cores take no true FP32), FP64 on the tensor cores (DMMA; twice
+# the CUDA cores' 34 TFLOP/s).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 
 def emit(obj) -> None:
@@ -108,8 +110,8 @@ def flops_of(op, num_amps: int) -> float:
 def bound_ms(ops, state_bytes: int, num_amps: int, dtype_name: str):
     """The least time the card could take for a run of passes: one read
     and one write of the state plus each matrix read once, over the
-    memory rate, against the flops over the CUDA-core peak; and which of
-    the two bounds it."""
+    memory rate, against the flops over the type's peak rate; and which
+    of the two bounds it."""
     mat_bytes = sum(op[2].numel() * op[2].element_size()
                     * (int(bool(op[4])) + int(bool(op[5])))
                     + (0 if op[6] is None
@@ -154,6 +156,21 @@ def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def extra_bytes(fn) -> int:
+    """Peak device memory that one call of ``fn`` allocates beyond what
+    was allocated before it (its output included)."""
+    import torch
+
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = fn()
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    del y
+    return peak
 
 
 def tolerance(x) -> float:
@@ -437,7 +454,7 @@ def main() -> int:
         check(err <= tolerance(x), f"K1 at {n} qubits, {dtype_name}, "
               f"k={op[1]}: |err| {err}")
         return {"k": op[1], "mask": op[6] is not None, "dtype": dtype_name,
-                "max_abs_err": err,
+                "max_abs_err": err, "extra_mem_bytes": extra_bytes(k1(op)),
                 "ms": time_ms(k1(op)), "plain_ms": time_ms(plain1(op), reps=5),
                 "library_ms": time_ms(library(op), reps=5),
                 "bound_ms": b_ms, "bound_by": b_by}
@@ -452,9 +469,17 @@ def main() -> int:
                 .abs().max())
     check(err <= len(group) * tolerance(x), f"K2 at {n} qubits: |err| {err}")
     del y2
+    # K2 holds its output and a scratch of one super-block per resident
+    # cluster beside its input, never a second full-size buffer
+    k2_mem = extra_bytes(lambda: fused.apply_window_megastack(
+        x, group, num_qubits=n))
+    check(k2_mem < state_bytes + state_bytes // 4,
+          f"K2 at {n} qubits allocates {k2_mem} bytes beside a "
+          f"{state_bytes}-byte state")
     timing["k2_largest_group"] = {
         "passes": len(group), "kmax": max(op[1] for op in group),
         "max_abs_err": err, "bit_identical_to_k1": True,
+        "extra_mem_bytes": k2_mem,
         "ms": time_ms(lambda: fused.apply_window_megastack(
             x, group, num_qubits=n)),
         "plain_ms": time_ms(lambda: fused.megawin_plain(
@@ -511,7 +536,8 @@ def main() -> int:
     plan_bound = bound_ms(
         [op for o in ops for op in (o[1] if o[0] == "megawin" else (o,))],
         0, num_amps, "float32")[0]
-    emit({"phase": "timing", "device": name, "power": smi, **timing,
+    emit({"phase": "timing", "device": name, "power": smi,
+          "state_bytes_f32": state_bytes, **timing,
           **walls, "breakdown": breakdown,
           "bench_plan_flop_bound_ms": plan_bound})
 

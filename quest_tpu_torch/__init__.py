@@ -34,6 +34,5 @@ from .fusion import (
     start_gate_fusion as startGateFusion,
     stop_gate_fusion as stopGateFusion,
 )
-from .optimizer import set_circuit_optimizer, setCircuitOptimizer
 
 __version__ = "0.1.0"

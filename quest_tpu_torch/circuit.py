@@ -84,13 +84,6 @@ def controlled_dense(mat_soa, num_controls: int, control_states=()):
 PERM_GATHER_MAX_BITS = 10
 
 
-def perm_fast_enabled() -> bool:
-    """QT_PERM_FAST (default on): permutation gates take the matrix-free
-    lowering; off/0/false/no reroutes them through the dense planner."""
-    raw = os.environ.get("QT_PERM_FAST", "").strip().lower()
-    return raw not in ("off", "0", "false", "no")
-
-
 def _classify_pi(pi):
     """Classify ``new[i] = old[pi[i]]`` as ("xor", c), ("relabel", s) or
     ("gather", pi)."""
@@ -832,20 +825,11 @@ def group_megawins(ops: Sequence[tuple], num_qubits: int) -> List[tuple]:
 
 
 def plan_circuit(gates: Sequence[Gate], num_qubits: int,
-                 planner: Optional[str] = None,
                  device=None) -> List[tuple]:
-    """Plan a gate list with the windowed planner (QT_PLANNER=windowed,
-    the default).  ``device`` is where the plan will run: under
-    QT_MEGAKERNEL=auto, megawin groups form only for a CUDA device."""
-    if planner is None:
-        planner = os.environ.get("QT_PLANNER", "windowed")
-    if planner == "paged":
-        raise NotImplementedError(
-            "the paged planner is not ported yet: its 'fused'/'swapfused' "
-            "passes need the K11/K12 kernels (ROADMAP Queue 2)")
-    if planner != "windowed":
-        raise ValueError(
-            f"unknown planner {planner!r}: expected 'windowed' or 'paged'")
+    """Plan a gate list with the windowed planner (the JAX package's
+    paged planner is not ported: its passes need kernels K11/K12).
+    ``device`` is where the plan will run: under QT_MEGAKERNEL=auto,
+    megawin groups form only for a CUDA device."""
     ops = plan_circuit_windowed(gates, num_qubits)
     if _side_split_enabled() and num_qubits >= WINDOW:
         ops = split_plan_sides(ops)
@@ -878,11 +862,7 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int):
                 amps, op[2], op[3], op[6] if len(op) > 6 else None,
                 num_qubits=n, k=op[1], apply_a=op[4], apply_b=op[5])
         elif kind == "megawin":
-            if fused.megakernel_mode() == "off":
-                amps = execute_plan(amps, op[1], n)
-            else:
-                amps = fused.apply_window_megastack(amps, op[1],
-                                                    num_qubits=n)
+            amps = fused.apply_window_megastack(amps, op[1], num_qubits=n)
         elif kind == "apply":
             amps = kernels.apply_matrix(amps, op[2], num_qubits=n,
                                         targets=tuple(op[1]))

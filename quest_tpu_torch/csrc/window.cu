@@ -46,12 +46,18 @@
 // executor ping-pongs buffers (at 26 qubits f32 the second buffer is
 // 512 MB).
 //
-// K2 runs one thread-block cluster of 4 or 8 CTAs per super-block.  The
-// cluster walks the group's passes in order; within a pass its CTAs share
-// the super-block's 4G (slab, chunk) items, and a cluster barrier
-// separates passes.  Intermediate passes ping-pong between the output
-// buffer and a scratch buffer in global memory, where the 50 MB L2 serves
-// them while the super-block is hot (G = 8: 1 MB per buffer at f32).
+// K2 runs a persistent grid of thread-block clusters (4 CTAs each for
+// G = 1, 8 for G >= 2), no more than the card holds at once; each cluster
+// takes super-blocks in turn.  On a super-block the cluster walks the
+// group's passes in order; within a pass its CTAs share the super-block's
+// 4G (slab, chunk) items, and a cluster barrier separates passes.  The
+// first pass reads the state; from there the passes alternate between the
+// super-block's place in the output buffer and a super-block-sized scratch
+// buffer that belongs to the cluster (G = 8: 1 MB at f32), so that the
+// last lands in the output; the 50 MB L2 serves both while they are hot.
+// So K2, like K1, holds the state twice (input and output) plus one
+// super-block per resident cluster, tens of MB: never a third full-size
+// buffer.
 // Both kernels run every (slab, chunk) item through the SAME device
 // function, slab_chunk_pass, whose inner products are explicit fma in a
 // fixed order, and the file is compiled with --fmad=false: a megawin group
@@ -69,6 +75,12 @@ constexpr int LC = 32;             // output lanes per CTA
 constexpr int NCHUNK = DIM / LC;   // CTAs per slab
 constexpr int KC = 32;             // contraction tile
 constexpr int NTHREADS = 256;
+// CTAs per SM the kernels are compiled for: shared memory admits two at
+// f32 and one at f64.  Saying so (with the contraction loops unrolled by
+// two) lets ptxas keep the next step's operands in flight; left to itself
+// it gave K2 fewer registers, and K2 ran 8 % slower on an H100.
+template <typename T>
+constexpr int ctas_per_sm() { return sizeof(T) == 4 ? 2 : 1; }
 constexpr int MPAD = KC + 1;       // row stride (complex) of the K tiles
 constexpr int TPAD = LC + 1;       // row stride (complex) of the T tile
 constexpr int MAX_MEGA_PASSES = 16;
@@ -120,14 +132,15 @@ constexpr size_t smem_bytes() {
 }
 
 // One (slab, lane chunk) item of one window pass: reads the slab at
-// `base` (row stride `wstride`, lane stride 1) of both planes of `x`,
-// writes output lanes [l0, l0 + LC) of every row to `y`.  The state is
-// read with __ldcg (L2 only, never the non-coherent L1 path): inside K2 a
-// pass reads what other CTAs of the cluster wrote in the previous pass.
+// `base` (row stride `wstride`, lane stride 1) of the real and imaginary
+// planes `xr`, `xi`, writes output lanes [l0, l0 + LC) of every row to the
+// same place in the planes `yr`, `yi`.  The state is read with __ldcg (L2
+// only, never the non-coherent L1 path): inside K2 a pass reads what other
+// CTAs of the cluster wrote in the previous pass.
 template <typename T>
-__device__ void slab_chunk_pass(const T* x, T* y,
-                                long long plane, long long base,
-                                long long wstride, int l0, const QtPass& p,
+__device__ void slab_chunk_pass(const T* xr, const T* xi, T* yr, T* yi,
+                                long long base, long long wstride, int l0,
+                                const QtPass& p,
                                 typename Cplx<T>::type* smem) {
     using V = typename Cplx<T>::type;
     V* tile_m = smem;                     // [DIM][MPAD]: X or B K-tile
@@ -162,8 +175,8 @@ __device__ void slab_chunk_pass(const T* x, T* y,
                     const int idx = tid + e * NTHREADS;
                     const int w = idx / KC, kk = idx % KC;
                     const long long off = base + w * wstride + k0 + kk;
-                    tile_m[w * MPAD + kk] = V{__ldcg(x + off),
-                                              __ldcg(x + off + plane)};
+                    tile_m[w * MPAD + kk] = V{__ldcg(xr + off),
+                                              __ldcg(xi + off)};
                 }
 #pragma unroll
                 for (int e = 0; e < LC * KC / NTHREADS; ++e) {
@@ -173,6 +186,7 @@ __device__ void slab_chunk_pass(const T* x, T* y,
                     tile_a[kk * TPAD + lc] = V{Ar[o], Ar[o + mat]};
                 }
                 __syncthreads();
+#pragma unroll 2
                 for (int kk = 0; kk < KC; ++kk) {
                     V av[4], xv[4];
 #pragma unroll
@@ -213,8 +227,8 @@ __device__ void slab_chunk_pass(const T* x, T* y,
                 const int idx = tid + e * NTHREADS;
                 const int w = idx / LC, lc = idx % LC;
                 const long long off = base + w * wstride + l0 + lc;
-                tile_t[w * TPAD + lc] = V{__ldcg(x + off),
-                                          __ldcg(x + off + plane)};
+                tile_t[w * TPAD + lc] = V{__ldcg(xr + off),
+                                          __ldcg(xi + off)};
             }
         }
         // yacc[w'][lc] += sum_w B_r[w'][w] T[w][lc]
@@ -229,6 +243,7 @@ __device__ void slab_chunk_pass(const T* x, T* y,
                 tile_m[w * MPAD + kk] = V{Br[o], Br[o + mat]};
             }
             __syncthreads();
+#pragma unroll 2
             for (int kk = 0; kk < KC; ++kk) {
                 V bv[4], tv[4];
 #pragma unroll
@@ -255,23 +270,23 @@ __device__ void slab_chunk_pass(const T* x, T* y,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int l = l0 + lg + 8 * j;
-            T yr = yacc[i][j].x, yi = yacc[i][j].y;
+            T vr = yacc[i][j].x, vi = yacc[i][j].y;
             if (M != nullptr) {
                 const T mr = M[w * DIM + l], mi = M[mat + w * DIM + l];
-                const T nr = fma_t(yr, mr, -(yi * mi));
-                const T ni = fma_t(yr, mi, yi * mr);
-                yr = nr;
-                yi = ni;
+                const T nr = fma_t(vr, mr, -(vi * mi));
+                const T ni = fma_t(vr, mi, vi * mr);
+                vr = nr;
+                vi = ni;
             }
             const long long off = base + w * wstride + l;
-            y[off] = yr;
-            y[off + plane] = yi;
+            yr[off] = vr;
+            yi[off] = vi;
         }
     }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, ctas_per_sm<T>())
 window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
                    long long plane, QtPass p) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -280,41 +295,57 @@ window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
     const long long slab = blockIdx.x / NCHUNK;
     const long long mid = 1LL << (p.k - 7);
     const long long h = slab / mid, m = slab % mid;
-    slab_chunk_pass<T>(x, y, plane, (h * DIM * mid + m) * DIM, mid * DIM,
-                       chunk * LC, p, smem);
+    slab_chunk_pass<T>(x, x + plane, y, y + plane,
+                       (h * DIM * mid + m) * DIM, mid * DIM, chunk * LC, p,
+                       smem);
 }
 
+// A super-block of G canonical rows is G * 128 * 128 consecutive
+// amplitudes of each plane, and a pass's slabs lie at the same offsets
+// relative to its start wherever it is stored: in the state (planes 2^n
+// apart) or in a cluster's scratch buffer (planes G * 128 * 128 apart).
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-megawin_kernel(const T* __restrict__ x, T* out, T* tmp, long long plane,
-               QtMegaArgs args) {
+__global__ void __launch_bounds__(NTHREADS, ctas_per_sm<T>())
+megawin_kernel(const T* __restrict__ x, T* out, T* scratch, long long plane,
+               long long nsb, QtMegaArgs args) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     auto* smem = reinterpret_cast<typename Cplx<T>::type*>(smem_raw);
     cg::cluster_group cluster = cg::this_cluster();
     const int csize = (int)cluster.num_blocks();
     const int crank = (int)cluster.block_rank();
-    const long long sb = blockIdx.x / csize;       // super-block
+    const long long ncl = gridDim.x / csize;
+    const long long cid = blockIdx.x / csize;
     const int G = args.g_rows;
     const int items = G * NCHUNK;
-    const T* src = x;
-    for (int pi = 0; pi < args.npass; ++pi) {
-        // the last pass lands in `out`; earlier ones alternate with `tmp`
-        T* dst = ((args.npass - 1 - pi) % 2 == 0) ? out : tmp;
-        const QtPass& p = args.p[pi];
-        const long long mid = 1LL << (p.k - 7);
-        const long long ghi = G / mid;
-        for (int it = crank; it < items; it += csize) {
-            const int chunk = it % NCHUNK;
-            const long long j = it / NCHUNK;
-            const long long h = sb * ghi + j / mid, m = j % mid;
-            slab_chunk_pass<T>(src, dst, plane, (h * DIM * mid + m) * DIM,
-                               mid * DIM, chunk * LC, p, smem);
-        }
-        if (pi + 1 < args.npass) {
+    const long long sbe = (long long)G * DIM * DIM;
+    // this cluster's scratch buffer: both planes of one super-block
+    T* const buf = scratch + cid * 2 * sbe;
+    for (long long sb = cid; sb < nsb; sb += ncl) {
+        const T* sr = x + sb * sbe;
+        const T* si = sr + plane;
+        for (int pi = 0; pi < args.npass; ++pi) {
+            // passes alternate between the super-block's place in `out`
+            // and the scratch buffer, so that the last lands in `out`
+            const bool to_out = (args.npass - 1 - pi) % 2 == 0;
+            T* dr = to_out ? out + sb * sbe : buf;
+            T* di = dr + (to_out ? plane : sbe);
+            const QtPass& p = args.p[pi];
+            const long long mid = 1LL << (p.k - 7);
+            for (int it = crank; it < items; it += csize) {
+                const int chunk = it % NCHUNK;
+                const long long j = it / NCHUNK;
+                slab_chunk_pass<T>(sr, si, dr, di,
+                                   ((j / mid) * DIM * mid + j % mid) * DIM,
+                                   mid * DIM, chunk * LC, p, smem);
+            }
+            // the pass is visible to the whole cluster before the next one
+            // reads it, and before the next super-block's first pass
+            // overwrites a buffer this pass may have read
             __threadfence();
             cluster.sync();
+            sr = dr;
+            si = di;
         }
-        src = dst;
     }
 }
 
@@ -336,10 +367,51 @@ static int launch_window_pass(const T* x, T* y, int n, const QtPass* pass,
     return (int)cudaGetLastError();
 }
 
+// CTAs per cluster for super-blocks of g rows (4g (slab, chunk) items).
+static int cluster_size(long long g) { return (int)(4 * g < 8 ? 4 * g : 8); }
+
 template <typename T>
-static int launch_megawin(const T* x, T* out, T* tmp, int n,
-                          const QtPass* passes, int npass, void* stream) {
-    if (passes == nullptr || n < 14 || npass < 1 || npass > MAX_MEGA_PASSES)
+static void megawin_config(long long g, long long nclusters,
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, void* stream) {
+    const int csize = cluster_size(g);
+    *cfg = {};
+    cfg->gridDim = dim3((unsigned)(nclusters * csize), 1, 1);
+    cfg->blockDim = dim3(NTHREADS, 1, 1);
+    cfg->dynamicSmemBytes = smem_bytes<T>();
+    cfg->stream = (cudaStream_t)stream;
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = (unsigned)csize;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+}
+
+// How many K2 clusters for super-blocks of g rows the card holds at once.
+template <typename T>
+static int megawin_max_clusters(int g, int* clusters) {
+    if (clusters == nullptr || g < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        megawin_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes<T>());
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    megawin_config<T>(g, 1, &cfg, attr, nullptr);
+    return (int)cudaOccupancyMaxActiveClusters(clusters, megawin_kernel<T>,
+                                               &cfg);
+}
+
+// `scratch` holds 2 * G * 128 * 128 elements per cluster (both planes of
+// one super-block); groups of one pass need none.
+template <typename T>
+static int launch_megawin(const T* x, T* out, T* scratch, int nclusters,
+                          int n, const QtPass* passes, int npass,
+                          void* stream) {
+    if (passes == nullptr || n < 14 || npass < 1 ||
+        npass > MAX_MEGA_PASSES || nclusters < 1 ||
+        (npass > 1 && scratch == nullptr))
         return (int)cudaErrorInvalidValue;
     QtMegaArgs args;
     args.npass = npass;
@@ -354,29 +426,18 @@ static int launch_megawin(const T* x, T* out, T* tmp, int n,
     }
     const long long nb = 1LL << (n - 14);
     const long long g = 1LL << (kmax - 7);
-    if (g > nb) return (int)cudaErrorInvalidValue;
+    if (g > nb || nclusters > nb / g) return (int)cudaErrorInvalidValue;
     args.g_rows = (int)g;
-    const int csize = (int)(4 * g < 8 ? 4 * g : 8);
-    const size_t smem = smem_bytes<T>();
     cudaError_t err = cudaFuncSetAttribute(
         megawin_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        (int)smem_bytes<T>());
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)((nb / g) * csize), 1, 1);
-    cfg.blockDim = dim3(NTHREADS, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)csize;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    megawin_config<T>(g, nclusters, &cfg, attr, stream);
     const long long plane = 1LL << n;
-    err = cudaLaunchKernelEx(&cfg, megawin_kernel<T>, x, out, tmp, plane,
-                             args);
+    err = cudaLaunchKernelEx(&cfg, megawin_kernel<T>, x, out, scratch, plane,
+                             nb / g, args);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
@@ -395,14 +456,25 @@ int qt_window_pass_f64(const double* x, double* y, int n,
     return launch_window_pass<double>(x, y, n, pass, stream);
 }
 
-int qt_megawin_f32(const float* x, float* out, float* tmp, int n,
-                   const QtPass* passes, int npass, void* stream) {
-    return launch_megawin<float>(x, out, tmp, n, passes, npass, stream);
+int qt_megawin_max_clusters_f32(int g, int* clusters) {
+    return megawin_max_clusters<float>(g, clusters);
 }
 
-int qt_megawin_f64(const double* x, double* out, double* tmp, int n,
-                   const QtPass* passes, int npass, void* stream) {
-    return launch_megawin<double>(x, out, tmp, n, passes, npass, stream);
+int qt_megawin_max_clusters_f64(int g, int* clusters) {
+    return megawin_max_clusters<double>(g, clusters);
+}
+
+int qt_megawin_f32(const float* x, float* out, float* scratch, int nclusters,
+                   int n, const QtPass* passes, int npass, void* stream) {
+    return launch_megawin<float>(x, out, scratch, nclusters, n, passes,
+                                 npass, stream);
+}
+
+int qt_megawin_f64(const double* x, double* out, double* scratch,
+                   int nclusters, int n, const QtPass* passes, int npass,
+                   void* stream) {
+    return launch_megawin<double>(x, out, scratch, nclusters, n, passes,
+                                  npass, stream);
 }
 
 const char* qt_error_string(int code) {

@@ -76,17 +76,15 @@ _plan_cache: dict = {}
 
 
 def _plan_key(items, nloc: int, device=None):
-    """Content key for an item list: the matrices' bytes plus every knob
-    that changes the plan (optimizer mode, QT_PERM_FAST, megawin
-    grouping)."""
+    """Content key for an item list: the matrices' bytes plus the knob
+    that changes the plan (megawin grouping)."""
     parts = []
     for it in items:
         m = it.mat
         if not isinstance(m, np.ndarray):
             return None
         parts.append((it.targets, m.dtype.str, m.shape, m.tobytes()))
-    return (nloc, _opt.mode(), C.perm_fast_enabled(),
-            _fused.megakernel_planning(device), tuple(parts))
+    return (nloc, _fused.megakernel_planning(device), tuple(parts))
 
 
 # minimum adjacent permutation-classified gates worth splitting out of a
@@ -99,10 +97,7 @@ def _perm_runs(seg):
     """Partition one gate segment into maximal runs of permutation gates
     and interleaved dense runs, in stream order:
     ``[("perm" | "dense", [gates...]), ...]``.  Runs shorter than
-    _PERM_RUN_MIN are demoted to dense; with QT_PERM_FAST off everything
-    is one dense run."""
-    if not C.perm_fast_enabled():
-        return [("dense", list(seg))]
+    _PERM_RUN_MIN are demoted to dense."""
     flags = [C.classify_permutation_gate(g.mat) is not None for g in seg]
     i = 0
     while i < len(seg):

@@ -12,9 +12,10 @@ card, built with nvcc at first use and bound through ctypes:
 
 * K1, ``apply_window_stack``: one pass (replaces the Pallas kernel
   quest_tpu/ops/fused.py ``_apply_window_stack_jit``);
-* K2, ``apply_window_megastack``: a megawin group in one launch, one
-  thread-block cluster per super-block (replaces ``_apply_megawin_jit``),
-  bit-identical to its passes run one by one through K1.
+* K2, ``apply_window_megastack``: a megawin group in one launch, a
+  persistent grid of thread-block clusters that take super-blocks in turn
+  (replaces ``_apply_megawin_jit``), bit-identical to its passes run one
+  by one through K1.
 
 Beside each sits its plain PyTorch version (``window_pass_plain``,
 ``megawin_plain``): the wrappers run it for a tensor on the CPU, and
@@ -104,12 +105,13 @@ def megakernel_planning(device=None) -> bool:
 
 def megawin_row_cap(rank: int, num_qubits: int) -> int:
     """Largest super-block (canonical rows G) a megawin group may span.
-    K2 keeps a super-block's intermediate passes in global memory served
-    by the 50 MB L2; one cluster holds two G-row buffers in flight (input
-    and output of a pass, G * 128 KB each at f32), and 16 to 48 clusters
-    run at once, so G = 8 (2 MB per cluster) is the largest grouping whose
-    working set can stay near L2 size.  The rank does not change the
-    kernel's working set (shared memory per CTA is rank-independent)."""
+    K2 keeps a super-block's intermediate passes in its place in the
+    output and in one scratch buffer of its cluster, served by the 50 MB
+    L2; a cluster holds two G-row buffers in flight (input and output of
+    a pass, G * 128 KB each at f32), and tens of clusters run at once, so
+    G = 8 (2 MB per cluster) is the largest grouping whose working set
+    can stay near L2 size.  The rank does not change the kernel's working
+    set (shared memory per CTA is rank-independent)."""
     del rank
     return min(8, 1 << max(0, num_qubits - CLUSTER_QUBITS))
 
@@ -246,8 +248,13 @@ def build_kernels() -> float:
             fn.restype = ctypes.c_int
         for name in ("qt_megawin_f32", "qt_megawin_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, p_pass, ctypes.c_int,
-                           ptr]
+            fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, p_pass,
+                           ctypes.c_int, ptr]
+            fn.restype = ctypes.c_int
+        for name in ("qt_megawin_max_clusters_f32",
+                     "qt_megawin_max_clusters_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
         lib.qt_max_mega_passes.argtypes = []
         lib.qt_max_mega_passes.restype = ctypes.c_int
@@ -371,11 +378,35 @@ def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
 apply_window_stack.launches = 0
 
 
+_MAX_CLUSTERS: dict = {}
+
+
+def _megawin_clusters(amps, g: int) -> int:
+    """K2's persistent grid for super-blocks of ``g`` rows: as many
+    clusters as the card holds at once, and no more than there are
+    super-blocks."""
+    key = (amps.device.index, amps.dtype, g)
+    if key not in _MAX_CLUSTERS:
+        fn = (_lib().qt_megawin_max_clusters_f32
+              if amps.dtype == torch.float32
+              else _lib().qt_megawin_max_clusters_f64)
+        count = ctypes.c_int(0)
+        with torch.cuda.device(amps.device):
+            _raise_on(fn(g, ctypes.byref(count)), "apply_window_megastack")
+        if count.value < 1:
+            raise RuntimeError(f"apply_window_megastack: the card holds no "
+                               f"cluster for super-blocks of {g} rows")
+        _MAX_CLUSTERS[key] = count.value
+    nb = amps.numel() // (2 * CLUSTER_DIM * CLUSTER_DIM)
+    return min(_MAX_CLUSTERS[key], nb // g)
+
+
 def apply_window_megastack(amps, subops, *, num_qubits: int):
     """A planned megawin group — ``subops`` is a sequence of ("winfused",
     k, A, B, apply_a, apply_b[, mask]) tuples — in ONE launch (K2).  The
-    result is a new tensor of the input's shape.  CPU tensors take the
-    plain version."""
+    result is a new tensor of the input's shape; every other pass goes
+    through a scratch of one super-block per resident cluster, not
+    through a full-size buffer.  CPU tensors take the plain version."""
     n = num_qubits
     for op in subops:
         _check_offset(n, int(op[1]))
@@ -394,13 +425,19 @@ def apply_window_megastack(amps, subops, *, num_qubits: int):
     keep: list = []
     descs = (_QtPass * len(subops))(
         *[_pass_struct(op, amps, keep) for op in subops])
+    g = 1 << (kmax - LANE_QUBITS)
+    clusters = _megawin_clusters(amps, g)
     out = torch.empty_like(amps)
-    tmp = torch.empty_like(amps) if len(subops) > 1 else out
+    scratch = None
+    if len(subops) > 1:
+        scratch = torch.empty(clusters * 2 * g * CLUSTER_DIM * CLUSTER_DIM,
+                              dtype=amps.dtype, device=amps.device)
     fn = (_lib().qt_megawin_f32 if amps.dtype == torch.float32
           else _lib().qt_megawin_f64)
     stream = torch.cuda.current_stream(amps.device).cuda_stream
-    _raise_on(fn(amps.data_ptr(), out.data_ptr(), tmp.data_ptr(), n, descs,
-                 len(subops), stream), "apply_window_megastack")
+    _raise_on(fn(amps.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), clusters,
+                 n, descs, len(subops), stream), "apply_window_megastack")
     apply_window_megastack.launches += 1
     return out
 

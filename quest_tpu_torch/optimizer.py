@@ -12,29 +12,21 @@ unconditionally:
   collapse into one diagonal gate on the union targets.
 * **Permutation coalescing**: maximal runs of adjacent permutation gates
   (X / CNOT / Toffoli / SWAP chains) compose by exact integer index
-  arithmetic into one permutation gate; identity products drop.  Gated
-  on ``QT_PERM_FAST`` like the lowering itself.
+  arithmetic into one permutation gate; identity products drop.
 
-``QT_OPTIMIZER=off|on|aggressive`` selects the mode (default ``on``);
-``aggressive`` also drops merged pairs that are the identity only up to
-rounding.  The commutation-aware reordering of the reference applies to
+This is the reference's default mode ``on``; its ``off`` and
+``aggressive`` modes (``QT_OPTIMIZER``, ``setCircuitOptimizer``) are not
+ported.  The commutation-aware reordering of the reference applies to
 sharded registers only and arrives with multi-device sharding.
 """
 
 from __future__ import annotations
 
-import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
 from . import circuit as C
-from .validation import QuESTError
-
-_MODES = ("off", "on", "aggressive")
-
-# programmatic override (setCircuitOptimizer); None = read QT_OPTIMIZER
-_OVERRIDE: List[Optional[str]] = [None]
 
 # widest coalesced gate — mirrors fusion.FUSION_MAX_GATE_QUBITS
 MAX_GATE_QUBITS = 7
@@ -44,42 +36,12 @@ _CACHE_MAX = 128
 _cache: dict = {}
 
 
-def mode() -> str:
-    """Active optimizer mode: the ``set_circuit_optimizer`` override when
-    armed, else ``QT_OPTIMIZER`` (default ``on``)."""
-    if _OVERRIDE[0] is not None:
-        return _OVERRIDE[0]
-    m = os.environ.get("QT_OPTIMIZER", "on").strip().lower()
-    return m if m in _MODES else "on"
-
-
-def set_circuit_optimizer(m: Optional[str]) -> None:
-    """Override the optimizer mode (``None`` returns control to the
-    ``QT_OPTIMIZER`` env var)."""
-    if m is not None:
-        m = str(m).strip().lower()
-        if m not in _MODES:
-            raise QuESTError(
-                f"setCircuitOptimizer: unknown mode {m!r} "
-                f"(expected one of {'/'.join(_MODES)})")
-    _OVERRIDE[0] = m
-
-
 def _concrete(it) -> bool:
     return isinstance(it.mat, np.ndarray) and it.mat.ndim == 3
 
 
 def _bits(it) -> frozenset:
     return frozenset(it.targets)
-
-
-def _near_identity(m: np.ndarray) -> bool:
-    """Identity up to the dtype's tolerance (the ``aggressive`` drop)."""
-    s = m.shape[-1]
-    eye = np.eye(s, dtype=m.dtype)
-    tol = 1e-5 if m.dtype == np.float32 else 1e-10
-    return bool(np.abs(m[0] - eye).max() <= tol
-                and np.abs(m[1]).max() <= tol)
 
 
 def _is_diag(it) -> bool:
@@ -110,7 +72,7 @@ def _commutes(a, b, diag_a: bool, diag_b: bool) -> bool:
     return False
 
 
-def _cancel_merge(items: list, removed: dict, aggressive: bool) -> list:
+def _cancel_merge(items: list, removed: dict) -> list:
     """Each gate looks backwards through gates it commutes with for a
     same-target partner: an exact-identity product cancels the pair,
     anything else replaces the partner (``new @ old``)."""
@@ -128,8 +90,7 @@ def _cancel_merge(items: list, removed: dict, aggressive: bool) -> list:
             prev = out[j]
             if _concrete(prev) and tuple(prev.targets) == tuple(it.targets):
                 merged = C.soa_matmul(it.mat, prev.mat)
-                if C.is_identity_gate(merged) or (
-                        aggressive and _near_identity(merged)):
+                if C.is_identity_gate(merged):
                     out.pop(j)
                     diag.pop(j)
                     removed["cancel"] += 2
@@ -224,7 +185,7 @@ def _compose_perm_run(run: Sequence[C.Gate]):
     return C.Gate(tuple(union), mat)
 
 
-def _rewrite(items: list, nloc: int, aggressive: bool) -> tuple:
+def _rewrite(items: list, nloc: int) -> tuple:
     """cancel/merge + diagonal and permutation coalescing to a small
     fixpoint.  Returns (items, removed)."""
     removed = {"cancel": 0, "merge": 0, "diag_coalesce": 0,
@@ -232,18 +193,17 @@ def _rewrite(items: list, nloc: int, aggressive: bool) -> tuple:
     out = list(items)
     for _ in range(3):
         before = len(out)
-        out = _cancel_merge(out, removed, aggressive)
+        out = _cancel_merge(out, removed)
         out = _coalesce(out, removed, nloc, _is_diag, _compose_diag_run,
                         "diag_coalesce")
-        if C.perm_fast_enabled():
-            out = _coalesce(out, removed, nloc, _is_perm, _compose_perm_run,
-                            "perm_coalesce")
+        out = _coalesce(out, removed, nloc, _is_perm, _compose_perm_run,
+                        "perm_coalesce")
         if len(out) == before:
             break
     return out, removed
 
 
-def _content_key(items, nloc: int, m: str):
+def _content_key(items, nloc: int):
     parts = []
     for it in items:
         mat = it.mat
@@ -251,33 +211,26 @@ def _content_key(items, nloc: int, m: str):
             return None
         parts.append((tuple(it.targets), mat.dtype.str, mat.shape,
                       mat.tobytes()))
-    return (m, nloc, C.perm_fast_enabled(), tuple(parts))
+    return (nloc, tuple(parts))
 
 
 def optimize_items(items: Sequence, *, nloc: int) -> Tuple[list, dict]:
-    """Rewrite a drain's gate stream under the active mode; returns
-    (items, stats)."""
-    m = mode()
+    """Rewrite a drain's gate stream; returns (items, stats)."""
     items = list(items)
     gates_in = len(items)
-    if m == "off" or len(items) < 2:
-        return items, {"mode": m, "gates_in": gates_in,
-                       "gates_out": gates_in,
+    if len(items) < 2:
+        return items, {"gates_in": gates_in, "gates_out": gates_in,
                        "removed": {"cancel": 0, "merge": 0,
                                    "diag_coalesce": 0, "perm_coalesce": 0}}
-    key = _content_key(items, nloc, m)
+    key = _content_key(items, nloc)
     hit = _cache.get(key) if key is not None else None
     if hit is not None:
         return list(hit[0]), hit[1]
-    out, removed = _rewrite(items, nloc, m == "aggressive")
-    stats = {"mode": m, "gates_in": gates_in, "gates_out": len(out),
+    out, removed = _rewrite(items, nloc)
+    stats = {"gates_in": gates_in, "gates_out": len(out),
              "removed": dict(removed)}
     if key is not None:
         if len(_cache) >= _CACHE_MAX:
             _cache.pop(next(iter(_cache)))
         _cache[key] = (tuple(out), stats)
     return list(out), stats
-
-
-# camelCase mirror (the reference-style API surface)
-setCircuitOptimizer = set_circuit_optimizer
