@@ -7,7 +7,8 @@ Phases, one JSON line each; any failure exits non-zero without the final
 line:
 
 1. device  - the card's name and power limit; a CUDA device is required.
-2. build   - nvcc builds csrc/window.cu (the K1 and K2 kernels).
+2. build   - nvcc builds csrc/window.cu (K1, K2) and csrc/paulis.cu (K3,
+             K4) into one library, one nvcc process per source.
 3. parity  - K1 against its plain PyTorch version at 20 qubits (f32 and
              f64, k in {7, 10, 13}, rank 1 and 4, dual / B-only / A-only,
              with and without a mask); K2 against K1 pass by pass
@@ -25,7 +26,26 @@ line:
              path's shapes, their plain versions, one-call library
              yardsticks, the least time the card could take, and the wall
              time of both routes.
-6. kernels - one JSON object with every kernel's numbers.
+6. pauli_parity - K3 against its plain version (bit-identical) and K4
+             against its plain version at 20 qubits, f32 and f64, over the
+             term shapes the kernels treat apart (all-identity, Z-only, X on
+             the top bit, #Y = 0..3 mod 4, a density matrix's bra twin); K4
+             against two known expectation values.
+7. pauli_main - bench.py config 5 at 30 qubits, f32 (an 8 GiB state),
+             through the API: createQureg, initPlusState, a 16-term
+             PauliHamil (bench_pauli_hamil, seed 7), calcExpecPauliHamil,
+             applyTrotterCircuit (order 2, 1 rep: 32 term rotations),
+             calcExpecPauliHamil, calcTotalProb.  K3 and K4 must launch 32
+             times each; the same workload through the plain versions on
+             the card gives the same state bit for bit and energies within
+             1e-5 sum|c_t|.  At 26 qubits the workload is held against a
+             float64 plain run; at 20 qubits the QASM-recording route
+             (per-term multiRotatePauli) against the K3 route.
+8. pauli_timing - CUDA-event medians of one K3 and one K4 term at 30
+             qubits against their bounds and plain versions, the wall time
+             of the three API calls, and the device busy share of the
+             Trotter and expectation calls.
+9. kernels - one JSON object with every kernel's numbers.
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -46,6 +66,12 @@ DEPTH = 20
 SEED = 7               # bench.py config 2's unitary seed
 REPS = 10              # timed launches per kernel
 DEVICE = "cuda"
+N_PAULI = 30           # config 5's register: an 8 GiB float32 state
+N_PAULI_F64 = 26       # the float64 cross-check of the config-5 workload
+N_QASM = 20            # the QASM-recording Trotter route
+PAULI_TERMS = 16       # bench.py config 5's Hamiltonian: 16 terms, seed 7
+PAULI_SEED = 7
+TROTTER = (0.1, 2, 1)  # time, order, reps: 32 term rotations
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bandwidth and the highest rate of each type: FP32 on the CUDA cores (the
@@ -297,6 +323,407 @@ def apply_bench_gates(qt, q, us, n):
             qt.controlledNot(q, t, t + 1)
 
 
+# ---------------------------------------------------------------------------
+# Pauli terms: K3 (direct rotation) and K4 (term expectation)
+# ---------------------------------------------------------------------------
+
+
+def pauli_tolerance(x) -> float:
+    """How far K4 may stray from its plain version on state ``x``: float32
+    sums of 2^n products, each rounded at 2^-24 relative, in another order
+    (the plain version sums in float32, the kernel in float64) -> 1e-5 of
+    the squared norm; float64 -> 1e-12 absolute."""
+    import torch
+
+    if x.dtype == torch.float32:
+        return 1e-5 * float(torch.sum(x.double() * x.double()))
+    return 1e-12
+
+
+def pauli_cases(rng, n: int):
+    """(label, codes, offset, conj) rows covering the term shapes the
+    kernels treat apart."""
+    import numpy as np
+
+    def with_y(count):
+        c = rng.choice([0, 1, 3], n)
+        c[rng.choice(n, count, replace=False)] = 2
+        return c
+
+    z_only = 3 * rng.integers(0, 2, n)
+    z_only[0] = 3
+    x_top = np.zeros(n, np.int64)
+    x_top[-1] = 1
+    rows = [("identity", np.zeros(n, np.int64), 0, False),
+            ("z_only", z_only, 0, False), ("x_top", x_top, 0, False)]
+    rows += [(f"y{k}", with_y(4 + k), 0, False) for k in range(4)]
+    nq = n // 2
+    ket = rng.integers(0, 4, nq)
+    rows += [("rho_ket", np.concatenate([ket, np.zeros(nq, np.int64)]), 0,
+              False),
+             ("rho_bra_twin", ket, nq, True)]
+    return rows
+
+
+def known_tolerance(dtype) -> float:
+    """How far K4 may stray from an exact expectation of order 1 on a
+    normalised state: float32 amplitudes are each rounded at 2^-24
+    relative, which moves a quadratic form of unit norm by at most ~2.4e-7
+    (the kernel sums in float64) -> 1e-6; float64 -> 1e-12."""
+    import torch
+
+    return 1e-6 if dtype == torch.float32 else 1e-12
+
+
+def anticommuting(rng, p, basis: int, q_codes):
+    """A string Q drawn from ``q_codes`` on every qubit that anticommutes
+    with ``p`` (a string of ``basis`` and I whose top qubit is ``basis``):
+    the qubits where p has ``basis`` and Q another non-identity code must
+    be odd in number, so the top qubit's code is changed where they are
+    even."""
+    q = rng.choice(q_codes, len(p))
+    clash = int(sum(1 for a, b in zip(p, q) if a == basis and b not in
+                    (0, basis)))
+    if clash % 2 == 0:
+        q[-1] = 0 if q[-1] not in (0, basis) else min(
+            c for c in q_codes if c not in (0, basis))
+    return q
+
+
+def k4_known_answers(torch, paulis, kernels, n, dtype, rng):
+    """K4 against expectations of order 1 that are known for any n, and K3
+    bit for bit against its plain version on the states it rotates.
+
+    <+|P|+> = 1 for an X/I string P and <0|P|0> = 1 for a Z/I string.
+    After e^{-i theta/2 Q} = co - i si Q with Q anticommuting with P, the
+    expectation is co^2 - si^2 (cos theta, in the rotation's own scalars),
+    since P fixes the start state and <start|Q|start> = 0 (Q holds a Y or Z
+    against |+>, an X or Y against |0>).  The rotations take K3's pair walk
+    (Q with X or Y) and its one-amplitude walk (a Z-only Q); the measured
+    strings take K4's pair walk (X/I) and its one-amplitude walk (Z/I).
+    Returns {label: {value, want, err, err_vs_plain}}."""
+    tol = known_tolerance(dtype)
+    out = {}
+    for label, basis, q_codes in (("plus_x", 1, None), ("zero_z", 3, None),
+                                  ("plus_x_after_q", 1, (0, 1, 2, 3)),
+                                  ("plus_x_after_z_only_q", 1, (0, 3)),
+                                  ("zero_z_after_q", 3, (0, 1, 2, 3))):
+        p = basis * rng.integers(0, 2, n)
+        p[-1] = basis
+        start = (kernels.init_plus_state if basis == 1
+                 else kernels.init_zero_state)
+        x = start(1 << n, dtype, DEVICE)
+        want = 1.0
+        if q_codes is not None:
+            rot = paulis.pauli_term(anticommuting(rng, p, basis, q_codes),
+                                    dtype=dtype,
+                                    theta=float(rng.uniform(0.2, 1.0)))
+            y = paulis.direct_rotation_plain(x, rot, num_qubits=n)
+            x = paulis.direct_rotation(x, rot, num_qubits=n)
+            check(torch.equal(x, y), f"K3 {label} at {n} qubits: not "
+                  "bit-identical to its plain version")
+            del y
+            want = rot.co ** 2 - rot.si ** 2
+        term = paulis.pauli_term(p, dtype=dtype)
+        got = float(paulis.expec_term(x, term, num_qubits=n))
+        plain = float(paulis.expec_term_plain(x, term, num_qubits=n))
+        err = abs(got - want)
+        check(err <= tol, f"K4 {label} at {n} qubits: {got} != {want} "
+              f"(|err| {err} > {tol})")
+        check(abs(got - plain) <= pauli_tolerance(x),
+              f"K4 {label} at {n} qubits: {got} vs plain {plain}")
+        out[label] = {"value": got, "want": want, "err": err,
+                      "err_vs_plain": abs(got - plain)}
+        del x
+    return out
+
+
+def phase_pauli_parity(torch, np, paulis, kernels):
+    n = N_PARITY
+    rng = np.random.default_rng(4321)
+    rows = pauli_cases(rng, n)
+    out = {"n": n, "cases": [r[0] for r in rows], "k3_bit_identical": 0,
+           "k3_max_abs_err": 0.0, "k4_max_abs_err": {}, "k4_known": {}}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        x = rng.standard_normal((2, 1 << n))
+        x = torch.as_tensor(x / np.sqrt((x ** 2).sum()), dtype=dtype,
+                            device=DEVICE)
+        tol = pauli_tolerance(x)
+        worst = 0.0
+        for label, codes, offset, conj in rows:
+            theta = float(rng.uniform(-np.pi, np.pi))
+            term = paulis.pauli_term(codes, dtype=dtype, offset=offset,
+                                     theta=-theta if conj else theta,
+                                     conj=conj)
+            y = paulis.direct_rotation(x.clone(), term, num_qubits=n)
+            yp = paulis.direct_rotation_plain(x, term, num_qubits=n)
+            check(torch.equal(y, yp), f"K3 {dname} {label}: not "
+                  "bit-identical to its plain version")
+            out["k3_bit_identical"] += 1
+            out["k3_max_abs_err"] = max(out["k3_max_abs_err"],
+                                        float((y - yp).abs().max()))
+            r = float(paulis.expec_term(x, term, num_qubits=n))
+            rp = float(paulis.expec_term_plain(x, term, num_qubits=n))
+            check(abs(r - rp) <= tol, f"K4 {dname} {label}: {r} vs plain "
+                  f"{rp}")
+            worst = max(worst, abs(r - rp))
+        out["k4_max_abs_err"][dname] = worst
+        out["k4_known"][dname] = k4_known_answers(torch, paulis, kernels, n,
+                                                  dtype, rng)
+    sync()
+    return out
+
+
+def plain_workload(torch, paulis, kernels, api_ops, n, coeffs, codes,
+                   dtype):
+    """The config-5 workload through the plain versions on the card:
+    (E0, E1, final state)."""
+    terms = len(coeffs)
+
+    def energy(a):
+        return sum(float(c) * float(paulis.expec_term_plain(
+            a, paulis.pauli_term(codes[t], dtype=dtype), num_qubits=n))
+            for t, c in enumerate(coeffs))
+
+    a = kernels.init_plus_state(1 << n, dtype, DEVICE)
+    e0 = energy(a)
+    for t, fac in api_ops._trotter_schedule(terms, *TROTTER):
+        a = paulis.direct_rotation_plain(
+            a, paulis.pauli_term(codes[t], dtype=dtype,
+                                 theta=2.0 * fac * float(coeffs[t])),
+            num_qubits=n)
+    return e0, energy(a), a
+
+
+def config5(qt, n, coeffs, codes):
+    """The config-5 workload through the API: (register, hamil, E0, E1,
+    calcTotalProb)."""
+    env = qt.createQuESTEnv()
+    q = qt.createQureg(n, env)
+    qt.initPlusState(q)
+    h = qt.createPauliHamil(n, len(coeffs))
+    qt.initPauliHamil(h, coeffs, codes)
+    e0 = qt.calcExpecPauliHamil(q, h)
+    qt.applyTrotterCircuit(q, h, *TROTTER)
+    e1 = qt.calcExpecPauliHamil(q, h)
+    return q, h, e0, e1, qt.calcTotalProb(q)
+
+
+def phase_pauli_main(torch, np, qt, paulis, kernels, api_ops, hamiltonians):
+    n = N_PAULI
+    coeffs, codes = hamiltonians.bench_pauli_hamil(n, PAULI_TERMS,
+                                                   seed=PAULI_SEED)
+    scale = float(np.abs(coeffs).sum())
+    qt.set_precision(1)
+    sync()
+    paulis.reset_launch_counts()
+    t0 = time.perf_counter()
+    q, h, e0, e1, total = config5(qt, n, coeffs, codes)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(paulis.LAUNCHES)
+    rotations = len(api_ops._trotter_schedule(PAULI_TERMS, *TROTTER))
+    check(launches == {"K3": rotations, "K4": 2 * PAULI_TERMS},
+          f"launches {launches}: want K3 = {rotations}, K4 = "
+          f"{2 * PAULI_TERMS}")
+    check(q.amps.shape == (2, 1 << n) and bool(torch.isfinite(q.amps).all()),
+          "config 5: bad state")
+    check(abs(total - 1.0) <= 1e-4, f"config 5: calcTotalProb {total}")
+    # the same workload through the plain versions, float32, on the card
+    p0, p1, a = plain_workload(torch, paulis, kernels, api_ops, n, coeffs,
+                               codes, torch.float32)
+    check(torch.equal(q.amps, a), f"config 5 at {n} qubits: the K3 state "
+          "is not the plain versions' bit for bit")
+    del a
+    for got, want in ((e0, p0), (e1, p1)):
+        check(abs(got - want) <= 1e-5 * scale,
+              f"config 5 energy {got} vs plain {want}")
+    out = {"n": n, "terms": PAULI_TERMS, "rotations": rotations,
+           "launches": launches, "e0": e0, "e1": e1, "calc_total_prob": total,
+           "e0_plain_f32": p0, "e1_plain_f32": p1,
+           "state_bit_identical_to_plain": True, "first_wall_s": wall}
+    # K3 works in place: nothing beside its input
+    term = paulis.pauli_term(codes[0], dtype=torch.float32, theta=0.1)
+    k3_mem = extra_bytes(lambda: paulis.direct_rotation(q.amps, term,
+                                                        num_qubits=n))
+    check(k3_mem <= 1 << 20, f"K3 allocates {k3_mem} bytes beside its input")
+    out["k3_extra_mem_bytes"] = k3_mem
+    del q
+    torch.cuda.empty_cache()
+    # E0 and E1 of this workload are ~0 (every term holds a Y or Z on
+    # |+>^n, and the evolution keeps the energy), so K4 is also held
+    # against values of order 1 at the main path's size
+    out["k4_known"] = k4_known_answers(torch, paulis, kernels, n,
+                                       torch.float32,
+                                       np.random.default_rng(PAULI_SEED))
+    torch.cuda.empty_cache()
+
+    # float64 cross-check at 26 qubits (kernels in float32)
+    m = N_PAULI_F64
+    c26, k26 = hamiltonians.bench_pauli_hamil(m, PAULI_TERMS, seed=PAULI_SEED)
+    s26 = float(np.abs(c26).sum())
+    q26, _, f0, f1, _ = config5(qt, m, c26, k26)
+    r0, r1, a64 = plain_workload(torch, paulis, kernels, api_ops, m, c26, k26,
+                                 torch.float64)
+    err = float((q26.amps.double() - a64).abs().max())
+    tol = 1e-5 * float(a64.abs().max())
+    check(err <= tol, f"config 5 at {m} qubits vs float64: |err| {err}")
+    for got, want in ((f0, r0), (f1, r1)):
+        check(abs(got - want) <= 1e-4 * s26,
+              f"config 5 at {m} qubits energy {got} vs float64 {want}")
+    out["f64_check"] = {"n": m, "state_max_abs_err": err,
+                        "e0": f0, "e0_f64": r0, "e1": f1, "e1_f64": r1}
+    del q26, a64
+
+    # the QASM-recording route (per-term multiRotatePauli: basis gates
+    # around a parity phase, ~1000 dense gates for 32 rotations) against
+    # the K3 route at 20 qubits.  The routes are compared in float64, where
+    # rounding cannot hide a disagreement; in float32 the K3 route is held
+    # against float64 and the QASM route's drift is reported.
+    m = N_QASM
+    c20, k20 = hamiltonians.bench_pauli_hamil(m, PAULI_TERMS, seed=PAULI_SEED)
+    env = qt.createQuESTEnv()
+    h20 = qt.createPauliHamil(m, PAULI_TERMS)
+    qt.initPauliHamil(h20, c20, k20)
+    states = {}
+    for prec in (2, 1):
+        qt.set_precision(prec)
+        for route in ("scan", "qasm"):
+            reg = qt.createQureg(m, env)
+            qt.initPlusState(reg)
+            if route == "qasm":
+                qt.startRecordingQASM(reg)
+            qt.applyTrotterCircuit(reg, h20, *TROTTER)
+            qt.stopRecordingQASM(reg)
+            states[route, prec] = reg.amps.double()
+    logged = sum("multiRotatePauli" in ln for ln in reg.qasm_log.lines)
+    check(logged == rotations, f"QASM route logged {logged} rotations")
+    ref = states["scan", 2]
+    tol = 1e-5 * float(ref.abs().max())
+    errs = {f"{route}_{'f64' if prec == 2 else 'f32'}_vs_scan_f64":
+            float((states[route, prec] - ref).abs().max())
+            for route, prec in (("qasm", 2), ("scan", 1), ("qasm", 1))}
+    for label in ("qasm_f64_vs_scan_f64", "scan_f32_vs_scan_f64"):
+        check(errs[label] <= tol, f"Trotter routes at {m} qubits, {label}: "
+              f"|err| {errs[label]} > {tol}")
+    out["qasm_route"] = {"n": m, "max_abs_err": errs, "tolerance": tol,
+                         "logged_rotations": logged}
+    torch.cuda.empty_cache()
+    return out, h
+
+
+def device_busy(torch, call, kernel: str):
+    """(device ms, launches of ``kernel``) of one call under torch.profiler:
+    the summed time of every kernel and copy the profiler saw on the card,
+    and how many of those kernels were named ``kernel``; (None, None) if it
+    saw nothing on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        sync()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        return None, None
+    return (sum(e.time_range.elapsed_us() for e in on_card) / 1e3,
+            sum(1 for e in on_card if kernel in e.name))
+
+
+def phase_pauli_timing(torch, qt, paulis, api_ops, hamiltonians, h):
+    n = N_PAULI
+    coeffs, codes = hamiltonians.bench_pauli_hamil(n, PAULI_TERMS,
+                                                   seed=PAULI_SEED)
+    env = qt.createQuESTEnv()
+    q = qt.createQureg(n, env)
+    qt.initPlusState(q)
+    qt.applyTrotterCircuit(q, h, *TROTTER)
+    x = q.amps
+    state_bytes = x.numel() * x.element_size()
+    amps = x.numel() // 2
+    term = paulis.pauli_term(codes[0], dtype=torch.float32, theta=0.1)
+    # at the main path's shape: K3 bit-identical, K4 within tolerance
+    y = paulis.direct_rotation(x.clone(), term, num_qubits=n)
+    yp = paulis.direct_rotation_plain(x, term, num_qubits=n)
+    check(torch.equal(y, yp),
+          f"K3 at {n} qubits: not bit-identical to its plain version")
+    k3_err = float((y - yp).abs().max())
+    del y, yp
+    r = float(paulis.expec_term(x, term, num_qubits=n))
+    rp = float(paulis.expec_term_plain(x, term, num_qubits=n))
+    check(abs(r - rp) <= pauli_tolerance(x), f"K4 at {n} qubits: {r} vs {rp}")
+    torch.cuda.empty_cache()
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS["float32"]
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                           else "operations")
+
+    # K3: one read and one write of the state, 14 flops an amplitude; K4:
+    # one read, 12 flops an amplitude
+    k3_bound, k3_by = bound(2 * state_bytes, 14.0 * amps)
+    k4_bound, k4_by = bound(state_bytes, 12.0 * amps)
+    out = {"device": torch.cuda.get_device_name(0), "n": n,
+           "state_bytes_f32": state_bytes, "fm": term.fm, "zm": term.zm,
+           "k3": {"max_abs_err": k3_err,
+                  "ms": time_ms(lambda: paulis.direct_rotation(
+                      x, term, num_qubits=n)),
+                  "plain_ms": time_ms(lambda: paulis.direct_rotation_plain(
+                      x, term, num_qubits=n), reps=5),
+                  "library_ms": None, "bound_ms": k3_bound,
+                  "bound_by": k3_by},
+           "k4": {"max_abs_err": abs(r - rp),
+                  "ms": time_ms(lambda: paulis.expec_term(
+                      x, term, num_qubits=n)),
+                  "plain_ms": time_ms(lambda: paulis.expec_term_plain(
+                      x, term, num_qubits=n), reps=5),
+                  "library_ms": None, "bound_ms": k4_bound,
+                  "bound_by": k4_by}}
+    torch.cuda.empty_cache()
+    walls = {}
+    for label, fn in (("calc_expec_pauli_hamil_wall_s",
+                       lambda: qt.calcExpecPauliHamil(q, h)),
+                      ("apply_trotter_circuit_wall_s",
+                       lambda: qt.applyTrotterCircuit(q, h, *TROTTER)),
+                      ("calc_total_prob_wall_s",
+                       lambda: qt.calcTotalProb(q))):
+        samples = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            samples.append(time.perf_counter() - t0)
+        walls[label] = statistics.median(samples)
+    out.update(walls)
+    rotations = len(api_ops._trotter_schedule(PAULI_TERMS, *TROTTER))
+    # the device time of one call of each, over the median wall time above
+    for label, kernel, launches, wall, call in (
+            ("trotter", "pauli_rotation_kernel", rotations,
+             walls["apply_trotter_circuit_wall_s"],
+             lambda: qt.applyTrotterCircuit(q, h, *TROTTER)),
+            ("expec", "pauli_expec_kernel", PAULI_TERMS,
+             walls["calc_expec_pauli_hamil_wall_s"],
+             lambda: qt.calcExpecPauliHamil(q, h))):
+        dev, seen = device_busy(torch, call, kernel)
+        check(seen in (None, launches), f"the profiler saw {seen} launches "
+              f"of {kernel} in one call, not {launches}")
+        out[f"{label}_busy"] = {
+            "wall_ms": wall * 1e3, "device_ms": dev,
+            "kernel_launches_seen": seen,
+            "device_busy_share": (None if dev is None
+                                  else dev / (wall * 1e3))}
+    # the workload's least time: its 32 rotations and 2 x 16 term
+    # expectations
+    out["workload_bound_ms"] = (rotations * k3_bound
+                                + 2 * PAULI_TERMS * k4_bound)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -308,10 +735,11 @@ def main() -> int:
         import numpy as np
 
         import quest_tpu_torch as qt
+        from quest_tpu_torch import api_ops
         from quest_tpu_torch import circuit as C
         from quest_tpu_torch import fusion
-        from quest_tpu_torch.models import circuits
-        from quest_tpu_torch.ops import cplx, fused
+        from quest_tpu_torch.models import circuits, hamiltonians
+        from quest_tpu_torch.ops import build, cplx, fused, kernels, paulis
     except ImportError as e:
         print(f"chip_smoke: cannot import quest_tpu_torch ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -330,10 +758,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. build
-    build_s = fused.build_kernels()
+    build_s = build.build_kernels()
     emit({"phase": "build", "seconds": build_s,
-          "source": "quest_tpu_torch/csrc/window.cu",
-          "ptxas": fused.kernel_resources()})
+          "sources": [f"quest_tpu_torch/csrc/{p.name}"
+                      for p in build.sources()],
+          "ptxas": build.kernel_resources()})
 
     # 3. parity
     parity = phase_parity(torch, np, fused)
@@ -376,8 +805,7 @@ def main() -> int:
     api_wall = time.perf_counter() - t0
     check(q.amps.shape == (2, 1 << n) and bool(torch.isfinite(q.amps).all()),
           "API route: bad state")
-    launches = {"K1": fused.apply_window_stack.launches,
-                "K2": fused.apply_window_megastack.launches}
+    launches = dict(fused.LAUNCHES)
     qt.destroyQureg(q, env)
     want = {"K1": pst["winfused"] + ast.get("winfused", 0),
             "K2": pst["megawin"] + ast.get("megawin", 0)}
@@ -517,11 +945,12 @@ def main() -> int:
             sync()
             samples.append(time.perf_counter() - t0)
         walls[label] = statistics.median(samples)
-    api_ops = [op for _kind, part in api_program
-               for op in C.plan_to_device(part, torch.float32, DEVICE)]
+    api_plan_ops = [op for _kind, part in api_program
+                    for op in C.plan_to_device(part, torch.float32, DEVICE)]
     breakdown = {}
     for label, route_ops, wall in (("bench", ops, walls["bench_route_wall_s"]),
-                                   ("api", api_ops, walls["api_route_wall_s"])):
+                                   ("api", api_plan_ops,
+                                    walls["api_route_wall_s"])):
         by_kind = op_breakdown(torch, C, route_ops, n)
         busy = sum(by_kind.values())
         breakdown[label] = {"ms_by_op": by_kind, "device_ms": busy,
@@ -541,10 +970,28 @@ def main() -> int:
           **walls, "breakdown": breakdown,
           "bench_plan_flop_bound_ms": plan_bound})
 
-    # 6. kernels
-    def entry(kname, replaces, t, err):
+    del ops, api_plan_ops
+    torch.cuda.empty_cache()
+
+    # 6. Pauli kernels against their plain versions
+    pparity = phase_pauli_parity(torch, np, paulis, kernels)
+    emit({"phase": "pauli_parity", **pparity})
+
+    # 7. the config-5 path at 30 qubits
+    pmain, hamil = phase_pauli_main(torch, np, qt, paulis, kernels, api_ops,
+                                    hamiltonians)
+    launches.update(pmain["launches"])
+    emit({"phase": "pauli_main", **pmain})
+
+    # 8. Pauli timing at 30 qubits
+    ptiming = phase_pauli_timing(torch, qt, paulis, api_ops, hamiltonians,
+                                 hamil)
+    emit({"phase": "pauli_timing", "power": smi, **ptiming})
+
+    # 9. kernels
+    def entry(kname, replaces, t, err, source="window.cu"):
         return {"name": kname, "route": "cuda",
-                "source": "quest_tpu_torch/csrc/window.cu",
+                "source": f"quest_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[kname[:2]],
                 "max_abs_err": err, "max_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -561,7 +1008,23 @@ def main() -> int:
                 timing["k2_largest_group"],
                 max(timing["k2_largest_group"]["max_abs_err"],
                     *(g["max_abs_err_vs_plain"] for g in parity["k2"])))
-    emit({"kernels": [k1e, k2e]})
+    k3e = entry("K3 direct Pauli rotation", "quest_tpu/ops/paulis.py:625",
+                ptiming["k3"], max(ptiming["k3"]["max_abs_err"],
+                                   pparity["k3_max_abs_err"]), "paulis.cu")
+    known = [*pmain["k4_known"].values(),
+             *(c for by_label in pparity["k4_known"].values()
+               for c in by_label.values())]
+    k4e = entry("K4 Pauli-term expectation", "quest_tpu/ops/paulis.py:602",
+                ptiming["k4"],
+                max(ptiming["k4"]["max_abs_err"],
+                    *pparity["k4_max_abs_err"].values(),
+                    *(c["err_vs_plain"] for c in known)), "paulis.cu")
+    # K4 against exact expectations of order 1 (k4_known_answers)
+    k4e["known_answer_max_abs_err"] = max(c["err"] for c in known)
+    for e in (k3e, k4e):
+        e["library_note"] = ("no single PyTorch call computes a Pauli-string "
+                             "term")
+    emit({"kernels": [k1e, k2e, k3e, k4e]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

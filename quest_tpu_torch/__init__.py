@@ -3,8 +3,10 @@
 The same camelCase QuEST API, the same SoA ``(2, 2^n)`` amplitude layout
 in the same little-endian index order and the same circuit plans as the
 JAX package, running on an NVIDIA card.  The fused window passes that
-carry a circuit's dense work run in hand-written CUDA kernels
-(``csrc/window.cu``, built with nvcc at first use).
+carry a circuit's dense work, and the Pauli-term rotations and
+expectation values of Hamiltonian simulation, run in hand-written CUDA
+kernels (``csrc/window.cu``, ``csrc/paulis.cu``, built with nvcc at first
+use).
 
 Quick start::
 
@@ -24,7 +26,7 @@ kernels' plain PyTorch versions.
 
 from .precision import set_precision, get_precision, real_eps
 from .validation import QuESTError
-from .qureg import Qureg
+from .qureg import PauliHamil, Qureg
 from .env import QuESTEnv
 from .qasm import QASMLogger
 from .api import *  # noqa: F401,F403

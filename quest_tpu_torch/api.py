@@ -1,6 +1,8 @@
 """Public API: registers, state initialisation and the unitary gates.
 
-The QuEST camelCase surface (QuEST.h) of the ported slice.  Every gate
+The QuEST camelCase surface (QuEST.h) of the ported slices: registers,
+state initialisation, PauliHamil, the unitary gates and the Pauli
+rotations.  Every gate
 follows the reference's dispatch shape (QuEST.c:177-186): validate ->
 buffer in the active ``gateFusion`` context, or apply eagerly to the ket
 qubits -> on a density matrix, the conjugated twin on the bra qubits
@@ -21,7 +23,8 @@ from . import validation as V
 from .ops import cplx as CX
 from .ops import gatedefs as G
 from .ops import kernels as K
-from .qureg import Qureg
+from .ops.paulis import PAULI_I, PAULI_X, PAULI_Y, PAULI_Z
+from .qureg import PauliHamil, Qureg
 
 # ---------------------------------------------------------------------------
 # Environment (QuEST.h:1851-1939)
@@ -160,6 +163,72 @@ def setAmps(qureg: Qureg, startInd: int, reals, imags, numAmps: int) -> None:
     amps[:, startInd:startInd + numAmps] = torch.as_tensor(
         np.stack([re, im]), dtype=qureg.dtype, device=qureg.device)
     qureg.amps = amps
+
+
+# ---------------------------------------------------------------------------
+# PauliHamil (QuEST.h:802-897)
+# ---------------------------------------------------------------------------
+
+
+def createPauliHamil(numQubits: int, numSumTerms: int) -> PauliHamil:
+    """Allocate a PauliHamil (pauli codes + term coefficients)
+    (QuEST.h:802)."""
+    V.validate_hamil_params(numQubits, numSumTerms, "createPauliHamil")
+    return PauliHamil(numQubits, numSumTerms)
+
+
+def destroyPauliHamil(hamil: PauliHamil) -> None:
+    """Free a PauliHamil (QuEST.h:810): host arrays, nothing to free."""
+
+
+def createPauliHamilFromFile(filename: str) -> PauliHamil:
+    """Text format: per line 'coeff code_0 code_1 ... code_{n-1}'
+    (reference parser, QuEST.c:1405-1488; file-specific error codes from
+    QuEST_validation.c:539-545, 660-697)."""
+    func = "createPauliHamilFromFile"
+    try:
+        with open(filename) as f:
+            lines = [ln.split() for ln in f if ln.strip()]
+    except OSError:
+        V.validate_file_opened(False, filename, func)
+    num_qubits = len(lines[0]) - 1 if lines else 0
+    num_terms = len(lines)
+    V.validate_hamil_file_params(num_qubits, num_terms, filename, func)
+    h = PauliHamil(num_qubits, num_terms)
+    for t, toks in enumerate(lines):
+        V.validate_hamil_file_pauli_parsed(len(toks) == num_qubits + 1,
+                                           filename, func)
+        try:
+            h.term_coeffs[t] = float(toks[0])
+        except ValueError:
+            V.validate_hamil_file_coeff_parsed(False, filename, func)
+        codes = []
+        for x in toks[1:]:
+            try:
+                codes.append(int(x))
+            except ValueError:
+                V.validate_hamil_file_pauli_parsed(False, filename, func)
+        for c in codes:
+            V.validate_hamil_file_pauli_code(c, filename, func)
+        h.pauli_codes[t, :] = codes
+    return h
+
+
+def initPauliHamil(hamil: PauliHamil, coeffs, codes) -> None:
+    """Fill a PauliHamil from coefficients and pauli codes (QuEST.h:897)."""
+    V.validate_hamil_params(hamil.num_qubits, hamil.num_sum_terms,
+                            "initPauliHamil")
+    codes = np.asarray(codes).reshape(hamil.num_sum_terms, hamil.num_qubits)
+    V.validate_pauli_codes(codes.ravel(), "initPauliHamil")
+    hamil.term_coeffs[:] = np.asarray(coeffs, dtype=np.float64)
+    hamil.pauli_codes[...] = codes
+
+
+def reportPauliHamil(hamil: PauliHamil) -> None:
+    """Print a PauliHamil in the reference text format (QuEST.h:1321)."""
+    for t in range(hamil.num_sum_terms):
+        codes = " ".join(str(int(c)) for c in hamil.pauli_codes[t])
+        print(f"{hamil.term_coeffs[t]:g}\t{codes}")
 
 
 # ---------------------------------------------------------------------------
@@ -532,3 +601,94 @@ def multiControlledMultiQubitUnitary(qureg, ctrls, targs, u) -> None:
     V.validate_unitary(u, len(targets), "multiControlledMultiQubitUnitary")
     _apply_unitary(qureg, u, tuple(targets), tuple(controls))
     qureg.qasm_log.comment("multiControlledMultiQubitUnitary applied")
+
+
+# ---------------------------------------------------------------------------
+# Pauli rotations (QuEST.h:3912-4138)
+# ---------------------------------------------------------------------------
+
+
+def multiRotateZ(qureg: Qureg, qubits: Sequence[int], angle: float) -> None:
+    """Rotation generated by a product of Z operators (parity phase)
+    (QuEST.h:3912)."""
+    qubits, angle = [int(q) for q in qubits], float(angle)
+    V.validate_multi_targets(qureg, qubits, "multiRotateZ")
+    _apply_parity_phase(qureg, angle, tuple(qubits), ())
+    qureg.qasm_log.comment(
+        f"multiRotateZ(angle={angle:g}) on qubits {qubits}")
+
+
+def multiControlledMultiRotateZ(qureg, controlQubits, targetQubits,
+                                angle) -> None:
+    """Multi-controlled Z-product rotation (QuEST.h:4037)."""
+    controls, targets = list(controlQubits), list(targetQubits)
+    V.validate_multi_controls_targets(qureg, controls, targets,
+                                      "multiControlledMultiRotateZ")
+    _apply_parity_phase(qureg, angle, tuple(targets), tuple(controls))
+    qureg.qasm_log.comment(f"multiControlledMultiRotateZ(angle={angle:g}) "
+                           f"ctrls {controls} targs {targets}")
+
+
+def _apply_parity_phase(qureg, angle, qubits, controls):
+    """The parity phase on the ket qubits and, on a density matrix, its
+    conjugate on the bra qubits.  Reading ``qureg.amps`` drains pending
+    fused gates first."""
+    qureg.amps = K.apply_parity_phase(qureg.amps, angle,
+                                      num_qubits=_sv_n(qureg),
+                                      qubits=qubits, controls=controls)
+    if qureg.is_density_matrix:
+        sh = _shift(qureg)
+        qureg.amps = K.apply_parity_phase(
+            qureg.amps, -angle, num_qubits=_sv_n(qureg),
+            qubits=tuple(q + sh for q in qubits),
+            controls=tuple(c + sh for c in controls))
+
+
+def multiRotatePauli(qureg: Qureg, targetQubits, targetPaulis,
+                     angle: float) -> None:
+    """Rotation generated by a product of Pauli operators (QuEST.h:3967)."""
+    targets = [int(t) for t in targetQubits]
+    paulis = [int(p) for p in targetPaulis]
+    V.validate_multi_targets(qureg, targets, "multiRotatePauli")
+    V.validate_pauli_codes(paulis, "multiRotatePauli")
+    _multi_rotate_pauli(qureg, targets, paulis, float(angle), controls=())
+    qureg.qasm_log.comment(f"multiRotatePauli(angle={angle:g}) on qubits "
+                           f"{targets} paulis {paulis}")
+
+
+def multiControlledMultiRotatePauli(qureg, controlQubits, targetQubits,
+                                    targetPaulis, angle) -> None:
+    """Multi-controlled Pauli-product rotation (QuEST.h:4138)."""
+    controls = [int(c) for c in controlQubits]
+    targets = [int(t) for t in targetQubits]
+    paulis = [int(p) for p in targetPaulis]
+    V.validate_multi_controls_targets(qureg, controls, targets,
+                                      "multiControlledMultiRotatePauli")
+    V.validate_pauli_codes(paulis, "multiControlledMultiRotatePauli")
+    _multi_rotate_pauli(qureg, targets, paulis, float(angle),
+                        controls=tuple(controls))
+    qureg.qasm_log.comment(
+        f"multiControlledMultiRotatePauli(angle={angle:g}) ctrls {controls} "
+        f"targs {targets} paulis {paulis}")
+
+
+def _multi_rotate_pauli(qureg, targets, paulis, angle, controls):
+    """Basis-rotate X/Y targets onto Z, multiRotateZ, unrotate
+    (statevec_multiRotatePauli, QuEST_common.c:424-462).  The basis gates go
+    through the twin-aware helpers, so the density-matrix path follows."""
+    z_qubits = []
+    for t, p in zip(targets, paulis):
+        if p == PAULI_I:
+            continue
+        z_qubits.append(t)
+        if p == PAULI_X:
+            _apply_unitary(qureg, G.RY_M90, (t,), controls)
+        elif p == PAULI_Y:
+            _apply_unitary(qureg, G.RX_P90, (t,), controls)
+    if z_qubits:
+        _apply_parity_phase(qureg, angle, tuple(z_qubits), controls)
+    for t, p in zip(targets, paulis):
+        if p == PAULI_X:
+            _apply_unitary(qureg, G.RY_M90.conj().T, (t,), controls)
+        elif p == PAULI_Y:
+            _apply_unitary(qureg, G.RX_P90.conj().T, (t,), controls)

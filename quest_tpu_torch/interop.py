@@ -1,8 +1,8 @@
-"""States and plans carried across from NumPy.
+"""States, plans and Hamiltonians carried across from NumPy.
 
-A state or plan produced elsewhere (for example by the JAX package, handed
-over as NumPy arrays) becomes the port's tensors here, so the port's
-executor can run it; states go back to NumPy for comparison.  This module
+A state, plan or PauliHamil produced elsewhere (for example by the JAX
+package, handed over as NumPy arrays) becomes the port's objects here, so
+the port can run it; states go back to NumPy for comparison.  This module
 imports neither framework of the other side: it only sees NumPy arrays.
 """
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .circuit import plan_to_device
+from .qureg import PauliHamil
 
 
 def state_from_numpy(amps_np, device, dtype=None) -> torch.Tensor:
@@ -47,3 +48,17 @@ def plan_from_numpy(ops: Sequence[tuple], device, dtype) -> List[tuple]:
         return tuple(op)
 
     return plan_to_device([as_np(op) for op in ops], dtype, device)
+
+
+def pauli_hamil_from_numpy(codes, coeffs) -> PauliHamil:
+    """A PauliHamil from a (T, n) code array and (T,) coefficients (the
+    reference's ``pauli_codes`` and ``term_coeffs``)."""
+    codes = np.asarray(codes)
+    coeffs = np.asarray(coeffs, dtype=np.float64).ravel()
+    if codes.ndim != 2 or codes.shape[0] != coeffs.size:
+        raise ValueError(f"codes {codes.shape} do not match {coeffs.size} "
+                         "coefficients")
+    h = PauliHamil(codes.shape[1], codes.shape[0])
+    h.pauli_codes[...] = codes
+    h.term_coeffs[:] = coeffs
+    return h

@@ -8,7 +8,8 @@ passes whose windows fit inside 2^g consecutive canonical 128 x 128 rows
 (k <= 7 + g) are grouped into ``("megawin", (passes...))`` ops.
 
 Two hand-written CUDA kernels (``csrc/window.cu``) execute them on the
-card, built with nvcc at first use and bound through ctypes:
+card, built with nvcc at first use (``ops/build.py``) and bound through
+ctypes:
 
 * K1, ``apply_window_stack``: one pass (replaces the Pallas kernel
   quest_tpu/ops/fused.py ``_apply_window_stack_jit``);
@@ -20,27 +21,19 @@ card, built with nvcc at first use and bound through ctypes:
 Beside each sits its plain PyTorch version (``window_pass_plain``,
 ``megawin_plain``): the wrappers run it for a tensor on the CPU, and
 launch the kernel or raise for a tensor on the card.  Each wrapper counts
-its kernel launches in a plain int attribute, ``launches``.
+its kernel launches in ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import re
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from contextlib import contextmanager
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import cplx
+from . import build, cplx
 
 LANE_QUBITS = 7          # qubits 0..6  -> lanes (128)
 SUBLANE_QUBITS = 7       # the window's width
@@ -50,13 +43,6 @@ CLUSTER_DIM = 128
 # Largest megawin group the K2 kernel takes (its parameter block holds the
 # passes by value; csrc/window.cu MAX_MEGA_PASSES).
 MAX_MEGA_PASSES = 16
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas=-v"]
-
 
 # ---------------------------------------------------------------------------
 # Matmul precision
@@ -189,57 +175,15 @@ class _QtPass(ctypes.Structure):
                 ("mask", ctypes.c_void_p)]
 
 
-_LIB: dict = {}
-_LIB_LOCK = threading.Lock()
+_BOUND: dict = {}
+# launches of each kernel, counted where its wrapper launches it
+LAUNCHES = {"K1": 0, "K2": 0}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the window kernels are built from "
-                       "csrc/window.cu with the CUDA toolkit at first use")
-
-
-def _library_path() -> Path:
-    src = (_CSRC / "window.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD_DIR / f"libqt_window-{tag}.so"
-
-
-def build_kernels() -> float:
-    """Compile csrc/window.cu into the (git-ignored) build directory if
-    that source has not been built yet, and load it.  Returns the seconds
-    spent building (0.0 when the library was already built)."""
-    with _LIB_LOCK:
-        if "lib" in _LIB:
-            return 0.0
-        path = _library_path()
-        seconds = 0.0
-        if not path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            try:
-                done = subprocess.run(
-                    [_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-                     str(_CSRC / "window.cu")],
-                    check=True, capture_output=True, text=True)
-                os.replace(tmp, path)
-                path.with_suffix(".log").write_text(done.stdout + done.stderr)
-            except subprocess.CalledProcessError as e:
-                raise RuntimeError(
-                    f"nvcc failed on csrc/window.cu:\n{e.stderr}") from e
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
+def _lib():
+    """The kernel library with the window entries' signatures declared."""
+    if "lib" not in _BOUND:
+        lib = build.library()
         ptr = ctypes.c_void_p
         p_pass = ctypes.POINTER(_QtPass)
         for name in ("qt_window_pass_f32", "qt_window_pass_f64"):
@@ -258,39 +202,11 @@ def build_kernels() -> float:
             fn.restype = ctypes.c_int
         lib.qt_max_mega_passes.argtypes = []
         lib.qt_max_mega_passes.restype = ctypes.c_int
-        lib.qt_error_string.argtypes = [ctypes.c_int]
-        lib.qt_error_string.restype = ctypes.c_char_p
         if lib.qt_max_mega_passes() != MAX_MEGA_PASSES:
             raise RuntimeError("csrc/window.cu and ops/fused.py disagree on "
                                "MAX_MEGA_PASSES")
-        _LIB["lib"] = lib
-        return seconds
-
-
-def kernel_resources() -> dict:
-    """Registers and spill bytes per kernel entry, as ptxas reported them
-    when the library was built ({} when the build left no log)."""
-    log = _library_path().with_suffix(".log")
-    if not log.exists():
-        return {}
-    out, name = {}, None
-    for line in log.read_text().splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            out.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.setdefault(name, {})["registers"] = int(m.group(1))
-    return out
-
-
-def _lib():
-    if "lib" not in _LIB:
-        build_kernels()
-    return _LIB["lib"]
+        _BOUND["lib"] = lib
+    return _BOUND["lib"]
 
 
 def _check_offset(n: int, k: int) -> None:
@@ -339,12 +255,6 @@ def _pass_struct(op, amps, keep: list) -> _QtPass:
                    None if m is None else m.data_ptr())
 
 
-def _raise_on(code: int, what: str):
-    if code != 0:
-        msg = _lib().qt_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
-
-
 def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
                        k: int = SUBLANE_QUBITS, apply_a: bool = True,
                        apply_b: bool = True):
@@ -369,13 +279,10 @@ def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
     fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
           else _lib().qt_window_pass_f64)
     stream = torch.cuda.current_stream(amps.device).cuda_stream
-    _raise_on(fn(amps.data_ptr(), out.data_ptr(), n, ctypes.byref(desc),
-                 stream), "apply_window_stack")
-    apply_window_stack.launches += 1
+    build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n,
+                      ctypes.byref(desc), stream), "apply_window_stack")
+    LAUNCHES["K1"] += 1
     return out
-
-
-apply_window_stack.launches = 0
 
 
 _MAX_CLUSTERS: dict = {}
@@ -392,7 +299,8 @@ def _megawin_clusters(amps, g: int) -> int:
               else _lib().qt_megawin_max_clusters_f64)
         count = ctypes.c_int(0)
         with torch.cuda.device(amps.device):
-            _raise_on(fn(g, ctypes.byref(count)), "apply_window_megastack")
+            build.raise_on(fn(g, ctypes.byref(count)),
+                           "apply_window_megastack")
         if count.value < 1:
             raise RuntimeError(f"apply_window_megastack: the card holds no "
                                f"cluster for super-blocks of {g} rows")
@@ -435,17 +343,14 @@ def apply_window_megastack(amps, subops, *, num_qubits: int):
     fn = (_lib().qt_megawin_f32 if amps.dtype == torch.float32
           else _lib().qt_megawin_f64)
     stream = torch.cuda.current_stream(amps.device).cuda_stream
-    _raise_on(fn(amps.data_ptr(), out.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), clusters,
-                 n, descs, len(subops), stream), "apply_window_megastack")
-    apply_window_megastack.launches += 1
+    build.raise_on(fn(amps.data_ptr(), out.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(),
+                      clusters, n, descs, len(subops), stream),
+                   "apply_window_megastack")
+    LAUNCHES["K2"] += 1
     return out
 
 
-apply_window_megastack.launches = 0
-
-
 def reset_launch_counts() -> None:
-    """Set both kernels' launch counters to 0."""
-    apply_window_stack.launches = 0
-    apply_window_megastack.launches = 0
+    """Set both kernels' launch counts to 0."""
+    LAUNCHES.update(K1=0, K2=0)

@@ -155,6 +155,69 @@ def apply_diagonal(amps, diag, *, num_qubits: int, targets: Tuple[int, ...],
                             tuple(controls), control_states, body)
 
 
+def _parity_of(n_bits: int, qubits, device):
+    """(2^n_bits,) int64 parity of the bits ``qubits`` of each index."""
+    idx = torch.arange(1 << n_bits, device=device)
+    par = torch.zeros_like(idx)
+    for q in qubits:
+        par ^= (idx >> q) & 1
+    return par
+
+
+def parity_sign_factors(n: int, qubits, dtype, device, lo: int = -1):
+    """Row (2^(n-lo), 1) and lane (1, 2^lo) factors of (-1)^parity(bits in
+    ``qubits``) over n index bits: the parity of an index is the XOR of
+    its row part's and its lane part's, so the sign is their product (the
+    reference's bit-parity sign trick, QuEST_cpu.c:3268-3275).  ``lo``
+    defaults to n // 2."""
+    lo = n // 2 if lo < 0 else lo
+    s_row = 1 - 2 * _parity_of(n - lo, [q - lo for q in qubits if q >= lo],
+                               device)
+    s_lane = 1 - 2 * _parity_of(lo, [q for q in qubits if q < lo], device)
+    return s_row.to(dtype)[:, None], s_lane.to(dtype)[None, :]
+
+
+def parity_sign_2d(n: int, qubits, dtype, device):
+    """(2^hi, 2^lo) tensor of (-1)^parity(bits in ``qubits``), hi = n - lo,
+    lo = n // 2: the outer product of parity_sign_factors.  Callers view
+    the state as (2, 2^hi, 2^lo)."""
+    s_row, s_lane = parity_sign_factors(n, qubits, dtype, device)
+    return s_row * s_lane
+
+
+def parity_sign_flat(n: int, qubits, dtype, device):
+    """(2^n,) sign vector (-1)^parity(bits in ``qubits``)."""
+    return parity_sign_2d(n, qubits, dtype, device).reshape(-1)
+
+
+def apply_parity_phase(amps, theta, *, num_qubits: int,
+                       qubits: Tuple[int, ...], controls: Tuple[int, ...] = (),
+                       control_states: Tuple[int, ...] = ()):
+    """exp(-i theta/2 * Z x Z ... Z) over a qubit subset, optionally
+    controlled — reference multiRotateZ / multiControlledMultiRotateZ
+    (QuEST_cpu.c:3268-3361).  A controlled phase runs on the controlled
+    subspace, flattened, with the targets renumbered past the removed
+    control bits."""
+    n = num_qubits
+    ang = torch.tensor(-0.5 * float(theta), dtype=torch.float64).to(
+        amps.dtype)
+    co, si = torch.cos(ang).item(), torch.sin(ang).item()
+    if not controls:
+        s = parity_sign_2d(n, qubits, amps.dtype, amps.device)
+        view = amps.reshape(2, *s.shape)
+        return cplx.cmul(view, co, si * s).reshape(amps.shape)
+    sub_qubits = tuple(q - sum(1 for c in controls if c < q) for q in qubits)
+    sub_n = n - len(controls)
+
+    def body(sub, _taxes):
+        s = parity_sign_flat(sub_n, sub_qubits, amps.dtype, amps.device)
+        flat = sub.reshape(2, -1)
+        return cplx.cmul(flat, co, si * s).reshape(sub.shape)
+
+    return _update_subspace(amps, n, tuple(qubits), tuple(controls),
+                            control_states, body)
+
+
 def apply_multi_qubit_not(amps, *, num_qubits: int, targets: Tuple[int, ...],
                           controls: Tuple[int, ...] = (),
                           control_states: Tuple[int, ...] = ()):

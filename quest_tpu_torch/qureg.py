@@ -4,13 +4,15 @@
 ``(2, 2^numQubitsInStateVec)`` on the env's device: channel 0/1 = real /
 imaginary, qubit q = bit q of the flat index (little-endian), the JAX
 package's layout.  A density matrix is a 2N-qubit vector, flattened
-column-major (ket = low bits), as in the reference.
+column-major (ket = low bits), as in the reference.  ``PauliHamil``
+(QuEST.h:277) is a host-side term table.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import precision
@@ -63,3 +65,16 @@ class Qureg:
             # them instead of computing a dead result
             self._fusion.gates.clear()
         self._amps = value
+
+
+class PauliHamil:
+    """Real-weighted sum of Pauli products (QuEST.h:277): host NumPy
+    ``pauli_codes`` (T, n) int32 and ``term_coeffs`` (T,) float64, as in the
+    reference package."""
+
+    def __init__(self, num_qubits: int, num_sum_terms: int):
+        self.num_qubits = int(num_qubits)
+        self.num_sum_terms = int(num_sum_terms)
+        self.pauli_codes = np.zeros((num_sum_terms, num_qubits),
+                                    dtype=np.int32)
+        self.term_coeffs = np.zeros((num_sum_terms,), dtype=np.float64)

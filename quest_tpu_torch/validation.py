@@ -50,11 +50,25 @@ ERROR_MESSAGES = {
     "E_INVALID_UNITARY_SIZE": "The matrix size does not match the number of target qubits.",
     "E_NUM_AMPS_EXCEED_TYPE": "Too many qubits (max of log2(SIZE_MAX)). Cannot store the number of amplitudes per-node in the size_t type.",
     "E_NOT_FINITE": "Invalid input. Matrix, diagonal-operator and amplitude values must be finite (no NaN or Inf).",
+    "E_CANNOT_OPEN_FILE": "Could not open file (%s).",
+    "E_INVALID_PAULI_CODE": "Invalid Pauli code. Codes must be 0 (or PAULI_I), 1 (PAULI_X), 2 (PAULI_Y) or 3 (PAULI_Z) to indicate the identity, X, Y and Z operators respectively.",
+    "E_INVALID_NUM_SUM_TERMS": "Invalid number of terms in the Pauli sum. The number of terms must be >0.",
+    "E_INVALID_PAULI_HAMIL_PARAMS": "The number of qubits and terms in the PauliHamil must be strictly positive.",
+    "E_INVALID_PAULI_HAMIL_FILE_PARAMS": "The number of qubits and terms in the PauliHamil file (%s) must be strictly positive.",
+    "E_CANNOT_PARSE_PAULI_HAMIL_FILE_COEFF": "Failed to parse the next expected term coefficient in PauliHamil file (%s).",
+    "E_CANNOT_PARSE_PAULI_HAMIL_FILE_PAULI": "Failed to parse the next expected Pauli code in PauliHamil file (%s).",
+    "E_INVALID_PAULI_HAMIL_FILE_PAULI_CODE": "The PauliHamil file (%s) contained an invalid pauli code (%d). Codes must be 0 (or PAULI_I), 1 (PAULI_X), 2 (PAULI_Y) or 3 (PAULI_Z) to indicate the identity, X, Y and Z operators respectively.",
+    "E_MISMATCHING_PAULI_HAMIL_QUREG_NUM_QUBITS": "The PauliHamil must act on the same number of qubits as exist in the Qureg.",
+    "E_INVALID_TROTTER_ORDER": "The Trotterisation order must be 1, or an even number (for higher-order Suzuki symmetrized expansions).",
+    "E_INVALID_TROTTER_REPS": "The number of Trotter repetitions must be >=1.",
 }
 
 
-def _raise(code: str, func: str):
-    raise QuESTError(f"{func}: {ERROR_MESSAGES[code]}")
+def _raise(code: str, func: str, *fmt):
+    msg = ERROR_MESSAGES[code]
+    if fmt:
+        msg = msg % fmt
+    raise QuESTError(f"{func}: {msg}")
 
 
 def validate_num_qubits(num_qubits: int, func: str):
@@ -228,3 +242,78 @@ def validate_matching_qureg_types(q1, q2, func: str):
     """validateMatchingQuregTypes (:531-533)."""
     if q1.is_density_matrix != q2.is_density_matrix:
         _raise("E_MISMATCHING_QUREG_TYPES", func)
+
+
+def validate_file_opened(opened: bool, fn: str, func: str):
+    """validateFileOpened (:539-545)."""
+    if not opened:
+        _raise("E_CANNOT_OPEN_FILE", func, fn)
+
+
+# ---------------------------------------------------------------------------
+# Pauli sums, PauliHamil, Trotter (:595-604, :647-703)
+# ---------------------------------------------------------------------------
+
+
+def validate_pauli_codes(codes, func: str):
+    """validatePauliCodes (:595-600)."""
+    for c in np.asarray(codes).ravel():
+        if int(c) not in (0, 1, 2, 3):
+            _raise("E_INVALID_PAULI_CODE", func)
+
+
+def validate_num_pauli_sum_terms(num_terms: int, func: str):
+    """validateNumPauliSumTerms (:602-604)."""
+    if num_terms <= 0:
+        _raise("E_INVALID_NUM_SUM_TERMS", func)
+
+
+def validate_hamil_params(num_qubits: int, num_terms: int, func: str):
+    """validateHamilParams (:647-649)."""
+    if num_qubits <= 0 or num_terms <= 0:
+        _raise("E_INVALID_PAULI_HAMIL_PARAMS", func)
+
+
+def validate_pauli_hamil(hamil, func: str):
+    """validatePauliHamil (:651-654)."""
+    validate_hamil_params(hamil.num_qubits, hamil.num_sum_terms, func)
+    validate_pauli_codes(np.asarray(hamil.pauli_codes).ravel(), func)
+
+
+def validate_hamil_matches_qureg(hamil, qureg, func: str):
+    """validateMatchingQuregPauliHamilDims (:656-658)."""
+    if hamil.num_qubits != qureg.num_qubits_represented:
+        _raise("E_MISMATCHING_PAULI_HAMIL_QUREG_NUM_QUBITS", func)
+
+
+def validate_hamil_file_params(num_qubits: int, num_terms: int, fn: str,
+                               func: str):
+    """validateHamilFileParams (:660-667)."""
+    if num_qubits <= 0 or num_terms <= 0:
+        _raise("E_INVALID_PAULI_HAMIL_FILE_PARAMS", func, fn)
+
+
+def validate_hamil_file_coeff_parsed(parsed: bool, fn: str, func: str):
+    """validateHamilFileCoeffParsed (:669-677)."""
+    if not parsed:
+        _raise("E_CANNOT_PARSE_PAULI_HAMIL_FILE_COEFF", func, fn)
+
+
+def validate_hamil_file_pauli_parsed(parsed: bool, fn: str, func: str):
+    """validateHamilFilePauliParsed (:679-687)."""
+    if not parsed:
+        _raise("E_CANNOT_PARSE_PAULI_HAMIL_FILE_PAULI", func, fn)
+
+
+def validate_hamil_file_pauli_code(code: int, fn: str, func: str):
+    """validateHamilFilePauliCode (:689-697)."""
+    if int(code) not in (0, 1, 2, 3):
+        _raise("E_INVALID_PAULI_HAMIL_FILE_PAULI_CODE", func, fn, int(code))
+
+
+def validate_trotter_params(order: int, reps: int, func: str):
+    """validateTrotterParams (:699-703)."""
+    if order <= 0 or (order % 2 and order != 1):
+        _raise("E_INVALID_TROTTER_ORDER", func)
+    if reps <= 0:
+        _raise("E_INVALID_TROTTER_REPS", func)

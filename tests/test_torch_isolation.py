@@ -15,7 +15,7 @@ import torch
 
 import quest_tpu_torch as tq
 from quest_tpu_torch import circuit as C
-from quest_tpu_torch.ops import fused
+from quest_tpu_torch.ops import build, fused, paulis
 
 torch.set_num_threads(1)
 
@@ -26,7 +26,9 @@ _FORBIDDEN = ("jax", "jaxlib", "quest_tpu")
 
 def test_import_leaves_jax_out():
     code = ("import sys, quest_tpu_torch, quest_tpu_torch.interop, "
-            "quest_tpu_torch.models.circuits\n"
+            "quest_tpu_torch.models.circuits, quest_tpu_torch.ops.paulis, "
+            "quest_tpu_torch.ops.build, "
+            "quest_tpu_torch.models.hamiltonians\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -90,12 +92,34 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
         for t in range(n):
             tq.hadamard(q, t)
     assert abs(tq.calcTotalProb(q) - 1.0) < 1e-5
-    assert fused.apply_window_stack.launches == 0
-    assert fused.apply_window_megastack.launches == 0
+    assert fused.LAUNCHES == {"K1": 0, "K2": 0}
+
+
+def test_pauli_wrappers_on_cpu_take_the_plain_path_and_launch_nothing():
+    paulis.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    n = 15
+    x = torch.from_numpy(rng.standard_normal((2, 1 << n)))
+    codes = rng.integers(0, 4, (3, n))
+    term = paulis.pauli_term(codes[0], dtype=torch.float64, theta=0.3)
+    assert torch.equal(paulis.direct_rotation(x, term, num_qubits=n),
+                       paulis.direct_rotation_plain(x, term, num_qubits=n))
+    assert torch.equal(paulis.expec_term(x, term, num_qubits=n),
+                       paulis.expec_term_plain(x, term, num_qubits=n))
+    paulis.trotter_scan(x, codes, [0.1, 0.2, 0.3], num_qubits=n,
+                        rep_qubits=n)
+    paulis.expec_pauli_sum_scan(x, codes, [1.0, -1.0, 0.5], num_qubits=n)
+    q = tq.createQureg(n, tq.createQuESTEnv(device="cpu"))
+    h = tq.createPauliHamil(n, 3)
+    tq.initPauliHamil(h, [1.0, -1.0, 0.5], codes)
+    tq.applyTrotterCircuit(q, h, 0.2, 2, 1)
+    tq.calcExpecPauliHamil(q, h)
+    assert paulis.LAUNCHES == {"K3": 0, "K4": 0}
 
 
 def test_kernels_are_not_built_at_import():
-    assert "lib" not in fused._LIB
+    assert "lib" not in build._LIB
+    assert "lib" not in fused._BOUND and "lib" not in paulis._BOUND
 
 
 def test_other_devices_raise():
