@@ -7,8 +7,9 @@ Phases, one JSON line each; any failure exits non-zero without the final
 line:
 
 1. device  - the card's name and power limit; a CUDA device is required.
-2. build   - nvcc builds csrc/window.cu (K1, K2) and csrc/paulis.cu (K3,
-             K4) into one library, one nvcc process per source.
+2. build   - nvcc builds csrc/window.cu (K1, K2), csrc/paulis.cu (K3,
+             K4) and csrc/qft.cu (K6-K10) into one library, one nvcc
+             process per source.
 3. parity  - K1 against its plain PyTorch version at 20 qubits (f32 and
              f64, k in {7, 10, 13}, rank 1 and 4, dual / B-only / A-only,
              with and without a mask); K2 against K1 pass by pass
@@ -45,7 +46,29 @@ line:
              qubits against their bounds and plain versions, the wall time
              of the three API calls, and the device busy share of the
              Trotter and expectation calls.
-9. kernels - one JSON object with every kernel's numbers.
+9. qft_parity - at 20 qubits, float32, each bit for bit against its plain
+             version: K8 over ten layer chunks (k = 1..5, with H = 1 and
+             M = 1 among them), K9, K6 for t = 14..19, K7 for t = 7..13,
+             all in both conj values; K10 at (n, g) = (20, 2), (20, 4),
+             (28, 7).  K1 on every window pass of the 30-qubit QFT's plan
+             at 2^30 amplitudes (bit for bit where the pass is a
+             permutation, within 1e-5 max|psi| otherwise).
+10. qft_main - bench.py config 3 at 30 qubits, float32: two
+             circuit.fused_qft from |0...0> (amp_0 back at 1 within 1e-5;
+             launches per QFT as the plan says: K8 4, K9 1, K1 4, K10 1);
+             QFT|x> against e^{2 pi i x y / 2^n} / 2^{n/2} at 4096 sampled
+             y; applyFullQFT on a random state against torch.fft.ifft
+             within 1e-5 max|psi|; the route bit for bit against the same
+             route through the plain versions of K6-K10; at 26 qubits
+             against a float64 FFT; applyFullQFT on a 15-qubit density
+             register (K6 once, K7 seven times) bit for bit against its
+             plain route, calcTotalProb within 1e-4 of 1.
+11. qft_timing - CUDA-event medians of K8 (each chunk), K9, K6, K7, K10
+             and K1's two QFT pass kinds at 2^30 amplitudes against their
+             bounds, plain versions and library yardsticks (torch.fft for
+             the whole QFT); wall time and busy share of fused_qft and
+             applyFullQFT.
+12. kernels - one JSON object with every kernel's numbers.
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -58,6 +81,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 N_PARITY = 20          # qubits for the kernel parity checks
@@ -69,6 +93,12 @@ DEVICE = "cuda"
 N_PAULI = 30           # config 5's register: an 8 GiB float32 state
 N_PAULI_F64 = 26       # the float64 cross-check of the config-5 workload
 N_QASM = 20            # the QASM-recording Trotter route
+N_QFT = 30             # bench.py config 3: a full QFT at 30 qubits, f32
+N_QFT_F64 = 26         # the float64 cross-check of the QFT
+N_QFT_RHO = 15         # a density register of 2^30 amplitudes (K6, K7)
+SIGMA_PARITY = ((20, 2), (20, 4), (28, 7))   # K10's (n, g) parity cases
+N_QFT_KNOWN = 4096     # sampled amplitudes of each QFT known answer
+QFT_SEED = 11
 PAULI_TERMS = 16       # bench.py config 5's Hamiltonian: 16 terms, seed 7
 PAULI_SEED = 7
 TROTTER = (0.1, 2, 1)  # time, order, reps: 32 term rotations
@@ -623,6 +653,10 @@ def device_busy(torch, call, kernel: str):
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a tiny first launch: the tracer may miss the first kernel of a
+        # window (one QFT's first K8 launch went unseen without it)
+        torch.ones(1, device=DEVICE).add_(1)
+        sync()
         call()
         sync()
     on_card = [e for e in prof.events()
@@ -724,6 +758,476 @@ def phase_pauli_timing(torch, qt, paulis, api_ops, hamiltonians, h):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The QFT: K6-K9 (ladder layers), K10 (sigma swap), K1 at 2^30 amplitudes
+# ---------------------------------------------------------------------------
+
+
+def max_abs_diff(torch, a, b) -> float:
+    """max |a - b| over two same-shape tensors, in 64 slices (a 2^30-
+    amplitude difference would take another 8.6 GB at once)."""
+    a, b = a.reshape(64, -1), b.reshape(64, -1)
+    return max(float((a[i] - b[i]).abs().max()) for i in range(64))
+
+
+def random_state(torch, n, seed, dtype=None):
+    """A normalised random (2, 2^n) state made on the card from a seed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((2, 1 << n), generator=gen, device=DEVICE,
+                    dtype=dtype or torch.float32)
+    return x.div_(torch.linalg.vector_norm(x))
+
+
+@contextmanager
+def plain_qft_kernels(fused, bigstate):
+    """The QFT kernels' wrappers (K6-K10) replaced by their plain versions,
+    on the card too, for the length of the block: the plain route.  K1 and
+    K2 stay kernels (their plain versions sum in another order)."""
+    def ladder(amps, *, num_qubits, target, conj=False):
+        plain = (fused.qft_ladder_lo_plain if target < 14
+                 else fused.qft_ladder_plain)
+        return plain(amps, num_qubits=num_qubits, target=target, conj=conj)
+
+    saved = (fused.apply_qft_multi_hi, fused.apply_qft_cluster_multi,
+             fused.apply_qft_ladder_pallas, bigstate.apply_sigma_swap)
+    fused.apply_qft_multi_hi = fused.qft_multi_hi_plain
+    fused.apply_qft_cluster_multi = fused.qft_cluster_multi_plain
+    fused.apply_qft_ladder_pallas = ladder
+    bigstate.apply_sigma_swap = bigstate.sigma_swap_plain
+    try:
+        yield
+    finally:
+        (fused.apply_qft_multi_hi, fused.apply_qft_cluster_multi,
+         fused.apply_qft_ladder_pallas, bigstate.apply_sigma_swap) = saved
+
+
+def qft_launches(fused, bigstate) -> dict:
+    return {k: fused.LAUNCHES[k] for k in ("K1", "K2", "K6", "K7", "K8",
+                                           "K9")} | dict(bigstate.LAUNCHES)
+
+
+def reset_qft_counts(fused, bigstate) -> None:
+    fused.reset_launch_counts()
+    bigstate.reset_launch_counts()
+
+
+def qft_k1_ops(torch, np, C, n):
+    """The K1 passes of one n-qubit QFT on the card: the lane-layer fold
+    (the seven lane layers with both low rev7 reversals) and the high
+    groups' reversal passes, uploaded."""
+    dt = np.float32
+    gates = [C.Gate(tuple(range(qq + 1)), C._qft_layer_dense(qq, False, dt))
+             for qq in range(6, -1, -1)]
+    rev7 = C._rev_perm_mat(7, dt)
+    gates += [C.Gate(tuple(range(7)), rev7),
+              C.Gate(tuple(range(7, 14)), rev7)]
+    ops = C.plan_circuit(gates, n, device=DEVICE)
+    ops += C.bit_reversal_ops(n, [(0, n)], dt, skip_low_group=True,
+                              device=DEVICE)
+    return C.plan_to_device(ops, torch.float32, DEVICE)
+
+
+def is_permutation_pass(op) -> bool:
+    """A window pass whose used sides are 0/1 permutation matrices: its
+    products are exact, so K1 equals its plain version bit for bit."""
+    mats = [m for m, used in ((op[2], op[4]), (op[3], op[5])) if used]
+    return all(bool(((m == 0) | (m == 1)).all()) and bool((m[0, 1] == 0)
+               .all()) and bool((m[0, 0].sum(dim=1) == 1).all())
+               for m in mats)
+
+
+def phase_qft_parity(torch, np, fused, bigstate, C):
+    n = N_PARITY
+    x = random_state(torch, n, 2468)
+    out = {"n": n, "k8_cases": [], "k9_cases": 0, "k6_targets": [],
+           "k7_targets": [], "k10_cases": [], "max_abs_err": 0.0}
+
+    def same(kernel, plain, label, state=x):
+        y = kernel(state.clone())
+        yp = plain(state)
+        sync()
+        check(torch.equal(y, yp), f"{label}: not bit-identical to its plain "
+              "version")
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((y - yp).abs().max()))
+
+    for conj in (False, True):
+        # placements: M = 1 (t_lo = 14), H = 1 (t_hi = n - 1), both, neither
+        for t_hi, t_lo in ((14, 14), (19, 19), (15, 14), (19, 18), (16, 14),
+                           (18, 16), (17, 14), (19, 16), (18, 14), (19, 15)):
+            kw = dict(num_qubits=n, t_hi=t_hi, t_lo=t_lo, conj=conj)
+            same(lambda a: fused.apply_qft_multi_hi(a, **kw),
+                 lambda a: fused.qft_multi_hi_plain(a, **kw),
+                 f"K8 t={t_hi}..{t_lo} conj={conj}")
+            out["k8_cases"].append([t_hi, t_lo, conj])
+        same(lambda a: fused.apply_qft_cluster_multi(a, num_qubits=n,
+                                                     conj=conj),
+             lambda a: fused.qft_cluster_multi_plain(a, num_qubits=n,
+                                                     conj=conj),
+             f"K9 conj={conj}")
+        out["k9_cases"] += 1
+        for t in range(7, n):
+            plain = (fused.qft_ladder_lo_plain if t < 14
+                     else fused.qft_ladder_plain)
+            same(lambda a: fused.apply_qft_ladder_pallas(
+                     a, num_qubits=n, target=t, conj=conj),
+                 lambda a: plain(a, num_qubits=n, target=t, conj=conj),
+                 f"{'K7' if t < 14 else 'K6'} t={t} conj={conj}")
+            out["k7_targets" if t < 14 else "k6_targets"].append(t)
+    for m, g in SIGMA_PARITY:
+        y = x if m == n else random_state(torch, m, 1357)
+        same(lambda a: bigstate.apply_sigma_swap(a, num_qubits=m,
+                                                 group_bits=g),
+             lambda a: bigstate.sigma_swap_plain(a, num_qubits=m,
+                                                 group_bits=g),
+             f"K10 n={m} g={g}", state=y)
+        out["k10_cases"].append([m, g])
+        del y
+    torch.cuda.empty_cache()
+
+    # K1 on each pass of the QFT's plan at the main path's size
+    m = N_QFT
+    x = random_state(torch, m, 97531)
+    tol = tolerance(x)
+    out["k1"] = []
+    for op in qft_k1_ops(torch, np, C, m):
+        if op[0] != "winfused":
+            continue
+        y = fused.apply_window_stack(x, op[2], op[3], op[6], num_qubits=m,
+                                     k=op[1], apply_a=op[4], apply_b=op[5])
+        yp = fused.window_pass_plain(x, op[2], op[3], op[6], num_qubits=m,
+                                     k=op[1], apply_a=op[4], apply_b=op[5])
+        sync()
+        perm = is_permutation_pass(op)
+        err = max_abs_diff(torch, y, yp)
+        if perm:
+            check(torch.equal(y, yp), f"K1 at {m} qubits, k={op[1]}: a "
+                  "permutation pass is not bit-identical to its plain version")
+        check(err <= tol, f"K1 at {m} qubits, k={op[1]}: |err| {err} > {tol}")
+        out["k1"].append({"n": m, "k": op[1], "sides": [op[4], op[5]],
+                          "permutation": perm, "bit_identical": perm,
+                          "max_abs_err": err, "tolerance": tol})
+        del y, yp
+        torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def qft_want(torch, np, C, n):
+    """Launches of one n-qubit state-vector QFT by the multilayer route:
+    K8 per chunk of 4 layers above 13, one K9, K1 per window pass of the
+    fold and the reversal, K2 per megawin group, one K10."""
+    ops = qft_k1_ops(torch, np, C, n)
+    st = C.stats(ops)
+    return {"K1": st["winfused"], "K2": st["megawin"], "K6": 0, "K7": 0,
+            "K8": -(-(n - 14) // 4), "K9": 1, "K10": st["sigma_swap"]}
+
+
+def phase_qft_main(torch, np, qt, C, fused, bigstate, circuits):
+    n = N_QFT
+    state_bytes = 2 * 4 << n
+    out = {"n": n}
+    qt.set_precision(1)
+    want = qft_want(torch, np, C, n)
+    check(want["K10"] == 1, f"the {n}-qubit plan has no sigma swap")
+
+    # (a) the bench route: two QFTs from |0...0> (bench.py:238-258)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_qft_counts(fused, bigstate)
+    t0 = time.perf_counter()
+    a = circuits.zero_state_canonical(n, torch.float32, DEVICE)
+    a = C.fused_qft(a, n, 0, n)
+    sync()
+    per_qft = qft_launches(fused, bigstate)
+    a = C.fused_qft(a, n, 0, n)
+    amp0 = float(circuits.amp00_canonical(a))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = qft_launches(fused, bigstate)
+    check(per_qft == want, f"launches per QFT {per_qft} != plan's {want}")
+    check(launches == {k: 2 * v for k, v in want.items()},
+          f"launches of two QFTs {launches}")
+    check(a.shape == (2, 1 << (n - 14), 128, 128)
+          and bool(torch.isfinite(a).all()), "bench route: bad state")
+    check(abs(amp0 - 1.0) <= 1e-5, f"amp0 after two QFTs {amp0}")
+    out["bench_route"] = {"amp0_after_two": amp0, "launches_per_qft": per_qft,
+                          "launches": launches, "first_wall_s": wall,
+                          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                          "state_bytes": state_bytes}
+    del a
+    torch.cuda.empty_cache()
+
+    # (b) known answers: QFT|x> = sum_y e^{2 pi i x y / 2^n} |y> / 2^{n/2}
+    rng = np.random.default_rng(QFT_SEED)
+    ys = np.unique(np.concatenate([[0, (1 << n) - 1],
+                                   rng.integers(0, 1 << n, N_QFT_KNOWN)]))
+    known = []
+    for x_idx in (0, 1, int(rng.integers(0, 1 << n)), (1 << n) - 1):
+        a = circuits.zero_state_canonical(n, torch.float32, DEVICE)
+        a.view(2, -1)[0, 0] = 0.0
+        a.view(2, -1)[0, x_idx] = 1.0
+        a = C.fused_qft(a, n, 0, n).view(2, -1)
+        got = a[:, torch.as_tensor(ys, device=DEVICE)].double().cpu().numpy()
+        ph = 2 * np.pi * ((ys.astype(object) * x_idx) % (1 << n)).astype(
+            np.float64) / float(1 << n)
+        exact = np.exp(1j * ph) / np.sqrt(float(1 << n))
+        err = float(np.abs(got[0] + 1j * got[1] - exact).max())
+        tol = 1e-5 * float(np.abs(exact).max())
+        check(err <= tol, f"QFT|{x_idx}> at {n} qubits: |err| {err} > {tol}")
+        known.append({"x": x_idx, "samples": int(ys.size), "max_abs_err": err,
+                      "tolerance": tol})
+        del a
+    out["known_answers"] = known
+    torch.cuda.empty_cache()
+
+    # (c) a random state through the API against torch.fft (a check and a
+    # yardstick only; the port never calls it)
+    env = qt.createQuESTEnv()
+    q = qt.createQureg(n, env)
+    q.amps = random_state(torch, n, QFT_SEED)
+    z = torch.fft.ifft(torch.complex(q.amps[0], q.amps[1]), norm="ortho")
+    fft = torch.stack([z.real, z.imag])
+    del z
+    torch.cuda.empty_cache()
+    reset_qft_counts(fused, bigstate)
+    t0 = time.perf_counter()
+    qt.applyFullQFT(q)
+    sync()
+    api_wall = time.perf_counter() - t0
+    api_launches = qft_launches(fused, bigstate)
+    check(api_launches == want, f"applyFullQFT launches {api_launches}")
+    err = max_abs_diff(torch, q.amps, fft)
+    tol = 1e-5 * float(fft.abs().max())
+    check(err <= tol, f"applyFullQFT at {n} qubits vs torch.fft: |err| {err} "
+          f"> {tol}")
+    total = qt.calcTotalProb(q)
+    check(abs(total - 1.0) <= 1e-4, f"calcTotalProb after the QFT {total}")
+    out["api_route"] = {"launches": api_launches, "first_wall_s": api_wall,
+                        "max_abs_err_vs_fft": err, "tolerance": tol,
+                        "calc_total_prob": total}
+    del q, fft
+    torch.cuda.empty_cache()
+
+    # (d) the whole route against the same route through the plain versions
+    y = C.fused_qft(random_state(torch, n, QFT_SEED + 1).view(
+        2, -1, 128, 128), n, 0, n)
+    with plain_qft_kernels(fused, bigstate):
+        reset_qft_counts(fused, bigstate)
+        yp = C.fused_qft(random_state(torch, n, QFT_SEED + 1).view(
+            2, -1, 128, 128), n, 0, n)
+        plain_launches = qft_launches(fused, bigstate)
+    sync()
+    check(torch.equal(y, yp), f"the {n}-qubit QFT route is not the plain "
+          "route's bit for bit")
+    check(all(plain_launches[k] == 0 for k in ("K8", "K9", "K10")),
+          f"the plain route launched {plain_launches}")
+    out["plain_route"] = {"n": n, "bit_identical": True,
+                          "max_abs_err": max_abs_diff(torch, y, yp),
+                          "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del y, yp
+    torch.cuda.empty_cache()
+
+    # (e) float32 against float64 at a size whose complex128 FFT is small
+    m = N_QFT_F64
+    psi = random_state(torch, m, QFT_SEED + 2, dtype=torch.float64)
+    a = C.fused_qft(psi.float().view(2, -1, 128, 128), m, 0, m)
+    z = torch.fft.ifft(torch.complex(psi[0], psi[1]), norm="ortho")
+    ref = torch.stack([z.real, z.imag])
+    err = float((a.reshape(2, -1).double() - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())
+    check(err <= tol, f"QFT at {m} qubits, f32 vs f64 FFT: |err| {err}")
+    out["f64_check"] = {"n": m, "max_abs_err": err, "tolerance": tol}
+    del psi, a, z, ref
+    torch.cuda.empty_cache()
+
+    # (f) a 15-qubit density register (2^30 amplitudes): the per-layer
+    # route, K6 at t = 14 and K7 at t = 13..7 on its ket half
+    m = N_QFT_RHO
+
+    def rho_qft(plain: bool):
+        pure = qt.createQureg(m, env)
+        pure.amps = random_state(torch, m, QFT_SEED + 3)
+        r = qt.createDensityQureg(m, env)
+        qt.initPureState(r, pure)
+        reset_qft_counts(fused, bigstate)
+        if plain:
+            with plain_qft_kernels(fused, bigstate):
+                qt.applyFullQFT(r)
+        else:
+            qt.applyFullQFT(r)
+        sync()
+        return r, qft_launches(fused, bigstate)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r, rho_launches = rho_qft(False)
+    rho_wall = time.perf_counter() - t0
+    check(rho_launches["K6"] == 1 and rho_launches["K7"] == 7
+          and rho_launches["K8"] == rho_launches["K9"] == 0,
+          f"density QFT launches {rho_launches}")
+    total = qt.calcTotalProb(r)
+    check(abs(total - 1.0) <= 1e-4, f"density QFT: calcTotalProb {total}")
+    rho_peak = torch.cuda.max_memory_allocated()
+    kept = r.amps
+    del r
+    rp, _ = rho_qft(True)
+    check(torch.equal(kept, rp.amps), "the density QFT is not its plain "
+          "route's bit for bit")
+    out["density"] = {"n": m, "state_qubits": 2 * m,
+                      "launches": rho_launches, "calc_total_prob": total,
+                      "bit_identical_to_plain": True, "first_wall_s": rho_wall,
+                      "peak_mem_bytes": rho_peak}
+    del kept, rp
+    torch.cuda.empty_cache()
+    return out, launches, rho_launches
+
+
+def qft_bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def phase_qft_timing(torch, np, qt, C, fused, bigstate):
+    n = N_QFT
+    x = random_state(torch, n, QFT_SEED + 4)
+    num_amps = 1 << n
+    state_bytes = x.numel() * x.element_size()
+    out = {"device": torch.cuda.get_device_name(0), "n": n,
+           "state_bytes_f32": state_bytes}
+
+    def timed(kernel, plain, nbytes, flops, library=None):
+        b, by = qft_bound(nbytes, flops)
+        return {"ms": time_ms(kernel),
+                "plain_ms": time_ms(plain, reps=3, warmup=1),
+                "library_ms": (None if library is None
+                               else time_ms(library, reps=3, warmup=1)),
+                "bound_ms": b, "bound_by": by}
+
+    # K8: one figure per chunk of the 30-qubit QFT; per pair and layer 26
+    # flops (the block factor, the phase, the pair combine)
+    out["k8"] = []
+    t = n - 1
+    while t >= 14:
+        t_lo = max(14, t - 3)
+        kw = dict(num_qubits=n, t_hi=t, t_lo=t_lo)
+        k = t - t_lo + 1
+        tab_bytes = 4 * (k * 2 * 128 * 128)
+        r = timed(lambda: fused.apply_qft_multi_hi(x, **kw),
+                  lambda: fused.qft_multi_hi_plain(x, **kw),
+                  2 * state_bytes + tab_bytes, 13.0 * k * num_amps)
+        out["k8"].append({"t_hi": t, "t_lo": t_lo,
+                          "H": 1 << (n - 1 - t), "M": 1 << (t_lo - 14), **r})
+        t = t_lo - 1
+    # K9: seven layers of 14 flops a pair
+    out["k9"] = timed(lambda: fused.apply_qft_cluster_multi(x, num_qubits=n),
+                      lambda: fused.qft_cluster_multi_plain(x, num_qubits=n),
+                      2 * state_bytes + 4 * 7 * 2 * 128 * 128,
+                      7 * 7.0 * num_amps)
+    # K6 and K7 at the density register's shapes (2^30 amplitudes)
+    out["k6"] = {"t": 14, **timed(
+        lambda: fused.apply_qft_ladder_pallas(x, num_qubits=n, target=14),
+        lambda: fused.qft_ladder_plain(x, num_qubits=n, target=14),
+        2 * state_bytes + 4 * 2 * 128 * 128, 13.0 * num_amps)}
+    out["k7"] = [{"t": tt, **timed(
+        lambda tt=tt: fused.apply_qft_ladder_pallas(x, num_qubits=n,
+                                                    target=tt),
+        lambda tt=tt: fused.qft_ladder_lo_plain(x, num_qubits=n, target=tt),
+        2 * state_bytes + (4 * 2 * 128 << (tt - 7)), 7.0 * num_amps)}
+        for tt in (13, 7)]
+    # K10, against the same permutation as one out-of-place copy
+    g = min(7, n // 4)
+    G = 1 << g
+    view = x.view(2, G, G, 1 << (n - 4 * g), G, G)
+    out["k10"] = timed(
+        lambda: bigstate.apply_sigma_swap(x, num_qubits=n, group_bits=g),
+        lambda: bigstate.sigma_swap_plain(x, num_qubits=n, group_bits=g),
+        2 * state_bytes, 0.0,
+        library=lambda: view.permute(0, 5, 4, 3, 2, 1).contiguous())
+    torch.cuda.empty_cache()
+    # K1 on the QFT's two pass kinds at 2^30 amplitudes
+    ops = [op for op in qft_k1_ops(torch, np, C, n) if op[0] == "winfused"]
+    out["k1"] = []
+    for op in (ops[0], ops[-1]):
+        b, by = bound_ms([op], state_bytes, num_amps, "float32")
+        hi, mid = 1 << (n - op[1] - 7), 1 << (op[1] - 7)
+        ac = torch.complex(op[2][0, 0], op[2][0, 1])
+        bc = torch.complex(op[3][0, 0], op[3][0, 1])
+
+        def lib(op=op, ac=ac, bc=bc, hi=hi, mid=mid):
+            xc = torch.complex(x[0], x[1]).view(hi, 128, mid, 128)
+            if op[4] and op[5]:
+                return torch.einsum("qw,hwml,pl->hqmp", bc, xc, ac)
+            return torch.einsum("qw,hwml->hqml", bc, xc)
+
+        out["k1"].append({
+            "k": op[1], "sides": [op[4], op[5]],
+            "ms": time_ms(lambda op=op: fused.apply_window_stack(
+                x, op[2], op[3], None, num_qubits=n, k=op[1],
+                apply_a=op[4], apply_b=op[5])),
+            "plain_ms": time_ms(lambda op=op: fused.window_pass_plain(
+                x, op[2], op[3], None, num_qubits=n, k=op[1],
+                apply_a=op[4], apply_b=op[5]), reps=3, warmup=1),
+            "library_ms": time_ms(lib, reps=3, warmup=1),
+            "bound_ms": b, "bound_by": by})
+        torch.cuda.empty_cache()
+    # the whole QFT's least time: the sum of its launches' bounds
+    out["qft_bound_ms"] = (sum(c["bound_ms"] for c in out["k8"])
+                           + out["k9"]["bound_ms"] + out["k10"]["bound_ms"]
+                           + sum(bound_ms([op], state_bytes, num_amps,
+                                          "float32")[0] for op in ops))
+    # the yardstick: one complex64 FFT of 2^30 points, without and with the
+    # SoA <-> complex conversions the port's layout would need
+    z = torch.complex(x[0], x[1])
+    out["torch_fft_ms"] = {
+        "complex_in_complex_out": time_ms(
+            lambda: torch.fft.ifft(z, norm="ortho"), reps=3, warmup=1)}
+    del z
+    torch.cuda.empty_cache()
+
+    def fft_soa():
+        w = torch.fft.ifft(torch.complex(x[0], x[1]), norm="ortho")
+        return torch.stack([w.real, w.imag])
+
+    out["torch_fft_ms"]["soa_in_soa_out"] = time_ms(fft_soa, reps=3,
+                                                    warmup=1)
+    torch.cuda.empty_cache()
+
+    # wall time per QFT by both routes, median of 3, and the busy share of
+    # one call of each from torch.profiler
+    a = x.view(2, -1, 128, 128)
+    env = qt.createQuESTEnv()
+    q = qt.createQureg(n, env)
+    q.amps = random_state(torch, n, QFT_SEED + 5)
+    walls = {}
+    for label, fn in (("fused_qft", lambda: C.fused_qft(a, n, 0, n)),
+                      ("apply_full_qft", lambda: qt.applyFullQFT(q))):
+        samples = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            samples.append(time.perf_counter() - t0)
+            if res is not None:
+                a = res
+        walls[label] = statistics.median(samples)
+        dev, seen = device_busy(torch, fn, "qft_hi_kernel")
+        check(seen in (None, 4), f"the profiler saw {seen} K8 launches in "
+              "one QFT, not 4")
+        out[f"{label}_wall_ms"] = walls[label] * 1e3
+        out[f"{label}_busy"] = {
+            "device_ms": dev, "k8_launches_seen": seen,
+            "device_busy_share": (None if dev is None
+                                  else dev / (walls[label] * 1e3))}
+    del q, a, x
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -739,7 +1243,8 @@ def main() -> int:
         from quest_tpu_torch import circuit as C
         from quest_tpu_torch import fusion
         from quest_tpu_torch.models import circuits, hamiltonians
-        from quest_tpu_torch.ops import build, cplx, fused, kernels, paulis
+        from quest_tpu_torch.ops import (bigstate, build, cplx, fused, kernels,
+                                         paulis)
     except ImportError as e:
         print(f"chip_smoke: cannot import quest_tpu_torch ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -805,7 +1310,7 @@ def main() -> int:
     api_wall = time.perf_counter() - t0
     check(q.amps.shape == (2, 1 << n) and bool(torch.isfinite(q.amps).all()),
           "API route: bad state")
-    launches = dict(fused.LAUNCHES)
+    launches = {k: fused.LAUNCHES[k] for k in ("K1", "K2")}
     qt.destroyQureg(q, env)
     want = {"K1": pst["winfused"] + ast.get("winfused", 0),
             "K2": pst["megawin"] + ast.get("megawin", 0)}
@@ -988,11 +1493,32 @@ def main() -> int:
                                  hamil)
     emit({"phase": "pauli_timing", "power": smi, **ptiming})
 
-    # 9. kernels
+    # 9. the QFT kernels against their plain versions (and K1 at 2^30)
+    qparity = phase_qft_parity(torch, np, fused, bigstate, C)
+    emit({"phase": "qft_parity", **qparity})
+
+    # 10. bench.py config 3 at 30 qubits, and a 15-qubit density register
+    qmain, qft_counts, rho_counts = phase_qft_main(torch, np, qt, C, fused,
+                                                   bigstate, circuits)
+    emit({"phase": "qft_main", **qmain})
+    for key in ("K8", "K9", "K10"):
+        check(qft_counts[key] > 0, f"{key} never launched on the QFT path")
+        launches[key] = qft_counts[key]
+    for key in ("K6", "K7"):
+        check(rho_counts[key] > 0, f"{key} never launched on the density "
+              "QFT path")
+        launches[key] = rho_counts[key]
+
+    # 11. QFT timing at 30 qubits
+    qtiming = phase_qft_timing(torch, np, qt, C, fused, bigstate)
+    emit({"phase": "qft_timing", "power": smi, **qtiming})
+
+    # 12. kernels
     def entry(kname, replaces, t, err, source="window.cu"):
+        key = kname.split()[0]
         return {"name": kname, "route": "cuda",
                 "source": f"quest_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches[kname[:2]],
+                "replaces": replaces, "launches": launches[key],
                 "max_abs_err": err, "max_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
@@ -1024,7 +1550,37 @@ def main() -> int:
     for e in (k3e, k4e):
         e["library_note"] = ("no single PyTorch call computes a Pauli-string "
                              "term")
-    emit({"kernels": [k1e, k2e, k3e, k4e]})
+    # K1 on the QFT path: its launches there and its times at 2^30
+    k1e["qft"] = {"launches": qft_counts["K1"] + rho_counts["K1"],
+                  "passes_2e30": qtiming["k1"],
+                  "max_abs_err_2e30": max(c["max_abs_err"]
+                                          for c in qparity["k1"])}
+    k8 = qtiming["k8"]
+    k8t = {f: sum(c[f] for c in k8) / len(k8)
+           for f in ("ms", "plain_ms", "bound_ms")}
+    k8t.update(bound_by=k8[0]["bound_by"], library_ms=None)
+    qerr = qparity["max_abs_err"]
+    k6e = entry("K6 QFT ladder layer t >= 14", "quest_tpu/ops/fused.py:887",
+                qtiming["k6"], qerr, "qft.cu")
+    k7e = entry("K7 QFT ladder layer 7 <= t <= 13",
+                "quest_tpu/ops/fused.py:1003", qtiming["k7"][0], qerr,
+                "qft.cu")
+    k7e["t7"] = qtiming["k7"][1]
+    k8e = entry("K8 QFT multi-layer ladder pass",
+                "quest_tpu/ops/fused.py:1127", k8t, qerr, "qft.cu")
+    k8e["per_chunk"] = k8
+    k9e = entry("K9 QFT sublane-layers pass", "quest_tpu/ops/fused.py:1228",
+                qtiming["k9"], qerr, "qft.cu")
+    k10e = entry("K10 sigma swap", "quest_tpu/ops/bigstate.py:108",
+                 qtiming["k10"], qerr, "qft.cu")
+    k6e["kernel"] = k8e["kernel"] = "qft_hi_kernel"
+    k7e["kernel"] = k9e["kernel"] = "qft_sublane_kernel"
+    k10e["kernel"] = "sigma_swap_kernel"
+    for e in (k6e, k7e, k8e, k9e):
+        e["library_note"] = "none: no single PyTorch call computes a ladder"
+    k10e["library_note"] = ("the same permutation by permute(...)"
+                            ".contiguous(), out of place")
+    emit({"kernels": [k1e, k2e, k3e, k4e, k6e, k7e, k8e, k9e, k10e]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

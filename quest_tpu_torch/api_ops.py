@@ -1,5 +1,5 @@
 """Public API, part 2: amplitude reads, calculations, Pauli sums and
-Trotter circuits, QASM recording.
+Trotter circuits, the quantum Fourier transform, QASM recording.
 
 Continues quest_tpu_torch.api (same conventions).  Reference parity:
 QuEST.c calc* / get* / apply* functions.  Every read drains pending fused
@@ -8,14 +8,17 @@ gates through ``Qureg.amps`` first.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
 
+from . import circuit as CIRC
 from . import validation as V
-from .api import PAULI_I, multiRotatePauli
+from .api import PAULI_I, _shift, _sv_n, hadamard, multiRotatePauli, swapGate
 from .ops import calculations as C
 from .ops import paulis as P
+from .ops import phasefunc as PF
 from .qureg import PauliHamil, Qureg
 
 
@@ -236,6 +239,94 @@ def _trotter_schedule(num_terms: int, time: float, order: int, reps: int):
     for _ in range(reps):
         symm(time / reps, order)
     return seq
+
+
+# ---------------------------------------------------------------------------
+# QFT (agnostic_applyQFT, QuEST_common.c:836-898)
+# ---------------------------------------------------------------------------
+
+
+def applyQFT(qureg: Qureg, qubits: Sequence[int],
+             numQubits: Optional[int] = None) -> None:
+    """Apply the quantum Fourier transform to the given qubits
+    (QuEST.h:6536)."""
+    qubits = [int(q) for q in qubits]
+    V.validate_multi_targets(qureg, qubits, "applyQFT")
+    _apply_qft(qureg, qubits)
+
+
+def applyFullQFT(qureg: Qureg) -> None:
+    """Apply the quantum Fourier transform to every qubit (QuEST.h:6420)."""
+    _apply_qft(qureg, list(range(qureg.num_qubits_represented)))
+
+
+def _apply_qft(qureg: Qureg, qubits) -> None:
+    """The fused route where it applies, else the layered one: per layer
+    a Hadamard and the controlled-phase ladder as one SCALED_PRODUCT phase
+    function (and its conjugated bra twin on a density matrix), then the
+    swaps."""
+    if _qft_fused(qureg, qubits):
+        return
+    n = len(qubits)
+    for q in range(n - 1, -1, -1):
+        hadamard(qureg, qubits[q])
+        if q == 0:
+            break
+        # the ladder: theta = (pi / 2^q) * x_low * x_q; the scale sits in
+        # slot 0, the divergence value and the two shifts' slots stay 0
+        # (QuEST_cpu.c:4484-4543)
+        regs = (tuple(qubits[:q]), (qubits[q],))
+        params = np.array([math.pi / (1 << q), 0.0, 0.0, 0.0])
+        inds = np.zeros((0, 2), np.int64)
+        phases = np.zeros((0,), np.float64)
+        qureg.amps = PF.apply_named_phase_func(
+            qureg.amps, params, inds, phases, num_qubits=_sv_n(qureg),
+            reg_qubits=regs, encoding=PF.UNSIGNED,
+            func_name=PF.SCALED_PRODUCT, conj=False)
+        if qureg.is_density_matrix:
+            sh = _shift(qureg)
+            sregs = tuple(tuple(x + sh for x in reg) for reg in regs)
+            qureg.amps = PF.apply_named_phase_func(
+                qureg.amps, params, inds, phases, num_qubits=_sv_n(qureg),
+                reg_qubits=sregs, encoding=PF.UNSIGNED,
+                func_name=PF.SCALED_PRODUCT, conj=True)
+        qureg.qasm_log.comment(
+            "here a controlled-phase ladder (QFT layer) was applied")
+    for i in range(n // 2):
+        swapGate(qureg, qubits[i], qubits[n - i - 1])
+
+
+def _qft_fused(qureg: Qureg, qubits) -> bool:
+    """The fused QFT (circuit.fused_qft): ladder passes, one scheduled
+    low-qubit window pass and one bit reversal for the whole swap network
+    (both halves at once on a density matrix).  Applies when the qubits
+    are a contiguous ascending run starting at 0 or >= 7 and the state
+    vector is window-sized (>= 14 qubits); otherwise returns False and the
+    layered path runs."""
+    nsv = _sv_n(qureg)
+    if nsv < CIRC.WINDOW:
+        return False
+    nt = len(qubits)
+    start = qubits[0]
+    if list(qubits) != list(range(start, start + nt)):
+        return False
+    if not (start == 0 or start >= CIRC.LANE):
+        return False
+    shifts = [0, _shift(qureg)] if qureg.is_density_matrix else [0]
+    qureg.amps = CIRC.fused_qft(qureg.amps, nsv, start, nt, shifts=shifts)
+    _qft_qasm_trail(qureg, qubits, nt)
+    return True
+
+
+def _qft_qasm_trail(qureg: Qureg, qubits, nt: int) -> None:
+    """The QASM record of the layered path's gates."""
+    for q in range(nt - 1, -1, -1):
+        qureg.qasm_log.gate("h", (), qubits[q])
+        if q:
+            qureg.qasm_log.comment(
+                "here a controlled-phase ladder (QFT layer) was applied")
+    for i in range(nt // 2):
+        qureg.qasm_log.gate("swap", (qubits[i],), qubits[nt - 1 - i])
 
 
 # ---------------------------------------------------------------------------

@@ -17,11 +17,17 @@ plan is a list of tuples:
     ('xor' | 'permute' | 'gatherperm', ...)
                               matrix-free permutation ops
     ('segswap', a, b, m)      bit-segment exchange
+    ('sigma_swap', g)         the QFT bit reversal's in-place double
+                              bit-block swap (ops/bigstate.py
+                              apply_sigma_swap, kernel K10)
 
-The paged planner's ('fused', ...) / ('swapfused', ...) passes and the
-QFT's ('sigma_swap', g) are not ported yet: ``execute_plan`` raises on
-them, naming the ROADMAP item.  The native C++ scheduler is not ported
-either; planning runs in Python.
+The module also holds the QFT's planner (``fused_qft``,
+``_fused_qft_multilayer``) and its bit-reversal decomposition
+(``bit_reversal_ops``, ``_bit_reversal_big``).
+
+The paged planner's ('fused', ...) / ('swapfused', ...) passes are not
+ported yet: ``execute_plan`` raises on them, naming the ROADMAP item.  The
+native C++ scheduler is not ported either; planning runs in Python.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .ops import fused, kernels
+from .ops import bigstate, fused, kernels
 
 LANE = fused.LANE_QUBITS            # 7
 WINDOW = fused.CLUSTER_QUBITS       # 14
@@ -845,15 +851,15 @@ def plan_circuit(gates: Sequence[Gate], num_qubits: int,
 _NOT_PORTED = {
     "fused": "the paged planner's cluster pass needs kernel K11",
     "swapfused": "the paged planner's swap+cluster pass needs kernel K12",
-    "sigma_swap": "the QFT bit-reversal swap needs kernel K10",
 }
 
 
 def execute_plan(amps, ops: Sequence[tuple], num_qubits: int):
     """Run a plan on ``amps`` (any full-size contiguous view of the state)
     and return the new state, in the same shape.  Window passes go
-    through K1, megawin groups through K2 (on the CPU, their plain
-    versions); the rest are plain PyTorch ops."""
+    through K1, megawin groups through K2 and sigma swaps through K10
+    (on the CPU, their plain versions); the rest are plain PyTorch ops.
+    A sigma swap works in place on the card: the input is consumed."""
     n = num_qubits
     for op in ops:
         kind = op[0]
@@ -877,6 +883,9 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int):
         elif kind == "gatherperm":
             amps = kernels.apply_index_permutation(
                 amps, num_qubits=n, targets=tuple(op[1]), pi=tuple(op[2]))
+        elif kind == "sigma_swap":
+            amps = bigstate.apply_sigma_swap(amps, num_qubits=n,
+                                             group_bits=op[1])
         elif kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"plan op {kind!r} is not ported yet: {_NOT_PORTED[kind]} "
@@ -937,6 +946,217 @@ def stats(ops: Sequence[tuple]) -> dict:
             "gatherperm": c.get("gatherperm", 0),
             "sigma_swap": c.get("sigma_swap", 0),
             "total_passes": sum(c.values())}
+
+
+# ---------------------------------------------------------------------------
+# Fused QFT: ladder passes + one scheduled low-qubit pass + the bit reversal
+# ---------------------------------------------------------------------------
+
+
+def _qft_layer_dense(tr: int, conj: bool, dt) -> np.ndarray:
+    """Dense matrix of one low QFT layer on tr+1 contiguous qubits (matrix
+    bit tr = the layer target): Hadamard on the target followed by the
+    controlled-phase ladder diag(1, e^{i pi low / 2^tr}) against the lower
+    bits."""
+    d = 1 << tr
+    low = np.arange(d)
+    sgn = -1.0 if conj else 1.0
+    ph = np.exp(sgn * 1j * np.pi * low / d)
+    inv = 1.0 / np.sqrt(2.0)
+    m = np.zeros((2 * d, 2 * d), complex)
+    m[low, low] = inv
+    m[low, d + low] = inv
+    m[d + low, low] = inv * ph
+    m[d + low, d + low] = -inv * ph
+    return np.stack([m.real, m.imag]).astype(dt)
+
+
+def fused_qft(amps, num_qubits: int, start: int, count: int,
+              shifts: Sequence[int] = (0,)):
+    """QFT on the contiguous qubits [start, start+count), plus a conjugated
+    twin per extra entry of ``shifts`` (the density-matrix bra half), as:
+
+      * one ladder pass per high layer (kernels.apply_qft_ladder: Hadamard
+        plus the whole controlled-phase ladder, K6/K7 where they apply),
+      * the <= 7-qubit low layers folded by the windowed planner,
+      * the swap network of all halves as one bit reversal
+        (bit_reversal_ops).
+
+    A full or [0, count >= 15) run of a float32 state vector on the card
+    takes the multilayer route (_fused_qft_multilayer).  Requires
+    start == 0 or start >= 7 (callers take the layered path otherwise).
+    The input is consumed: the kernels work in place on the card."""
+    n = num_qubits
+    if not (start == 0 or start >= LANE):
+        raise ValueError("fused_qft needs start == 0 or start >= 7")
+    dt = np.float64 if amps.dtype == torch.float64 else np.float32
+    if (start == 0 and tuple(shifts) == (0,) and count >= 15
+            and fused.qft_multilayer_enabled(amps)):
+        return _fused_qft_multilayer(amps, n, count)
+    dense_gates: List[Gate] = []
+    for si, sh in enumerate(shifts):
+        conj = si > 0
+        base = start + sh
+        for qq in range(count - 1, -1, -1):
+            if qq >= LANE:
+                amps = kernels.apply_qft_ladder(
+                    amps, num_qubits=n, target=base + qq, base=base,
+                    conj=conj)
+            else:
+                dense_gates.append(Gate(
+                    tuple(range(base, base + qq + 1)),
+                    _qft_layer_dense(qq, conj, dt)))
+    if dense_gates:
+        amps = execute_plan(amps, plan_circuit(dense_gates, n,
+                                               device=amps.device), n)
+    runs = [(start + sh, count) for sh in shifts]
+    rev_ops = bit_reversal_ops(n, runs, dt, device=amps.device)
+    if rev_ops is None:
+        perm = list(range(n))
+        for b, c in runs:
+            for i in range(c // 2):
+                perm[b + i], perm[b + c - 1 - i] = (
+                    perm[b + c - 1 - i], perm[b + i])
+        rev_ops = [("permute", tuple(perm))] if perm != list(range(n)) else []
+    return execute_plan(amps, rev_ops, n)
+
+
+def _fused_qft_multilayer(amps, n: int, count: int,
+                          radix: int = fused.QFT_RADIX_DEFAULT):
+    """Radix-2^k QFT of the run [0, count) of a state vector:
+
+      * layers t >= 14 in chunks of ``radix`` layers a pass (K8),
+      * all seven sublane layers (t = 13..7) in one pass (K9),
+      * the seven lane layers (t = 6..0) folded with the lane and sublane
+        within-group bit reversals into window passes,
+      * then the high groups' reversal passes and the group-order
+        reversal from bit_reversal_ops(skip_low_group=True).
+
+    The reference's per-gate dispatch is ~2.5n sweeps (agnostic_applyQFT,
+    QuEST_common.c:836-898)."""
+    dt = np.float64 if amps.dtype == torch.float64 else np.float32
+    amps = fused.apply_qft_multilayer_ladders(
+        amps, num_qubits=n, t_top=count - 1, radix=radix)
+    dense_gates = [Gate(tuple(range(qq + 1)), _qft_layer_dense(qq, False, dt))
+                   for qq in range(LANE - 1, -1, -1)]
+    rev7 = _rev_perm_mat(LANE, dt)
+    dense_gates.append(Gate(tuple(range(LANE)), rev7))
+    dense_gates.append(Gate(tuple(range(LANE, 2 * LANE)), rev7))
+    ops = plan_circuit(dense_gates, n, device=amps.device)
+    rev_ops = bit_reversal_ops(n, [(0, count)], dt, skip_low_group=True,
+                               device=amps.device)
+    return execute_plan(amps, list(ops) + rev_ops, n)
+
+
+def _rev_perm_mat(bits: int, dt, off: int = 0) -> np.ndarray:
+    """SoA 128x128 permutation matrix reversing bits [off, off+bits) of a
+    7-bit cluster index (other bits untouched)."""
+    d = 1 << LANE
+    mask = ((1 << bits) - 1) << off
+    m = np.zeros((d, d))
+    for i in range(d):
+        seg = (i & mask) >> off
+        rev = int(format(seg, f"0{bits}b")[::-1], 2) if bits else 0
+        m[(i & ~mask) | (rev << off), i] = 1.0
+    return np.stack([m, np.zeros((d, d))]).astype(dt)
+
+
+def _bit_reversal_big(n: int, dt, skip_low_group: bool = False) -> List[tuple]:
+    """Bit reversal of the full state with no out-of-place transpose:
+    rev[0, n) = (within-group reversals, window passes) o sigma for the
+    palindromic group split (7, 7, n-28, 7, 7), sigma (swap bits
+    [0,7) <-> [n-7,n) and [7,14) <-> [n-14,n-7)) running in place (K10).
+    An out-of-place transpose would need a second full-state buffer."""
+    r = n - 28
+    ops: List[tuple] = []
+    rev7 = _rev_perm_mat(LANE, dt)
+    eye = _eye_cluster().astype(dt)
+    if not skip_low_group:
+        ops.append(("winfused", LANE, rev7[None], rev7[None], True, True))
+    if r:
+        m = _rev_perm_mat(r, dt, off=0)
+        ops.append(("winfused", WINDOW, eye[None], m[None], False, True))
+    for k in (WINDOW + r, n - LANE):
+        ops.append(("winfused", k, eye[None], rev7[None], False, True))
+    ops.append(("sigma_swap", LANE))
+    return ops
+
+
+def bit_reversal_ops(n: int, runs: Sequence[Tuple[int, int]], dt,
+                     skip_low_group: bool = False,
+                     device=None) -> Optional[List[tuple]]:
+    """Ops reversing the qubit order of each contiguous run (start, count),
+    or None when no fast decomposition applies.
+
+    Each run splits into 7-bit groups: rev(run) = (reverse the order of
+    the groups) o (reverse within each group).  The within-group reversals
+    are window-pass permutation matrices at the groups' own positions (the
+    lane group rides the A side of the first pass), and the group-order
+    reversal of all runs is one axis permutation.
+
+    A single full run at 30 <= n < 35 of a float32 state on the card
+    (``device``) takes the in-place route instead (_bit_reversal_big):
+    the transpose would need a second full-state buffer.
+
+    ``skip_low_group=True`` omits the merged lane+sublane within-group
+    reversal pass (the caller folds those two reversals into its own dense
+    window pass, _fused_qft_multilayer); it needs a single run starting at
+    0 with two full 7-bit low groups."""
+    if skip_low_group and not (
+            len(runs) == 1 and runs[0][0] == 0 and runs[0][1] >= 14):
+        raise ValueError("skip_low_group needs one run = (0, count >= 14)")
+    if (len(runs) == 1 and runs[0] == (0, n) and 30 <= n < 35
+            and np.dtype(dt) == np.float32 and device is not None
+            and torch.device(device).type == "cuda"):
+        return _bit_reversal_big(n, dt, skip_low_group=skip_low_group)
+    ops: List[tuple] = []
+    perm = list(range(n))
+    eye = _eye_cluster().astype(dt)
+    for start, count in runs:
+        if count <= 1:
+            continue
+        if not (start == 0 or start >= LANE):
+            return None
+        groups = []
+        o = start
+        while o < start + count:
+            sz = min(LANE, start + count - o)
+            groups.append((o, sz))
+            o += sz
+        # within-group reversal passes (the lane group merges into the
+        # second group's window pass when both exist)
+        i0 = 0
+        if groups[0][0] == 0:
+            if len(groups) > 1 and groups[1][1] > 1:
+                if not skip_low_group:
+                    a_mat = _rev_perm_mat(groups[0][1], dt)
+                    o1, sz1 = groups[1]
+                    k1 = min(o1, n - LANE)
+                    b_mat = _rev_perm_mat(sz1, dt, off=o1 - k1)
+                    ops.append(("winfused", k1, a_mat[None], b_mat[None],
+                                True, True))
+                i0 = 2
+            else:
+                a_mat = _rev_perm_mat(groups[0][1], dt)
+                ops.append(("winfused", LANE, a_mat[None], eye[None],
+                            True, False))
+                i0 = 1
+        for o, sz in groups[i0:]:
+            if sz <= 1:
+                continue
+            k = min(o, n - LANE)
+            b_mat = _rev_perm_mat(sz, dt, off=o - k)
+            ops.append(("winfused", k, eye[None], b_mat[None], False, True))
+        # group-order reversal: new offset of group i = start + the total
+        # size of the groups after it (order kept within groups)
+        off = start
+        for o, sz in reversed(groups):
+            for j in range(sz):
+                perm[off + j] = o + j
+            off += sz
+    if perm != list(range(n)):
+        ops.append(("permute", tuple(perm)))
+    return ops
 
 
 # ---------------------------------------------------------------------------

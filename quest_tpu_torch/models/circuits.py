@@ -1,4 +1,5 @@
-"""The benchmark circuit: bench.py config 2 (BASELINE.json config 2).
+"""The benchmark circuits: bench.py config 2 (BASELINE.json config 2) and
+config 3's read-out.
 
 A depth-d random circuit on n qubits: per layer one Haar-random 1q unitary
 on every qubit, then a CNOT ladder on alternating pairs, followed by a
@@ -74,3 +75,10 @@ def prob_top_zero_canonical(a):
         raise ValueError("prob_top_zero_canonical needs >= 2 rows (n >= 15)")
     h = a[:, : a.shape[1] // 2]
     return torch.sum(h * h)
+
+
+def amp00_canonical(a):
+    """Re amp_0 of a state in the canonical view, as a 0-d tensor: bench.py
+    config 3's check (an even number of QFTs maps |0...0> back to itself,
+    so amp_0 is 1)."""
+    return torch.sum(a[:1, :1, :1, :1])

@@ -18,10 +18,25 @@ ctypes:
   (replaces ``_apply_megawin_jit``), bit-identical to its passes run one
   by one through K1.
 
+The QFT's ladder layers (Hadamard on the layer's target plus its whole
+controlled-phase ladder) run in two more kernels (``csrc/qft.cu``), under
+four entries:
+
+* K6 and K7, ``apply_qft_ladder_pallas``: one layer, t >= 14 (replaces
+  ``_qft_ladder_jit``) or 7 <= t <= 13 (replaces ``_qft_ladder_lo_jit``);
+* K8, ``apply_qft_multi_hi``: up to five consecutive layers, all >= 14, in
+  one pass (replaces ``_qft_multi_hi_jit``);
+* K9, ``apply_qft_cluster_multi``: the seven layers 13..7 in one pass
+  (replaces ``_qft_cluster_multi_jit``).
+
+K6 is a launch of K8's kernel with one layer and K7 one of K9's with one
+layer: they compute the same products from tables of the same layout.
+
 Beside each sits its plain PyTorch version (``window_pass_plain``,
-``megawin_plain``): the wrappers run it for a tensor on the CPU, and
-launch the kernel or raise for a tensor on the card.  Each wrapper counts
-its kernel launches in ``LAUNCHES``.
+``megawin_plain``, ``qft_ladder_plain``, ``qft_ladder_lo_plain``,
+``qft_multi_hi_plain``, ``qft_cluster_multi_plain``): the wrappers run it
+for a tensor on the CPU, and launch the kernel or raise for a tensor on
+the card.  Each wrapper counts its kernel launches in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import os
 from contextlib import contextmanager
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -177,7 +193,7 @@ class _QtPass(ctypes.Structure):
 
 _BOUND: dict = {}
 # launches of each kernel, counted where its wrapper launches it
-LAUNCHES = {"K1": 0, "K2": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
 
 
 def _lib():
@@ -202,6 +218,15 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.qt_max_mega_passes.argtypes = []
         lib.qt_max_mega_passes.restype = ctypes.c_int
+        lib.qt_qft_hi_f32.argtypes = [ptr, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ptr, ptr, ctypes.c_int,
+                                      ptr, ctypes.c_int, ptr, ptr, ptr]
+        lib.qt_qft_hi_f32.restype = ctypes.c_int
+        lib.qt_qft_sublane_f32.argtypes = [ptr, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ptr,
+                                           ctypes.c_longlong,
+                                           ctypes.c_longlong, ptr]
+        lib.qt_qft_sublane_f32.restype = ctypes.c_int
         if lib.qt_max_mega_passes() != MAX_MEGA_PASSES:
             raise RuntimeError("csrc/window.cu and ops/fused.py disagree on "
                                "MAX_MEGA_PASSES")
@@ -351,6 +376,359 @@ def apply_window_megastack(amps, subops, *, num_qubits: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# QFT ladder layers (K6-K9)
+# ---------------------------------------------------------------------------
+#
+# One QFT layer on target t is the Hadamard on t followed by the whole
+# controlled-phase ladder against bits [0, t): the pair (x0, x1) across bit
+# t becomes ((x0 + x1) / sqrt2, (x0 - x1) / sqrt2 * e^{i sgn pi low / 2^t})
+# with low = the amplitude index's bits [0, t) (agnostic_applyQFT,
+# QuEST_common.c:836-898).  The phase factorises over the canonical view:
+# a (128, 128) table over bits [0, 14), and for t >= 14 a factor over the
+# block index j (bits [14, t_lo)) kept as two tables split at 2^11
+# (tlo[j mod 2^11] * thi[j div 2^11]).  For 7 <= t <= 13 the pair bit is
+# a row bit of the 128 x 128 block and one (2^(t-7), 128) table covers the
+# phase.  All tables are built on the host in float64, as the reference
+# builds them, and cast to the state's type; a kernel and its plain
+# version read the same tables.
+
+_TL_SPLIT = 1 << 11
+QFT_RADIX_DEFAULT = 4    # layers per K8 pass
+_TABLES: dict = {}
+
+
+def _real(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _layer_tables(t: int, count: int, sgn: float, dt):
+    """(tab (2, 128, 128), tlo (2, <= 2048), thi (2, >= 1)) of layer t
+    over ``count`` block indices (fused.py:946-959)."""
+    j14 = np.arange(1 << CLUSTER_QUBITS, dtype=np.float64)
+    ang14 = sgn * np.pi * j14 / (1 << t)
+    tab = np.stack([np.cos(ang14), np.sin(ang14)]).reshape(
+        2, CLUSTER_DIM, CLUSTER_DIM)
+    jlo = np.arange(min(count, _TL_SPLIT), dtype=np.float64)
+    alo = sgn * np.pi * jlo * (1 << CLUSTER_QUBITS) / (1 << t)
+    jhi = np.arange(max(1, count // _TL_SPLIT), dtype=np.float64)
+    ahi = (sgn * np.pi * jhi * float(_TL_SPLIT)
+           * (1 << CLUSTER_QUBITS) / (1 << t))
+    return (tab.astype(dt), np.stack([np.cos(alo), np.sin(alo)]).astype(dt),
+            np.stack([np.cos(ahi), np.sin(ahi)]).astype(dt))
+
+
+@lru_cache(maxsize=None)
+def _block_consts(k: int, conj: bool, dt):
+    """(re, im) of the phase over the swept block bits below layer p of a
+    K8 pass, e^{i sgn pi clo / 2^p} at index 2^p - 1 + clo, in the state's
+    type (the reference's compile-time Python floats, fused.py:1093)."""
+    sgn = -1.0 if conj else 1.0
+    re = np.zeros(32, dt)
+    im = np.zeros(32, dt)
+    for p in range(k):
+        for clo in range(1 << p):
+            a = sgn * np.pi * clo / float(1 << p)
+            re[(1 << p) - 1 + clo] = np.cos(a)
+            im[(1 << p) - 1 + clo] = np.sin(a)
+    return re, im
+
+
+def _multi_hi_tables(t_hi: int, t_lo: int, conj: bool, dt):
+    """K8's (ctab (k, 2, 128, 128), mlo (k, 2, <= 2048), mhi (k, 2, >= 1))
+    for layers t_lo..t_hi (fused.py:1163-1183).  With t_hi == t_lo these
+    are K6's tables of that layer (fused.py:946-959)."""
+    sgn = -1.0 if conj else 1.0
+    count = 1 << (t_lo - CLUSTER_QUBITS)
+    per_layer = [_layer_tables(t, count, sgn, dt)
+                 for t in range(t_lo, t_hi + 1)]
+    return tuple(np.stack(parts) for parts in zip(*per_layer))
+
+
+def _lo_table(t: int, conj: bool, dt):
+    """K7's (2, 2^(t-7), 128) table of layer t (fused.py:939-942)."""
+    sgn = -1.0 if conj else 1.0
+    jlo = np.arange(1 << t, dtype=np.float64)
+    ang = sgn * np.pi * jlo / (1 << t)
+    return (np.stack([np.cos(ang), np.sin(ang)]).reshape(
+        2, 1 << (t - LANE_QUBITS), CLUSTER_DIM).astype(dt),)
+
+
+def _cluster_table(conj: bool, dt):
+    """K9's (7, 2, 128, 128) table, row 13 - t for layer t; its rows
+    [:2^(t-7)] are K7's table of layer t (fused.py:1255-1262)."""
+    sgn = -1.0 if conj else 1.0
+    sl = np.arange(CLUSTER_DIM, dtype=np.float64)[:, None]
+    ll = np.arange(CLUSTER_DIM, dtype=np.float64)[None, :]
+    tab = np.empty((SUBLANE_QUBITS, 2, CLUSTER_DIM, CLUSTER_DIM), dtype=dt)
+    for t in range(CLUSTER_QUBITS - 1, LANE_QUBITS - 1, -1):
+        ang = sgn * np.pi * (sl * CLUSTER_DIM + ll) / (1 << t)
+        tab[13 - t, 0] = np.cos(ang)
+        tab[13 - t, 1] = np.sin(ang)
+    return (tab,)
+
+
+def _tables_on(builder, args, device):
+    """A table builder's arrays as tensors on ``device``, uploaded once per
+    (builder, arguments, device)."""
+    key = (builder.__name__, args, str(device))
+    if key not in _TABLES:
+        _TABLES[key] = tuple(torch.as_tensor(a, device=device)
+                             for a in builder(*args))
+    return _TABLES[key]
+
+
+def _inv_sqrt2(dt) -> float:
+    """1/sqrt(2) in the state's type (the reference's weak-typed literal
+    0.7071067811865476 cast to it)."""
+    return float(dt(0.7071067811865476))
+
+
+def _check_ladder(n: int, t: int) -> None:
+    if n < CLUSTER_QUBITS + 1 or not (LANE_QUBITS <= t < n):
+        raise ValueError(f"QFT ladder layer t={t} out of range for n={n} "
+                         "(needs 7 <= t < n and n >= 15)")
+
+
+def _check_chunk(n: int, t_hi: int, t_lo: int) -> None:
+    if not (CLUSTER_QUBITS <= t_lo <= t_hi < n and 1 <= t_hi - t_lo + 1 <= 5):
+        raise ValueError("apply_qft_multi_hi: bad layer chunk")
+
+
+def qft_ladder_supported(amps, num_qubits: int, target: int,
+                         base: int) -> bool:
+    """The ladder kernels take base 0, a pair bit t >= 7, n >= 15, float32
+    and a tensor on the card (the reference's rule, fused.py:912, with
+    "not interpret" read as "on CUDA")."""
+    return (base == 0 and target >= LANE_QUBITS and num_qubits > target
+            and num_qubits >= CLUSTER_QUBITS + 1
+            and amps.dtype == torch.float32 and amps.device.type == "cuda")
+
+
+def qft_multilayer_enabled(amps) -> bool:
+    """Multi-layer QFT passes (K8, K9): float32 on the card."""
+    return amps.dtype == torch.float32 and amps.device.type == "cuda"
+
+
+def _hi_layers_plain(amps, ctab, mlo, mhi, cre, cim, *, num_qubits: int,
+                     t_hi: int, t_lo: int):
+    """Layers t_hi..t_lo (all >= 14) on the view (2, H, 2^k, M, 128, 128),
+    in the order and with the products of the K8 kernel: per layer p the
+    block factor m = mlo[p][j mod 2^11] * mhi[p][j div 2^11], times the
+    block-bit constant, times ctab[p][e], then the pair combine."""
+    n, k = num_qubits, t_hi - t_lo + 1
+    C, M = 1 << k, 1 << (t_lo - CLUSTER_QUBITS)
+    H = 1 << (n - 1 - t_hi)
+    inv = _inv_sqrt2(_real(amps.dtype))
+    out = amps.clone()
+    v = out.reshape(2, H, C, M, CLUSTER_DIM, CLUSTER_DIM)
+    j = torch.arange(M, device=amps.device)
+    jl, jh = j % _TL_SPLIT, j // _TL_SPLIT
+    for p in range(k - 1, -1, -1):
+        ar, ai = mlo[p, 0][jl], mlo[p, 1][jl]
+        br, bi = mhi[p, 0][jh], mhi[p, 1][jh]
+        mr = ar * br - ai * bi
+        mi = ar * bi + ai * br
+        ctr, cti = ctab[p, 0], ctab[p, 1]
+        for c0 in range(C):
+            if (c0 >> p) & 1:
+                continue
+            c1 = c0 | (1 << p)
+            q = (1 << p) - 1 + (c0 & ((1 << p) - 1))
+            cr, ci = float(cre[q]), float(cim[q])
+            sr = (mr * cr - mi * ci)[:, None, None]
+            si = (mr * ci + mi * cr)[:, None, None]
+            phr = sr * ctr - si * cti
+            phi = sr * cti + si * ctr
+            x0r, x0i = v[0, :, c0], v[1, :, c0]
+            x1r, x1i = v[0, :, c1], v[1, :, c1]
+            s0r = (x0r + x1r) * inv
+            s0i = (x0i + x1i) * inv
+            dr = (x0r - x1r) * inv
+            di = (x0i - x1i) * inv
+            v[0, :, c0] = s0r
+            v[1, :, c0] = s0i
+            v[0, :, c1] = dr * phr - di * phi
+            v[1, :, c1] = dr * phi + di * phr
+    return out
+
+
+def qft_multi_hi_plain(amps, *, num_qubits: int, t_hi: int, t_lo: int,
+                       conj: bool = False):
+    """Layers t = t_hi..t_lo (descending, all >= 14) as a new tensor: the
+    plain version of K8 (the reference's _qft_multi_hi_kernel)."""
+    _check_chunk(num_qubits, t_hi, t_lo)
+    dt = _real(amps.dtype)
+    tabs = _tables_on(_multi_hi_tables, (t_hi, t_lo, conj, dt), amps.device)
+    consts = _block_consts(t_hi - t_lo + 1, conj, dt)
+    return _hi_layers_plain(amps, *tabs, *consts, num_qubits=num_qubits,
+                            t_hi=t_hi, t_lo=t_lo)
+
+
+def qft_ladder_plain(amps, *, num_qubits: int, target: int,
+                     conj: bool = False):
+    """One layer t >= 14 as a new tensor: the plain version of K6 (the
+    reference's _qft_ladder_kernel), which is K8's with one layer."""
+    return qft_multi_hi_plain(amps, num_qubits=num_qubits, t_hi=target,
+                              t_lo=target, conj=conj)
+
+
+def _sublane_layer(x, tr, ti, t: int, inv: float):
+    """One layer 7 <= t <= 13 on a (2, 2^(n-14), 128, 128) view: rows s and
+    s | 2^(t-7) of each block pair up; tr, ti are (2^(t-7), 128) tables
+    over the low row bits and the lanes (fused.py:975-987)."""
+    s_lo = 1 << (t - LANE_QUBITS)
+    v = x.reshape(2, -1, 2, s_lo, CLUSTER_DIM)
+    x0, x1 = v[:, :, 0], v[:, :, 1]
+    y0 = (x0 + x1) * inv
+    d = (x0 - x1) * inv
+    y1r = d[0] * tr - d[1] * ti
+    y1i = d[0] * ti + d[1] * tr
+    out = torch.stack([torch.stack([y0[0], y1r], dim=1),
+                       torch.stack([y0[1], y1i], dim=1)])
+    return out.reshape(x.shape)
+
+
+def qft_ladder_lo_plain(amps, *, num_qubits: int, target: int,
+                        conj: bool = False):
+    """One layer 7 <= t <= 13 as a new tensor: the plain version of K7
+    (the reference's _qft_ladder_lo_kernel)."""
+    _check_ladder(num_qubits, target)
+    (tab,) = _tables_on(_lo_table, (target, conj, _real(amps.dtype)),
+                        amps.device)
+    return _sublane_layer(amps, tab[0], tab[1], target,
+                          _inv_sqrt2(_real(amps.dtype))).reshape(amps.shape)
+
+
+def qft_cluster_multi_plain(amps, *, num_qubits: int, conj: bool = False):
+    """Layers 13..7 as a new tensor: the plain version of K9 (the
+    reference's _qft_cluster_multi_kernel), K7's layer seven times with
+    rows [:2^(t-7)] of K9's table."""
+    if num_qubits < CLUSTER_QUBITS + 1:
+        raise ValueError("apply_qft_cluster_multi needs n >= 15")
+    (tab,) = _tables_on(_cluster_table, (conj, _real(amps.dtype)),
+                        amps.device)
+    inv = _inv_sqrt2(_real(amps.dtype))
+    x = amps
+    for t in range(CLUSTER_QUBITS - 1, LANE_QUBITS - 1, -1):
+        s_lo = 1 << (t - LANE_QUBITS)
+        x = _sublane_layer(x, tab[13 - t, 0, :s_lo], tab[13 - t, 1, :s_lo],
+                           t, inv)
+    return x.reshape(amps.shape)
+
+
+def _qft_cuda_state(amps, n: int, what: str):
+    if amps.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {amps.device}")
+    if amps.dtype != torch.float32:
+        raise TypeError(f"{what}: state dtype {amps.dtype} is not float32")
+    if not amps.is_contiguous():
+        raise ValueError(f"{what}: the state must be contiguous")
+    if amps.numel() != 2 << n:
+        raise ValueError(f"{what}: a state of {tuple(amps.shape)} is not "
+                         f"(2, 2^{n})")
+
+
+def _launch_hi(amps, n: int, t_hi: int, t_lo: int, conj: bool, what: str):
+    """The K8 kernel over layers t_hi..t_lo, in place."""
+    _qft_cuda_state(amps, n, what)
+    ctab, mlo, mhi = _tables_on(
+        _multi_hi_tables, (t_hi, t_lo, conj, np.float32), amps.device)
+    cre, cim = _block_consts(t_hi - t_lo + 1, conj, np.float32)
+    stream = torch.cuda.current_stream(amps.device).cuda_stream
+    build.raise_on(_lib().qt_qft_hi_f32(
+        amps.data_ptr(), n, t_hi, t_lo, ctab.data_ptr(), mlo.data_ptr(),
+        int(mlo.shape[-1]), mhi.data_ptr(), int(mhi.shape[-1]),
+        cre.ctypes.data, cim.ctypes.data, stream), what)
+
+
+def _launch_sublane(amps, n: int, t_hi: int, t_lo: int, tab,
+                    layer_stride: int, chan_stride: int, what: str):
+    """The K9 kernel over layers t_hi..t_lo (all in 7..13), in place;
+    ``tab`` holds layer t_hi's table, the next layer's ``layer_stride``
+    floats on, the imaginary half ``chan_stride`` floats on."""
+    _qft_cuda_state(amps, n, what)
+    stream = torch.cuda.current_stream(amps.device).cuda_stream
+    build.raise_on(_lib().qt_qft_sublane_f32(
+        amps.data_ptr(), n, t_hi, t_lo, tab.data_ptr(), layer_stride,
+        chan_stride, stream), what)
+
+
+def apply_qft_ladder_pallas(amps, *, num_qubits: int, target: int,
+                            conj: bool = False):
+    """One QFT layer (H on ``target`` plus the controlled-phase ladder
+    against bits [0, target)) in one pass: K6 for target >= 14, K7 for
+    7 <= target <= 13.  On the card the kernel overwrites the input in
+    place and returns it; a CPU tensor takes the plain version, which
+    returns a new tensor."""
+    n, t = num_qubits, target
+    _check_ladder(n, t)
+    if t < CLUSTER_QUBITS:
+        if amps.device.type == "cpu":
+            return qft_ladder_lo_plain(amps, num_qubits=n, target=t,
+                                       conj=conj)
+        (tab,) = _tables_on(_lo_table, (t, conj, np.float32), amps.device)
+        _launch_sublane(amps, n, t, t, tab, 0, tab[0].numel(),
+                        "apply_qft_ladder_pallas")
+        LAUNCHES["K7"] += 1
+        return amps
+    if amps.device.type == "cpu":
+        return qft_ladder_plain(amps, num_qubits=n, target=t, conj=conj)
+    _launch_hi(amps, n, t, t, conj, "apply_qft_ladder_pallas")
+    LAUNCHES["K6"] += 1
+    return amps
+
+
+def apply_qft_multi_hi(amps, *, num_qubits: int, t_hi: int, t_lo: int,
+                       conj: bool = False):
+    """Layers t = t_hi..t_lo (descending, all >= 14, at most 5) in one
+    pass (K8): 2^k amplitudes of each pair group co-resident.  In place
+    on the card; a CPU tensor takes the plain version (a new tensor)."""
+    _check_chunk(num_qubits, t_hi, t_lo)
+    if amps.device.type == "cpu":
+        return qft_multi_hi_plain(amps, num_qubits=num_qubits, t_hi=t_hi,
+                                  t_lo=t_lo, conj=conj)
+    _launch_hi(amps, num_qubits, t_hi, t_lo, conj, "apply_qft_multi_hi")
+    LAUNCHES["K8"] += 1
+    return amps
+
+
+def apply_qft_cluster_multi(amps, *, num_qubits: int, conj: bool = False):
+    """All seven sublane layers (t = 13..7) in one pass (K9).  In place on
+    the card; a CPU tensor takes the plain version (a new tensor)."""
+    if num_qubits < CLUSTER_QUBITS + 1:
+        raise ValueError("apply_qft_cluster_multi needs n >= 15")
+    if amps.device.type == "cpu":
+        return qft_cluster_multi_plain(amps, num_qubits=num_qubits,
+                                       conj=conj)
+    (tab,) = _tables_on(_cluster_table, (conj, np.float32), amps.device)
+    plane = CLUSTER_DIM * CLUSTER_DIM
+    _launch_sublane(amps, num_qubits, CLUSTER_QUBITS - 1, LANE_QUBITS, tab,
+                    2 * plane, plane, "apply_qft_cluster_multi")
+    LAUNCHES["K9"] += 1
+    return amps
+
+
+def apply_qft_multilayer_ladders(amps, *, num_qubits: int, t_top: int,
+                                 radix: int = QFT_RADIX_DEFAULT):
+    """Ladder layers t = t_top .. 7 (descending) through the multilayer
+    kernels: chunks of ``radix`` layers (clamped to 1..5) for t >= 14 (K8),
+    then one pass of the seven sublane layers (K9).  Requires t_top >= 13
+    and num_qubits >= 15."""
+    if t_top < CLUSTER_QUBITS - 1:
+        raise ValueError("apply_qft_multilayer_ladders needs t_top >= 13 "
+                         "(the cluster pass applies ALL sublane layers)")
+    radix = max(1, min(5, int(radix)))
+    t = t_top
+    while t >= CLUSTER_QUBITS:
+        t_lo = max(CLUSTER_QUBITS, t - radix + 1)
+        amps = apply_qft_multi_hi(amps, num_qubits=num_qubits, t_hi=t,
+                                  t_lo=t_lo)
+        t = t_lo - 1
+    return apply_qft_cluster_multi(amps, num_qubits=num_qubits)
+
+
 def reset_launch_counts() -> None:
-    """Set both kernels' launch counts to 0."""
-    LAUNCHES.update(K1=0, K2=0)
+    """Set every kernel's launch count in ``LAUNCHES`` to 0."""
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0

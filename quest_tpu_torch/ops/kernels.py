@@ -13,8 +13,9 @@ These ops are memory-bound and run once per eager gate or permutation
 window; the fused window passes, which carry the dense work of a
 circuit, are the hand-written kernels in ``ops/fused.py``.
 
-Every function returns a new tensor of the input's shape; inputs are
-never modified.
+Every function returns a new tensor of the input's shape and leaves its
+input as it was, except ``apply_qft_ladder`` where it takes the QFT
+ladder kernels (a float32 state on the card), which work in place.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from . import cplx
+from . import cplx, fused
 
 # States with n >= _BIG_N extend a gather field that reaches below the
 # 128-lane block down to bit 0 (apply_index_permutation), as the JAX
@@ -327,6 +328,67 @@ def apply_index_permutation(amps, *, num_qubits: int,
     view = amps.reshape(2, 1 << (n - hi - 1), d, 1 << lo)
     index = torch.as_tensor(lifted, device=amps.device)
     return torch.index_select(view, 2, index).reshape(amps.shape)
+
+
+def apply_qft_ladder(amps, *, num_qubits: int, target: int, base: int = 0,
+                     conj: bool = False):
+    """One QFT layer: Hadamard on ``target`` followed by the whole
+    controlled-phase ladder against the contiguous qubits [base, target),
+    diag(1, e^{i pi low / 2^(target-base)}) on the target with low = the
+    integer those qubits hold (agnostic_applyQFT, QuEST_common.c:836-898).
+    ``base`` > 0 serves the density-matrix bra twin (qubits shifted by
+    numQubits); ``conj`` negates the phases.
+
+    Where the ladder kernels apply (fused.qft_ladder_supported: float32,
+    base 0, a tensor on the card) the layer is K6/K7, in place.
+    Elsewhere (float64, the bra twin, the CPU) it is this elementwise
+    form: the phase factorises over 7-bit chunks of ``low`` into host
+    tables of at most 128 entries, applied as broadcast complex
+    multiplies after the pair combine; a new tensor is returned."""
+    n, t = num_qubits, target
+    if fused.qft_ladder_supported(amps, n, t, base):
+        return fused.apply_qft_ladder_pallas(amps, num_qubits=n, target=t,
+                                             conj=conj)
+    tr = t - base
+    lo = 1 << base         # untouched low axis (bra-twin case)
+    hi = 1 << (n - 1 - t)
+    dt = np.float32 if amps.dtype == torch.float32 else np.float64
+    sgn = -1.0 if conj else 1.0
+    inv = float(dt(1.0 / math.sqrt(2.0)))
+    if tr < 10 and base == 0:
+        widths = [tr]      # one table, flat view
+    else:
+        widths = []        # 7-bit chunks from the low end
+        p = 0
+        while p < tr:
+            widths.append(min(7, tr - p))
+            p += 7
+    tabs = []
+    p = 0
+    for w in widths:
+        j = np.arange(1 << w, dtype=np.float64)
+        ang = sgn * np.pi * (j * (1 << p)) / (1 << tr)
+        tabs.append((np.cos(ang).astype(dt), np.sin(ang).astype(dt)))
+        p += w
+    # axis order after [2, hi, 2 (pair)]: highest chunk first, lowest
+    # chunk last, then the untouched lo axis (if any)
+    factor_dims = [1 << w for w in reversed(widths)]
+    v = amps.reshape([2, hi, 2] + factor_dims + ([lo] if base else []))
+    x0r, x0i = v[0, :, 0], v[1, :, 0]
+    x1r, x1i = v[0, :, 1], v[1, :, 1]
+    y0r, y0i = (x0r + x1r) * inv, (x0i + x1i) * inv
+    y1r, y1i = (x0r - x1r) * inv, (x0i - x1i) * inv
+    ntail = len(widths) + (1 if base else 0)   # axes after hi in y*
+    for ci, (w, (tc, ts)) in enumerate(zip(widths, tabs)):
+        axis_from_end = (1 if base else 0) + ci
+        bshape = [1] * (1 + ntail)
+        bshape[len(bshape) - 1 - axis_from_end] = 1 << w
+        pr = torch.as_tensor(tc, device=amps.device).reshape(bshape)
+        pi_ = torch.as_tensor(ts, device=amps.device).reshape(bshape)
+        y1r, y1i = pr * y1r - pi_ * y1i, pr * y1i + pi_ * y1r
+    out = torch.stack([torch.stack([y0r, y1r], dim=1),
+                       torch.stack([y0i, y1i], dim=1)])
+    return out.reshape(amps.shape)
 
 
 # ---------------------------------------------------------------------------

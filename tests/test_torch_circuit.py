@@ -251,7 +251,6 @@ def test_split_and_rebuild_plan_round_trip(monkeypatch):
 @pytest.mark.parametrize("op", [
     ("fused", np.zeros((1, 2, 256, 256)), np.zeros((1, 2, 256, 256))),
     ("swapfused", 14, 7, 1, None, None),
-    ("sigma_swap", 3),
 ])
 def test_unported_plan_ops_raise(op):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

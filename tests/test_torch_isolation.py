@@ -15,7 +15,7 @@ import torch
 
 import quest_tpu_torch as tq
 from quest_tpu_torch import circuit as C
-from quest_tpu_torch.ops import build, fused, paulis
+from quest_tpu_torch.ops import bigstate, build, fused, paulis
 
 torch.set_num_threads(1)
 
@@ -27,7 +27,8 @@ _FORBIDDEN = ("jax", "jaxlib", "quest_tpu")
 def test_import_leaves_jax_out():
     code = ("import sys, quest_tpu_torch, quest_tpu_torch.interop, "
             "quest_tpu_torch.models.circuits, quest_tpu_torch.ops.paulis, "
-            "quest_tpu_torch.ops.build, "
+            "quest_tpu_torch.ops.build, quest_tpu_torch.ops.bigstate, "
+            "quest_tpu_torch.ops.phasefunc, "
             "quest_tpu_torch.models.hamiltonians\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
@@ -92,7 +93,7 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
         for t in range(n):
             tq.hadamard(q, t)
     assert abs(tq.calcTotalProb(q) - 1.0) < 1e-5
-    assert fused.LAUNCHES == {"K1": 0, "K2": 0}
+    assert (fused.LAUNCHES["K1"], fused.LAUNCHES["K2"]) == (0, 0)
 
 
 def test_pauli_wrappers_on_cpu_take_the_plain_path_and_launch_nothing():
@@ -117,9 +118,45 @@ def test_pauli_wrappers_on_cpu_take_the_plain_path_and_launch_nothing():
     assert paulis.LAUNCHES == {"K3": 0, "K4": 0}
 
 
+def test_qft_wrappers_on_cpu_take_the_plain_path_and_launch_nothing():
+    fused.reset_launch_counts()
+    bigstate.reset_launch_counts()
+    rng = np.random.default_rng(4)
+    n = 15
+    x = torch.from_numpy(rng.standard_normal((2, 1 << n)).astype(np.float32))
+    assert torch.equal(
+        fused.apply_qft_multi_hi(x, num_qubits=n, t_hi=14, t_lo=14),
+        fused.qft_multi_hi_plain(x, num_qubits=n, t_hi=14, t_lo=14))
+    assert torch.equal(fused.apply_qft_cluster_multi(x, num_qubits=n),
+                       fused.qft_cluster_multi_plain(x, num_qubits=n))
+    for t, plain in ((14, fused.qft_ladder_plain),
+                     (9, fused.qft_ladder_lo_plain)):
+        assert torch.equal(
+            fused.apply_qft_ladder_pallas(x, num_qubits=n, target=t),
+            plain(x, num_qubits=n, target=t))
+    assert torch.equal(bigstate.apply_sigma_swap(x, num_qubits=n,
+                                                 group_bits=3),
+                       bigstate.sigma_swap_plain(x, num_qubits=n,
+                                                 group_bits=3))
+    q = tq.createQureg(n, tq.createQuESTEnv(device="cpu"))
+    tq.applyFullQFT(q)
+    tq.applyQFT(q, list(range(7, n)))
+    assert C._fused_qft_multilayer(x, n, n).shape == x.shape
+    assert all(v == 0 for v in fused.LAUNCHES.values())
+    assert bigstate.LAUNCHES == {"K10": 0}
+
+
+def test_sigma_swap_is_ported_and_qft_cu_is_built():
+    assert "sigma_swap" not in C._NOT_PORTED
+    assert (build.CSRC / "qft.cu") in build.sources()
+    assert {p.name for p in build.sources()} >= {"window.cu", "paulis.cu",
+                                                  "qft.cu"}
+
+
 def test_kernels_are_not_built_at_import():
     assert "lib" not in build._LIB
     assert "lib" not in fused._BOUND and "lib" not in paulis._BOUND
+    assert "lib" not in bigstate._BOUND
 
 
 def test_other_devices_raise():
