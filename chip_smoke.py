@@ -8,8 +8,8 @@ line:
 
 1. device  - the card's name and power limit; a CUDA device is required.
 2. build   - nvcc builds csrc/window.cu (K1, K2), csrc/paulis.cu (K3,
-             K4) and csrc/qft.cu (K6-K10) into one library, one nvcc
-             process per source.
+             K4), csrc/channels.cu (K5) and csrc/qft.cu (K6-K10) into one
+             library, one nvcc process per source.
 3. parity  - K1 against its plain PyTorch version at 20 qubits (f32 and
              f64, k in {7, 10, 13}, rank 1 and 4, dual / B-only / A-only,
              with and without a mask); K2 against K1 pass by pass
@@ -68,7 +68,33 @@ line:
              bounds, plain versions and library yardsticks (torch.fft for
              the whole QFT); wall time and busy share of fused_qft and
              applyFullQFT.
-12. kernels - one JSON object with every kernel's numbers.
+12. channel_parity - K5 against its plain version, bit for bit: at 2^20
+             amplitudes over its program shapes (lane and sublane ket bits,
+             in-block and grid channels in one sweep of rank 7 = two
+             launches, the top chunk, both kinds mixed, a channel twice in
+             a row, a density layer), and at 2^28 on a config-4 layer (five
+             sweeps); launches as sweep_launch_groups says.
+13. noise_main - bench.py config 4 (one mixDepolarising per qubit, one
+             mixTwoQubitKrausMap on (0, 1), p = 0.05, Kraus seed 5) from
+             |+><+|^n, float32.  14 qubits: the plan of four layers holds
+             four chansweep parts and four apply ops; one layer under
+             gateFusion launches K5 five times, four layers in one drain
+             twenty; that drain bit for bit against its plain route (K5's
+             plain version) on the card; calcFidelity within 1e-5 of the
+             float64 route and of the eager route; calcTotalProb within
+             1e-4 of 1; depolarise-only and damping-only layers within
+             1e-5 relative of (1 - 2p/3)^n and ((1 + sqrt(1-p)) / 2)^n; a
+             depth-2 config-2 gate layer and a noise layer in one drain
+             (K1 and K5) within 1e-5 max|rho| of the eager route.  15
+             qubits (2^30 amplitudes): one fused layer launches no K5 (the
+             per-channel route), within 1e-5 of the eager route, both known
+             answers.
+14. noise_timing - CUDA-event medians of K5 on each sweep of a 14-qubit
+             layer against its bound and plain version, of the Kraus map's
+             apply op and of one per-channel pass; the wall time per layer
+             (fused and eager at 14 qubits, fused at 15) and its device
+             busy share from torch.profiler.
+15. kernels - one JSON object with every kernel's numbers.
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -102,6 +128,12 @@ QFT_SEED = 11
 PAULI_TERMS = 16       # bench.py config 5's Hamiltonian: 16 terms, seed 7
 PAULI_SEED = 7
 TROTTER = (0.1, 2, 1)  # time, order, reps: 32 term rotations
+N_CHAN_PARITY = 20     # bits of K5's parity checks over program shapes
+N_NOISE = 14           # config 4's density register: 2^28 amplitudes, K5
+N_NOISE_BIG = 15       # 2^30 amplitudes: the per-channel route, no K5
+NOISE_P = 0.05         # bench.py config 4's probability
+NOISE_LAYERS = 4       # layers in one drain
+NOISE_SEED = 5         # bench.py config 4's Kraus draw
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bandwidth and the highest rate of each type: FP32 on the CUDA cores (the
@@ -1228,6 +1260,365 @@ def phase_qft_timing(torch, np, qt, C, fused, bigstate):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Density-matrix noise: K5 (the fused pair-channel sweep), bench.py config 4
+# ---------------------------------------------------------------------------
+
+
+def channel_programs(nn):
+    """K5's program shapes at nn >= 16 bits, (kind, ket bit, bra bit)
+    triples: lane and sublane ket bits, in-block and grid channels in one
+    sweep (rank 7: two launches), the top chunk, the two kinds mixed, a
+    channel twice in a row, and a density layer.  tests/
+    test_torch_channels.py holds the plain version to the reference on
+    the same shapes."""
+    n = nn // 2
+    return {
+        "lane": (("depol", 0, 14), ("damping", 3, 15), ("depol", 6, 12)),
+        "sublane": (("damping", 7, 14), ("depol", 10, 15),
+                    ("depol", 13, 11)),
+        "inblock_grid": (("depol", 1, 9), ("damping", 2, 10),
+                         ("depol", 3, 11), ("damping", 4, 12),
+                         ("depol", 5, 14), ("damping", 6, 15),
+                         ("depol", 0, 13)),
+        "top_chunk": (("depol", 2, nn - 1), ("damping", 9, nn - 2),
+                      ("depol", 12, nn - 3)),
+        "mixed": tuple(("depol" if i % 2 else "damping", t, t + n)
+                       for i, t in enumerate(range(n - 6, n))),
+        "repeat": (("depol", 4, 15), ("depol", 4, 15), ("damping", 5, 14),
+                   ("damping", 5, 14)),
+        "density_layer": tuple(("depol", t, t + n) for t in range(min(n, 14))),
+    }
+
+
+def k5_launches(fused, program, nn) -> int:
+    """K5 launches of one sweep run: one per launch group of each sweep."""
+    return sum(len(fused.sweep_launch_groups(entries))
+               for _b0, _k, entries in fused.sweep_schedule(program, nn))
+
+
+def layer_program(n):
+    """The channel run of one config-4 layer: mixDepolarising on every
+    qubit of an n-qubit density register."""
+    return tuple(("depol", t, t + n) for t in range(n))
+
+
+def phase_channel_parity(torch, np, fused):
+    out = {"cases": [], "max_abs_err": 0.0}
+
+    def same(nn, program, label, seed):
+        probs = [0.02 + 0.03 * i for i in range(len(program))]
+        x = random_state(torch, nn, seed)
+        before = fused.LAUNCHES["K5"]
+        y = fused.apply_pair_channel_sweep(x.clone(), program, probs,
+                                           num_bits=nn)
+        launched = fused.LAUNCHES["K5"] - before
+        yp = fused.pair_channel_sweep_plain(x, program, probs, num_bits=nn)
+        sync()
+        check(torch.equal(y, yp), f"K5 {label} at 2^{nn}: not bit-identical "
+              "to its plain version")
+        want = k5_launches(fused, program, nn)
+        check(launched == want, f"K5 {label}: {launched} launches, not "
+              f"{want}")
+        err = max_abs_diff(torch, y, yp) if nn > 24 else float(
+            (y - yp).abs().max())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["cases"].append({"bits": nn, "program": label,
+                             "channels": len(program), "launches": launched,
+                             "max_abs_err": err})
+        del x, y, yp
+        torch.cuda.empty_cache()
+
+    for i, (label, program) in enumerate(
+            channel_programs(N_CHAN_PARITY).items()):
+        same(N_CHAN_PARITY, program, label, 4000 + i)
+    nn = 2 * N_NOISE
+    same(nn, layer_program(N_NOISE), "config4_layer", 4100)
+    return out
+
+
+@contextmanager
+def plain_channel_kernel(fused):
+    """K5's wrapper replaced by its plain version, on the card too, for the
+    length of the block: the plain route of a noise drain."""
+    saved = fused.apply_pair_channel_sweep
+    fused.apply_pair_channel_sweep = fused.pair_channel_sweep_plain
+    try:
+        yield
+    finally:
+        fused.apply_pair_channel_sweep = saved
+
+
+def noise_run(qt, noise, n, kops, *, layers=1, fused=True, kind="config4",
+              dtype=None, gates=None):
+    """A density register from |+><+|^n through ``layers`` noise layers
+    (config 4's, or mixDepolarising / mixDamping on every qubit alone),
+    under gateFusion (one drain) or eagerly, after ``gates(rho)`` in the
+    same drain; returns (register, |+>^n register)."""
+    from contextlib import nullcontext
+
+    env = qt.createQuESTEnv()
+    qt.set_precision(2 if dtype == "float64" else 1)
+    try:
+        rho = qt.createDensityQureg(n, env)
+        psi = qt.createQureg(n, env)
+    finally:
+        qt.set_precision(1)
+    qt.initPlusState(rho)
+    qt.initPlusState(psi)
+    with (qt.gateFusion(rho) if fused else nullcontext()):
+        if gates is not None:
+            gates(rho)
+        for _ in range(layers):
+            if kind == "config4":
+                noise.noise_layer(qt, rho, n, kops, prob=NOISE_P)
+            else:
+                for q in range(n):
+                    (qt.mixDepolarising if kind == "depol"
+                     else qt.mixDamping)(rho, q, NOISE_P)
+    sync()
+    return rho, psi
+
+
+def noise_known(n, kind):
+    """<+|^n rho |+>^n after one depolarise-only or damping-only layer on
+    |+><+|^n: each qubit keeps 1 - 2p/3, or (1 + sqrt(1-p)) / 2."""
+    import math
+
+    per = (1 - 2 * NOISE_P / 3 if kind == "depol"
+           else (1 + math.sqrt(1 - NOISE_P)) / 2)
+    return per ** n
+
+
+def phase_noise_main(torch, np, qt, fused, fusion, noise, circuits):
+    n = N_NOISE
+    nn = 2 * n
+    kops = noise.bench_kraus_ops(NOISE_SEED)
+    per_layer = k5_launches(fused, layer_program(n), nn)
+    out = {"n": n, "state_bits": nn, "p": NOISE_P,
+           "k5_launches_per_layer": per_layer,
+           "sweeps_per_layer": len(fused.sweep_schedule(layer_program(n),
+                                                        nn))}
+    # the plan of one layer: a chansweep part and exactly one apply op for
+    # the Kraus map, on the card as on the CPU
+    from quest_tpu_torch.qureg import Qureg
+
+    shadow = Qureg(n, qt.createQuESTEnv(device="cpu"), True)
+    fusion.start_gate_fusion(shadow)
+    for _ in range(NOISE_LAYERS):
+        noise.noise_layer(qt, shadow, n, kops, prob=NOISE_P)
+    items = list(shadow._fusion.gates)
+    program = fusion.plan_items(items, nn, device=DEVICE, sweep_ok=True)
+    pst = fusion.program_stats(program)
+    check(pst.get("chansweep") == NOISE_LAYERS and pst["apply"] == NOISE_LAYERS
+          and pst["total_passes"] == NOISE_LAYERS,
+          f"the {NOISE_LAYERS}-layer plan is {pst}")
+    out["plan"] = pst
+
+    # (1)-(2) one layer, then four in one drain, counting K5's launches
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    rho, psi = noise_run(qt, noise, n, kops)
+    f1 = qt.calcFidelity(rho, psi)
+    sync()
+    wall1 = time.perf_counter() - t0
+    check(fused.LAUNCHES["K5"] == per_layer,
+          f"one layer launched K5 {fused.LAUNCHES['K5']} times, not "
+          f"{per_layer}")
+    del rho
+    fused.reset_launch_counts()
+    rho, psi = noise_run(qt, noise, n, kops, layers=NOISE_LAYERS)
+    f4 = qt.calcFidelity(rho, psi)
+    launches = dict(fused.LAUNCHES)
+    check(launches["K5"] == NOISE_LAYERS * per_layer,
+          f"{NOISE_LAYERS} layers launched K5 {launches['K5']} times")
+    total = qt.calcTotalProb(rho)
+    check(abs(total - 1.0) <= 1e-4, f"noise: calcTotalProb {total}")
+    check(bool(torch.isfinite(rho.amps).all()), "noise: non-finite state")
+    # (3) the same drain through the plain version of K5, on the card
+    with plain_channel_kernel(fused):
+        rp, _ = noise_run(qt, noise, n, kops, layers=NOISE_LAYERS)
+    check(torch.equal(rho.amps, rp.amps), f"the {NOISE_LAYERS}-layer drain "
+          "is not its plain route's bit for bit")
+    del rp
+    torch.cuda.empty_cache()
+    # (4) against float64 (per channel: the sweep is float32's)
+    r64, p64 = noise_run(qt, noise, n, kops, layers=NOISE_LAYERS,
+                         dtype="float64")
+    f64 = qt.calcFidelity(r64, p64)
+    check(abs(f4 - f64) <= 1e-5, f"fidelity {f4} vs float64 {f64}")
+    del r64, p64
+    torch.cuda.empty_cache()
+    # (5) the eager route
+    re_, pe = noise_run(qt, noise, n, kops, layers=NOISE_LAYERS, fused=False)
+    fe = qt.calcFidelity(re_, pe)
+    check(abs(f4 - fe) <= 1e-5, f"fidelity {f4} vs eager {fe}")
+    del re_, pe
+    torch.cuda.empty_cache()
+    out.update({"fidelity_one_layer": f1, "first_wall_s_one_layer": wall1,
+                "fidelity": f4, "fidelity_f64": f64, "fidelity_eager": fe,
+                "calc_total_prob": total, "launches": launches,
+                "bit_identical_to_plain": True})
+    del rho, psi
+    torch.cuda.empty_cache()
+    # (6) known answers
+    known = {}
+    for kind in ("depol", "damping"):
+        r, p = noise_run(qt, noise, n, kops, kind=kind)
+        f, want = qt.calcFidelity(r, p), noise_known(n, kind)
+        check(abs(f - want) <= 1e-5 * want, f"{kind} layer: fidelity {f} vs "
+              f"{want}")
+        known[kind] = {"fidelity": f, "exact": want,
+                       "rel_err": abs(f - want) / want}
+        del r, p
+        torch.cuda.empty_cache()
+    out["known_answers"] = known
+    # (7) one drain of gates and noise: a depth-2 config-2 layer (ket and
+    # bra twins) then a noise layer, against its eager route
+    us = circuits.bench_unitaries(n, 2, seed=SEED)
+
+    def gates(r):
+        apply_bench_gates(qt, r, us, n)
+
+    fused.reset_launch_counts()
+    rg, pg = noise_run(qt, noise, n, kops, gates=gates)
+    mixed = dict(fused.LAUNCHES)
+    check(mixed["K1"] + mixed["K2"] > 0 and mixed["K5"] == per_layer,
+          f"the gates-and-noise drain launched {mixed}")
+    reg, _ = noise_run(qt, noise, n, kops, gates=gates, fused=False)
+    err = max_abs_diff(torch, rg.amps, reg.amps)
+    tol = 1e-5 * float(reg.amps.abs().max())
+    check(err <= tol, f"gates-and-noise drain vs eager: |err| {err} > {tol}")
+    out["gates_and_noise"] = {"depth": 2, "launches": mixed,
+                              "max_abs_err_vs_eager": err, "tolerance": tol,
+                              "fidelity": qt.calcFidelity(rg, pg)}
+    del rg, pg, reg
+    torch.cuda.empty_cache()
+
+    # 15 qubits (2^30 amplitudes): qubit 14's ket bit is 14, so the run
+    # goes channel by channel (density.apply_pair_channel), no K5
+    m = N_NOISE_BIG
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    rb, pb = noise_run(qt, noise, m, kops)
+    fb = qt.calcFidelity(rb, pb)
+    wall_b = time.perf_counter() - t0
+    check(fused.LAUNCHES["K5"] == 0, f"K5 launched {fused.LAUNCHES['K5']} "
+          f"times at {m} qubits")
+    tb = qt.calcTotalProb(rb)
+    check(abs(tb - 1.0) <= 1e-4, f"{m} qubits: calcTotalProb {tb}")
+    del rb, pb
+    torch.cuda.empty_cache()
+    rb, pb = noise_run(qt, noise, m, kops, fused=False)
+    fbe = qt.calcFidelity(rb, pb)
+    check(abs(fb - fbe) <= 1e-5, f"{m} qubits: fidelity {fb} vs eager {fbe}")
+    del rb, pb
+    torch.cuda.empty_cache()
+    known_b = {}
+    for kind in ("depol", "damping"):
+        r, p = noise_run(qt, noise, m, kops, kind=kind)
+        f, want = qt.calcFidelity(r, p), noise_known(m, kind)
+        check(abs(f - want) <= 1e-5 * want, f"{m} qubits, {kind} layer: "
+              f"fidelity {f} vs {want}")
+        known_b[kind] = {"fidelity": f, "exact": want,
+                         "rel_err": abs(f - want) / want}
+        del r, p
+        torch.cuda.empty_cache()
+    out["big"] = {"n": m, "state_bits": 2 * m, "k5_launches": 0,
+                  "fidelity": fb, "fidelity_eager": fbe,
+                  "calc_total_prob": tb, "first_wall_s": wall_b,
+                  "known_answers": known_b,
+                  "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    return out, launches
+
+
+def phase_noise_timing(torch, np, qt, fused, noise, kernels, density):
+    n = N_NOISE
+    nn = 2 * n
+    kops = noise.bench_kraus_ops(NOISE_SEED)
+    x = random_state(torch, nn, 4200)
+    state_bytes = x.numel() * x.element_size()
+    out = {"device": torch.cuda.get_device_name(0), "n": n,
+           "state_bytes_f32": state_bytes}
+    # K5: each sweep of a config-4 layer, one launch each; the bound is one
+    # read and one write of the state (a few flops an element and channel:
+    # 6 per complex element and channel)
+    program = layer_program(n)
+    probs = [NOISE_P] * n
+    sweeps = []
+    for b0, k, entries in fused.sweep_schedule(program, nn):
+        sub = tuple(program[e[3]] for e in entries)
+        sp = [NOISE_P] * len(sub)
+        t_bytes = 2 * state_bytes / HBM_BYTES_PER_S
+        t_ops = 6.0 * len(sub) * (1 << nn) / PEAK_FLOPS["float32"]
+        sweeps.append({
+            "b0": b0, "k": k, "channels": len(sub),
+            "launches": k5_launches(fused, sub, nn),
+            "ms": time_ms(lambda sub=sub, sp=sp: fused.apply_pair_channel_sweep(
+                x, sub, sp, num_bits=nn)),
+            "plain_ms": time_ms(lambda sub=sub, sp=sp:
+                                fused.pair_channel_sweep_plain(
+                                    x, sub, sp, num_bits=nn),
+                                reps=3, warmup=1),
+            "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"})
+    out["k5_sweeps"] = sweeps
+    out["k5_layer_ms"] = time_ms(lambda: fused.apply_pair_channel_sweep(
+        x, program, probs, num_bits=nn))
+    torch.cuda.empty_cache()
+    # the Kraus map's apply op (a 4-qubit superoperator on bits 0, 1, n,
+    # n + 1 through kernels.apply_matrix), and the per-channel form
+    sup = density.superoperator_from_kraus(kops)
+    from quest_tpu_torch.ops import cplx
+    mat = torch.as_tensor(cplx.soa(sup), dtype=torch.float32, device=DEVICE)
+    out["apply_op_ms"] = time_ms(lambda: kernels.apply_matrix(
+        x, mat, num_qubits=nn, targets=(0, 1, n, n + 1)), reps=3, warmup=1)
+    out["per_channel_ms"] = time_ms(lambda: density.apply_pair_channel(
+        x, "depol", NOISE_P, nn=nn, t=0, b=n), reps=3, warmup=1)
+    del x
+    torch.cuda.empty_cache()
+
+    # wall per layer (median of 3) and the device busy share of one layer
+    def layer(m, fused_route):
+        env = qt.createQuESTEnv()
+        rho = qt.createDensityQureg(m, env)
+        qt.initPlusState(rho)
+        sync()
+
+        def call():
+            if fused_route:
+                with qt.gateFusion(rho):
+                    noise.noise_layer(qt, rho, m, kops, prob=NOISE_P)
+            else:
+                noise.noise_layer(qt, rho, m, kops, prob=NOISE_P)
+
+        samples = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            call()
+            sync()
+            samples.append(time.perf_counter() - t0)
+        wall = statistics.median(samples)
+        dev, seen = device_busy(torch, call, "chan_sweep_kernel")
+        want = (k5_launches(fused, layer_program(m), 2 * m)
+                if fused_route and m < 15 else 0)
+        check(seen in (None, want), f"the profiler saw {seen} K5 launches "
+              f"in one layer at {m} qubits, not {want}")
+        del rho
+        torch.cuda.empty_cache()
+        return {"n": m, "wall_ms": wall * 1e3, "device_ms": dev,
+                "k5_launches_seen": seen,
+                "device_busy_share": None if dev is None
+                else dev / (wall * 1e3)}
+
+    out["layer_fused"] = layer(n, True)
+    out["layer_eager"] = layer(n, False)
+    out["layer_fused_big"] = layer(N_NOISE_BIG, True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1242,9 +1633,9 @@ def main() -> int:
         from quest_tpu_torch import api_ops
         from quest_tpu_torch import circuit as C
         from quest_tpu_torch import fusion
-        from quest_tpu_torch.models import circuits, hamiltonians
-        from quest_tpu_torch.ops import (bigstate, build, cplx, fused, kernels,
-                                         paulis)
+        from quest_tpu_torch.models import circuits, hamiltonians, noise
+        from quest_tpu_torch.ops import (bigstate, build, cplx, density, fused,
+                                         kernels, paulis)
     except ImportError as e:
         print(f"chip_smoke: cannot import quest_tpu_torch ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -1513,7 +1904,23 @@ def main() -> int:
     qtiming = phase_qft_timing(torch, np, qt, C, fused, bigstate)
     emit({"phase": "qft_timing", "power": smi, **qtiming})
 
-    # 12. kernels
+    # 12. K5 against its plain version
+    cparity = phase_channel_parity(torch, np, fused)
+    emit({"phase": "channel_parity", **cparity})
+
+    # 13. bench.py config 4 at 14 qubits (K5) and 15 (per channel)
+    nmain, noise_counts = phase_noise_main(torch, np, qt, fused, fusion,
+                                           noise, circuits)
+    emit({"phase": "noise_main", **nmain})
+    check(noise_counts["K5"] > 0, "K5 never launched on the noise path")
+    launches["K5"] = noise_counts["K5"]
+
+    # 14. noise timing
+    ntiming = phase_noise_timing(torch, np, qt, fused, noise, kernels,
+                                 density)
+    emit({"phase": "noise_timing", "power": smi, **ntiming})
+
+    # 15. kernels
     def entry(kname, replaces, t, err, source="window.cu"):
         key = kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -1555,6 +1962,16 @@ def main() -> int:
                   "passes_2e30": qtiming["k1"],
                   "max_abs_err_2e30": max(c["max_abs_err"]
                                           for c in qparity["k1"])}
+    # K1/K2 in the 14-qubit drain of gates and noise
+    k1e["noise"] = {"launches": nmain["gates_and_noise"]["launches"]["K1"]}
+    k2e["noise"] = {"launches": nmain["gates_and_noise"]["launches"]["K2"]}
+    k5e = entry("K5 pair-channel sweep", "quest_tpu/ops/fused.py:1440",
+                ntiming["k5_sweeps"][0], cparity["max_abs_err"],
+                "channels.cu")
+    k5e["kernel"] = "chan_sweep_kernel"
+    k5e["per_sweep"] = ntiming["k5_sweeps"]
+    k5e["library_note"] = ("none: no single PyTorch call applies a "
+                           "pair-channel sweep")
     k8 = qtiming["k8"]
     k8t = {f: sum(c[f] for c in k8) / len(k8)
            for f in ("ms", "plain_ms", "bound_ms")}
@@ -1580,7 +1997,7 @@ def main() -> int:
         e["library_note"] = "none: no single PyTorch call computes a ladder"
     k10e["library_note"] = ("the same permutation by permute(...)"
                             ".contiguous(), out of place")
-    emit({"kernels": [k1e, k2e, k3e, k4e, k6e, k7e, k8e, k9e, k10e]})
+    emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,10 @@
 The same camelCase QuEST API, the same SoA ``(2, 2^n)`` amplitude layout
 in the same little-endian index order and the same circuit plans as the
 JAX package, running on an NVIDIA card.  The fused window passes that
-carry a circuit's dense work, and the Pauli-term rotations and
-expectation values of Hamiltonian simulation, run in hand-written CUDA
-kernels (``csrc/window.cu``, ``csrc/paulis.cu``, built with nvcc at first
-use).
+carry a circuit's dense work, the Pauli-term rotations and expectation
+values of Hamiltonian simulation, the QFT's ladder layers and the fused
+decoherence-channel sweeps of a density matrix run in hand-written CUDA
+kernels (``csrc/*.cu``, built with nvcc at first use).
 
 Quick start::
 

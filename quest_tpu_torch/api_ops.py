@@ -1,5 +1,6 @@
-"""Public API, part 2: amplitude reads, calculations, Pauli sums and
-Trotter circuits, the quantum Fourier transform, QASM recording.
+"""Public API, part 2: amplitude reads, calculations, decoherence
+channels, Pauli sums and Trotter circuits, the quantum Fourier transform,
+QASM recording.
 
 Continues quest_tpu_torch.api (same conventions).  Reference parity:
 QuEST.c calc* / get* / apply* functions.  Every read drains pending fused
@@ -12,11 +13,16 @@ import math
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from . import circuit as CIRC
+from . import fusion
 from . import validation as V
 from .api import PAULI_I, _shift, _sv_n, hadamard, multiRotatePauli, swapGate
 from .ops import calculations as C
+from .ops import cplx as CX
+from .ops import density as D
+from .ops import gatedefs as G
 from .ops import paulis as P
 from .ops import phasefunc as PF
 from .qureg import PauliHamil, Qureg
@@ -88,6 +94,208 @@ def calcInnerProduct(bra: Qureg, ket: Qureg) -> complex:
     V.validate_matching_qureg_dims(bra, ket, "calcInnerProduct")
     r = C.calc_inner_product(bra.amps, ket.amps).cpu()
     return complex(float(r[0]), float(r[1]))
+
+
+def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
+    """Hilbert-Schmidt inner product Tr(rho1^dag rho2) of two density
+    matrices (QuEST.h:3299)."""
+    V.validate_density_matrix(rho1, "calcDensityInnerProduct")
+    V.validate_density_matrix(rho2, "calcDensityInnerProduct")
+    V.validate_matching_qureg_dims(rho1, rho2, "calcDensityInnerProduct")
+    return float(C.calc_density_inner_product(rho1.amps, rho2.amps))
+
+
+def calcPurity(qureg: Qureg) -> float:
+    """Purity Tr(rho^2) of a density matrix (QuEST.h:3692)."""
+    V.validate_density_matrix(qureg, "calcPurity")
+    return float(C.calc_purity(qureg.amps))
+
+
+def calcFidelity(qureg: Qureg, pureState: Qureg) -> float:
+    """Fidelity of a register against a pure reference state
+    (QuEST.h:3724): <psi|rho|psi>, or |<psi|phi>|^2."""
+    V.validate_second_qureg_state_vec(pureState, "calcFidelity")
+    V.validate_matching_qureg_dims(qureg, pureState, "calcFidelity")
+    if qureg.is_density_matrix:
+        return float(C.calc_fidelity_density(
+            qureg.amps, pureState.amps,
+            num_qubits=qureg.num_qubits_represented))
+    ip = C.calc_inner_product(qureg.amps, pureState.amps).cpu()
+    return float(ip[0] ** 2 + ip[1] ** 2)
+
+
+def calcHilbertSchmidtDistance(a: Qureg, b: Qureg) -> float:
+    """Hilbert-Schmidt distance between two density matrices
+    (QuEST.h:4911)."""
+    V.validate_density_matrix(a, "calcHilbertSchmidtDistance")
+    V.validate_density_matrix(b, "calcHilbertSchmidtDistance")
+    V.validate_matching_qureg_dims(a, b, "calcHilbertSchmidtDistance")
+    return float(C.calc_hilbert_schmidt_distance(a.amps, b.amps))
+
+
+# ---------------------------------------------------------------------------
+# Decoherence (QuEST.c:1259-1331; channels in ops/density.py)
+# ---------------------------------------------------------------------------
+
+
+def _capture_channel(qureg: Qureg, ops, targets) -> bool:
+    """Under gateFusion, buffer a Kraus channel as its superoperator, a
+    dense gate on (T, T+n) that the drain plans with the gates."""
+    if qureg._fusion is None:
+        return False
+    sup = D.superoperator_from_kraus(ops)
+    sv_targets = D.kraus_targets(tuple(targets), qureg.num_qubits_represented)
+    dt = np.float64 if qureg.dtype == torch.float64 else np.float32
+    return fusion.capture_raw(qureg, CX.soa(sup).astype(dt), sv_targets)
+
+
+def _mix_kraus(qureg: Qureg, ops, targets) -> None:
+    """A Kraus channel: captured under gateFusion, else the superoperator
+    applied now (QuEST_common.c:630-652)."""
+    if _capture_channel(qureg, ops, targets):
+        return
+    qureg.amps = D.apply_kraus_map(
+        qureg.amps, ops, num_qubits=qureg.num_qubits_represented,
+        targets=tuple(targets))
+
+
+def mixDephasing(qureg: Qureg, targetQubit: int, prob: float) -> None:
+    """One-qubit dephasing channel (QuEST.h:3421)."""
+    V.validate_density_matrix(qureg, "mixDephasing")
+    V.validate_target(qureg, targetQubit, "mixDephasing")
+    V.validate_one_qubit_dephase_prob(prob, "mixDephasing")
+    if _capture_channel(
+            qureg,
+            [math.sqrt(1 - prob) * G.PAULI_I, math.sqrt(prob) * G.PAULI_Z],
+            (targetQubit,)):
+        return
+    qureg.amps = D.mix_dephasing(
+        qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
+        target=targetQubit)
+
+
+def mixTwoQubitDephasing(qureg: Qureg, qubit1: int, qubit2: int,
+                         prob: float) -> None:
+    """Two-qubit dephasing channel (QuEST.h:3453)."""
+    V.validate_density_matrix(qureg, "mixTwoQubitDephasing")
+    V.validate_unique_targets(qureg, qubit1, qubit2, "mixTwoQubitDephasing")
+    V.validate_two_qubit_dephase_prob(prob, "mixTwoQubitDephasing")
+    i2, z = G.PAULI_I, G.PAULI_Z
+    # Kraus order (q2 (x) q1): matrix bit 0 = qubit1
+    ops = [math.sqrt(1 - prob) * np.kron(i2, i2),
+           math.sqrt(prob / 3) * np.kron(i2, z),
+           math.sqrt(prob / 3) * np.kron(z, i2),
+           math.sqrt(prob / 3) * np.kron(z, z)]
+    if _capture_channel(qureg, ops, (qubit1, qubit2)):
+        return
+    qureg.amps = D.mix_two_qubit_dephasing(
+        qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
+        qubit1=qubit1, qubit2=qubit2)
+
+
+def mixDepolarising(qureg: Qureg, targetQubit: int, prob: float) -> None:
+    """One-qubit depolarising channel (QuEST.h:3496): captured as a
+    ChannelItem under gateFusion, else the elementwise pair form
+    (QuEST_cpu.c:125-246)."""
+    V.validate_density_matrix(qureg, "mixDepolarising")
+    V.validate_target(qureg, targetQubit, "mixDepolarising")
+    V.validate_one_qubit_depol_prob(prob, "mixDepolarising")
+    if fusion.capture_pair_channel(qureg, "depol", targetQubit, prob):
+        return
+    qureg.amps = D.mix_depolarising(
+        qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
+        target=targetQubit)
+
+
+def mixDamping(qureg: Qureg, targetQubit: int, prob: float) -> None:
+    """One-qubit amplitude damping channel (QuEST.h:3534); routed as
+    mixDepolarising (QuEST_cpu.c:300-385)."""
+    V.validate_density_matrix(qureg, "mixDamping")
+    V.validate_target(qureg, targetQubit, "mixDamping")
+    V.validate_one_qubit_damping_prob(prob, "mixDamping")
+    if fusion.capture_pair_channel(qureg, "damping", targetQubit, prob):
+        return
+    qureg.amps = D.mix_damping(
+        qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
+        target=targetQubit)
+
+
+def mixTwoQubitDepolarising(qureg: Qureg, qubit1: int, qubit2: int,
+                            prob: float) -> None:
+    """Two-qubit depolarising channel (QuEST.h:3601): captured as its
+    superoperator under gateFusion, else the elementwise orbit form
+    (QuEST_cpu.c:387-733)."""
+    V.validate_density_matrix(qureg, "mixTwoQubitDepolarising")
+    V.validate_unique_targets(qureg, qubit1, qubit2,
+                              "mixTwoQubitDepolarising")
+    V.validate_two_qubit_depol_prob(prob, "mixTwoQubitDepolarising")
+    if _capture_channel(qureg, D.two_qubit_depolarising_kraus(prob),
+                        (qubit1, qubit2)):
+        return
+    qureg.amps = D.mix_two_qubit_depolarising(
+        qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
+        qubit1=qubit1, qubit2=qubit2)
+
+
+def mixPauli(qureg: Qureg, targetQubit: int, probX: float, probY: float,
+             probZ: float) -> None:
+    """One-qubit Pauli channel with probabilities (pX, pY, pZ)
+    (QuEST.h:3642)."""
+    V.validate_density_matrix(qureg, "mixPauli")
+    V.validate_target(qureg, targetQubit, "mixPauli")
+    V.validate_one_qubit_pauli_probs(probX, probY, probZ, "mixPauli")
+    _mix_kraus(qureg, D.pauli_kraus(probX, probY, probZ), (targetQubit,))
+
+
+def mixDensityMatrix(combineQureg: Qureg, prob: float,
+                     otherQureg: Qureg) -> None:
+    """rho = (1-p) rho + p other (QuEST.h:3664)."""
+    V.validate_density_matrix(combineQureg, "mixDensityMatrix")
+    V.validate_density_matrix(otherQureg, "mixDensityMatrix")
+    V.validate_matching_qureg_dims(combineQureg, otherQureg,
+                                   "mixDensityMatrix")
+    V.validate_prob(prob, "mixDensityMatrix")
+    combineQureg.amps = D.mix_density_matrix(combineQureg.amps,
+                                             otherQureg.amps, prob)
+
+
+def _kraus_list(ops, numOps):
+    ops = list(ops)[: int(numOps)] if numOps is not None else list(ops)
+    return ops
+
+
+def mixKrausMap(qureg: Qureg, target: int, ops,
+                numOps: Optional[int] = None) -> None:
+    """A one-qubit CPTP Kraus map (QuEST.h:4789)."""
+    ops = _kraus_list(ops, numOps)
+    V.validate_density_matrix(qureg, "mixKrausMap")
+    V.validate_target(qureg, target, "mixKrausMap")
+    V.validate_kraus_ops(ops, 1, "mixKrausMap")
+    _mix_kraus(qureg, [np.asarray(o, complex) for o in ops], (target,))
+
+
+def mixTwoQubitKrausMap(qureg: Qureg, target1: int, target2: int, ops,
+                        numOps: Optional[int] = None) -> None:
+    """A two-qubit CPTP Kraus map (QuEST.h:4828)."""
+    ops = _kraus_list(ops, numOps)
+    V.validate_density_matrix(qureg, "mixTwoQubitKrausMap")
+    V.validate_unique_targets(qureg, target1, target2, "mixTwoQubitKrausMap")
+    V.validate_kraus_ops(ops, 2, "mixTwoQubitKrausMap")
+    _mix_kraus(qureg, [np.asarray(o, complex) for o in ops],
+               (target1, target2))
+
+
+def mixMultiQubitKrausMap(qureg: Qureg, targets: Sequence[int], ops,
+                          numOps: Optional[int] = None) -> None:
+    """An N-qubit CPTP Kraus map (QuEST.h:4878)."""
+    ops = _kraus_list(ops, numOps)
+    targets = [int(t) for t in targets]
+    V.validate_density_matrix(qureg, "mixMultiQubitKrausMap")
+    V.validate_multi_targets(qureg, targets, "mixMultiQubitKrausMap")
+    V.validate_multi_qubit_matrix_fits_in_node(qureg, 2 * len(targets),
+                                               "mixMultiQubitKrausMap")
+    V.validate_kraus_ops(ops, len(targets), "mixMultiQubitKrausMap")
+    _mix_kraus(qureg, [np.asarray(o, complex) for o in ops], tuple(targets))
 
 
 # ---------------------------------------------------------------------------

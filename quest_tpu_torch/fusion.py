@@ -17,8 +17,14 @@ Semantics are identical to the unfused path: validation and QASM
 recording happen per call, in call order, and any read of the state
 drains the buffer first via the ``Qureg.amps`` property.  A drain splits
 the optimized stream into runs of permutation gates (lowered to
-matrix-free index ops) and dense runs (planned into window passes), and
-executes them in order on the register's tensor.
+matrix-free index ops), dense runs (planned into window passes) and runs
+of decoherence channels, and executes them in order on the register's
+tensor.  On a density register a Kraus channel is buffered as its
+superoperator, a dense gate on (T, T+n) (``capture_raw``); depolarising
+and damping are buffered as ``ChannelItem``s (``capture_pair_channel``),
+and a run of them drains through the K5 sweep kernel on the card
+(``fused.apply_pair_channel_sweep``) or channel by channel
+(``density.apply_pair_channel``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 from . import circuit as C
 from . import optimizer as _opt
 from .ops import cplx as _cplx
+from .ops import density as _density
 from .ops import fused as _fused
 
 # largest dense gate (targets + controls) worth buffering; anything bigger
@@ -42,7 +49,8 @@ class FusionBuffer:
     __slots__ = ("gates",)
 
     def __init__(self):
-        self.gates: List[C.Gate] = []
+        # C.Gate and ChannelItem entries, executed in order by the drain
+        self.gates: List[object] = []
 
 
 def start_gate_fusion(qureg) -> None:
@@ -75,16 +83,35 @@ _PLAN_CACHE_MAX = 64
 _plan_cache: dict = {}
 
 
-def _plan_key(items, nloc: int, device=None):
-    """Content key for an item list: the matrices' bytes plus the knob
-    that changes the plan (megawin grouping)."""
+class ChannelItem:
+    """A captured depolarise / damping channel, buffered between gate
+    segments and run by the drain in call order.  ``prob`` is a run-time
+    value: the plan of a drain does not depend on it."""
+
+    __slots__ = ("kind", "target", "bra", "prob")
+
+    def __init__(self, kind: str, target: int, bra: int, prob: float):
+        self.kind = kind
+        self.target = target       # ket bit position in the state vector
+        self.bra = bra             # bra twin bit (target + numQubits)
+        self.prob = float(prob)
+
+
+def _plan_key(items, nloc: int, sweep_ok: bool, device=None):
+    """Content key for an item list: the gate matrices' bytes, each
+    channel's (kind, target, bra) (its probability is a run-time value),
+    whether channel runs may sweep, and the knob that changes the plan
+    (megawin grouping)."""
     parts = []
     for it in items:
+        if isinstance(it, ChannelItem):
+            parts.append(("chan", it.kind, it.target, it.bra))
+            continue
         m = it.mat
         if not isinstance(m, np.ndarray):
             return None
         parts.append((it.targets, m.dtype.str, m.shape, m.tobytes()))
-    return (nloc, _fused.megakernel_planning(device), tuple(parts))
+    return (nloc, sweep_ok, _fused.megakernel_planning(device), tuple(parts))
 
 
 # minimum adjacent permutation-classified gates worth splitting out of a
@@ -121,33 +148,59 @@ def _perm_runs(seg):
     return runs
 
 
-def _split_items(items, nloc: int, device=None):
-    """Gate items -> program: a tuple of ("perm", ops) and ("plan", ops)
-    parts executed in order."""
+def _split_items(items, nloc: int, sweep_ok: bool, device=None):
+    """Items -> program: a tuple of ("perm", ops), ("plan", ops),
+    ("chan", kind, t, b) and ("chansweep", ((kind, t, b), ...)) parts
+    executed in order (channel probabilities are walked at run time).
+    With ``sweep_ok``, a run of consecutive channels whose ket bits all
+    lie below 14 on a register of 15 bits or more is one chansweep part
+    (fused.apply_pair_channel_sweep)."""
     program = []
-    for kind, sub in _perm_runs(items):
-        if kind == "perm":
-            ops = C.lower_permutation_run(sub, nloc)
-            if ops:
-                program.append(("perm", tuple(ops)))
+    seg: list = []
+    chans: list = []
+
+    def flush_gates():
+        for kind, sub in _perm_runs(seg):
+            if kind == "perm":
+                ops = C.lower_permutation_run(sub, nloc)
+                if ops:
+                    program.append(("perm", tuple(ops)))
+            else:
+                program.append(("plan", tuple(C.plan_circuit(
+                    list(sub), nloc, device=device))))
+        seg.clear()
+
+    def flush_chans():
+        if not chans:
+            return
+        if (sweep_ok and nloc >= _fused.CLUSTER_QUBITS + 1
+                and all(t < _fused.CLUSTER_QUBITS for _k, t, _b in chans)):
+            program.append(("chansweep", tuple(chans)))
         else:
-            program.append(("plan", tuple(C.plan_circuit(list(sub), nloc,
-                                                         device=device))))
+            program.extend(("chan", kind, t, b) for kind, t, b in chans)
+        chans.clear()
+
+    for it in items:
+        if isinstance(it, ChannelItem):
+            flush_gates()
+            chans.append((it.kind, it.target, it.bra))
+        else:
+            flush_chans()
+            seg.append(it)
+    flush_chans()
+    flush_gates()
     return tuple(program)
 
 
-def plan_items(items, num_qubits: int, device=None):
-    """The program a drain of ``items`` on an n-qubit register on
-    ``device`` executes: the optimized stream split into permutation and
-    planned parts (cached on the items' content)."""
-    items, _stats = _opt.optimize_items(items, nloc=num_qubits)
+def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool):
+    """The program of an optimized item list (cached on its content)."""
     if not items:
         return ()
-    key = _plan_key(items, num_qubits, device)
+    key = _plan_key(items, num_qubits, sweep_ok, device)
     hit = _plan_cache.get(key) if key is not None else None
     if hit is not None:
         return hit
-    program = _split_items(items, num_qubits, device)
+    program = _split_items(items, num_qubits, sweep_ok, device)
     if key is not None:
         if len(_plan_cache) >= _PLAN_CACHE_MAX:
             _plan_cache.pop(next(iter(_plan_cache)))
@@ -155,25 +208,62 @@ def plan_items(items, num_qubits: int, device=None):
     return program
 
 
+def plan_items(items, num_qubits: int, device=None, sweep_ok: bool = False):
+    """The program a drain of ``items`` on an n-qubit register on
+    ``device`` executes: the optimized stream split into permutation,
+    planned and channel parts (cached on the items' content).  A drain
+    passes ``sweep_ok = fused.channel_sweep_enabled(state)``."""
+    items, _stats = _opt.optimize_items(items, nloc=num_qubits)
+    return _plan_optimized(items, num_qubits, device, sweep_ok)
+
+
 def program_stats(program) -> dict:
-    """circuit.stats summed over a program's parts."""
+    """circuit.stats summed over a program's planned parts, plus its
+    channel parts: "chan" (one channel each) and "chansweep" (a run)."""
     total: dict = {}
-    for _kind, ops in program:
-        for k, v in C.stats(ops).items():
+    for part in program:
+        if part[0] in ("chan", "chansweep"):
+            total[part[0]] = total.get(part[0], 0) + 1
+            continue
+        for k, v in C.stats(part[1]).items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+def execute_program(amps, program, probs, num_qubits: int):
+    """Run a program's parts in order; ``probs`` holds the probability of
+    each of its channels, in order.  Returns the new state (a sweep
+    overwrites a float32 state on the card in place)."""
+    n = num_qubits
+    pi = 0
+    for part in program:
+        if part[0] == "chansweep":
+            entries = part[1]
+            amps = _fused.apply_pair_channel_sweep(
+                amps, entries, probs[pi:pi + len(entries)], num_bits=n)
+            pi += len(entries)
+        elif part[0] == "chan":
+            _, kind, t, b = part
+            amps = _density.apply_pair_channel(amps, kind, probs[pi], nn=n,
+                                               t=t, b=b)
+            pi += 1
+        else:
+            amps = C.execute_plan(amps, part[1], n)
+    return amps
 
 
 def _run(qureg, items) -> None:
     """Plan with the concrete gate matrices (so controlled gates Schmidt-
     decompose to their true rank), then execute the program on the
-    register's tensor."""
+    register's tensor, with the channels' probabilities in stream
+    order."""
     n = qureg.num_qubits_in_state_vec
-    program = plan_items(items, n, qureg.device)
     amps = qureg._amps
-    for _kind, ops in program:
-        amps = C.execute_plan(amps, ops, n)
-    qureg._amps = amps
+    items, _stats = _opt.optimize_items(items, nloc=n)
+    program = _plan_optimized(items, n, qureg.device,
+                              _fused.channel_sweep_enabled(amps))
+    probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
+    qureg._amps = execute_program(amps, program, probs, n)
 
 
 def _capturable(qureg, bits) -> bool:
@@ -205,6 +295,30 @@ def capture_unitary(qureg, stacked, targets, controls=(),
         buf.gates.append(
             C.Gate(tuple(t + sh for t in targets)
                    + tuple(c + sh for c in controls), cmat))
+    return True
+
+
+def capture_raw(qureg, stacked, targets) -> bool:
+    """Buffer a dense matrix on state-vector bit positions ``targets`` with
+    no density-matrix twin: a decoherence channel's superoperator, which
+    already acts on the combined (T, T+n) targets (QuEST_common.c:630-652),
+    so it folds into the drain's planned passes like a gate."""
+    if not _capturable(qureg, tuple(targets)):
+        drain(qureg)
+        return False
+    qureg._fusion.gates.append(C.Gate(tuple(targets), stacked))
+    return True
+
+
+def capture_pair_channel(qureg, kind: str, target: int, prob) -> bool:
+    """Buffer a depolarise / damping channel as a ChannelItem, run by the
+    drain in call order between the gate segments (not as a superoperator
+    fold: these channels have operator-Schmidt rank 4 across (t, t+n))."""
+    sh = qureg.num_qubits_represented
+    if not _capturable(qureg, (target, target + sh)):
+        drain(qureg)
+        return False
+    qureg._fusion.gates.append(ChannelItem(kind, target, target + sh, prob))
     return True
 
 

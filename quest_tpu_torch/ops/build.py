@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Every source under ``csrc/`` (``window.cu``: K1, K2; ``paulis.cu``: K3,
-K4; ``qft.cu``: K6-K10) is compiled with nvcc for ``sm_90a`` into one shared library with a
-plain C interface, in the git-ignored ``_build/`` directory of the
+K4; ``channels.cu``: K5; ``qft.cu``: K6-K10) is compiled with nvcc for
+``sm_90a`` into one shared library with a plain C interface, in the git-ignored ``_build/`` directory of the
 package, at first use.  The library's name carries a hash of all sources
 and flags, so an edited source is rebuilt and an unchanged one is not.
 The sources compile in parallel, one nvcc process each, and link in one

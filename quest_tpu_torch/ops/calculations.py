@@ -1,4 +1,4 @@
-"""Reductions: probabilities and inner products.
+"""Reductions: probabilities, inner products, purity and fidelity.
 
 Counterparts of the JAX package's ``ops/calculations.py`` (reference
 ``calc*`` kernels, QuEST_cpu.c:3363-3645), as single PyTorch reductions
@@ -82,3 +82,36 @@ def calc_inner_product(bra_amps, ket_amps):
     """<bra|ket> -> stacked (2,) (statevec_calcInnerProductLocal,
     QuEST_cpu.c:1071)."""
     return cplx.vdot(bra_amps, ket_amps)
+
+
+def calc_density_inner_product(rho1_amps, rho2_amps):
+    """Re Tr(rho1^dagger rho2) (densmatr_calcInnerProductLocal,
+    QuEST_cpu.c:958)."""
+    return torch.sum(rho1_amps[0] * rho2_amps[0]
+                     + rho1_amps[1] * rho2_amps[1])
+
+
+def calc_purity(rho_amps):
+    """Tr(rho^2) = sum |rho_rc|^2 for Hermitian rho (calcPurityLocal,
+    QuEST_cpu.c:861)."""
+    return torch.sum(cplx.abs2(rho_amps))
+
+
+def calc_fidelity_density(rho_amps, psi_amps, *, num_qubits: int):
+    """<psi|rho|psi> (densmatr_calcFidelityLocal, QuEST_cpu.c:990): two
+    matrix-vector products per plane (the JAX package leaves them to XLA
+    likewise), then one reduction."""
+    dim = 1 << num_qubits
+    m = rho_amps.reshape(2, dim, dim)   # [channel, col, row]
+    p0, p1 = psi_amps[0], psi_amps[1]
+    # v_c = sum_r rho_{r,c} conj(psi_r)
+    v_re = torch.matmul(m[0], p0) + torch.matmul(m[1], p1)
+    v_im = torch.matmul(m[1], p0) - torch.matmul(m[0], p1)
+    # Re(sum_c psi_c v_c)
+    return torch.sum(p0 * v_re - p1 * v_im)
+
+
+def calc_hilbert_schmidt_distance(rho1_amps, rho2_amps):
+    """sqrt(sum |rho1 - rho2|^2) (calcHilbertSchmidtDistanceSquaredLocal,
+    QuEST_cpu.c:923)."""
+    return torch.sqrt(torch.sum(cplx.abs2(rho1_amps - rho2_amps)))

@@ -32,9 +32,16 @@ four entries:
 K6 is a launch of K8's kernel with one layer and K7 one of K9's with one
 layer: they compute the same products from tables of the same layout.
 
+A run of depolarise / damping channels on a density register runs in the
+fifth kernel (``csrc/channels.cu``): K5, ``apply_pair_channel_sweep``,
+chunked into sweeps as the reference chunks them (replaces
+``_chan_sweep_pass``), each sweep one launch per orbit group of at most
+rank 4, in place.
+
 Beside each sits its plain PyTorch version (``window_pass_plain``,
 ``megawin_plain``, ``qft_ladder_plain``, ``qft_ladder_lo_plain``,
-``qft_multi_hi_plain``, ``qft_cluster_multi_plain``): the wrappers run it
+``qft_multi_hi_plain``, ``qft_cluster_multi_plain``,
+``pair_channel_sweep_plain``): the wrappers run it
 for a tensor on the CPU, and launch the kernel or raise for a tensor on
 the card.  Each wrapper counts its kernel launches in ``LAUNCHES``.
 """
@@ -193,7 +200,7 @@ class _QtPass(ctypes.Structure):
 
 _BOUND: dict = {}
 # launches of each kernel, counted where its wrapper launches it
-LAUNCHES = {"K1": 0, "K2": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
 
 
 def _lib():
@@ -726,6 +733,290 @@ def apply_qft_multilayer_ladders(amps, *, num_qubits: int, t_top: int,
                                   t_lo=t_lo)
         t = t_lo - 1
     return apply_qft_cluster_multi(amps, num_qubits=num_qubits)
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused pair-channel sweep
+# ---------------------------------------------------------------------------
+#
+# A depolarise / damping channel on a density register pairs each element
+# with its double-flip partner (ket bit t, bra bit b) and combines the two
+# with block weights (ops/density.py _pair_channel).  The reference runs a
+# run of such channels in few passes over the state: channels whose bra
+# bit lies above the 14-bit block are chunked by bra bit, three bits a
+# sweep, in call order within a chunk (channels of different chunks act on
+# disjoint bit pairs and commute); channels whose bra bit lies in the
+# block ride the first sweep.  The port keeps that chunking: a sweep is one
+# K5 launch per orbit group (csrc/channels.cu).
+
+_CHAN_SWEEP_RADIX = 3      # grid bra bits per sweep, the reference's chunk
+CHAN_MAX_RANK = 4          # csrc/channels.cu MAX_RANK
+CHAN_MAX_ENTRIES = 32      # csrc/channels.cu MAX_ENTRIES
+_NUMPY_REAL = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def channel_sweep_enabled(amps) -> bool:
+    """Whether a fusion drain on ``amps`` runs its channel runs through
+    sweeps: a float32 state on the card (the reference's "float32 and not
+    interpret").  Elsewhere each channel runs alone (ops/density.py)."""
+    return amps.dtype == torch.float32 and amps.device.type == "cuda"
+
+
+def channel_weights(kind: str, prob, dtype) -> np.ndarray:
+    """(w_same0, w_same1, w_diff, w2_00, w2_11) of one channel in the real
+    type ``dtype`` (NumPy or torch), computed on the host in the
+    reference's order of operations (fused.py:1459-1471)."""
+    f = np.dtype(_NUMPY_REAL.get(dtype, dtype)).type
+    p, one = f(prob), f(1)
+    if kind == "depol":
+        return np.array([one - f(2) * p / f(3), one - f(2) * p / f(3),
+                         one - f(4) * p / f(3), f(2) * p / f(3) * one,
+                         f(2) * p / f(3) * one], dtype=f)
+    if kind == "damping":
+        return np.array([one, one - p, np.sqrt(one - p), p * one,
+                         f(0) * one], dtype=f)
+    raise ValueError(f"unknown pair channel {kind!r}")
+
+
+def channel_entry_tables(w: np.ndarray, grid: bool) -> np.ndarray:
+    """(2, 4) weights (w1, w2) of one sweep entry at (kt, kb) = (0,0),
+    (0,1), (1,0), (1,1), from its (5,) ``channel_weights``: the reference
+    kernel's formulas evaluated at each bit pattern in the weights' type.
+    A grid entry (bra bit >= 14) takes the exact select of fused.py:1413-
+    1416; an in-block entry wd + (ws0-wd) k0b0 + (ws1-wd) k1b1 of :1400,
+    which rounds the diagonal weights once more."""
+    f = w.dtype.type
+    ws0, ws1, wd, w2_00, w2_11 = w
+    out = np.empty((2, 4), dtype=w.dtype)
+    for kt in (0, 1):
+        for kb in (0, 1):
+            ft, fb = f(kt), f(kb)
+            if grid and kb == 0:
+                w1, w2 = ws0 * (f(1) - ft) + wd * ft, w2_00 * (f(1) - ft)
+            elif grid:
+                w1, w2 = wd * (f(1) - ft) + ws1 * ft, w2_11 * ft
+            else:
+                k1b1 = ft * fb
+                k0b0 = (f(1) - ft) * (f(1) - fb)
+                w1 = wd + (ws0 - wd) * k0b0 + (ws1 - wd) * k1b1
+                w2 = w2_00 * k0b0 + w2_11 * k1b1
+            out[:, 2 * kt + kb] = (w1, w2)
+    return out
+
+
+def _check_sweep(program, probs, nn: int) -> None:
+    """The reference's preconditions (fused.py:1486-1501), with its
+    messages, plus the port's own: one probability per channel, two
+    distinct bits per channel."""
+    if nn < CLUSTER_QUBITS + 1:
+        raise ValueError("apply_pair_channel_sweep needs num_bits >= 15")
+    if len(probs) != len(program):
+        raise ValueError(f"apply_pair_channel_sweep: {len(program)} "
+                         f"channels but {len(probs)} probabilities")
+    pair_of = {}
+    for _kind, t, b in program:
+        if t >= CLUSTER_QUBITS or b >= nn:
+            raise ValueError("sweep channels need ket bit < 14")
+        if t == b or min(t, b) < 0:
+            raise ValueError("sweep channels need two distinct bits")
+        # chunks are keyed on the bra bit: channels sharing a bra bit
+        # must share the ket bit, or call order across non-commuting
+        # chunks could be rearranged
+        if pair_of.setdefault(b, t) != t:
+            raise ValueError(
+                "apply_pair_channel_sweep: channels sharing a bra bit "
+                "must share the ket bit (chunking is keyed on the bra "
+                "bit; mixed pairs would reorder non-commuting channels)")
+
+
+def sweep_schedule(program, num_bits: int) -> list:
+    """The sweeps of a channel program, chunked as the reference chunks
+    them (fused.py:1514-1534): [(b0, k, entries)], bra bits [b0, b0+k)
+    co-resident, each entry (t, b, pbit, wi) with pbit = b - b0 for a grid
+    entry and None for an in-block one (bra bit < 14, first sweep), wi
+    the channel's index in ``program``."""
+    nn, radix = num_bits, _CHAN_SWEEP_RADIX
+    chunks, inblock = [], []
+    for wi, (_kind, t, b) in enumerate(program):
+        if b < CLUSTER_QUBITS:
+            inblock.append((t, b, None, wi))
+            continue
+        for b0, entries in chunks:
+            if b0 <= b < b0 + min(radix, nn - b0):
+                entries.append((t, b, b - b0, wi))
+                break
+        else:
+            b0 = max(CLUSTER_QUBITS, min(b, nn - radix))
+            chunks.append((b0, [(t, b, b - b0, wi)]))
+    if not chunks:
+        chunks.append((CLUSTER_QUBITS, []))
+    if inblock:
+        chunks[0][1][:0] = inblock
+    return [(b0, min(radix, nn - b0), tuple(entries))
+            for b0, entries in chunks]
+
+
+def sweep_launch_groups(entries) -> list:
+    """A sweep's entries, in order, as K5 launches: consecutive runs whose
+    flip masks (1<<t)|(1<<b) have rank <= CHAN_MAX_RANK over GF(2), of at
+    most CHAN_MAX_ENTRIES entries.  Each group is (entries, pivots, orbit,
+    subsets): the reduced echelon basis's pivot bits (ascending), the XOR
+    of the basis vectors in each subset j < 2^r, and per entry the subset
+    whose XOR is its mask."""
+    groups, cur, basis = [], [], {}
+
+    def reduce(m):
+        for p, v in basis.items():
+            if (m >> p) & 1:
+                m ^= v
+        return m
+
+    def finish():
+        pivots = sorted(basis)
+        vecs = [basis[p] for p in pivots]
+        orbit = []
+        for j in range(1 << len(vecs)):
+            acc = 0
+            for i, v in enumerate(vecs):
+                if (j >> i) & 1:
+                    acc ^= v
+            orbit.append(acc)
+        subsets = []
+        for t, b, _pbit, _wi in cur:
+            m = (1 << t) | (1 << b)
+            s = sum(1 << i for i, p in enumerate(pivots) if (m >> p) & 1)
+            assert orbit[s] == m
+            subsets.append(s)
+        groups.append((tuple(cur), tuple(pivots), tuple(orbit),
+                       tuple(subsets)))
+
+    for e in entries:
+        m = (1 << e[0]) | (1 << e[1])
+        r = reduce(m)
+        if cur and (len(cur) == CHAN_MAX_ENTRIES
+                    or (r and len(basis) == CHAN_MAX_RANK)):
+            finish()
+            cur, basis = [], {}
+            r = m
+        if r:
+            p = r.bit_length() - 1
+            for q in basis:
+                if (basis[q] >> p) & 1:
+                    basis[q] ^= r
+            basis[p] = r
+        cur.append(e)
+    if cur:
+        finish()
+    return groups
+
+
+def _sweep_entry_plain(x, nn: int, t: int, b: int, tab):
+    """One sweep entry on the whole state, as a new tensor: x * w1 +
+    partner * w2, three roundings as K5 takes them."""
+    lo, hi = min(t, b), max(t, b)
+    v = x.reshape(2, 1 << (nn - 1 - hi), 2, 1 << (hi - 1 - lo), 2, 1 << lo)
+    part = torch.flip(v, dims=(2, 4))
+    w = torch.as_tensor(tab, device=x.device).reshape(2, 2, 2)  # [., kt, kb]
+    w = w if t > b else w.transpose(1, 2)        # [., hi bit, lo bit]
+    w1 = w[0].reshape(1, 1, 2, 1, 2, 1)
+    w2 = w[1].reshape(1, 1, 2, 1, 2, 1)
+    return (v * w1 + part * w2).reshape(x.shape)
+
+
+def pair_channel_sweep_plain(amps, program, probs, *, num_bits: int):
+    """The plain version of K5 (the reference's apply_pair_channel_sweep
+    over _chan_sweep_kernel): the same sweeps, each entry applied to the
+    whole state in order, in the state's type; a new tensor."""
+    program = tuple(program)
+    _check_sweep(program, probs, num_bits)
+    wts = [channel_weights(kind, p, amps.dtype)
+           for (kind, _t, _b), p in zip(program, probs)]
+    x = amps
+    for _b0, _k, entries in sweep_schedule(program, num_bits):
+        for t, b, pbit, wi in entries:
+            x = _sweep_entry_plain(x, num_bits, t, b, channel_entry_tables(
+                wts[wi], pbit is not None))
+    return x
+
+
+def _chan_lib():
+    """The kernel library with K5's entry declared."""
+    if "chan" not in _BOUND:
+        lib = build.library()
+        ptr = ctypes.c_void_p
+        lib.qt_chan_sweep_f32.argtypes = [
+            ptr, ctypes.c_longlong, ctypes.c_int, ptr, ptr, ctypes.c_int,
+            ptr, ptr, ptr, ptr, ctypes.c_int, ptr]
+        lib.qt_chan_sweep_f32.restype = ctypes.c_int
+        for name in ("qt_chan_max_rank", "qt_chan_max_entries",
+                     "qt_chan_threads"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        if (lib.qt_chan_max_rank(), lib.qt_chan_max_entries()) != (
+                CHAN_MAX_RANK, CHAN_MAX_ENTRIES):
+            raise RuntimeError("csrc/channels.cu and ops/fused.py disagree "
+                               "on MAX_RANK / MAX_ENTRIES")
+        _BOUND["chan"] = lib
+        _BOUND["chan_threads"] = lib.qt_chan_threads()
+    return _BOUND["chan"]
+
+
+def _launch_chan(amps, nn: int, group, wts) -> None:
+    """One K5 launch over ``group`` (sweep_launch_groups), in place."""
+    entries, pivots, orbit, subsets = group
+    lib = _chan_lib()
+    r = len(pivots)
+    i32 = np.int32
+    piv = np.asarray(pivots, i32)
+    orb = np.asarray(orbit, np.uint64)
+    ts = np.asarray([e[0] for e in entries], i32)
+    bs = np.asarray([e[1] for e in entries], i32)
+    ss = np.asarray(subsets, i32)
+    w = np.ascontiguousarray(np.stack([
+        channel_entry_tables(wts[e[3]], e[2] is not None)
+        for e in entries]), dtype=np.float32)
+    threads = _BOUND["chan_threads"]
+    sms = torch.cuda.get_device_properties(amps.device).multi_processor_count
+    blocks = max(1, min(-(-(1 << (nn - r)) // threads), 8 * sms))
+    stream = torch.cuda.current_stream(amps.device).cuda_stream
+    build.raise_on(lib.qt_chan_sweep_f32(
+        amps.data_ptr(), 1 << nn, r, piv.ctypes.data, orb.ctypes.data,
+        len(entries), ts.ctypes.data, bs.ctypes.data, ss.ctypes.data,
+        w.ctypes.data, blocks, stream), "apply_pair_channel_sweep")
+    LAUNCHES["K5"] += 1
+
+
+def apply_pair_channel_sweep(amps, program, probs, *, num_bits: int):
+    """Run an ordered sequence of pair channels ``program`` = ((kind, t,
+    b), ...) with probabilities ``probs`` in few passes (K5): every t, and
+    every b below 14, under 14, and num_bits >= 15.  On the card the
+    kernel overwrites the float32 state in place and returns it, one
+    launch per group of sweep_launch_groups in each sweep of
+    sweep_schedule; a CPU tensor takes the plain version (a new
+    tensor)."""
+    program = tuple(program)
+    nn = num_bits
+    _check_sweep(program, probs, nn)
+    if amps.device.type == "cpu":
+        return pair_channel_sweep_plain(amps, program, probs, num_bits=nn)
+    if amps.device.type != "cuda":
+        raise RuntimeError(f"apply_pair_channel_sweep: no kernel for device "
+                           f"{amps.device}")
+    if amps.dtype != torch.float32:
+        raise TypeError(f"apply_pair_channel_sweep: state dtype {amps.dtype} "
+                        "is not float32")
+    if not amps.is_contiguous():
+        raise ValueError("apply_pair_channel_sweep: the state must be "
+                         "contiguous")
+    if amps.numel() != 2 << nn:
+        raise ValueError(f"apply_pair_channel_sweep: a state of "
+                         f"{tuple(amps.shape)} is not (2, 2^{nn})")
+    wts = [channel_weights(kind, p, np.float32)
+           for (kind, _t, _b), p in zip(program, probs)]
+    for _b0, _k, entries in sweep_schedule(program, nn):
+        for group in sweep_launch_groups(entries):
+            _launch_chan(amps, nn, group, wts)
+    return amps
 
 
 def reset_launch_counts() -> None:

@@ -191,6 +191,35 @@ def parity_sign_flat(n: int, qubits, dtype, device):
     return parity_sign_2d(n, qubits, dtype, device).reshape(-1)
 
 
+def _split2(n: int):
+    """(hi_bits, lo_bits) split of n index bits: the (2^hi, 2^lo) view
+    that parity_sign_2d and bit_2d broadcast over."""
+    lo = n // 2
+    return n - lo, lo
+
+
+def bit_2d(n: int, q: int, device):
+    """Per-amplitude value (int64 0/1) of bit q, broadcastable over the
+    (2^hi, 2^lo) = _split2(n) view of the state: (1, 2^lo) for a lane-half
+    bit, (2^hi, 1) for a row-half bit."""
+    hi, lo = _split2(n)
+    if q < lo:
+        return ((torch.arange(1 << lo, device=device) >> q) & 1)[None, :]
+    return ((torch.arange(1 << hi, device=device) >> (q - lo)) & 1)[:, None]
+
+
+def _flip_bits_flat(amps, n: int, targets):
+    """X on each target bit: the index-space reversal of each target's
+    size-2 axis of the interleaved view, as a new (2, 2^n) tensor.  The
+    JAX package splits this into a lane matmul and half-swaps for
+    n >= 14 to keep its TPU layout; the permutation is the same."""
+    if not targets:
+        return amps
+    shape, axis_of = _interleaved(n, targets)
+    view = amps.reshape(shape)
+    return torch.flip(view, dims=[axis_of[t] for t in targets]).reshape(2, -1)
+
+
 def apply_parity_phase(amps, theta, *, num_qubits: int,
                        qubits: Tuple[int, ...], controls: Tuple[int, ...] = (),
                        control_states: Tuple[int, ...] = ()):

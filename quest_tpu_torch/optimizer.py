@@ -18,6 +18,10 @@ This is the reference's default mode ``on``; its ``off`` and
 ``aggressive`` modes (``QT_OPTIMIZER``, ``setCircuitOptimizer``) are not
 ported.  The commutation-aware reordering of the reference applies to
 sharded registers only and arrives with multi-device sharding.
+
+Channels (``fusion.ChannelItem``) are never composed or dropped; a gate
+looks back past one only when their supports are disjoint, so channels
+keep their order relative to each other and to every gate they touch.
 """
 
 from __future__ import annotations
@@ -36,12 +40,21 @@ _CACHE_MAX = 128
 _cache: dict = {}
 
 
+def _is_gate(it) -> bool:
+    return isinstance(it, C.Gate)
+
+
 def _concrete(it) -> bool:
-    return isinstance(it.mat, np.ndarray) and it.mat.ndim == 3
+    return _is_gate(it) and isinstance(it.mat, np.ndarray) \
+        and it.mat.ndim == 3
 
 
 def _bits(it) -> frozenset:
-    return frozenset(it.targets)
+    """The state-vector bits an item touches: a gate's targets, a
+    channel's ket and bra bits."""
+    if _is_gate(it):
+        return frozenset(it.targets)
+    return frozenset((it.target, it.bra))
 
 
 def _is_diag(it) -> bool:
@@ -60,10 +73,13 @@ def _mats_commute(a: np.ndarray, b: np.ndarray) -> bool:
 
 
 def _commutes(a, b, diag_a: bool, diag_b: bool) -> bool:
-    """May gates ``a`` and ``b`` swap order?  Disjoint supports, both
-    diagonal, or the same targets with numerically commuting matrices."""
+    """May items ``a`` and ``b`` swap order?  Disjoint supports, both
+    diagonal, or the same targets with numerically commuting matrices; a
+    channel commutes only by disjointness."""
     if not (_bits(a) & _bits(b)):
         return True
+    if not (_is_gate(a) and _is_gate(b)):
+        return False
     if diag_a and diag_b:
         return True
     if (tuple(a.targets) == tuple(b.targets) and _concrete(a)
@@ -204,8 +220,13 @@ def _rewrite(items: list, nloc: int) -> tuple:
 
 
 def _content_key(items, nloc: int):
+    """Memoization key: gate content bytes, and (kind, target, bra) for a
+    channel, whose probability is a run-time value."""
     parts = []
     for it in items:
+        if not _is_gate(it):
+            parts.append(("chan", it.kind, it.target, it.bra))
+            continue
         mat = it.mat
         if not isinstance(mat, np.ndarray):
             return None
@@ -214,10 +235,23 @@ def _content_key(items, nloc: int):
     return (nloc, tuple(parts))
 
 
+def _freeze_out(items, out) -> tuple:
+    """Cache form of a rewritten stream: each channel is replaced by its
+    input index, so a hit splices in the current call's channels (and
+    their probabilities), not the first call's."""
+    pos = {id(it): i for i, it in enumerate(items)}
+    return tuple(it if _is_gate(it) else ("__chan__", pos[id(it)])
+                 for it in out)
+
+
+def _thaw_out(items, frozen) -> list:
+    return [items[e[1]] if isinstance(e, tuple) else e for e in frozen]
+
+
 def optimize_items(items: Sequence, *, nloc: int) -> Tuple[list, dict]:
-    """Rewrite a drain's gate stream; returns (items, stats)."""
+    """Rewrite a drain's item stream; returns (items, stats)."""
     items = list(items)
-    gates_in = len(items)
+    gates_in = sum(1 for it in items if _is_gate(it))
     if len(items) < 2:
         return items, {"gates_in": gates_in, "gates_out": gates_in,
                        "removed": {"cancel": 0, "merge": 0,
@@ -225,12 +259,13 @@ def optimize_items(items: Sequence, *, nloc: int) -> Tuple[list, dict]:
     key = _content_key(items, nloc)
     hit = _cache.get(key) if key is not None else None
     if hit is not None:
-        return list(hit[0]), hit[1]
+        return _thaw_out(items, hit[0]), hit[1]
     out, removed = _rewrite(items, nloc)
-    stats = {"gates_in": gates_in, "gates_out": len(out),
+    stats = {"gates_in": gates_in,
+             "gates_out": sum(1 for it in out if _is_gate(it)),
              "removed": dict(removed)}
     if key is not None:
         if len(_cache) >= _CACHE_MAX:
             _cache.pop(next(iter(_cache)))
-        _cache[key] = (tuple(out), stats)
+        _cache[key] = (_freeze_out(items, out), stats)
     return list(out), stats

@@ -9,6 +9,7 @@ on NumPy values, before any tensor is touched.
 
 from __future__ import annotations
 
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -61,6 +62,20 @@ ERROR_MESSAGES = {
     "E_MISMATCHING_PAULI_HAMIL_QUREG_NUM_QUBITS": "The PauliHamil must act on the same number of qubits as exist in the Qureg.",
     "E_INVALID_TROTTER_ORDER": "The Trotterisation order must be 1, or an even number (for higher-order Suzuki symmetrized expansions).",
     "E_INVALID_TROTTER_REPS": "The number of Trotter repetitions must be >=1.",
+    "E_SECOND_ARG_MUST_BE_STATEVEC": "Second argument must be a state-vector.",
+    "E_DEFINED_ONLY_FOR_DENSMATRS": "Operation valid only for density matrices.",
+    "E_INVALID_PROB": "Probabilities must be in [0, 1].",
+    "E_INVALID_ONE_QUBIT_DEPHASE_PROB": "The probability of a single qubit dephase error cannot exceed 1/2, which maximally mixes.",
+    "E_INVALID_TWO_QUBIT_DEPHASE_PROB": "The probability of a two-qubit qubit dephase error cannot exceed 3/4, which maximally mixes.",
+    "E_INVALID_ONE_QUBIT_DEPOL_PROB": "The probability of a single qubit depolarising error cannot exceed 3/4, which maximally mixes.",
+    "E_INVALID_TWO_QUBIT_DEPOL_PROB": "The probability of a two-qubit depolarising error cannot exceed 15/16, which maximally mixes.",
+    "E_INVALID_ONE_QUBIT_PAULI_PROBS": "The probability of any X, Y or Z error cannot exceed the probability of no error.",
+    "E_CANNOT_FIT_MULTI_QUBIT_MATRIX": "The specified matrix targets too many qubits; the batches of amplitudes to modify cannot all fit in a single distributed node's memory allocation.",
+    "E_INVALID_NUM_ONE_QUBIT_KRAUS_OPS": "At least 1 and at most 4 single qubit Kraus operators may be specified.",
+    "E_INVALID_NUM_TWO_QUBIT_KRAUS_OPS": "At least 1 and at most 16 two-qubit Kraus operators may be specified.",
+    "E_INVALID_NUM_N_QUBIT_KRAUS_OPS": "At least 1 and at most 4*N^2 of N-qubit Kraus operators may be specified.",
+    "E_INVALID_KRAUS_OPS": "The specified Kraus map is not a completely positive, trace preserving map.",
+    "E_MISMATCHING_NUM_TARGS_KRAUS_SIZE": "Every Kraus operator must be of the same number of qubits as the number of targets.",
 }
 
 
@@ -69,6 +84,10 @@ def _raise(code: str, func: str, *fmt):
     if fmt:
         msg = msg % fmt
     raise QuESTError(f"{func}: {msg}")
+
+
+def _warn(code: str, func: str):
+    warnings.warn(f"{func}: {ERROR_MESSAGES[code]}", stacklevel=3)
 
 
 def validate_num_qubits(num_qubits: int, func: str):
@@ -186,6 +205,17 @@ def validate_control_states(controls, control_states, func: str):
             _raise("E_INVALID_CONTROLS_BIT_STATE", func)
 
 
+def validate_multi_qubit_matrix_fits_in_node(qureg, num_targets: int,
+                                             func: str):
+    """validateMultiQubitMatrixFitsInNode (:469-471).  The reference
+    rejects a matrix whose 2^numTargets amplitude batches exceed one
+    node's chunk; with one rank the batches always fit, and with several
+    this warns with the reference's message, as the JAX package does."""
+    num_ranks = qureg.env.num_ranks
+    if num_ranks > 1 and (1 << num_targets) > qureg.num_amps_total // num_ranks:
+        _warn("E_CANNOT_FIT_MULTI_QUBIT_MATRIX", func)
+
+
 def validate_finite(values, func: str):
     """Reject NaN/Inf in user-supplied numeric payloads."""
     arr = np.asarray(values)
@@ -226,6 +256,12 @@ def validate_state_vector(qureg, func: str):
         _raise("E_DEFINED_ONLY_FOR_STATEVECS", func)
 
 
+def validate_density_matrix(qureg, func: str):
+    """validateDensityMatrQureg (:515-517)."""
+    if not qureg.is_density_matrix:
+        _raise("E_DEFINED_ONLY_FOR_DENSMATRS", func)
+
+
 def validate_outcome(outcome: int, func: str):
     """validateOutcome (:519-521)."""
     if outcome not in (0, 1):
@@ -244,10 +280,95 @@ def validate_matching_qureg_types(q1, q2, func: str):
         _raise("E_MISMATCHING_QUREG_TYPES", func)
 
 
+def validate_second_qureg_state_vec(q2, func: str):
+    """validateSecondQuregStateVec (:535-537)."""
+    if q2.is_density_matrix:
+        _raise("E_SECOND_ARG_MUST_BE_STATEVEC", func)
+
+
 def validate_file_opened(opened: bool, fn: str, func: str):
     """validateFileOpened (:539-545)."""
     if not opened:
         _raise("E_CANNOT_OPEN_FILE", func, fn)
+
+
+# ---------------------------------------------------------------------------
+# Decoherence probabilities and Kraus maps (:547-645)
+# ---------------------------------------------------------------------------
+
+
+def validate_prob(prob: float, func: str):
+    """validateProb (:547-549)."""
+    if prob < 0 or prob > 1:
+        _raise("E_INVALID_PROB", func)
+
+
+def validate_one_qubit_dephase_prob(prob: float, func: str):
+    """validateOneQubitDephaseProb (:559-562)."""
+    validate_prob(prob, func)
+    if prob > 1 / 2.0:
+        _raise("E_INVALID_ONE_QUBIT_DEPHASE_PROB", func)
+
+
+def validate_two_qubit_dephase_prob(prob: float, func: str):
+    """validateTwoQubitDephaseProb (:564-567)."""
+    validate_prob(prob, func)
+    if prob > 3 / 4.0:
+        _raise("E_INVALID_TWO_QUBIT_DEPHASE_PROB", func)
+
+
+def validate_one_qubit_depol_prob(prob: float, func: str):
+    """validateOneQubitDepolProb (:569-572)."""
+    validate_prob(prob, func)
+    if prob > 3 / 4.0:
+        _raise("E_INVALID_ONE_QUBIT_DEPOL_PROB", func)
+
+
+def validate_one_qubit_damping_prob(prob: float, func: str):
+    """validateOneQubitDampingProb (:574-577): cap 1, reported under the
+    depolarising error code as the reference does."""
+    validate_prob(prob, func)
+    if prob > 1.0:
+        _raise("E_INVALID_ONE_QUBIT_DEPOL_PROB", func)
+
+
+def validate_two_qubit_depol_prob(prob: float, func: str):
+    """validateTwoQubitDepolProb (:579-582)."""
+    validate_prob(prob, func)
+    if prob > 15 / 16.0:
+        _raise("E_INVALID_TWO_QUBIT_DEPOL_PROB", func)
+
+
+def validate_one_qubit_pauli_probs(px: float, py: float, pz: float,
+                                   func: str):
+    """validateOneQubitPauliProbs (:584-593)."""
+    validate_prob(px, func)
+    validate_prob(py, func)
+    validate_prob(pz, func)
+    prob_no_error = 1 - px - py - pz
+    if px > prob_no_error or py > prob_no_error or pz > prob_no_error:
+        _raise("E_INVALID_ONE_QUBIT_PAULI_PROBS", func)
+
+
+def validate_kraus_ops(ops, num_targets: int, func: str):
+    """validate{One,Two,Multi}QubitKrausMap (:606-645): operator-count
+    bounds per arity, matching dimensions, CPTP to REAL_EPS."""
+    max_ops = 1 << (2 * num_targets)
+    if len(ops) < 1 or len(ops) > max_ops:
+        code = {
+            1: "E_INVALID_NUM_ONE_QUBIT_KRAUS_OPS",
+            2: "E_INVALID_NUM_TWO_QUBIT_KRAUS_OPS",
+        }.get(num_targets, "E_INVALID_NUM_N_QUBIT_KRAUS_OPS")
+        _raise(code, func)
+    dim = 1 << num_targets
+    acc = np.zeros((dim, dim), dtype=np.complex128)
+    for op in ops:
+        m = np.asarray(op, dtype=np.complex128)
+        if m.shape != (dim, dim):
+            _raise("E_MISMATCHING_NUM_TARGS_KRAUS_SIZE", func)
+        acc += m.conj().T @ m
+    if not np.allclose(acc, np.eye(dim), atol=1024 * validation_eps()):
+        _raise("E_INVALID_KRAUS_OPS", func)
 
 
 # ---------------------------------------------------------------------------

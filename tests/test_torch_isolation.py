@@ -29,7 +29,8 @@ def test_import_leaves_jax_out():
             "quest_tpu_torch.models.circuits, quest_tpu_torch.ops.paulis, "
             "quest_tpu_torch.ops.build, quest_tpu_torch.ops.bigstate, "
             "quest_tpu_torch.ops.phasefunc, "
-            "quest_tpu_torch.models.hamiltonians\n"
+            "quest_tpu_torch.models.hamiltonians, "
+            "quest_tpu_torch.ops.density, quest_tpu_torch.models.noise\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))")
@@ -153,9 +154,33 @@ def test_sigma_swap_is_ported_and_qft_cu_is_built():
                                                   "qft.cu"}
 
 
+def test_channel_wrapper_and_density_drain_on_cpu_launch_nothing():
+    fused.reset_launch_counts()
+    rng = np.random.default_rng(6)
+    nn = 16
+    x = torch.from_numpy(rng.standard_normal((2, 1 << nn)).astype(np.float32))
+    program = tuple(("depol", t, t + 8) for t in range(8))
+    probs = [0.05] * 8
+    assert torch.equal(
+        fused.apply_pair_channel_sweep(x, program, probs, num_bits=nn),
+        fused.pair_channel_sweep_plain(x, program, probs, num_bits=nn))
+    rho = tq.createDensityQureg(8, tq.createQuESTEnv(device="cpu"))
+    with tq.gateFusion(rho):
+        for q in range(8):
+            tq.mixDepolarising(rho, q, 0.05)
+            tq.mixDamping(rho, q, 0.05)
+    assert abs(tq.calcTotalProb(rho) - 1.0) < 1e-5
+    assert fused.LAUNCHES["K5"] == 0
+
+
+def test_channels_cu_is_built():
+    assert (build.CSRC / "channels.cu") in build.sources()
+
+
 def test_kernels_are_not_built_at_import():
     assert "lib" not in build._LIB
     assert "lib" not in fused._BOUND and "lib" not in paulis._BOUND
+    assert "chan" not in fused._BOUND
     assert "lib" not in bigstate._BOUND
 
 
@@ -164,6 +189,10 @@ def test_other_devices_raise():
     op = _op(np.random.default_rng(1), 7)
     with pytest.raises(RuntimeError, match="no kernel"):
         fused.apply_window_stack(x, op[2], op[3], None, num_qubits=14, k=7)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused.apply_pair_channel_sweep(
+            torch.zeros((2, 1 << 15), device="meta"), (("depol", 0, 14),),
+            [0.1], num_bits=15)
 
 
 def test_execute_plan_dispatches_window_passes_through_the_wrappers(
