@@ -94,7 +94,32 @@ line:
              apply op and of one per-channel pass; the wall time per layer
              (fused and eager at 14 qubits, fused at 15) and its device
              busy share from torch.profiler.
-15. kernels - one JSON object with every kernel's numbers.
+15. paged_parity - at 20 qubits, f32 and f64, rank 1 and 4: K11 bit for
+             bit against K1 at k = 7 and against its plain version; K12
+             over h in {14, 16, 17}, b in {7, 9, 11}, m in {1, 2, 3}, bit
+             for bit against segswap followed by K11 and against its plain
+             version (the tolerance K1 has).
+16. paged_main - bench.py config 2 at 26 qubits, depth 20, f32 through the
+             paged planner (QT_PLANNER=paged for this phase only): (a)
+             plan_circuit(planner="paged") -> plan_to_device ->
+             execute_plan_chained -> prob_top_zero_canonical; (b) the API
+             route under gateFusion.  P(top = 0) of both within 1e-5 of
+             the windowed bench route's (phase 4) and of the paged plan
+             through the plain versions in f64; calcTotalProb within 1e-4
+             of 1; the whole final state of the bench route bit-identical
+             to its plan with every swapfused op run as segswap then K11,
+             and within 1e-5 max|psi| of the windowed route's, and the API
+             route's within 1e-5 max|psi| of the bench route's; K11 and K12
+             launch as often as each route's plan holds fused / swapfused
+             passes, K1 and K2 never.
+17. paged_timing - CUDA-event medians at 2^26 amplitudes, f32, of K11 and
+             K12 (m = 3) at rank 1 and 4 against their bounds, plain
+             versions and the fastest of four single-einsum yardsticks
+             (B.X or X.A first, with or without K1's size-1 axis;
+             rank-free at rank 1); the segswap op by width m;
+             both paged routes' wall time, device busy share and device ms
+             by op kind.
+18. kernels - one JSON object with every kernel's numbers.
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -103,6 +128,7 @@ The last two lines are the card's `nvidia-smi` name and power limit, and
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -134,6 +160,9 @@ N_NOISE_BIG = 15       # 2^30 amplitudes: the per-channel route, no K5
 NOISE_P = 0.05         # bench.py config 4's probability
 NOISE_LAYERS = 4       # layers in one drain
 NOISE_SEED = 5         # bench.py config 4's Kraus draw
+# K12's parity cases (h, b, m) at N_PARITY qubits
+PAGED_SWAPS = tuple((h, b, m) for h in (14, 16, 17) for b in (7, 9, 11)
+                    for m in (1, 2, 3))
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bandwidth and the highest rate of each type: FP32 on the CUDA cores (the
@@ -331,7 +360,10 @@ def phase_parity(torch, np, fused):
 
 
 def run_plain(torch, fused, a, ops, n):
-    """A plan through the kernels' plain versions on the card."""
+    """A plan through the kernels' plain versions on the card (the
+    segswap and apply ops are plain PyTorch already)."""
+    from quest_tpu_torch.ops import kernels
+
     for op in ops:
         if op[0] == "winfused":
             a = fused.window_pass_plain(a, op[2], op[3], op[6], num_qubits=n,
@@ -339,6 +371,17 @@ def run_plain(torch, fused, a, ops, n):
                                         apply_b=op[5])
         elif op[0] == "megawin":
             a = fused.megawin_plain(a, op[1], num_qubits=n)
+        elif op[0] == "fused":
+            a = fused.cluster_stack_plain(a, op[1], op[2], num_qubits=n)
+        elif op[0] == "swapfused":
+            a = fused.swap_cluster_stack_plain(a, op[4], op[5], num_qubits=n,
+                                               h=op[1], b=op[2], m=op[3])
+        elif op[0] == "segswap":
+            a = kernels.swap_bit_segments(a, num_qubits=n, a=op[1], b=op[2],
+                                          m=op[3])
+        elif op[0] == "apply":
+            a = kernels.apply_matrix(a, op[2], num_qubits=n,
+                                     targets=tuple(op[1]))
         else:
             raise RuntimeError(f"unexpected op {op[0]} in the bench plan")
     return a
@@ -1619,6 +1662,400 @@ def phase_noise_timing(torch, np, qt, fused, noise, kernels, density):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The paged planner: K11 (cluster pass) and K12 (segment swap + cluster)
+# ---------------------------------------------------------------------------
+
+
+def paged_sides(torch, rng, rank, dtype):
+    """(A, B): (R, 2, 128, 128) unitary side stacks scaled by 1/rank, on
+    the card."""
+    op = random_pass(rng, 7, rank, "AB", False)
+    return tuple(torch.as_tensor(m, dtype=dtype, device=DEVICE)
+                 for m in op[2:4])
+
+
+def phase_paged_parity(torch, np, fused, C):
+    n = N_PARITY
+    rng = np.random.default_rng(4321)
+    out = {"n": n, "k11_cases": 0, "k12_cases": 0, "k11_max_abs_err": {},
+           "k12_max_abs_err": {}}
+    for dtype in (torch.float32, torch.float64):
+        x = rng.standard_normal((2, 1 << n))
+        x /= np.sqrt((x ** 2).sum())
+        x = torch.as_tensor(x, dtype=dtype, device=DEVICE)
+        tol = tolerance(x)
+        name = str(dtype).split(".")[-1]
+        w11 = w12 = 0.0
+        for rank in (1, 4):
+            a, b = paged_sides(torch, rng, rank, dtype)
+            y = fused.apply_cluster_stack(x, a, b, num_qubits=n)
+            y1 = fused.apply_window_stack(x, a, b, None, num_qubits=n, k=7)
+            sync()
+            check(torch.equal(y, y1), f"K11 {name} R={rank}: not "
+                  "bit-identical to K1 at k = 7")
+            err = float((y - fused.cluster_stack_plain(
+                x, a, b, num_qubits=n)).abs().max())
+            check(err <= tol, f"K11 {name} R={rank}: |err| {err} > {tol}")
+            w11 = max(w11, err)
+            out["k11_cases"] += 1
+            for h, bq, m in PAGED_SWAPS:
+                y = fused.apply_swap_cluster_stack(x, a, b, num_qubits=n, h=h,
+                                                   b=bq, m=m)
+                ys = fused.apply_cluster_stack(
+                    C.execute_plan(x, [("segswap", h, bq, m)], n), a, b,
+                    num_qubits=n)
+                sync()
+                check(torch.equal(y, ys), f"K12 {name} R={rank} "
+                      f"(h, b, m)={(h, bq, m)}: not bit-identical to segswap "
+                      "then K11")
+                err = float((y - fused.swap_cluster_stack_plain(
+                    x, a, b, num_qubits=n, h=h, b=bq, m=m)).abs().max())
+                check(err <= tol, f"K12 {name} R={rank} (h, b, m)="
+                      f"{(h, bq, m)}: |err| {err} > {tol}")
+                w12 = max(w12, err)
+                out["k12_cases"] += 1
+        out["k11_max_abs_err"][name] = w11
+        out["k12_max_abs_err"][name] = w12
+    out["k11_bit_identical_to_k1"] = True
+    out["k12_bit_identical_to_segswap_k11"] = True
+    return out
+
+
+@contextmanager
+def planner_env(name: str):
+    """QT_PLANNER set to ``name`` for the block, restored after it."""
+    prev = os.environ.get("QT_PLANNER")
+    os.environ["QT_PLANNER"] = name
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["QT_PLANNER"]
+        else:
+            os.environ["QT_PLANNER"] = prev
+
+
+def paged_counts(fused, route: str) -> dict:
+    """K11's and K12's launches since the last reset; no other kernel of
+    ops/fused.py may have launched."""
+    others = {k: v for k, v in fused.LAUNCHES.items()
+              if v and k not in ("K11", "K12")}
+    check(not others, f"the paged {route} route launched {others}")
+    return {k: fused.LAUNCHES[k] for k in ("K11", "K12")}
+
+
+def unfuse_swaps(ops):
+    """The plan with every ("swapfused", h, b, m, A, B) op split into its
+    ("segswap", h, b, m) and ("fused", A, B): K12's work by segswap + K11."""
+    out = []
+    for op in ops:
+        if op[0] == "swapfused":
+            out += [("segswap", *op[1:4]), ("fused", *op[4:])]
+        else:
+            out.append(op)
+    return out
+
+
+def state_err(torch, psi, ref) -> float:
+    """max |psi - ref| over max |ref|, on the card."""
+    ref = ref.to(psi.device).reshape(psi.shape)
+    return float((psi - ref).abs().max() / ref.abs().max())
+
+
+def phase_paged_main(torch, qt, C, fused, fusion, circuits, p_windowed,
+                     psi_windowed):
+    """Config 2 at N_MAIN qubits through the paged planner, by the bench
+    route and the API route; both final states are held against the
+    windowed bench route's ``psi_windowed`` (on the host) and the bench
+    route's bit for bit against the plan with its swaps unfused.  Returns
+    (phase line, bench ops on the card, the API program, the
+    unitaries)."""
+    n = N_MAIN
+    us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+    gates = circuits.bench_gate_list(n, DEPTH, us)
+    t0 = time.perf_counter()
+    plan = C.plan_circuit(gates, n, planner="paged")
+    plan_s = time.perf_counter() - t0
+    pst = C.stats(plan)
+    ops = C.plan_to_device(plan, torch.float32, DEVICE)
+    items = capture_items(qt, us, n)
+    env = qt.createQuESTEnv()
+    with planner_env("paged"):
+        t0 = time.perf_counter()
+        api_program = fusion.plan_items(items, n, device=DEVICE)
+        api_plan_s = time.perf_counter() - t0
+        ast = fusion.program_stats(api_program)
+
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        a = circuits.zero_state_canonical(n, torch.float32, DEVICE)
+        a = C.execute_plan_chained(a, ops, n)
+        p_bench = float(circuits.prob_top_zero_canonical(a))
+        sync()
+        bench_wall = time.perf_counter() - t0
+        bench_counts = paged_counts(fused, "bench")
+        check(a.shape == (2, 1 << (n - 14), 128, 128)
+              and bool(torch.isfinite(a).all()), "paged bench route: bad "
+              "state")
+
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        q = qt.createQureg(n, env)
+        with qt.gateFusion(q):
+            apply_bench_gates(qt, q, us, n)
+        p_api = qt.calcProbOfOutcome(q, n - 1, 0)
+        total = qt.calcTotalProb(q)
+        sync()
+        api_wall = time.perf_counter() - t0
+        api_counts = paged_counts(fused, "API")
+        check(q.amps.shape == (2, 1 << n)
+              and bool(torch.isfinite(q.amps).all()),
+              "paged API route: bad state")
+        api_vs_bench = state_err(torch, q.amps, a)
+        qt.destroyQureg(q, env)
+    # the whole final state: every K12 pass against segswap + K11 bit for
+    # bit, and both routes against the windowed route
+    unfused = C.execute_plan_chained(
+        circuits.zero_state_canonical(n, torch.float32, DEVICE),
+        unfuse_swaps(ops), n)
+    check(torch.equal(a, unfused), "paged bench route: not bit-identical "
+          "to its plan with every swapfused op run as segswap then K11")
+    del unfused
+    bench_vs_windowed = state_err(torch, a, psi_windowed)
+    del a
+    check(bench_vs_windowed <= 1e-5, f"paged bench route's state vs the "
+          f"windowed route's: max|diff| / max|psi| {bench_vs_windowed}")
+    check(api_vs_bench <= 1e-5, f"paged API route's state vs the paged "
+          f"bench route's: max|diff| / max|psi| {api_vs_bench}")
+    want_bench = {"K11": pst["fused"], "K12": pst["swapfused"]}
+    want_api = {"K11": ast.get("fused", 0), "K12": ast.get("swapfused", 0)}
+    check(bench_counts == want_bench, f"paged bench route launched "
+          f"{bench_counts}, its plan holds {want_bench}")
+    check(api_counts == want_api, f"paged API route launched {api_counts}, "
+          f"its program holds {want_api}")
+    check(min(want_bench.values()) > 0, f"K11 or K12 never launched on "
+          f"the paged bench route: {bench_counts}")
+    a64 = circuits.zero_state_canonical(n, torch.float64, DEVICE)
+    a64 = run_plain(torch, fused, a64,
+                    C.plan_to_device(plan, torch.float64, DEVICE), n)
+    p_ref = float(circuits.prob_top_zero_canonical(a64))
+    del a64
+    sync()
+    for label, p in (("bench", p_bench), ("API", p_api)):
+        check(abs(p - p_windowed) <= 1e-5, f"paged {label} route "
+              f"P(top=0) {p} vs the windowed route's {p_windowed}")
+        check(abs(p - p_ref) <= 1e-5, f"paged {label} route P(top=0) {p} "
+              f"vs the f64 plain route's {p_ref}")
+    check(abs(total - 1.0) <= 1e-4, f"paged API route calcTotalProb {total}")
+    line = {"n": n, "depth": DEPTH, "gates": len(gates),
+            "bench_plan": {k: v for k, v in pst.items() if v},
+            "bench_plan_seconds": plan_s,
+            "bench_plan_ranks": {
+                "fused": sorted(int(op[1].shape[0]) for op in ops
+                                if op[0] == "fused"),
+                "swapfused": sorted((int(op[4].shape[0]), op[3])
+                                    for op in ops if op[0] == "swapfused"),
+                "segswap_m": sorted(op[3] for op in ops
+                                    if op[0] == "segswap")},
+            "api_program": {k: v for k, v in ast.items() if v},
+            "api_plan_seconds": api_plan_s, "api_items": len(items),
+            "p_top_zero_bench": p_bench, "p_top_zero_api": p_api,
+            "p_top_zero_windowed": p_windowed,
+            "p_top_zero_f64_plain": p_ref, "calc_total_prob": total,
+            "state_rel_err_bench_vs_windowed": bench_vs_windowed,
+            "state_rel_err_api_vs_bench": api_vs_bench,
+            "bench_equals_unfused_swaps": True,
+            "launches_bench": bench_counts, "launches_api": api_counts,
+            "bench_route_first_wall_s": bench_wall,
+            "api_route_first_wall_s": api_wall}
+    return line, ops, api_program, us
+
+
+def cluster_library(torch, cplx, x, a, b, swap=None):
+    """Single torch.einsum calls computing the same function as K11
+    (``swap`` is None) or K12 (``swap`` = (h, b, m)) on the canonical state
+    ``x``, as {subscripts: call}: yardsticks only, the port never calls
+    them.  The operand order sets the contraction path (B.X first or X.A
+    first), and a size-1 axis before the lanes (K1's view at k = 7)
+    changes how torch lays the products out; the fastest form is the
+    library time.  At rank 1 the forms carry no rank axis.  For K12 the
+    state is viewed with the two swapped m-bit fields as their own axes,
+    so the swap is a relabelling of axes inside the one call."""
+    rank = a.shape[0]
+    ac = torch.complex(a[:, 0], a[:, 1])
+    bc = torch.complex(b[:, 0], b[:, 1])
+    nb = x.shape[1]
+    if swap is None:
+        xc = cplx.to_complex(x)
+        bv, xs, out = "qw", "gwl", "gqp"
+    else:
+        h, bq, m = swap
+        mm = 1 << m
+        glo = 1 << (h - 14)
+        rlo = 1 << (bq - 7)
+        ghi, rhi = nb // (glo * mm), 128 // (mm * rlo)
+        # slab = (ghi, slab field, glo), row = (rhi, row field, rlo)
+        xc = cplx.to_complex(x.reshape(2, ghi, mm, glo, rhi, mm, rlo, 128))
+        bc = bc.reshape(rank, 128, rhi, mm, rlo)
+        bv, xs, out = "qrto", "atcrsol", "ascqp"
+    av = "pl"
+    if rank == 1:
+        ac, bc = ac[0], bc[0]
+    else:
+        av, bv = "k" + av, "k" + bv
+    forms = {}
+    for xv, xo, xt in ((xs, out, xc),
+                       (xs[:-1] + "m" + xs[-1], out[:-1] + "m" + out[-1],
+                        xc.unsqueeze(-2))):
+        bx = f"{bv},{xv},{av}->{xo}"
+        xa = f"{xv},{av},{bv}->{xo}"
+        forms[bx] = lambda bx=bx, xt=xt: torch.einsum(bx, bc, xt, ac)
+        forms[xa] = lambda xa=xa, xt=xt: torch.einsum(xa, xt, ac, bc)
+    return forms
+
+
+def library_time(torch, cplx, y, forms, tol, what):
+    """Checks every einsum form against the kernel's output ``y`` and
+    times each: (fastest ms, its subscripts, {subscripts: ms})."""
+    times = {}
+    for form, fn in forms.items():
+        diff = float((y - cplx.from_complex(fn()).reshape(y.shape))
+                     .abs().max())
+        check(diff <= tol, f"{what}: the einsum yardstick {form} computes "
+              f"another function (|diff| {diff})")
+        times[form] = time_ms(fn, reps=5)
+    best = min(times, key=times.get)
+    return times[best], best, times
+
+
+def phase_paged_timing(torch, qt, C, fused, circuits, cplx, ops, api_program,
+                       us):
+    n = N_MAIN
+    num_amps = 1 << n
+    x = torch.randn((2, 1 << (n - 14), 128, 128), dtype=torch.float32,
+                    device=DEVICE)
+    x /= torch.sqrt(torch.sum(x * x))
+    state_bytes = x.numel() * x.element_size()
+    tol = tolerance(x)
+    out = {"state_bytes_f32": state_bytes}
+
+    def pick(kind, rank):
+        return next(op for op in ops if op[0] == kind
+                    and op[-1].shape[0] == rank)
+
+    for rank in (1, 4):
+        op = pick("fused", rank)
+        a, b = op[1], op[2]
+
+        def k11():
+            return fused.apply_cluster_stack(x, a, b, num_qubits=n)
+
+        def plain11():
+            return fused.cluster_stack_plain(x, a, b, num_qubits=n)
+
+        y = k11()
+        err = float((y - plain11()).abs().max())
+        check(err <= tol, f"K11 R={rank} at {n} qubits: |err| {err}")
+        lib_ms, lib_form, lib_forms = library_time(
+            torch, cplx, y, cluster_library(torch, cplx, x, a, b), tol,
+            f"K11 R={rank}")
+        del y
+        b_ms, b_by = bound_ms([("winfused", 7, a, b, True, True, None)],
+                              state_bytes, num_amps, "float32")
+        out[f"k11_rank{rank}"] = {
+            "rank": rank, "max_abs_err": err,
+            "extra_mem_bytes": extra_bytes(k11), "ms": time_ms(k11),
+            "plain_ms": time_ms(plain11, reps=5), "library_ms": lib_ms,
+            "library_form": lib_form, "library_forms_ms": lib_forms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+        op = pick("swapfused", rank)
+        h, bq, m, a, b = op[1:]
+
+        def k12():
+            return fused.apply_swap_cluster_stack(x, a, b, num_qubits=n, h=h,
+                                                  b=bq, m=m)
+
+        def plain12():
+            return fused.swap_cluster_stack_plain(x, a, b, num_qubits=n, h=h,
+                                                  b=bq, m=m)
+
+        y = k12()
+        check(torch.equal(y, fused.apply_cluster_stack(
+            C.execute_plan(x, [("segswap", h, bq, m)], n), a, b,
+            num_qubits=n)), f"K12 R={rank} at {n} qubits: not "
+              "bit-identical to segswap then K11")
+        err = float((y - plain12()).abs().max())
+        check(err <= tol, f"K12 R={rank} at {n} qubits: |err| {err}")
+        lib_ms, lib_form, lib_forms = library_time(
+            torch, cplx, y, cluster_library(torch, cplx, x, a, b,
+                                            (h, bq, m)), tol, f"K12 R={rank}")
+        del y
+        b_ms, b_by = bound_ms([("winfused", 7, a, b, True, True, None)],
+                              state_bytes, num_amps, "float32")
+        out[f"k12_rank{rank}"] = {
+            "rank": rank, "h": h, "b": bq, "m": m, "max_abs_err": err,
+            "bit_identical_to_segswap_k11": True,
+            "extra_mem_bytes": extra_bytes(k12), "ms": time_ms(k12),
+            "plain_ms": time_ms(plain12, reps=5), "library_ms": lib_ms,
+            "library_form": lib_form, "library_forms_ms": lib_forms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+    segswap = {}
+    for op in ops:
+        if op[0] == "segswap" and op[3] not in segswap:
+            segswap[op[3]] = {"h": op[1], "b": op[2], "m": op[3],
+                              "ms": time_ms(lambda op=op: C.execute_plan(
+                                  x, [op], n), reps=5),
+                              "bound_ms": 2 * state_bytes / HBM_BYTES_PER_S
+                              * 1e3, "bound_by": "bytes"}
+    out["segswap_by_m"] = [segswap[m] for m in sorted(segswap)]
+    del x
+    torch.cuda.empty_cache()
+
+    env = qt.createQuESTEnv()
+
+    def bench_route():
+        a = circuits.zero_state_canonical(n, torch.float32, DEVICE)
+        a = C.execute_plan_chained(a, ops, n)
+        return float(circuits.prob_top_zero_canonical(a))
+
+    def api_route():
+        q = qt.createQureg(n, env)
+        with qt.gateFusion(q):
+            apply_bench_gates(qt, q, us, n)
+        p = qt.calcProbOfOutcome(q, n - 1, 0)
+        qt.destroyQureg(q, env)
+        return p
+
+    api_ops = [op for _kind, part in api_program
+               for op in C.plan_to_device(part, torch.float32, DEVICE)]
+    with planner_env("paged"):
+        for label, fn, route_ops in (("bench", bench_route, ops),
+                                     ("api", api_route, api_ops)):
+            samples = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                samples.append(time.perf_counter() - t0)
+            wall = statistics.median(samples)
+            by_kind = op_breakdown(torch, C, route_ops, n)
+            busy = sum(by_kind.values())
+            out[f"{label}_route_wall_s"] = wall
+            out[f"{label}_breakdown"] = {"ms_by_op": by_kind,
+                                         "device_ms": busy,
+                                         "device_busy_share":
+                                         busy / (wall * 1e3)}
+    out["bench_plan_bound_ms"] = sum(
+        bound_ms([("winfused", 7, op[-2], op[-1], True, True, None)], 0,
+                 num_amps, "float32")[0]
+        for op in ops if op[0] in ("fused", "swapfused"))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1689,6 +2126,8 @@ def main() -> int:
     bench_wall = time.perf_counter() - t0
     check(a.shape == (2, 1 << (n - 14), 128, 128)
           and bool(torch.isfinite(a).all()), "bench route: bad state")
+    # the paged routes' final states are held against this one (phase 16)
+    psi_windowed = a.cpu()
     del a
     env = qt.createQuESTEnv()
     t0 = time.perf_counter()
@@ -1920,7 +2359,27 @@ def main() -> int:
                                  density)
     emit({"phase": "noise_timing", "power": smi, **ntiming})
 
-    # 15. kernels
+    # 15. K11 and K12 against their plain versions
+    gparity = phase_paged_parity(torch, np, fused, C)
+    emit({"phase": "paged_parity", **gparity})
+
+    # 16. config 2 at 26 qubits through the paged planner
+    gmain, gops, gprogram, gus = phase_paged_main(
+        torch, qt, C, fused, fusion, circuits, p_bench, psi_windowed)
+    del psi_windowed
+    emit({"phase": "paged_main", **gmain})
+    for key in ("K11", "K12"):
+        launches[key] = (gmain["launches_bench"][key]
+                         + gmain["launches_api"][key])
+
+    # 17. paged timing at 26 qubits
+    gtiming = phase_paged_timing(torch, qt, C, fused, circuits, cplx, gops,
+                                 gprogram, gus)
+    emit({"phase": "paged_timing", "power": smi, **gtiming})
+    del gops, gprogram
+    torch.cuda.empty_cache()
+
+    # 18. kernels
     def entry(kname, replaces, t, err, source="window.cu"):
         key = kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -1997,7 +2456,25 @@ def main() -> int:
         e["library_note"] = "none: no single PyTorch call computes a ladder"
     k10e["library_note"] = ("the same permutation by permute(...)"
                             ".contiguous(), out of place")
-    emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e]})
+    k11e = entry("K11 cluster pass", "quest_tpu/ops/fused.py:543",
+                 gtiming["k11_rank1"],
+                 max(*gparity["k11_max_abs_err"].values(),
+                     gtiming["k11_rank1"]["max_abs_err"],
+                     gtiming["k11_rank4"]["max_abs_err"]))
+    k11e["kernel"] = "window_pass_kernel"
+    k11e["rank4"] = gtiming["k11_rank4"]
+    k12e = entry("K12 segment swap + cluster pass",
+                 "quest_tpu/ops/fused.py:271", gtiming["k12_rank1"],
+                 max(*gparity["k12_max_abs_err"].values(),
+                     gtiming["k12_rank1"]["max_abs_err"],
+                     gtiming["k12_rank4"]["max_abs_err"]))
+    k12e["kernel"] = "swap_cluster_kernel"
+    k12e["rank4"] = gtiming["k12_rank4"]
+    for e in (k11e, k12e):
+        e["library_note"] = ("the fastest of the single torch.einsum forms "
+                             "on complex views (library_form)")
+    emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
+                      k11e, k12e]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

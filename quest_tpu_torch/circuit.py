@@ -21,13 +21,24 @@ plan is a list of tuples:
                               bit-block swap (ops/bigstate.py
                               apply_sigma_swap, kernel K10)
 
+The paged planner (``plan_circuit_py``; ``planner="paged"`` or
+``QT_PLANNER=paged``) instead pins the window to [7, 14) and relocates
+high qubits into it:
+
+    ('fused', As, Bs)         cluster pass on qubits [0, 14)
+                              (ops/fused.py apply_cluster_stack, K11)
+    ('swapfused', h, b, m, As, Bs)
+                              segment swap [h, h+m) <-> [b, b+m) fused
+                              into a cluster pass
+                              (apply_swap_cluster_stack, K12)
+    ('segswap', a, b, m)      a relocation the peephole could not fuse
+    ('apply', targets, mat)   a gate no relocation brings into the window
+
 The module also holds the QFT's planner (``fused_qft``,
 ``_fused_qft_multilayer``) and its bit-reversal decomposition
-(``bit_reversal_ops``, ``_bit_reversal_big``).
-
-The paged planner's ('fused', ...) / ('swapfused', ...) passes are not
-ported yet: ``execute_plan`` raises on them, naming the ROADMAP item.  The
-native C++ scheduler is not ported either; planning runs in Python.
+(``bit_reversal_ops``, ``_bit_reversal_big``).  The JAX package's native
+C++ scheduler is not ported: planning runs in Python, with the same
+result.
 """
 
 from __future__ import annotations
@@ -46,6 +57,8 @@ from .ops import bigstate, fused, kernels
 LANE = fused.LANE_QUBITS            # 7
 WINDOW = fused.CLUSTER_QUBITS       # 14
 DIM = fused.CLUSTER_DIM             # 128
+_LOOKAHEAD = 256                    # next-use horizon for eviction choice
+PLANNERS = ("windowed", "paged")
 
 
 @dataclass(frozen=True)
@@ -249,10 +262,12 @@ def _embed_indices(bits: Tuple[int, ...]):
 
 
 def embed_in_cluster(mat_soa, bits: Tuple[int, ...]):
-    """SoA (2, 2^k, 2^k) gate on cluster bits -> SoA (2, 128, 128)."""
+    """SoA (2, 2^k, 2^k) gate on cluster bits -> SoA (2, 128, 128), in C
+    order: the gather leaves a strided layout, on which NumPy's matmul
+    bypasses BLAS for the planners' 128 x 128 fold products."""
     row, col, mask = _embed_indices(tuple(bits))
     m = np.asarray(mat_soa)
-    return m[:, row, col] * mask.astype(m.dtype)
+    return np.ascontiguousarray(m[:, row, col] * mask.astype(m.dtype))
 
 
 def soa_matmul(a, b):
@@ -830,12 +845,345 @@ def group_megawins(ops: Sequence[tuple], num_qubits: int) -> List[tuple]:
     return out
 
 
-def plan_circuit(gates: Sequence[Gate], num_qubits: int,
-                 device=None) -> List[tuple]:
-    """Plan a gate list with the windowed planner (the JAX package's
-    paged planner is not ported: its passes need kernels K11/K12).
-    ``device`` is where the plan will run: under QT_MEGAKERNEL=auto,
-    megawin groups form only for a CUDA device."""
+# ---------------------------------------------------------------------------
+# The paged scheduler (QT_PLANNER=paged)
+# ---------------------------------------------------------------------------
+
+_CROSS_RANK = 4  # rank of the |a><b| (x) U_ab decomposition of a 2q gate
+
+
+class _FoldAcc:
+    """Accumulator for the cluster operator as a rank-R Kronecker sum
+    sum_r B_r (x) A_r (A_r on lanes 0-6, B_r on 7-13): pure cluster gates
+    multiply into every term; one lane x window 2q gate raises R from 1 to
+    4 through its |a><b| block decomposition (fused.apply_cluster_stack
+    runs the sum in one pass).  NumPy throughout."""
+
+    def __init__(self):
+        self.As: List[Optional[np.ndarray]] = [None]  # None = identity
+        self.Bs: List[Optional[np.ndarray]] = [None]
+        self.rank = 1
+        self.count = 0
+
+    def fold(self, cluster: str, bits: Tuple[int, ...], mat):
+        e = embed_in_cluster(mat, bits)
+        accs = self.As if cluster == "A" else self.Bs
+        for r in range(self.rank):
+            accs[r] = e if accs[r] is None else soa_matmul(e, accs[r])
+        self.count += 1
+
+    def fold_cross(self, phys: Tuple[int, ...], mat):
+        """Fold a 2q gate with one lane and one window target; requires
+        rank == 1 (the caller flushes first otherwise)."""
+        assert self.rank == 1
+        mat = np.asarray(mat)
+        if phys[0] < LANE:
+            la, sb = phys[0], phys[1]
+
+            def block(a, b):
+                return mat[:, 2 * a:2 * a + 2, 2 * b:2 * b + 2]
+        else:
+            sb, la = phys[0], phys[1]
+
+            def block(a, b):
+                return mat[:, a::2, b::2]
+        A0, B0 = self.As[0], self.Bs[0]
+        As, Bs = [], []
+        for a in (0, 1):
+            for b in (0, 1):
+                ea = embed_in_cluster(block(a, b), (la,))
+                eb_np = np.zeros((2, 2, 2))
+                eb_np[0, a, b] = 1.0
+                eb = embed_in_cluster(eb_np, (sb - LANE,))
+                As.append(ea if A0 is None else soa_matmul(ea, A0))
+                Bs.append(eb if B0 is None else soa_matmul(eb, B0))
+        self.As, self.Bs = As, Bs
+        self.rank = _CROSS_RANK
+        self.count += 1
+
+    def stacks(self):
+        return _stack_sides(self.As, self.Bs)
+
+    def reset(self):
+        self.As, self.Bs = [None], [None]
+        self.rank = 1
+        self.count = 0
+
+
+class _Plan:
+    """Mutable planning state of the paged scheduler; emits the ops."""
+
+    def __init__(self, num_qubits: int):
+        self.n = num_qubits
+        # pos[logical qubit] = current physical position
+        self.pos = list(range(num_qubits))
+        self.ops: List[tuple] = []
+        self.acc = _FoldAcc()
+        # relocation segment size bounds: m <= seg_max by the high bits
+        # there are; m >= seg_min = 3 unless fewer high bits exist
+        self.seg_max = min(LANE, max(0, num_qubits - WINDOW))
+        self.seg_min = min(3, self.seg_max) if self.seg_max > 0 else 0
+
+    def flush(self):
+        if self.acc.count == 0:
+            return
+        a, b = self.acc.stacks()
+        self.ops.append(("fused", a, b))
+        self.acc.reset()
+
+    def _emit_segswap(self, h: int, b: int, m: int):
+        """Exchange bit segments [h, h+m) <-> [b, b+m)."""
+        self.flush()
+        self.ops.append(("segswap", h, b, m))
+        newpos = []
+        for p in self.pos:
+            if b <= p < b + m:
+                newpos.append(h + (p - b))
+            elif h <= p < h + m:
+                newpos.append(b + (p - h))
+            else:
+                newpos.append(p)
+        self.pos = newpos
+
+    def final_restore(self):
+        """Return every qubit to its home position with a greedy
+        block-sort of segment swaps (the net permutation usually collapses
+        to a handful, fewer than replaying the swap history)."""
+        self.flush()
+        n = self.n
+        while True:
+            q = next((i for i in range(n) if self.pos[i] != i), None)
+            if q is None:
+                break
+            assert q >= LANE  # lane bits are never relocated
+            p = self.pos[q]  # where logical q currently lives (p > q)
+            m = 1
+            while (
+                q + m < p
+                and q + m < n
+                and p + m < n
+                and self.pos[q + m] == p + m
+            ):
+                m += 1
+            self._emit_segswap(p, q, m)
+
+
+def _cluster_of(phys: Sequence[int]) -> Optional[str]:
+    if all(p < LANE for p in phys):
+        return "A"
+    if all(LANE <= p < WINDOW for p in phys):
+        return "B"
+    return None
+
+
+def _is_cross2(phys: Sequence[int]) -> bool:
+    """2q gate with one lane (0-6) and one window (7-13) target, foldable
+    as a rank-4 Kronecker sum (_FoldAcc.fold_cross)."""
+    if len(phys) != 2:
+        return False
+    a, b = phys
+    return (a < LANE <= b < WINDOW) or (b < LANE <= a < WINDOW)
+
+
+def _peephole(ops: List[tuple], num_qubits: int) -> List[tuple]:
+    """Merge each segment swap with the cluster pass that follows it into
+    one swap + cluster pass (fused.apply_swap_cluster_stack) when the swap
+    is at most fused.MAX_FUSED_SWAP_M bits wide, its high segment lies at
+    or above bit 14 and its low one inside the window [7, 14)."""
+    out: List[tuple] = []
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        if (
+            op[0] == "segswap"
+            and i + 1 < len(ops)
+            and ops[i + 1][0] == "fused"
+            and op[3] <= fused.MAX_FUSED_SWAP_M
+            and op[1] >= WINDOW
+            and LANE <= op[2]
+            and op[2] + op[3] <= WINDOW
+        ):
+            out.append(("swapfused", op[1], op[2], op[3],
+                        ops[i + 1][1], ops[i + 1][2]))
+            i += 2
+        else:
+            out.append(op)
+            i += 1
+    return out
+
+
+def plan_circuit_py(gates: Sequence[Gate], num_qubits: int) -> List[tuple]:
+    """The paged planner: a dependency-DAG list scheduler over the
+    per-qubit program-order queues.  It repeatedly (1) folds every ready
+    gate that sits inside the cluster [0, 14) or crosses lane x window,
+    (2) when nothing folds, emits the segment swap that makes the most
+    ready gates foldable (ties: later eviction, narrower, lower), and
+    (3) otherwise pops the lowest ready gate as an 'apply' op.  Every
+    qubit is restored home at the end, and swaps followed by a cluster
+    pass are fused (_peephole).  Below 14 qubits every gate is an
+    'apply' op."""
+    n = num_qubits
+    glist = list(gates)
+    if n < WINDOW:
+        return [("apply", g.targets, g.mat) for g in glist]
+
+    plan = _Plan(n)
+    num_gates = len(glist)
+    queues: List[List[int]] = [[] for _ in range(n)]
+    for gi, g in enumerate(glist):
+        for t in g.targets:
+            queues[t].append(gi)
+    heads = [0] * n
+
+    def is_ready(gi):
+        return all(
+            heads[t] < len(queues[t]) and queues[t][heads[t]] == gi
+            for t in glist[gi].targets
+        )
+
+    ready = sorted(gi for gi in range(num_gates) if is_ready(gi))
+    done = 0
+
+    def pop(gi):
+        nonlocal done
+        for t in glist[gi].targets:
+            heads[t] += 1
+        done += 1
+        ready.remove(gi)
+        for t in glist[gi].targets:
+            if heads[t] < len(queues[t]):
+                cand = queues[t][heads[t]]
+                if cand not in ready and is_ready(cand):
+                    ready.append(cand)
+        ready.sort()
+
+    def phys_of(gi):
+        return tuple(plan.pos[t] for t in glist[gi].targets)
+
+    def try_fold(gi):
+        phys = phys_of(gi)
+        cl = _cluster_of(phys)
+        if cl is not None:
+            bits = tuple(p if cl == "A" else p - LANE for p in phys)
+            plan.acc.fold(cl, bits, glist[gi].mat)
+            pop(gi)
+            return True
+        if _is_cross2(phys):
+            if plan.acc.rank > 1:
+                plan.flush()
+            plan.acc.fold_cross(phys, glist[gi].mat)
+            pop(gi)
+            return True
+        return False
+
+    def swapped_pos(p, h, b, m):
+        if b <= p < b + m:
+            return h + (p - b)
+        if h <= p < h + m:
+            return b + (p - h)
+        return p
+
+    def best_swap():
+        """(h, b, m) of the segment swap enabling the most ready folds,
+        or None if none enables one."""
+        if plan.seg_max <= 0:
+            return None
+        cand_hm = []
+        for gi in ready:
+            high = [p for p in phys_of(gi) if p >= WINDOW]
+            if not high:
+                continue
+            span = max(high) - min(high) + 1
+            for m in range(max(plan.seg_min, span), plan.seg_max + 1):
+                lo_h = max(WINDOW, max(high) - m + 1)
+                hi_h = min(n - m, min(high))
+                if lo_h <= hi_h and (hi_h, m) not in cand_hm:
+                    cand_hm.append((hi_h, m))
+        if not cand_hm:
+            return None
+        cand_hm.sort()
+        # next-use distance per physical position (capped horizon) over
+        # the pending gate-target occurrences in gate order
+        next_use = {}
+        d = 0
+        for gi in range(num_gates):
+            if d > _LOOKAHEAD:
+                break
+            for t in glist[gi].targets:
+                if d > _LOOKAHEAD:
+                    break
+                q = queues[t]
+                hpos = heads[t]
+                if hpos < len(q) and gi >= q[hpos]:
+                    p = plan.pos[t]
+                    if p not in next_use:
+                        next_use[p] = d
+                    d += 1
+        best = None
+        for h, m in cand_hm:
+            for b in range(LANE, WINDOW - m + 1):
+                count = 0
+                for gi in ready:
+                    pp = tuple(swapped_pos(p, h, b, m) for p in phys_of(gi))
+                    if _cluster_of(pp) is not None or _is_cross2(pp):
+                        count += 1
+                evict = min(
+                    (next_use.get(p, _LOOKAHEAD + 1) for p in range(b, b + m)),
+                    default=0,
+                )
+                key = (count, evict, -m, -h, -b)
+                if best is None or key > best[0]:
+                    best = (key, h, b, m)
+        # a swap costs one transpose pass and an apply pass several, so
+        # relocating for even one foldable gate wins
+        if best is None or best[0][0] < 1:
+            return None
+        return best[1], best[2], best[3]
+
+    while done < num_gates:
+        progressed = True
+        while progressed:
+            progressed = False
+            for gi in list(ready):
+                if try_fold(gi):
+                    progressed = True
+        if done == num_gates:
+            break
+        sw = best_swap()
+        if sw is not None:
+            plan._emit_segswap(*sw)
+            continue
+        gi = ready[0]
+        plan.flush()
+        plan.ops.append(("apply", phys_of(gi), glist[gi].mat))
+        pop(gi)
+    plan.final_restore()
+    return _peephole(plan.ops, n)
+
+
+def resolve_planner(planner: Optional[str] = None) -> str:
+    """The planner to use: ``planner``, or QT_PLANNER when it is None
+    (default "windowed")."""
+    if planner is None:
+        planner = os.environ.get("QT_PLANNER", "windowed")
+    if planner not in PLANNERS:
+        raise ValueError(
+            f"unknown planner {planner!r}: expected 'windowed' or 'paged'"
+        )
+    return planner
+
+
+def plan_circuit(gates: Sequence[Gate], num_qubits: int, device=None,
+                 planner: Optional[str] = None) -> List[tuple]:
+    """Plan a gate list.  ``planner``: "windowed" (offset-window passes,
+    no relocation) or "paged" (the segment-swap relocation scheduler,
+    plan_circuit_py); None reads QT_PLANNER.  ``device`` is where the plan
+    will run: under QT_MEGAKERNEL=auto, windowed plans form megawin
+    groups only for a CUDA device.  Paged plans are returned as planned,
+    without side-splitting or grouping, as the JAX package returns
+    them."""
+    if resolve_planner(planner) == "paged":
+        return plan_circuit_py(gates, num_qubits)
     ops = plan_circuit_windowed(gates, num_qubits)
     if _side_split_enabled() and num_qubits >= WINDOW:
         ops = split_plan_sides(ops)
@@ -848,22 +1196,24 @@ def plan_circuit(gates: Sequence[Gate], num_qubits: int,
 # Execution
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = {
-    "fused": "the paged planner's cluster pass needs kernel K11",
-    "swapfused": "the paged planner's swap+cluster pass needs kernel K12",
-}
-
 
 def execute_plan(amps, ops: Sequence[tuple], num_qubits: int):
     """Run a plan on ``amps`` (any full-size contiguous view of the state)
     and return the new state, in the same shape.  Window passes go
-    through K1, megawin groups through K2 and sigma swaps through K10
-    (on the CPU, their plain versions); the rest are plain PyTorch ops.
-    A sigma swap works in place on the card: the input is consumed."""
+    through K1, megawin groups through K2, cluster passes through K11,
+    swap + cluster passes through K12 and sigma swaps through K10 (on the
+    CPU, their plain versions); the rest are plain PyTorch ops.  A sigma
+    swap works in place on the card: the input is consumed."""
     n = num_qubits
     for op in ops:
         kind = op[0]
-        if kind == "winfused":
+        if kind == "fused":
+            amps = fused.apply_cluster_stack(amps, op[1], op[2],
+                                             num_qubits=n)
+        elif kind == "swapfused":
+            amps = fused.apply_swap_cluster_stack(
+                amps, op[4], op[5], num_qubits=n, h=op[1], b=op[2], m=op[3])
+        elif kind == "winfused":
             amps = fused.apply_window_stack(
                 amps, op[2], op[3], op[6] if len(op) > 6 else None,
                 num_qubits=n, k=op[1], apply_a=op[4], apply_b=op[5])
@@ -886,10 +1236,6 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int):
         elif kind == "sigma_swap":
             amps = bigstate.apply_sigma_swap(amps, num_qubits=n,
                                              group_bits=op[1])
-        elif kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"plan op {kind!r} is not ported yet: {_NOT_PORTED[kind]} "
-                "(ROADMAP Queue 2)")
         else:
             raise ValueError(f"unknown op {kind}")
     return amps
@@ -919,11 +1265,22 @@ def plan_to_device(ops: Sequence[tuple], dtype, device) -> List[tuple]:
         elif op[0] == "megawin":
             out.append(("megawin", tuple(plan_to_device(op[1], dtype,
                                                         device))))
+        elif op[0] == "fused":
+            out.append(("fused", up(op[1]), up(op[2])))
+        elif op[0] == "swapfused":
+            out.append(("swapfused", op[1], op[2], op[3], up(op[4]),
+                        up(op[5])))
         elif op[0] == "apply":
             out.append(("apply", op[1], up(op[2])))
         else:
             out.append(op)
     return out
+
+
+def apply_circuit(amps, gates: Sequence[Gate], num_qubits: int):
+    """Plan (by QT_PLANNER) and execute in one call."""
+    return execute_plan(amps, plan_circuit(gates, num_qubits,
+                                           device=amps.device), num_qubits)
 
 
 def execute_plan_chained(amps, ops: Sequence[tuple], num_qubits: int):
@@ -1185,6 +1542,13 @@ def split_plan(ops: Sequence[tuple]):
         elif op[0] == "apply":
             skeleton.append(("apply", tuple(op[1]), tuple(np.shape(op[2]))))
             arrays.append(op[2])
+        elif op[0] == "fused":
+            skeleton.append(("fused", tuple(np.shape(op[1]))))
+            arrays.extend([op[1], op[2]])
+        elif op[0] == "swapfused":
+            skeleton.append(("swapfused", op[1], op[2], op[3],
+                             tuple(np.shape(op[4]))))
+            arrays.extend([op[4], op[5]])
         else:
             skeleton.append(tuple(op))
     return tuple(skeleton), arrays
@@ -1206,6 +1570,11 @@ def _rebuild_plan_iter(skeleton: Sequence[tuple], it) -> List[tuple]:
             ops.append(("megawin", tuple(_rebuild_plan_iter(sk[1], it))))
         elif sk[0] == "apply":
             ops.append(("apply", sk[1], next(it)))
+        elif sk[0] == "fused":
+            ops.append(("fused", next(it), next(it)))
+        elif sk[0] == "swapfused":
+            a, b = next(it), next(it)
+            ops.append(("swapfused", sk[1], sk[2], sk[3], a, b))
         else:
             ops.append(sk)
     return ops

@@ -1,9 +1,14 @@
-// Window pass (K1) and window megakernel (K2) for NVIDIA Hopper (sm_90a).
+// Window pass (K1), window megakernel (K2), cluster pass (K11) and fused
+// segment-swap + cluster pass (K12) for NVIDIA Hopper (sm_90a).
 //
 // K1 replaces the Pallas kernel quest_tpu/ops/fused.py
 // _apply_window_stack_jit (pallas_call at fused.py:497; body _window_kernel
 // and _window_block_body).  K2 replaces _apply_megawin_jit (pallas_call at
-// fused.py:799; body _mega_window_kernel).
+// fused.py:799; body _mega_window_kernel).  K11 replaces
+// _apply_cluster_stack_jit (pallas_call at fused.py:543; body
+// _cluster_kernel_rank, pair entry _apply_cluster_pair_jit) and K12
+// _apply_swap_cluster_stack_jit (pallas_call at fused.py:271; body
+// _cluster_swap_kernel): the paged planner's `fused` and `swapfused` ops.
 //
 // What they compute.  The state is a real SoA array: the real plane
 // x[0 .. 2^n) followed by the imaginary plane x[2^n .. 2^(n+1)); qubit q is
@@ -62,6 +67,30 @@
 // function, slab_chunk_pass, whose inner products are explicit fma in a
 // fixed order, and the file is compiled with --fmad=false: a megawin group
 // is bit-identical to its passes run one by one through K1.
+//
+// K11 computes K1's function at k = 7, dual-sided, with no mask ("k = 7
+// reproduces apply_cluster_stack", fused.py:399), so its device code IS
+// K1's: its wrapper (fused.apply_cluster_stack) launches
+// window_pass_kernel through qt_window_pass_* with k = 7, under a launch
+// count of its own.  It has K1's bound: a rank-R
+// pass at 2^26 amplitudes does R * 1.37e11 flops (R * 2.05 ms at the FP32
+// rate) and moves 1.07 GB (0.32 ms), so it is bound by operations.  The
+// Pallas kernel's block_rows = 8 tiling, its 256 x 256 real
+// representations and its input/output aliasing are TPU artifacts; K11
+// is out of place like K1 (the executor ping-pongs buffers).
+//
+// K12 is the segment swap [h, h+m) <-> [b, b+m) (h >= 14, 7 <= b,
+// b + m <= 14) followed by K11's operator.  The TPU kernel brings the 2^m
+// slabs the swap mixes into VMEM as one super-block and exchanges the
+// slab and row bit fields by an in-VMEM transpose.  Here the swap is a
+// gather: output slab g, row w is read from input slab g', row w', where
+// the m-bit fields g[h-14, h-14+m) and w[b-7, b-7+m) trade places (an
+// involution).  swap_cluster_kernel runs slab_chunk_pass with that
+// row-address map on its loads and writes slab g in place in the output
+// buffer; each source row is 128 contiguous lanes (512 B at f32), so the
+// gather stays coalesced, any m works unchanged, and the bound is K11's.
+// It issues the same fma in the same order as K11, so it is
+// bit-identical to the segment swap followed by K11.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -125,22 +154,47 @@ __device__ __forceinline__ void cmac(V& acc, const V x, const V y) {
     acc.y = fma_t(x.y, y.x, acc.y);
 }
 
+// Where a CTA reads row w of the slab it works on.  K1, K2 and K11 read
+// their slab's rows in place, at a stride.
+struct StridedRows {
+    long long base, stride;
+    __device__ __forceinline__ long long operator()(int w) const {
+        return base + w * stride;
+    }
+};
+
+// K12: row w of output slab `slab` comes from the input row whose slab
+// index bits [hs, hs+m) and row bits [bs, bs+m) are the output's with the
+// two fields exchanged (mask = 2^m - 1).
+struct SwappedRows {
+    long long slab;
+    int hs, bs, mask;
+    __device__ __forceinline__ long long operator()(int w) const {
+        const long long gf = (slab >> hs) & mask;
+        const long long wf = (w >> bs) & mask;
+        const long long src_slab =
+            (slab & ~((long long)mask << hs)) | (wf << hs);
+        const long long src_row = (w & ~(mask << bs)) | (gf << bs);
+        return (src_slab * DIM + src_row) * DIM;
+    }
+};
+
 template <typename T>
 constexpr size_t smem_bytes() {
     return sizeof(typename Cplx<T>::type) *
            (size_t)(DIM * MPAD + KC * TPAD + DIM * TPAD);
 }
 
-// One (slab, lane chunk) item of one window pass: reads the slab at
-// `base` (row stride `wstride`, lane stride 1) of the real and imaginary
-// planes `xr`, `xi`, writes output lanes [l0, l0 + LC) of every row to the
-// same place in the planes `yr`, `yi`.  The state is read with __ldcg (L2
-// only, never the non-coherent L1 path): inside K2 a pass reads what other
-// CTAs of the cluster wrote in the previous pass.
-template <typename T>
+// One (slab, lane chunk) item of one window pass: reads row w of the
+// slab at offset src(w) (lane stride 1) of the real and imaginary planes
+// `xr`, `xi`, writes output lanes [l0, l0 + LC) of every row w to offset
+// base + w * wstride of the planes `yr`, `yi`.  The state is read with
+// __ldcg (L2 only, never the non-coherent L1 path): inside K2 a pass
+// reads what other CTAs of the cluster wrote in the previous pass.
+template <typename T, typename Rows>
 __device__ void slab_chunk_pass(const T* xr, const T* xi, T* yr, T* yi,
-                                long long base, long long wstride, int l0,
-                                const QtPass& p,
+                                Rows src, long long base, long long wstride,
+                                int l0, const QtPass& p,
                                 typename Cplx<T>::type* smem) {
     using V = typename Cplx<T>::type;
     V* tile_m = smem;                     // [DIM][MPAD]: X or B K-tile
@@ -174,7 +228,7 @@ __device__ void slab_chunk_pass(const T* xr, const T* xi, T* yr, T* yi,
                 for (int e = 0; e < DIM * KC / NTHREADS; ++e) {
                     const int idx = tid + e * NTHREADS;
                     const int w = idx / KC, kk = idx % KC;
-                    const long long off = base + w * wstride + k0 + kk;
+                    const long long off = src(w) + k0 + kk;
                     tile_m[w * MPAD + kk] = V{__ldcg(xr + off),
                                               __ldcg(xi + off)};
                 }
@@ -226,7 +280,7 @@ __device__ void slab_chunk_pass(const T* xr, const T* xi, T* yr, T* yi,
             for (int e = 0; e < DIM * LC / NTHREADS; ++e) {
                 const int idx = tid + e * NTHREADS;
                 const int w = idx / LC, lc = idx % LC;
-                const long long off = base + w * wstride + l0 + lc;
+                const long long off = src(w) + l0 + lc;
                 tile_t[w * TPAD + lc] = V{__ldcg(xr + off),
                                           __ldcg(xi + off)};
             }
@@ -295,9 +349,26 @@ window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
     const long long slab = blockIdx.x / NCHUNK;
     const long long mid = 1LL << (p.k - 7);
     const long long h = slab / mid, m = slab % mid;
+    const long long base = (h * DIM * mid + m) * DIM;
     slab_chunk_pass<T>(x, x + plane, y, y + plane,
-                       (h * DIM * mid + m) * DIM, mid * DIM, chunk * LC, p,
-                       smem);
+                       StridedRows{base, mid * DIM}, base, mid * DIM,
+                       chunk * LC, p, smem);
+}
+
+// K12: one (output slab, lane chunk) item per CTA, the slab's rows
+// gathered across the segment swap (SwappedRows); k = 7, so the output
+// slab is 128 x 128 consecutive amplitudes of each plane.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, ctas_per_sm<T>())
+swap_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
+                    long long plane, QtPass p, int hs, int bs, int mask) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    auto* smem = reinterpret_cast<typename Cplx<T>::type*>(smem_raw);
+    const int chunk = blockIdx.x % NCHUNK;
+    const long long slab = blockIdx.x / NCHUNK;
+    slab_chunk_pass<T>(x, x + plane, y, y + plane,
+                       SwappedRows{slab, hs, bs, mask}, slab * DIM * DIM,
+                       DIM, chunk * LC, p, smem);
 }
 
 // A super-block of G canonical rows is G * 128 * 128 consecutive
@@ -334,8 +405,10 @@ megawin_kernel(const T* __restrict__ x, T* out, T* scratch, long long plane,
             for (int it = crank; it < items; it += csize) {
                 const int chunk = it % NCHUNK;
                 const long long j = it / NCHUNK;
+                const long long base =
+                    ((j / mid) * DIM * mid + j % mid) * DIM;
                 slab_chunk_pass<T>(sr, si, dr, di,
-                                   ((j / mid) * DIM * mid + j % mid) * DIM,
+                                   StridedRows{base, mid * DIM}, base,
                                    mid * DIM, chunk * LC, p, smem);
             }
             // the pass is visible to the whole cluster before the next one
@@ -364,6 +437,28 @@ static int launch_window_pass(const T* x, T* y, int n, const QtPass* pass,
     const long long nslab = 1LL << (n - 14);
     window_pass_kernel<T><<<(unsigned)(nslab * NCHUNK), NTHREADS, smem,
                             (cudaStream_t)stream>>>(x, y, plane, *pass);
+    return (int)cudaGetLastError();
+}
+
+// K12: the segment swap [h, h+m) <-> [bq, bq+m), then K11's operator.
+template <typename T>
+static int launch_swap_cluster(const T* x, T* y, int n, int rank,
+                               const T* a, const T* b, int h, int bq, int m,
+                               void* stream) {
+    if (a == nullptr || b == nullptr || n < 14 || rank < 1 || m < 1 ||
+        h < 14 || h + m > n || bq < 7 || bq + m > 14)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes<T>();
+    cudaError_t err = cudaFuncSetAttribute(
+        swap_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const QtPass pass{7, rank, 1, 1, a, b, nullptr};
+    const long long plane = 1LL << n;
+    const long long nslab = 1LL << (n - 14);
+    swap_cluster_kernel<T><<<(unsigned)(nslab * NCHUNK), NTHREADS, smem,
+                             (cudaStream_t)stream>>>(
+        x, y, plane, pass, h - 14, bq - 7, (1 << m) - 1);
     return (int)cudaGetLastError();
 }
 
@@ -475,6 +570,19 @@ int qt_megawin_f64(const double* x, double* out, double* scratch,
                    void* stream) {
     return launch_megawin<double>(x, out, scratch, nclusters, n, passes,
                                   npass, stream);
+}
+
+int qt_swap_cluster_stack_f32(const float* x, float* y, int n, int rank,
+                              const float* a, const float* b, int h, int bq,
+                              int m, void* stream) {
+    return launch_swap_cluster<float>(x, y, n, rank, a, b, h, bq, m, stream);
+}
+
+int qt_swap_cluster_stack_f64(const double* x, double* y, int n, int rank,
+                              const double* a, const double* b, int h,
+                              int bq, int m, void* stream) {
+    return launch_swap_cluster<double>(x, y, n, rank, a, b, h, bq, m,
+                                       stream);
 }
 
 const char* qt_error_string(int code) {

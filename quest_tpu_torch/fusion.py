@@ -3,7 +3,8 @@
 Inside a ``gateFusion(qureg)`` context, gates issued through the ordinary
 imperative API (hadamard, controlledNot, unitary, ...) are BUFFERED
 instead of executed, and drained through the circuit optimizer and the
-windowed planner the moment anything needs the amplitudes:
+planner (windowed, or paged under QT_PLANNER=paged) the moment anything
+needs the amplitudes:
 
     with qt.gateFusion(q):
         for d in range(depth):
@@ -100,8 +101,8 @@ class ChannelItem:
 def _plan_key(items, nloc: int, sweep_ok: bool, device=None):
     """Content key for an item list: the gate matrices' bytes, each
     channel's (kind, target, bra) (its probability is a run-time value),
-    whether channel runs may sweep, and the knob that changes the plan
-    (megawin grouping)."""
+    whether channel runs may sweep, and the knobs that change the plan:
+    the planner (QT_PLANNER) and megawin grouping."""
     parts = []
     for it in items:
         if isinstance(it, ChannelItem):
@@ -111,7 +112,8 @@ def _plan_key(items, nloc: int, sweep_ok: bool, device=None):
         if not isinstance(m, np.ndarray):
             return None
         parts.append((it.targets, m.dtype.str, m.shape, m.tobytes()))
-    return (nloc, sweep_ok, _fused.megakernel_planning(device), tuple(parts))
+    return (nloc, sweep_ok, C.resolve_planner(),
+            _fused.megakernel_planning(device), tuple(parts))
 
 
 # minimum adjacent permutation-classified gates worth splitting out of a

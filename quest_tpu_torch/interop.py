@@ -34,7 +34,8 @@ def state_to_numpy(amps) -> np.ndarray:
 def plan_from_numpy(ops: Sequence[tuple], device, dtype) -> List[tuple]:
     """A plan whose operands are NumPy arrays (or anything np.asarray
     accepts) as the port's plan, with every operand a tensor of ``dtype``
-    on ``device``; megawin groups are converted recursively."""
+    on ``device``; megawin groups are converted recursively, and the
+    paged planner's fused / swapfused passes keep their (h, b, m)."""
     def as_np(op):
         if op[0] == "megawin":
             return ("megawin", tuple(as_np(s) for s in op[1]))
@@ -45,6 +46,11 @@ def plan_from_numpy(ops: Sequence[tuple], device, dtype) -> List[tuple]:
                     None if mask is None else np.asarray(mask))
         if op[0] == "apply":
             return ("apply", tuple(op[1]), np.asarray(op[2]))
+        if op[0] == "fused":
+            return ("fused", np.asarray(op[1]), np.asarray(op[2]))
+        if op[0] == "swapfused":
+            return ("swapfused", int(op[1]), int(op[2]), int(op[3]),
+                    np.asarray(op[4]), np.asarray(op[5]))
         return tuple(op)
 
     return plan_to_device([as_np(op) for op in ops], dtype, device)

@@ -18,6 +18,17 @@ ctypes:
   (replaces ``_apply_megawin_jit``), bit-identical to its passes run one
   by one through K1.
 
+The paged planner (``circuit.plan_circuit(..., planner="paged")``) pins
+the window to [7, 14) and emits ``("fused", As, Bs)`` and ``("swapfused",
+h, b, m, As, Bs)`` passes, run by two more entries of ``csrc/window.cu``:
+
+* K11, ``apply_cluster_stack`` (and ``apply_cluster_pair``): K1's kernel
+  at k = 7, dual-sided, unmasked (replaces ``_apply_cluster_stack_jit``);
+* K12, ``apply_swap_cluster_stack``: the segment swap [h, h+m) <->
+  [b, b+m) and the same operator in one pass, the swap a gather on the
+  kernel's row loads (replaces ``_apply_swap_cluster_stack_jit``),
+  bit-identical to ``kernels.swap_bit_segments`` followed by K11.
+
 The QFT's ladder layers (Hadamard on the layer's target plus its whole
 controlled-phase ladder) run in two more kernels (``csrc/qft.cu``), under
 four entries:
@@ -39,7 +50,8 @@ chunked into sweeps as the reference chunks them (replaces
 rank 4, in place.
 
 Beside each sits its plain PyTorch version (``window_pass_plain``,
-``megawin_plain``, ``qft_ladder_plain``, ``qft_ladder_lo_plain``,
+``megawin_plain``, ``cluster_stack_plain``, ``swap_cluster_stack_plain``,
+``qft_ladder_plain``, ``qft_ladder_lo_plain``,
 ``qft_multi_hi_plain``, ``qft_cluster_multi_plain``,
 ``pair_channel_sweep_plain``): the wrappers run it
 for a tensor on the CPU, and launch the kernel or raise for a tensor on
@@ -66,6 +78,13 @@ CLUSTER_DIM = 128
 # Largest megawin group the K2 kernel takes (its parameter block holds the
 # passes by value; csrc/window.cu MAX_MEGA_PASSES).
 MAX_MEGA_PASSES = 16
+
+# Widest segment swap the paged planner fuses into a cluster pass.  The
+# value is the reference's TPU VMEM limit (a 2^m-slab super-block in 16 MB
+# of scoped VMEM; m = 4 overflowed there); K12 gathers across the swap and
+# would take any m, but the planner's peephole reads this number and the
+# port's paged plans must equal the reference's.
+MAX_FUSED_SWAP_M = 3
 
 # ---------------------------------------------------------------------------
 # Matmul precision
@@ -173,6 +192,50 @@ def window_pass_plain(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
     return cplx.from_complex(y).reshape(amps.shape)
 
 
+def _check_cluster(n: int, mats_a, mats_b, what: str) -> None:
+    """The register size and side-stack shapes the cluster entries take."""
+    if n < CLUSTER_QUBITS:
+        raise ValueError(f"{what} needs >= {CLUSTER_QUBITS} qubits")
+    sa, sb = tuple(np.shape(mats_a)), tuple(np.shape(mats_b))
+    if (len(sa) != 4 or sa[1:] != (2, CLUSTER_DIM, CLUSTER_DIM)
+            or sb != sa or sa[0] < 1):
+        raise ValueError(f"{what}: side stacks must be (R, 2, 128, 128), "
+                         f"got {sa} and {sb}")
+
+
+def _check_swap(n: int, h: int, b: int, m: int) -> None:
+    if not (1 <= m <= MAX_FUSED_SWAP_M and h >= CLUSTER_QUBITS
+            and h + m <= n and b >= LANE_QUBITS
+            and b + m <= CLUSTER_QUBITS):
+        raise ValueError(
+            f"apply_swap_cluster_stack needs h >= {CLUSTER_QUBITS}, "
+            f"h + m <= n, {LANE_QUBITS} <= b, b + m <= {CLUSTER_QUBITS} and "
+            f"1 <= m <= {MAX_FUSED_SWAP_M}; got h={h}, b={b}, m={m}, n={n}")
+
+
+def cluster_stack_plain(amps, mats_a, mats_b, *, num_qubits: int):
+    """The cluster pass in plain PyTorch: ``window_pass_plain`` at k = 7,
+    dual-sided, with no mask.  Same function as K11."""
+    _check_cluster(num_qubits, mats_a, mats_b, "apply_cluster_stack")
+    return window_pass_plain(amps, mats_a, mats_b, None,
+                             num_qubits=num_qubits, k=SUBLANE_QUBITS)
+
+
+def swap_cluster_stack_plain(amps, mats_a, mats_b, *, num_qubits: int,
+                             h: int, b: int, m: int):
+    """The fused swap + cluster pass in plain PyTorch: the segment swap
+    [h, h+m) <-> [b, b+m) (``kernels.swap_bit_segments``), then
+    ``cluster_stack_plain``.  Same function as K12."""
+    from . import kernels
+
+    _check_cluster(num_qubits, mats_a, mats_b, "apply_swap_cluster_stack")
+    _check_swap(num_qubits, h, b, m)
+    swapped = kernels.swap_bit_segments(amps, num_qubits=num_qubits, a=h,
+                                        b=b, m=m)
+    return cluster_stack_plain(swapped, mats_a, mats_b,
+                               num_qubits=num_qubits)
+
+
 def megawin_plain(amps, subops, *, num_qubits: int):
     """A megawin group in plain PyTorch: its passes one after another
     over the whole state (the same function K2 computes super-block by
@@ -200,7 +263,8 @@ class _QtPass(ctypes.Structure):
 
 _BOUND: dict = {}
 # launches of each kernel, counted where its wrapper launches it
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0,
+            "K11": 0, "K12": 0}
 
 
 def _lib():
@@ -222,6 +286,12 @@ def _lib():
                      "qt_megawin_max_clusters_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+        for name in ("qt_swap_cluster_stack_f32",
+                     "qt_swap_cluster_stack_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int, ptr, ptr,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
             fn.restype = ctypes.c_int
         lib.qt_max_mega_passes.argtypes = []
         lib.qt_max_mega_passes.restype = ctypes.c_int
@@ -314,6 +384,75 @@ def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
     build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n,
                       ctypes.byref(desc), stream), "apply_window_stack")
     LAUNCHES["K1"] += 1
+    return out
+
+
+def _cluster_launch(amps, mats_a, mats_b, n: int, what: str):
+    """Checks and uploads shared by K11 and K12: the output buffer, the
+    side stacks on the card, the rank and the stream."""
+    if amps.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {amps.device}")
+    _check_cuda_state(amps, what)
+    if amps.numel() != 2 << n:
+        raise ValueError(f"{what}: a state of {amps.numel()} reals is not "
+                         f"one of {n} qubits")
+    a = _as_operand(mats_a, amps)
+    b = _as_operand(mats_b, amps)
+    stream = torch.cuda.current_stream(amps.device).cuda_stream
+    return torch.empty_like(amps), a, b, int(a.shape[0]), stream
+
+
+def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int):
+    """The paged planner's cluster pass (K11): sum_r B_r X A_r^T on each
+    128 x 128 slab of the canonical view, A_r on the lane qubits [0, 7),
+    B_r on [7, 14); ``mats_a``/``mats_b`` are SoA (R, 2, 128, 128).
+    ``amps`` is any full-size contiguous view of the state; the result is
+    a new tensor of the same shape.  CPU tensors take the plain
+    version."""
+    n = num_qubits
+    _check_cluster(n, mats_a, mats_b, "apply_cluster_stack")
+    if amps.device.type == "cpu":
+        return cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n)
+    out, a, b, rank, stream = _cluster_launch(amps, mats_a, mats_b, n,
+                                              "apply_cluster_stack")
+    # K1's kernel at k = 7, dual-sided, unmasked
+    desc = _QtPass(SUBLANE_QUBITS, rank, 1, 1, a.data_ptr(), b.data_ptr(),
+                   None)
+    fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
+          else _lib().qt_window_pass_f64)
+    build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n,
+                      ctypes.byref(desc), stream), "apply_cluster_stack")
+    LAUNCHES["K11"] += 1
+    return out
+
+
+def apply_cluster_pair(amps, mat_a, mat_b, *, num_qubits: int):
+    """One cluster pair: SoA (2, 128, 128) lane and window matrices,
+    stacked to rank 1 and run through ``apply_cluster_stack`` (K11)."""
+    return apply_cluster_stack(amps, mat_a[None], mat_b[None],
+                               num_qubits=num_qubits)
+
+
+def apply_swap_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
+                             h: int, b: int, m: int):
+    """The segment swap [h, h+m) <-> [b, b+m) followed by the rank-R
+    cluster operator, in one pass (K12): h >= 14, 7 <= b, b + m <= 14,
+    m <= MAX_FUSED_SWAP_M.  The result is a new tensor of the input's
+    shape.  CPU tensors take the plain version."""
+    n = num_qubits
+    _check_cluster(n, mats_a, mats_b, "apply_swap_cluster_stack")
+    _check_swap(n, h, b, m)
+    if amps.device.type == "cpu":
+        return swap_cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n,
+                                        h=h, b=b, m=m)
+    out, a, bm, rank, stream = _cluster_launch(amps, mats_a, mats_b, n,
+                                               "apply_swap_cluster_stack")
+    fn = (_lib().qt_swap_cluster_stack_f32 if amps.dtype == torch.float32
+          else _lib().qt_swap_cluster_stack_f64)
+    build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n, rank,
+                      a.data_ptr(), bm.data_ptr(), h, b, m, stream),
+                   "apply_swap_cluster_stack")
+    LAUNCHES["K12"] += 1
     return out
 
 

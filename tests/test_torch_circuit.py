@@ -248,27 +248,6 @@ def test_split_and_rebuild_plan_round_trip(monkeypatch):
     assert all(a is b for a, b in zip(C.split_plan(again)[1], arrays))
 
 
-@pytest.mark.parametrize("op", [
-    ("fused", np.zeros((1, 2, 256, 256)), np.zeros((1, 2, 256, 256))),
-    ("swapfused", 14, 7, 1, None, None),
-])
-def test_unported_plan_ops_raise(op):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        C.execute_plan(torch.zeros((2, 1 << 14), dtype=torch.float64),
-                       [op], 14)
-
-
-def test_paged_planner_is_not_ported():
-    """The port plans with the windowed planner only; the paged planner's
-    cluster pass raises in the executor, naming its kernel."""
-    with pytest.raises(TypeError):
-        C.plan_circuit([], 14, planner="paged")
-    op = ("fused", np.zeros((1, 2, 256, 256)), np.zeros((1, 2, 256, 256)))
-    with pytest.raises(NotImplementedError, match="K11"):
-        C.execute_plan(torch.zeros((2, 1 << 14), dtype=torch.float64),
-                       [op], 14)
-
-
 def test_segswap_runs_through_swap_bit_segments():
     rng = np.random.default_rng(4)
     n = 15

@@ -97,6 +97,34 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     assert (fused.LAUNCHES["K1"], fused.LAUNCHES["K2"]) == (0, 0)
 
 
+def test_cluster_wrappers_and_paged_drain_on_cpu_launch_nothing(monkeypatch):
+    fused.reset_launch_counts()
+    rng = np.random.default_rng(5)
+    n = 15
+    x = torch.from_numpy(rng.standard_normal((2, 1 << n)))
+    a = rng.standard_normal((4, 2, 128, 128))
+    b = rng.standard_normal((4, 2, 128, 128))
+    assert torch.equal(fused.apply_cluster_stack(x, a, b, num_qubits=n),
+                       fused.cluster_stack_plain(x, a, b, num_qubits=n))
+    assert torch.equal(
+        fused.apply_swap_cluster_stack(x, a, b, num_qubits=n, h=14, b=9,
+                                       m=1),
+        fused.swap_cluster_stack_plain(x, a, b, num_qubits=n, h=14, b=9,
+                                       m=1))
+    assert torch.equal(fused.apply_cluster_pair(x, a[0], b[0], num_qubits=n),
+                       fused.cluster_stack_plain(x, a[:1], b[:1],
+                                                 num_qubits=n))
+    monkeypatch.setenv("QT_PLANNER", "paged")
+    q = tq.createQureg(16, tq.createQuESTEnv(device="cpu"))
+    with tq.gateFusion(q):
+        for t in range(16):
+            tq.hadamard(q, t)
+        tq.controlledNot(q, 15, 0)
+    assert abs(tq.calcTotalProb(q) - 1.0) < 1e-5
+    assert fused.LAUNCHES["K11"] == fused.LAUNCHES["K12"] == 0
+    assert all(v == 0 for v in fused.LAUNCHES.values())
+
+
 def test_pauli_wrappers_on_cpu_take_the_plain_path_and_launch_nothing():
     paulis.reset_launch_counts()
     rng = np.random.default_rng(3)
@@ -147,11 +175,41 @@ def test_qft_wrappers_on_cpu_take_the_plain_path_and_launch_nothing():
     assert bigstate.LAUNCHES == {"K10": 0}
 
 
+def _one_op_of_each_kind(rng, n):
+    """One op of every kind circuit.stats counts, as NumPy operands."""
+    win = _op(rng, 7)
+    eye2 = np.stack([np.eye(2), np.zeros((2, 2))])
+    sides = rng.standard_normal((1, 2, 128, 128)) / 128
+    return {
+        "winfused": win,
+        "megawin": ("megawin", (_op(rng, 7), _op(rng, 8))),
+        "fused": ("fused", sides, sides.copy()),
+        "swapfused": ("swapfused", 14, 9, 1, sides, sides.copy()),
+        "apply": ("apply", (3,), eye2),
+        "segswap": ("segswap", 14, 7, 1),
+        "permute": ("permute", tuple(reversed(range(n)))),
+        "xor": ("xor", (0, 14)),
+        "gatherperm": ("gatherperm", (1, 2), (1, 0, 3, 2)),
+        "sigma_swap": ("sigma_swap", 3),
+    }
+
+
 def test_sigma_swap_is_ported_and_qft_cu_is_built():
-    assert "sigma_swap" not in C._NOT_PORTED
+    """Every op kind circuit.stats counts executes (on the CPU, through
+    the kernels' plain versions), and every kernel source is built."""
+    rng = np.random.default_rng(8)
+    n = 15
+    ops = _one_op_of_each_kind(rng, n)
+    counted = set(C.stats([])) - {"megawin_ops", "total_passes"}
+    assert set(ops) == counted
+    x = torch.from_numpy(rng.standard_normal((2, 1 << n)))
+    for kind, op in ops.items():
+        y = C.execute_plan(x.clone(), [op], n)
+        assert y.shape == x.shape and bool(torch.isfinite(y).all()), kind
+        assert C.stats([op])[kind] == 1
     assert (build.CSRC / "qft.cu") in build.sources()
     assert {p.name for p in build.sources()} >= {"window.cu", "paulis.cu",
-                                                  "qft.cu"}
+                                                  "qft.cu", "channels.cu"}
 
 
 def test_channel_wrapper_and_density_drain_on_cpu_launch_nothing():
@@ -193,6 +251,12 @@ def test_other_devices_raise():
         fused.apply_pair_channel_sweep(
             torch.zeros((2, 1 << 15), device="meta"), (("depol", 0, 14),),
             [0.1], num_bits=15)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused.apply_cluster_stack(x, op[2], op[3], num_qubits=14)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused.apply_swap_cluster_stack(
+            torch.zeros((2, 1 << 15), device="meta"), op[2], op[3],
+            num_qubits=15, h=14, b=7, m=1)
 
 
 def test_execute_plan_dispatches_window_passes_through_the_wrappers(
