@@ -7,13 +7,17 @@ Phases, one JSON line each; any failure exits non-zero without the final
 line:
 
 1. device  - the card's name and power limit; a CUDA device is required.
-2. build   - nvcc builds csrc/window.cu (K1, K2), csrc/paulis.cu (K3,
-             K4), csrc/channels.cu (K5) and csrc/qft.cu (K6-K10) into one
-             library, one nvcc process per source.
+2. build   - nvcc builds csrc/window.cu (K1, K2, K11, K12: tensor-core
+             products, TF32 split at float32, DMMA at float64),
+             csrc/paulis.cu (K3, K4), csrc/channels.cu (K5) and
+             csrc/qft.cu (K6-K10) into one library, one nvcc process per
+             source.
 3. parity  - K1 against its plain PyTorch version at 20 qubits (f32 and
              f64, k in {7, 10, 13}, rank 1 and 4, dual / B-only / A-only,
-             with and without a mask); K2 against K1 pass by pass
-             (bit-identical) and against its plain version.
+             with and without a mask; mask-only passes; 0/1 permutation
+             sides bit for bit); K2 against K1 pass by pass
+             (bit-identical) and against its plain version, one group
+             holding a mask-only pass.
 4. main    - the bench.py config-2 workload at 26 qubits, depth 20, f32
              (770 gates), by two routes: (a) bench_gate_list -> plan ->
              execute_plan_chained -> prob_top_zero_canonical; (b) the API:
@@ -21,12 +25,18 @@ line:
              calcProbOfOutcome and calcTotalProb.  Both probabilities are
              held against each other and against the same plan run through
              the plain versions in f64; K1's and K2's launch counts must
-             equal what the plans contain.
+             equal what the plans contain.  A lone controlledPhaseShift
+             drained under gateFusion (one mask-only pass) within
+             tolerance of the eager route.
 5. timing  - CUDA-event medians of K1 (a dual-side and a B-only rank-1
-             pass) and K2 (the bench plan's largest group) at the main
-             path's shapes, their plain versions, one-call library
-             yardsticks, the least time the card could take, and the wall
-             time of both routes.
+             pass, and the dual pass in f64) and K2 (the bench plan's
+             largest group) at the main path's shapes, their plain
+             versions, the fastest single full-float32 torch.einsum of
+             the same function and the kernel's ratio to it, the least
+             time the card could take (window products at a third of the
+             TF32 rate: WINDOW_FLOPS), nvidia-smi's SM clock and power
+             draw while K1 runs back to back, and the wall time of both
+             routes.
 6. pauli_parity - K3 against its plain version (bit-identical) and K4
              against its plain version at 20 qubits, f32 and f64, over the
              term shapes the kernels treat apart (all-identity, Z-only, X on
@@ -116,7 +126,8 @@ line:
              K12 (m = 3) at rank 1 and 4 against their bounds, plain
              versions and the fastest of four single-einsum yardsticks
              (B.X or X.A first, with or without K1's size-1 axis;
-             rank-free at rank 1); the segswap op by width m;
+             rank-free at rank 1), and the ratio to it; the segswap op by
+             width m;
              both paged routes' wall time, device busy share and device ms
              by op kind.
 18. kernels - one JSON object with every kernel's numbers.
@@ -165,11 +176,17 @@ PAGED_SWAPS = tuple((h, b, m) for h in (14, 16, 17) for b in (7, 9, 11)
                     for m in (1, 2, 3))
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# bandwidth and the highest rate of each type: FP32 on the CUDA cores (the
-# tensor cores take no true FP32), FP64 on the tensor cores (DMMA; twice
-# the CUDA cores' 34 TFLOP/s).
+# bandwidth and the highest rate of each type for elementwise work: FP32
+# on the CUDA cores, FP64 on the tensor cores (DMMA; twice the CUDA cores'
+# 34 TFLOP/s).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+# The window kernels' matrix products (K1, K2, K11, K12): a float32
+# product accurate to float32 costs at least three TF32 tensor-core
+# products (the TF32 split of csrc/window.cu), so the least time is the
+# flops over a third of the dense TF32 rate, 495 TFLOP/s; float64 runs on
+# DMMA at the FP64 tensor-core rate.
+WINDOW_FLOPS = {"float32": 495e12 / 3, "float64": 67e12}
 
 
 def emit(obj) -> None:
@@ -199,7 +216,8 @@ def random_unitary(rng, dim: int):
 
 def random_pass(rng, k: int, rank: int, sides: str, with_mask: bool):
     """("winfused", k, A, B, apply_a, apply_b, mask) with unitary SoA
-    sides scaled by 1/rank and a unit-modulus mask, as NumPy arrays."""
+    sides scaled by 1/rank and a unit-modulus mask, as NumPy arrays;
+    ``sides`` is "AB", "A", "B" or "M" (mask-only: neither side)."""
     import numpy as np
 
     def stack():
@@ -210,7 +228,22 @@ def random_pass(rng, k: int, rank: int, sides: str, with_mask: bool):
     if with_mask:
         ph = np.exp(1j * rng.uniform(0, 2 * np.pi, (128, 128)))
         mask = np.stack([ph.real, ph.imag])
-    return ("winfused", k, stack(), stack(), sides != "B", sides != "A", mask)
+    return ("winfused", k, stack(), stack(), "A" in sides, "B" in sides,
+            mask)
+
+
+def permutation_pass(rng, k: int, sides: str):
+    """A window pass whose used sides are random 0/1 permutation matrices
+    (every entry a TF32 value): K1 must equal its plain version bit for
+    bit."""
+    import numpy as np
+
+    def perm():
+        m = np.zeros((1, 2, 128, 128))
+        m[0, 0, np.arange(128), rng.permutation(128)] = 1.0
+        return m
+
+    return ("winfused", k, perm(), perm(), "A" in sides, "B" in sides, None)
 
 
 def flops_of(op, num_amps: int) -> float:
@@ -225,19 +258,62 @@ def flops_of(op, num_amps: int) -> float:
 
 
 def bound_ms(ops, state_bytes: int, num_amps: int, dtype_name: str):
-    """The least time the card could take for a run of passes: one read
-    and one write of the state plus each matrix read once, over the
-    memory rate, against the flops over the type's peak rate; and which
-    of the two bounds it."""
+    """The least time the card could take for a run of window passes: one
+    read and one write of the state plus each matrix read once, over the
+    memory rate, against the flops over the window products' rate
+    (WINDOW_FLOPS); and which of the two bounds it."""
     mat_bytes = sum(op[2].numel() * op[2].element_size()
                     * (int(bool(op[4])) + int(bool(op[5])))
                     + (0 if op[6] is None
                        else op[6].numel() * op[6].element_size())
                     for op in ops)
     t_bytes = (2 * state_bytes + mat_bytes) / HBM_BYTES_PER_S
-    t_ops = sum(flops_of(op, num_amps) for op in ops) / PEAK_FLOPS[dtype_name]
+    t_ops = (sum(flops_of(op, num_amps) for op in ops)
+             / WINDOW_FLOPS[dtype_name])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def smi_under_load(torch, fn, seconds: float) -> dict:
+    """`nvidia-smi` samples of the SM clock and the power draw every
+    100 ms while ``fn`` runs back to back for about ``seconds``: the
+    median, least and most of each, beside the power limit."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    per = max(time.perf_counter() - t0, 1e-4)
+    query = "clocks.sm,power.draw,power.limit,temperature.gpu"
+    proc = subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(max(1, int(seconds / per))):
+            fn()
+        sync()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    rows = []
+    for line in out.strip().splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        try:
+            rows.append([float(p) for p in parts[:4]])
+        except ValueError:
+            continue
+    # the samples taken while the kernel ran (the first few precede it)
+    rows = rows[3:] or rows
+    check(bool(rows), "nvidia-smi gave no samples under load")
+    out = {"samples": len(rows), "power_limit_w": rows[-1][2]}
+    for i, key in ((0, "clocks_sm_mhz"), (1, "power_draw_w"),
+                   (3, "temperature_c")):
+        vals = [r[i] for r in rows]
+        out[key] = {"median": statistics.median(vals), "min": min(vals),
+                    "max": max(vals)}
+    return out
 
 
 def host_ms(fn, reps: int = 3) -> float:
@@ -329,14 +405,44 @@ def phase_parity(torch, np, fused):
                               f"{sides} mask={with_mask}: |err| {err} > {tol}")
                         worst = max(worst, err)
                         out["k1_cases"] += 1
+            # a pass that folded only cross diagonals: mask (.) X
+            op = random_pass(rng, k, 1, "M", True)
+            y = fused.apply_window_stack(x, op[2], op[3], op[6],
+                                         num_qubits=n, k=k, apply_a=False,
+                                         apply_b=False)
+            yp = fused.window_pass_plain(x, op[2], op[3], op[6],
+                                         num_qubits=n, k=k, apply_a=False,
+                                         apply_b=False)
+            err = float((y - yp).abs().max())
+            check(err <= tol, f"K1 {dtype} k={k} mask-only: |err| {err} > "
+                  f"{tol}")
+            worst = max(worst, err)
+            out["k1_mask_only_cases"] = out.get("k1_mask_only_cases", 0) + 1
+            # 0/1 permutation sides: the exact products, bit for bit
+            for sides in ("AB", "B", "A"):
+                op = permutation_pass(rng, k, sides)
+                y = fused.apply_window_stack(
+                    x, op[2], op[3], None, num_qubits=n, k=k, apply_a=op[4],
+                    apply_b=op[5])
+                yp = fused.window_pass_plain(
+                    x, op[2], op[3], None, num_qubits=n, k=k, apply_a=op[4],
+                    apply_b=op[5])
+                check(torch.equal(y, yp), f"K1 {dtype} k={k} {sides}: a "
+                      "permutation pass is not bit-identical to its plain "
+                      "version")
+                out["k1_permutation_cases"] = (
+                    out.get("k1_permutation_cases", 0) + 1)
         sync()
         out["k1_max_abs_err"][str(dtype).split(".")[-1]] = worst
-        # K2: groups with G = 8 (cluster of 8) and G = 1 (cluster of 4)
+        # K2: groups with G = 8 (cluster of 8), G = 1 (the smallest
+        # cluster) and G = 4 with a mask-only pass inside
         for spec in ([(7, 1, "AB", True), (10, 2, "B", False),
                       (8, 4, "A", True), (9, 1, "AB", False),
                       (10, 1, "B", True)],
                      [(7, 1, "AB", False), (7, 4, "B", True),
-                      (7, 2, "A", False)]):
+                      (7, 2, "A", False)],
+                     [(8, 1, "AB", True), (9, 1, "M", True),
+                      (7, 2, "B", False)]):
             group = [random_pass(rng, k, r, s, m) for k, r, s, m in spec]
             y2 = fused.apply_window_megastack(x, group, num_qubits=n)
             y1 = x
@@ -418,6 +524,48 @@ def capture_items(qt, us, n):
     fusion.start_gate_fusion(shadow)
     apply_bench_gates(qt, shadow, us, n)
     return list(shadow._fusion.gates)
+
+
+def mask_only_drain(torch, qt, fused, fusion, n):
+    """A lone controlledPhaseShift(q, 1, 8, 0.3) on |+>^n under
+    gateFusion: its drain plans one window pass that folds only the cross
+    diagonal (a mask, neither side) and runs it through K1 (or K2); held
+    within ``tolerance`` of the same gate applied eagerly."""
+    from quest_tpu_torch.qureg import Qureg
+
+    shadow = Qureg(n, qt.createQuESTEnv(device="cpu"), False)
+    fusion.start_gate_fusion(shadow)
+    qt.controlledPhaseShift(shadow, 1, 8, 0.3)
+    program = fusion.plan_items(list(shadow._fusion.gates), n, device=DEVICE)
+    passes = [op for kind, part in program if kind not in ("chan",
+                                                          "chansweep")
+              for o in part
+              for op in (o[1] if o[0] == "megawin" else (o,))
+              if op[0] == "winfused"]
+    check(len(passes) == 1 and not passes[0][4] and not passes[0][5],
+          f"the drain of one controlledPhaseShift plans {len(passes)} "
+          "window passes, not one mask-only pass")
+    env = qt.createQuESTEnv()
+    fused.reset_launch_counts()
+    q = qt.createQureg(n, env)
+    qt.initPlusState(q)
+    with qt.gateFusion(q):
+        qt.controlledPhaseShift(q, 1, 8, 0.3)
+    sync()
+    launches = {k: fused.LAUNCHES[k] for k in ("K1", "K2")}
+    check(launches["K1"] + launches["K2"] == 1, f"the mask-only drain "
+          f"launched {launches}")
+    e = qt.createQureg(n, env)
+    qt.initPlusState(e)
+    qt.controlledPhaseShift(e, 1, 8, 0.3)
+    err = float((q.amps - e.amps).abs().max())
+    tol = tolerance(e.amps)
+    check(err <= tol, f"mask-only drain at {n} qubits: |err| {err} > {tol} "
+          "against the eager route")
+    qt.destroyQureg(q, env)
+    qt.destroyQureg(e, env)
+    return {"n": n, "launches": launches, "max_abs_err_vs_eager": err,
+            "tolerance": tol}
 
 
 def apply_bench_gates(qt, q, us, n):
@@ -1963,10 +2111,12 @@ def phase_paged_timing(torch, qt, C, fused, circuits, cplx, ops, api_program,
         del y
         b_ms, b_by = bound_ms([("winfused", 7, a, b, True, True, None)],
                               state_bytes, num_amps, "float32")
+        ms = time_ms(k11)
         out[f"k11_rank{rank}"] = {
             "rank": rank, "max_abs_err": err,
-            "extra_mem_bytes": extra_bytes(k11), "ms": time_ms(k11),
+            "extra_mem_bytes": extra_bytes(k11), "ms": ms,
             "plain_ms": time_ms(plain11, reps=5), "library_ms": lib_ms,
+            "ms_over_library_ms": ms / lib_ms,
             "library_form": lib_form, "library_forms_ms": lib_forms,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -1994,11 +2144,13 @@ def phase_paged_timing(torch, qt, C, fused, circuits, cplx, ops, api_program,
         del y
         b_ms, b_by = bound_ms([("winfused", 7, a, b, True, True, None)],
                               state_bytes, num_amps, "float32")
+        ms = time_ms(k12)
         out[f"k12_rank{rank}"] = {
             "rank": rank, "h": h, "b": bq, "m": m, "max_abs_err": err,
             "bit_identical_to_segswap_k11": True,
-            "extra_mem_bytes": extra_bytes(k12), "ms": time_ms(k12),
+            "extra_mem_bytes": extra_bytes(k12), "ms": ms,
             "plain_ms": time_ms(plain12, reps=5), "library_ms": lib_ms,
+            "ms_over_library_ms": ms / lib_ms,
             "library_form": lib_form, "library_forms_ms": lib_forms,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -2158,7 +2310,11 @@ def main() -> int:
     check(abs(p_bench - p_ref) <= 1e-5 and abs(p_api - p_ref) <= 1e-5,
           f"f32 routes vs f64 plain: {p_bench}, {p_api} vs {p_ref}")
     check(abs(total - 1.0) <= 1e-4, f"calcTotalProb {total}")
+    # F1: a pass of cross diagonals only (a mask), drained under
+    # gateFusion, against the eager route
+    mask_only = mask_only_drain(torch, qt, fused, fusion, n)
     emit({"phase": "main", "n": n, "depth": DEPTH, "gates": len(gates),
+          "mask_only_drain": mask_only,
           "bench_plan": pst, "bench_plan_seconds": plan_s,
           "api_program": ast, "api_plan_seconds": api_plan_s,
           "api_items": len(items),
@@ -2192,38 +2348,63 @@ def main() -> int:
             apply_b=op[5])
 
     def library(op):
-        """One torch.einsum on the complex views: the same function as
-        the pass (a yardstick only; the port never calls it)."""
+        """Single torch.einsum calls on the complex views computing the
+        same function as the pass, {subscripts: call}, in both operand
+        orders (B.X first, X.A first) where the pass has both sides:
+        yardsticks only, the port never calls them."""
         hi = 1 << (n - op[1] - 7)
         mid = 1 << (op[1] - 7)
         xc = cplx.to_complex(x.reshape(2, hi, 128, mid, 128))
         ac = torch.complex(op[2][0, 0], op[2][0, 1])
         bc = torch.complex(op[3][0, 0], op[3][0, 1])
-        if op[6] is not None:
-            mc = torch.complex(op[6][0], op[6][1])
-            if op[4]:
-                return lambda: torch.einsum("qw,hwml,pl,qp->hqmp", bc, xc,
-                                            ac, mc)
-            return lambda: torch.einsum("qw,hwml,ql->hqml", bc, xc, mc)
+        mc = None if op[6] is None else torch.complex(op[6][0], op[6][1])
         if op[4]:
-            return lambda: torch.einsum("qw,hwml,pl->hqmp", bc, xc, ac)
-        return lambda: torch.einsum("qw,hwml->hqml", bc, xc)
+            forms = {"qw,hwml,pl": (bc, xc, ac), "hwml,pl,qw": (xc, ac, bc)}
+            out_s, m_s = "hqmp", "qp"
+        else:
+            forms = {"qw,hwml": (bc, xc)}
+            out_s, m_s = "hqml", "ql"
+        calls = {}
+        for sub, args in forms.items():
+            if mc is not None:
+                sub, args = f"{sub},{m_s}", (*args, mc)
+            sub = f"{sub}->{out_s}"
+            calls[sub] = lambda sub=sub, args=args: torch.einsum(sub, *args)
+        return calls
 
     def time_k1(op, dtype_name):
         b_ms, b_by = bound_ms([op], x.numel() * x.element_size(), num_amps,
                               dtype_name)
         # the kernel against its plain version at the main path's shape
-        err = float((k1(op)() - plain1(op)()).abs().max())
+        y = k1(op)()
+        err = float((y - plain1(op)()).abs().max())
         check(err <= tolerance(x), f"K1 at {n} qubits, {dtype_name}, "
               f"k={op[1]}: |err| {err}")
+        lib_ms, lib_form, lib_forms = library_time(
+            torch, cplx, y, library(op), tolerance(x), f"K1 {dtype_name}")
+        # how far the kernel moves the norm, against the pass in float64
+        y64 = fused.window_pass_plain(
+            x.double(), *(t.double() if torch.is_tensor(t) else t
+                          for t in op[2:4]),
+            None if op[6] is None else op[6].double(), num_qubits=n,
+            k=op[1], apply_a=op[4], apply_b=op[5])
+        norm_shift = float(torch.sum(y.double() ** 2) - torch.sum(y64 ** 2))
+        del y, y64
+        ms = time_ms(k1(op))
         return {"k": op[1], "mask": op[6] is not None, "dtype": dtype_name,
                 "max_abs_err": err, "extra_mem_bytes": extra_bytes(k1(op)),
-                "ms": time_ms(k1(op)), "plain_ms": time_ms(plain1(op), reps=5),
-                "library_ms": time_ms(library(op), reps=5),
+                "ms": ms, "plain_ms": time_ms(plain1(op), reps=5),
+                "library_ms": lib_ms, "library_form": lib_form,
+                "library_forms_ms": lib_forms,
+                "ms_over_library_ms": ms / lib_ms,
+                "norm_shift_vs_f64": norm_shift,
                 "bound_ms": b_ms, "bound_by": b_by}
 
     timing = {"k1_dual_rank1": time_k1(dual, "float32"),
               "k1_b_only_rank1": time_k1(bonly, "float32")}
+    # the card's clocks and power while K1 runs back to back
+    timing["k1_dual_rank1"]["under_load"] = smi_under_load(
+        torch, k1(dual), seconds=2.0)
     b_ms, b_by = bound_ms(list(group), state_bytes, num_amps, "float32")
     y2 = fused.apply_window_megastack(x, group, num_qubits=n)
     check(torch.equal(y2, C.execute_plan(x, group, n)),
@@ -2396,6 +2577,8 @@ def main() -> int:
                       ("k1_dual_rank1", "k1_b_only_rank1",
                        "k1_dual_rank1_f64"))))
     k1e["b_only"] = timing["k1_b_only_rank1"]
+    k1e["f64_dual"] = timing["k1_dual_rank1_f64"]
+    k1e["ms_over_library_ms"] = timing["k1_dual_rank1"]["ms_over_library_ms"]
     k2e = entry("K2 window megakernel", "quest_tpu/ops/fused.py:799",
                 timing["k2_largest_group"],
                 max(timing["k2_largest_group"]["max_abs_err"],
@@ -2463,6 +2646,7 @@ def main() -> int:
                      gtiming["k11_rank4"]["max_abs_err"]))
     k11e["kernel"] = "window_pass_kernel"
     k11e["rank4"] = gtiming["k11_rank4"]
+    k11e["ms_over_library_ms"] = gtiming["k11_rank1"]["ms_over_library_ms"]
     k12e = entry("K12 segment swap + cluster pass",
                  "quest_tpu/ops/fused.py:271", gtiming["k12_rank1"],
                  max(*gparity["k12_max_abs_err"].values(),
@@ -2470,6 +2654,7 @@ def main() -> int:
                      gtiming["k12_rank4"]["max_abs_err"]))
     k12e["kernel"] = "swap_cluster_kernel"
     k12e["rank4"] = gtiming["k12_rank4"]
+    k12e["ms_over_library_ms"] = gtiming["k12_rank1"]["ms_over_library_ms"]
     for e in (k11e, k12e):
         e["library_note"] = ("the fastest of the single torch.einsum forms "
                              "on complex views (library_form)")

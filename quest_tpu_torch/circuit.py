@@ -1256,20 +1256,32 @@ def plan_to_device(ops: Sequence[tuple], dtype, device) -> List[tuple]:
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=device).contiguous()
 
+    def up_sides(a, b, apply_a=True, apply_b=True):
+        # the window kernels' TF32 exactness, decided here on the host,
+        # and on the card the sides as the kernels copy them
+        ta, tb = up(a), up(b)
+        if ta.dtype == torch.float32:
+            fused.note_tf32_exact(ta, fused.tf32_exact(a))
+            fused.note_tf32_exact(tb, fused.tf32_exact(b))
+        if ta.device.type == "cuda":
+            fused.prepare_sides(ta, tb, apply_a, apply_b)
+        return ta, tb
+
     out: List[tuple] = []
     for op in ops:
         if op[0] == "winfused":
             mask = op[6] if len(op) > 6 else None
-            out.append(("winfused", op[1], up(op[2]), up(op[3]), op[4],
+            out.append(("winfused", op[1],
+                        *up_sides(op[2], op[3], op[4], op[5]), op[4],
                         op[5], None if mask is None else up(mask)))
         elif op[0] == "megawin":
             out.append(("megawin", tuple(plan_to_device(op[1], dtype,
                                                         device))))
         elif op[0] == "fused":
-            out.append(("fused", up(op[1]), up(op[2])))
+            out.append(("fused", *up_sides(op[1], op[2])))
         elif op[0] == "swapfused":
-            out.append(("swapfused", op[1], op[2], op[3], up(op[4]),
-                        up(op[5])))
+            out.append(("swapfused", op[1], op[2], op[3],
+                        *up_sides(op[4], op[5])))
         elif op[0] == "apply":
             out.append(("apply", op[1], up(op[2])))
         else:

@@ -9,7 +9,8 @@ passes whose windows fit inside 2^g consecutive canonical 128 x 128 rows
 
 Two hand-written CUDA kernels (``csrc/window.cu``) execute them on the
 card, built with nvcc at first use (``ops/build.py``) and bound through
-ctypes:
+ctypes.  Their products run on the tensor cores: float32 as TF32 split
+products (``tf32_split`` below models them), float64 as DMMA.
 
 * K1, ``apply_window_stack``: one pass (replaces the Pallas kernel
   quest_tpu/ops/fused.py ``_apply_window_stack_jit``);
@@ -92,14 +93,15 @@ MAX_FUSED_SWAP_M = 3
 
 
 def set_matmul_precision(name: str) -> None:
-    """The window kernels compute in full FP32 / FP64 ("highest").  The
-    reference's "bf16_3x" and "default" modes belong to the tensor-core
-    redesign of K1 (ROADMAP Queue 2, K1 follow-up) and raise here."""
+    """The window kernels compute to full FP32 / FP64 accuracy
+    ("highest").  The reference's "bf16_3x" and "default" modes are a
+    user-chosen lower precision, not yet ported (ROADMAP Queue 1, beside
+    M13), and raise here."""
     if name != "highest":
         raise NotImplementedError(
             f"matmul precision {name!r} is not ported: quest_tpu_torch runs "
-            "the window kernels in full precision only (ROADMAP Queue 2, "
-            "K1 follow-up: tensor-core split products)")
+            "the window kernels to full precision only (ROADMAP Queue 1, "
+            "matmul precisions)")
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +172,8 @@ def window_pass_plain(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
                       apply_b: bool = True):
     """The window pass in plain PyTorch: the state viewed as (hi, 128 w,
     mid, 128 l) complex, Y = [mask (.)] sum_r B_r X A_r^T per (hi, mid)
-    slab (B-only / A-only drop a side).  Same function as K1."""
+    slab (B-only / A-only drop a side, mask-only drops both).  Same
+    function as K1."""
     n = num_qubits
     _check_offset(n, k)
     hi = 1 << (n - k - SUBLANE_QUBITS)
@@ -184,8 +187,11 @@ def window_pass_plain(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
             y = torch.einsum("rqw,rhwmp->hqmp", b, t)
         elif apply_b:
             y = torch.einsum("rqw,hwml->hqml", b, x)
-        else:
+        elif apply_a:
             y = torch.einsum("hwml,rpl->hwmp", x, a)
+        else:
+            # mask-only: a pass that folded only cross diagonals
+            y = x
     if mask is not None:
         m = cplx.to_complex(_as_operand(mask, amps))
         y = y * m[None, :, None, :]
@@ -248,6 +254,188 @@ def megawin_plain(amps, subops, *, num_qubits: int):
 
 
 # ---------------------------------------------------------------------------
+# The TF32 split of the window kernels' float32 products
+# ---------------------------------------------------------------------------
+#
+# K1, K2, K11 and K12 multiply float32 operands on the tensor cores in TF32
+# (1 + 10 mantissa bits), split so that the result keeps float32 accuracy:
+# the operand that carries the state into three TF32 parts (x = h + m + l,
+# exactly), a side matrix into two.  Where every entry of a pass's used
+# sides is a TF32 value (QtPass.exact) a real product is h s + m s + l s,
+# each term exact; otherwise the 3xTF32 product h s_h + h s_l + m s_h.
+# The functions below model that arithmetic in plain PyTorch; the
+# wrappers decide QtPass.exact with ``tf32_exact``.
+
+_TF32_LOW = 0x1FFF          # the 13 float32 mantissa bits TF32 drops
+
+
+def tf32_round(x):
+    """``cvt.rna.tf32.f32`` as the kernels use it, on a float32 tensor:
+    the nearest TF32 value, ties away from zero, its low 13 bits clear.
+    On the int32 view, adding half of the dropped unit to the magnitude
+    bits and clearing them rounds the magnitude half away from zero
+    (finite inputs)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~_TF32_LOW).view(torch.float32)
+
+
+def tf32_split(x):
+    """The kernels' split of a float32 state operand: (h, m, l) with
+    h + m + l == x exactly, each a TF32 value (h and m of 11 significant
+    bits, l of at most 2, while l stays a normal float: |x| >= 2^-102)."""
+    h = tf32_round(x)
+    r = x - h
+    m = tf32_round(r)
+    return h, m, r - m
+
+
+def tf32_side_split(m):
+    """The kernels' split of a side matrix that is not exact in TF32:
+    (m_h, m_l), m_l the TF32 value nearest the residual."""
+    h = tf32_round(m)
+    return h, tf32_round(m - h)
+
+
+def tf32_exact(arr) -> bool:
+    """Whether every entry of ``arr`` (NumPy or tensor), cast to float32,
+    is a TF32 value: the low 13 mantissa bits are zero.  For a tensor on
+    the card this reads one flag back."""
+    if torch.is_tensor(arr):
+        t = arr.detach().to(torch.float32).contiguous()
+        return not bool((t.view(torch.int32) & _TF32_LOW).any())
+    a = np.ascontiguousarray(arr, dtype=np.float32)
+    return not bool((a.view(np.int32) & _TF32_LOW).any())
+
+
+def note_tf32_exact(t, flag: bool) -> None:
+    """Remember on side tensor ``t`` whether it is exact in TF32 (the
+    executor's uploads are tagged from their NumPy source, so no launch
+    reads the flag back from the card)."""
+    t._qt_tf32_exact = (t._version, bool(flag))
+
+
+def _side_exact(arr) -> bool:
+    """``tf32_exact`` of a side operand, remembered on a tensor until the
+    tensor changes."""
+    if not torch.is_tensor(arr):
+        return tf32_exact(arr)
+    tag = getattr(arr, "_qt_tf32_exact", None)
+    if tag is None or tag[0] != arr._version:
+        note_tf32_exact(arr, tf32_exact(arr))
+    return arr._qt_tf32_exact[1]
+
+
+def _sides_exact(dtype, *sides) -> int:
+    """QtPass.exact for a pass of ``dtype`` applying ``sides``: 1 where
+    every entry is a TF32 value (and at float64, whose DMMA products need
+    no split)."""
+    if dtype != torch.float32:
+        return 1
+    return int(all(_side_exact(s) for s in sides))
+
+
+def _side_image(arr, dtype, device, exact: int):
+    """A side stack (R, 2, 128, 128) as the window kernels copy it, one
+    bulk copy per plane and K tile: per rank r, plane p and K tile j, a
+    block of the 128 rows as the kernel's shared memory holds them.
+    float32: planes (re, im) where the pass is exact, else the TF32 split
+    (re_h, im_h, re_l, im_l) of ``tf32_side_split``; K tiles of 32 columns
+    in 8-row core matrices of 4-column rows, [r][p][j][row // 8][column
+    chunk][row % 8][4] (the K-major layout wgmma reads).  float64: (re,
+    im), K tiles of 16 columns, rows padded to 20.  Made on ``device``,
+    once per tensor."""
+    key = (str(torch.device(device)), dtype, int(exact))
+    if torch.is_tensor(arr):
+        tag = getattr(arr, "_qt_side_image", None)
+        if tag is not None and tag[0] == arr._version and tag[1] == key:
+            return tag[2]
+    t = torch.as_tensor(arr if torch.is_tensor(arr) else np.asarray(arr),
+                        dtype=dtype, device=device).contiguous()
+    rank = t.shape[0]
+    if dtype == torch.float32:
+        if not exact:
+            t = torch.cat(tf32_side_split(t), dim=1)
+        img = t.reshape(rank, t.shape[1], 16, 8, 4, 8, 4).permute(
+            0, 1, 4, 2, 5, 3, 6)
+    else:
+        img = torch.nn.functional.pad(
+            t.reshape(rank, 2, CLUSTER_DIM, 8, 16).permute(0, 1, 3, 2, 4),
+            (0, 4))
+    img = img.contiguous()
+    if torch.is_tensor(arr):
+        arr._qt_side_image = (arr._version, key, img)
+    return img
+
+
+def prepare_sides(mats_a, mats_b, apply_a: bool = True,
+                  apply_b: bool = True) -> None:
+    """Make the side images of a pass whose side stacks are tensors on
+    the card (the executor's uploads), so that no launch of the pass
+    builds them."""
+    exact = _sides_exact(mats_a.dtype, *[s for s, on in (
+        (mats_a, apply_a), (mats_b, apply_b)) if on])
+    for m in (mats_a, mats_b):
+        _side_image(m, m.dtype, m.device, exact)
+
+
+def window_pass_split(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
+                      k: int = SUBLANE_QUBITS, apply_a: bool = True,
+                      apply_b: bool = True):
+    """The window pass at float32 with every real product taken as the
+    kernels take it: ``window_pass_plain``'s function, T = X A_r^T then
+    Y = B_r T, each complex product four real ones, each real product
+    the TF32 split products above (float32 sums in PyTorch's order, not
+    the card's; the mask as the plain version applies it)."""
+    n = num_qubits
+    _check_offset(n, k)
+    hi = 1 << (n - k - SUBLANE_QUBITS)
+    mid = 1 << (k - LANE_QUBITS)
+    x = amps.to(torch.float32).reshape(2, hi, CLUSTER_DIM, mid, CLUSTER_DIM)
+    a = _as_operand(mats_a, x)
+    b = _as_operand(mats_b, x)
+    used = [s for s, on in ((a, apply_a), (b, apply_b)) if on]
+    exact = bool(_sides_exact(x.dtype, *used))
+
+    def prod(eq, side, state, side_first):
+        s = tf32_split(state)
+        if exact:
+            terms = [(s[0], side), (s[1], side), (s[2], side)]
+        else:
+            mh, ml = tf32_side_split(side)
+            terms = [(s[0], mh), (s[0], ml), (s[1], mh)]
+        acc = None
+        for sp, mp in terms:
+            p = (torch.einsum(eq, mp, sp) if side_first
+                 else torch.einsum(eq, sp, mp))
+            acc = p if acc is None else acc + p
+        return acc
+
+    yr = yi = None
+    with _full_fp32():
+        for r in range(a.shape[0] if (apply_a or apply_b) else 1):
+            tr, ti = x[0], x[1]
+            if apply_a:
+                xa = "hwml,pl->hwmp"
+                ar, ai = a[r, 0], a[r, 1]
+                tr, ti = (prod(xa, ar, x[0], False)
+                          + prod(xa, -ai, x[1], False),
+                          prod(xa, ai, x[0], False)
+                          + prod(xa, ar, x[1], False))
+            if apply_b:
+                bx = "qw,hwmp->hqmp"
+                br, bi = b[r, 0], b[r, 1]
+                tr, ti = (prod(bx, br, tr, True) + prod(bx, -bi, ti, True),
+                          prod(bx, br, ti, True) + prod(bx, bi, tr, True))
+            yr = tr if yr is None else yr + tr
+            yi = ti if yi is None else yi + ti
+    y = torch.complex(yr, yi)
+    if mask is not None:
+        m = cplx.to_complex(_as_operand(mask, x))
+        y = y * m[None, :, None, :]
+    return cplx.from_complex(y).reshape(amps.shape)
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
@@ -257,6 +445,7 @@ class _QtPass(ctypes.Structure):
 
     _fields_ = [("k", ctypes.c_int), ("rank", ctypes.c_int),
                 ("apply_a", ctypes.c_int), ("apply_b", ctypes.c_int),
+                ("exact", ctypes.c_int),
                 ("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("mask", ctypes.c_void_p)]
 
@@ -291,7 +480,8 @@ def _lib():
                      "qt_swap_cluster_stack_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int, ptr, ptr,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ptr]
             fn.restype = ctypes.c_int
         lib.qt_max_mega_passes.argtypes = []
         lib.qt_max_mega_passes.restype = ctypes.c_int
@@ -331,19 +521,27 @@ def _check_cuda_state(amps, what: str):
                         "or float64")
     if not amps.is_contiguous():
         raise ValueError(f"{what}: the state must be contiguous")
+    if amps.data_ptr() % 16:
+        raise ValueError(f"{what}: the kernels copy the state in 16-byte "
+                         "pieces; it must start on 16 bytes")
 
 
 def _pass_struct(op, amps, keep: list) -> _QtPass:
     """ctypes pass descriptor for ("winfused", k, A, B, apply_a, apply_b
     [, mask]); the uploaded operands are appended to ``keep`` so they
     outlive the launch call."""
-    a = _as_operand(op[2], amps)
-    b = _as_operand(op[3], amps)
-    mask = op[6] if len(op) > 6 else None
-    rank = int(a.shape[0])
-    if a.shape != (rank, 2, CLUSTER_DIM, CLUSTER_DIM) or b.shape != a.shape:
+    sa, sb = tuple(np.shape(op[2])), tuple(np.shape(op[3]))
+    rank = sa[0] if sa else 0
+    if sa != (rank, 2, CLUSTER_DIM, CLUSTER_DIM) or sb != sa:
         raise ValueError(f"window pass matrices must be (R, 2, 128, 128), "
-                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+                         f"got {sa} and {sb}")
+    # exactness from the operands as given: NumPy sides are checked on
+    # the host, tensors carry their answer
+    exact = _sides_exact(amps.dtype, *[s for s, on in ((op[2], op[4]),
+                                                       (op[3], op[5])) if on])
+    a = _side_image(op[2], amps.dtype, amps.device, exact)
+    b = _side_image(op[3], amps.dtype, amps.device, exact)
+    mask = op[6] if len(op) > 6 else None
     m = None
     if mask is not None:
         m = _as_operand(mask, amps)
@@ -353,7 +551,7 @@ def _pass_struct(op, amps, keep: list) -> _QtPass:
         keep.append(m)
     keep += [a, b]
     return _QtPass(int(op[1]), rank, int(bool(op[4])), int(bool(op[5])),
-                   a.data_ptr(), b.data_ptr(),
+                   exact, a.data_ptr(), b.data_ptr(),
                    None if m is None else m.data_ptr())
 
 
@@ -365,8 +563,6 @@ def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
     a new tensor of the same shape.  CPU tensors take the plain version."""
     n = num_qubits
     _check_offset(n, k)
-    if not (apply_a or apply_b):
-        raise ValueError("a window pass needs at least one side")
     if amps.device.type == "cpu":
         return window_pass_plain(amps, mats_a, mats_b, mask, num_qubits=n,
                                  k=k, apply_a=apply_a, apply_b=apply_b)
@@ -396,10 +592,12 @@ def _cluster_launch(amps, mats_a, mats_b, n: int, what: str):
     if amps.numel() != 2 << n:
         raise ValueError(f"{what}: a state of {amps.numel()} reals is not "
                          f"one of {n} qubits")
-    a = _as_operand(mats_a, amps)
-    b = _as_operand(mats_b, amps)
+    exact = _sides_exact(amps.dtype, mats_a, mats_b)
+    a = _side_image(mats_a, amps.dtype, amps.device, exact)
+    b = _side_image(mats_b, amps.dtype, amps.device, exact)
     stream = torch.cuda.current_stream(amps.device).cuda_stream
-    return torch.empty_like(amps), a, b, int(a.shape[0]), stream
+    return (torch.empty_like(amps), a, b, int(np.shape(mats_a)[0]), exact,
+            stream)
 
 
 def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int):
@@ -413,11 +611,11 @@ def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int):
     _check_cluster(n, mats_a, mats_b, "apply_cluster_stack")
     if amps.device.type == "cpu":
         return cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n)
-    out, a, b, rank, stream = _cluster_launch(amps, mats_a, mats_b, n,
-                                              "apply_cluster_stack")
+    out, a, b, rank, exact, stream = _cluster_launch(
+        amps, mats_a, mats_b, n, "apply_cluster_stack")
     # K1's kernel at k = 7, dual-sided, unmasked
-    desc = _QtPass(SUBLANE_QUBITS, rank, 1, 1, a.data_ptr(), b.data_ptr(),
-                   None)
+    desc = _QtPass(SUBLANE_QUBITS, rank, 1, 1, exact, a.data_ptr(),
+                   b.data_ptr(), None)
     fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
           else _lib().qt_window_pass_f64)
     build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n,
@@ -445,12 +643,13 @@ def apply_swap_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
     if amps.device.type == "cpu":
         return swap_cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n,
                                         h=h, b=b, m=m)
-    out, a, bm, rank, stream = _cluster_launch(amps, mats_a, mats_b, n,
-                                               "apply_swap_cluster_stack")
+    out, a, bm, rank, exact, stream = _cluster_launch(
+        amps, mats_a, mats_b, n, "apply_swap_cluster_stack")
     fn = (_lib().qt_swap_cluster_stack_f32 if amps.dtype == torch.float32
           else _lib().qt_swap_cluster_stack_f64)
     build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n, rank,
-                      a.data_ptr(), bm.data_ptr(), h, b, m, stream),
+                      a.data_ptr(), bm.data_ptr(), exact, h, b, m,
+                      stream),
                    "apply_swap_cluster_stack")
     LAUNCHES["K12"] += 1
     return out

@@ -178,22 +178,23 @@ def test_unported_matmul_precisions_raise(name):
 
 def test_pass_descriptor_layout():
     """The ctypes pass descriptor has the layout of csrc/window.cu's
-    struct QtPass on a 64-bit host (three pointers after four ints)."""
+    struct QtPass on a 64-bit host (three pointers after five ints: the
+    fifth, ``exact``, padded to 8 bytes)."""
     offsets = [getattr(fused._QtPass, f).offset
                for f, _ in fused._QtPass._fields_]
-    assert offsets == [0, 4, 8, 12, 16, 24, 32]
-    assert ctypes.sizeof(fused._QtPass) == 40
+    assert offsets == [0, 4, 8, 12, 16, 24, 32, 40]
+    assert ctypes.sizeof(fused._QtPass) == 48
     rng = np.random.default_rng(9)
     x = torch.zeros((2, 1 << 14), dtype=torch.float64)
     keep = []
     op = _pass(rng, 7, 2, "B", True)
     d = fused._pass_struct(op, x, keep)
-    assert (d.k, d.rank, d.apply_a, d.apply_b) == (7, 2, 0, 1)
+    assert (d.k, d.rank, d.apply_a, d.apply_b, d.exact) == (7, 2, 0, 1, 1)
     assert d.mask == keep[0].data_ptr() and d.a == keep[1].data_ptr()
 
 
 @pytest.mark.parametrize("bad", [
-    dict(k=6), dict(k=11), dict(apply_a=False, apply_b=False)])
+    dict(k=6), dict(k=11), dict(num_qubits=13)])
 def test_window_pass_rejects_bad_arguments(bad):
     rng = np.random.default_rng(2)
     op = _pass(rng, 7, 1, "AB", False)
