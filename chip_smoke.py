@@ -17,7 +17,10 @@ line:
              with and without a mask; mask-only passes; 0/1 permutation
              sides bit for bit); K2 against K1 pass by pass
              (bit-identical) and against its plain version, one group
-             holding a mask-only pass.
+             holding a mask-only pass, and the shapes of the bench plan's
+             groups (G = 1; G = 8, whose 8 super-blocks give fewer items a
+             pass than the grid has CTAs), each launched twice with equal
+             results (the workspace is reset), f32 and f64.
 4. main    - the bench.py config-2 workload at 26 qubits, depth 20, f32
              (770 gates), by two routes: (a) bench_gate_list -> plan ->
              execute_plan_chained -> prob_top_zero_canonical; (b) the API:
@@ -29,14 +32,18 @@ line:
              drained under gateFusion (one mask-only pass) within
              tolerance of the eager route.
 5. timing  - CUDA-event medians of K1 (a dual-side and a B-only rank-1
-             pass, and the dual pass in f64) and K2 (the bench plan's
-             largest group) at the main path's shapes, their plain
-             versions, the fastest single full-float32 torch.einsum of
-             the same function and the kernel's ratio to it, the least
-             time the card could take (window products at a third of the
-             TF32 rate: WINDOW_FLOPS), nvidia-smi's SM clock and power
-             draw while K1 runs back to back, and the wall time of both
-             routes.
+             pass, and the dual pass in f64) and K2 (each of the bench
+             plan's three groups, timed in turns with its passes through
+             K1, and group C in f64, with the schedule's grid, super-blocks,
+             window, slots and workspace bytes; K2 on one dual and one
+             B-only pass; nvidia-smi's clock and power while group C runs
+             through K1 and through K2) at the main path's shapes,
+             their plain versions, the fastest single full-float32
+             torch.einsum of K1's function and the kernel's ratio to it,
+             the least time the card could take (window products at a
+             third of the TF32 rate: WINDOW_FLOPS), nvidia-smi's SM clock
+             and power draw while K1 runs back to back, and the wall time
+             of both routes.
 6. pauli_parity - K3 against its plain version (bit-identical) and K4
              against its plain version at 20 qubits, f32 and f64, over the
              term shapes the kernels treat apart (all-identity, Z-only, X on
@@ -434,35 +441,114 @@ def phase_parity(torch, np, fused):
                     out.get("k1_permutation_cases", 0) + 1)
         sync()
         out["k1_max_abs_err"][str(dtype).split(".")[-1]] = worst
-        # K2: groups with G = 8 (cluster of 8), G = 1 (the smallest
-        # cluster) and G = 4 with a mask-only pass inside
+        # K2: groups with G = 8, G = 1 and G = 4 with a mask-only pass
+        # inside, then the shapes of the bench plan's groups (20 qubits:
+        # the G = 8 group has 8 super-blocks of 16 items, fewer items a
+        # pass than the grid has CTAs; the G = 1 groups 64 of 2)
         for spec in ([(7, 1, "AB", True), (10, 2, "B", False),
                       (8, 4, "A", True), (9, 1, "AB", False),
                       (10, 1, "B", True)],
                      [(7, 1, "AB", False), (7, 4, "B", True),
                       (7, 2, "A", False)],
                      [(8, 1, "AB", True), (9, 1, "M", True),
-                      (7, 2, "B", False)]):
+                      (7, 2, "B", False)],
+                     *K2_BENCH_GROUPS.values()):
             group = [random_pass(rng, k, r, s, m) for k, r, s, m in spec]
-            y2 = fused.apply_window_megastack(x, group, num_qubits=n)
-            y1 = x
-            for op in group:
-                y1 = fused.apply_window_stack(
-                    y1, op[2], op[3], op[6], num_qubits=n, k=op[1],
-                    apply_a=op[4], apply_b=op[5])
-            yp = fused.megawin_plain(x, group, num_qubits=n)
-            sync()
-            check(torch.equal(y2, y1), f"K2 {dtype} {spec}: not "
-                  "bit-identical to K1 pass by pass")
-            err = float((y2 - yp).abs().max())
-            check(err <= len(group) * tol,
-                  f"K2 {dtype} {spec}: |err| {err} vs plain")
-            out["k2"].append({"dtype": str(dtype).split(".")[-1],
-                              "passes": len(group),
-                              "kmax": max(s[0] for s in spec),
-                              "bit_identical_to_k1": True,
-                              "max_abs_err_vs_plain": err})
+            out["k2"].append(k2_case(torch, fused, x, group, n, tol, spec))
     return out
+
+
+# The shapes (k, rank, sides, mask) of bench.py config 2's megawin groups
+# at 26 qubits, depth 20: groups A and B (G = 1) and group C (G = 8).
+K2_BENCH_GROUPS = {
+    "AB": [(7, 1, "B", True), (7, 1, "AB", True)],
+    "C": [(7, 1, "B", True), (7, 1, "AB", True), (7, 1, "AB", True),
+          (7, 1, "AB", False), (10, 1, "B", False)],
+}
+
+
+def k2_case(torch, fused, x, group, n, tol, spec):
+    """K2 on one group: bit-identical to its passes through K1 and to a
+    second launch right after it (the workspace is reset), within
+    len(group) * tol of its plain version."""
+    y2 = fused.apply_window_megastack(x, group, num_qubits=n)
+    again = fused.apply_window_megastack(x, group, num_qubits=n)
+    y1 = x
+    for op in group:
+        y1 = fused.apply_window_stack(
+            y1, op[2], op[3], op[6], num_qubits=n, k=op[1],
+            apply_a=op[4], apply_b=op[5])
+    yp = fused.megawin_plain(x, group, num_qubits=n)
+    sync()
+    dtype = str(x.dtype).split(".")[-1]
+    check(torch.equal(y2, y1), f"K2 {dtype} {spec}: not bit-identical to "
+          "K1 pass by pass")
+    check(torch.equal(y2, again), f"K2 {dtype} {spec}: a second launch "
+          "differs from the first")
+    err = float((y2 - yp).abs().max())
+    check(err <= len(group) * tol, f"K2 {dtype} {spec}: |err| {err} vs "
+          "plain")
+    kmax = max(op[1] for op in group)
+    sched = fused.megawin_schedule(
+        n, 1 << (kmax - 7), len(group), x.dtype,
+        fused.megawin_ctas(x.device, x.dtype))
+    return {"dtype": dtype, "passes": len(group), "kmax": kmax,
+            "bit_identical_to_k1": True, "repeat_equal": True,
+            "max_abs_err_vs_plain": err,
+            **{key: sched[key] for key in ("ctas", "super_blocks",
+                                           "window", "slots")}}
+    return out
+
+
+def time_k2_group(torch, C, fused, x, group, n, dtype_name):
+    """K2 on one megawin group at the main path's shape: bit-identical to
+    its passes through K1 and within len(group) * tolerance of its plain
+    version; its memory beside the state below a quarter of it (its
+    output aside); then its time and its passes' through K1 in turns
+    (K1, K2, K2, K1), the plain version's, its bound and its schedule."""
+    state_bytes = x.numel() * x.element_size()
+    num_amps = x.numel() // 2
+
+    def k2():
+        return fused.apply_window_megastack(x, group, num_qubits=n)
+
+    def k1():
+        return C.execute_plan(x, group, n)
+
+    y2 = k2()
+    check(torch.equal(y2, k1()), f"K2 {dtype_name} at {n} qubits: not "
+          "bit-identical to K1 pass by pass")
+    err = float((y2 - fused.megawin_plain(x, group, num_qubits=n))
+                .abs().max())
+    check(err <= len(group) * tolerance(x),
+          f"K2 {dtype_name} at {n} qubits: |err| {err}")
+    del y2
+    # K2 holds its output, its slots and counters beside its input, never
+    # a second full-size buffer
+    k2_mem = extra_bytes(k2)
+    check(k2_mem < state_bytes + state_bytes // 4,
+          f"K2 at {n} qubits allocates {k2_mem} bytes beside a "
+          f"{state_bytes}-byte state")
+    turns = [time_ms(f) for f in (k1, k2, k2, k1)]
+    b_ms, b_by = bound_ms(list(group), state_bytes, num_amps, dtype_name)
+    kmax = max(op[1] for op in group)
+    sched = fused.megawin_schedule(n, 1 << (kmax - 7), len(group), x.dtype,
+                                   fused.megawin_ctas(x.device, x.dtype))
+    ms = (turns[1] + turns[2]) / 2
+    return {"passes": len(group), "kmax": kmax, "dtype": dtype_name,
+            "max_abs_err": err, "bit_identical_to_k1": True,
+            "extra_mem_bytes": k2_mem,
+            "extra_mem_beside_output_bytes": k2_mem - state_bytes,
+            "ms": ms, "per_pass_k1_ms": (turns[0] + turns[3]) / 2,
+            "turns_k1_k2_k2_k1_ms": turns,
+            "plain_ms": time_ms(lambda: fused.megawin_plain(
+                x, group, num_qubits=n), reps=5),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "fraction_of_bound": b_ms / ms,
+            "grid_ctas": sched["ctas"], "super_blocks": sched["super_blocks"],
+            "window": sched["window"], "slots": sched["slots"],
+            "tickets": sched["tickets"],
+            "workspace_bytes": sched["workspace_bytes"]}
 
 
 def run_plain(torch, fused, a, ops, n):
@@ -2335,7 +2421,9 @@ def main() -> int:
                 if op[4] and op[5] and op[2].shape[0] == 1)
     bonly = next(op for op in winfused
                  if op[5] and not op[4] and op[2].shape[0] == 1)
-    group = max((op[1] for op in ops if op[0] == "megawin"), key=len)
+    groups = [op[1] for op in ops if op[0] == "megawin"]
+    check([len(g) for g in groups] == [2, 2, 5],
+          f"the bench plan's megawin groups changed: {groups}")
 
     def k1(op):
         return lambda: fused.apply_window_stack(
@@ -2405,36 +2493,32 @@ def main() -> int:
     # the card's clocks and power while K1 runs back to back
     timing["k1_dual_rank1"]["under_load"] = smi_under_load(
         torch, k1(dual), seconds=2.0)
-    b_ms, b_by = bound_ms(list(group), state_bytes, num_amps, "float32")
-    y2 = fused.apply_window_megastack(x, group, num_qubits=n)
-    check(torch.equal(y2, C.execute_plan(x, group, n)),
-          f"K2 at {n} qubits: not bit-identical to K1 pass by pass")
-    err = float((y2 - fused.megawin_plain(x, group, num_qubits=n))
-                .abs().max())
-    check(err <= len(group) * tolerance(x), f"K2 at {n} qubits: |err| {err}")
-    del y2
-    # K2 holds its output and a scratch of one super-block per resident
-    # cluster beside its input, never a second full-size buffer
-    k2_mem = extra_bytes(lambda: fused.apply_window_megastack(
-        x, group, num_qubits=n))
-    check(k2_mem < state_bytes + state_bytes // 4,
-          f"K2 at {n} qubits allocates {k2_mem} bytes beside a "
-          f"{state_bytes}-byte state")
-    timing["k2_largest_group"] = {
-        "passes": len(group), "kmax": max(op[1] for op in group),
-        "max_abs_err": err, "bit_identical_to_k1": True,
-        "extra_mem_bytes": k2_mem,
-        "ms": time_ms(lambda: fused.apply_window_megastack(
-            x, group, num_qubits=n)),
-        "plain_ms": time_ms(lambda: fused.megawin_plain(
-            x, group, num_qubits=n), reps=5),
-        "per_pass_k1_ms": time_ms(lambda: C.execute_plan(x, group, n)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    # the same dual-side pass in float64 (1 GB state), on the FP64 rate
+    # K2 on each of the bench plan's groups (A, B: G = 1; C: G = 8)
+    timing["k2_groups"] = {
+        label: time_k2_group(torch, C, fused, x, g, n, "float32")
+        for label, g in zip("ABC", groups)}
+    timing["k2_largest_group"] = timing["k2_groups"]["C"]
+    # K2 on one pass (one ticket stream, no dependencies) against K1
+    timing["k2_one_pass"] = {
+        "dual": time_k2_group(torch, C, fused, x, [dual], n, "float32"),
+        "b_only": time_k2_group(torch, C, fused, x, [bonly], n, "float32")}
+    # the card's clocks and power while group C runs back to back, through
+    # K1 pass by pass and through K2
+    timing["k2_groups"]["C"]["under_load"] = {
+        "k1": smi_under_load(torch, lambda: C.execute_plan(x, groups[2], n),
+                             seconds=2.0),
+        "k2": smi_under_load(torch, lambda: fused.apply_window_megastack(
+            x, groups[2], num_qubits=n), seconds=2.0)}
+    # the same dual-side pass in float64 (1 GB state), on the FP64 rate,
+    # and group C
     x = x.double()
     timing["k1_dual_rank1_f64"] = time_k1(
         tuple(t.double() if torch.is_tensor(t) else t for t in dual),
         "float64")
+    timing["k2_group_c_f64"] = time_k2_group(
+        torch, C, fused, x,
+        [tuple(t.double() if torch.is_tensor(t) else t for t in op)
+         for op in groups[2]], n, "float64")
     del x
 
     def bench_route():
@@ -2581,8 +2665,10 @@ def main() -> int:
     k1e["ms_over_library_ms"] = timing["k1_dual_rank1"]["ms_over_library_ms"]
     k2e = entry("K2 window megakernel", "quest_tpu/ops/fused.py:799",
                 timing["k2_largest_group"],
-                max(timing["k2_largest_group"]["max_abs_err"],
+                max(*(g["max_abs_err"] for g in timing["k2_groups"].values()),
                     *(g["max_abs_err_vs_plain"] for g in parity["k2"])))
+    k2e["groups"] = timing["k2_groups"]
+    k2e["group_c_f64"] = timing["k2_group_c_f64"]
     k3e = entry("K3 direct Pauli rotation", "quest_tpu/ops/paulis.py:625",
                 ptiming["k3"], max(ptiming["k3"]["max_abs_err"],
                                    pparity["k3_max_abs_err"]), "paulis.cu")

@@ -780,10 +780,11 @@ def split_plan_sides(ops: Sequence[tuple]) -> List[tuple]:
     return out
 
 
-# Matrix operands of one megawin group: every CTA of K2 re-reads each
-# pass's matrices from L2 while it walks the group, so the group closes
-# when their total would crowd the super-blocks' working set out of the
-# 50 MB L2.
+# Matrix operands of one megawin group: every item K2 runs copies its
+# pass's side tiles from L2, and the CTAs run items of every pass of the
+# group within one window of super-blocks, so the group closes when the
+# sides' total would crowd the window's intermediates
+# (fused.megawin_schedule) out of the 50 MB L2.
 MEGA_MAT_BYTES = 8 << 20
 
 

@@ -79,27 +79,61 @@
 // one cp.async of 16 bytes per thread and request the ring could not be
 // filled in time: the copies, not the products, set the pass's time.)
 // The copy engine reads global memory through L2 and the async proxy;
-// inside K2 a pass reads what other CTAs of the cluster wrote in the
-// previous pass, so the writers fence the async proxy before the cluster
-// barrier.  Shared memory per CTA: 208 KB (f32) or 172 KB (f64), one CTA
-// per SM.
+// inside K2 a pass reads what other CTAs wrote in the previous pass, so
+// the writers fence the async proxy before they publish their items.
+// Shared memory per CTA: 208 KB (f32) or 172 KB (f64), one CTA per SM.
+// The ring's mbarriers are initialised once per CTA and their phases run
+// on across the items a CTA takes (the `ring` position of window_item).
 //
 // Out of place.  The CTAs of a slab all read the whole slab, so no CTA
 // may overwrite it: both kernels write to a separate output buffer and the
 // executor ping-pongs buffers (at 26 qubits f32 the second buffer is
 // 512 MB).
 //
-// K2 runs a persistent grid of thread-block clusters (up to 8 CTAs), no
-// more than the card holds at once; each cluster takes super-blocks in
-// turn.  On a super-block the cluster walks the group's passes in order;
-// within a pass its CTAs share the super-block's (slab, chunk) items, and
-// a cluster barrier separates passes.  The first pass reads the state;
-// from there the passes alternate between the super-block's place in the
-// output buffer and a super-block-sized scratch buffer that belongs to
-// the cluster (G = 8: 1 MB at f32), so that the last lands in the output;
-// the 50 MB L2 serves both while they are hot.  So K2, like K1, holds the
-// state twice (input and output) plus one super-block per resident
-// cluster, tens of MB: never a third full-size buffer.
+// K2 is a persistent grid of one CTA per SM (the card's SMs times the
+// CTAs an SM holds: 132 at 208 KB) with no clusters and no barrier
+// between CTAs.  Its work is a stream of tickets taken in order from one
+// global atomic counter; a ticket is two consecutive items (the two lane
+// chunks of a slab at float32) of one super-block's pass, and the
+// super-blocks are cut into windows of W, within which the tickets run
+// pass-major.  Before a ticket of pass p > 0 issues its copies, its
+// inputs must be complete: thread 0 reads the super-block's done-counter
+// (every item of pass p - 1) with acquire semantics, __nanosleep backoff
+// while it waits.  A ticket's stores are published by a fence of the
+// async proxy (the next pass's copies read through it) and a release-add
+// of its two items to that counter, half way through the CTA's next
+// ticket, when they have drained.  A ticket waits only on lower tickets,
+// which CTAs that run hold, so the schedule cannot deadlock however many
+// CTAs are resident.  The first pass reads the state; from there the
+// passes alternate between the super-block's place in the output buffer
+// and a scratch slot, so that the last lands in the output.  The
+// S = 2W slots form a ring: super-block sb takes slot sb % S, and the
+// pass that first writes it waits until every item of sb - S, its
+// previous occupant (a lower window), is done.  The host picks W so that
+// a pass of a window holds four items for each CTA (G = 8 f32: 33
+// super-blocks, 528 items; G = 1: 264, 528): with two, a ticket's inputs
+// were often not yet published when a CTA took it, since a ticket is
+// published only half way through its CTA's next one.  The slots take
+// 66 MB at f32 (ops/fused.py megawin_schedule), so the intermediates
+// partly leave L2, which the products do not wait for.
+//
+// Around the item, K2 differs from K1 in its copies, not its products:
+// * X tiles come in TMA tensor copies (one per plane and tile, thread 0
+//   alone arriving on the mbarrier), written in 128-byte swizzled rows
+//   (SwizzledLay): K1's 256 single-row bulk copies of a tile hold its CTA
+//   while they are issued (scripts/k2_segments.py: K1's X-tile steps take
+//   about 1 us longer than its side-only steps on an H100).
+// * The next item's tile 0 (and a B-only pass's T tile) is issued before
+//   the current item's stores, once its inputs are known to be complete
+//   (a second item of a ticket always; a new ticket when thread 0's poll,
+//   relaxed reads a tile ahead and a fence, finds them done), so an item
+//   starts with its first tile in shared memory.
+// * At float32 a pass's mask is staged in shared memory during the last
+//   K tile (stage_mask), in place of the epilogue's 4-byte mask loads
+//   (scripts/k2_segments.py: a masked item's stores).
+// What bounds K2 is what bounds K1: the tensor cores' products; the
+// schedule removes the per-pass barriers, the idle SMs of cluster
+// placement, each item's cold start and its copies' issue.
 // K1, K2, K11 and K12 run every (slab, chunk) item through the SAME
 // device function, window_item, which issues the same products in the
 // same order, and the file is compiled with --fmad=false: a megawin group
@@ -129,11 +163,9 @@
 // K11's.  It issues the same products in the same order as K11, so it is
 // bit-identical to the segment swap followed by K11.
 
-#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -212,9 +244,14 @@ struct QtPass {
     const void* mask;  // (2, 128, 128) SoA (window, lane) mask, or null
 };
 
+// A megawin group as K2 runs it (built by launch_megawin).
 struct QtMegaArgs {
     int npass;
     int g_rows;     // G: canonical rows per super-block
+    int ipp;        // items per pass of a super-block: G * nchunk
+    int window;     // W: super-blocks per window of tickets
+    int slots;      // S >= W scratch slots of one super-block each
+    int nsb;        // super-blocks
     QtPass p[MAX_MEGA_PASSES];
 };
 
@@ -363,17 +400,38 @@ __device__ __forceinline__ uint64_t kmajor_desc(const void* p, uint32_t sbo) {
            ((uint64_t)((sbo >> 4) & 0x3fff) << 32);
 }
 
+// Where a state operand's element (row m, column kk) lies in shared
+// memory, from the operand's first row: at a row and a column stride (the
+// padded rows of K1's X tiles and of T), or in the 128-byte-swizzled rows
+// that a TMA tensor copy writes (K2's X tiles: 16-byte chunk c of row m
+// at chunk c ^ (m % 8); the operand's first row is a multiple of 8 from a
+// 1024-byte boundary).
+struct StridedLay {
+    int sm, sk;
+    __device__ __forceinline__ int operator()(int m, int kk) const {
+        return m * sm + kk * sk;
+    }
+};
+template <typename T>
+struct SwizzledLay {
+    __device__ __forceinline__ int operator()(int m, int kk) const {
+        constexpr int row = 128 / sizeof(T);
+        return m * row + (int)(((kk * sizeof(T)) ^ ((m & 7) << 4)) /
+                               sizeof(T));
+    }
+};
+
 // The state's A fragment (rows g, g + 8; columns t, t + 4 at KS = 8) at
-// k step ks, split: element (m, kk) at s_re/s_im[m * sm + kk * sk].
-template <typename T, int NS>
+// k step ks, split: element (m, kk) at s_re/s_im[lay(m, kk)].
+template <typename T, int NS, typename Lay>
 __device__ __forceinline__ void load_state(
-        const T* s_re, const T* s_im, int sm, int sk, int ks, int g, int t,
+        const T* s_re, const T* s_im, Lay lay, int ks, int g, int t,
         typename Frag<T>::reg (&sre)[NS][Frag<T>::AR],
         typename Frag<T>::reg (&sim)[NS][Frag<T>::AR]) {
     using reg = typename Frag<T>::reg;
 #pragma unroll
     for (int i = 0; i < Frag<T>::AR; ++i) {
-        const int o = (g + 8 * (i & 1)) * sm + (ks + t + 4 * (i >> 1)) * sk;
+        const int o = lay(g + 8 * (i & 1), ks + t + 4 * (i >> 1));
         reg pr[NS], pi[NS];
         split_state<NS>(s_re[o], pr);
         split_state<NS>(s_im[o], pi);
@@ -387,7 +445,7 @@ __device__ __forceinline__ void load_state(
 
 // acc[c][nt] (c = re, im; 16 x 8 tiles nt) += S M^T over one K tile,
 // complex.  S (16 rows of the warp x KC) is the state operand, its element
-// (m, kk) at s_re/s_im[m * sm + kk * sk]; M (NT * 8 rows x KC) the side in
+// (m, kk) at s_re/s_im[lay(m, kk)]; M (NT * 8 rows x KC) the side in
 // the layout of side_rs, plane p (re_h, im_h, re_l, im_l) at side + p *
 // pstride.  Lane (g, t) = (lane / 4, lane % 4).
 //
@@ -398,9 +456,9 @@ __device__ __forceinline__ void load_state(
 // size of its last, large terms (one chain per output over all of K
 // drifted the norm).  float64 (DMMA, per warp): products accumulate in
 // acc directly, rounded to nearest.
-template <typename T, bool EXACT, int NT>
+template <typename T, bool EXACT, int NT, typename Lay>
 __device__ __forceinline__ void product_tile(
-        T (&acc)[2][NT][4], const T* s_re, const T* s_im, int sm, int sk,
+        T (&acc)[2][NT][4], const T* s_re, const T* s_im, Lay lay,
         const T* side, int pstride, int g, int t) {
     using C = Cfg<T>;
     using S = Split<T, EXACT>;
@@ -419,7 +477,7 @@ __device__ __forceinline__ void product_tile(
 #pragma unroll 1
         for (int ks = 0; ks < C::KC; ks += C::KS) {
             reg sre[S::NS][F::AR], sim[S::NS][F::AR];
-            load_state<T, S::NS>(s_re, s_im, sm, sk, ks, g, t, sre, sim);
+            load_state<T, S::NS>(s_re, s_im, lay, ks, g, t, sre, sim);
             // the step's two 16-byte K chunks start ks / 4 chunks in
             const uint64_t dk = (uint64_t)((ks / 4) * 128 >> 4);
             wgmma_fence();
@@ -452,7 +510,7 @@ __device__ __forceinline__ void product_tile(
 #pragma unroll 1
         for (int ks = 0; ks < C::KC; ks += C::KS) {
             reg sre[S::NS][F::AR], sim[S::NS][F::AR], nsi[S::NS][F::AR];
-            load_state<T, S::NS>(s_re, s_im, sm, sk, ks, g, t, sre, sim);
+            load_state<T, S::NS>(s_re, s_im, lay, ks, g, t, sre, sim);
 #pragma unroll
             for (int i = 0; i < F::AR; ++i) nsi[0][i] = neg(sim[0][i]);
             reg mre[NT][BR], mim[NT][BR];
@@ -496,6 +554,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
         "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+// One TMA tensor copy of a box of the 4-d tensor that `map` describes,
+// at coordinates (c0, c1, c2, c3), counted on the mbarrier `bar`.
+__device__ __forceinline__ void tensor_copy(void* dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+            smem_addr(dst)),
+        "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
         : "memory");
 }
 __device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
@@ -554,10 +624,146 @@ struct SwappedRows {
 // One (slab, lane chunk) item
 // ---------------------------------------------------------------------------
 
+// Where an item reads and writes (window_item): row w of its slab at
+// offset src(w) (lane stride 1) of the real and imaginary planes `xr`,
+// `xi`; output lanes [l0, l0 + LC) of every row w at offset
+// base + w * wstride of the planes `yr`, `yi`.  K1, K11 and K12 hold it in
+// registers, derived from their parameters; K2 in shared memory, so that
+// the item reads each field where it uses it and its persistent loop
+// costs the item no registers.
+//
+// K2 copies its X tiles with TMA tensor copies instead: `map` is the
+// tensor map of the buffer the item reads (a 4-d view (lane, m, row w,
+// q) of 128-lane rows, ops: launch_megawin), its slab at coordinates
+// (., tm_m, 0, tm_q) and, for the imaginary plane, q + tm_qp.
+template <typename T, typename Rows>
+struct ItemArgs {
+    const T* xr;
+    const T* xi;
+    T* yr;
+    T* yi;
+    Rows src;
+    long long base, wstride;
+    int l0;
+    const void* map;
+    int tm_m, tm_q, tm_qp;
+};
+
+// Issues tile `local` of an item's K-tile stream (per rank, X and A_r
+// tiles, then B_r tiles) into ring position `pos`, in copies counted on
+// the stage's mbarrier; threads 0 .. npl-1 copy a side plane's block of
+// the side image, which holds each K tile of each plane as shared memory
+// holds it (the layout of side_rs, 128 rows).  K1, K11, K12: every thread
+// arrives, announcing its bytes (`extra` adds a copy of its own: the
+// B-only pass's T row, with tile 0), and thread i copies row i % 128 of
+// X's plane i / 128 (KC elements) in one bulk copy.  K2 (TMA): thread 0
+// alone arrives, announcing every byte of the tile (`extra`: all of T),
+// and copies X's two planes in one tensor copy each, into 128-byte rows
+// that the copy swizzles (SwizzledLay).
+template <typename T, bool TMA, typename Rows>
+__device__ __forceinline__ void issue_tile(T* smem, uint64_t* bars, int pos,
+                                           int local,
+                                           const ItemArgs<T, Rows>& ia,
+                                           const QtPass& p, int npl,
+                                           uint32_t extra) {
+    using C = Cfg<T>;
+    constexpr int NK = DIM / C::KC;
+    const int na = p.apply_a ? NK : 0;
+    const int per = na + (p.apply_b ? NK : 0);
+    const int tid = threadIdx.x;
+    T* st = smem + (pos % STAGES) * stage_elems<T>();
+    uint64_t* bar = &bars[pos % STAGES];
+    const int r = local / per, j = local % per;
+    const long long img = (long long)DIM * side_rs<T>();  // one block
+    uint32_t bytes = extra;
+    if (j < na) {
+        const int k0 = j * C::KC;
+        const uint32_t side = C::LC * side_rs<T>() * sizeof(T);
+        if constexpr (TMA) {
+            bytes += 2 * DIM * C::KC * sizeof(T) + npl * side;
+            if (tid == 0) {
+                bar_arrive(bar, bytes);
+                tensor_copy(st, ia.map, k0, ia.tm_m, 0, ia.tm_q, bar);
+                tensor_copy(st + DIM * C::KC, ia.map, k0, ia.tm_m, 0,
+                            ia.tm_q + ia.tm_qp, bar);
+            }
+        } else {
+            const int plane = tid / DIM, w = tid % DIM;
+            bytes += C::KC * sizeof(T);
+            if (tid < npl) bytes += side;
+            bar_arrive(bar, bytes);
+            bulk_copy(st + (plane * DIM + w) * C::SP,
+                      (plane ? ia.xi : ia.xr) + ia.src(w) + k0,
+                      C::KC * sizeof(T), bar);
+        }
+        if (tid < npl)
+            bulk_copy(st + 2 * DIM * C::SP + tid * C::LC * side_rs<T>(),
+                      static_cast<const T*>(p.a) +
+                          ((long long)(r * npl + tid) * NK + j) * img +
+                          (long long)ia.l0 * side_rs<T>(),
+                      side, bar);
+    } else {
+        const uint32_t side = DIM * side_rs<T>() * sizeof(T);
+        if constexpr (TMA) {
+            if (tid == 0) bar_arrive(bar, bytes + npl * side);
+        } else {
+            if (tid < npl) bytes += side;
+            bar_arrive(bar, bytes);
+        }
+        if (tid < npl)
+            bulk_copy(st + tid * DIM * side_rs<T>(),
+                      static_cast<const T*>(p.b) +
+                          ((long long)(r * npl + tid) * NK + (j - na)) * img,
+                      side, bar);
+    }
+}
+
+// The bytes an item's tile 0 adds for the B-only pass's T tile: each
+// thread's own row, or (TMA) all of them, which thread 0 announces.
+template <typename T, bool TMA>
+__device__ __forceinline__ uint32_t t_tile_bytes(const QtPass& p) {
+    if (p.apply_a) return 0;
+    return (TMA ? NTHREADS : 1) * Cfg<T>::LC * sizeof(T);
+}
+
+// The B-only pass's T tile, the slab's own lane chunk: thread i copies
+// row i % 128 of plane i / 128 (LC elements) with tile 0, on its stage's
+// mbarrier (whose arrivals announce these bytes, issue_tile).
+template <typename T, typename Rows>
+__device__ __forceinline__ void copy_t_tile(T* smem, uint64_t* bar,
+                                            const ItemArgs<T, Rows>& ia) {
+    const int plane = threadIdx.x / DIM, w = threadIdx.x % DIM;
+    T* t_r = smem + STAGES * stage_elems<T>();
+    bulk_copy(t_r + (plane * DIM + w) * Cfg<T>::TS,
+              (plane ? ia.xi : ia.xr) + ia.src(w) + ia.l0,
+              Cfg<T>::LC * sizeof(T), bar);
+}
+
+// An item's hooks for the items around it: K1, K11 and K12 run one item
+// per CTA and have none (K2: MegaNext).
+struct NoNext {
+    static constexpr bool enabled = false;
+    __device__ void settle() {}
+    __device__ void publish() {}
+    __device__ void prepoll() {}
+    __device__ void poll() {}
+    template <typename T>
+    __device__ void issue(T*, uint64_t*, int) {}
+};
+
 template <typename T, int NT>
 __device__ __forceinline__ void zero_acc(T (&acc)[2][NT][4]) {
     zero_tiles(acc[0]);
     zero_tiles(acc[1]);
+}
+
+// (vr, vi) times the mask's factor (mr, mi).
+template <typename T>
+__device__ __forceinline__ void masked4(T& vr, T& vi, T mr, T mi) {
+    const T nr = fma_t(vr, mr, -(vi * mi));
+    const T ni = fma_t(vr, mi, vi * mr);
+    vr = nr;
+    vi = ni;
 }
 
 // The mask's factor on (vr, vi) at (w, l), where there is a mask.
@@ -566,31 +772,59 @@ __device__ __forceinline__ void masked(const T* M, int w, int l, T& vr,
                                        T& vi) {
     if (M == nullptr) return;
     const long long mat = (long long)DIM * DIM;
-    const T mr = M[w * DIM + l], mi = M[mat + w * DIM + l];
-    const T nr = fma_t(vr, mr, -(vi * mi));
-    const T ni = fma_t(vr, mi, vi * mr);
-    vr = nr;
-    vi = ni;
+    masked4(vr, vi, M[w * DIM + l], M[mat + w * DIM + l]);
 }
 
-// One (slab, lane chunk) item of one window pass: reads row w of the slab
-// at offset src(w) (lane stride 1) of the real and imaginary planes `xr`,
-// `xi`, writes output lanes [l0, l0 + LC) of every row w to offset
-// base + w * wstride of the planes `yr`, `yi`.  The state is read through
+// K2's float32 mask staging.  The epilogue's mask loads, four bytes
+// apiece from L2 (the poll's acquisition empties L1 every ticket), held
+// up a masked item's stores; staged, each thread copies 16 pieces of 16
+// bytes (cp.async) while the last K tile's products run, into
+// the stage that tile frees, as rows [plane][w][MASK_PITCH] of the item's
+// LC lanes (pitch 68: the epilogue's reads hit 32 banks).  That stage's
+// mbarrier takes an arrival without bytes for the ring position the mask
+// holds, so that the ring's phases run on.
+constexpr int MASK_PITCH = 68;
+
+template <typename T>
+__device__ __forceinline__ void stage_mask(T* dst, const T* M, int l0) {
+    static_assert(sizeof(T) == 4, "a float32 mask chunk fills a stage");
+    constexpr int LC = Cfg<T>::LC, PIECES = LC / 4;    // 16 bytes each
+    static_assert(2 * DIM * MASK_PITCH <= stage_elems<T>(), "mask fits");
+#pragma unroll
+    for (int k = 0; k < 2 * DIM * PIECES / NTHREADS; ++k) {
+        const int q = threadIdx.x + k * NTHREADS;
+        const int row = q / PIECES, c = (q % PIECES) * 4;   // row: plane, w
+        asm volatile(
+            "cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                smem_addr(dst + row * MASK_PITCH + c)),
+            "l"(M + (long long)row * DIM + l0 + c)
+            : "memory");
+    }
+}
+
+// One (slab, lane chunk) item of one window pass, where `ia` says.  The state is read through
 // L2 only (the copy engine, __ldcg), never the non-coherent L1 path:
-// inside K2 a pass reads what other CTAs of the cluster wrote in the
-// previous pass.
+// inside K2 a pass reads what other CTAs wrote in the previous pass.
+//
+// The K-tile stream runs on the CTA's ring from position `ring` (the
+// mbarriers are initialised by the kernel, once); where `primed`, the
+// previous item already issued tile 0.  `next` (K2) hooks into the
+// stream: half way through it publishes the CTA's previous item (whose
+// stores have drained by then), at the last two tiles thread 0 polls the
+// inputs of the CTA's next ticket, and once
+// every warp is done with the shared tiles, before this item's stores,
+// it may issue that ticket's tile 0.  Returns the ring position after the
+// item.
 //
 // Warp j computes rows [16j, 16j + 16) of T = X A_r^T[:, chunk] (all LC
 // columns), and a 16 x LC block of Y^T = T^T B_r^T (rows: chunk lanes
 // [16 (j % (LC/16)), +16); columns: rows w' [LC (j / (LC/16)), +LC)):
 // in both products the state is the A operand, split once per fragment,
 // and the already split side the B operand.
-template <typename T, bool EXACT, typename Rows>
-__device__ void window_item(const T* xr, const T* xi, T* yr, T* yi,
-                            Rows src, long long base, long long wstride,
-                            int l0, const QtPass& p, T* smem,
-                            uint64_t* bars) {
+template <typename T, bool EXACT, typename Rows, typename Next>
+__device__ int window_item(const ItemArgs<T, Rows>& ia, const QtPass& p,
+                           T* smem, uint64_t* bars, int ring, bool primed,
+                           Next& next) {
     using C = Cfg<T>;
     using V2 = typename Vec2<T>::type;
     constexpr int NT = C::LC / 8;          // 16 x 8 tiles per warp
@@ -598,98 +832,60 @@ __device__ void window_item(const T* xr, const T* xi, T* yr, T* yi,
     constexpr int SP = C::SP, TS = C::TS, RS = side_rs<T>();
     // side planes per rank in the side images
     constexpr int NPL = (sizeof(T) == 4 && !EXACT) ? 4 : 2;
+    // K2 copies X tiles by TMA (issue_tile), and at float32 stages a
+    // dual-side or B-only pass's mask in shared memory (stage_mask)
+    constexpr bool TMA = Next::enabled;
+    const bool STAGE_MASK =
+        TMA && sizeof(T) == 4 && p.apply_b && p.mask != nullptr;
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int g = lane / 4, t = lane % 4;
     const int row0 = warp * 16;                      // T rows w
     const int c0 = (warp % (C::LC / 16)) * 16;       // Y^T rows (lanes)
     const int n0 = (warp / (C::LC / 16)) * C::LC;    // Y^T columns w'
-    const T* M = static_cast<const T*>(p.mask);
 
     if (!p.apply_a && !p.apply_b) {
         // mask-only: Y = mask (.) X, bound by bytes
+        const T* M = static_cast<const T*>(p.mask);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int w = row0 + g + 8 * h;
-                const int l = l0 + nt * 8 + 2 * t;
-                const long long o = src(w) + l;
-                const V2 vr = __ldcg(reinterpret_cast<const V2*>(xr + o));
-                const V2 vi = __ldcg(reinterpret_cast<const V2*>(xi + o));
+                const int l = ia.l0 + nt * 8 + 2 * t;
+                const long long o = ia.src(w) + l;
+                const V2 vr = __ldcg(reinterpret_cast<const V2*>(ia.xr + o));
+                const V2 vi = __ldcg(reinterpret_cast<const V2*>(ia.xi + o));
                 T r0 = vr.x, r1 = vr.y, i0 = vi.x, i1 = vi.y;
                 masked(M, w, l, r0, i0);
                 masked(M, w, l + 1, r1, i1);
-                const long long d = base + w * wstride + l;
-                *reinterpret_cast<V2*>(yr + d) = V2{r0, r1};
-                *reinterpret_cast<V2*>(yi + d) = V2{i0, i1};
+                const long long d = ia.base + w * ia.wstride + l;
+                *reinterpret_cast<V2*>(ia.yr + d) = V2{r0, r1};
+                *reinterpret_cast<V2*>(ia.yi + d) = V2{i0, i1};
             }
-        return;
+        return ring;
     }
 
-    const T* A = static_cast<const T*>(p.a);
-    const T* B = static_cast<const T*>(p.b);
     T* t_r = smem + STAGES * stage_elems<T>();   // [DIM][TS]: T = X A^T chunk
     T* t_i = t_r + DIM * TS;
     const int na = p.apply_a ? NK : 0;
     const int per = na + (p.apply_b ? NK : 0);
     const int total = p.rank * per;
 
-    // One stage's tile, of the K-tile stream (per rank, X and A_r tiles,
-    // then B_r tiles), in bulk copies counted on the stage's mbarrier:
-    // thread i copies row i % 128 of X's plane i / 128 (KC elements);
-    // threads 0 .. NPL-1 a side plane's block of the side image, which
-    // holds each K tile of each plane as shared memory holds it (the
-    // layout of side_rs, 128 rows).  `extra` adds a copy of this thread's
-    // (the B-only pass's T tile, with tile 0).
     const int tid = threadIdx.x;
     auto load_tile = [&](int tile, uint32_t extra) {
-        T* st = smem + (tile % STAGES) * stage_elems<T>();
-        uint64_t* bar = &bars[tile % STAGES];
-        const int r = tile / per, j = tile % per;
-        const long long img = (long long)DIM * side_rs<T>();  // one block
-        uint32_t bytes = extra;
-        if (j < na) {
-            const int k0 = j * C::KC;
-            const int plane = tid / DIM, w = tid % DIM;
-            bytes += C::KC * sizeof(T);
-            if (tid < NPL) bytes += C::LC * side_rs<T>() * sizeof(T);
-            bar_arrive(bar, bytes);
-            bulk_copy(st + (plane * DIM + w) * SP,
-                      (plane ? xi : xr) + src(w) + k0, C::KC * sizeof(T),
-                      bar);
-            if (tid < NPL)
-                bulk_copy(st + 2 * DIM * SP + tid * C::LC * side_rs<T>(),
-                          A + ((long long)(r * NPL + tid) * NK + j) * img +
-                              (long long)l0 * side_rs<T>(),
-                          C::LC * side_rs<T>() * sizeof(T), bar);
-        } else {
-            if (tid < NPL) bytes += DIM * side_rs<T>() * sizeof(T);
-            bar_arrive(bar, bytes);
-            if (tid < NPL)
-                bulk_copy(st + tid * DIM * side_rs<T>(),
-                          B + ((long long)(r * NPL + tid) * NK + (j - na)) *
-                                  img,
-                          DIM * side_rs<T>() * sizeof(T), bar);
-        }
+        issue_tile<T, TMA>(smem, bars, ring + tile, tile, ia, p, NPL, extra);
     };
 
     T tacc[2][NT][4];
     zero_acc(tacc);
 
-    // fresh barriers for this item: every earlier use has completed
-    if (tid < STAGES) bar_init(&bars[tid], NTHREADS);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    __syncthreads();
     // B-only: T is the slab's own lane chunk, for every rank; it comes
     // with tile 0, after the arrivals that announce its bytes
-    const uint32_t t_bytes = p.apply_a ? 0 : C::LC * sizeof(T);
+    if (!primed) {
 #pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s)
-        if (s < total) load_tile(s, s == 0 ? t_bytes : 0);
-    if (!p.apply_a) {
-        const int plane = tid / DIM, w = tid % DIM;
-        bulk_copy((plane ? t_i : t_r) + w * TS,
-                  (plane ? xi : xr) + src(w) + l0, t_bytes, &bars[0]);
+        for (int s = 0; s < STAGES - 1; ++s)
+            if (s < total) load_tile(s, s == 0 ? t_tile_bytes<T, TMA>(p) : 0);
+        if (!p.apply_a) copy_t_tile(smem, &bars[ring % STAGES], ia);
     }
     // Waits for the next tile of the stream, lets every warp finish with
     // the stage the load after it overwrites, issues that load, and
@@ -698,15 +894,31 @@ __device__ void window_item(const T* xr, const T* xi, T* yr, T* yi,
     // reads of T before this rank's stores.
     int tile = 0;
     auto next_stage = [&]() {
-        bar_wait(&bars[tile % STAGES], (tile / STAGES) & 1);
+        const int pos = ring + tile;
+        bar_wait(&bars[pos % STAGES], (pos / STAGES) & 1);
+        if constexpr (Next::enabled) {
+            if (tile == total / 2) next.settle();
+            if (tile == total - 2 && tid == 0) next.prepoll();
+            if (tile == total - 1 && tid == 0) next.poll();
+        }
         __syncthreads();
+        if constexpr (Next::enabled) {
+            if (tile == total / 2 && tid == 0) next.publish();
+        }
         if (tile + STAGES - 1 < total) {
             // the threads' reads of the stage are done (the barrier);
             // order them before the copy engine's writes
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
             load_tile(tile + STAGES - 1, 0);
+        } else if constexpr (TMA && sizeof(T) == 4) {
+            if (STAGE_MASK && tile == total - 1) {
+                // the mask's lane chunk into the stage this tile frees
+                stage_mask<T>(smem + ((pos + 1) % STAGES) * stage_elems<T>(),
+                              static_cast<const T*>(p.mask), ia.l0);
+                if (tid == 0) bar_arrive(&bars[(pos + 1) % STAGES], 0);
+            }
         }
-        T* st = smem + (tile % STAGES) * stage_elems<T>();
+        T* st = smem + (pos % STAGES) * stage_elems<T>();
         ++tile;
         return st;
     };
@@ -714,9 +926,14 @@ __device__ void window_item(const T* xr, const T* xi, T* yr, T* yi,
     auto first_product = [&](T (&acc)[2][NT][4]) {
         for (int j = 0; j < NK; ++j) {
             const T* st = next_stage();
-            product_tile<T, EXACT, NT>(acc, st + row0 * SP,
-                                       st + (DIM + row0) * SP, SP, 1,
-                                       st + 2 * DIM * SP, C::LC * RS, g, t);
+            if constexpr (TMA)
+                product_tile<T, EXACT, NT>(
+                    acc, st + row0 * C::KC, st + (DIM + row0) * C::KC,
+                    SwizzledLay<T>{}, st + 2 * DIM * SP, C::LC * RS, g, t);
+            else
+                product_tile<T, EXACT, NT>(
+                    acc, st + row0 * SP, st + (DIM + row0) * SP,
+                    StridedLay{SP, 1}, st + 2 * DIM * SP, C::LC * RS, g, t);
         }
     };
     // Y^T[c][w'] += sum_w T[w][c] B_r[w'][w], one rank's K tiles
@@ -724,8 +941,9 @@ __device__ void window_item(const T* xr, const T* xi, T* yr, T* yi,
         for (int j = 0; j < NK; ++j) {
             const T* st = next_stage();
             product_tile<T, EXACT, NT>(acc, t_r + j * C::KC * TS + c0,
-                                       t_i + j * C::KC * TS + c0, 1, TS,
-                                       st + n0 * RS, DIM * RS, g, t);
+                                       t_i + j * C::KC * TS + c0,
+                                       StridedLay{1, TS}, st + n0 * RS,
+                                       DIM * RS, g, t);
         }
     };
     // T to shared memory for the second product
@@ -746,21 +964,23 @@ __device__ void window_item(const T* xr, const T* xi, T* yr, T* yi,
         // A-only: Y = sum_r T_r, rows w = row0 + g (+ 8)
         for (int r = 0; r < p.rank; ++r) first_product(tacc);
         __syncthreads();
+        if constexpr (Next::enabled) next.issue(smem, bars, ring + total);
+        const T* M = static_cast<const T*>(p.mask);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int w = row0 + g + 8 * h;
-                const int l = l0 + nt * 8 + 2 * t;
+                const int l = ia.l0 + nt * 8 + 2 * t;
                 T r0 = tacc[0][nt][2 * h], r1 = tacc[0][nt][2 * h + 1];
                 T i0 = tacc[1][nt][2 * h], i1 = tacc[1][nt][2 * h + 1];
                 masked(M, w, l, r0, i0);
                 masked(M, w, l + 1, r1, i1);
-                const long long d = base + w * wstride + l;
-                *reinterpret_cast<V2*>(yr + d) = V2{r0, r1};
-                *reinterpret_cast<V2*>(yi + d) = V2{i0, i1};
+                const long long d = ia.base + w * ia.wstride + l;
+                *reinterpret_cast<V2*>(ia.yr + d) = V2{r0, r1};
+                *reinterpret_cast<V2*>(ia.yi + d) = V2{i0, i1};
             }
-        return;
+        return ring + total;
     }
 
     // Rank 0 has code of its own, in which T's accumulator and Y's are
@@ -780,41 +1000,58 @@ __device__ void window_item(const T* xr, const T* xi, T* yr, T* yi,
         }
         second_product(yacc);
     }
-    // every warp is done with the shared tiles before the next item
+    // every warp is done with the shared tiles before the next item (and,
+    // where the mask was staged, each thread's copies of it have landed)
+    if (STAGE_MASK) asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
+    // a staged mask holds one more ring position
+    const int end = ring + total + (STAGE_MASK ? 1 : 0);
+    if constexpr (Next::enabled) next.issue(smem, bars, end);
 
     // Y^T tiles: lanes c0 + g (+ 8), rows w' = n0 + nt * 8 + 2t (+ 1)
+    const T* M = static_cast<const T*>(p.mask);
+    const T* Ms = smem + ((ring + total) % STAGES) * stage_elems<T>();
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const int l = l0 + c0 + g + 8 * (e >> 1);
+            const int c = c0 + g + 8 * (e >> 1);
+            const int l = ia.l0 + c;
             const int w = n0 + nt * 8 + 2 * t + (e & 1);
             T vr = yacc[0][nt][e], vi = yacc[1][nt][e];
-            masked(M, w, l, vr, vi);
-            const long long d = base + w * wstride + l;
-            yr[d] = vr;
-            yi[d] = vi;
+            if (STAGE_MASK)
+                masked4(vr, vi, Ms[w * MASK_PITCH + c],
+                        Ms[(DIM + w) * MASK_PITCH + c]);
+            else
+                masked(M, w, l, vr, vi);
+            const long long d = ia.base + w * ia.wstride + l;
+            ia.yr[d] = vr;
+            ia.yi[d] = vi;
         }
+    return end;
 }
 
 // The item with the products the pass's sides call for (float64 has one
 // kind).
-template <typename T, typename Rows>
-__device__ __forceinline__ void run_item(const T* xr, const T* xi, T* yr,
-                                         T* yi, Rows src, long long base,
-                                         long long wstride, int l0,
-                                         const QtPass& p, T* smem,
-                                         uint64_t* bars) {
+template <typename T, typename Rows, typename Next>
+__device__ __forceinline__ int run_item(const ItemArgs<T, Rows>& ia,
+                                        const QtPass& p, T* smem,
+                                        uint64_t* bars, int ring,
+                                        bool primed, Next& next) {
     if constexpr (sizeof(T) == 8)
-        window_item<T, true, Rows>(xr, xi, yr, yi, src, base, wstride, l0,
-                                   p, smem, bars);
+        return window_item<T, true>(ia, p, smem, bars, ring, primed, next);
     else if (p.exact)
-        window_item<T, true, Rows>(xr, xi, yr, yi, src, base, wstride, l0,
-                                   p, smem, bars);
+        return window_item<T, true>(ia, p, smem, bars, ring, primed, next);
     else
-        window_item<T, false, Rows>(xr, xi, yr, yi, src, base, wstride, l0,
-                                    p, smem, bars);
+        return window_item<T, false>(ia, p, smem, bars, ring, primed, next);
+}
+
+// The ring's mbarriers, once per CTA, before any copy: `count` arrivals
+// complete a phase (every thread, or K2's thread 0).
+__device__ __forceinline__ void init_ring(uint64_t* bars, int count) {
+    if (threadIdx.x < STAGES) bar_init(&bars[threadIdx.x], count);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncthreads();
 }
 
 template <typename T>
@@ -829,8 +1066,12 @@ window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
     const long long mid = 1LL << (p.k - 7);
     const long long h = slab / mid, m = slab % mid;
     const long long base = (h * DIM * mid + m) * DIM;
-    run_item<T>(x, x + plane, y, y + plane, StridedRows{base, mid * DIM},
-                base, mid * DIM, chunk * Cfg<T>::LC, p, smem, bars);
+    const ItemArgs<T, StridedRows> ia{x, x + plane, y, y + plane,
+                                      StridedRows{base, mid * DIM}, base,
+                                      mid * DIM, chunk * Cfg<T>::LC};
+    NoNext none;
+    init_ring(bars, NTHREADS);
+    run_item<T>(ia, p, smem, bars, 0, false, none);
 }
 
 // K12: one (output slab, lane chunk) item per CTA, the slab's rows
@@ -845,62 +1086,386 @@ swap_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
     T* smem = reinterpret_cast<T*>(smem_raw);
     const int chunk = blockIdx.x % nchunk<T>();
     const long long slab = blockIdx.x / nchunk<T>();
-    run_item<T>(x, x + plane, y, y + plane, SwappedRows{slab, hs, bs, mask},
-                slab * DIM * DIM, DIM, chunk * Cfg<T>::LC, p, smem, bars);
+    const ItemArgs<T, SwappedRows> ia{x, x + plane, y, y + plane,
+                                      SwappedRows{slab, hs, bs, mask},
+                                      slab * DIM * DIM, DIM,
+                                      chunk * Cfg<T>::LC};
+    NoNext none;
+    init_ring(bars, NTHREADS);
+    run_item<T>(ia, p, smem, bars, 0, false, none);
 }
 
-// A super-block of G canonical rows is G * 128 * 128 consecutive
-// amplitudes of each plane, and a pass's slabs lie at the same offsets
-// relative to its start wherever it is stored: in the state (planes 2^n
-// apart) or in a cluster's scratch buffer (planes G * 128 * 128 apart).
+// ---------------------------------------------------------------------------
+// K2: the window megakernel's dataflow schedule
+// ---------------------------------------------------------------------------
+
+// Items per ticket: a ticket is two consecutive items of one super-block's
+// pass (the two lane chunks of a slab at float32), run back to back, so
+// that the schedule's gpu-scope synchronisation (a poll, a publication;
+// each about an L2 round trip on the issuing thread, which the whole CTA
+// then waits for) is paid once per two items.
+constexpr int MEGA_TICKET_ITEMS = 2;
+
+// The tensor maps of K2's X tiles, one per pass: the buffer the pass
+// reads (the state, the output or the slots) as a 4-d tensor (lane l,
+// m, row w, q) of strides (1, 128, 128 mid, 128^2 mid) elements, mid =
+// 2^(k-7): element l of row w of slab (h, m) at q = h in the plane, with
+// the planes and slots further along q (launch_megawin).  The copy's box
+// is (KC, 1, 128, 1), one X tile of one plane.
+struct MegaMaps {
+    CUtensorMap m[MAX_MEGA_PASSES];
+};
+
+// A launch of K2 as every thread reads it, and the CTA's schedule: in
+// shared memory, so that a pass is looked up at a dynamic index without a
+// local copy of the parameters, and the schedule's state takes no
+// registers while an item runs.  `work` holds the ticket counter, then one
+// done-counter per super-block (items finished, over all passes); the
+// wrapper zeroes it.  The item operands rotate through three slots: the
+// item that runs, the next (written while it runs), and the one before,
+// whose stores other threads may still be issuing.
+template <typename T>
+struct MegaLaunch {
+    const T* x;
+    T* out;
+    T* slots;
+    unsigned* tickets;
+    int* done;
+    long long plane;
+    unsigned ticket;    // the ticket of the CTA's next item to start
+    unsigned next;      // thread 0: the CTA's following ticket
+    int pending;        // thread 0: the super-block of the CTA's last
+                        // ticket while it is not yet published, else -1
+    int go;             // the next item's tile 0 is issued early, its
+    int go_slot;        // operand slot and whether it is a ticket's
+    int go_first;       // first item
+    int slot, first;    // thread 0: the running item's slot, and whether
+                        // it is its ticket's first item
+    int pass[3];        // per operand slot: the item's pass and
+    int sb[3];          // super-block
+    ItemArgs<T, StridedRows> ia[3];
+    const MegaMaps* maps;
+    QtMegaArgs a;
+};
+
+struct MegaItem {
+    int sb, pass, it;
+};
+
+// Ticket t: windows of W super-blocks in order (the last may hold fewer),
+// within a window pass by pass, within a pass super-block by super-block
+// and two items at a time; `it` is the ticket's first item
+// (ops/fused.py megawin_decode is its twin).
+__device__ __forceinline__ MegaItem mega_decode(unsigned t,
+                                                const QtMegaArgs& a) {
+    const unsigned tpp = (unsigned)a.ipp / MEGA_TICKET_ITEMS;
+    const unsigned per_win = (unsigned)(a.window * a.npass) * tpp;
+    const unsigned win = t / per_win;
+    const unsigned r = t - win * per_win;
+    const int w0 = (int)win * a.window;
+    const int ws = min(a.window, a.nsb - w0);
+    const unsigned per_pass = (unsigned)ws * tpp;
+    MegaItem m;
+    m.pass = (int)(r / per_pass);
+    const unsigned q = r - (unsigned)m.pass * per_pass;
+    m.sb = w0 + (int)(q / tpp);
+    m.it = (int)(q % tpp) * MEGA_TICKET_ITEMS;
+    return m;
+}
+
+__device__ __forceinline__ unsigned mega_tickets(const QtMegaArgs& a) {
+    return (unsigned)a.nsb * (unsigned)a.npass *
+           ((unsigned)a.ipp / MEGA_TICKET_ITEMS);
+}
+
+// Passes alternate between a super-block's place in `out` and its slot,
+// so that the last lands in `out`; with an even count the first pass
+// writes the slot, with an odd one the second (one pass: never).
+__device__ __forceinline__ bool mega_to_out(int pass, int npass) {
+    return (npass - 1 - pass) % 2 == 0;
+}
+__device__ __forceinline__ int mega_first_slot_pass(int npass) {
+    return npass % 2 == 0 ? 0 : 1;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    return v;
+}
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+    int v;
+    asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    return v;
+}
+__device__ __forceinline__ void red_release(int* p, int v) {
+    asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p),
+                 "r"(v)
+                 : "memory");
+}
+
+// The done-counts item m needs: the super-block's own, through its
+// previous pass (need0), and where its pass first writes the slot, the
+// slot's previous occupant's, through its last pass (need1 on counter
+// m.sb - S).  Both cover lower tickets only.
+__device__ __forceinline__ void mega_needs(const MegaItem& m,
+                                           const QtMegaArgs& a, int& need0,
+                                           int& need1) {
+    need0 = m.pass * a.ipp;
+    need1 = (m.pass == mega_first_slot_pass(a.npass) && m.sb >= a.slots)
+                ? a.npass * a.ipp
+                : 0;
+}
+
+// Thread 0 waits until item m may start, reading the counters with
+// acquire semantics.
+template <typename T>
+__device__ __forceinline__ void mega_wait(const MegaItem& m,
+                                          const MegaLaunch<T>& L) {
+    int need0, need1;
+    mega_needs(m, L.a, need0, need1);
+    unsigned ns = 32;
+    while ((need0 && ld_acquire(L.done + m.sb) < need0) ||
+           (need1 && ld_acquire(L.done + m.sb - L.a.slots) < need1)) {
+        __nanosleep(ns);
+        ns = ns < 1024 ? 2 * ns : ns;
+    }
+}
+
+// Operand slot s of L for item m: where pass m.pass of super-block m.sb
+// reads (where the pass before wrote, the first the state) and writes
+// (its place in `out`, planes 2^n apart, or its slot, both planes of one
+// super-block G * 128 * 128 apart), and item m.it's slab in the
+// super-block (mid = 2^(k-7) slabs interleaved row by row) and lane
+// chunk.
+template <typename T>
+__device__ __forceinline__ void mega_operands(MegaLaunch<T>& L, int s,
+                                              const MegaItem& m) {
+    const QtMegaArgs& a = L.a;
+    const long long sbe = (long long)a.g_rows * DIM * DIM;
+    auto place = [&](int pass, long long& pstride) -> T* {
+        if (mega_to_out(pass, a.npass)) {
+            pstride = L.plane;
+            return L.out + m.sb * sbe;
+        }
+        pstride = sbe;
+        return L.slots + (long long)(m.sb % a.slots) * 2 * sbe;
+    };
+    ItemArgs<T, StridedRows>& ia = L.ia[s];
+    long long ps = L.plane, pd;
+    ia.xr = m.pass > 0 ? place(m.pass - 1, ps) : L.x + m.sb * sbe;
+    ia.xi = ia.xr + ps;
+    ia.yr = place(m.pass, pd);
+    ia.yi = ia.yr + pd;
+    const int shift = a.p[m.pass].k - 7;
+    const long long j = m.it / nchunk<T>();
+    ia.base =
+        ((j >> shift) * DIM * (1LL << shift) + (j & ((1LL << shift) - 1))) *
+        DIM;
+    ia.wstride = (1LL << shift) * DIM;
+    ia.src = StridedRows{ia.base, ia.wstride};
+    ia.l0 = (m.it % nchunk<T>()) * Cfg<T>::LC;
+    // the slab in the source's tensor map: q counts 128^2 mid-element
+    // blocks, G / mid to a super-block
+    const int per_sb = a.g_rows >> shift;
+    const int hh = (int)(j >> shift);
+    ia.map = &L.maps->m[m.pass];
+    ia.tm_m = (int)(j & ((1LL << shift) - 1));
+    if (m.pass > 0 && !mega_to_out(m.pass - 1, a.npass)) {
+        ia.tm_q = (m.sb % a.slots) * 2 * per_sb + hh;
+        ia.tm_qp = per_sb;
+    } else {
+        ia.tm_q = m.sb * per_sb + hh;
+        ia.tm_qp = (int)(L.plane / ((long long)DIM * DIM << shift));
+    }
+    L.pass[s] = m.pass;
+    L.sb[s] = m.sb;
+}
+
+// K2's hooks in an item's K-tile stream (window_item).  Their state lies
+// in shared memory (L.slot, L.first, L.go, L.go_slot), so that the item's
+// products run with K1's registers; only thread 0's next ticket, taken
+// as a ticket's first item begins, stays in a register.  The first item
+// of a ticket hands on to the second, which is always ready; the second
+// to the CTA's next ticket, whose inputs thread 0 polls.
+template <typename T>
+struct MegaNext {
+    static constexpr bool enabled = true;
+    MegaLaunch<T>& L;
+    unsigned ticket;    // thread 0, first item: the CTA's next ticket
+    int seen0, seen1;   // thread 0: the counters read ahead
+
+    // Half way through a ticket's first item, before the tile's barrier
+    // (every thread): the CTA's previous ticket's stores, drained by now,
+    // reach the async proxy, which the next pass's copies read.
+    __device__ void settle() {
+        if (L.first) asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    }
+    // After that barrier (thread 0): publish the previous ticket.
+    __device__ void publish() {
+        if (!L.first) return;
+        if (L.pending >= 0)
+            red_release(L.done + L.pending, MEGA_TICKET_ITEMS);
+        L.pending = -1;
+    }
+    // Two tiles before the end (thread 0): a first item keeps its next
+    // ticket; a second item reads the counters the CTA's next ticket
+    // needs, relaxed, a tile ahead of their use, and sets out its
+    // operands.
+    __device__ void prepoll() {
+        if (L.first) {
+            L.next = ticket;
+            return;
+        }
+        L.ticket = L.next;
+        seen0 = seen1 = 0;
+        if (L.next >= mega_tickets(L.a)) return;
+        const MegaItem m = mega_decode(L.next, L.a);
+        int need0, need1;
+        mega_needs(m, L.a, need0, need1);
+        if (need0) seen0 = ld_relaxed(L.done + m.sb);
+        if (need1) seen1 = ld_relaxed(L.done + m.sb - L.a.slots);
+        mega_operands(L, L.slot == 2 ? 0 : L.slot + 1, m);
+    }
+    // The last tile, before its barrier (thread 0): whether the next
+    // item's tile 0 goes out now; for a new ticket, whether its inputs
+    // are complete, and if so the fence makes the relaxed reads an
+    // acquisition of them.
+    __device__ void poll() {
+        int go = 0;
+        if (L.first) {
+            go = 1;
+        } else if (L.ticket < mega_tickets(L.a)) {
+            const MegaItem m = mega_decode(L.ticket, L.a);
+            int need0, need1;
+            mega_needs(m, L.a, need0, need1);
+            const QtPass& p = L.a.p[m.pass];
+            go = (p.apply_a || p.apply_b) && seen0 >= need0 &&
+                 seen1 >= need1;
+            if (go) asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+        }
+        L.go = go;
+        L.go_slot = L.slot == 2 ? 0 : L.slot + 1;
+        L.go_first = L.first;
+    }
+    // After the item's last barrier, before its stores (every thread):
+    // the next item's tile 0 (and a B-only pass's T tile) into the free
+    // stage at ring position `pos`.
+    __device__ void issue(T* smem, uint64_t* bars, int pos) {
+        if (!L.go) return;
+        const int s = L.go_slot;
+        const ItemArgs<T, StridedRows>& ia = L.ia[s];
+        const QtPass& p = L.a.p[L.pass[s]];
+        // a new ticket's inputs, acquired (poll), before the copy
+        // engine's reads; the threads' reads of shared memory before its
+        // writes
+        if (!L.go_first)
+            asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue_tile<T, true>(smem, bars, pos, 0, ia, p,
+                            sizeof(T) == 4 && !p.exact ? 4 : 2,
+                            t_tile_bytes<T, true>(p));
+        if (!p.apply_a) copy_t_tile(smem, &bars[pos % STAGES], ia);
+    }
+};
+
+// K2: a persistent grid that takes tickets until they run out.  An item
+// whose tile 0 its predecessor issued (primed) starts at once; the first
+// item of a ticket publishes the CTA's previous ticket half way through,
+// when that ticket's stores have drained (a fence right after them waits
+// for about 64 KB to reach L2 at the SM's share of the write rate).  Any
+// other item first publishes the previous ticket (it may wait on it) and
+// then waits for its inputs.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS, 1)
-megawin_kernel(const T* __restrict__ x, T* out, T* scratch, long long plane,
-               long long nsb, QtMegaArgs args) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
+megawin_kernel(const T* __restrict__ x, T* out, T* slots, unsigned* work,
+               long long plane, QtMegaArgs args,
+               const __grid_constant__ MegaMaps maps) {
+    // the swizzled X tiles start on 1024 bytes; a base the compiler knows
+    // keeps the tiles' addresses out of registers
+    extern __shared__ __align__(1024) unsigned char mega_smem[];
     __shared__ uint64_t bars[STAGES];
-    T* smem = reinterpret_cast<T*>(smem_raw);
-    cg::cluster_group cluster = cg::this_cluster();
-    const int csize = (int)cluster.num_blocks();
-    const int crank = (int)cluster.block_rank();
-    const long long ncl = gridDim.x / csize;
-    const long long cid = blockIdx.x / csize;
-    const int G = args.g_rows;
-    const int items = G * nchunk<T>();
-    const long long sbe = (long long)G * DIM * DIM;
-    // this cluster's scratch buffer: both planes of one super-block
-    T* const buf = scratch + cid * 2 * sbe;
-    for (long long sb = cid; sb < nsb; sb += ncl) {
-        const T* sr = x + sb * sbe;
-        const T* si = sr + plane;
-        for (int pi = 0; pi < args.npass; ++pi) {
-            // passes alternate between the super-block's place in `out`
-            // and the scratch buffer, so that the last lands in `out`
-            const bool to_out = (args.npass - 1 - pi) % 2 == 0;
-            T* dr = to_out ? out + sb * sbe : buf;
-            T* di = dr + (to_out ? plane : sbe);
-            const QtPass& p = args.p[pi];
-            const long long mid = 1LL << (p.k - 7);
-            for (int it = crank; it < items; it += csize) {
-                const int chunk = it % nchunk<T>();
-                const long long j = it / nchunk<T>();
-                const long long base =
-                    ((j / mid) * DIM * mid + j % mid) * DIM;
-                run_item<T>(sr, si, dr, di, StridedRows{base, mid * DIM},
-                            base, mid * DIM, chunk * Cfg<T>::LC, p, smem,
-                            bars);
+    __shared__ MegaLaunch<T> L;
+    T* smem = reinterpret_cast<T*>(mega_smem);
+    const int tid = threadIdx.x;
+    if (smem_addr(mega_smem) % 1024) __trap();
+    if (tid == 0) {
+        L.maps = &maps;
+        L.x = x;
+        L.out = out;
+        L.slots = slots;
+        L.tickets = work;
+        L.done = reinterpret_cast<int*>(work + 1);
+        L.plane = plane;
+        L.pending = -1;
+        L.a = args;
+        L.ticket = atomicAdd(work, 1u);
+    }
+    init_ring(bars, 1);
+    int ring = 0, slot = 0;
+    bool primed = false, first = true;
+    for (;;) {
+        if (!primed) {
+            // publish the CTA's last ticket before any wait: its next may
+            // depend on it
+            asm volatile("fence.proxy.async.global;\n" ::: "memory");
+            __syncthreads();
+            if (tid == 0) {
+                if (L.pending >= 0)
+                    red_release(L.done + L.pending, MEGA_TICKET_ITEMS);
+                L.pending = -1;
             }
-            // the pass is visible to the whole cluster before the next one
-            // reads it (with the copy engine, whose reads go through the
-            // async proxy), and before the next super-block's first pass
-            // overwrites a buffer this pass may have read
+            if (first) {
+                if (L.ticket >= mega_tickets(L.a)) break;
+                if (tid == 0) {
+                    const MegaItem m = mega_decode(L.ticket, L.a);
+                    mega_operands(L, slot, m);
+                    mega_wait(m, L);
+                }
+            }
+            __syncthreads();
+            // the inputs' acquisition before this item's copies (the
+            // async proxy), the last item's reads of shared memory
+            // before the copy engine's writes
             asm volatile("fence.proxy.async.global;\n" ::: "memory");
-            __threadfence();
-            cluster.sync();
-            asm volatile("fence.proxy.async.global;\n" ::: "memory");
-            sr = dr;
-            si = di;
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         }
+        const int nslot = slot == 2 ? 0 : slot + 1;
+        MegaNext<T> next{L, 0u, 0, 0};
+        if (tid == 0) {
+            L.slot = slot;
+            L.first = first;
+        }
+        if (first && tid == 0) {
+            next.ticket = atomicAdd(L.tickets, 1u);
+            // the ticket's second item: the slab's next lane chunk
+            L.ia[nslot] = L.ia[slot];
+            L.ia[nslot].l0 += Cfg<T>::LC;
+            L.pass[nslot] = L.pass[slot];
+            L.sb[nslot] = L.sb[slot];
+        }
+        const QtPass& p = L.a.p[L.pass[slot]];
+        ring = run_item<T>(L.ia[slot], p, smem, bars, ring, primed, next);
+        // every thread reads the flag after the item's last barrier;
+        // thread 0 writes it next in the next item's poll
+        primed = (p.apply_a || p.apply_b) && L.go;
+        if (tid == 0) {
+            // a mask-only item has no K tiles, so no prepoll moved the
+            // tickets on
+            if (!p.apply_a && !p.apply_b) {
+                if (first) L.next = next.ticket;
+                else L.ticket = L.next;
+            }
+            if (!first) L.pending = L.sb[slot];
+        }
+        slot = nslot;
+        first = !first;
     }
 }
 
@@ -957,55 +1522,93 @@ static int launch_swap_cluster(const T* x, T* y, int n, int rank,
     return (int)cudaGetLastError();
 }
 
-// CTAs per cluster for super-blocks of g rows (g * nchunk items).
+// K2's shared memory: the window kernels'.
 template <typename T>
-static int cluster_size(long long g) {
-    const long long items = g * nchunk<T>();
-    return (int)(items < 8 ? items : 8);
+static size_t mega_smem_bytes() {
+    return smem_bytes<T>();
 }
 
-template <typename T>
-static void megawin_config(long long g, long long nclusters,
-                           cudaLaunchConfig_t* cfg,
-                           cudaLaunchAttribute* attr, void* stream) {
-    const int csize = cluster_size<T>(g);
-    *cfg = {};
-    cfg->gridDim = dim3((unsigned)(nclusters * csize), 1, 1);
-    cfg->blockDim = dim3(NTHREADS, 1, 1);
-    cfg->dynamicSmemBytes = smem_bytes<T>();
-    cfg->stream = (cudaStream_t)stream;
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = (unsigned)csize;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg->attrs = attr;
-    cfg->numAttrs = 1;
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against the driver library).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled tensor_map_encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
 }
 
-// How many K2 clusters for super-blocks of g rows the card holds at once.
+// The tensor map of a buffer that a pass with 2^shift slabs interleaved
+// row by row reads (MegaMaps), `q_extent` blocks of 128^2 2^shift
+// elements long.
 template <typename T>
-static int megawin_max_clusters(int g, int* clusters) {
-    if (clusters == nullptr || g < 1) return (int)cudaErrorInvalidValue;
+static bool mega_map(CUtensorMap* map, const T* buf, long long q_extent,
+                     int shift) {
+    const EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return false;
+    const cuuint64_t row = DIM * sizeof(T);
+    const cuuint64_t dims[4] = {DIM, 1ull << shift, DIM,
+                                (cuuint64_t)q_extent};
+    const cuuint64_t strides[3] = {row, row << shift, (row * DIM) << shift};
+    const cuuint32_t box[4] = {(cuuint32_t)Cfg<T>::KC, 1, DIM, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    return encode(map,
+                  sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
+                  4, const_cast<T*>(buf), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The CTAs of K2's persistent grid: every SM times the CTAs an SM holds.
+template <typename T>
+static int megawin_ctas(int* ctas) {
+    if (ctas == nullptr) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         megawin_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<T>());
+        (int)mega_smem_bytes<T>());
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr[1];
-    megawin_config<T>(g, 1, &cfg, attr, nullptr);
-    return (int)cudaOccupancyMaxActiveClusters(clusters, megawin_kernel<T>,
-                                               &cfg);
+    int dev = 0, sms = 0, per = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, megawin_kernel<T>, NTHREADS, mega_smem_bytes<T>());
+    if (err != cudaSuccess) return (int)err;
+    *ctas = sms * per;
+    return (int)cudaSuccess;
 }
 
-// `scratch` holds 2 * G * 128 * 128 elements per cluster (both planes of
-// one super-block); groups of one pass need none.
+// `slots` holds S * 2 * G * 128 * 128 elements (groups of one pass need
+// none); `work` 1 + nsb zeroed counters.  W and S come from the wrapper
+// (ops/fused.py megawin_schedule).
 template <typename T>
-static int launch_megawin(const T* x, T* out, T* scratch, int nclusters,
-                          int n, const QtPass* passes, int npass,
-                          void* stream) {
+static int launch_megawin(const T* x, T* out, T* slots, unsigned* work,
+                          int ctas, int window, int nslots, int n,
+                          const QtPass* passes, int npass, void* stream) {
     if (passes == nullptr || n < 14 || npass < 1 ||
-        npass > MAX_MEGA_PASSES || nclusters < 1 ||
-        (npass > 1 && (scratch == nullptr || !aligned16(scratch))) ||
+        npass > MAX_MEGA_PASSES || ctas < 1 || work == nullptr ||
+        ((uintptr_t)work & 3) ||
+        (npass > 1 && (slots == nullptr || !aligned16(slots))) ||
         !aligned16(x) || !aligned16(out))
         return (int)cudaErrorInvalidValue;
     QtMegaArgs args;
@@ -1019,19 +1622,40 @@ static int launch_megawin(const T* x, T* out, T* scratch, int nclusters,
     }
     const long long nb = 1LL << (n - 14);
     const long long g = 1LL << (kmax - 7);
-    if (g > nb || nclusters > nb / g) return (int)cudaErrorInvalidValue;
+    if (g > nb) return (int)cudaErrorInvalidValue;
+    const long long nsb = nb / g;
+    const long long ipp = g * nchunk<T>();
+    // the slot ring must span a window (a slot's previous occupant then
+    // lies in a lower window), and the tickets fit the 32-bit counter
+    if (window < 1 || window > nsb ||
+        (npass > 1 && (nslots < window || nslots > nsb)) ||
+        nsb * npass * ipp >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
     args.g_rows = (int)g;
+    args.ipp = (int)ipp;
+    args.window = window;
+    args.slots = npass > 1 ? nslots : 1;
+    args.nsb = (int)nsb;
+    // each pass's source: the state, then where the pass before wrote
+    MegaMaps maps;
+    for (int i = 0; i < npass; ++i) {
+        const int shift = args.p[i].k - 7;
+        const bool slot = i > 0 && (npass - i) % 2 == 1;
+        const bool ok =
+            slot ? mega_map<T>(&maps.m[i], slots, (2 * nslots * g) >> shift,
+                               shift)
+                 : mega_map<T>(&maps.m[i], i == 0 ? x : out,
+                               (2 * nb) >> shift, shift);
+        if (!ok) return (int)cudaErrorInvalidValue;
+    }
     cudaError_t err = cudaFuncSetAttribute(
         megawin_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<T>());
+        (int)mega_smem_bytes<T>());
     if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr[1];
-    megawin_config<T>(g, nclusters, &cfg, attr, stream);
     const long long plane = 1LL << n;
-    err = cudaLaunchKernelEx(&cfg, megawin_kernel<T>, x, out, scratch, plane,
-                             nb / g, args);
-    if (err != cudaSuccess) return (int)err;
+    megawin_kernel<T><<<(unsigned)ctas, NTHREADS, mega_smem_bytes<T>(),
+                        (cudaStream_t)stream>>>(x, out, slots, work, plane,
+                                                args, maps);
     return (int)cudaGetLastError();
 }
 
@@ -1049,25 +1673,22 @@ int qt_window_pass_f64(const double* x, double* y, int n,
     return launch_window_pass<double>(x, y, n, pass, stream);
 }
 
-int qt_megawin_max_clusters_f32(int g, int* clusters) {
-    return megawin_max_clusters<float>(g, clusters);
+int qt_megawin_ctas_f32(int* ctas) { return megawin_ctas<float>(ctas); }
+
+int qt_megawin_ctas_f64(int* ctas) { return megawin_ctas<double>(ctas); }
+
+int qt_megawin_f32(const float* x, float* out, float* slots, unsigned* work,
+                   int ctas, int window, int nslots, int n,
+                   const QtPass* passes, int npass, void* stream) {
+    return launch_megawin<float>(x, out, slots, work, ctas, window, nslots,
+                                 n, passes, npass, stream);
 }
 
-int qt_megawin_max_clusters_f64(int g, int* clusters) {
-    return megawin_max_clusters<double>(g, clusters);
-}
-
-int qt_megawin_f32(const float* x, float* out, float* scratch, int nclusters,
-                   int n, const QtPass* passes, int npass, void* stream) {
-    return launch_megawin<float>(x, out, scratch, nclusters, n, passes,
-                                 npass, stream);
-}
-
-int qt_megawin_f64(const double* x, double* out, double* scratch,
-                   int nclusters, int n, const QtPass* passes, int npass,
-                   void* stream) {
-    return launch_megawin<double>(x, out, scratch, nclusters, n, passes,
-                                  npass, stream);
+int qt_megawin_f64(const double* x, double* out, double* slots,
+                   unsigned* work, int ctas, int window, int nslots, int n,
+                   const QtPass* passes, int npass, void* stream) {
+    return launch_megawin<double>(x, out, slots, work, ctas, window, nslots,
+                                  n, passes, npass, stream);
 }
 
 int qt_swap_cluster_stack_f32(const float* x, float* y, int n, int rank,

@@ -15,9 +15,11 @@ products (``tf32_split`` below models them), float64 as DMMA.
 * K1, ``apply_window_stack``: one pass (replaces the Pallas kernel
   quest_tpu/ops/fused.py ``_apply_window_stack_jit``);
 * K2, ``apply_window_megastack``: a megawin group in one launch, a
-  persistent grid of thread-block clusters that take super-blocks in turn
-  (replaces ``_apply_megawin_jit``), bit-identical to its passes run one
-  by one through K1.
+  persistent grid of one CTA per SM that takes (super-block, pass, item)
+  tickets from a counter and waits on per-super-block done-counters
+  instead of barriers (``megawin_schedule``; replaces
+  ``_apply_megawin_jit``), bit-identical to its passes run one by one
+  through K1.
 
 The paged planner (``circuit.plan_circuit(..., planner="paged")``) pins
 the window to [7, 14) and emits ``("fused", As, Bs)`` and ``("swapfused",
@@ -136,12 +138,12 @@ def megakernel_planning(device=None) -> bool:
 def megawin_row_cap(rank: int, num_qubits: int) -> int:
     """Largest super-block (canonical rows G) a megawin group may span.
     K2 keeps a super-block's intermediate passes in its place in the
-    output and in one scratch buffer of its cluster, served by the 50 MB
-    L2; a cluster holds two G-row buffers in flight (input and output of
-    a pass, G * 128 KB each at f32), and tens of clusters run at once, so
-    G = 8 (2 MB per cluster) is the largest grouping whose working set
-    can stay near L2 size.  The rank does not change the kernel's working
-    set (shared memory per CTA is rank-independent)."""
+    output and in a scratch slot, served by L2 where they fit; its
+    tickets run pass by pass over windows of super-blocks whose items at
+    G = 8 already outnumber the card's CTAs (``megawin_schedule``), so a
+    larger G would only widen the window's working set.  The rank does
+    not change the kernel's working set (shared memory per CTA is
+    rank-independent)."""
     del rank
     return min(8, 1 << max(0, num_qubits - CLUSTER_QUBITS))
 
@@ -450,6 +452,14 @@ class _QtPass(ctypes.Structure):
                 ("mask", ctypes.c_void_p)]
 
 
+# qt_megawin_f32/_f64 (csrc/window.cu): state, output, slots, work
+# (ticket and done-counters), CTAs, window W, slots S, n, passes, pass
+# count, stream
+MEGAWIN_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.POINTER(_QtPass),
+                    ctypes.c_int, ctypes.c_void_p)
+
 _BOUND: dict = {}
 # launches of each kernel, counted where its wrapper launches it
 LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0,
@@ -468,13 +478,11 @@ def _lib():
             fn.restype = ctypes.c_int
         for name in ("qt_megawin_f32", "qt_megawin_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, p_pass,
-                           ctypes.c_int, ptr]
+            fn.argtypes = list(MEGAWIN_ARGTYPES)
             fn.restype = ctypes.c_int
-        for name in ("qt_megawin_max_clusters_f32",
-                     "qt_megawin_max_clusters_f64"):
+        for name in ("qt_megawin_ctas_f32", "qt_megawin_ctas_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
         for name in ("qt_swap_cluster_stack_f32",
                      "qt_swap_cluster_stack_f64"):
@@ -548,6 +556,9 @@ def _pass_struct(op, amps, keep: list) -> _QtPass:
         if m.shape != (2, CLUSTER_DIM, CLUSTER_DIM):
             raise ValueError(f"window mask must be (2, 128, 128), got "
                              f"{tuple(m.shape)}")
+        if m.data_ptr() % 16:
+            # K2 reads the mask 16 bytes at a time
+            m = m.clone()
         keep.append(m)
     keep += [a, b]
     return _QtPass(int(op[1]), rank, int(bool(op[4])), int(bool(op[5])),
@@ -655,67 +666,126 @@ def apply_swap_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
     return out
 
 
-_MAX_CLUSTERS: dict = {}
+# K2's tickets: a pass of a window of super-blocks holds about this many
+# items per CTA of the grid, so that an item's inputs were written about
+# that many rounds of items before it; a ticket is MEGA_TICKET_ITEMS
+# consecutive items of one super-block's pass (csrc/window.cu, K2).
+MEGA_ITEMS_PER_CTA = 4
+MEGA_TICKET_ITEMS = 2
+_CTAS: dict = {}
 
 
-def _megawin_clusters(amps, g: int) -> int:
-    """K2's persistent grid for super-blocks of ``g`` rows: as many
-    clusters as the card holds at once, and no more than there are
-    super-blocks."""
-    key = (amps.device.index, amps.dtype, g)
-    if key not in _MAX_CLUSTERS:
-        fn = (_lib().qt_megawin_max_clusters_f32
-              if amps.dtype == torch.float32
-              else _lib().qt_megawin_max_clusters_f64)
+def megawin_ctas(device, dtype) -> int:
+    """K2's persistent grid on ``device``: its SMs times the CTAs an SM
+    holds (one, at 208 KB of shared memory at float32)."""
+    device = torch.device(device)
+    key = (device.index, dtype)
+    if key not in _CTAS:
+        fn = (_lib().qt_megawin_ctas_f32 if dtype == torch.float32
+              else _lib().qt_megawin_ctas_f64)
         count = ctypes.c_int(0)
-        with torch.cuda.device(amps.device):
-            build.raise_on(fn(g, ctypes.byref(count)),
-                           "apply_window_megastack")
+        with torch.cuda.device(device):
+            build.raise_on(fn(ctypes.byref(count)), "apply_window_megastack")
         if count.value < 1:
-            raise RuntimeError(f"apply_window_megastack: the card holds no "
-                               f"cluster for super-blocks of {g} rows")
-        _MAX_CLUSTERS[key] = count.value
-    nb = amps.numel() // (2 * CLUSTER_DIM * CLUSTER_DIM)
-    return min(_MAX_CLUSTERS[key], nb // g)
+            raise RuntimeError("apply_window_megastack: the card holds no "
+                               "K2 CTA")
+        _CTAS[key] = count.value
+    return _CTAS[key]
+
+
+def megawin_schedule(num_qubits: int, g: int, npass: int, dtype,
+                     ctas: int) -> dict:
+    """K2's ticket schedule for ``npass`` passes over super-blocks of
+    ``g`` rows: the super-blocks (``super_blocks``), the items of one
+    super-block's pass (``items_per_pass``: the lane chunks of its G
+    slabs, MEGA_TICKET_ITEMS to a ticket; ``tickets`` in all),
+    the super-blocks of a window (``window``, W: a pass of a window holds
+    MEGA_ITEMS_PER_CTA items per CTA, or every super-block), the scratch
+    slots (``slots``, S = 2W: the next window's passes need not wait for
+    this one's last; none for one pass) and the workspace the wrapper
+    allocates (``slot_bytes`` and the ticket and done-counters,
+    ``workspace_bytes`` in all)."""
+    nchunk = 2 if dtype == torch.float32 else 4
+    ipp = g * nchunk
+    nsb = (1 << (num_qubits - CLUSTER_QUBITS)) // g
+    window = min(nsb, -(-MEGA_ITEMS_PER_CTA * ctas // ipp))
+    slots = min(nsb, 2 * window) if npass > 1 else 0
+    elem = 4 if dtype == torch.float32 else 8
+    slot_bytes = slots * 2 * g * CLUSTER_DIM * CLUSTER_DIM * elem
+    return {"ctas": ctas, "super_blocks": nsb, "items_per_pass": ipp,
+            "tickets": nsb * npass * ipp // MEGA_TICKET_ITEMS,
+            "window": window, "slots": slots, "slot_bytes": slot_bytes,
+            "workspace_bytes": slot_bytes + 4 * (1 + nsb)}
+
+
+def megawin_decode(ticket: int, sched: dict, npass: int):
+    """(super-block, pass, first item) of a K2 ticket: windows of W
+    super-blocks in order (the last may hold fewer), pass by pass within
+    a window, then super-block by super-block and MEGA_TICKET_ITEMS
+    items at a time.  The host twin of csrc/window.cu ``mega_decode``."""
+    nsb, w = sched["super_blocks"], sched["window"]
+    tpp = sched["items_per_pass"] // MEGA_TICKET_ITEMS
+    win, r = divmod(ticket, w * npass * tpp)
+    w0 = win * w
+    pas, q = divmod(r, min(w, nsb - w0) * tpp)
+    return w0 + q // tpp, pas, q % tpp * MEGA_TICKET_ITEMS
+
+
+def megawin_first_slot_pass(npass: int) -> int:
+    """The pass that first writes a super-block's slot (the passes
+    alternate so that the last lands in the output; one pass: none)."""
+    return -1 if npass == 1 else (0 if npass % 2 == 0 else 1)
+
+
+def _megawin_check(subops, n: int) -> int:
+    """The group's checks on the host; returns its G."""
+    if not 1 <= len(subops) <= MAX_MEGA_PASSES:
+        raise ValueError(f"a megawin group holds 1..{MAX_MEGA_PASSES} "
+                         f"passes, got {len(subops)}")
+    for op in subops:
+        _check_offset(n, int(op[1]))
+    g = 1 << (max(int(op[1]) for op in subops) - LANE_QUBITS)
+    if g > (1 << (n - CLUSTER_QUBITS)):
+        raise ValueError(f"megawin window offsets out of range for n={n}")
+    return g
 
 
 def apply_window_megastack(amps, subops, *, num_qubits: int):
     """A planned megawin group — ``subops`` is a sequence of ("winfused",
     k, A, B, apply_a, apply_b[, mask]) tuples — in ONE launch (K2).  The
-    result is a new tensor of the input's shape; every other pass goes
-    through a scratch of one super-block per resident cluster, not
-    through a full-size buffer.  CPU tensors take the plain version."""
+    result is a new tensor of the input's shape; the passes between go
+    through a ring of scratch slots of one super-block each
+    (``megawin_schedule``: tens of MB), not through a full-size buffer.
+    The workspace (slots, a ticket counter and one done-counter per
+    super-block) is allocated, and its counters zeroed, for every
+    launch.  CPU tensors take the plain version."""
     n = num_qubits
-    for op in subops:
-        _check_offset(n, int(op[1]))
-    kmax = max(int(op[1]) for op in subops)
-    if (1 << (kmax - LANE_QUBITS)) > (1 << (n - CLUSTER_QUBITS)):
-        raise ValueError(f"megawin window offsets out of range for n={n}")
+    g = _megawin_check(subops, n)
     if amps.device.type == "cpu":
         return megawin_plain(amps, subops, num_qubits=n)
     if amps.device.type != "cuda":
         raise RuntimeError(f"apply_window_megastack: no kernel for device "
                            f"{amps.device}")
     _check_cuda_state(amps, "apply_window_megastack")
-    if not 1 <= len(subops) <= MAX_MEGA_PASSES:
-        raise ValueError(f"a megawin group holds 1..{MAX_MEGA_PASSES} "
-                         f"passes, got {len(subops)}")
     keep: list = []
     descs = (_QtPass * len(subops))(
         *[_pass_struct(op, amps, keep) for op in subops])
-    g = 1 << (kmax - LANE_QUBITS)
-    clusters = _megawin_clusters(amps, g)
+    sched = megawin_schedule(n, g, len(subops), amps.dtype,
+                             megawin_ctas(amps.device, amps.dtype))
     out = torch.empty_like(amps)
-    scratch = None
-    if len(subops) > 1:
-        scratch = torch.empty(clusters * 2 * g * CLUSTER_DIM * CLUSTER_DIM,
-                              dtype=amps.dtype, device=amps.device)
+    slots = None
+    if sched["slots"]:
+        slots = torch.empty(sched["slot_bytes"] // amps.element_size(),
+                            dtype=amps.dtype, device=amps.device)
+    work = torch.zeros(1 + sched["super_blocks"], dtype=torch.int32,
+                       device=amps.device)
     fn = (_lib().qt_megawin_f32 if amps.dtype == torch.float32
           else _lib().qt_megawin_f64)
     stream = torch.cuda.current_stream(amps.device).cuda_stream
     build.raise_on(fn(amps.data_ptr(), out.data_ptr(),
-                      None if scratch is None else scratch.data_ptr(),
-                      clusters, n, descs, len(subops), stream),
+                      None if slots is None else slots.data_ptr(),
+                      work.data_ptr(), sched["ctas"], sched["window"],
+                      sched["slots"], n, descs, len(subops), stream),
                    "apply_window_megastack")
     LAUNCHES["K2"] += 1
     return out
