@@ -137,7 +137,38 @@ line:
              width m;
              both paged routes' wall time, device busy share and device ms
              by op kind.
-18. kernels - one JSON object with every kernel's numbers.
+18. measure_parity - the seeded measurement streams at 20 qubits (state
+             vector) and 10 (density, 2^20 amplitudes), float32 and
+             float64: the threshold stream uploaded to the card for seeds
+             [1234, 5678], shots 0-999, bit for bit against
+             ops/threefry.py's host values and its first three against
+             the values tests/test_torch_rng.py pins against JAX;
+             measureSequence over every qubit against a measureWithStats
+             loop on a cloneQureg copy reseeded the same way (the same
+             outcomes and probabilities bit for bit, torch.equal states);
+             the QT_HOST_MEASURE=1 route and the default route on the card
+             against the port on the CPU, same seed and preparation (the
+             same outcomes); collapseToOutcome on a zero-probability
+             outcome raises.
+19. measure_main - config 2's circuit at 26 qubits, depth 20, f32,
+             through the API under gateFusion, then measureSequence over
+             all 26 qubits in the same block, seed [1234]: |amp[x]| and
+             calcTotalProb within 1e-5 of 1 at the index x the outcomes
+             spell; each probability within 1e-5 of calcProbOfOutcome on
+             a clone collapsed step by step; K1 and K2 launch as the
+             plan holds and nothing else launches.  A 13-qubit density
+             register (2^26 amplitudes) after one config-4 noise layer,
+             measured in full: calcPurity within 1e-5 of 1.
+             shot_sampling.py's preparation at 12 qubits, 2000 shots
+             through measureSequence: each qubit's frequency of 1 within
+             4 sigma of its exact marginal (calcProbOfAllOutcomes).
+20. measure_timing - at 26 qubits, f32: wall ms per measured qubit of
+             measureSequence, a measureWithStats loop and the
+             QT_HOST_MEASURE=1 loop, their device busy share and
+             host-device copies per sequence (torch.profiler), the
+             probability reduction's and the collapse's device ms, and
+             the bound per qubit by bytes.
+21. kernels - one JSON object with every kernel's numbers.
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -156,6 +187,7 @@ from pathlib import Path
 
 N_PARITY = 20          # qubits for the kernel parity checks
 N_MAIN = 26            # the main path's register
+N_MEAS_MAIN = 26       # the measured register (config 2's circuit)
 DEPTH = 20
 SEED = 7               # bench.py config 2's unitary seed
 REPS = 10              # timed launches per kernel
@@ -2294,6 +2326,357 @@ def phase_paged_timing(torch, qt, C, fused, circuits, cplx, ops, api_program,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Measurement: the seeded outcome streams (threefry and host MT19937)
+# ---------------------------------------------------------------------------
+
+N_MEAS_PARITY = 20     # state-vector qubits of the measurement parity checks
+N_MEAS_RHO_PARITY = 10  # density qubits of the parity checks (2^20 amps)
+N_MEAS_RHO = 13        # a density register of 2^26 amplitudes
+N_SHOTS_Q = 12         # shot_sampling.py's preparation
+SHOTS = 2000
+MEASURE_SEEDS = [1234, 5678]
+# jax.random.uniform(jax.random.fold_in(key, shot), dtype) for seeds
+# [1234, 5678] and shots 0, 1, 2, pinned against JAX by
+# tests/test_torch_rng.py
+PINNED_F32 = [0.13736069, 0.18848944, 0.5674375]
+PINNED_F64 = [0.49697267, 0.1997721, 0.90429892]
+
+
+@contextmanager
+def host_measure(on: bool):
+    """QT_HOST_MEASURE=1 while the block runs (or unset)."""
+    old = os.environ.get("QT_HOST_MEASURE")
+    if on:
+        os.environ["QT_HOST_MEASURE"] = "1"
+    else:
+        os.environ.pop("QT_HOST_MEASURE", None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("QT_HOST_MEASURE", None)
+        else:
+            os.environ["QT_HOST_MEASURE"] = old
+
+
+def measure_prep(qt, q, n, density):
+    """A fixed entangled preparation: H and Ry on every qubit, a CNOT
+    ladder, and on a density register a depolarising layer."""
+    for t in range(n):
+        qt.hadamard(q, t)
+        qt.rotateY(q, t, 0.15 * (t + 1))
+    for t in range(n - 1):
+        qt.controlledNot(q, t, t + 1)
+    qt.rotateAroundAxis(q, n // 2, 0.7, (1.0, -2.0, 0.5))
+    qt.multiControlledPhaseFlip(q, [0, n // 3, n - 1])
+    if density:
+        for t in range(n):
+            qt.mixDepolarising(q, t, 0.02)
+
+
+def measure_pair(qt, n, density, prec, device=None):
+    """(register, clone) of the preparation at precision ``prec`` on
+    ``device`` (the card by default)."""
+    env = (qt.createQuESTEnv() if device is None
+           else qt.createQuESTEnv(device=device))
+    qt.set_precision(prec)
+    try:
+        q = (qt.createDensityQureg if density else qt.createQureg)(n, env)
+        qt.initZeroState(q)
+        measure_prep(qt, q, n, density)
+        return q, qt.createCloneQureg(q, env), env
+    finally:
+        qt.set_precision(1)
+
+
+def phase_measure_parity(torch, np, qt, measurement, threefry):
+    out = {}
+    # (1) the card's threshold stream against the host's, bit for bit
+    key = threefry.key_from_seeds(MEASURE_SEEDS)
+    for dtype, pinned in ((torch.float32, PINNED_F32),
+                          (torch.float64, PINNED_F64)):
+        name = str(dtype).split(".")[-1]
+        dev = measurement.thresholds(key, 0, 1000, dtype, DEVICE)
+        check(dev.device.type == "cuda", "thresholds did not reach the card")
+        host = torch.from_numpy(threefry.uniforms(key, 0, 1000, name))
+        check(torch.equal(dev.cpu(), host), f"{name} thresholds on the card "
+              "differ from ops/threefry.py's")
+        first = dev[:3].cpu().numpy()
+        if dtype == torch.float32:
+            ok = np.array_equal(first, np.array(pinned, dtype=np.float32))
+        else:
+            ok = bool(np.abs(first - np.array(pinned)).max() <= 1e-8)
+        check(ok, f"{name} thresholds of shots 0-2 are {first.tolist()}, "
+              f"not {pinned}")
+        out[f"thresholds_{name}"] = first.tolist()
+
+    # (2) measureSequence against a measureWithStats loop on a clone, and
+    # the host route (and the fused one) on the card against the CPU
+    for density, n in ((False, N_MEAS_PARITY), (True, N_MEAS_RHO_PARITY)):
+        for prec in (1, 2):
+            label = f"{'rho' if density else 'sv'}{n}_f{32 * prec}"
+            q, c, env = measure_pair(qt, n, density, prec)
+            qt.seedQuEST(env, MEASURE_SEEDS)
+            outs, probs = qt.measureSequence(q, range(n))
+            qt.seedQuEST(env, MEASURE_SEEDS)
+            loop = [qt.measureWithStats(c, t) for t in range(n)]
+            check(outs == [o for o, _ in loop], f"{label}: measureSequence "
+                  f"{outs} != loop {[o for o, _ in loop]}")
+            check(probs == [p for _, p in loop], f"{label}: probabilities of "
+                  "the sequence and the loop differ")
+            check(torch.equal(q.amps, c.amps), f"{label}: the sequence's and "
+                  "the loop's states differ")
+            check(q.amps.device.type == "cuda", f"{label}: state left the card")
+            total = qt.calcTotalProb(q)
+            check(abs(total - 1) <= 1e-4, f"{label}: calcTotalProb {total}")
+            qt.destroyQureg(q, env)
+            qt.destroyQureg(c, env)
+            routes = {}
+            for route in ("host", "fused"):
+                got = {}
+                for where in ("cuda", "cpu"):
+                    with host_measure(route == "host"):
+                        r, _, renv = measure_pair(
+                            qt, n, density, prec,
+                            device=None if where == "cuda" else "cpu")
+                        qt.seedQuEST(renv, MEASURE_SEEDS)
+                        got[where] = qt.measureSequence(r, range(n))
+                        del r, _
+                tol = 1e-5 if prec == 1 else 1e-12
+                err = max(abs(a - b) for a, b in zip(got["cuda"][1],
+                                                     got["cpu"][1]))
+                check(got["cuda"][0] == got["cpu"][0], f"{label} {route} "
+                      f"route: card {got['cuda'][0]} != CPU {got['cpu'][0]}")
+                check(err <= tol, f"{label} {route} route: probabilities "
+                      f"{err} from the CPU's")
+                routes[route] = {"outcomes": got["cuda"][0],
+                                 "max_prob_err_vs_cpu": err}
+            out[label] = {"sequence_equals_loop": True,
+                          "calc_total_prob": total, "routes": routes}
+            torch.cuda.empty_cache()
+
+    # (3) a zero-probability collapse raises
+    env = qt.createQuESTEnv()
+    q = qt.createQureg(N_MEAS_PARITY, env)
+    qt.initPlusState(q)
+    qt.collapseToOutcome(q, 0, 0)
+    try:
+        qt.collapseToOutcome(q, 0, 1)
+    except qt.QuESTError as e:
+        out["zero_probability_collapse"] = str(e)
+    else:
+        raise RuntimeError("collapseToOutcome on a zero-probability outcome "
+                           "did not raise")
+    qt.destroyQureg(q, env)
+    return out
+
+
+def phase_measure_main(torch, np, qt, fused, paulis, bigstate, noise,
+                       us, want_k1, want_k2):
+    """Config 2's circuit at 26 qubits through the API under gateFusion,
+    then measureSequence over every qubit in the same block; the density
+    and shot-sampling cases."""
+    n = N_MEAS_MAIN
+    out = {"n": n, "depth": DEPTH}
+    env = qt.createQuESTEnv()
+    for reset in (fused.reset_launch_counts, paulis.reset_launch_counts,
+                  bigstate.reset_launch_counts):
+        reset()
+    t0 = time.perf_counter()
+    q = qt.createQureg(n, env)
+    with qt.gateFusion(q):
+        apply_bench_gates(qt, q, us, n)
+        c = qt.createCloneQureg(q, env)       # drains the circuit
+        qt.seedQuEST(env, [1234])
+        outs, probs = qt.measureSequence(q, range(n))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {**fused.LAUNCHES, **paulis.LAUNCHES, **bigstate.LAUNCHES}
+    check(launches["K1"] == want_k1 and launches["K2"] == want_k2,
+          f"measure_main launched K1 {launches['K1']} and K2 "
+          f"{launches['K2']} times, the plan holds {want_k1} and {want_k2}")
+    check(launches["K1"] > 0, "K1 never launched on the measurement path")
+    others = {k: v for k, v in launches.items() if k not in ("K1", "K2")
+              and v}
+    check(not others, f"the measurement launched kernels: {others}")
+    x = sum(o << t for t, o in enumerate(outs))
+    amp = abs(qt.getAmp(q, x))
+    total = qt.calcTotalProb(q)
+    check(abs(amp - 1) <= 1e-5, f"|amp[{x}]| = {amp} after measuring all")
+    check(abs(total - 1) <= 1e-5, f"calcTotalProb {total} after measuring")
+    errs = []
+    for t in range(n):
+        p = qt.calcProbOfOutcome(c, t, outs[t])
+        errs.append(abs(p - probs[t]))
+        qt.collapseToOutcome(c, t, outs[t])
+    check(max(errs) <= 1e-5, f"measureSequence's probabilities stray "
+          f"{max(errs)} from a step-by-step collapse")
+    out.update(outcome_index=x, abs_amp=amp, calc_total_prob=total,
+               max_prob_err_vs_collapse=max(errs),
+               first_probs=probs[:4], launches={"K1": launches["K1"],
+                                                "K2": launches["K2"]},
+               wall_s=wall)
+    qt.destroyQureg(q, env)
+    qt.destroyQureg(c, env)
+    torch.cuda.empty_cache()
+
+    # a 13-qubit density register (2^26 amplitudes) after one config-4
+    # noise layer, measured in full
+    m = N_MEAS_RHO
+    kops = noise.bench_kraus_ops(NOISE_SEED)
+    rho = qt.createDensityQureg(m, env)
+    qt.initPlusState(rho)
+    fused.reset_launch_counts()
+    with qt.gateFusion(rho):
+        noise.noise_layer(qt, rho, m, kops, prob=NOISE_P)
+    k5 = fused.LAUNCHES["K5"]
+    qt.seedQuEST(env, [1234])
+    routs, rprobs = qt.measureSequence(rho, range(m))
+    purity = qt.calcPurity(rho)
+    rtotal = qt.calcTotalProb(rho)
+    check(abs(purity - 1) <= 1e-5, f"purity {purity} after measuring the "
+          "density register in full")
+    check(abs(rtotal - 1) <= 1e-5, f"density calcTotalProb {rtotal}")
+    out["density"] = {"n": m, "amps": 1 << (2 * m), "k5_launches": k5,
+                      "outcomes": routs, "purity": purity,
+                      "calc_total_prob": rtotal}
+    qt.destroyQureg(rho, env)
+    torch.cuda.empty_cache()
+
+    # shot_sampling.py's preparation at 12 qubits, 2000 shots
+    k = N_SHOTS_Q
+
+    def prepare():
+        p = qt.createQureg(k, env)
+        with qt.gateFusion(p):
+            qt.hadamard(p, 0)
+            for t in range(1, k):
+                qt.controlledNot(p, t - 1, t)
+            for t in range(k):
+                qt.rotateY(p, t, 0.15 * (t + 1))
+        return p
+
+    base = prepare()
+    dist = qt.calcProbOfAllOutcomes(base, range(k))
+    idx = np.arange(1 << k)
+    marg = np.array([dist[(idx >> t) & 1 == 1].sum() for t in range(k)])
+    qt.seedQuEST(env, [1234])
+    fused.reset_launch_counts()
+    ones = np.zeros(k)
+    t0 = time.perf_counter()
+    for _ in range(SHOTS):
+        o, _ = qt.measureSequence(prepare(), range(k))
+        ones += o
+    sync()
+    shots_wall = time.perf_counter() - t0
+    freq = ones / SHOTS
+    sigma = np.sqrt(marg * (1 - marg) / SHOTS)
+    z = np.abs(freq - marg) / sigma
+    check(bool(np.all(z <= 4)), f"shot frequencies {freq.tolist()} stray "
+          f"more than 4 sigma from {marg.tolist()}")
+    out["shots"] = {"n": k, "shots": SHOTS, "max_z": float(z.max()),
+                    "freq_of_one": freq.tolist(),
+                    "exact_marginal": marg.tolist(),
+                    "k1_launches": fused.LAUNCHES["K1"],
+                    "wall_s": shots_wall, "ms_per_shot":
+                    shots_wall * 1e3 / SHOTS}
+    return out, launches["K1"]
+
+
+def copies_seen(torch, call) -> dict:
+    """Host-device copies one call makes, by direction, as torch.profiler
+    sees them on the card (None if it sees nothing there)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=DEVICE).add_(1)
+        sync()
+        call()
+        sync()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        return {"device_to_host": None, "host_to_device": None}
+    return {"device_to_host": sum(1 for e in on_card if "DtoH" in e.name),
+            "host_to_device": sum(1 for e in on_card if "HtoD" in e.name)}
+
+
+def phase_measure_timing(torch, qt, us, measurement):
+    n = N_MEAS_MAIN
+    env = qt.createQuESTEnv()
+    base = qt.createQureg(n, env)
+    with qt.gateFusion(base):
+        apply_bench_gates(qt, base, us, n)
+    q = qt.createCloneQureg(base, env)
+    state_bytes = q.amps.numel() * q.amps.element_size()
+    out = {"device": torch.cuda.get_device_name(0), "n": n,
+           "state_bytes_f32": state_bytes}
+
+    def fresh():
+        qt.cloneQureg(q, base)
+        qt.seedQuEST(env, [1234])
+        sync()
+
+    routes = {
+        "measureSequence": (False, lambda: qt.measureSequence(q, range(n))),
+        "measureWithStats_loop": (False, lambda: [
+            qt.measureWithStats(q, t) for t in range(n)]),
+        "host_mt_loop": (True, lambda: [
+            qt.measureWithStats(q, t) for t in range(n)]),
+    }
+    for label, (host, call) in routes.items():
+        with host_measure(host):
+            samples = []
+            for _ in range(3):
+                fresh()
+                t0 = time.perf_counter()
+                call()
+                sync()
+                samples.append(time.perf_counter() - t0)
+            wall = statistics.median(samples)
+            fresh()
+            dev, _ = device_busy(torch, call, "none")
+            fresh()
+            copies = copies_seen(torch, call)
+        out[label] = {"wall_ms_per_qubit": wall * 1e3 / n,
+                      "wall_ms": wall * 1e3,
+                      "device_ms": dev,
+                      "device_busy_share": None if dev is None
+                      else dev / (wall * 1e3),
+                      "copies_per_sequence": copies}
+    check(out["measureSequence"]["copies_per_sequence"]["device_to_host"]
+          in (None, 1), "measureSequence made "
+          f"{out['measureSequence']['copies_per_sequence']} copies")
+    # the two steps of one qubit alone (CUDA events): the probability
+    # reduction and the collapse
+    from quest_tpu_torch.ops import calculations
+
+    x = q.amps
+    p0 = calculations.calc_prob_of_outcome_statevec(
+        x, num_qubits=n, target=n - 1, outcome=0)
+    one = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    out["prob_reduction_ms"] = time_ms(
+        lambda: calculations.calc_prob_of_outcome_statevec(
+            x, num_qubits=n, target=n - 1, outcome=0))
+    out["collapse_ms"] = time_ms(lambda: measurement._collapse_traced_sv(
+        x, n, n - 1, one, p0))
+    out["one_qubit_device_ms"] = time_ms(lambda: measurement.measure_sequence(
+        x, (1, 2), 0, num_qubits=n, targets=(n - 1,), is_density=False))
+    # the least time per qubit by bytes: the probability's read plus the
+    # collapse's read and write of the state (the unfused two steps), and
+    # one read and one write (a collapse fused with the next probability)
+    out["bound_ms_per_qubit"] = 3 * state_bytes / HBM_BYTES_PER_S * 1e3
+    out["bound_ms_per_qubit_fused"] = 2 * state_bytes / HBM_BYTES_PER_S * 1e3
+    out["bound_by"] = "bytes"
+    qt.destroyQureg(q, env)
+    qt.destroyQureg(base, env)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2310,7 +2693,8 @@ def main() -> int:
         from quest_tpu_torch import fusion
         from quest_tpu_torch.models import circuits, hamiltonians, noise
         from quest_tpu_torch.ops import (bigstate, build, cplx, density, fused,
-                                         kernels, paulis)
+                                         kernels, measurement, paulis,
+                                         threefry)
     except ImportError as e:
         print(f"chip_smoke: cannot import quest_tpu_torch ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -2644,7 +3028,22 @@ def main() -> int:
     del gops, gprogram
     torch.cuda.empty_cache()
 
-    # 18. kernels
+    # 18. the seeded measurement streams on the card
+    mparity = phase_measure_parity(torch, np, qt, measurement, threefry)
+    emit({"phase": "measure_parity", **mparity})
+
+    # 19. config 2's circuit at 26 qubits, measured in full; a density
+    # register and shot sampling
+    mmain, meas_k1 = phase_measure_main(
+        torch, np, qt, fused, paulis, bigstate, noise, us,
+        ast.get("winfused", 0), ast.get("megawin", 0))
+    emit({"phase": "measure_main", **mmain})
+
+    # 20. measurement timing at 26 qubits
+    mtiming = phase_measure_timing(torch, qt, us, measurement)
+    emit({"phase": "measure_timing", "power": smi, **mtiming})
+
+    # 21. kernels
     def entry(kname, replaces, t, err, source="window.cu"):
         key = kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -2690,6 +3089,9 @@ def main() -> int:
                   "passes_2e30": qtiming["k1"],
                   "max_abs_err_2e30": max(c["max_abs_err"]
                                           for c in qparity["k1"])}
+    # K1 on the measurement path (measure_main): the circuit's drain
+    k1e["measure"] = {"launches": meas_k1,
+                      "shots_launches": mmain["shots"]["k1_launches"]}
     # K1/K2 in the 14-qubit drain of gates and noise
     k1e["noise"] = {"launches": nmain["gates_and_noise"]["launches"]["K1"]}
     k2e["noise"] = {"launches": nmain["gates_and_noise"]["launches"]["K2"]}

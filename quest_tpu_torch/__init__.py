@@ -6,7 +6,9 @@ JAX package, running on an NVIDIA card.  The fused window passes that
 carry a circuit's dense work, the Pauli-term rotations and expectation
 values of Hamiltonian simulation, the QFT's ladder layers and the fused
 decoherence-channel sweeps of a density matrix run in hand-written CUDA
-kernels (``csrc/*.cu``, built with nvcc at first use).
+kernels (``csrc/*.cu``, built with nvcc at first use).  Measurement draws
+the JAX package's seeded outcome streams: its threefry keys by default,
+its host Mersenne Twister under ``QT_HOST_MEASURE=1``.
 
 Quick start::
 
@@ -24,7 +26,14 @@ Quick start::
 kernels' plain PyTorch versions.
 """
 
-from .precision import set_precision, get_precision, real_eps
+from .precision import (
+    set_precision,
+    get_precision,
+    real_eps,
+    real_dtype,
+    complex_dtype,
+    validation_eps,
+)
 from .validation import QuESTError
 from .qureg import PauliHamil, Qureg
 from .env import QuESTEnv
@@ -36,5 +45,13 @@ from .fusion import (
     start_gate_fusion as startGateFusion,
     stop_gate_fusion as stopGateFusion,
 )
+from .rng import GLOBAL_RNG
+from .checkpoint import writeStateToFile, readStateFromFile
+from .debug import (
+    initStateOfSingleQubit,
+    initStateFromSingleFile,
+    compareStates,
+)
+from .optimizer import set_circuit_optimizer, get_circuit_optimizer
 
 __version__ = "0.1.0"

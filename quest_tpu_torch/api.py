@@ -1,8 +1,8 @@
 """Public API: registers, state initialisation and the unitary gates.
 
 The QuEST camelCase surface (QuEST.h) of the ported slices: registers,
-state initialisation, PauliHamil, the unitary gates and the Pauli
-rotations.  Every gate
+state initialisation and reports, ComplexMatrixN and PauliHamil, the
+unitary gates and the Pauli rotations.  Every gate
 follows the reference's dispatch shape (QuEST.c:177-186): validate ->
 buffer in the active ``gateFusion`` context, or apply eagerly to the ket
 qubits -> on a density matrix, the conjugated twin on the bra qubits
@@ -36,12 +36,29 @@ syncQuESTEnv = _env.sync_quest_env
 getEnvironmentString = _env.get_environment_string
 seedQuEST = _env.seed_quest
 seedQuESTDefault = _env.seed_quest_default
+syncQuESTSuccess = _env.sync_quest_success
 QuESTError = V.QuESTError
 
 
 def reportQuESTEnv(env: _env.QuESTEnv) -> None:
     """Print execution-environment parameters (QuEST.h:1893)."""
     print(getEnvironmentString(env))
+
+
+def copyStateToGPU(qureg: Qureg) -> None:
+    """No-op: the amplitudes always live on the register's device (the
+    reference's GPU backend keeps a host mirror it must sync,
+    QuEST_gpu.cu:517-539)."""
+
+
+def copyStateFromGPU(qureg: Qureg) -> None:
+    """No-op: see copyStateToGPU."""
+
+
+def invalidQuESTInputError(errMsg: str, errFunc: str):
+    """The reference's overridable error hook (QuEST.h:5354); in Python
+    the equivalent is catching QuESTError."""
+    raise V.QuESTError(f"{errFunc}: {errMsg}")
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +95,44 @@ def destroyQureg(qureg: Qureg, env: Optional[_env.QuESTEnv] = None) -> None:
     """Free a register's amplitude storage (QuEST.h:666)."""
     qureg._fusion = None
     qureg.amps = None
+
+
+def _host_chunks(qureg: Qureg, chunk: int = 1 << 20):
+    """The amplitudes as NumPy (2, m) arrays of the register's dtype,
+    2^20 at a time."""
+    amps = qureg.amps
+    for start in range(0, qureg.num_amps_total, chunk):
+        yield amps[:, start:start + chunk].cpu().numpy()
+
+
+def reportState(qureg: Qureg) -> None:
+    """Dump the amplitudes to ``state_rank_0.csv`` in the working
+    directory, ``real, imag`` header first (QuEST_common.c:229-245; one
+    device is rank 0's one chunk)."""
+    with open("state_rank_0.csv", "w") as f:
+        f.write("real, imag\n")
+        for part in _host_chunks(qureg):
+            f.writelines(f"{re:.12f}, {im:.12f}\n"
+                         for re, im in zip(part[0], part[1]))
+
+
+def reportStateToScreen(qureg: Qureg, env=None, reportRank: int = 0) -> None:
+    """Print every amplitude to stdout (QuEST.h:1289)."""
+    from .debug import guard_host_gather
+
+    guard_host_gather(qureg, "reportStateToScreen")
+    print("Reporting state from rank 0:")
+    for part in _host_chunks(qureg):
+        for re, im in zip(part[0], part[1]):
+            print(f"{re} {im}")
+
+
+def reportQuregParams(qureg: Qureg) -> None:
+    """Print register metadata (QuEST.h:1297); one device holds all the
+    amplitudes."""
+    print(f"QUBITS:\nNumber of qubits is {qureg.num_qubits_represented}.")
+    print(f"Number of amps is {qureg.num_amps_total}.")
+    print(f"Number of amps per rank is {qureg.num_amps_total}.")
 
 
 def getNumQubits(qureg: Qureg) -> int:
@@ -163,6 +218,112 @@ def setAmps(qureg: Qureg, startInd: int, reals, imags, numAmps: int) -> None:
     amps[:, startInd:startInd + numAmps] = torch.as_tensor(
         np.stack([re, im]), dtype=qureg.dtype, device=qureg.device)
     qureg.amps = amps
+
+
+def initStateFromAmps(qureg: Qureg, reals, imags) -> None:
+    """Set every amplitude from real and imaginary arrays (QuEST.h:1490;
+    state-vectors only, QuEST.c:157-158)."""
+    V.validate_state_vector(qureg, "initStateFromAmps")
+    _set_all_amps(qureg, reals, imags, "initStateFromAmps")
+
+
+def setDensityAmps(qureg: Qureg, reals, imags) -> None:
+    """Overwrite every element of a density matrix, flattened column-major
+    (QuEST_debug.h)."""
+    V.validate_density_matrix(qureg, "setDensityAmps")
+    _set_all_amps(qureg, reals, imags, "setDensityAmps")
+
+
+def _set_all_amps(qureg: Qureg, reals, imags, func: str) -> None:
+    re = np.asarray(reals, dtype=np.float64).ravel()
+    im = np.asarray(imags, dtype=np.float64).ravel()
+    if re.size != qureg.num_amps_total or im.size != qureg.num_amps_total:
+        raise V.QuESTError(f"{func}: Incorrect number of amplitudes.")
+    V.validate_finite(re, func)
+    V.validate_finite(im, func)
+    qureg.amps = torch.as_tensor(np.stack([re, im]), dtype=qureg.dtype,
+                                 device=qureg.device)
+
+
+def initSparseState(qureg: Qureg, indices, amps) -> None:
+    """Initialise from a sparse amplitude list: ``state[indices[k]] =
+    amps[k]``, every other amplitude zero (sparse state preparation,
+    arXiv:2504.08705).  State-vectors only; pending fused gates are
+    dropped, as by any wholesale initialisation."""
+    V.validate_state_vector(qureg, "initSparseState")
+    idx = np.asarray(indices, dtype=np.int64).ravel()
+    vals = np.asarray(amps, dtype=np.complex128).ravel()
+    if idx.size == 0 or idx.size != vals.size:
+        raise V.QuESTError(
+            "initSparseState: indices and amps must be non-empty and "
+            "equal length.")
+    if int(idx.min()) < 0 or int(idx.max()) >= qureg.num_amps_total:
+        raise V.QuESTError("initSparseState: Invalid amplitude index.")
+    if np.unique(idx).size != idx.size:
+        raise V.QuESTError("initSparseState: duplicate amplitude indices.")
+    V.validate_finite(vals.real, "initSparseState")
+    V.validate_finite(vals.imag, "initSparseState")
+    qureg.amps = K.init_sparse_state(qureg.num_amps_total, idx, vals.real,
+                                     vals.imag, qureg.dtype, qureg.device)
+
+
+def initSparseClusteredState(qureg: Qureg, bases, blocks) -> None:
+    """Initialise a sparse clustered state (arXiv:2504.08705): the nonzero
+    amplitudes sit in contiguous blocks, ``state[bases[c] + k] =
+    blocks[c][k]``; expands to a flat list for initSparseState."""
+    bl = list(blocks)
+    bs = np.asarray(bases, dtype=np.int64).ravel()
+    if bs.size == 0 or bs.size != len(bl):
+        raise V.QuESTError(
+            "initSparseClusteredState: bases and blocks must be "
+            "non-empty and equal length.")
+    idx_parts, val_parts = [], []
+    for base, block in zip(bs, bl):
+        v = np.asarray(block, dtype=np.complex128).ravel()
+        if v.size == 0:
+            raise V.QuESTError(
+                "initSparseClusteredState: empty amplitude block.")
+        idx_parts.append(int(base) + np.arange(v.size, dtype=np.int64))
+        val_parts.append(v)
+    initSparseState(qureg, np.concatenate(idx_parts),
+                    np.concatenate(val_parts))
+
+
+def cloneQureg(targetQureg: Qureg, copyQureg: Qureg) -> None:
+    """Overwrite targetQureg with a copy of copyQureg (QuEST.h:1559)."""
+    V.validate_matching_qureg_types(targetQureg, copyQureg, "cloneQureg")
+    V.validate_matching_qureg_dims(targetQureg, copyQureg, "cloneQureg")
+    targetQureg.amps = copyQureg.amps.to(
+        device=targetQureg.device, dtype=targetQureg.dtype, copy=True)
+
+
+# ---------------------------------------------------------------------------
+# ComplexMatrixN (QuEST.h:721-764): host NumPy complex matrices
+# ---------------------------------------------------------------------------
+
+
+def createComplexMatrixN(numQubits: int) -> np.ndarray:
+    """Allocate a 2^N x 2^N complex matrix of zeros (QuEST.h:721)."""
+    V.validate_num_qubits(numQubits, "createComplexMatrixN")
+    dim = 1 << numQubits
+    return np.zeros((dim, dim), dtype=np.complex128)
+
+
+def destroyComplexMatrixN(matrix) -> None:
+    """Free a ComplexMatrixN (QuEST.h:739): a host array, nothing to
+    free."""
+
+
+def initComplexMatrixN(m: np.ndarray, reals, imags) -> None:
+    """Fill a ComplexMatrixN from real and imaginary nested lists
+    (QuEST.h:764)."""
+    m[...] = (np.asarray(reals, dtype=np.float64)
+              + 1j * np.asarray(imags, np.float64))
+
+
+def getStaticComplexMatrixN(reals, imags) -> np.ndarray:
+    return (np.asarray(reals, dtype=np.float64)
+            + 1j * np.asarray(imags, np.float64))
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +479,27 @@ def controlledPhaseShift(qureg: Qureg, idQubit1: int, idQubit2: int,
     qureg.qasm_log.phase_shift(float(angle), (idQubit1,), idQubit2)
 
 
+def multiControlledPhaseShift(qureg: Qureg, controlQubits: Sequence[int],
+                              angle: float) -> None:
+    """Phase on the all-ones state of the listed qubits (QuEST.h:1681);
+    the list's length replaces the C API's count argument."""
+    qubits = [int(q) for q in controlQubits]
+    V.validate_multi_qubits(qureg, qubits, "multiControlledPhaseShift")
+    _apply_diag(qureg, G.phase_shift_diag(angle), (qubits[-1],),
+                tuple(qubits[:-1]))
+    qureg.qasm_log.phase_shift(float(angle), tuple(qubits[:-1]), qubits[-1])
+
+
+def multiControlledPhaseFlip(qureg: Qureg,
+                             controlQubits: Sequence[int]) -> None:
+    """Phase flip of the all-ones state of the listed qubits
+    (QuEST.h:1768)."""
+    qubits = [int(q) for q in controlQubits]
+    V.validate_multi_qubits(qureg, qubits, "multiControlledPhaseFlip")
+    _apply_diag(qureg, G.Z_DIAG, (qubits[-1],), tuple(qubits[:-1]))
+    qureg.qasm_log.gate("z", tuple(qubits[:-1]), qubits[-1])
+
+
 def controlledPhaseFlip(qureg: Qureg, idQubit1: int, idQubit2: int) -> None:
     """Controlled phase flip (controlled-Z) (QuEST.h:1723)."""
     V.validate_control_target(qureg, idQubit1, idQubit2,
@@ -376,6 +558,32 @@ def rotateZ(qureg: Qureg, rotQubit: int, angle: float) -> None:
     qureg.qasm_log.gate("Rz", (), rotQubit, [float(angle)])
 
 
+class Vector:
+    """3-vector for rotateAroundAxis (QuEST.h:198)."""
+
+    def __init__(self, x: float, y: float, z: float):
+        self.x, self.y, self.z = float(x), float(y), float(z)
+
+
+def _axis_vec(axis):
+    if hasattr(axis, "x"):
+        return (float(axis.x), float(axis.y), float(axis.z))
+    ax = np.asarray(axis, dtype=np.float64)
+    return (float(ax[0]), float(ax[1]), float(ax[2]))
+
+
+def rotateAroundAxis(qureg: Qureg, rotQubit: int, angle: float,
+                     axis) -> None:
+    """Rotation by ``angle`` around a Bloch axis (a Vector or an (x, y, z)
+    sequence, normalised here) (QuEST.h:2327)."""
+    V.validate_target(qureg, rotQubit, "rotateAroundAxis")
+    ax = _axis_vec(axis)
+    V.validate_unit_vector(*ax, "rotateAroundAxis")
+    m = G.rotate_around_axis_matrix(angle, ax)
+    _apply_unitary(qureg, m, (rotQubit,))
+    qureg.qasm_log.unitary_2x2(m, (), rotQubit)
+
+
 def controlledRotateX(qureg, controlQubit, targetQubit, angle) -> None:
     V.validate_control_target(qureg, controlQubit, targetQubit,
                               "controlledRotateX")
@@ -398,6 +606,18 @@ def controlledRotateZ(qureg, controlQubit, targetQubit, angle) -> None:
     _apply_diag(qureg, G.rotate_z_diag(angle), (targetQubit,),
                 (controlQubit,))
     qureg.qasm_log.gate("Rz", (controlQubit,), targetQubit, [float(angle)])
+
+
+def controlledRotateAroundAxis(qureg, controlQubit, targetQubit, angle,
+                               axis) -> None:
+    """Controlled rotation around a Bloch axis (QuEST.h:2486)."""
+    V.validate_control_target(qureg, controlQubit, targetQubit,
+                              "controlledRotateAroundAxis")
+    ax = _axis_vec(axis)
+    V.validate_unit_vector(*ax, "controlledRotateAroundAxis")
+    m = G.rotate_around_axis_matrix(angle, ax)
+    _apply_unitary(qureg, m, (targetQubit,), (controlQubit,))
+    qureg.qasm_log.unitary_2x2(m, (controlQubit,), targetQubit)
 
 
 def controlledCompactUnitary(qureg, controlQubit, targetQubit, alpha,

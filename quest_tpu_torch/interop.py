@@ -1,9 +1,11 @@
-"""States, plans and Hamiltonians carried across from NumPy.
+"""States, plans, Hamiltonians and measurement streams carried across.
 
 A state, plan or PauliHamil produced elsewhere (for example by the JAX
 package, handed over as NumPy arrays) becomes the port's objects here, so
-the port can run it; states go back to NumPy for comparison.  This module
-imports neither framework of the other side: it only sees NumPy arrays.
+the port can run it; states go back to NumPy for comparison.  The JAX
+package's measurement-stream snapshots (JSON dicts) continue in the port
+through ``rng_state_from_reference``.  This module imports neither
+framework of the other side: it only sees NumPy arrays and dicts.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import numpy as np
 import torch
 
 from .circuit import plan_to_device
+from .ops import measurement
 from .qureg import PauliHamil
+from .rng import GLOBAL_RNG
 
 
 def state_from_numpy(amps_np, device, dtype=None) -> torch.Tensor:
@@ -68,3 +72,14 @@ def pauli_hamil_from_numpy(codes, coeffs) -> PauliHamil:
     h.pauli_codes[...] = codes
     h.term_coeffs[:] = coeffs
     return h
+
+
+def rng_state_from_reference(rng_state: dict, key_state: dict) -> None:
+    """Continue the JAX package's two measurement streams in the port:
+    ``rng_state`` is its ``GLOBAL_RNG.get_state()`` (the host Mersenne
+    Twister of QT_HOST_MEASURE=1), ``key_state`` its
+    ``measurement.KEYS.get_state()`` (the threefry key and shot counter
+    of the default route).  The port's next outcomes are the ones the
+    JAX package would draw next."""
+    GLOBAL_RNG.set_state(rng_state)
+    measurement.KEYS.set_state(key_state)

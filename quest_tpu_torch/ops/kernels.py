@@ -475,3 +475,66 @@ def init_pure_density(psi):
     z = cplx.to_complex(psi)
     rho_cr = z[None, :] * z.conj()[:, None]       # [c, r]
     return cplx.from_complex(rho_cr.reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# Collapse, weighted sums and sparse initialisation (reference
+# QuEST_cpu.c:3727-3880, 785-860, 3965-4006)
+# ---------------------------------------------------------------------------
+
+
+def _bit_indicator_2d(n: int, bit_states, dtype, device):
+    """{0, 1} tensor broadcastable over the (2^hi, 2^lo) = _split2(n) view
+    of the state: 1 where every (bit, state) pair matches."""
+    ind = None
+    for b, s in bit_states:
+        m = bit_2d(n, b, device) == int(s)
+        ind = m if ind is None else ind & m
+    return ind.to(dtype)
+
+
+def collapse_statevec(amps, prob: float, *, num_qubits: int, target: int,
+                      outcome: int):
+    """Zero the discarded half, scale the kept half by 1/sqrt(prob)
+    (statevec_collapseToKnownProbOutcomeLocal, QuEST_cpu.c:3727-3815)."""
+    n = num_qubits
+    scale = 1.0 / torch.sqrt(torch.tensor(prob, dtype=amps.dtype))
+    ind = _bit_indicator_2d(n, ((target, outcome),), amps.dtype,
+                            amps.device)
+    hi, lo = _split2(n)
+    view = amps.reshape(2, 1 << hi, 1 << lo)
+    return (view * (scale * ind)[None]).reshape(amps.shape)
+
+
+def collapse_density(amps, prob: float, *, num_qubits: int, target: int,
+                     outcome: int):
+    """rho: zero every element whose ket- or bra-target bit differs from
+    the outcome; renormalise by 1/prob (densmatr_collapseToKnownProbOutcome,
+    QuEST_cpu.c:785-860)."""
+    n = num_qubits
+    ind = _bit_indicator_2d(2 * n, ((target, outcome), (target + n, outcome)),
+                            amps.dtype, amps.device)
+    hi, lo = _split2(2 * n)
+    view = amps.reshape(2, 1 << hi, 1 << lo)
+    scale = torch.tensor(prob, dtype=amps.dtype)
+    return (view * (ind / scale)[None]).reshape(amps.shape)
+
+
+def set_weighted_qureg(amps_out, amps1, amps2, facs):
+    """out = f1*q1 + f2*q2 + fOut*out (reference setWeightedQureg,
+    QuEST_cpu.c:3965-4006).  ``facs`` is a (2, 3) array of the three
+    complex factors (fOut, f1, f2), real parts then imaginary parts."""
+    f = [[float(x) for x in row] for row in facs]
+    out = cplx.cmul(amps_out, f[0][0], f[1][0])
+    out = out + cplx.cmul(amps1, f[0][1], f[1][1])
+    return out + cplx.cmul(amps2, f[0][2], f[1][2])
+
+
+def init_sparse_state(num_amps: int, indices, res, ims, dtype, device):
+    """Scatter k nonzero amplitudes into an otherwise-zero state (the
+    JAX package's sparse state preparation, arXiv:2504.08705)."""
+    out = torch.zeros((2, num_amps), dtype=dtype, device=device)
+    idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=device)
+    out[0, idx] = torch.as_tensor(np.asarray(res), dtype=dtype, device=device)
+    out[1, idx] = torch.as_tensor(np.asarray(ims), dtype=dtype, device=device)
+    return out

@@ -14,10 +14,13 @@ unconditionally:
   (X / CNOT / Toffoli / SWAP chains) compose by exact integer index
   arithmetic into one permutation gate; identity products drop.
 
-This is the reference's default mode ``on``; its ``off`` and
-``aggressive`` modes (``QT_OPTIMIZER``, ``setCircuitOptimizer``) are not
-ported.  The commutation-aware reordering of the reference applies to
-sharded registers only and arrives with multi-device sharding.
+``QT_OPTIMIZER=off|on|aggressive`` (default ``on``) selects the mode, and
+``set_circuit_optimizer`` (``setCircuitOptimizer``) overrides it: ``off``
+drains the stream verbatim, ``aggressive`` also drops a merged pair whose
+product is the identity only up to the dtype's rounding (H.H).  The mode
+is part of the rewrite's cache key.  The commutation-aware reordering of
+the reference applies to sharded registers only and arrives with
+multi-device sharding.
 
 Channels (``fusion.ChannelItem``) are never composed or dropped; a gate
 looks back past one only when their supports are disjoint, so channels
@@ -26,11 +29,17 @@ keep their order relative to each other and to every gate they touch.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from . import circuit as C
+
+_MODES = ("off", "on", "aggressive")
+
+# programmatic override (setCircuitOptimizer); None = read QT_OPTIMIZER
+_OVERRIDE: List[Optional[str]] = [None]
 
 # widest coalesced gate — mirrors fusion.FUSION_MAX_GATE_QUBITS
 MAX_GATE_QUBITS = 7
@@ -38,6 +47,34 @@ MAX_GATE_QUBITS = 7
 # memoized rewrites: a hot angle-sweep loop re-drains the same stream
 _CACHE_MAX = 128
 _cache: dict = {}
+
+
+def mode() -> str:
+    """Active optimizer mode: the ``set_circuit_optimizer`` override when
+    set, else ``QT_OPTIMIZER`` (default ``on``)."""
+    if _OVERRIDE[0] is not None:
+        return _OVERRIDE[0]
+    m = os.environ.get("QT_OPTIMIZER", "on").strip().lower()
+    return m if m in _MODES else "on"
+
+
+def set_circuit_optimizer(m: Optional[str]) -> None:
+    """Override the optimizer mode (``None`` returns control to the
+    ``QT_OPTIMIZER`` environment variable)."""
+    if m is not None:
+        m = str(m).strip().lower()
+        if m not in _MODES:
+            from .validation import QuESTError
+
+            raise QuESTError(
+                f"setCircuitOptimizer: unknown mode {m!r} "
+                f"(expected one of {'/'.join(_MODES)})")
+    _OVERRIDE[0] = m
+
+
+def get_circuit_optimizer() -> str:
+    """The active optimizer mode string."""
+    return mode()
 
 
 def _is_gate(it) -> bool:
@@ -55,6 +92,16 @@ def _bits(it) -> frozenset:
     if _is_gate(it):
         return frozenset(it.targets)
     return frozenset((it.target, it.bra))
+
+
+def _near_identity(m: np.ndarray) -> bool:
+    """Identity up to the dtype's diagonal-detection tolerance: the
+    ``aggressive`` drop for merged pairs like H.H whose product is the
+    identity only up to rounding."""
+    eye = np.eye(m.shape[-1], dtype=m.dtype)
+    tol = 1e-5 if m.dtype == np.float32 else 1e-10
+    return bool(np.abs(m[0] - eye).max() <= tol
+                and np.abs(m[1]).max() <= tol)
 
 
 def _is_diag(it) -> bool:
@@ -88,10 +135,11 @@ def _commutes(a, b, diag_a: bool, diag_b: bool) -> bool:
     return False
 
 
-def _cancel_merge(items: list, removed: dict) -> list:
+def _cancel_merge(items: list, removed: dict, aggressive: bool) -> list:
     """Each gate looks backwards through gates it commutes with for a
-    same-target partner: an exact-identity product cancels the pair,
-    anything else replaces the partner (``new @ old``)."""
+    same-target partner: an exact-identity product (or, when
+    ``aggressive``, a near-identity one) cancels the pair, anything else
+    replaces the partner (``new @ old``)."""
     out: list = []
     diag: list = []
     for it in items:
@@ -106,7 +154,8 @@ def _cancel_merge(items: list, removed: dict) -> list:
             prev = out[j]
             if _concrete(prev) and tuple(prev.targets) == tuple(it.targets):
                 merged = C.soa_matmul(it.mat, prev.mat)
-                if C.is_identity_gate(merged):
+                if C.is_identity_gate(merged) or (
+                        aggressive and _near_identity(merged)):
                     out.pop(j)
                     diag.pop(j)
                     removed["cancel"] += 2
@@ -201,7 +250,7 @@ def _compose_perm_run(run: Sequence[C.Gate]):
     return C.Gate(tuple(union), mat)
 
 
-def _rewrite(items: list, nloc: int) -> tuple:
+def _rewrite(items: list, nloc: int, aggressive: bool) -> tuple:
     """cancel/merge + diagonal and permutation coalescing to a small
     fixpoint.  Returns (items, removed)."""
     removed = {"cancel": 0, "merge": 0, "diag_coalesce": 0,
@@ -209,7 +258,7 @@ def _rewrite(items: list, nloc: int) -> tuple:
     out = list(items)
     for _ in range(3):
         before = len(out)
-        out = _cancel_merge(out, removed)
+        out = _cancel_merge(out, removed, aggressive)
         out = _coalesce(out, removed, nloc, _is_diag, _compose_diag_run,
                         "diag_coalesce")
         out = _coalesce(out, removed, nloc, _is_perm, _compose_perm_run,
@@ -219,9 +268,9 @@ def _rewrite(items: list, nloc: int) -> tuple:
     return out, removed
 
 
-def _content_key(items, nloc: int):
-    """Memoization key: gate content bytes, and (kind, target, bra) for a
-    channel, whose probability is a run-time value."""
+def _content_key(items, nloc: int, m: str):
+    """Memoization key: the mode, gate content bytes, and (kind, target,
+    bra) for a channel, whose probability is a run-time value."""
     parts = []
     for it in items:
         if not _is_gate(it):
@@ -232,7 +281,7 @@ def _content_key(items, nloc: int):
             return None
         parts.append((tuple(it.targets), mat.dtype.str, mat.shape,
                       mat.tobytes()))
-    return (nloc, tuple(parts))
+    return (m, nloc, tuple(parts))
 
 
 def _freeze_out(items, out) -> tuple:
@@ -249,19 +298,22 @@ def _thaw_out(items, frozen) -> list:
 
 
 def optimize_items(items: Sequence, *, nloc: int) -> Tuple[list, dict]:
-    """Rewrite a drain's item stream; returns (items, stats)."""
+    """Rewrite a drain's item stream under the active mode; returns
+    (items, stats)."""
+    m = mode()
     items = list(items)
     gates_in = sum(1 for it in items if _is_gate(it))
-    if len(items) < 2:
-        return items, {"gates_in": gates_in, "gates_out": gates_in,
+    if m == "off" or len(items) < 2:
+        return items, {"mode": m, "gates_in": gates_in,
+                       "gates_out": gates_in,
                        "removed": {"cancel": 0, "merge": 0,
                                    "diag_coalesce": 0, "perm_coalesce": 0}}
-    key = _content_key(items, nloc)
+    key = _content_key(items, nloc, m)
     hit = _cache.get(key) if key is not None else None
     if hit is not None:
         return _thaw_out(items, hit[0]), hit[1]
-    out, removed = _rewrite(items, nloc)
-    stats = {"gates_in": gates_in,
+    out, removed = _rewrite(items, nloc, m == "aggressive")
+    stats = {"mode": m, "gates_in": gates_in,
              "gates_out": sum(1 for it in out if _is_gate(it)),
              "removed": dict(removed)}
     if key is not None:

@@ -44,6 +44,10 @@ def real_dtype() -> torch.dtype:
     return torch.float64 if _state.quest_prec == 2 else torch.float32
 
 
+def complex_dtype() -> torch.dtype:
+    return torch.complex128 if _state.quest_prec == 2 else torch.complex64
+
+
 def real_eps() -> float:
     """Reported epsilon, matching QuEST_precision.h REAL_EPS."""
     return _REAL_EPS[_state.quest_prec]
@@ -52,3 +56,14 @@ def real_eps() -> float:
 def validation_eps() -> float:
     """Tolerance for unitarity checks of user-supplied matrices."""
     return _REAL_EPS[min(_state.quest_prec, 2)]
+
+
+# Reference cap on amps per MPI message / full-state host gather
+# (MPI_MAX_AMPS_IN_MSG, QuEST_precision.h:32,46: 2^29 amps single, 2^28
+# double), applied where a whole state would be gathered to one host
+# buffer (compareStates, reportStateToScreen).
+_MAX_AMPS_IN_MSG = {1: 1 << 29, 2: 1 << 28}
+
+
+def max_amps_in_msg() -> int:
+    return _MAX_AMPS_IN_MSG[_state.quest_prec]

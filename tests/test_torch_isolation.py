@@ -30,7 +30,10 @@ def test_import_leaves_jax_out():
             "quest_tpu_torch.ops.build, quest_tpu_torch.ops.bigstate, "
             "quest_tpu_torch.ops.phasefunc, "
             "quest_tpu_torch.models.hamiltonians, "
-            "quest_tpu_torch.ops.density, quest_tpu_torch.models.noise\n"
+            "quest_tpu_torch.ops.density, quest_tpu_torch.models.noise, "
+            "quest_tpu_torch.rng, quest_tpu_torch.ops.threefry, "
+            "quest_tpu_torch.ops.measurement, quest_tpu_torch.checkpoint, "
+            "quest_tpu_torch.debug\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))")
