@@ -8,7 +8,8 @@ line:
 
 1. device  - the card's name and power limit; a CUDA device is required.
 2. build   - nvcc builds csrc/window.cu (K1, K2, K11, K12: tensor-core
-             products, TF32 split at float32, DMMA at float64),
+             products, TF32 split at float32 or the lower modes' bf16 and
+             TF32 products, DMMA at float64),
              csrc/paulis.cu (K3, K4), csrc/channels.cu (K5) and
              csrc/qft.cu (K6-K10) into one library, one nvcc process per
              source.
@@ -168,7 +169,45 @@ line:
              host-device copies per sequence (torch.profiler), the
              probability reduction's and the collapse's device ms, and
              the bound per qubit by bytes.
-21. kernels - one JSON object with every kernel's numbers.
+21. precision_parity - K1, K2, K11 and K12 under the reference's lower
+             matmul precisions ("bf16_3x": three bf16 products; "default":
+             one TF32 product) at 20 qubits, float32: K1 at k in {7, 10,
+             13}, rank 1 and 4, dual / B-only / A-only, with and without a
+             mask, against the mode's plain model (fused.window_pass_split)
+             within MODE_UNIT max|psi| and the full float32 plain version
+             within 4 MODE_UNIT max|psi|; mask-only passes bit for bit
+             equal to "highest"; K2 on config 2's group shapes and a mixed
+             group bit for bit against its passes through K1 and within
+             len * MODE_UNIT of its model; K11 bit for bit against K1 at
+             k = 7, K12 against segswap + K11; at float64 every mode bit
+             for bit equal to "highest".
+22. precision_main - config 2 at 26 qubits under each lower mode: the
+             bench route (execute_plan_chained(..., precision=mode)) and
+             the API route (set_matmul_precision(mode) around the
+             gateFusion drain, "highest" restored after), each with the
+             launch counts reset just before it: P(top = 0) within
+             MODE_PROB_LIMIT of the "highest" bench route's (1e-4 bf16_3x,
+             1e-2 default), the total probability within the same limit,
+             the launches the plans hold, the wall per circuit; K1 (dual
+             and B-only), K2 (group C), K11 and K12 at 2^26 under the
+             mode: ms, bound at the mode's rate (MODE_FLOPS), error
+             against the model.
+23. diagonal_main - DiagonalOp and the phase functions at 30 qubits,
+             float32 (an 8.6 GB state and an 8.6 GB operator; plain
+             PyTorch, as the reference's plain XLA):
+             initDiagonalOpFromPauliHamil of a weighted MaxCut ring (seed
+             7) at 4098 sampled indices, calcExpecDiagonalOp on |+>^30 (0)
+             and on a basis state (its ring energy), applyDiagonalOp,
+             applyPhaseFuncOverrides on all 30 qubits and
+             applyParamNamedPhaseFunc(SCALED_DISTANCE) over two 15-qubit
+             registers against the analytic phases at sampled indices; a
+             15-qubit density register (2^30 amplitudes): calcExpec-
+             DiagonalOp before and after applyDiagonalOp against known
+             answers, D rho at sampled elements; the wall per call and the
+             peak device memory.
+24. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+             and K12 with their per-mode times, bounds, launches and
+             errors under "modes").
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -296,11 +335,13 @@ def flops_of(op, num_amps: int) -> float:
     return f
 
 
-def bound_ms(ops, state_bytes: int, num_amps: int, dtype_name: str):
+def bound_ms(ops, state_bytes: int, num_amps: int, dtype_name: str,
+             rate=None):
     """The least time the card could take for a run of window passes: one
     read and one write of the state plus each matrix read once, over the
     memory rate, against the flops over the window products' rate
-    (WINDOW_FLOPS); and which of the two bounds it."""
+    (``rate``, by default WINDOW_FLOPS); and which of the two bounds
+    it."""
     mat_bytes = sum(op[2].numel() * op[2].element_size()
                     * (int(bool(op[4])) + int(bool(op[5])))
                     + (0 if op[6] is None
@@ -308,7 +349,7 @@ def bound_ms(ops, state_bytes: int, num_amps: int, dtype_name: str):
                     for op in ops)
     t_bytes = (2 * state_bytes + mat_bytes) / HBM_BYTES_PER_S
     t_ops = (sum(flops_of(op, num_amps) for op in ops)
-             / WINDOW_FLOPS[dtype_name])
+             / (rate or WINDOW_FLOPS[dtype_name]))
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -2677,6 +2718,519 @@ def phase_measure_timing(torch, qt, us, measurement):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The reference's lower matmul precisions in K1, K2, K11 and K12
+# ---------------------------------------------------------------------------
+
+LOW_MODES = ("bf16_3x", "default")
+# Each mode's per-product error (relative): "bf16_3x" drops x_l m_l and
+# rounds the low parts, about 2^-16; "default" rounds both operands to
+# TF32, about 2^-11.
+MODE_UNIT = {"bf16_3x": 2.0 ** -16, "default": 2.0 ** -11}
+# The least time of a mode's products: three bf16 products at the dense
+# bf16 rate, one TF32 product at the TF32 rate ("highest": WINDOW_FLOPS).
+MODE_FLOPS = {"bf16_3x": 989e12 / 3, "default": 495e12}
+PREC_SWAPS = ((14, 7, 3), (16, 9, 2), (17, 11, 1))   # K12's (h, b, m)
+
+
+def mode_tolerance(x, mode: str, model: bool) -> float:
+    """How far a float32 pass under ``mode`` may stray, per pass, on the
+    normalised state ``x``.  Against the mode's model (``model``,
+    fused.window_pass_split): the products are the same exact products,
+    summed in another order, but a dual pass splits its float32
+    intermediate T again, and where T's kernel and model values straddle
+    a rounding step of the split one low part moves by one unit, a
+    product by the mode's unit: MODE_UNIT max|x|.  Against the full
+    float32 plain version: four per-product errors, 4 MODE_UNIT max|x|
+    (measured on the CPU at 20 qubits: 6.5e-6 and 3.9e-4 max|x| for
+    rank-1 dual passes)."""
+    return (1 if model else 4) * MODE_UNIT[mode] * float(x.abs().max())
+
+
+def phase_precision_parity(torch, np, fused, C):
+    """K1, K2, K11 and K12 under "bf16_3x" and "default" at float32
+    against their modes' plain models and the full plain versions; K2
+    and K12 bit for bit against their per-pass forms; mask-only passes
+    bit for bit against "highest"; at float64 every mode bit for bit
+    equal to "highest"."""
+    n = N_PARITY
+    rng = np.random.default_rng(2468)
+    out = {"n": n, "modes": {}}
+    x = rng.standard_normal((2, 1 << n))
+    x /= np.sqrt((x ** 2).sum())
+    x32 = torch.as_tensor(x, dtype=torch.float32, device=DEVICE)
+    x64 = torch.as_tensor(x, dtype=torch.float64, device=DEVICE)
+    for mode in LOW_MODES:
+        tol_m = mode_tolerance(x32, mode, True)
+        tol_p = mode_tolerance(x32, mode, False)
+        rec = {"tolerance_vs_model": tol_m, "tolerance_vs_plain": tol_p,
+               "k1_cases": 0, "k1_max_abs_err": 0.0,
+               "k1_max_abs_err_vs_plain": 0.0, "k2": []}
+        for k in (7, 10, 13):
+            for rank in (1, 4):
+                for sides in ("AB", "B", "A"):
+                    for with_mask in (False, True):
+                        op = random_pass(rng, k, rank, sides, with_mask)
+                        kw = dict(num_qubits=n, k=k, apply_a=op[4],
+                                  apply_b=op[5])
+                        y = fused.apply_window_stack(
+                            x32, op[2], op[3], op[6], precision=mode, **kw)
+                        ym = fused.window_pass_split(
+                            x32, op[2], op[3], op[6], precision=mode, **kw)
+                        yp = fused.window_pass_plain(x32, op[2], op[3],
+                                                     op[6], **kw)
+                        err = float((y - ym).abs().max())
+                        errp = float((y - yp).abs().max())
+                        what = f"K1 {mode} k={k} R={rank} {sides} " \
+                               f"mask={with_mask}"
+                        check(err <= tol_m, f"{what}: |err| {err} vs its "
+                              f"model > {tol_m}")
+                        check(errp <= tol_p, f"{what}: |err| {errp} vs "
+                              f"plain > {tol_p}")
+                        rec["k1_max_abs_err"] = max(rec["k1_max_abs_err"],
+                                                    err)
+                        rec["k1_max_abs_err_vs_plain"] = max(
+                            rec["k1_max_abs_err_vs_plain"], errp)
+                        rec["k1_cases"] += 1
+            # a mask-only pass runs no products: the same in every mode
+            op = random_pass(rng, k, 1, "M", True)
+            kw = dict(num_qubits=n, k=k, apply_a=False, apply_b=False)
+            check(torch.equal(
+                fused.apply_window_stack(x32, op[2], op[3], op[6],
+                                         precision=mode, **kw),
+                fused.apply_window_stack(x32, op[2], op[3], op[6],
+                                         precision="highest", **kw)),
+                f"K1 {mode} k={k}: a mask-only pass differs from highest")
+        # K2 on the bench plan's group shapes and a mixed group with a
+        # mask-only pass: bit for bit its passes through K1, launched
+        # twice with equal results, within len * tol of its model
+        for spec in (*K2_BENCH_GROUPS.values(),
+                     [(8, 1, "AB", True), (9, 1, "M", True),
+                      (10, 4, "B", False), (7, 2, "A", True)]):
+            group = [random_pass(rng, k, r, sd, m) for k, r, sd, m in spec]
+            y2 = fused.apply_window_megastack(x32, group, num_qubits=n,
+                                              precision=mode)
+            again = fused.apply_window_megastack(x32, group, num_qubits=n,
+                                                 precision=mode)
+            y1 = C.execute_plan(x32, group, n, precision=mode)
+            ym = fused.megawin_plain(x32, group, num_qubits=n,
+                                     precision=mode)
+            sync()
+            check(torch.equal(y2, y1), f"K2 {mode} {spec}: not "
+                  "bit-identical to K1 pass by pass")
+            check(torch.equal(y2, again), f"K2 {mode} {spec}: a second "
+                  "launch differs")
+            err = float((y2 - ym).abs().max())
+            check(err <= len(group) * tol_m, f"K2 {mode} {spec}: |err| "
+                  f"{err} vs its model")
+            rec["k2"].append({"passes": len(group), "max_abs_err": err,
+                              "bit_identical_to_k1": True})
+        # K11 (K1's kernel at k = 7) and K12 (segswap + K11, bit for bit)
+        rec["k11_max_abs_err"] = rec["k12_max_abs_err"] = 0.0
+        for rank in (1, 4):
+            a, b = paged_sides(torch, rng, rank, torch.float32)
+            y = fused.apply_cluster_stack(x32, a, b, num_qubits=n,
+                                          precision=mode)
+            check(torch.equal(y, fused.apply_window_stack(
+                x32, a, b, None, num_qubits=n, k=7, precision=mode)),
+                f"K11 {mode} R={rank}: not bit-identical to K1 at k = 7")
+            err = float((y - fused.cluster_stack_plain(
+                x32, a, b, num_qubits=n, precision=mode)).abs().max())
+            check(err <= tol_m, f"K11 {mode} R={rank}: |err| {err}")
+            rec["k11_max_abs_err"] = max(rec["k11_max_abs_err"], err)
+            for h, bq, m in PREC_SWAPS:
+                y = fused.apply_swap_cluster_stack(
+                    x32, a, b, num_qubits=n, h=h, b=bq, m=m, precision=mode)
+                ys = fused.apply_cluster_stack(
+                    C.execute_plan(x32, [("segswap", h, bq, m)], n), a, b,
+                    num_qubits=n, precision=mode)
+                sync()
+                check(torch.equal(y, ys), f"K12 {mode} R={rank} "
+                      f"{(h, bq, m)}: not bit-identical to segswap then K11")
+                err = float((y - fused.swap_cluster_stack_plain(
+                    x32, a, b, num_qubits=n, h=h, b=bq, m=m,
+                    precision=mode)).abs().max())
+                check(err <= tol_m, f"K12 {mode} R={rank} {(h, bq, m)}: "
+                      f"|err| {err}")
+                rec["k12_max_abs_err"] = max(rec["k12_max_abs_err"], err)
+        rec["k12_bit_identical_to_segswap_k11"] = True
+        # float64: the same DMMA products in every mode
+        f64 = 0
+        for op in (random_pass(rng, 10, 4, "AB", True),
+                   random_pass(rng, 7, 1, "B", False),
+                   random_pass(rng, 13, 2, "A", True)):
+            kw = dict(num_qubits=n, k=op[1], apply_a=op[4], apply_b=op[5])
+            check(torch.equal(
+                fused.apply_window_stack(x64, op[2], op[3], op[6],
+                                         precision=mode, **kw),
+                fused.apply_window_stack(x64, op[2], op[3], op[6],
+                                         precision="highest", **kw)),
+                f"K1 float64 {mode}: differs from highest")
+            f64 += 1
+        group = [random_pass(rng, k, r, sd, m)
+                 for k, r, sd, m in K2_BENCH_GROUPS["C"]]
+        check(torch.equal(
+            fused.apply_window_megastack(x64, group, num_qubits=n,
+                                         precision=mode),
+            fused.apply_window_megastack(x64, group, num_qubits=n,
+                                         precision="highest")),
+            f"K2 float64 {mode}: differs from highest")
+        a, b = paged_sides(torch, rng, 4, torch.float64)
+        check(torch.equal(
+            fused.apply_cluster_stack(x64, a, b, num_qubits=n,
+                                      precision=mode),
+            fused.apply_cluster_stack(x64, a, b, num_qubits=n,
+                                      precision="highest")),
+            f"K11 float64 {mode}: differs from highest")
+        check(torch.equal(
+            fused.apply_swap_cluster_stack(x64, a, b, num_qubits=n, h=16,
+                                           b=9, m=2, precision=mode),
+            fused.apply_swap_cluster_stack(x64, a, b, num_qubits=n, h=16,
+                                           b=9, m=2, precision="highest")),
+            f"K12 float64 {mode}: differs from highest")
+        rec["float64_bit_identical_to_highest"] = f64 + 3
+        out["modes"][mode] = rec
+    return out
+
+
+# P(top = 0) of config 2 under a lower mode against "highest": each
+# window pass moves an amplitude by a few of the mode's per-product
+# errors (MODE_UNIT), so 27 passes move the probability by well under
+# 100 of them.
+MODE_PROB_LIMIT = {"bf16_3x": 1e-4, "default": 1e-2}
+
+
+@contextmanager
+def matmul_mode(fused, mode: str):
+    """The window kernels' precision mode set to ``mode`` for the block,
+    "highest" restored after it."""
+    fused.set_matmul_precision(mode)
+    try:
+        yield
+    finally:
+        fused.set_matmul_precision("highest")
+
+
+def mode_kernel_times(torch, np, C, fused, x, ops, mode):
+    """K1 (the bench plan's dual and B-only rank-1 passes), K2 (group C),
+    K11 and K12 (h = n - 3, m = 3; rank 1) at 2^26 amplitudes under
+    ``mode``: ms,
+    the bound at the mode's rate (MODE_FLOPS), and the error against the
+    mode's model on the card."""
+    n = N_MAIN
+    num_amps = 1 << n
+    sb = x.numel() * x.element_size()
+    tol = mode_tolerance(x, mode, True)
+    winfused = [op for op in ops if op[0] == "winfused"]
+    dual = next(op for op in winfused
+                if op[4] and op[5] and op[2].shape[0] == 1)
+    bonly = next(op for op in winfused
+                 if op[5] and not op[4] and op[2].shape[0] == 1)
+    # the largest group: config 2's group C at 26 qubits
+    group_c = max((op[1] for op in ops if op[0] == "megawin"), key=len)
+    rng = np.random.default_rng(97)
+    a, b = paged_sides(torch, rng, 1, torch.float32)
+    cluster = ("winfused", 7, a, b, True, True, None)
+    cases = {
+        "k1_dual_rank1": ([dual], lambda: fused.apply_window_stack(
+            x, dual[2], dual[3], dual[6], num_qubits=n, k=dual[1],
+            apply_a=True, apply_b=True, precision=mode),
+            lambda: fused.window_pass_split(
+                x, dual[2], dual[3], dual[6], num_qubits=n, k=dual[1],
+                precision=mode)),
+        "k1_b_only_rank1": ([bonly], lambda: fused.apply_window_stack(
+            x, bonly[2], bonly[3], bonly[6], num_qubits=n, k=bonly[1],
+            apply_a=False, apply_b=True, precision=mode),
+            lambda: fused.window_pass_split(
+                x, bonly[2], bonly[3], bonly[6], num_qubits=n, k=bonly[1],
+                apply_a=False, precision=mode)),
+        "k2_group_c": (list(group_c), lambda: fused.apply_window_megastack(
+            x, group_c, num_qubits=n, precision=mode),
+            lambda: fused.megawin_plain(x, group_c, num_qubits=n,
+                                        precision=mode)),
+        "k11_rank1": ([cluster], lambda: fused.apply_cluster_stack(
+            x, a, b, num_qubits=n, precision=mode),
+            lambda: fused.cluster_stack_plain(x, a, b, num_qubits=n,
+                                              precision=mode)),
+        "k12_rank1": ([cluster], lambda: fused.apply_swap_cluster_stack(
+            x, a, b, num_qubits=n, h=n - 3, b=9, m=3, precision=mode),
+            lambda: fused.swap_cluster_stack_plain(
+                x, a, b, num_qubits=n, h=n - 3, b=9, m=3, precision=mode)),
+    }
+    out = {}
+    for label, (passes, kern, model) in cases.items():
+        err = float((kern() - model()).abs().max())
+        check(err <= len(passes) * tol, f"{label} {mode} at {n} qubits: "
+              f"|err| {err} vs its model")
+        ms = time_ms(kern)
+        b_ms, b_by = bound_ms(passes, sb, num_amps, "float32",
+                              rate=MODE_FLOPS[mode])
+        out[label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "fraction_of_bound": b_ms / ms, "max_abs_err": err}
+    return out
+
+
+def phase_precision_main(torch, np, qt, C, fused, fusion, circuits, plan,
+                         us, p_highest):
+    """Config 2 at 26 qubits under each lower mode, through the bench
+    route (precision= on execute_plan_chained) and the API route
+    (set_matmul_precision around a gateFusion drain), each with the
+    launch counts reset just before it: P(top = 0) against the "highest"
+    route's, calcTotalProb, the wall per circuit; then each window
+    kernel's time at the main path's shapes under the mode."""
+    n = N_MAIN
+    ops = C.plan_to_device(plan, torch.float32, DEVICE)
+    pst = C.stats(plan)
+    items = capture_items(qt, us, n)
+    env = qt.createQuESTEnv()
+    out = {"n": n, "depth": DEPTH, "p_top_zero_highest": p_highest,
+           "modes": {}}
+    for mode in LOW_MODES:
+        lim = MODE_PROB_LIMIT[mode]
+        fused.reset_launch_counts()
+
+        def bench_route():
+            a = circuits.zero_state_canonical(n, torch.float32, DEVICE)
+            a = C.execute_plan_chained(a, ops, n, precision=mode)
+            return a, float(circuits.prob_top_zero_canonical(a))
+
+        a, p_b = bench_route()
+        sync()
+        bench_launch = {k: fused.LAUNCHES[k] for k in ("K1", "K2")}
+        check(bench_launch == {"K1": pst["winfused"], "K2": pst["megawin"]},
+              f"{mode} bench route launched {bench_launch}")
+        total_b = float(torch.sum(a.double() ** 2))
+        del a
+        with matmul_mode(fused, mode):
+            ast = fusion.program_stats(fusion.plan_items(items, n,
+                                                         device=DEVICE))
+            fused.reset_launch_counts()
+
+            def api_route():
+                q = qt.createQureg(n, env)
+                with qt.gateFusion(q):
+                    apply_bench_gates(qt, q, us, n)
+                p = qt.calcProbOfOutcome(q, n - 1, 0)
+                t = qt.calcTotalProb(q)
+                qt.destroyQureg(q, env)
+                return p, t
+
+            p_a, total_a = api_route()
+            sync()
+            api_launch = {k: fused.LAUNCHES[k] for k in ("K1", "K2")}
+            check(api_launch == {"K1": ast.get("winfused", 0),
+                                 "K2": ast.get("megawin", 0)},
+                  f"{mode} API route launched {api_launch}")
+            walls = {}
+            for label, fn in (("bench_route_wall_s", bench_route),
+                              ("api_route_wall_s", api_route)):
+                samples = []
+                for _ in range(3):
+                    sync()
+                    t0 = time.perf_counter()
+                    fn()
+                    sync()
+                    samples.append(time.perf_counter() - t0)
+                walls[label] = statistics.median(samples)
+        check(fused.matmul_precision_name() == "highest",
+              "the mode was not restored")
+        for label, p in (("bench", p_b), ("api", p_a)):
+            check(abs(p - p_highest) <= lim, f"{mode} {label} route: P(top "
+                  f"= 0) {p} vs highest {p_highest} (limit {lim})")
+        for label, t in (("bench", total_b), ("api", total_a)):
+            check(abs(t - 1.0) <= lim, f"{mode} {label} route: total "
+                  f"probability {t}")
+        x = torch.randn((2, 1 << (n - 14), 128, 128), dtype=torch.float32,
+                        device=DEVICE)
+        x /= torch.sqrt(torch.sum(x * x))
+        times = mode_kernel_times(torch, np, C, fused, x, ops, mode)
+        del x
+        out["modes"][mode] = {
+            "limit": lim, "p_top_zero_bench": p_b, "p_top_zero_api": p_a,
+            "p_err_bench": abs(p_b - p_highest),
+            "p_err_api": abs(p_a - p_highest),
+            "total_prob_bench": total_b, "calc_total_prob_api": total_a,
+            "launches_bench": bench_launch, "launches_api": api_launch,
+            **walls, "kernels": times}
+    del ops
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# DiagonalOp and the phase functions (plain torch, as the reference's
+# plain XLA)
+# ---------------------------------------------------------------------------
+
+N_DIAG = 30            # an 8.6 GB float32 state and an 8.6 GB operator
+N_DIAG_RHO = 15        # a density register of 2^30 amplitudes
+DIAG_SEED = 7
+DIAG_SAMPLES = 4096
+
+
+def maxcut_ring(n: int, seed: int):
+    """A weighted MaxCut ring as an all-Z PauliHamil's (codes, coeffs):
+    w_e Z_i Z_{i+1 mod n}, weights uniform in [0.5, 1.5)."""
+    import numpy as np
+
+    w = np.random.default_rng(seed).uniform(0.5, 1.5, n)
+    codes = np.zeros((n, n), np.int32)
+    for e in range(n):
+        codes[e, e] = codes[e, (e + 1) % n] = 3
+    return codes, w
+
+
+def ring_energy(np, x, w):
+    """sum_e w_e (-1)^(x_i + x_{i+1}) at the integer indices ``x``."""
+    n = w.size
+    bits = (x[:, None] >> np.arange(n)) & 1
+    s = 1 - 2 * bits
+    return (s * np.roll(s, -1, axis=1) * w).sum(axis=1)
+
+
+def phase_diagonal_main(torch, np, qt):
+    """Float32 at 30 qubits: initDiagonalOpFromPauliHamil of a MaxCut
+    ring, calcExpecDiagonalOp on |+>^n (0: every term has a Z) and on a
+    basis state (its ring energy), applyDiagonalOp at sampled indices,
+    applyPhaseFuncOverrides on all 30 qubits and applyParamNamedPhaseFunc
+    (SCALED_DISTANCE) over two 15-qubit registers against the analytic
+    phases at sampled indices; a 15-qubit density register (2^30) with
+    applyDiagonalOp and calcExpecDiagonalOp.  The wall per call and the
+    peak device memory."""
+    n = N_DIAG
+    qt.set_precision(1)
+    env = qt.createQuESTEnv()
+    rng = np.random.default_rng(DIAG_SEED)
+    codes, w = maxcut_ring(n, DIAG_SEED)
+    wsum = float(np.abs(w).sum())
+    # float32 sums of 2^30 products of size <= sum|w| / 2^30 (a tree
+    # reduction: about log2(2^30) roundings of 2^-24), and the operator's
+    # own float32 rounding: 1e-5 sum|w|
+    tol_e = 1e-5 * wsum
+    idx = np.concatenate([[0, (1 << n) - 1],
+                          rng.integers(0, 1 << n, DIAG_SAMPLES)])
+    idx_t = torch.as_tensor(idx, device=DEVICE)
+    out = {"n": n, "terms": int(codes.shape[0]), "sum_abs_coeffs": wsum,
+           "walls_ms": {}}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def timed(label, fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        out["walls_ms"][label] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    hamil = qt.createPauliHamil(n, codes.shape[0])
+    qt.initPauliHamil(hamil, w, codes)
+    op = qt.createDiagonalOp(n, env)
+    timed("initDiagonalOpFromPauliHamil",
+          lambda: qt.initDiagonalOpFromPauliHamil(op, hamil))
+    check(op.real.device.type == "cuda", "the operator is not on the card")
+    want_d = ring_energy(np, idx, w)
+    err = float(np.abs(op.real[idx_t].double().cpu().numpy() - want_d).max())
+    check(err <= tol_e, f"initDiagonalOpFromPauliHamil: |err| {err}")
+    out["op_max_abs_err"] = err
+
+    q = qt.createQureg(n, env)
+    qt.initPlusState(q)
+    e_plus = timed("calcExpecDiagonalOp", lambda: qt.calcExpecDiagonalOp(
+        q, op))
+    check(abs(e_plus) <= tol_e, f"<+|H|+> = {e_plus}, not 0")
+    x = int(rng.integers(0, 1 << n))
+    qt.initClassicalState(q, x)
+    e_x = qt.calcExpecDiagonalOp(q, op)
+    want_x = float(ring_energy(np, np.array([x]), w)[0])
+    check(abs(e_x - want_x) <= tol_e and abs(e_x.imag) <= tol_e,
+          f"<x|H|x> = {e_x}, want {want_x}")
+    out.update(expec_plus=[e_plus.real, e_plus.imag], basis_index=x,
+               expec_basis=[e_x.real, e_x.imag], expec_basis_want=want_x)
+
+    amp = 2.0 ** (-n / 2)
+    # one float32 rounding of each factor and of their product
+    tol_a = 1e-5 * amp * max(1.0, wsum)
+
+    def sampled(qq):
+        a = qq.amps[:, idx_t].double().cpu().numpy()
+        return a[0] + 1j * a[1]
+
+    qt.initPlusState(q)
+    timed("applyDiagonalOp", lambda: qt.applyDiagonalOp(q, op))
+    err = float(np.abs(sampled(q) - amp * want_d).max())
+    check(err <= tol_a, f"applyDiagonalOp: |err| {err}")
+    out["apply_max_abs_err"] = err
+    del op
+    torch.cuda.empty_cache()
+
+    # theta(x) = c1 x + c2 x^2 on all 30 qubits (at most 8 rad), two
+    # overrides; float32 phases: |theta| errors ~ 8 * 2^-24
+    qt.initPlusState(q)
+    c1, c2 = 2.0 ** -28, 2.0 ** -58
+    over = {0: 0.5, (1 << n) - 1: -1.0}
+    timed("applyPhaseFuncOverrides", lambda: qt.applyPhaseFuncOverrides(
+        q, list(range(n)), qt.UNSIGNED, [c1, c2], [1.0, 2.0],
+        list(over), list(over.values())))
+    xf = idx.astype(np.float64)
+    theta = c1 * xf + c2 * xf * xf
+    for k, v in over.items():
+        theta[idx == k] = v
+    tol_p = 1e-5 * amp
+    err = float(np.abs(sampled(q) - amp * np.exp(1j * theta)).max())
+    check(err <= tol_p, f"applyPhaseFuncOverrides: |err| {err}")
+    out["phase_func_max_abs_err"] = err
+
+    # SCALED_DISTANCE over registers [0, 15) and [15, 30): s |x2 - x1|
+    qt.initPlusState(q)
+    half = n // 2
+    scale = 2.0 ** -13
+    timed("applyParamNamedPhaseFunc", lambda: qt.applyParamNamedPhaseFunc(
+        q, list(range(n)), [half, half], qt.UNSIGNED, qt.SCALED_DISTANCE,
+        [scale]))
+    x1 = idx & ((1 << half) - 1)
+    x2 = idx >> half
+    theta = scale * np.abs(x2 - x1).astype(np.float64)
+    err = float(np.abs(sampled(q) - amp * np.exp(1j * theta)).max())
+    check(err <= tol_p, f"SCALED_DISTANCE: |err| {err}")
+    out["named_phase_func_max_abs_err"] = err
+    qt.destroyQureg(q, env)
+    del q
+    torch.cuda.empty_cache()
+
+    # a 15-qubit density register: D rho and Tr(D rho) on |+><+|
+    m = N_DIAG_RHO
+    vals = rng.uniform(-1, 1, 1 << m) + 1j * rng.uniform(-1, 1, 1 << m)
+    dop = qt.createDiagonalOp(m, env)
+    qt.initDiagonalOp(dop, vals.real, vals.imag)
+    rho = qt.createDensityQureg(m, env)
+    qt.initPlusState(rho)
+    dim = 1 << m
+    tol_r = 1e-5 * float(np.abs(vals).max())
+    e_rho = timed("calcExpecDiagonalOp_density",
+                  lambda: qt.calcExpecDiagonalOp(rho, dop))
+    want = complex(vals.mean())
+    check(abs(e_rho - want) <= tol_r, f"Tr(D rho) {e_rho}, want {want}")
+    timed("applyDiagonalOp_density", lambda: qt.applyDiagonalOp(rho, dop))
+    rows = idx & (dim - 1)
+    a = rho.amps[:, idx_t].double().cpu().numpy()
+    err = float(np.abs(a[0] + 1j * a[1] - vals[rows] / dim).max())
+    check(err <= tol_r / dim, f"applyDiagonalOp on rho: |err| {err}")
+    e_rho2 = qt.calcExpecDiagonalOp(rho, dop)
+    want2 = complex((vals * vals).mean())
+    check(abs(e_rho2 - want2) <= tol_r, f"Tr(D D rho) {e_rho2}, want "
+          f"{want2}")
+    out["density"] = {"n": m, "expec": [e_rho.real, e_rho.imag],
+                      "expec_want": [want.real, want.imag],
+                      "expec_after_apply": [e_rho2.real, e_rho2.imag],
+                      "apply_max_abs_err": err}
+    qt.destroyQureg(rho, env)
+    del rho, dop
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3043,7 +3597,20 @@ def main() -> int:
     mtiming = phase_measure_timing(torch, qt, us, measurement)
     emit({"phase": "measure_timing", "power": smi, **mtiming})
 
-    # 21. kernels
+    # 21. K1, K2, K11 and K12 under the reference's lower precisions
+    pparity_modes = phase_precision_parity(torch, np, fused, C)
+    emit({"phase": "precision_parity", **pparity_modes})
+
+    # 22. config 2 at 26 qubits under each lower precision
+    pmodes = phase_precision_main(torch, np, qt, C, fused, fusion, circuits,
+                                  plan, us, p_bench)
+    emit({"phase": "precision_main", "power": smi, **pmodes})
+
+    # 23. DiagonalOp and the phase functions at 30 qubits
+    dmain = phase_diagonal_main(torch, np, qt)
+    emit({"phase": "diagonal_main", "power": smi, **dmain})
+
+    # 24. kernels
     def entry(kname, replaces, t, err, source="window.cu"):
         key = kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -3146,6 +3713,31 @@ def main() -> int:
     for e in (k11e, k12e):
         e["library_note"] = ("the fastest of the single torch.einsum forms "
                              "on complex views (library_form)")
+    # each window kernel under the lower precisions: its launches on the
+    # main path's routes, its time, bound and error at the main path's
+    # shapes, its worst error in the parity checks
+    for e, key, label in ((k1e, "K1", "k1_dual_rank1"),
+                          (k2e, "K2", "k2_group_c"),
+                          (k11e, "K11", "k11_rank1"),
+                          (k12e, "K12", "k12_rank1")):
+        e["modes"] = {}
+        for mode, rec in pmodes["modes"].items():
+            par = pparity_modes["modes"][mode]
+            worst = {"K1": par["k1_max_abs_err"],
+                     "K2": max(c["max_abs_err"] for c in par["k2"]),
+                     "K11": par["k11_max_abs_err"],
+                     "K12": par["k12_max_abs_err"]}[key]
+            e["modes"][mode] = {
+                "launches": (rec["launches_bench"].get(key, 0)
+                             + rec["launches_api"].get(key, 0)),
+                "ms": rec["kernels"][label]["ms"],
+                "bound_ms": rec["kernels"][label]["bound_ms"],
+                "bound_by": rec["kernels"][label]["bound_by"],
+                "max_abs_err": max(worst,
+                                   rec["kernels"][label]["max_abs_err"])}
+        if key == "K1":
+            for mode, rec in pmodes["modes"].items():
+                e["modes"][mode]["b_only"] = rec["kernels"]["k1_b_only_rank1"]
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
                       k11e, k12e]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

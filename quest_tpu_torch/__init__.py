@@ -33,9 +33,10 @@ from .precision import (
     real_dtype,
     complex_dtype,
     validation_eps,
+    MAX_NUM_REGS_APPLY_ARBITRARY_PHASE,
 )
 from .validation import QuESTError
-from .qureg import PauliHamil, Qureg
+from .qureg import DiagonalOp, PauliHamil, Qureg
 from .env import QuESTEnv
 from .qasm import QASMLogger
 from .api import *  # noqa: F401,F403
@@ -53,5 +54,26 @@ from .debug import (
     compareStates,
 )
 from .optimizer import set_circuit_optimizer, get_circuit_optimizer
+from .ops import phasefunc as _pf
+
+# enum phaseFunc (QuEST.h:231-234)
+NORM = _pf.NORM
+SCALED_NORM = _pf.SCALED_NORM
+INVERSE_NORM = _pf.INVERSE_NORM
+SCALED_INVERSE_NORM = _pf.SCALED_INVERSE_NORM
+SCALED_INVERSE_SHIFTED_NORM = _pf.SCALED_INVERSE_SHIFTED_NORM
+PRODUCT = _pf.PRODUCT
+SCALED_PRODUCT = _pf.SCALED_PRODUCT
+INVERSE_PRODUCT = _pf.INVERSE_PRODUCT
+SCALED_INVERSE_PRODUCT = _pf.SCALED_INVERSE_PRODUCT
+DISTANCE = _pf.DISTANCE
+SCALED_DISTANCE = _pf.SCALED_DISTANCE
+INVERSE_DISTANCE = _pf.INVERSE_DISTANCE
+SCALED_INVERSE_DISTANCE = _pf.SCALED_INVERSE_DISTANCE
+SCALED_INVERSE_SHIFTED_DISTANCE = _pf.SCALED_INVERSE_SHIFTED_DISTANCE
+
+# bitEncoding (QuEST.h:269)
+UNSIGNED = _pf.UNSIGNED
+TWOS_COMPLEMENT = _pf.TWOS_COMPLEMENT
 
 __version__ = "0.1.0"

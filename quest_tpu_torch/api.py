@@ -22,9 +22,10 @@ from . import fusion as _fusion
 from . import validation as V
 from .ops import cplx as CX
 from .ops import gatedefs as G
+from .ops import element as E
 from .ops import kernels as K
 from .ops.paulis import PAULI_I, PAULI_X, PAULI_Y, PAULI_Z
-from .qureg import PauliHamil, Qureg
+from .qureg import DiagonalOp, PauliHamil, Qureg
 
 # ---------------------------------------------------------------------------
 # Environment (QuEST.h:1851-1939)
@@ -214,10 +215,9 @@ def setAmps(qureg: Qureg, startInd: int, reals, imags, numAmps: int) -> None:
         raise V.QuESTError("setAmps: Incorrect number of amplitudes.")
     V.validate_finite(re, "setAmps")
     V.validate_finite(im, "setAmps")
-    amps = qureg.amps.clone()
-    amps[:, startInd:startInd + numAmps] = torch.as_tensor(
-        np.stack([re, im]), dtype=qureg.dtype, device=qureg.device)
-    qureg.amps = amps
+    # written in place, as the reference writes its chunk
+    # (ops/element.set_amp_range); pending fused gates drain first
+    E.set_amp_range(qureg.amps, startInd, np.stack([re, im]))
 
 
 def initStateFromAmps(qureg: Qureg, reals, imags) -> None:
@@ -390,6 +390,76 @@ def reportPauliHamil(hamil: PauliHamil) -> None:
     for t in range(hamil.num_sum_terms):
         codes = " ".join(str(int(c)) for c in hamil.pauli_codes[t])
         print(f"{hamil.term_coeffs[t]:g}\t{codes}")
+
+
+# ---------------------------------------------------------------------------
+# DiagonalOp (QuEST.h:977-1185)
+# ---------------------------------------------------------------------------
+
+
+def createDiagonalOp(numQubits: int, env: _env.QuESTEnv) -> DiagonalOp:
+    """Allocate a diagonal operator of zeros (QuEST.h:977)."""
+    V.validate_num_qubits_in_diag_op(numQubits, env.num_ranks,
+                                     "createDiagonalOp")
+    return DiagonalOp(numQubits, env)
+
+
+def destroyDiagonalOp(op: DiagonalOp, env=None) -> None:
+    """Free a DiagonalOp (QuEST.h:991): its tensors go with the object."""
+
+
+def syncDiagonalOp(op: DiagonalOp) -> None:
+    """No-op: the reference mirrors host arrays into op.deviceOperator
+    (QuEST.h:297); these always live on the env's device."""
+
+
+def _diag_vector(vals, op: DiagonalOp, func: str) -> torch.Tensor:
+    arr = np.asarray(vals, dtype=np.float64).ravel()
+    if arr.size != 1 << op.num_qubits:
+        raise V.QuESTError(f"{func}: Incorrect number of elements.")
+    V.validate_finite(arr, func)
+    return torch.as_tensor(arr, dtype=op.real.dtype, device=op.real.device)
+
+
+def initDiagonalOp(op: DiagonalOp, reals, imags) -> None:
+    """Fill a DiagonalOp from real/imag arrays of 2^n values (QuEST.h:1039;
+    unlike the JAX package, arrays of another size are refused)."""
+    op.real = _diag_vector(reals, op, "initDiagonalOp")
+    op.imag = _diag_vector(imags, op, "initDiagonalOp")
+
+
+def setDiagonalOpElems(op: DiagonalOp, startInd: int, reals, imags,
+                       numElems: int) -> None:
+    """Overwrite a contiguous range of diagonal-operator elements in
+    place (QuEST.h:1185)."""
+    reals = np.asarray(reals, dtype=np.float64)[:numElems]
+    imags = np.asarray(imags, dtype=np.float64)[:numElems]
+    V.validate_num_elems(op, startInd, numElems, "setDiagonalOpElems")
+    V.validate_finite(reals, "setDiagonalOpElems")
+    V.validate_finite(imags, "setDiagonalOpElems")
+    for vec, vals in ((op.real, reals), (op.imag, imags)):
+        vec[startInd:startInd + numElems] = torch.as_tensor(
+            vals, dtype=vec.dtype, device=vec.device)
+
+
+def initDiagonalOpFromPauliHamil(op: DiagonalOp, hamil: PauliHamil) -> None:
+    """An all-I/Z Hamiltonian as its diagonal, sum_t c_t prod_q
+    (-1)^{z_q(d)}, computed on the device (agnostic_
+    initDiagonalOpFromPauliHamil, QuEST_cpu.c:4188-4227)."""
+    V.validate_diag_pauli_hamil(op, hamil, "initDiagonalOpFromPauliHamil")
+    op.real = K.diag_from_z_hamil(
+        hamil.pauli_codes, hamil.term_coeffs, num_qubits=op.num_qubits,
+        dtype=op.real.dtype, device=op.real.device)
+    op.imag = torch.zeros_like(op.real)
+
+
+def createDiagonalOpFromPauliHamilFile(filename: str,
+                                       env: _env.QuESTEnv) -> DiagonalOp:
+    """A diagonal operator from an all-Z PauliHamil file (QuEST.h:1137)."""
+    hamil = createPauliHamilFromFile(filename)
+    op = DiagonalOp(hamil.num_qubits, env)
+    initDiagonalOpFromPauliHamil(op, hamil)
+    return op
 
 
 # ---------------------------------------------------------------------------

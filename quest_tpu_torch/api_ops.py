@@ -1,7 +1,7 @@
 """Public API, part 2: amplitude reads, measurement, calculations,
 decoherence channels, weighted sums and raw matrices (apply*), Pauli sums
-and Trotter circuits, the quantum Fourier transform, the circuit
-optimizer's mode, QASM recording.
+and Trotter circuits, diagonal operators and phase functions, the quantum
+Fourier transform, the circuit optimizer's mode, QASM recording.
 
 Continues quest_tpu_torch.api (same conventions).  Reference parity:
 QuEST.c calc* / get* / apply* functions.  Every read drains pending fused
@@ -24,13 +24,14 @@ from .api import PAULI_I, _shift, _sv_n, hadamard, multiRotatePauli, swapGate
 from .ops import calculations as C
 from .ops import cplx as CX
 from .ops import density as D
+from .ops import element as E
 from .ops import gatedefs as G
 from .ops import kernels as K
 from .ops import measurement as M
 from .ops import paulis as P
 from .ops import phasefunc as PF
 from .precision import real_eps
-from .qureg import PauliHamil, Qureg
+from .qureg import DiagonalOp, PauliHamil, Qureg
 from .rng import GLOBAL_RNG
 
 
@@ -38,7 +39,7 @@ def getAmp(qureg: Qureg, index: int) -> complex:
     """Fetch one complex amplitude (QuEST.h:1987)."""
     V.validate_state_vector(qureg, "getAmp")
     V.validate_num_amps(qureg, index, 1, "getAmp")
-    pair = qureg.amps[:, int(index)].cpu()
+    pair = E.get_amp_pair(qureg.amps, int(index)).cpu()
     return complex(float(pair[0]), float(pair[1]))
 
 
@@ -64,7 +65,7 @@ def getDensityAmp(qureg: Qureg, row: int, col: int) -> complex:
     dim = 1 << qureg.num_qubits_represented
     if not (0 <= row < dim and 0 <= col < dim):
         raise V.QuESTError("getDensityAmp: Invalid amplitude index.")
-    pair = qureg.amps[:, int(row + col * dim)].cpu()
+    pair = E.get_amp_pair(qureg.amps, int(row + col * dim)).cpu()
     return complex(float(pair[0]), float(pair[1]))
 
 
@@ -550,6 +551,20 @@ def calcExpecPauliHamil(qureg: Qureg, hamil: PauliHamil,
                              workspace)
 
 
+def calcExpecDiagonalOp(qureg: Qureg, op: DiagonalOp) -> complex:
+    """Expected value of a diagonal operator in the given state
+    (QuEST.h:1255)."""
+    V.validate_diag_op_matches_qureg(op, qureg, "calcExpecDiagonalOp")
+    if qureg.is_density_matrix:
+        r = C.calc_expec_diagonal_density(
+            qureg.amps, op.real, op.imag,
+            num_qubits=qureg.num_qubits_represented)
+    else:
+        r = C.calc_expec_diagonal_statevec(qureg.amps, op.real, op.imag)
+    r = r.cpu()
+    return complex(float(r[0]), float(r[1]))
+
+
 def applyPauliSum(inQureg: Qureg, allPauliCodes, termCoeffs,
                   outQureg: Qureg) -> None:
     """Left-multiply a weighted sum of Pauli products, writing outQureg
@@ -637,6 +652,179 @@ def _trotter_schedule(num_terms: int, time: float, order: int, reps: int):
     for _ in range(reps):
         symm(time / reps, order)
     return seq
+
+
+# ---------------------------------------------------------------------------
+# Diagonal operators and phase functions (QuEST.h:1255, 5571-6326)
+# ---------------------------------------------------------------------------
+
+
+def applyDiagonalOp(qureg: Qureg, op: DiagonalOp) -> None:
+    """Left-multiplies D onto the state: on rho this is D rho, not
+    D rho D^dag (the apply* family; densmatr path QuEST_cpu.c:4042-4082)."""
+    V.validate_diag_op_matches_qureg(op, qureg, "applyDiagonalOp")
+    if qureg.is_density_matrix:
+        qureg.amps = D.apply_diagonal_op_density(
+            qureg.amps, op.real, op.imag,
+            num_qubits=qureg.num_qubits_represented)
+    else:
+        qureg.amps = K.apply_full_diagonal(qureg.amps, op.real, op.imag)
+    qureg.qasm_log.comment("here a diagonal operator was applied")
+
+
+def _norm_overrides(overrideInds, overridePhases, num_regs):
+    if overrideInds is None or len(np.asarray(overridePhases).ravel()) == 0:
+        return np.zeros((0, num_regs), np.int64), np.zeros((0,), np.float64)
+    inds = np.asarray(overrideInds, np.int64).reshape(-1, num_regs)
+    phases = np.asarray(overridePhases, np.float64).ravel()
+    return inds, phases
+
+
+def _pad_params(params, num_regs):
+    """Named functions read their divergence and shift parameters at
+    fixed slots (QuEST_cpu.c:4484-4543): pad to the largest layout (the
+    shifted norm's)."""
+    p = (np.asarray(params, np.float64).ravel() if params is not None
+         else np.zeros(0))
+    need = 2 + num_regs
+    if p.size < need:
+        p = np.concatenate([p, np.zeros(need - p.size)])
+    return p
+
+
+def _split_regs(qubits, numQubitsPerReg):
+    regs = []
+    flat = [int(q) for q in np.asarray(qubits).ravel()]
+    pos = 0
+    for nq in numQubitsPerReg:
+        regs.append(tuple(flat[pos:pos + int(nq)]))
+        pos += int(nq)
+    return tuple(regs)
+
+
+def applyPhaseFunc(qureg: Qureg, qubits, encoding, coeffs,
+                   exponents) -> None:
+    """exp(i sum_i c_i x^e_i) with x the integer of one sub-register
+    (QuEST.h:5571)."""
+    applyPhaseFuncOverrides(qureg, qubits, encoding, coeffs, exponents,
+                            None, None)
+
+
+def applyPhaseFuncOverrides(qureg: Qureg, qubits, encoding, coeffs,
+                            exponents, overrideInds, overridePhases) -> None:
+    """Single-variable phase function with explicit per-index overrides
+    (QuEST.h:5682)."""
+    qubits = [int(q) for q in qubits]
+    V.validate_qubit_subregs(qureg, [qubits], "applyPhaseFunc")
+    V.validate_bit_encoding(int(encoding), "applyPhaseFunc",
+                            num_qubits=len(qubits))
+    inds, phases = _norm_overrides(overrideInds, overridePhases, 1)
+    V.validate_phase_func_terms(len(qubits), int(encoding), coeffs,
+                                exponents, [i[0] for i in inds],
+                                "applyPhaseFunc")
+    V.validate_phase_func_overrides([len(qubits)], int(encoding), inds,
+                                    "applyPhaseFunc")
+    qureg.amps = PF.apply_phase_func(
+        qureg.amps, np.asarray(coeffs, np.float64),
+        np.asarray(exponents, np.float64), inds, phases,
+        num_qubits=_sv_n(qureg), qubits=tuple(qubits),
+        encoding=int(encoding))
+    qureg.qasm_log.phase_func(
+        qubits, int(encoding), list(np.asarray(coeffs, np.float64).ravel()),
+        list(np.asarray(exponents, np.float64).ravel()), inds, phases)
+
+
+def applyMultiVarPhaseFunc(qureg: Qureg, qubits, numQubitsPerReg, encoding,
+                           coeffs, exponents, numTermsPerReg) -> None:
+    """exp(i sum_r sum_t c x_r^e) over several sub-registers
+    (QuEST.h:5843)."""
+    applyMultiVarPhaseFuncOverrides(qureg, qubits, numQubitsPerReg,
+                                    encoding, coeffs, exponents,
+                                    numTermsPerReg, None, None)
+
+
+def applyMultiVarPhaseFuncOverrides(qureg: Qureg, qubits, numQubitsPerReg,
+                                    encoding, coeffs, exponents,
+                                    numTermsPerReg, overrideInds,
+                                    overridePhases) -> None:
+    """Multi-variable phase function with explicit per-index overrides
+    (QuEST.h:5925)."""
+    regs = _split_regs(qubits, numQubitsPerReg)
+    V.validate_qubit_subregs(qureg, [list(r) for r in regs],
+                             "applyMultiVarPhaseFunc")
+    V.validate_multi_reg_bit_encoding([len(r) for r in regs], int(encoding),
+                                      "applyMultiVarPhaseFunc")
+    exps = np.asarray(exponents, np.float64)
+    pos = 0
+    exps_per_reg = []
+    for t in numTermsPerReg:
+        exps_per_reg.append(exps[pos:pos + int(t)])
+        pos += int(t)
+    V.validate_multi_var_phase_func_terms(
+        [len(r) for r in regs], int(encoding), exps_per_reg,
+        "applyMultiVarPhaseFunc")
+    inds, phases = _norm_overrides(overrideInds, overridePhases, len(regs))
+    V.validate_phase_func_overrides([len(r) for r in regs], int(encoding),
+                                    inds, "applyMultiVarPhaseFunc")
+    qureg.amps = PF.apply_multi_var_phase_func(
+        qureg.amps, np.asarray(coeffs, np.float64), exps, inds, phases,
+        num_qubits=_sv_n(qureg), reg_qubits=regs, encoding=int(encoding),
+        terms_per_reg=tuple(int(t) for t in numTermsPerReg))
+    qureg.qasm_log.multi_var_phase_func(
+        regs, int(encoding), list(np.asarray(coeffs, np.float64).ravel()),
+        list(exps.ravel()), [int(t) for t in numTermsPerReg], inds, phases)
+
+
+def applyNamedPhaseFunc(qureg: Qureg, qubits, numQubitsPerReg, encoding,
+                        functionNameCode) -> None:
+    """One of the 14 named phase functions over sub-registers
+    (QuEST.h:6065)."""
+    applyParamNamedPhaseFuncOverrides(qureg, qubits, numQubitsPerReg,
+                                      encoding, functionNameCode, None, None,
+                                      None)
+
+
+def applyNamedPhaseFuncOverrides(qureg: Qureg, qubits, numQubitsPerReg,
+                                 encoding, functionNameCode, overrideInds,
+                                 overridePhases) -> None:
+    """A named phase function with per-index overrides (QuEST.h:6138)."""
+    applyParamNamedPhaseFuncOverrides(qureg, qubits, numQubitsPerReg,
+                                      encoding, functionNameCode, None,
+                                      overrideInds, overridePhases)
+
+
+def applyParamNamedPhaseFunc(qureg: Qureg, qubits, numQubitsPerReg,
+                             encoding, functionNameCode, params) -> None:
+    """A named phase function with its scalar parameters (QuEST.h:6251)."""
+    applyParamNamedPhaseFuncOverrides(qureg, qubits, numQubitsPerReg,
+                                      encoding, functionNameCode, params,
+                                      None, None)
+
+
+def applyParamNamedPhaseFuncOverrides(qureg: Qureg, qubits, numQubitsPerReg,
+                                      encoding, functionNameCode, params,
+                                      overrideInds, overridePhases) -> None:
+    """A named phase function with parameters and per-index overrides
+    (QuEST.h:6326)."""
+    regs = _split_regs(qubits, numQubitsPerReg)
+    V.validate_qubit_subregs(qureg, [list(r) for r in regs],
+                             "applyNamedPhaseFunc")
+    V.validate_multi_reg_bit_encoding([len(r) for r in regs], int(encoding),
+                                      "applyNamedPhaseFunc")
+    num_params = 0 if params is None else int(np.asarray(params).size)
+    V.validate_phase_func_name(int(functionNameCode), len(regs), num_params,
+                               "applyNamedPhaseFunc")
+    inds, phases = _norm_overrides(overrideInds, overridePhases, len(regs))
+    V.validate_phase_func_overrides([len(r) for r in regs], int(encoding),
+                                    inds, "applyNamedPhaseFunc")
+    qureg.amps = PF.apply_named_phase_func(
+        qureg.amps, _pad_params(params, len(regs)), inds, phases,
+        num_qubits=_sv_n(qureg), reg_qubits=regs, encoding=int(encoding),
+        func_name=int(functionNameCode))
+    qureg.qasm_log.named_phase_func(
+        regs, int(encoding), int(functionNameCode),
+        [] if params is None else list(np.asarray(params, np.float64).ravel()),
+        inds, phases)
 
 
 # ---------------------------------------------------------------------------

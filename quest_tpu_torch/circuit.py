@@ -1198,28 +1198,36 @@ def plan_circuit(gates: Sequence[Gate], num_qubits: int, device=None,
 # ---------------------------------------------------------------------------
 
 
-def execute_plan(amps, ops: Sequence[tuple], num_qubits: int):
+def execute_plan(amps, ops: Sequence[tuple], num_qubits: int,
+                 precision: Optional[str] = None):
     """Run a plan on ``amps`` (any full-size contiguous view of the state)
     and return the new state, in the same shape.  Window passes go
     through K1, megawin groups through K2, cluster passes through K11,
     swap + cluster passes through K12 and sigma swaps through K10 (on the
-    CPU, their plain versions); the rest are plain PyTorch ops.  A sigma
-    swap works in place on the card: the input is consumed."""
+    CPU, their plain versions); the rest are plain PyTorch ops.  The
+    window passes run at ``precision`` (None: the mode current at the
+    call, ``fused.set_matmul_precision``).  A sigma swap works in place
+    on the card: the input is consumed."""
     n = num_qubits
+    precision = fused.resolve_precision(precision)
     for op in ops:
         kind = op[0]
         if kind == "fused":
             amps = fused.apply_cluster_stack(amps, op[1], op[2],
-                                             num_qubits=n)
+                                             num_qubits=n,
+                                             precision=precision)
         elif kind == "swapfused":
             amps = fused.apply_swap_cluster_stack(
-                amps, op[4], op[5], num_qubits=n, h=op[1], b=op[2], m=op[3])
+                amps, op[4], op[5], num_qubits=n, h=op[1], b=op[2], m=op[3],
+                precision=precision)
         elif kind == "winfused":
             amps = fused.apply_window_stack(
                 amps, op[2], op[3], op[6] if len(op) > 6 else None,
-                num_qubits=n, k=op[1], apply_a=op[4], apply_b=op[5])
+                num_qubits=n, k=op[1], apply_a=op[4], apply_b=op[5],
+                precision=precision)
         elif kind == "megawin":
-            amps = fused.apply_window_megastack(amps, op[1], num_qubits=n)
+            amps = fused.apply_window_megastack(amps, op[1], num_qubits=n,
+                                                precision=precision)
         elif kind == "apply":
             amps = kernels.apply_matrix(amps, op[2], num_qubits=n,
                                         targets=tuple(op[1]))
@@ -1259,7 +1267,8 @@ def plan_to_device(ops: Sequence[tuple], dtype, device) -> List[tuple]:
 
     def up_sides(a, b, apply_a=True, apply_b=True):
         # the window kernels' TF32 exactness, decided here on the host,
-        # and on the card the sides as the kernels copy them
+        # and on the card the sides as the kernels copy them under the
+        # current precision mode (another mode makes its own images)
         ta, tb = up(a), up(b)
         if ta.dtype == torch.float32:
             fused.note_tf32_exact(ta, fused.tf32_exact(a))
@@ -1296,10 +1305,13 @@ def apply_circuit(amps, gates: Sequence[Gate], num_qubits: int):
                                            device=amps.device), num_qubits)
 
 
-def execute_plan_chained(amps, ops: Sequence[tuple], num_qubits: int):
-    """Execute a plan on the canonical view (the bench route's executor);
-    the state is returned in the canonical view."""
-    return execute_plan(canonical_view(amps, num_qubits), ops, num_qubits)
+def execute_plan_chained(amps, ops: Sequence[tuple], num_qubits: int,
+                         precision: Optional[str] = None):
+    """Execute a plan on the canonical view (the bench route's executor)
+    at ``precision`` (as ``execute_plan``); the state is returned in the
+    canonical view."""
+    return execute_plan(canonical_view(amps, num_qubits), ops, num_qubits,
+                        precision=precision)
 
 
 def stats(ops: Sequence[tuple]) -> dict:

@@ -34,8 +34,11 @@
 // 1.37e11 real multiply-adds' worth of flops.  Float32-accurate products
 // on the tensor cores cost three TF32 products each (below), so the least
 // the card needs is 1.37e11 / (495 / 3 = 165 TFLOP/s) = 0.83 ms: bound by
-// operations.  Float64 runs on the FP64 tensor cores (DMMA, 67 TFLOP/s):
-// 2.05 ms.  A mask-only pass does no products and is bound by bytes.
+// operations.  Under "bf16_3x" three bf16 products at 989 TFLOP/s take
+// 0.42 ms (operations); under "default" one TF32 product 0.28 ms, so the
+// bytes bound it (0.32 ms).  Float64 runs on the FP64 tensor cores (DMMA,
+// 67 TFLOP/s): 2.05 ms.  A mask-only pass does no products and is bound
+// by bytes.
 //
 // Design.  One CTA of 256 threads (8 warps, two warpgroups) owns one slab
 // and one chunk of LC output lanes (LC = 64 at float32, 2 CTAs a slab;
@@ -50,22 +53,38 @@
 // registers, and rank 0 has code of its own in which they are never live
 // together.
 //
-// * float32: wgmma m64n64k8 TF32 with FP32 accumulation, A from
-//   registers, B from shared memory through a matrix descriptor.  The
-//   state operand is split with cvt.rna.tf32.f32 into x = x_h + x_m + x_l
-//   (exact: x has 24 significant bits, x_h and x_m 11 each, x_l at most
-//   2), a side matrix into m = m_h + m_l (on the host side, once per
-//   tensor: ops/fused.py tf32_side_split).  Where every entry of the
-//   pass's sides is a TF32 value (m_l = 0: the 0/1 permutations of the
-//   QFT's bit reversal, the identity, sides of +-1 and +-i), decided on
-//   the host and carried in QtPass::exact, a real product is x_l m + x_m m
-//   + x_h m: each term exact, so a permutation pass equals its plain
-//   version bit for bit.  Otherwise it is the 3xTF32 product x_h m_l +
-//   x_m m_h + x_h m_h, about 2^-22 relative per product.  No product runs
-//   in TF32 alone.  The tensor cores round each accumulation toward zero:
-//   each 8-deep k step starts from zero, small terms first, and is added
-//   to the running sum in FP32 (one chain over all of K shrank the norm
-//   measurably).
+// * float32: wgmma with FP32 accumulation, A from registers, B from
+//   shared memory through a matrix descriptor; how each real product
+//   splits into tensor-core products is the pass's QtPass::split, which
+//   the user's precision mode chooses (ops/fused.py set_matmul_precision;
+//   the reference's _PRECISIONS and _kdot, quest_tpu/ops/fused.py:65-119):
+//   - "highest", m64n64k8 TF32: the state operand is split with
+//     cvt.rna.tf32.f32 into x = x_h + x_m + x_l (exact: x has 24
+//     significant bits, x_h and x_m 11 each, x_l at most 2), a side
+//     matrix into m = m_h + m_l (on the host side, once per tensor:
+//     ops/fused.py tf32_side_split).  Where every entry of the pass's
+//     sides is a TF32 value (m_l = 0: the 0/1 permutations of the QFT's
+//     bit reversal, the identity, sides of +-1 and +-i), decided on the
+//     host (SPLIT_EXACT), a real product is x_l m + x_m m + x_h m: each
+//     term exact, so a permutation pass equals its plain version bit for
+//     bit.  Otherwise (SPLIT_TF32X3) it is the 3xTF32 product x_h m_l +
+//     x_m m_h + x_h m_h, about 2^-22 relative per product.
+//   - "default" (SPLIT_TF32), m64n64k8 TF32: one product tf32(x) tf32(m),
+//     the side rounded on the host, about 2^-11 relative (JAX's
+//     Precision.DEFAULT on an NVIDIA card).
+//   - "bf16_3x" (SPLIT_BF16X3), m64n64k16 bf16: the reference's three
+//     products x_h m_h + x_h m_l + x_l m_h, x_h = bf16(x) and x_l =
+//     bf16(x - x_h) rounded to nearest even (cvt.rn.bf16x2.f32, in
+//     registers, packed in wgmma's bf16 A fragment), the side's bf16
+//     parts (re_h, im_h, re_l, im_l) from the host in the K-major bf16
+//     layout (8 rows of 8 values a core matrix, half a TF32 tile's
+//     bytes), about 2^-16 relative.
+//   In every mode the intermediate T = X A^T stays float32 and is split
+//   again for the second product, as the reference's two _kdot calls do.
+//   The tensor cores round each accumulation toward zero: each k step
+//   (8 deep, or 16 in bf16) starts from zero, small terms first, and is
+//   added to the running sum in FP32 (one chain over all of K shrank the
+//   norm measurably).
 // * float64: mma.sync m16n8k4 DMMA (wgmma has no FP64), one product per
 //   real product, rounded to nearest.
 //
@@ -191,19 +210,59 @@ __host__ __device__ constexpr int nchunk() {
     return DIM / Cfg<T>::LC;
 }
 
-// Elements a side tile takes per row: float32 side tiles are K-major
-// TF32 tiles for wgmma, unpadded (rows in 8-row core matrices of 16-byte
-// rows); float64 ones padded rows for the DMMA fragment loads.
+// How a float32 pass's real products split into tensor-core products
+// (QtPass::split; ops/fused.py SPLIT_*, chosen by the precision mode):
+// "highest" takes SPLIT_TF32X3, or SPLIT_EXACT where every side entry is
+// a TF32 value; "default" SPLIT_TF32; "bf16_3x" SPLIT_BF16X3.  Float64
+// runs one DMMA product in every mode.
+enum : int {
+    SPLIT_TF32X3 = 0,   // x_h m_l + x_m m_h + x_h m_h, TF32 parts
+    SPLIT_EXACT = 1,    // x_l m + x_m m + x_h m, m a TF32 value
+    SPLIT_TF32 = 2,     // tf32(x) tf32(m)
+    SPLIT_BF16X3 = 3,   // x_h m_l + x_l m_h + x_h m_h, bf16 parts
+};
+
+// Elements (of T) a side tile takes per row: float32 side tiles are
+// K-major tiles for wgmma, unpadded (rows in 8-row core matrices of
+// 16-byte rows: 4 TF32 values, or 8 bf16 values in half the bytes);
+// float64 ones padded rows for the DMMA fragment loads.  side_rs is the
+// most any split takes.
 template <typename T>
 __host__ __device__ constexpr int side_rs() {
     return sizeof(T) == 4 ? Cfg<T>::KC : Cfg<T>::SP;
 }
+template <typename T>
+__host__ __device__ constexpr int side_row(int split) {
+    return sizeof(T) == 4 && split == SPLIT_BF16X3 ? Cfg<T>::KC / 2
+                                                   : side_rs<T>();
+}
 
-// Planes of a side matrix at most: (re, im), and at float32 the low TF32
-// parts (re_l, im_l) of a pass whose sides are not exact.
+// Planes of a side matrix: (re, im), and at float32 the low parts (re_l,
+// im_l) of a split that multiplies them (side images, ops/fused.py
+// _side_planes).
+template <typename T>
+__host__ __device__ constexpr int side_planes(int split) {
+    return sizeof(T) == 4 &&
+                   (split == SPLIT_TF32X3 || split == SPLIT_BF16X3)
+               ? 4
+               : 2;
+}
 template <typename T>
 __host__ __device__ constexpr int max_planes() {
     return sizeof(T) == 4 ? 4 : 2;
+}
+
+// The splits a kernel is compiled for, one family per precision mode:
+// "highest" (SPLIT_EXACT or SPLIT_TF32X3, chosen pass by pass), or one
+// lower mode's split.  Each family is its own instantiation of K1, K2
+// and K12, so that the item bodies of the modes a launch cannot run take
+// no registers or code in it (K2 with all four bodies ran 20 % slower
+// on the "highest" bench groups).
+enum : int { FAMILY_HIGHEST = 0, FAMILY_TF32 = 1, FAMILY_BF16 = 2 };
+__host__ __device__ constexpr int split_family(int split) {
+    return split == SPLIT_TF32     ? FAMILY_TF32
+           : split == SPLIT_BF16X3 ? FAMILY_BF16
+                                   : FAMILY_HIGHEST;
 }
 
 // One ring stage holds the (re, im) planes of an X tile (128 x KC, padded
@@ -230,15 +289,16 @@ __host__ __device__ constexpr size_t smem_bytes() {
 // One window pass as the kernels see it; the same layout as the host-side
 // ctypes structure in ops/fused.py.  `a` and `b` are side images
 // (ops/fused.py _side_image): per rank, plane and K tile, a block of the
-// 128 rows as shared memory holds them, the planes (re, im) where the
-// pass is exact or float64 and (re_h, im_h, re_l, im_l), the TF32 split of
-// each entry, otherwise.
+// 128 rows as shared memory holds them: the planes (re, im) at float64,
+// under SPLIT_EXACT and (rounded to TF32) under SPLIT_TF32, and (re_h,
+// im_h, re_l, im_l), the split parts of each entry (TF32 values, or bf16
+// values under SPLIT_BF16X3), otherwise.
 struct QtPass {
     int k;          // window offset
     int rank;       // number of Kronecker terms R
     int apply_a;    // lane side present
     int apply_b;    // window side present
-    int exact;      // every entry of the used sides is a TF32 value
+    int split;      // SPLIT_*: how a float32 product splits
     const void* a;  // lane matrices
     const void* b;  // window matrices
     const void* mask;  // (2, 128, 128) SoA (window, lane) mask, or null
@@ -273,15 +333,19 @@ __device__ __forceinline__ double fma_t(double a, double b, double c) {
 // How a real product splits into tensor-core products: NS parts of the
 // state operand, NM parts of the side operand, NP products, product q
 // multiplying state part si(q) by side part mj(q), the small (correction)
-// terms first and the large one last.
-template <typename T, bool EXACT> struct Split;
-template <> struct Split<float, true> {      // x_l m + x_m m + x_h m
+// terms first and the large one last; BF16: the parts are bf16 values
+// and a k step is 16 deep (wgmma k16), else TF32 values, 8 deep.
+template <typename T, int SPLIT> struct Split;
+template <> struct Split<float, SPLIT_EXACT> {     // x_l m + x_m m + x_h m
     static constexpr int NS = 3, NM = 1, NP = 3;
+    static constexpr bool BF16 = false;
     __host__ __device__ static constexpr int si(int q) { return 2 - q; }
     __host__ __device__ static constexpr int mj(int) { return 0; }
 };
-template <> struct Split<float, false> {     // x_h m_l + x_m m_h + x_h m_h
+// x_h m_l + x_m m_h + x_h m_h
+template <> struct Split<float, SPLIT_TF32X3> {
     static constexpr int NS = 2, NM = 2, NP = 3;
+    static constexpr bool BF16 = false;
     __host__ __device__ static constexpr int si(int q) {
         return q == 1 ? 1 : 0;
     }
@@ -289,8 +353,28 @@ template <> struct Split<float, false> {     // x_h m_l + x_m m_h + x_h m_h
         return q == 0 ? 1 : 0;
     }
 };
-template <bool E> struct Split<double, E> {  // one DMMA
+template <> struct Split<float, SPLIT_TF32> {      // tf32(x) tf32(m)
     static constexpr int NS = 1, NM = 1, NP = 1;
+    static constexpr bool BF16 = false;
+    __host__ __device__ static constexpr int si(int) { return 0; }
+    __host__ __device__ static constexpr int mj(int) { return 0; }
+};
+// The reference's "bf16_3x" (quest_tpu/ops/fused.py _kdot): x_h m_l +
+// x_l m_h + x_h m_h, x_h = bf16(x), x_l = bf16(x - x_h) rounded to
+// nearest even, the x_l m_l term dropped.
+template <> struct Split<float, SPLIT_BF16X3> {
+    static constexpr int NS = 2, NM = 2, NP = 3;
+    static constexpr bool BF16 = true;
+    __host__ __device__ static constexpr int si(int q) {
+        return q == 1 ? 1 : 0;
+    }
+    __host__ __device__ static constexpr int mj(int q) {
+        return q == 0 ? 1 : 0;
+    }
+};
+template <int S> struct Split<double, S> {         // one DMMA
+    static constexpr int NS = 1, NM = 1, NP = 1;
+    static constexpr bool BF16 = false;
     __host__ __device__ static constexpr int si(int) { return 0; }
     __host__ __device__ static constexpr int mj(int) { return 0; }
 };
@@ -320,11 +404,34 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 // The state's parts (x_h, x_m[, x_l]); at float64 the value itself.
 template <int N>
 __device__ __forceinline__ void split_state(float x, uint32_t (&p)[N]) {
-    static_assert(N == 2 || N == 3, "a float32 state splits in 2 or 3");
+    static_assert(N >= 1 && N <= 3, "a float32 state splits in 1 to 3");
     p[0] = tf32_rna(x);
-    const float r1 = x - __uint_as_float(p[0]);
-    p[1] = tf32_rna(r1);
-    if constexpr (N == 3) p[2] = __float_as_uint(r1 - __uint_as_float(p[1]));
+    if constexpr (N > 1) {
+        const float r1 = x - __uint_as_float(p[0]);
+        p[1] = tf32_rna(r1);
+        if constexpr (N == 3)
+            p[2] = __float_as_uint(r1 - __uint_as_float(p[1]));
+    }
+}
+
+// cvt.rn.bf16x2.f32: two float32 values rounded to the nearest bf16, ties
+// to even (JAX's and PyTorch's cast; cvt.rna would round ties away),
+// packed with `lo` in the low half: the order of a k pair in wgmma's
+// bf16 A fragment.
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+    uint32_t r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+    return r;
+}
+
+// A k pair (x0, x1) of the state as its bf16 parts: h = bf16(x) and l =
+// bf16(x - h), each a packed pair (ops/fused.py bf16_split).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& h,
+                                           uint32_t& l) {
+    h = bf16x2_rn(x0, x1);
+    const float h0 = __uint_as_float(h << 16);
+    const float h1 = __uint_as_float(h & 0xffff0000u);
+    l = bf16x2_rn(x0 - h0, x1 - h1);
 }
 template <int N>
 __device__ __forceinline__ void split_state(double x, double (&p)[N]) {
@@ -380,6 +487,34 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[8][4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
           "r"(scale_d), "n"(SCALE_A));
 }
+// The same product with bf16 operands, 16 deep (m64n64k16): a (64 x 16)
+// from registers as packed bf16 pairs (warp w's rows [16w, 16w + 16) as
+// mma.m16n8k16 holds its A fragment: register i holds row g + 8 (i & 1),
+// columns 2t + 8 (i >> 1) and the next), b (64 x 16) a K-major bf16 tile
+// (imm-trans-b = 0).
+template <int SCALE_A>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, %38, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d), "n"(SCALE_A));
+}
 __device__ __forceinline__ void wgmma_fence() {
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -390,10 +525,11 @@ __device__ __forceinline__ void wgmma_wait_all() {
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// The matrix descriptor of a K-major TF32 tile in shared memory without
-// swizzle: 8-row core matrices of 16-byte rows (4 TF32) stored as 128
-// contiguous bytes, the two 16-byte K chunks of an 8-deep step LBO = 128
-// bytes apart, 8-row groups SBO bytes apart.
+// The matrix descriptor of a K-major TF32 or bf16 tile in shared memory
+// without swizzle: 8-row core matrices of 16-byte rows (4 TF32 or 8 bf16
+// values) stored as 128 contiguous bytes, the two 16-byte K chunks of a
+// k step (8 TF32 or 16 bf16 deep) LBO = 128 bytes apart, 8-row groups SBO
+// bytes apart.
 __device__ __forceinline__ uint64_t kmajor_desc(const void* p, uint32_t sbo) {
     const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
     return (uint64_t)((a >> 4) & 0x3fff) | ((uint64_t)(128 >> 4) << 16) |
@@ -443,6 +579,22 @@ __device__ __forceinline__ void load_state(
     }
 }
 
+// The state's bf16 A fragment at k step ks (16 deep), split: register i
+// of part q holds rows g + 8 (i & 1), columns ks + 2t + 8 (i >> 1) and the
+// next (wgmma_bf16), element (m, kk) at s_re/s_im[lay(m, kk)].
+template <typename Lay>
+__device__ __forceinline__ void load_state_bf16(
+        const float* s_re, const float* s_im, Lay lay, int ks, int g, int t,
+        uint32_t (&sre)[2][4], uint32_t (&sim)[2][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int m = g + 8 * (i & 1), kk = ks + 2 * t + 8 * (i >> 1);
+        const int o0 = lay(m, kk), o1 = lay(m, kk + 1);
+        split_bf16(s_re[o0], s_re[o1], sre[0][i], sre[1][i]);
+        split_bf16(s_im[o0], s_im[o1], sim[0][i], sim[1][i]);
+    }
+}
+
 // acc[c][nt] (c = re, im; 16 x 8 tiles nt) += S M^T over one K tile,
 // complex.  S (16 rows of the warp x KC) is the state operand, its element
 // (m, kk) at s_re/s_im[lay(m, kk)]; M (NT * 8 rows x KC) the side in
@@ -456,17 +608,19 @@ __device__ __forceinline__ void load_state(
 // size of its last, large terms (one chain per output over all of K
 // drifted the norm).  float64 (DMMA, per warp): products accumulate in
 // acc directly, rounded to nearest.
-template <typename T, bool EXACT, int NT, typename Lay>
+template <typename T, int SPLIT, int NT, typename Lay>
 __device__ __forceinline__ void product_tile(
         T (&acc)[2][NT][4], const T* s_re, const T* s_im, Lay lay,
         const T* side, int pstride, int g, int t) {
     using C = Cfg<T>;
-    using S = Split<T, EXACT>;
+    using S = Split<T, SPLIT>;
     using F = Frag<T>;
     using reg = typename F::reg;
     if constexpr (sizeof(T) == 4) {
         static_assert(NT == 8, "wgmma m64n64: 8 tiles of 8 columns");
-        constexpr uint32_t SBO = (C::KC / 4) * 128;
+        // a side value's bytes, a k step's depth, 16-byte K chunks a row
+        constexpr int VB = S::BF16 ? 2 : 4, KS = S::BF16 ? 16 : C::KS;
+        constexpr uint32_t SBO = (C::KC * VB / 16) * 128;
         const uint64_t d0 = kmajor_desc(side, SBO);
         const uint64_t plane = (uint64_t)(pstride * 4) >> 4;
         T cre[NT][4], cim[NT][4];
@@ -475,11 +629,14 @@ __device__ __forceinline__ void product_tile(
         // one k step at a time: its A registers and accumulators are in
         // flight until the wait
 #pragma unroll 1
-        for (int ks = 0; ks < C::KC; ks += C::KS) {
+        for (int ks = 0; ks < C::KC; ks += KS) {
             reg sre[S::NS][F::AR], sim[S::NS][F::AR];
-            load_state<T, S::NS>(s_re, s_im, lay, ks, g, t, sre, sim);
-            // the step's two 16-byte K chunks start ks / 4 chunks in
-            const uint64_t dk = (uint64_t)((ks / 4) * 128 >> 4);
+            if constexpr (S::BF16)
+                load_state_bf16(s_re, s_im, lay, ks, g, t, sre, sim);
+            else
+                load_state<T, S::NS>(s_re, s_im, lay, ks, g, t, sre, sim);
+            // the step's two 16-byte K chunks start ks * VB / 16 chunks in
+            const uint64_t dk = (uint64_t)((ks * VB / 16) * 128 >> 4);
             wgmma_fence();
 #pragma unroll
             for (int q = 0; q < S::NP; ++q) {
@@ -488,10 +645,17 @@ __device__ __forceinline__ void product_tile(
                 const uint64_t dim = dre + plane;
                 // re += S_re M_re^T - S_im M_im^T; im += S_re M_im^T +
                 // S_im M_re^T
-                wgmma_tf32<1>(cre, sre[a], dre, q > 0);
-                wgmma_tf32<-1>(cre, sim[a], dim, 1);
-                wgmma_tf32<1>(cim, sre[a], dim, q > 0);
-                wgmma_tf32<1>(cim, sim[a], dre, 1);
+                if constexpr (S::BF16) {
+                    wgmma_bf16<1>(cre, sre[a], dre, q > 0);
+                    wgmma_bf16<-1>(cre, sim[a], dim, 1);
+                    wgmma_bf16<1>(cim, sre[a], dim, q > 0);
+                    wgmma_bf16<1>(cim, sim[a], dre, 1);
+                } else {
+                    wgmma_tf32<1>(cre, sre[a], dre, q > 0);
+                    wgmma_tf32<-1>(cre, sim[a], dim, 1);
+                    wgmma_tf32<1>(cim, sre[a], dim, q > 0);
+                    wgmma_tf32<1>(cim, sim[a], dre, 1);
+                }
             }
             wgmma_commit();
             wgmma_wait_all();
@@ -653,7 +817,9 @@ struct ItemArgs {
 // tiles, then B_r tiles) into ring position `pos`, in copies counted on
 // the stage's mbarrier; threads 0 .. npl-1 copy a side plane's block of
 // the side image, which holds each K tile of each plane as shared memory
-// holds it (the layout of side_rs, 128 rows).  K1, K11, K12: every thread
+// holds it (npl = side_planes planes of 128 rows of rs = side_row
+// elements: compile-time constants in window_item, read from the pass
+// where K2 issues its next item's first tile).  K1, K11, K12: every thread
 // arrives, announcing its bytes (`extra` adds a copy of its own: the
 // B-only pass's T row, with tile 0), and thread i copies row i % 128 of
 // X's plane i / 128 (KC elements) in one bulk copy.  K2 (TMA): thread 0
@@ -664,7 +830,7 @@ template <typename T, bool TMA, typename Rows>
 __device__ __forceinline__ void issue_tile(T* smem, uint64_t* bars, int pos,
                                            int local,
                                            const ItemArgs<T, Rows>& ia,
-                                           const QtPass& p, int npl,
+                                           const QtPass& p, int npl, int rs,
                                            uint32_t extra) {
     using C = Cfg<T>;
     constexpr int NK = DIM / C::KC;
@@ -674,11 +840,11 @@ __device__ __forceinline__ void issue_tile(T* smem, uint64_t* bars, int pos,
     T* st = smem + (pos % STAGES) * stage_elems<T>();
     uint64_t* bar = &bars[pos % STAGES];
     const int r = local / per, j = local % per;
-    const long long img = (long long)DIM * side_rs<T>();  // one block
+    const long long img = (long long)DIM * rs;  // one block
     uint32_t bytes = extra;
     if (j < na) {
         const int k0 = j * C::KC;
-        const uint32_t side = C::LC * side_rs<T>() * sizeof(T);
+        const uint32_t side = C::LC * rs * sizeof(T);
         if constexpr (TMA) {
             bytes += 2 * DIM * C::KC * sizeof(T) + npl * side;
             if (tid == 0) {
@@ -697,13 +863,13 @@ __device__ __forceinline__ void issue_tile(T* smem, uint64_t* bars, int pos,
                       C::KC * sizeof(T), bar);
         }
         if (tid < npl)
-            bulk_copy(st + 2 * DIM * C::SP + tid * C::LC * side_rs<T>(),
+            bulk_copy(st + 2 * DIM * C::SP + tid * C::LC * rs,
                       static_cast<const T*>(p.a) +
                           ((long long)(r * npl + tid) * NK + j) * img +
-                          (long long)ia.l0 * side_rs<T>(),
+                          (long long)ia.l0 * rs,
                       side, bar);
     } else {
-        const uint32_t side = DIM * side_rs<T>() * sizeof(T);
+        const uint32_t side = DIM * rs * sizeof(T);
         if constexpr (TMA) {
             if (tid == 0) bar_arrive(bar, bytes + npl * side);
         } else {
@@ -711,7 +877,7 @@ __device__ __forceinline__ void issue_tile(T* smem, uint64_t* bars, int pos,
             bar_arrive(bar, bytes);
         }
         if (tid < npl)
-            bulk_copy(st + tid * DIM * side_rs<T>(),
+            bulk_copy(st + tid * DIM * rs,
                       static_cast<const T*>(p.b) +
                           ((long long)(r * npl + tid) * NK + (j - na)) * img,
                       side, bar);
@@ -821,7 +987,7 @@ __device__ __forceinline__ void stage_mask(T* dst, const T* M, int l0) {
 // [16 (j % (LC/16)), +16); columns: rows w' [LC (j / (LC/16)), +LC)):
 // in both products the state is the A operand, split once per fragment,
 // and the already split side the B operand.
-template <typename T, bool EXACT, typename Rows, typename Next>
+template <typename T, int SPLIT, typename Rows, typename Next>
 __device__ int window_item(const ItemArgs<T, Rows>& ia, const QtPass& p,
                            T* smem, uint64_t* bars, int ring, bool primed,
                            Next& next) {
@@ -829,9 +995,9 @@ __device__ int window_item(const ItemArgs<T, Rows>& ia, const QtPass& p,
     using V2 = typename Vec2<T>::type;
     constexpr int NT = C::LC / 8;          // 16 x 8 tiles per warp
     constexpr int NK = DIM / C::KC;        // K tiles per product
-    constexpr int SP = C::SP, TS = C::TS, RS = side_rs<T>();
+    constexpr int SP = C::SP, TS = C::TS, RS = side_row<T>(SPLIT);
     // side planes per rank in the side images
-    constexpr int NPL = (sizeof(T) == 4 && !EXACT) ? 4 : 2;
+    constexpr int NPL = side_planes<T>(SPLIT);
     // K2 copies X tiles by TMA (issue_tile), and at float32 stages a
     // dual-side or B-only pass's mask in shared memory (stage_mask)
     constexpr bool TMA = Next::enabled;
@@ -873,7 +1039,8 @@ __device__ int window_item(const ItemArgs<T, Rows>& ia, const QtPass& p,
 
     const int tid = threadIdx.x;
     auto load_tile = [&](int tile, uint32_t extra) {
-        issue_tile<T, TMA>(smem, bars, ring + tile, tile, ia, p, NPL, extra);
+        issue_tile<T, TMA>(smem, bars, ring + tile, tile, ia, p, NPL, RS,
+                           extra);
     };
 
     T tacc[2][NT][4];
@@ -927,11 +1094,11 @@ __device__ int window_item(const ItemArgs<T, Rows>& ia, const QtPass& p,
         for (int j = 0; j < NK; ++j) {
             const T* st = next_stage();
             if constexpr (TMA)
-                product_tile<T, EXACT, NT>(
+                product_tile<T, SPLIT, NT>(
                     acc, st + row0 * C::KC, st + (DIM + row0) * C::KC,
                     SwizzledLay<T>{}, st + 2 * DIM * SP, C::LC * RS, g, t);
             else
-                product_tile<T, EXACT, NT>(
+                product_tile<T, SPLIT, NT>(
                     acc, st + row0 * SP, st + (DIM + row0) * SP,
                     StridedLay{SP, 1}, st + 2 * DIM * SP, C::LC * RS, g, t);
         }
@@ -940,7 +1107,7 @@ __device__ int window_item(const ItemArgs<T, Rows>& ia, const QtPass& p,
     auto second_product = [&](T (&acc)[2][NT][4]) {
         for (int j = 0; j < NK; ++j) {
             const T* st = next_stage();
-            product_tile<T, EXACT, NT>(acc, t_r + j * C::KC * TS + c0,
+            product_tile<T, SPLIT, NT>(acc, t_r + j * C::KC * TS + c0,
                                        t_i + j * C::KC * TS + c0,
                                        StridedLay{1, TS}, st + n0 * RS,
                                        DIM * RS, g, t);
@@ -1031,19 +1198,28 @@ __device__ int window_item(const ItemArgs<T, Rows>& ia, const QtPass& p,
     return end;
 }
 
-// The item with the products the pass's sides call for (float64 has one
-// kind).
-template <typename T, typename Rows, typename Next>
+// The item with the products the pass's split calls for, among those of
+// the kernel's family (float64 has one kind).
+template <typename T, int FAM, typename Rows, typename Next>
 __device__ __forceinline__ int run_item(const ItemArgs<T, Rows>& ia,
                                         const QtPass& p, T* smem,
                                         uint64_t* bars, int ring,
                                         bool primed, Next& next) {
     if constexpr (sizeof(T) == 8)
-        return window_item<T, true>(ia, p, smem, bars, ring, primed, next);
-    else if (p.exact)
-        return window_item<T, true>(ia, p, smem, bars, ring, primed, next);
+        return window_item<T, SPLIT_EXACT>(ia, p, smem, bars, ring, primed,
+                                           next);
+    else if constexpr (FAM == FAMILY_TF32)
+        return window_item<T, SPLIT_TF32>(ia, p, smem, bars, ring, primed,
+                                          next);
+    else if constexpr (FAM == FAMILY_BF16)
+        return window_item<T, SPLIT_BF16X3>(ia, p, smem, bars, ring, primed,
+                                            next);
+    else if (p.split == SPLIT_EXACT)
+        return window_item<T, SPLIT_EXACT>(ia, p, smem, bars, ring, primed,
+                                           next);
     else
-        return window_item<T, false>(ia, p, smem, bars, ring, primed, next);
+        return window_item<T, SPLIT_TF32X3>(ia, p, smem, bars, ring, primed,
+                                            next);
 }
 
 // The ring's mbarriers, once per CTA, before any copy: `count` arrivals
@@ -1054,7 +1230,7 @@ __device__ __forceinline__ void init_ring(uint64_t* bars, int count) {
     __syncthreads();
 }
 
-template <typename T>
+template <typename T, int FAM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
                    long long plane, QtPass p) {
@@ -1071,13 +1247,13 @@ window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
                                       mid * DIM, chunk * Cfg<T>::LC};
     NoNext none;
     init_ring(bars, NTHREADS);
-    run_item<T>(ia, p, smem, bars, 0, false, none);
+    run_item<T, FAM>(ia, p, smem, bars, 0, false, none);
 }
 
 // K12: one (output slab, lane chunk) item per CTA, the slab's rows
 // gathered across the segment swap (SwappedRows); k = 7, so the output
 // slab is 128 x 128 consecutive amplitudes of each plane.
-template <typename T>
+template <typename T, int FAM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 swap_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
                     long long plane, QtPass p, int hs, int bs, int mask) {
@@ -1092,7 +1268,7 @@ swap_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
                                       chunk * Cfg<T>::LC};
     NoNext none;
     init_ring(bars, NTHREADS);
-    run_item<T>(ia, p, smem, bars, 0, false, none);
+    run_item<T, FAM>(ia, p, smem, bars, 0, false, none);
 }
 
 // ---------------------------------------------------------------------------
@@ -1369,7 +1545,7 @@ struct MegaNext {
             asm volatile("fence.proxy.async.global;\n" ::: "memory");
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         issue_tile<T, true>(smem, bars, pos, 0, ia, p,
-                            sizeof(T) == 4 && !p.exact ? 4 : 2,
+                            side_planes<T>(p.split), side_row<T>(p.split),
                             t_tile_bytes<T, true>(p));
         if (!p.apply_a) copy_t_tile(smem, &bars[pos % STAGES], ia);
     }
@@ -1382,7 +1558,7 @@ struct MegaNext {
 // for about 64 KB to reach L2 at the SM's share of the write rate).  Any
 // other item first publishes the previous ticket (it may wait on it) and
 // then waits for its inputs.
-template <typename T>
+template <typename T, int FAM>
 __global__ void __launch_bounds__(NTHREADS, 1)
 megawin_kernel(const T* __restrict__ x, T* out, T* slots, unsigned* work,
                long long plane, QtMegaArgs args,
@@ -1451,7 +1627,8 @@ megawin_kernel(const T* __restrict__ x, T* out, T* slots, unsigned* work,
             L.sb[nslot] = L.sb[slot];
         }
         const QtPass& p = L.a.p[L.pass[slot]];
-        ring = run_item<T>(L.ia[slot], p, smem, bars, ring, primed, next);
+        ring = run_item<T, FAM>(L.ia[slot], p, smem, bars, ring, primed,
+                                next);
         // every thread reads the flag after the item's last barrier;
         // thread 0 writes it next in the next item's poll
         primed = (p.apply_a || p.apply_b) && L.go;
@@ -1477,9 +1654,26 @@ static bool aligned16(const void* p) {
 
 static bool pass_ok(const QtPass& p, int n) {
     if (p.k < 7 || p.k > n - 7 || p.rank < 1) return false;
+    if (p.split < SPLIT_TF32X3 || p.split > SPLIT_BF16X3) return false;
     if (p.apply_a && (p.a == nullptr || !aligned16(p.a))) return false;
     if (p.apply_b && (p.b == nullptr || !aligned16(p.b))) return false;
     return true;
+}
+
+template <typename T, int FAM>
+static int launch_window_pass_as(const T* x, T* y, int n, const QtPass& pass,
+                                 void* stream) {
+    const size_t smem = smem_bytes<T>();
+    cudaError_t err = cudaFuncSetAttribute(
+        window_pass_kernel<T, FAM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long plane = 1LL << n;
+    const long long nslab = 1LL << (n - 14);
+    window_pass_kernel<T, FAM><<<(unsigned)(nslab * nchunk<T>()), NTHREADS,
+                                 smem, (cudaStream_t)stream>>>(x, y, plane,
+                                                               pass);
+    return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -1488,38 +1682,67 @@ static int launch_window_pass(const T* x, T* y, int n, const QtPass* pass,
     if (pass == nullptr || n < 14 || !pass_ok(*pass, n) || !aligned16(x) ||
         !aligned16(y))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes<T>();
-    cudaError_t err = cudaFuncSetAttribute(
-        window_pass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const long long plane = 1LL << n;
-    const long long nslab = 1LL << (n - 14);
-    window_pass_kernel<T><<<(unsigned)(nslab * nchunk<T>()), NTHREADS, smem,
-                            (cudaStream_t)stream>>>(x, y, plane, *pass);
-    return (int)cudaGetLastError();
+    if constexpr (sizeof(T) == 8) {
+        return launch_window_pass_as<T, FAMILY_HIGHEST>(x, y, n, *pass,
+                                                        stream);
+    } else {
+        switch (split_family(pass->split)) {
+            case FAMILY_TF32:
+                return launch_window_pass_as<T, FAMILY_TF32>(x, y, n, *pass,
+                                                             stream);
+            case FAMILY_BF16:
+                return launch_window_pass_as<T, FAMILY_BF16>(x, y, n, *pass,
+                                                             stream);
+            default:
+                return launch_window_pass_as<T, FAMILY_HIGHEST>(x, y, n, *pass,
+                                                                stream);
+        }
+    }
 }
 
 // K12: the segment swap [h, h+m) <-> [bq, bq+m), then K11's operator.
-template <typename T>
-static int launch_swap_cluster(const T* x, T* y, int n, int rank,
-                               const T* a, const T* b, int exact, int h,
-                               int bq, int m, void* stream) {
-    const QtPass pass{7, rank, 1, 1, exact, a, b, nullptr};
-    if (n < 14 || !pass_ok(pass, n) || m < 1 || h < 14 || h + m > n ||
-        bq < 7 || bq + m > 14 || !aligned16(x) || !aligned16(y))
-        return (int)cudaErrorInvalidValue;
+template <typename T, int FAM>
+static int launch_swap_cluster_as(const T* x, T* y, int n,
+                                  const QtPass& pass, int h, int bq, int m,
+                                  void* stream) {
     const size_t smem = smem_bytes<T>();
     cudaError_t err = cudaFuncSetAttribute(
-        swap_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        swap_cluster_kernel<T, FAM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long plane = 1LL << n;
     const long long nslab = 1LL << (n - 14);
-    swap_cluster_kernel<T><<<(unsigned)(nslab * nchunk<T>()), NTHREADS, smem,
-                             (cudaStream_t)stream>>>(
+    swap_cluster_kernel<T, FAM><<<(unsigned)(nslab * nchunk<T>()), NTHREADS,
+                                  smem, (cudaStream_t)stream>>>(
         x, y, plane, pass, h - 14, bq - 7, (1 << m) - 1);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_swap_cluster(const T* x, T* y, int n, int rank,
+                               const T* a, const T* b, int split, int h,
+                               int bq, int m, void* stream) {
+    const QtPass pass{7, rank, 1, 1, split, a, b, nullptr};
+    if (n < 14 || !pass_ok(pass, n) || m < 1 || h < 14 || h + m > n ||
+        bq < 7 || bq + m > 14 || !aligned16(x) || !aligned16(y))
+        return (int)cudaErrorInvalidValue;
+    if constexpr (sizeof(T) == 8) {
+        return launch_swap_cluster_as<T, FAMILY_HIGHEST>(x, y, n, pass, h,
+                                                         bq, m, stream);
+    } else {
+        switch (split_family(split)) {
+            case FAMILY_TF32:
+                return launch_swap_cluster_as<T, FAMILY_TF32>(x, y, n, pass, h,
+                                                              bq, m, stream);
+            case FAMILY_BF16:
+                return launch_swap_cluster_as<T, FAMILY_BF16>(x, y, n, pass, h,
+                                                              bq, m, stream);
+            default:
+                return launch_swap_cluster_as<T, FAMILY_HIGHEST>(x, y, n, pass,
+                                                                 h, bq, m,
+                                                                 stream);
+        }
+    }
 }
 
 // K2's shared memory: the window kernels'.
@@ -1578,12 +1801,15 @@ static bool mega_map(CUtensorMap* map, const T* buf, long long q_extent,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The CTAs of K2's persistent grid: every SM times the CTAs an SM holds.
+// The CTAs of K2's persistent grid: every SM times the CTAs an SM holds
+// (the families' instantiations share the shared memory and the launch
+// bounds that set it).
 template <typename T>
 static int megawin_ctas(int* ctas) {
     if (ctas == nullptr) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        megawin_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        megawin_kernel<T, FAMILY_HIGHEST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)mega_smem_bytes<T>());
     if (err != cudaSuccess) return (int)err;
     int dev = 0, sms = 0, per = 0;
@@ -1592,10 +1818,26 @@ static int megawin_ctas(int* ctas) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, megawin_kernel<T>, NTHREADS, mega_smem_bytes<T>());
+        &per, megawin_kernel<T, FAMILY_HIGHEST>, NTHREADS,
+        mega_smem_bytes<T>());
     if (err != cudaSuccess) return (int)err;
     *ctas = sms * per;
     return (int)cudaSuccess;
+}
+
+template <typename T, int FAM>
+static int launch_megawin_as(const T* x, T* out, T* slots, unsigned* work,
+                             int ctas, int n, const QtMegaArgs& args,
+                             const MegaMaps& maps, void* stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        megawin_kernel<T, FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)mega_smem_bytes<T>());
+    if (err != cudaSuccess) return (int)err;
+    const long long plane = 1LL << n;
+    megawin_kernel<T, FAM><<<(unsigned)ctas, NTHREADS, mega_smem_bytes<T>(),
+                             (cudaStream_t)stream>>>(x, out, slots, work,
+                                                     plane, args, maps);
+    return (int)cudaGetLastError();
 }
 
 // `slots` holds S * 2 * G * 128 * 128 elements (groups of one pass need
@@ -1614,9 +1856,14 @@ static int launch_megawin(const T* x, T* out, T* slots, unsigned* work,
     QtMegaArgs args;
     args.npass = npass;
     int kmax = 7;
+    // one family a launch: the passes of a group share the precision mode
+    const int fam = sizeof(T) == 8 ? FAMILY_HIGHEST
+                                   : split_family(passes[0].split);
     for (int i = 0; i < npass; ++i) {
         const QtPass& p = passes[i];
         if (!pass_ok(p, n)) return (int)cudaErrorInvalidValue;
+        if (sizeof(T) == 4 && split_family(p.split) != fam)
+            return (int)cudaErrorInvalidValue;
         kmax = p.k > kmax ? p.k : kmax;
         args.p[i] = p;
     }
@@ -1648,15 +1895,25 @@ static int launch_megawin(const T* x, T* out, T* slots, unsigned* work,
                                (2 * nb) >> shift, shift);
         if (!ok) return (int)cudaErrorInvalidValue;
     }
-    cudaError_t err = cudaFuncSetAttribute(
-        megawin_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)mega_smem_bytes<T>());
-    if (err != cudaSuccess) return (int)err;
-    const long long plane = 1LL << n;
-    megawin_kernel<T><<<(unsigned)ctas, NTHREADS, mega_smem_bytes<T>(),
-                        (cudaStream_t)stream>>>(x, out, slots, work, plane,
-                                                args, maps);
-    return (int)cudaGetLastError();
+    if constexpr (sizeof(T) == 8) {
+        return launch_megawin_as<T, FAMILY_HIGHEST>(x, out, slots, work, ctas,
+                                                    n, args, maps, stream);
+    } else {
+        switch (fam) {
+            case FAMILY_TF32:
+                return launch_megawin_as<T, FAMILY_TF32>(x, out, slots, work,
+                                                         ctas, n, args, maps,
+                                                         stream);
+            case FAMILY_BF16:
+                return launch_megawin_as<T, FAMILY_BF16>(x, out, slots, work,
+                                                         ctas, n, args, maps,
+                                                         stream);
+            default:
+                return launch_megawin_as<T, FAMILY_HIGHEST>(x, out, slots, work,
+                                                            ctas, n, args, maps,
+                                                            stream);
+        }
+    }
 }
 
 extern "C" {
@@ -1692,16 +1949,16 @@ int qt_megawin_f64(const double* x, double* out, double* slots,
 }
 
 int qt_swap_cluster_stack_f32(const float* x, float* y, int n, int rank,
-                              const float* a, const float* b, int exact,
+                              const float* a, const float* b, int split,
                               int h, int bq, int m, void* stream) {
-    return launch_swap_cluster<float>(x, y, n, rank, a, b, exact, h, bq, m,
+    return launch_swap_cluster<float>(x, y, n, rank, a, b, split, h, bq, m,
                                       stream);
 }
 
 int qt_swap_cluster_stack_f64(const double* x, double* y, int n, int rank,
-                              const double* a, const double* b, int exact,
+                              const double* a, const double* b, int split,
                               int h, int bq, int m, void* stream) {
-    return launch_swap_cluster<double>(x, y, n, rank, a, b, exact, h, bq, m,
+    return launch_swap_cluster<double>(x, y, n, rank, a, b, split, h, bq, m,
                                        stream);
 }
 

@@ -101,8 +101,10 @@ class ChannelItem:
 def _plan_key(items, nloc: int, sweep_ok: bool, device=None):
     """Content key for an item list: the gate matrices' bytes, each
     channel's (kind, target, bra) (its probability is a run-time value),
-    whether channel runs may sweep, and the knobs that change the plan:
-    the planner (QT_PLANNER) and megawin grouping."""
+    whether channel runs may sweep, the knobs that change the plan (the
+    planner, QT_PLANNER, and megawin grouping) and the window kernels'
+    precision mode, which the reference's key holds as well
+    (quest_tpu/fusion.py:565)."""
     parts = []
     for it in items:
         if isinstance(it, ChannelItem):
@@ -113,7 +115,8 @@ def _plan_key(items, nloc: int, sweep_ok: bool, device=None):
             return None
         parts.append((it.targets, m.dtype.str, m.shape, m.tobytes()))
     return (nloc, sweep_ok, C.resolve_planner(),
-            _fused.megakernel_planning(device), tuple(parts))
+            _fused.megakernel_planning(device),
+            _fused.matmul_precision_name(), tuple(parts))
 
 
 # minimum adjacent permutation-classified gates worth splitting out of a

@@ -1,8 +1,9 @@
-"""States, plans, Hamiltonians and measurement streams carried across.
+"""States, plans, Hamiltonians, diagonal operators and measurement
+streams carried across.
 
-A state, plan or PauliHamil produced elsewhere (for example by the JAX
-package, handed over as NumPy arrays) becomes the port's objects here, so
-the port can run it; states go back to NumPy for comparison.  The JAX
+A state, plan, PauliHamil or DiagonalOp produced elsewhere (for example by
+the JAX package, handed over as NumPy arrays) becomes the port's objects
+here, so the port can run it; states go back to NumPy for comparison.  The JAX
 package's measurement-stream snapshots (JSON dicts) continue in the port
 through ``rng_state_from_reference``.  This module imports neither
 framework of the other side: it only sees NumPy arrays and dicts.
@@ -17,7 +18,7 @@ import torch
 
 from .circuit import plan_to_device
 from .ops import measurement
-from .qureg import PauliHamil
+from .qureg import DiagonalOp, PauliHamil
 from .rng import GLOBAL_RNG
 
 
@@ -72,6 +73,23 @@ def pauli_hamil_from_numpy(codes, coeffs) -> PauliHamil:
     h.pauli_codes[...] = codes
     h.term_coeffs[:] = coeffs
     return h
+
+
+def diagonal_op_from_numpy(real, imag, env, dtype=None) -> DiagonalOp:
+    """A DiagonalOp on ``env``'s device from its real and imaginary (2^n,)
+    vectors (a JAX package DiagonalOp's ``real`` and ``imag`` as NumPy),
+    in ``dtype`` (default: the working precision's)."""
+    real = np.asarray(real).ravel()
+    imag = np.asarray(imag).ravel()
+    n = real.size.bit_length() - 1
+    if real.size != 1 << n or imag.size != real.size:
+        raise ValueError(f"a diagonal operator holds 2^n values, got "
+                         f"{real.size} and {imag.size}")
+    op = DiagonalOp(n, env)
+    dt = dtype or op.real.dtype
+    op.real = torch.tensor(real, dtype=dt, device=op.real.device)
+    op.imag = torch.tensor(imag, dtype=dt, device=op.imag.device)
+    return op
 
 
 def rng_state_from_reference(rng_state: dict, key_state: dict) -> None:

@@ -115,3 +115,19 @@ def calc_hilbert_schmidt_distance(rho1_amps, rho2_amps):
     """sqrt(sum |rho1 - rho2|^2) (calcHilbertSchmidtDistanceSquaredLocal,
     QuEST_cpu.c:923)."""
     return torch.sqrt(torch.sum(cplx.abs2(rho1_amps - rho2_amps)))
+
+
+def calc_expec_diagonal_statevec(amps, op_real, op_imag):
+    """sum_i |amp_i|^2 d_i -> stacked (2,) (statevec_calcExpecDiagonalOp,
+    QuEST_cpu.c:4094-4126)."""
+    p = cplx.abs2(amps)
+    return torch.stack([torch.sum(p * op_real), torch.sum(p * op_imag)])
+
+
+def calc_expec_diagonal_density(amps, op_real, op_imag, *, num_qubits: int):
+    """sum_r d_r rho_rr -> stacked (2,) (densmatr_calcExpecDiagonalOp,
+    QuEST_cpu.c:4127-4186)."""
+    d = _diag(amps, num_qubits)
+    re = torch.sum(d[0] * op_real - d[1] * op_imag)
+    im = torch.sum(d[0] * op_imag + d[1] * op_real)
+    return torch.stack([re, im])

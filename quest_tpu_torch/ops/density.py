@@ -256,3 +256,14 @@ def mix_density_matrix(amps, other_amps, prob):
     QuEST_cpu.c:125-160)."""
     p = _scalar(prob, amps)
     return (1 - p) * amps + p * other_amps
+
+
+def apply_diagonal_op_density(amps, op_real, op_imag, *, num_qubits: int):
+    """Left-multiply D rho: scale each column elementwise by D over the
+    ket bits (densmatr_applyDiagonalOpLocal, QuEST_cpu.c:4042-4082).  The
+    apply* family: no conjugate twin."""
+    dim = 1 << num_qubits
+    mat = amps.reshape(2, dim, dim)  # [channel, col, row]; rows are ket bits
+    f_re = op_real.to(amps.dtype)[None, :]
+    f_im = op_imag.to(amps.dtype)[None, :]
+    return cplx.cmul(mat, f_re, f_im).reshape(amps.shape)

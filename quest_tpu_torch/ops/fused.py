@@ -9,8 +9,10 @@ passes whose windows fit inside 2^g consecutive canonical 128 x 128 rows
 
 Two hand-written CUDA kernels (``csrc/window.cu``) execute them on the
 card, built with nvcc at first use (``ops/build.py``) and bound through
-ctypes.  Their products run on the tensor cores: float32 as TF32 split
-products (``tf32_split`` below models them), float64 as DMMA.
+ctypes.  Their products run on the tensor cores: float32 as split
+products chosen by the user's precision mode (``set_matmul_precision``:
+"highest" TF32 splits to float32 accuracy, the reference's "bf16_3x" and
+"default"; ``window_pass_split`` below models each), float64 as DMMA.
 
 * K1, ``apply_window_stack``: one pass (replaces the Pallas kernel
   quest_tpu/ops/fused.py ``_apply_window_stack_jit``);
@@ -94,16 +96,46 @@ MAX_FUSED_SWAP_M = 3
 # ---------------------------------------------------------------------------
 
 
+# The window kernels' float32 products (K1, K2, K11, K12), chosen by the
+# user as in the reference (quest_tpu/ops/fused.py _PRECISIONS, _kdot):
+# "highest" keeps float32 accuracy (the TF32 split below), "bf16_3x" takes
+# the reference's three bf16 products xh mh + xh ml + xl mh (about 2^-16
+# relative each; the xl ml term dropped), "default" one TF32 product (as
+# JAX's Precision.DEFAULT runs on an NVIDIA card, about 2^-11).  Float64
+# runs the same DMMA products under every mode.  The QFT, Pauli and
+# channel kernels ignore the mode, as the reference's do.
+PRECISIONS = ("highest", "bf16_3x", "default")
+_CONFIG = {"precision": "highest"}
+
+# QtPass.split (csrc/window.cu): how a float32 pass's real products split
+# into tensor-core products.
+SPLIT_TF32X3 = 0    # "highest", sides not TF32 values: 3xTF32
+SPLIT_EXACT = 1     # "highest", every side entry a TF32 value; float64
+SPLIT_TF32 = 2      # "default": one TF32 product
+SPLIT_BF16X3 = 3    # "bf16_3x": three bf16 products
+
+
+def _known(name: str) -> str:
+    if name not in PRECISIONS:
+        raise ValueError(f"unknown precision {name!r}; use one of "
+                         f"{list(PRECISIONS)}")
+    return name
+
+
 def set_matmul_precision(name: str) -> None:
-    """The window kernels compute to full FP32 / FP64 accuracy
-    ("highest").  The reference's "bf16_3x" and "default" modes are a
-    user-chosen lower precision, not yet ported (ROADMAP Queue 1, beside
-    M13), and raise here."""
-    if name != "highest":
-        raise NotImplementedError(
-            f"matmul precision {name!r} is not ported: quest_tpu_torch runs "
-            "the window kernels to full precision only (ROADMAP Queue 1, "
-            "matmul precisions)")
+    """Set the window kernels' contraction precision ("highest" |
+    "bf16_3x" | "default"); entries called with ``precision=None`` read it
+    at call time, and the drain's plan cache keys on it."""
+    _CONFIG["precision"] = _known(name)
+
+
+def matmul_precision_name() -> str:
+    return _CONFIG["precision"]
+
+
+def resolve_precision(precision=None) -> str:
+    """``precision``, or the current mode where it is None."""
+    return _known(precision or _CONFIG["precision"])
 
 
 # ---------------------------------------------------------------------------
@@ -221,16 +253,34 @@ def _check_swap(n: int, h: int, b: int, m: int) -> None:
             f"1 <= m <= {MAX_FUSED_SWAP_M}; got h={h}, b={b}, m={m}, n={n}")
 
 
-def cluster_stack_plain(amps, mats_a, mats_b, *, num_qubits: int):
-    """The cluster pass in plain PyTorch: ``window_pass_plain`` at k = 7,
+def window_pass_model(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
+                      k: int = SUBLANE_QUBITS, apply_a: bool = True,
+                      apply_b: bool = True, precision: str = "highest"):
+    """The window pass as the kernels compute it under ``precision``: a
+    float32 state under "bf16_3x" or "default" takes that mode's products
+    (``window_pass_split``), anything else ``window_pass_plain``."""
+    if amps.dtype == torch.float32 and precision != "highest":
+        return window_pass_split(amps, mats_a, mats_b, mask,
+                                 num_qubits=num_qubits, k=k, apply_a=apply_a,
+                                 apply_b=apply_b, precision=precision)
+    return window_pass_plain(amps, mats_a, mats_b, mask,
+                             num_qubits=num_qubits, k=k, apply_a=apply_a,
+                             apply_b=apply_b)
+
+
+def cluster_stack_plain(amps, mats_a, mats_b, *, num_qubits: int,
+                        precision: str = "highest"):
+    """The cluster pass in plain PyTorch: ``window_pass_model`` at k = 7,
     dual-sided, with no mask.  Same function as K11."""
     _check_cluster(num_qubits, mats_a, mats_b, "apply_cluster_stack")
-    return window_pass_plain(amps, mats_a, mats_b, None,
-                             num_qubits=num_qubits, k=SUBLANE_QUBITS)
+    return window_pass_model(amps, mats_a, mats_b, None,
+                             num_qubits=num_qubits, k=SUBLANE_QUBITS,
+                             precision=precision)
 
 
 def swap_cluster_stack_plain(amps, mats_a, mats_b, *, num_qubits: int,
-                             h: int, b: int, m: int):
+                             h: int, b: int, m: int,
+                             precision: str = "highest"):
     """The fused swap + cluster pass in plain PyTorch: the segment swap
     [h, h+m) <-> [b, b+m) (``kernels.swap_bit_segments``), then
     ``cluster_stack_plain``.  Same function as K12."""
@@ -241,32 +291,45 @@ def swap_cluster_stack_plain(amps, mats_a, mats_b, *, num_qubits: int,
     swapped = kernels.swap_bit_segments(amps, num_qubits=num_qubits, a=h,
                                         b=b, m=m)
     return cluster_stack_plain(swapped, mats_a, mats_b,
-                               num_qubits=num_qubits)
+                               num_qubits=num_qubits, precision=precision)
 
 
-def megawin_plain(amps, subops, *, num_qubits: int):
+def megawin_plain(amps, subops, *, num_qubits: int,
+                  precision: str = "highest"):
     """A megawin group in plain PyTorch: its passes one after another
     over the whole state (the same function K2 computes super-block by
     super-block)."""
     for op in subops:
-        amps = window_pass_plain(
+        amps = window_pass_model(
             amps, op[2], op[3], op[6] if len(op) > 6 else None,
-            num_qubits=num_qubits, k=op[1], apply_a=op[4], apply_b=op[5])
+            num_qubits=num_qubits, k=op[1], apply_a=op[4], apply_b=op[5],
+            precision=precision)
     return amps
 
 
 # ---------------------------------------------------------------------------
-# The TF32 split of the window kernels' float32 products
+# The split of the window kernels' float32 products
 # ---------------------------------------------------------------------------
 #
-# K1, K2, K11 and K12 multiply float32 operands on the tensor cores in TF32
-# (1 + 10 mantissa bits), split so that the result keeps float32 accuracy:
-# the operand that carries the state into three TF32 parts (x = h + m + l,
-# exactly), a side matrix into two.  Where every entry of a pass's used
-# sides is a TF32 value (QtPass.exact) a real product is h s + m s + l s,
-# each term exact; otherwise the 3xTF32 product h s_h + h s_l + m s_h.
-# The functions below model that arithmetic in plain PyTorch; the
-# wrappers decide QtPass.exact with ``tf32_exact``.
+# K1, K2, K11 and K12 multiply float32 operands on the tensor cores, each
+# real product split as the precision mode asks (QtPass.split):
+#
+# * "highest" (SPLIT_TF32X3, SPLIT_EXACT): TF32 (1 + 10 mantissa bits)
+#   parts, so that the result keeps float32 accuracy: the operand that
+#   carries the state into three TF32 parts (x = h + m + l, exactly), a
+#   side matrix into two.  Where every entry of a pass's used sides is a
+#   TF32 value (SPLIT_EXACT) a real product is h s + m s + l s, each term
+#   exact; otherwise the 3xTF32 product h s_h + h s_l + m s_h.
+# * "default" (SPLIT_TF32): one TF32 product, tf32(x) tf32(s).
+# * "bf16_3x" (SPLIT_BF16X3): the reference's three bf16 products
+#   x_h s_h + x_h s_l + x_l s_h, each operand split into bf16 parts
+#   rounded to nearest even (x_h = bf16(x), x_l = bf16(x - x_h)), whatever
+#   the sides hold.
+#
+# In every mode the pass's intermediate T = X A^T stays float32 and is
+# split again for the second product.  The functions below model that
+# arithmetic in plain PyTorch; the wrappers choose QtPass.split with
+# ``pass_split``.
 
 _TF32_LOW = 0x1FFF          # the 13 float32 mantissa bits TF32 drops
 
@@ -298,6 +361,20 @@ def tf32_side_split(m):
     return h, tf32_round(m - h)
 
 
+def bf16_round(x):
+    """``cvt.rn.bf16.f32`` on a float32 tensor, as a float32 tensor: the
+    nearest bf16 value, ties to even (JAX's and PyTorch's cast)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_split(x):
+    """The reference's split of a float32 operand under "bf16_3x"
+    (quest_tpu/ops/fused.py ``_kdot``): (h, l), h = bf16(x) and l =
+    bf16(x - h), both as float32 tensors."""
+    h = bf16_round(x)
+    return h, bf16_round(x - h)
+
+
 def tf32_exact(arr) -> bool:
     """Whether every entry of ``arr`` (NumPy or tensor), cast to float32,
     is a TF32 value: the low 13 mantissa bits are zero.  For a tensor on
@@ -327,37 +404,54 @@ def _side_exact(arr) -> bool:
     return arr._qt_tf32_exact[1]
 
 
-def _sides_exact(dtype, *sides) -> int:
-    """QtPass.exact for a pass of ``dtype`` applying ``sides``: 1 where
-    every entry is a TF32 value (and at float64, whose DMMA products need
-    no split)."""
+def pass_split(dtype, precision: str, *sides) -> int:
+    """QtPass.split for a pass of ``dtype`` applying ``sides`` under
+    ``precision`` (a resolved mode name).  float64 runs one DMMA product
+    in every mode (SPLIT_EXACT)."""
     if dtype != torch.float32:
-        return 1
+        return SPLIT_EXACT
+    if precision == "bf16_3x":
+        return SPLIT_BF16X3
+    if precision == "default":
+        return SPLIT_TF32
     return int(all(_side_exact(s) for s in sides))
 
 
-def _side_image(arr, dtype, device, exact: int):
+def _side_planes(t, split: int):
+    """The planes of a float32 side stack (R, 2, 128, 128) as the kernels
+    multiply them under ``split``: (re, im), their TF32 roundings, or the
+    split parts (re_h, im_h, re_l, im_l) of ``tf32_side_split`` /
+    ``bf16_split`` (bf16 tensors)."""
+    if split == SPLIT_EXACT:
+        return t
+    if split == SPLIT_TF32:
+        return tf32_round(t)
+    if split == SPLIT_TF32X3:
+        return torch.cat(tf32_side_split(t), dim=1)
+    return torch.cat(bf16_split(t), dim=1).to(torch.bfloat16)
+
+
+def _side_image(arr, dtype, device, split: int):
     """A side stack (R, 2, 128, 128) as the window kernels copy it, one
     bulk copy per plane and K tile: per rank r, plane p and K tile j, a
     block of the 128 rows as the kernel's shared memory holds them.
-    float32: planes (re, im) where the pass is exact, else the TF32 split
-    (re_h, im_h, re_l, im_l) of ``tf32_side_split``; K tiles of 32 columns
-    in 8-row core matrices of 4-column rows, [r][p][j][row // 8][column
-    chunk][row % 8][4] (the K-major layout wgmma reads).  float64: (re,
-    im), K tiles of 16 columns, rows padded to 20.  Made on ``device``,
-    once per tensor."""
-    key = (str(torch.device(device)), dtype, int(exact))
+    float32: the planes of ``_side_planes``; K tiles of 32 columns in
+    8-row core matrices of 16-byte rows (4 TF32 or 8 bf16 values),
+    [r][p][j][row // 8][16-byte chunk][row % 8][values] (the K-major
+    layout wgmma reads).  float64: (re, im), K tiles of 16 columns, rows
+    padded to 20.  Made on ``device``, once per tensor and split."""
+    key = (str(torch.device(device)), dtype, int(split))
     if torch.is_tensor(arr):
-        tag = getattr(arr, "_qt_side_image", None)
-        if tag is not None and tag[0] == arr._version and tag[1] == key:
-            return tag[2]
+        tag = getattr(arr, "_qt_side_images", None)
+        if tag is not None and tag[0] == arr._version and key in tag[1]:
+            return tag[1][key]
     t = torch.as_tensor(arr if torch.is_tensor(arr) else np.asarray(arr),
                         dtype=dtype, device=device).contiguous()
     rank = t.shape[0]
     if dtype == torch.float32:
-        if not exact:
-            t = torch.cat(tf32_side_split(t), dim=1)
-        img = t.reshape(rank, t.shape[1], 16, 8, 4, 8, 4).permute(
+        t = _side_planes(t, split)
+        per = 16 // t.element_size()          # values in a 16-byte row
+        img = t.reshape(rank, t.shape[1], 16, 8, 4, 32 // per, per).permute(
             0, 1, 4, 2, 5, 3, 6)
     else:
         img = torch.nn.functional.pad(
@@ -365,29 +459,35 @@ def _side_image(arr, dtype, device, exact: int):
             (0, 4))
     img = img.contiguous()
     if torch.is_tensor(arr):
-        arr._qt_side_image = (arr._version, key, img)
+        tag = getattr(arr, "_qt_side_images", None)
+        if tag is None or tag[0] != arr._version:
+            tag = (arr._version, {})
+            arr._qt_side_images = tag
+        tag[1][key] = img
     return img
 
 
 def prepare_sides(mats_a, mats_b, apply_a: bool = True,
-                  apply_b: bool = True) -> None:
+                  apply_b: bool = True, precision=None) -> None:
     """Make the side images of a pass whose side stacks are tensors on
-    the card (the executor's uploads), so that no launch of the pass
-    builds them."""
-    exact = _sides_exact(mats_a.dtype, *[s for s, on in (
-        (mats_a, apply_a), (mats_b, apply_b)) if on])
+    the card (the executor's uploads) under ``precision`` (None: the
+    current mode), so that no launch of the pass builds them."""
+    split = pass_split(mats_a.dtype, resolve_precision(precision),
+                       *[s for s, on in ((mats_a, apply_a), (mats_b, apply_b))
+                         if on])
     for m in (mats_a, mats_b):
-        _side_image(m, m.dtype, m.device, exact)
+        _side_image(m, m.dtype, m.device, split)
 
 
 def window_pass_split(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
                       k: int = SUBLANE_QUBITS, apply_a: bool = True,
-                      apply_b: bool = True):
+                      apply_b: bool = True, precision: str = "highest"):
     """The window pass at float32 with every real product taken as the
-    kernels take it: ``window_pass_plain``'s function, T = X A_r^T then
-    Y = B_r T, each complex product four real ones, each real product
-    the TF32 split products above (float32 sums in PyTorch's order, not
-    the card's; the mask as the plain version applies it)."""
+    kernels take it under ``precision``: ``window_pass_plain``'s function,
+    T = X A_r^T then Y = B_r T, each complex product four real ones, each
+    real product the split products above, each exact in float32 (float32
+    sums in PyTorch's order, not the card's; the mask as the plain version
+    applies it)."""
     n = num_qubits
     _check_offset(n, k)
     hi = 1 << (n - k - SUBLANE_QUBITS)
@@ -396,17 +496,22 @@ def window_pass_split(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
     a = _as_operand(mats_a, x)
     b = _as_operand(mats_b, x)
     used = [s for s, on in ((a, apply_a), (b, apply_b)) if on]
-    exact = bool(_sides_exact(x.dtype, *used))
+    split = pass_split(x.dtype, resolve_precision(precision), *used)
+
+    def terms(state, side):
+        if split == SPLIT_EXACT:
+            return [(p, side) for p in tf32_split(state)]
+        if split == SPLIT_TF32X3:
+            s, (mh, ml) = tf32_split(state), tf32_side_split(side)
+            return [(s[0], mh), (s[0], ml), (s[1], mh)]
+        if split == SPLIT_TF32:
+            return [(tf32_round(state), tf32_round(side))]
+        (sh, sl), (mh, ml) = bf16_split(state), bf16_split(side)
+        return [(sh, mh), (sh, ml), (sl, mh)]
 
     def prod(eq, side, state, side_first):
-        s = tf32_split(state)
-        if exact:
-            terms = [(s[0], side), (s[1], side), (s[2], side)]
-        else:
-            mh, ml = tf32_side_split(side)
-            terms = [(s[0], mh), (s[0], ml), (s[1], mh)]
         acc = None
-        for sp, mp in terms:
+        for sp, mp in terms(state, side):
             p = (torch.einsum(eq, mp, sp) if side_first
                  else torch.einsum(eq, sp, mp))
             acc = p if acc is None else acc + p
@@ -447,7 +552,7 @@ class _QtPass(ctypes.Structure):
 
     _fields_ = [("k", ctypes.c_int), ("rank", ctypes.c_int),
                 ("apply_a", ctypes.c_int), ("apply_b", ctypes.c_int),
-                ("exact", ctypes.c_int),
+                ("split", ctypes.c_int),
                 ("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("mask", ctypes.c_void_p)]
 
@@ -534,10 +639,10 @@ def _check_cuda_state(amps, what: str):
                          "pieces; it must start on 16 bytes")
 
 
-def _pass_struct(op, amps, keep: list) -> _QtPass:
+def _pass_struct(op, amps, keep: list, precision: str = "highest") -> _QtPass:
     """ctypes pass descriptor for ("winfused", k, A, B, apply_a, apply_b
-    [, mask]); the uploaded operands are appended to ``keep`` so they
-    outlive the launch call."""
+    [, mask]) under ``precision`` (a resolved mode name); the uploaded
+    operands are appended to ``keep`` so they outlive the launch call."""
     sa, sb = tuple(np.shape(op[2])), tuple(np.shape(op[3]))
     rank = sa[0] if sa else 0
     if sa != (rank, 2, CLUSTER_DIM, CLUSTER_DIM) or sb != sa:
@@ -545,10 +650,11 @@ def _pass_struct(op, amps, keep: list) -> _QtPass:
                          f"got {sa} and {sb}")
     # exactness from the operands as given: NumPy sides are checked on
     # the host, tensors carry their answer
-    exact = _sides_exact(amps.dtype, *[s for s, on in ((op[2], op[4]),
-                                                       (op[3], op[5])) if on])
-    a = _side_image(op[2], amps.dtype, amps.device, exact)
-    b = _side_image(op[3], amps.dtype, amps.device, exact)
+    split = pass_split(amps.dtype, precision,
+                       *[s for s, on in ((op[2], op[4]), (op[3], op[5]))
+                         if on])
+    a = _side_image(op[2], amps.dtype, amps.device, split)
+    b = _side_image(op[3], amps.dtype, amps.device, split)
     mask = op[6] if len(op) > 6 else None
     m = None
     if mask is not None:
@@ -562,28 +668,31 @@ def _pass_struct(op, amps, keep: list) -> _QtPass:
         keep.append(m)
     keep += [a, b]
     return _QtPass(int(op[1]), rank, int(bool(op[4])), int(bool(op[5])),
-                   exact, a.data_ptr(), b.data_ptr(),
+                   split, a.data_ptr(), b.data_ptr(),
                    None if m is None else m.data_ptr())
 
 
 def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
                        k: int = SUBLANE_QUBITS, apply_a: bool = True,
-                       apply_b: bool = True):
-    """One window pass (K1).  ``amps`` is any full-size contiguous view of
-    the state ((2, 2^n) or the canonical (2, nb, 128, 128)); the result is
-    a new tensor of the same shape.  CPU tensors take the plain version."""
+                       apply_b: bool = True, precision=None):
+    """One window pass (K1) under ``precision`` (None: the current mode).
+    ``amps`` is any full-size contiguous view of the state ((2, 2^n) or
+    the canonical (2, nb, 128, 128)); the result is a new tensor of the
+    same shape.  CPU tensors take the plain version (the mode's model)."""
     n = num_qubits
     _check_offset(n, k)
+    precision = resolve_precision(precision)
     if amps.device.type == "cpu":
-        return window_pass_plain(amps, mats_a, mats_b, mask, num_qubits=n,
-                                 k=k, apply_a=apply_a, apply_b=apply_b)
+        return window_pass_model(amps, mats_a, mats_b, mask, num_qubits=n,
+                                 k=k, apply_a=apply_a, apply_b=apply_b,
+                                 precision=precision)
     if amps.device.type != "cuda":
         raise RuntimeError(f"apply_window_stack: no kernel for device "
                            f"{amps.device}")
     _check_cuda_state(amps, "apply_window_stack")
     keep: list = []
     desc = _pass_struct(("winfused", k, mats_a, mats_b, apply_a, apply_b,
-                         mask), amps, keep)
+                         mask), amps, keep, precision)
     out = torch.empty_like(amps)
     fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
           else _lib().qt_window_pass_f64)
@@ -594,38 +703,42 @@ def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
     return out
 
 
-def _cluster_launch(amps, mats_a, mats_b, n: int, what: str):
+def _cluster_launch(amps, mats_a, mats_b, n: int, what: str,
+                    precision: str):
     """Checks and uploads shared by K11 and K12: the output buffer, the
-    side stacks on the card, the rank and the stream."""
+    side stacks on the card, the rank, QtPass.split and the stream."""
     if amps.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {amps.device}")
     _check_cuda_state(amps, what)
     if amps.numel() != 2 << n:
         raise ValueError(f"{what}: a state of {amps.numel()} reals is not "
                          f"one of {n} qubits")
-    exact = _sides_exact(amps.dtype, mats_a, mats_b)
-    a = _side_image(mats_a, amps.dtype, amps.device, exact)
-    b = _side_image(mats_b, amps.dtype, amps.device, exact)
+    split = pass_split(amps.dtype, precision, mats_a, mats_b)
+    a = _side_image(mats_a, amps.dtype, amps.device, split)
+    b = _side_image(mats_b, amps.dtype, amps.device, split)
     stream = torch.cuda.current_stream(amps.device).cuda_stream
-    return (torch.empty_like(amps), a, b, int(np.shape(mats_a)[0]), exact,
+    return (torch.empty_like(amps), a, b, int(np.shape(mats_a)[0]), split,
             stream)
 
 
-def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int):
-    """The paged planner's cluster pass (K11): sum_r B_r X A_r^T on each
-    128 x 128 slab of the canonical view, A_r on the lane qubits [0, 7),
-    B_r on [7, 14); ``mats_a``/``mats_b`` are SoA (R, 2, 128, 128).
-    ``amps`` is any full-size contiguous view of the state; the result is
-    a new tensor of the same shape.  CPU tensors take the plain
-    version."""
+def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
+                        precision=None):
+    """The paged planner's cluster pass (K11) under ``precision`` (None:
+    the current mode): sum_r B_r X A_r^T on each 128 x 128 slab of the
+    canonical view, A_r on the lane qubits [0, 7), B_r on [7, 14);
+    ``mats_a``/``mats_b`` are SoA (R, 2, 128, 128).  ``amps`` is any
+    full-size contiguous view of the state; the result is a new tensor of
+    the same shape.  CPU tensors take the plain version."""
     n = num_qubits
     _check_cluster(n, mats_a, mats_b, "apply_cluster_stack")
+    precision = resolve_precision(precision)
     if amps.device.type == "cpu":
-        return cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n)
-    out, a, b, rank, exact, stream = _cluster_launch(
-        amps, mats_a, mats_b, n, "apply_cluster_stack")
+        return cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n,
+                                   precision=precision)
+    out, a, b, rank, split, stream = _cluster_launch(
+        amps, mats_a, mats_b, n, "apply_cluster_stack", precision)
     # K1's kernel at k = 7, dual-sided, unmasked
-    desc = _QtPass(SUBLANE_QUBITS, rank, 1, 1, exact, a.data_ptr(),
+    desc = _QtPass(SUBLANE_QUBITS, rank, 1, 1, split, a.data_ptr(),
                    b.data_ptr(), None)
     fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
           else _lib().qt_window_pass_f64)
@@ -635,31 +748,34 @@ def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int):
     return out
 
 
-def apply_cluster_pair(amps, mat_a, mat_b, *, num_qubits: int):
+def apply_cluster_pair(amps, mat_a, mat_b, *, num_qubits: int,
+                       precision=None):
     """One cluster pair: SoA (2, 128, 128) lane and window matrices,
     stacked to rank 1 and run through ``apply_cluster_stack`` (K11)."""
     return apply_cluster_stack(amps, mat_a[None], mat_b[None],
-                               num_qubits=num_qubits)
+                               num_qubits=num_qubits, precision=precision)
 
 
 def apply_swap_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
-                             h: int, b: int, m: int):
+                             h: int, b: int, m: int, precision=None):
     """The segment swap [h, h+m) <-> [b, b+m) followed by the rank-R
-    cluster operator, in one pass (K12): h >= 14, 7 <= b, b + m <= 14,
-    m <= MAX_FUSED_SWAP_M.  The result is a new tensor of the input's
-    shape.  CPU tensors take the plain version."""
+    cluster operator, in one pass (K12), under ``precision`` (None: the
+    current mode): h >= 14, 7 <= b, b + m <= 14, m <= MAX_FUSED_SWAP_M.
+    The result is a new tensor of the input's shape.  CPU tensors take
+    the plain version."""
     n = num_qubits
     _check_cluster(n, mats_a, mats_b, "apply_swap_cluster_stack")
     _check_swap(n, h, b, m)
+    precision = resolve_precision(precision)
     if amps.device.type == "cpu":
         return swap_cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n,
-                                        h=h, b=b, m=m)
-    out, a, bm, rank, exact, stream = _cluster_launch(
-        amps, mats_a, mats_b, n, "apply_swap_cluster_stack")
+                                        h=h, b=b, m=m, precision=precision)
+    out, a, bm, rank, split, stream = _cluster_launch(
+        amps, mats_a, mats_b, n, "apply_swap_cluster_stack", precision)
     fn = (_lib().qt_swap_cluster_stack_f32 if amps.dtype == torch.float32
           else _lib().qt_swap_cluster_stack_f64)
     build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n, rank,
-                      a.data_ptr(), bm.data_ptr(), exact, h, b, m,
+                      a.data_ptr(), bm.data_ptr(), split, h, b, m,
                       stream),
                    "apply_swap_cluster_stack")
     LAUNCHES["K12"] += 1
@@ -750,9 +866,11 @@ def _megawin_check(subops, n: int) -> int:
     return g
 
 
-def apply_window_megastack(amps, subops, *, num_qubits: int):
+def apply_window_megastack(amps, subops, *, num_qubits: int,
+                           precision=None):
     """A planned megawin group — ``subops`` is a sequence of ("winfused",
-    k, A, B, apply_a, apply_b[, mask]) tuples — in ONE launch (K2).  The
+    k, A, B, apply_a, apply_b[, mask]) tuples — in ONE launch (K2), under
+    ``precision`` (None: the current mode).  The
     result is a new tensor of the input's shape; the passes between go
     through a ring of scratch slots of one super-block each
     (``megawin_schedule``: tens of MB), not through a full-size buffer.
@@ -761,15 +879,16 @@ def apply_window_megastack(amps, subops, *, num_qubits: int):
     launch.  CPU tensors take the plain version."""
     n = num_qubits
     g = _megawin_check(subops, n)
+    precision = resolve_precision(precision)
     if amps.device.type == "cpu":
-        return megawin_plain(amps, subops, num_qubits=n)
+        return megawin_plain(amps, subops, num_qubits=n, precision=precision)
     if amps.device.type != "cuda":
         raise RuntimeError(f"apply_window_megastack: no kernel for device "
                            f"{amps.device}")
     _check_cuda_state(amps, "apply_window_megastack")
     keep: list = []
     descs = (_QtPass * len(subops))(
-        *[_pass_struct(op, amps, keep) for op in subops])
+        *[_pass_struct(op, amps, keep, precision) for op in subops])
     sched = megawin_schedule(n, g, len(subops), amps.dtype,
                              megawin_ctas(amps.device, amps.dtype))
     out = torch.empty_like(amps)

@@ -425,6 +425,32 @@ def apply_qft_ladder(amps, *, num_qubits: int, target: int, base: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def apply_full_diagonal(amps, op_real, op_imag):
+    """Elementwise multiply by a full-Hilbert diagonal operator given as
+    separate real/imag vectors (statevec_applyDiagonalOp,
+    QuEST_cpu.c:4007-4041)."""
+    return cplx.cmul(amps, op_real.to(amps.dtype), op_imag.to(amps.dtype))
+
+
+def diag_from_z_hamil(codes, coeffs, *, num_qubits: int, dtype, device):
+    """diag_d = sum_t c_t (-1)^parity(d & zmask_t) for an all-I/Z
+    Hamiltonian ``codes`` (T, n) with coefficients ``coeffs`` (T,)
+    (agnostic_initDiagonalOpFromPauliHamil, QuEST_cpu.c:4188-4227),
+    accumulated term by term in ``dtype`` as the JAX package's scan does.
+    Each term's sign is the outer product of its row and lane factors
+    (parity_sign_factors), so no index vector of the operator's size is
+    made, and each adds into the operator in place (c_t s is exact)."""
+    n = num_qubits
+    lo = n // 2
+    acc = torch.zeros((1 << (n - lo), 1 << lo), dtype=dtype, device=device)
+    codes = np.asarray(codes)
+    for t in range(codes.shape[0]):
+        zq = [q for q in range(n) if int(codes[t, q]) == 3]
+        s_row, s_lane = parity_sign_factors(n, zq, dtype, device, lo)
+        acc.add_((float(coeffs[t]) * s_row) * s_lane)
+    return acc.reshape(-1)
+
+
 def init_blank_state(num_amps: int, dtype, device):
     return torch.zeros((2, num_amps), dtype=dtype, device=device)
 

@@ -1,11 +1,14 @@
-"""Named phase functions: the per-amplitude phase exp(i theta(x1..xm)).
+"""Phase functions: the per-amplitude phase exp(i theta(x1..xm)).
 
-The counterpart of the JAX package's ``ops/phasefunc.py``, cut to what
-the layered QFT needs: ``apply_named_phase_func`` with its helpers and
-constants.  Each amplitude's sub-register integers are decoded from its
-index bits, theta is evaluated in the state's type and the amplitude is
-multiplied by cos(theta) + i sin(theta) (the reference's update,
-QuEST_cpu.c:4406-4564).  Plain PyTorch: one elementwise pass.
+The counterpart of the JAX package's ``ops/phasefunc.py``:
+``apply_phase_func`` (a polynomial of one sub-register),
+``apply_multi_var_phase_func`` (a sum of polynomials of several) and
+``apply_named_phase_func`` (the named norm, product and distance
+families), each with overrides.  Each amplitude's sub-register integers
+are decoded from its index bits, theta is evaluated in the state's type
+and the amplitude is multiplied by cos(theta) + i sin(theta) (the
+reference's update, QuEST_cpu.c:4228-4564).  Plain PyTorch, as the JAX
+package computes them in plain XLA: elementwise passes.
 
 Phase-function name codes match ``enum phaseFunc`` (QuEST.h:231-234).
 """
@@ -58,11 +61,31 @@ def _decode_subregister(idx, qubits, twos_complement: bool):
     return val
 
 
+def _index_dtype(num_bits: int):
+    """int32 while every index fits (the JAX package's choice), else
+    int64."""
+    return torch.int64 if num_bits > 31 else torch.int32
+
+
 def _phase_inds(num_amps: int, reg_qubits, encoding: int, device):
-    """Per-register decoded integers, each (num_amps,) int64."""
-    idx = torch.arange(num_amps, dtype=torch.int64, device=device)
-    return [_decode_subregister(idx, qs, encoding == TWOS_COMPLEMENT)
-            for qs in reg_qubits]
+    """Per-register decoded integers, each (num_amps,).  A register's
+    value is the sum of what its bits in the index's high half and in its
+    low half contribute, so each is decoded on 2^(n/2) indices and the two
+    halves meet in one broadcast add."""
+    n = max(num_amps.bit_length() - 1, 1)
+    lo = n // 2
+    dt = _index_dtype(n)
+    hi_idx = torch.arange(1 << (n - lo), dtype=dt, device=device) << lo
+    lo_idx = torch.arange(1 << lo, dtype=dt, device=device)
+    out = []
+    for qs in reg_qubits:
+        val = (_decode_subregister(hi_idx, qs, False)[:, None]
+               + _decode_subregister(lo_idx, qs, False)[None, :]).reshape(-1)
+        if encoding == TWOS_COMPLEMENT:
+            nb = len(qs)
+            val = torch.where(val >= (1 << (nb - 1)), val - (1 << nb), val)
+        out.append(val[:num_amps])
+    return out
 
 
 def _apply_overrides(phase, inds, override_inds, override_phases):
@@ -159,5 +182,57 @@ def apply_named_phase_func(amps, params, override_inds, override_phases, *,
     else:
         raise ValueError(f"unknown phase function {func_name}")
 
+    del find
     phase = _apply_overrides(phase, inds, override_inds, override_phases)
+    del inds
+    return _mul_phase(amps, phase, conj)
+
+
+def apply_multi_var_phase_func(amps, coeffs, exponents, override_inds,
+                               override_phases, *, num_qubits: int,
+                               reg_qubits: Tuple[Tuple[int, ...], ...],
+                               encoding: int,
+                               terms_per_reg: Tuple[int, ...],
+                               conj: bool = False):
+    """theta = sum_r sum_t coeff_{r,t} x_r^exp_{r,t}
+    (statevec_applyMultiVarPhaseFuncOverrides, QuEST_cpu.c:4305-4404);
+    ``coeffs``/``exponents`` are flat over the registers (the reference's
+    layout).  Returns a new tensor."""
+    num_amps = amps.shape[-1]
+    inds = _phase_inds(num_amps, reg_qubits, encoding, amps.device)
+    rdt = amps.dtype
+    coeffs = torch.as_tensor(coeffs, dtype=rdt, device=amps.device)
+    exponents = torch.as_tensor(exponents, dtype=rdt, device=amps.device)
+    phase = torch.zeros((num_amps,), dtype=rdt, device=amps.device)
+    flat = 0
+    for r in range(len(reg_qubits)):
+        x = inds[r].to(rdt)
+        for _ in range(terms_per_reg[r]):
+            phase.add_(coeffs[flat] * torch.pow(x, exponents[flat]))
+            flat += 1
+    del x
+    phase = _apply_overrides(phase, inds, override_inds, override_phases)
+    del inds
+    return _mul_phase(amps, phase, conj)
+
+
+def apply_phase_func(amps, coeffs, exponents, override_inds,
+                     override_phases, *, num_qubits: int,
+                     qubits: Tuple[int, ...], encoding: int,
+                     conj: bool = False):
+    """Single-register polynomial theta(x) = sum_i c_i x^{e_i}
+    (statevec_applyPhaseFuncOverrides, QuEST_cpu.c:4228-4303).  Returns
+    a new tensor."""
+    num_amps = amps.shape[-1]
+    (ind,) = _phase_inds(num_amps, (tuple(qubits),), encoding, amps.device)
+    rdt = amps.dtype
+    coeffs = torch.as_tensor(coeffs, dtype=rdt, device=amps.device)
+    exponents = torch.as_tensor(exponents, dtype=rdt, device=amps.device)
+    x = ind.to(rdt)
+    phase = torch.zeros((num_amps,), dtype=rdt, device=amps.device)
+    for i in range(coeffs.shape[0]):
+        phase.add_(coeffs[i] * torch.pow(x, exponents[i]))
+    del x
+    phase = _apply_overrides(phase, [ind], override_inds, override_phases)
+    del ind
     return _mul_phase(amps, phase, conj)

@@ -17,6 +17,10 @@ import torch
 # 1e-13 double, 1e-14 quad.
 _REAL_EPS = {1: 1e-5, 2: 1e-13, 4: 1e-14}
 
+# Reference cap on qubits in applyMultiVarPhaseFunc-style register lists
+# (QuEST_precision.h:72).
+MAX_NUM_REGS_APPLY_ARBITRARY_PHASE = 100
+
 
 @dataclasses.dataclass
 class _PrecisionState:

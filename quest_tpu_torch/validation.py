@@ -10,11 +10,11 @@ on NumPy values, before any tensor is touched.
 from __future__ import annotations
 
 import warnings
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
-from .precision import validation_eps
+from .precision import MAX_NUM_REGS_APPLY_ARBITRARY_PHASE, validation_eps
 
 
 class QuESTError(ValueError):
@@ -77,6 +77,28 @@ ERROR_MESSAGES = {
     "E_INVALID_KRAUS_OPS": "The specified Kraus map is not a completely positive, trace preserving map.",
     "E_MISMATCHING_NUM_TARGS_KRAUS_SIZE": "Every Kraus operator must be of the same number of qubits as the number of targets.",
     "E_ZERO_VECTOR": "Invalid axis vector. Must be non-zero.",
+    "E_INVALID_ELEM_INDEX": "Invalid element index. Must be >=0 and <2^numQubits.",
+    "E_INVALID_NUM_ELEMS": "Invalid number of elements. Must be >=0 and <=2^numQubits.",
+    "E_INVALID_OFFSET_NUM_ELEMS_DIAG": "More elements given than exist in the diagonal operator from the given starting index.",
+    "E_DISTRIB_DIAG_OP_TOO_SMALL": "Too few qubits. The created DiagonalOp must contain at least one element per node used in distributed simulation.",
+    "E_MISMATCHING_QUREG_DIAGONAL_OP_SIZE": "The qureg must represent an equal number of qubits as that in the applied diagonal operator.",
+    "E_DIAGONAL_OP_NOT_INITIALISED": "The diagonal operator has not been initialised through createDiagonalOperator().",
+    "E_PAULI_HAMIL_NOT_DIAGONAL": "The Pauli Hamiltonian contained operators other than PAULI_Z and PAULI_I, and hence cannot be expressed as a diagonal matrix.",
+    "E_MISMATCHING_PAULI_HAMIL_DIAGONAL_OP_SIZE": "The Pauli Hamiltonian and diagonal operator have different, incompatible dimensions.",
+    "E_INVALID_NUM_SUBREGISTERS": "Invalid number of qubit subregisters, which must be >0 and <=100.",
+    "E_INVALID_NUM_PHASE_FUNC_TERMS": "Invalid number of terms in the phase function specified. Must be >0.",
+    "E_INVALID_NUM_PHASE_FUNC_OVERRIDES": "Invalid number of phase function overrides specified. Must be >=0, and for single-variable phase functions, <=2^numQubits (the maximum unique binary values of the sub-register). Note that uniqueness of overriding indices is not checked.",
+    "E_INVALID_PHASE_FUNC_OVERRIDE_UNSIGNED_INDEX": "Invalid phase function override index, in the UNSIGNED encoding. Must be >=0, and <= the maximum index possible of the corresponding qubit subregister (2^numQubits-1).",
+    "E_INVALID_PHASE_FUNC_OVERRIDE_TWOS_COMPLEMENT_INDEX": "Invalid phase function override index, in the TWOS_COMPLEMENT encoding. Must be between (inclusive) -2^(N-1) and +2^(N-1)-1, where N is the number of qubits (including the sign qubit).",
+    "E_INVALID_PHASE_FUNC_NAME": "Invalid named phase function, which must be one of {NORM, SCALED_NORM, INVERSE_NORM, SCALED_INVERSE_NORM, PRODUCT, SCALED_PRODUCT, INVERSE_PRODUCT, SCALED_INVERSE_PRODUCT, DISTANCE, SCALED_DISTANCE, INVERSE_DISTANCE, SCALED_INVERSE_DISTANCE}.",
+    "E_INVALID_NUM_NAMED_PHASE_FUNC_PARAMS": "Invalid number of parameters passed for the given named phase function. {NORM, PRODUCT, DISTANCE} accept 0 parameters, {INVERSE_NORM, INVERSE_PRODUCT, INVERSE_DISTANCE} accept 1 parameter (the phase at the divergence), {SCALED_NORM, SCALED_INVERSE_NORM, SCALED_PRODUCT} accept 1 parameter (the scaling coefficient), {SCALED_INVERSE_PRODUCT, SCALED_DISTANCE, SCALED_INVERSE_DISTANCE} accept 2 parameters (the coefficient then divergence phase), SCALED_INVERSE_SHIFTED_NORM accepts 2 + (number of sub-registers) parameters (the coefficient, then the divergence phase, followed by the offset for each sub-register), SCALED_INVERSE_SHIFTED_DISTANCE accepts 2 + (number of sub-registers) / 2 parameters (the coefficient, then the divergence phase, followed by the offset for each pair of sub-registers).",
+    "E_INVALID_BIT_ENCODING": "Invalid bit encoding. Must be one of {UNSIGNED, TWOS_COMPLEMENT}.",
+    "E_INVALID_NUM_QUBITS_TWOS_COMPLEMENT": "A sub-register contained too few qubits to employ TWOS_COMPLEMENT encoding. Must use >1 qubits (allocating one for the sign).",
+    "E_NEGATIVE_EXPONENT_WITHOUT_ZERO_OVERRIDE": "The phase function contained a negative exponent which would diverge at zero, but the zero index was not overriden.",
+    "E_FRACTIONAL_EXPONENT_WITHOUT_NEG_OVERRIDE": "The phase function contained a fractional exponent, which in TWOS_COMPLEMENT encoding, requires all negative indices are overriden. However, one or more negative indices were not overriden.",
+    "E_NEGATIVE_EXPONENT_MULTI_VAR": "The phase function contained an illegal negative exponent. One must instead call applyPhaseFuncOverrides() once for each register, so that the zero index of each register is overriden, independent of the indices of all other registers.",
+    "E_FRACTIONAL_EXPONENT_MULTI_VAR": "The phase function contained a fractional exponent, which is illegal in TWOS_COMPLEMENT encoding, since it cannot be (efficiently) checked that all negative indices were overriden. One must instead call applyPhaseFuncOverrides() once for each register, so that each register's negative indices can be overriden, independent of the indices of all other registers.",
+    "E_INVALID_NUM_REGS_DISTANCE_PHASE_FUNC": "Phase functions DISTANCE, INVERSE_DISTANCE, SCALED_DISTANCE and SCALED_INVERSE_DISTANCE require a strictly even number of sub-registers.",
 }
 
 
@@ -471,3 +493,193 @@ def validate_trotter_params(order: int, reps: int, func: str):
         _raise("E_INVALID_TROTTER_ORDER", func)
     if reps <= 0:
         _raise("E_INVALID_TROTTER_REPS", func)
+
+
+# ---------------------------------------------------------------------------
+# Diagonal operators (QuEST_validation.c:361-371, 389-394, 705-751)
+# ---------------------------------------------------------------------------
+
+
+def validate_num_qubits_in_diag_op(num_qubits: int, num_ranks: int,
+                                   func: str):
+    """validateNumQubitsInDiagOp (:361-371); the per-node size check warns
+    as the JAX package's does (it cannot arise on one device)."""
+    if num_qubits <= 0:
+        _raise("E_INVALID_NUM_CREATE_QUBITS", func)
+    if (1 << num_qubits) < num_ranks:
+        _warn("E_DISTRIB_DIAG_OP_TOO_SMALL", func)
+
+
+def validate_num_elems(op, start: int, num_elems: int, func: str):
+    """validateNumElems (:389-394)."""
+    dim = 1 << op.num_qubits
+    if start < 0 or start >= dim:
+        _raise("E_INVALID_ELEM_INDEX", func)
+    if num_elems < 0 or num_elems > dim:
+        _raise("E_INVALID_NUM_ELEMS", func)
+    if num_elems + start > dim:
+        _raise("E_INVALID_OFFSET_NUM_ELEMS_DIAG", func)
+
+
+def validate_diag_op_init(op, func: str):
+    """validateDiagOpInit (:705-707): the real and imaginary vectors
+    exist."""
+    if op is None or getattr(op, "real", None) is None \
+            or getattr(op, "imag", None) is None:
+        _raise("E_DIAGONAL_OP_NOT_INITIALISED", func)
+
+
+def validate_diag_op_matches_qureg(op, qureg, func: str):
+    """validateDiagonalOp (:709-712)."""
+    validate_diag_op_init(op, func)
+    if op.num_qubits != qureg.num_qubits_represented:
+        _raise("E_MISMATCHING_QUREG_DIAGONAL_OP_SIZE", func)
+
+
+def validate_diag_pauli_hamil(op, hamil, func: str):
+    """validateDiagPauliHamil (:714-721): only I/Z terms, matching dims."""
+    validate_diag_op_init(op, func)
+    validate_hamil_params(hamil.num_qubits, hamil.num_sum_terms, func)
+    if op.num_qubits != hamil.num_qubits:
+        _raise("E_MISMATCHING_PAULI_HAMIL_DIAGONAL_OP_SIZE", func)
+    for c in np.asarray(hamil.pauli_codes).ravel():
+        if int(c) not in (0, 3):
+            _raise("E_PAULI_HAMIL_NOT_DIAGONAL", func)
+
+
+def validate_diag_hamil_from_file(hamil, num_ranks: int, func: str):
+    """validateDiagPauliHamilFromFile (:723-751)."""
+    validate_hamil_params(hamil.num_qubits, hamil.num_sum_terms, func)
+    if (1 << hamil.num_qubits) < num_ranks:
+        _raise("E_DISTRIB_DIAG_OP_TOO_SMALL", func)
+    for c in np.asarray(hamil.pauli_codes).ravel():
+        if int(c) not in (0, 3):
+            _raise("E_PAULI_HAMIL_NOT_DIAGONAL", func)
+
+
+# ---------------------------------------------------------------------------
+# Phase functions (:753-984)
+# ---------------------------------------------------------------------------
+
+
+def validate_qubit_subregs(qureg, qubits_per_reg: Sequence[Sequence[int]],
+                           func: str):
+    """validateQubitSubregs (:753-767)."""
+    num_regs = len(qubits_per_reg)
+    if num_regs <= 0 or num_regs > MAX_NUM_REGS_APPLY_ARBITRARY_PHASE:
+        _raise("E_INVALID_NUM_SUBREGISTERS", func)
+    flat = []
+    for reg in qubits_per_reg:
+        if len(reg) <= 0 or len(reg) > qureg.num_qubits_represented:
+            _raise("E_INVALID_NUM_QUBITS", func)
+        for q in reg:
+            if q < 0 or q >= qureg.num_qubits_represented:
+                _raise("E_INVALID_QUBIT_INDEX", func)
+            flat.append(q)
+    if len(set(flat)) != len(flat):
+        _raise("E_QUBITS_NOT_UNIQUE", func)
+
+
+def validate_phase_func_terms(num_qubits: int, encoding: int, coeffs,
+                              exponents, override_inds, func: str):
+    """validatePhaseFuncTerms (:769-831): term count, negative exponents
+    need a zero override, fractional exponents in TWOS_COMPLEMENT need all
+    negative indices overriden."""
+    exponents = list(exponents)
+    if len(exponents) <= 0:
+        _raise("E_INVALID_NUM_PHASE_FUNC_TERMS", func)
+    has_fraction = any(np.floor(e) != e for e in exponents)
+    has_negative = any(e < 0 for e in exponents)
+    inds = [int(i) for i in override_inds]
+    if has_negative and 0 not in inds:
+        _raise("E_NEGATIVE_EXPONENT_WITHOUT_ZERO_OVERRIDE", func)
+    if has_fraction and encoding == 1:  # TWOS_COMPLEMENT
+        num_neg = 1 << (num_qubits - 1)
+        neg_overriden = {(-1 - i) for i in inds if i < 0}
+        if len(inds) < num_neg or (
+            num_qubits < 16 and any(j not in neg_overriden
+                                    for j in range(num_neg))
+        ):
+            _raise("E_FRACTIONAL_EXPONENT_WITHOUT_NEG_OVERRIDE", func)
+
+
+def validate_multi_var_phase_func_terms(num_qubits_per_reg, encoding,
+                                        exponents_per_reg, func: str):
+    """validateMultiVarPhaseFuncTerms (:831-855)."""
+    num_regs = len(num_qubits_per_reg)
+    if num_regs <= 0 or num_regs > MAX_NUM_REGS_APPLY_ARBITRARY_PHASE:
+        _raise("E_INVALID_NUM_SUBREGISTERS", func)
+    for exps in exponents_per_reg:
+        if len(list(exps)) <= 0:
+            _raise("E_INVALID_NUM_PHASE_FUNC_TERMS", func)
+    all_exps = [e for exps in exponents_per_reg for e in exps]
+    if any(e < 0 for e in all_exps):
+        _raise("E_NEGATIVE_EXPONENT_MULTI_VAR", func)
+    if encoding == 1 and any(np.floor(e) != e for e in all_exps):
+        _raise("E_FRACTIONAL_EXPONENT_MULTI_VAR", func)
+
+
+def validate_phase_func_overrides(num_regs_qubits, encoding, override_inds,
+                                  func: str):
+    """validatePhaseFuncOverrides / validateMultiVarPhaseFuncOverrides
+    (:857-906): override indices representable per sub-register."""
+    num_overrides = len(list(override_inds))
+    if len(num_regs_qubits) == 1 and num_overrides > (1 << num_regs_qubits[0]):
+        _raise("E_INVALID_NUM_PHASE_FUNC_OVERRIDES", func)
+    for ind_tuple in override_inds:
+        for nq, ind in zip(num_regs_qubits, ind_tuple):
+            if encoding == 0:  # UNSIGNED
+                if ind < 0 or ind > (1 << nq) - 1:
+                    _raise("E_INVALID_PHASE_FUNC_OVERRIDE_UNSIGNED_INDEX",
+                           func)
+            else:  # TWOS_COMPLEMENT
+                half = 1 << (nq - 1)
+                if ind < -half or ind > half - 1:
+                    _raise(
+                        "E_INVALID_PHASE_FUNC_OVERRIDE_TWOS_COMPLEMENT_INDEX",
+                        func)
+
+
+def validate_phase_func_name(name: int, num_regs: int, num_params: int,
+                             func: str):
+    """validatePhaseFuncName (:908-959): legal code, per-function parameter
+    count, even sub-register count for the DISTANCE family."""
+    from .ops import phasefunc as _pf
+
+    if name < 0 or name > 13:
+        _raise("E_INVALID_PHASE_FUNC_NAME", func)
+    expected = {
+        _pf.NORM: 0, _pf.PRODUCT: 0, _pf.DISTANCE: 0,
+        _pf.INVERSE_NORM: 1, _pf.INVERSE_PRODUCT: 1, _pf.INVERSE_DISTANCE: 1,
+        _pf.SCALED_NORM: 1, _pf.SCALED_PRODUCT: 1, _pf.SCALED_DISTANCE: 1,
+        _pf.SCALED_INVERSE_NORM: 2, _pf.SCALED_INVERSE_PRODUCT: 2,
+        _pf.SCALED_INVERSE_DISTANCE: 2,
+        _pf.SCALED_INVERSE_SHIFTED_NORM: 2 + num_regs,
+        _pf.SCALED_INVERSE_SHIFTED_DISTANCE: 2 + num_regs // 2,
+    }
+    if num_params != expected[name]:
+        _raise("E_INVALID_NUM_NAMED_PHASE_FUNC_PARAMS", func)
+    if name in (_pf.DISTANCE, _pf.INVERSE_DISTANCE, _pf.SCALED_DISTANCE,
+                _pf.SCALED_INVERSE_DISTANCE,
+                _pf.SCALED_INVERSE_SHIFTED_DISTANCE) and num_regs % 2:
+        _raise("E_INVALID_NUM_REGS_DISTANCE_PHASE_FUNC", func)
+
+
+def validate_bit_encoding(encoding: int, func: str,
+                          num_qubits: Optional[int] = None):
+    """validateBitEncoding (:961-969)."""
+    if encoding not in (0, 1):
+        _raise("E_INVALID_BIT_ENCODING", func)
+    if encoding == 1 and num_qubits is not None and num_qubits <= 1:
+        _raise("E_INVALID_NUM_QUBITS_TWOS_COMPLEMENT", func)
+
+
+def validate_multi_reg_bit_encoding(num_qubits_per_reg, encoding: int,
+                                    func: str):
+    """validateMultiRegBitEncoding (:971-981)."""
+    if encoding not in (0, 1):
+        _raise("E_INVALID_BIT_ENCODING", func)
+    if encoding == 1:
+        for nq in num_qubits_per_reg:
+            if nq <= 1:
+                _raise("E_INVALID_NUM_QUBITS_TWOS_COMPLEMENT", func)

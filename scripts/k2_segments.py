@@ -106,11 +106,11 @@ __device__ __forceinline__ void segs(int base) {
     ("""mid * DIM, chunk * Cfg<T>::LC};
     NoNext none;
     init_ring(bars, NTHREADS);
-    run_item<T>(ia, p, smem, bars, 0, false, none);
+    run_item<T, FAM>(ia, p, smem, bars, 0, false, none);
 }""", """mid * DIM, chunk * Cfg<T>::LC};
     NoNext none;
     init_ring(bars, NTHREADS);
-    run_item<T>(ia, p, smem, bars, 0, false, none);
+    run_item<T, FAM>(ia, p, smem, bars, 0, false, none);
     if (p.apply_a && p.apply_b) segs(0);
 }"""),
     ("                    mega_wait(m, L);",

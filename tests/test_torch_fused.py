@@ -170,16 +170,26 @@ def test_megawin_row_cap_fits_the_register():
 
 
 @pytest.mark.parametrize("name", ["bf16_3x", "default"])
-def test_unported_matmul_precisions_raise(name):
-    fused.set_matmul_precision("highest")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_lower_matmul_precisions_are_taken_and_read_back(name):
+    """The reference's lower modes set the window kernels' split; the
+    float64 path ignores them (tests/test_torch_precisions.py holds their
+    arithmetic)."""
+    try:
         fused.set_matmul_precision(name)
+        assert fused.matmul_precision_name() == name
+        assert fused.resolve_precision(None) == name
+        assert fused.resolve_precision("highest") == "highest"
+        assert fused.pass_split(torch.float64, name) == fused.SPLIT_EXACT
+        assert fused.pass_split(torch.float32, name) == (
+            fused.SPLIT_BF16X3 if name == "bf16_3x" else fused.SPLIT_TF32)
+    finally:
+        fused.set_matmul_precision("highest")
 
 
 def test_pass_descriptor_layout():
     """The ctypes pass descriptor has the layout of csrc/window.cu's
     struct QtPass on a 64-bit host (three pointers after five ints: the
-    fifth, ``exact``, padded to 8 bytes)."""
+    fifth, ``split``, padded to 8 bytes)."""
     offsets = [getattr(fused._QtPass, f).offset
                for f, _ in fused._QtPass._fields_]
     assert offsets == [0, 4, 8, 12, 16, 24, 32, 40]
@@ -189,7 +199,7 @@ def test_pass_descriptor_layout():
     keep = []
     op = _pass(rng, 7, 2, "B", True)
     d = fused._pass_struct(op, x, keep)
-    assert (d.k, d.rank, d.apply_a, d.apply_b, d.exact) == (7, 2, 0, 1, 1)
+    assert (d.k, d.rank, d.apply_a, d.apply_b, d.split) == (7, 2, 0, 1, 1)
     assert d.mask == keep[0].data_ptr() and d.a == keep[1].data_ptr()
 
 

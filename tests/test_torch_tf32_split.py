@@ -2,10 +2,10 @@
 
 K1, K2, K11 and K12 multiply on the tensor cores in TF32: the operand that
 carries the state is split into three TF32 parts (x = h + m + l), a side
-matrix into two, and a pass whose sides are all TF32 values (QtPass.exact)
-takes the products h s + m s + l s, each exact.  ``ops/fused.py`` models
+matrix into two, and a pass whose sides are all TF32 values (QtPass.split
+SPLIT_EXACT) takes the products h s + m s + l s, each exact.  ``ops/fused.py`` models
 that arithmetic in plain PyTorch (``tf32_round``, ``tf32_split``,
-``tf32_side_split``, ``window_pass_split``) and decides QtPass.exact with
+``tf32_side_split``, ``window_pass_split``) and decides QtPass.split with
 ``tf32_exact``; the kernels run only on the card, so these tests hold the
 model:
 
@@ -222,7 +222,7 @@ def test_wrapper_descriptor_and_side_images():
     perm = ("winfused", 8, _perm_stack(rng), _perm_stack(rng), True, True,
             None)
     d = fused._pass_struct(perm, x, keep)
-    assert d.exact == 1
+    assert d.split == 1
     img = keep[0]
     assert tuple(img.shape) == (1, 2, 4, 16, 8, 8, 4)
     src = torch.as_tensor(perm[2], dtype=torch.float32)
@@ -234,7 +234,7 @@ def test_wrapper_descriptor_and_side_images():
              True, True, None)
     keep = []
     d = fused._pass_struct(dense, x, keep)
-    assert d.exact == 0 and d.rank == 2
+    assert d.split == 0 and d.rank == 2
     img = keep[0]
     assert tuple(img.shape) == (2, 4, 4, 16, 8, 8, 4)
     h, l = fused.tf32_side_split(torch.as_tensor(dense[2],
@@ -244,11 +244,11 @@ def test_wrapper_descriptor_and_side_images():
     # only the used sides count
     b_only = ("winfused", 8, _stack(rng, 1), _perm_stack(rng), False, True,
               None)
-    assert fused._pass_struct(b_only, x, []).exact == 1
+    assert fused._pass_struct(b_only, x, []).split == 1
     # float64 takes DMMA: no split, exact by definition; rows of 16
     # columns padded to 20
     keep = []
-    assert fused._pass_struct(dense, x.double(), keep).exact == 1
+    assert fused._pass_struct(dense, x.double(), keep).split == 1
     img = keep[0]
     assert tuple(img.shape) == (2, 2, 8, 128, 20)
     src = torch.as_tensor(dense[2])
@@ -264,6 +264,7 @@ def test_plan_upload_tags_exactness():
     dev = C.plan_to_device(ops, torch.float32, "cpu")
     assert dev[0][2]._qt_tf32_exact[1] is True
     assert dev[0][3]._qt_tf32_exact[1] is False
-    assert fused._sides_exact(torch.float32, dev[0][2]) == 1
-    assert fused._sides_exact(torch.float32, dev[0][2], dev[0][3]) == 0
-    assert fused._sides_exact(torch.float64, dev[0][3]) == 1
+    assert fused.pass_split(torch.float32, "highest", dev[0][2]) == 1
+    assert fused.pass_split(torch.float32, "highest", dev[0][2],
+                            dev[0][3]) == 0
+    assert fused.pass_split(torch.float64, "highest", dev[0][3]) == 1
