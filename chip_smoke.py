@@ -205,9 +205,56 @@ line:
              DiagonalOp before and after applyDiagonalOp against known
              answers, D rho at sampled elements; the wall per call and the
              peak device memory.
-24. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+24. quad_main - set_precision(4) (float64 storage, double-double
+             reductions): config 2's circuit at 26 qubits through the API;
+             calcTotalProb, calcProbOfOutcome, calcInnerProduct against a
+             clone and calcExpecPauliHamil (config 5's 16 terms) within
+             1e-12 of the precision-2 route on the same register; K4
+             launches 0 times at quad and 16 at precision 2; a 2^26
+             cancellation state (the reference's _cancel_vec at the scale
+             of the quad sum's 256 partials) whose Z expectation the quad
+             route keeps exactly; each read-out's wall at both precisions.
+25. batch_parity - the bank forms at 20 qubits, B = 4: bank K1 bit for
+             bit against four scalar K1 launches (float32 and float64,
+             rank 1 and 4, dual / B-only / A-only, with and without a
+             mask, shared and per-element sides and masks); a float32
+             bank mixing exact (0/1) and inexact sides, each element its
+             own split and its scalar bits; bank K2 on config 2's group
+             shapes bit for bit against bank K1 pass by pass and
+             per-element K2; bank K5 on a config-4 layer over four
+             10-qubit density registers bit for bit against per-element
+             K5 and its plain version; each one launch.
+26. batch_main - (a) randomized compiling of config 2 at 26 qubits x 8
+             (each element its own unitaries, seeds 7..14, the CNOTs
+             shared; 4 GiB of bank): the bench route (the elements' plans
+             stacked, execute_plan on the bank: K1 and K2 bank as often
+             as one element's plan holds) and the API route (applyBatchedUnitary
+             and controlledNot under the bank's drain: K1 bank), elements
+             0 and 7 equal to their scalar routes bit for bit, every
+             element's P(top = 0) equal to its scalar drain's, the bank
+             drain's wall against eight scalar drains with planning apart
+             and device ms by op kind; measureBatched over all 26 qubits
+             (elements 0 and 7 against measureWithStats loops seeded the
+             same way); K1 and K2 bank at this shape (ms, plain, bound,
+             a batched einsum for K1).  (b) EnsembleScheduler: 64
+             submissions of config 2's structure at 20 qubits, one bucket;
+             four equal their independent runs; wall per circuit against
+             a loop of scalar drains.  (c) run_trajectories: 256 at 20
+             qubits (depolarising on every qubit, damping on qubit 0)
+             with every norm within 1e-5 of 1; 4096 at 8 qubits, the
+             Z-sum's mean within 5 SEM of the density-matrix route.  (d) a
+             density bank of four 13-qubit registers under one config-4
+             noise layer: K5 bank once per sweep group for the bank, each
+             element its scalar drain bit for bit; K5 bank's time.
+27. models_main - VQE (examples/vqe_train.py's model) at 20 qubits,
+             float64: ten Adam steps, the energy falls, the autograd
+             gradient within 1e-3 relative of central differences at its
+             three largest entries; QAOA (examples/qaoa_maxcut.py's) at
+             24 qubits, float32: ten steps, the expected cut rises; wall
+             per step and peak memory.
+28. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
-             errors under "modes").
+             errors under "modes"; K1, K2 and K5's bank forms).
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -3231,6 +3278,948 @@ def phase_diagonal_main(torch, np, qt):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Quad precision (M1b)
+# ---------------------------------------------------------------------------
+
+N_QUAD = 26            # config 2's circuit at precision 4 (a 1 GiB state)
+QUAD_TOL = 1e-12       # quad read-outs against the precision-2 route
+QUAD_A = 2.0 ** 53     # the cancellation's big amplitude (A^2 = 2^106)
+
+
+def cancel_state(torch, n):
+    """The reference's cancellation construction (tests/test_precision.py
+    _cancel_vec) at the scale of quad_sum's 256 second-level partials:
+    quarters [A][0][1][A] of the real plane, so that Re<psi|Z_(n-2)|psi>
+    = 2^(n-2) (the ones' quarter) beside 2^(n-2) A^2 of cancelling
+    terms, which a float64 sum loses."""
+    q = 1 << (n - 2)
+    x = torch.zeros((2, 1 << n), dtype=torch.float64, device=DEVICE)
+    x[0, :q] = QUAD_A
+    x[0, 2 * q:3 * q] = 1.0
+    x[0, 3 * q:] = QUAD_A
+    return x
+
+
+def phase_quad_main(torch, np, qt, paulis, hamiltonians, circuits):
+    """set_precision(4) on the card: config 2's circuit at 26 qubits
+    through the API (float64 storage); calcTotalProb, calcProbOfOutcome,
+    calcInnerProduct against a clone and calcExpecPauliHamil (config 5's
+    16 terms) each within 1e-12 of the precision-2 route on the same
+    register, K4 launching 0 times at quad and 16 at precision 2; a
+    cancellation state at 2^26 amplitudes that the quad Pauli sum keeps;
+    each read-out's wall at quad and at precision 2."""
+    n = N_QUAD
+    us = circuits.bench_unitaries(n, DEPTH, seed=SEED, dtype=np.float64)
+    coeffs, codes = hamiltonians.bench_pauli_hamil(n, PAULI_TERMS,
+                                                   PAULI_SEED)
+    env = qt.createQuESTEnv()
+    qt.set_precision(4)
+    try:
+        q = qt.createQureg(n, env)
+        with qt.gateFusion(q):
+            apply_bench_gates(qt, q, us, n)
+        check(q.amps.dtype == torch.float64, "quad register is not float64")
+        clone = qt.createCloneQureg(q, env)
+        h = qt.createPauliHamil(n, PAULI_TERMS)
+        qt.initPauliHamil(h, coeffs, codes)
+        reads = {
+            "calcTotalProb": lambda: qt.calcTotalProb(q),
+            "calcProbOfOutcome": lambda: qt.calcProbOfOutcome(q, n - 1, 0),
+            "calcInnerProduct": lambda: qt.calcInnerProduct(q, clone),
+            "calcExpecPauliHamil": lambda: qt.calcExpecPauliHamil(q, h)}
+        out = {"n": n, "read_outs": {}}
+        k4 = {}
+        vals = {}
+        for prec in (4, 2):
+            qt.set_precision(prec)
+            paulis.reset_launch_counts()
+            for name, fn in reads.items():
+                sync()
+                t0 = time.perf_counter()
+                vals[(prec, name)] = fn()
+                sync()
+                out["read_outs"].setdefault(name, {})[
+                    f"wall_ms_prec{prec}"] = (time.perf_counter() - t0) * 1e3
+            k4[prec] = paulis.LAUNCHES["K4"]
+        for name in reads:
+            v4, v2 = vals[(4, name)], vals[(2, name)]
+            err = abs(v4 - v2)
+            check(err <= QUAD_TOL, f"quad {name} {v4} vs precision 2 {v2}")
+            out["read_outs"][name].update(quad=repr(v4), prec2=repr(v2),
+                                          abs_diff=err)
+        check(k4[4] == 0, f"K4 launched {k4[4]} times at precision 4")
+        check(k4[2] == PAULI_TERMS, f"K4 launched {k4[2]} times at "
+              f"precision 2, not {PAULI_TERMS}")
+        out["k4_launches"] = {"quad": k4[4], "prec2": k4[2]}
+        check(abs(vals[(4, "calcTotalProb")] - 1.0) <= 1e-12,
+              f"quad calcTotalProb {vals[(4, 'calcTotalProb')]}")
+        # the cancellation: Z on qubit n - 2 signs the two A quarters apart
+        qt.set_precision(4)
+        q.amps = cancel_state(torch, n)
+        z = [0] * n
+        z[n - 2] = 3
+        want = float(1 << (n - 2))
+        sync()
+        t0 = time.perf_counter()
+        got = qt.calcExpecPauliSum(q, z, [1.0])
+        quad_ms = (time.perf_counter() - t0) * 1e3
+        qt.set_precision(2)
+        t0 = time.perf_counter()
+        plain = qt.calcExpecPauliSum(q, z, [1.0])
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(got == want, f"quad lost the cancellation: {got} != {want}")
+        out["cancellation"] = {"amps": 1 << n, "want": want, "quad": got,
+                               "plain_f64": plain,
+                               "plain_lost_it": abs(plain - want) > 0.5 * want,
+                               "quad_ms": quad_ms, "plain_ms": plain_ms}
+        qt.destroyQureg(q, env)
+        qt.destroyQureg(clone, env)
+    finally:
+        qt.set_precision(1)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Register banks (M14): K1, K2 and K5 over a whole bank in one launch
+# ---------------------------------------------------------------------------
+
+N_BATCH_PARITY = 20    # qubits of the bank kernels' parity checks
+B_PARITY = 4
+N_BATCH_MAIN = 26      # randomized compiling of config 2: 8 x 2^26
+B_MAIN = 8
+N_ENSEMBLE = 20        # EnsembleScheduler: 64 submissions at 20 qubits
+ENSEMBLE_SUBMISSIONS = 64
+N_TRAJ = 20            # trajectories: 256 at 20 qubits, 4096 at 8
+TRAJ_BIG = 256
+N_TRAJ_SMALL = 8
+TRAJ_SMALL = 4096
+TRAJ_P = 0.05
+TRAJ_DAMP = 0.1
+N_RHO_BANK = 13        # a density bank of 4 registers of 2^26 amplitudes
+B_RHO = 4
+BANK_KEYS = ("K1_bank", "K2_bank", "K5_bank", "K11_bank")
+
+
+def bank_launches(fused) -> dict:
+    return {k: fused.LAUNCHES[k] for k in ("K1", "K2", "K5", *BANK_KEYS)}
+
+
+def bank_pass(rng, np, k, rank, sides, with_mask, per_sides, per_mask,
+              nb, exact=None):
+    """A bank window pass: sides shared (R, 2, 128, 128) or per element
+    (B, R, 2, 128, 128), mask shared or per element; ``exact`` lists the
+    elements whose sides are 0/1 permutations (TF32 values)."""
+    def one(b):
+        if exact is not None and b in exact:
+            return permutation_pass(rng, k, sides)
+        return random_pass(rng, k, rank, sides, with_mask)
+
+    ops = [one(b) for b in range(nb if per_sides else 1)]
+    if per_sides:
+        a = np.stack([op[2] for op in ops])
+        bm = np.stack([op[3] for op in ops])
+    else:
+        a, bm = ops[0][2], ops[0][3]
+    mask = None
+    if with_mask:
+        masks = [random_pass(rng, k, 1, "M", True)[6]
+                 for _ in range(nb if per_mask else 1)]
+        mask = np.stack(masks) if per_mask else masks[0]
+    return ("winfused", k, a, bm, "A" in sides, "B" in sides, mask)
+
+
+def random_bank(torch, np, rng, n, nb, dtype):
+    x = rng.standard_normal((nb, 2, 1 << n))
+    x /= np.sqrt((x ** 2).sum(axis=(1, 2), keepdims=True))
+    return torch.as_tensor(x, dtype=dtype, device=DEVICE)
+
+
+def k1_scalar(fused, x, op, n):
+    return fused.apply_window_stack(x, op[2], op[3], op[6], num_qubits=n,
+                                    k=op[1], apply_a=op[4], apply_b=op[5])
+
+
+def k1_bank_plain(torch, fused, x, op, n):
+    """Bank K1's plain version on the card: the window pass model on each
+    element with its own (or the shared) sides and mask."""
+    out = []
+    for b in range(x.shape[0]):
+        e = fused.bank_element_op(op, b)
+        out.append(fused.window_pass_model(
+            x[b], e[2], e[3], e[6], num_qubits=n, k=e[1], apply_a=e[4],
+            apply_b=e[5]))
+    return torch.stack(out)
+
+
+def k2_bank_plain(torch, fused, x, group, n):
+    """Bank K2's plain version on the card: ``megawin_plain`` on each
+    element with its own passes."""
+    return torch.stack([fused.megawin_plain(
+        x[b], [fused.bank_element_op(op, b) for op in group], num_qubits=n)
+        for b in range(x.shape[0])])
+
+
+def phase_batch_parity(torch, np, fused):
+    """The bank kernels at 20 qubits, B = 4: bank K1 bit for bit against
+    four scalar K1 launches (float32 and float64, rank 1 and 4, dual /
+    B-only / A-only, with and without a mask, shared and per-element
+    sides and masks), a float32 bank mixing exact (0/1) and inexact sides
+    bit for bit per element, bank K2 on config 2's group shapes bit for
+    bit against bank K1 pass by pass and against per-element K2, bank K5
+    on a config-4 layer over four 10-qubit density registers bit for bit
+    against per-element K5, each within tolerance of (K5: equal to) its
+    plain version; every bank call one launch."""
+    n, nb = N_BATCH_PARITY, B_PARITY
+    rng = np.random.default_rng(2468)
+    out = {"n": n, "batch": nb, "k1_cases": 0, "k1_max_abs_err": 0.0,
+           "k2": [], "k2_max_abs_err": 0.0}
+
+    def one_launch(key, fn):
+        before = fused.LAUNCHES[key]
+        y = fn()
+        check(fused.LAUNCHES[key] - before == 1,
+              f"{key}: {fused.LAUNCHES[key] - before} launches, not 1")
+        return y
+
+    for dtype in (torch.float32, torch.float64):
+        x = random_bank(torch, np, rng, n, nb, dtype)
+        tol = tolerance(x)
+        for rank in (1, 4):
+            for sides in ("AB", "B", "A"):
+                for with_mask in (False, True):
+                    for per in (False, True):
+                        op = bank_pass(rng, np, 10, rank, sides, with_mask,
+                                       per, per and with_mask, nb)
+                        y = one_launch("K1_bank", lambda: fused
+                                       .apply_window_stack(
+                                           x, op[2], op[3], op[6],
+                                           num_qubits=n, k=op[1],
+                                           apply_a=op[4], apply_b=op[5]))
+                        for b in range(nb):
+                            e = fused.bank_element_op(op, b)
+                            check(torch.equal(y[b], k1_scalar(fused, x[b], e,
+                                                              n)),
+                                  f"bank K1 {dtype} R={rank} {sides} "
+                                  f"mask={with_mask} per={per} element {b}:"
+                                  " not its scalar launch's bits")
+                        yp = k1_bank_plain(torch, fused, x, op, n)
+                        err = float((y - yp).abs().max())
+                        check(err <= tol, f"bank K1 {dtype}: |err| {err}")
+                        out["k1_max_abs_err"] = max(out["k1_max_abs_err"],
+                                                    err)
+                        out["k1_cases"] += 1
+        # K2 on config 2's group shapes, per-element sides and masks
+        for label, spec in K2_BENCH_GROUPS.items():
+            group = [bank_pass(rng, np, k, r, s, m, True, m, nb)
+                     for k, r, s, m in spec]
+            y2 = one_launch("K2_bank", lambda: fused
+                            .apply_window_megastack(x, group,
+                                                         num_qubits=n))
+            y1 = x
+            for op in group:
+                y1 = fused.apply_window_stack(
+                    y1, op[2], op[3], op[6], num_qubits=n, k=op[1],
+                    apply_a=op[4], apply_b=op[5])
+            check(torch.equal(y2, y1), f"bank K2 {dtype} {label}: not bank "
+                  "K1 pass by pass")
+            for b in range(nb):
+                yb = fused.apply_window_megastack(
+                    x[b], [fused.bank_element_op(op, b) for op in group],
+                    num_qubits=n)
+                check(torch.equal(y2[b], yb), f"bank K2 {dtype} {label} "
+                      f"element {b}: not its own K2 launch's bits")
+            err = float((y2 - k2_bank_plain(torch, fused, x, group, n))
+                        .abs().max())
+            check(err <= len(group) * tol, f"bank K2 {dtype}: |err| {err}")
+            out["k2_max_abs_err"] = max(out["k2_max_abs_err"], err)
+            out["k2"].append({"dtype": str(dtype).split(".")[-1],
+                              "group": label, "passes": len(group),
+                              "max_abs_err": err})
+        del x
+    # a float32 bank whose elements mix exact and inexact sides: each
+    # element takes its own split and its scalar launch's bits
+    x = random_bank(torch, np, rng, n, nb, torch.float32)
+    mixed = []
+    for sides in ("AB", "B"):
+        op = bank_pass(rng, np, 9, 1, sides, False, True, False, nb,
+                       exact=(0, 2))
+        splits = fused.bank_pass_splits(
+            torch.float32, "highest", nb,
+            *[s for s, on in ((op[2], op[4]), (op[3], op[5])) if on])
+        check(splits == (1, 0, 1, 0), f"mixed bank splits {splits}")
+        y = one_launch("K1_bank", lambda: fused.apply_window_stack(
+            x, op[2], op[3], None, num_qubits=n, k=9, apply_a=op[4],
+            apply_b=op[5]))
+        for b in range(nb):
+            e = fused.bank_element_op(op, b)
+            check(torch.equal(y[b], k1_scalar(fused, x[b], e, n)),
+                  f"mixed bank {sides} element {b}: not its scalar bits")
+            if b in (0, 2):
+                check(torch.equal(y[b], fused.window_pass_plain(
+                    x[b], e[2], e[3], None, num_qubits=n, k=9,
+                    apply_a=e[4], apply_b=e[5])),
+                      f"mixed bank {sides} element {b}: an exact element "
+                      "is not its plain version's bits")
+        mixed.append({"sides": sides, "splits": list(splits)})
+    out["mixed_exact"] = mixed
+    # one side per element, the other shared
+    op = bank_pass(rng, np, 10, 1, "AB", False, True, False, nb)
+    op = op[:3] + (op[3][0],) + op[4:]
+    y = one_launch("K1_bank", lambda: fused.apply_window_stack(
+        x, op[2], op[3], None, num_qubits=n, k=10))
+    for b in range(nb):
+        check(torch.equal(y[b], k1_scalar(fused, x[b],
+                                          fused.bank_element_op(op, b), n)),
+              f"bank K1, A per element and B shared, element {b}: not its "
+              "scalar launch's bits")
+    # K5 on a config-4 layer over four 10-qubit density registers
+    nq = N_MEAS_RHO_PARITY
+    nn = 2 * nq
+    program = layer_program(nq)
+    probs = [NOISE_P] * len(program)
+    xr = random_bank(torch, np, rng, nn, nb, torch.float32)
+    before = fused.LAUNCHES["K5_bank"]
+    yb = fused.apply_pair_channel_sweep(xr.clone(), program, probs,
+                                             num_bits=nn)
+    k5n = fused.LAUNCHES["K5_bank"] - before
+    check(k5n == k5_launches(fused, program, nn), f"bank K5: {k5n} launches")
+    for b in range(nb):
+        ys = fused.apply_pair_channel_sweep(xr[b].clone(), program, probs,
+                                            num_bits=nn)
+        check(torch.equal(yb[b], ys), f"bank K5 element {b}: not its own "
+              "K5 launches' bits")
+    check(torch.equal(yb, torch.stack([fused.pair_channel_sweep_plain(
+        xr[b], program, probs, num_bits=nn) for b in range(nb)])),
+        "bank K5 is not its plain version's bits")
+    out["k5"] = {"state_bits": nn, "channels": len(program),
+                 "launches": k5n, "bit_identical": True}
+    sync()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bank_unitaries(np, circuits, n, nb, depth):
+    """Element b's config-2 unitaries: bench_unitaries with seed 7 + b
+    (element 0 is config 2 itself), as (depth, n, B, 2, 2) complex."""
+    us = [circuits.bench_unitaries(n, depth, seed=SEED + b)
+          for b in range(nb)]
+    return np.stack([u[:, :, 0] + 1j * u[:, :, 1] for u in us], axis=2), us
+
+
+def apply_bank_gates(qt, q, cus, n):
+    """Config 2's structure on a bank: per-element 1q unitaries through
+    applyBatchedUnitary, the CNOT ladder shared."""
+    for d in range(cus.shape[0]):
+        for t in range(n):
+            qt.applyBatchedUnitary(q, (t,), cus[d, t])
+        for t in range(d % 2, n - 1, 2):
+            qt.controlledNot(q, t, t + 1)
+
+
+def bank_breakdown(torch, C, program, n, nb, state=None):
+    """Device time of each op of a drain's program on a bank (CUDA events
+    around each op, one after another, from |0...0> or ``state``),
+    summed by op kind; a register when ``nb`` is 0."""
+    if state is None:
+        shape = (nb, 2, 1 << n) if nb else (2, 1 << n)
+        state = torch.zeros(shape, dtype=torch.float32, device=DEVICE)
+        state[..., 0, 0] = 1.0
+    run = C.execute_plan
+    marks = []
+    for kind, part in program:
+        for op in part:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state = run(state, [op], n)
+            end.record()
+            marks.append((op[0], start, end))
+    sync()
+    out: dict = {}
+    for kind, start, end in marks:
+        out[kind] = out.get(kind, 0.0) + start.elapsed_time(end)
+    return out
+
+
+def bank_bench_plan(np, C, circuits, us, n):
+    """The bench route's plan of a bank: each element's config-2 gate list
+    planned (for the card: megawin groups) and every pass array stacked
+    to a leading (B, ...) axis; the elements must share one skeleton."""
+    skeleton, per = None, []
+    for u in us:
+        sk, arrays = C.split_plan(C.plan_circuit(
+            circuits.bench_gate_list(n, DEPTH, u), n, device=DEVICE))
+        check(skeleton is None or sk == skeleton, "the bank's elements plan "
+              "to different skeletons")
+        skeleton = sk
+        per.append(arrays)
+    return C.rebuild_plan(skeleton, [
+        np.stack([np.asarray(p[j]) for p in per]) for j in range(len(per[0]))])
+
+
+def bank_items(qt, n, nb, fill, density=False):
+    """The items a bank's drain sees, captured on a bank that never
+    allocates amplitudes."""
+    from quest_tpu_torch.batch import BatchedQureg
+
+    shadow = BatchedQureg(n, qt.createQuESTEnv(device="cpu"), nb,
+                          is_density_matrix=density, seeds=[0] * nb)
+    fill(shadow)
+    return list(shadow._fusion.gates)
+
+
+def bank_op_cases(torch, fused, bank, ops, n, nb):
+    """Bank K1 on a dual rank-1 pass with per-element sides and bank K2
+    on the largest group of a bank plan uploaded to the card: the
+    kernel's ms, its plain version's, the bound (B times a register's),
+    a library yardstick (one batched torch.einsum, for K1) and the
+    error against the plain version."""
+    dual = next(op for op in ops if op[0] == "winfused" and op[4] and op[5]
+                and op[2].dim() == 5 and op[2].shape[1] == 1)
+    group = max((op[1] for op in ops if op[0] == "megawin"), key=len)
+    state_bytes = bank[0].numel() * bank.element_size()
+    num_amps = bank[0].numel() // 2
+
+    def elem_bound(subops):
+        ms, by = bound_ms([fused.bank_element_op(op, 0) for op in subops],
+                          state_bytes, num_amps, "float32")
+        return ms * nb, by
+
+    def k1():
+        return fused.apply_window_stack(
+            bank, dual[2], dual[3], dual[6], num_qubits=n, k=dual[1],
+            apply_a=True, apply_b=True)
+
+    def k1_plain():
+        return k1_bank_plain(torch, fused, bank, dual, n)
+
+    hi, mid = 1 << (n - dual[1] - 7), 1 << (dual[1] - 7)
+    xc = torch.complex(*bank.reshape(nb, 2, hi, 128, mid, 128).unbind(1))
+    ac = torch.complex(dual[2][:, 0, 0], dual[2][:, 0, 1])
+    bc = torch.complex(dual[3][:, 0, 0], dual[3][:, 0, 1])
+    args, sub = (bc, xc, ac), "bqw,bhwml,bpl->bhqmp"
+    if dual[6] is not None:
+        m = dual[6]
+        mc = torch.complex(m[:, 0], m[:, 1]) if m.dim() == 4 else \
+            torch.complex(m[0], m[1])[None].expand(nb, -1, -1)
+        args, sub = (*args, mc), "bqw,bhwml,bpl,bqp->bhqmp"
+
+    def library():
+        return torch.einsum(sub, *args)
+
+    y = k1()
+    err1 = float((y - k1_plain()).abs().max())
+    check(err1 <= tolerance(bank), f"bank K1 at {n} qubits x {nb}: |err| "
+          f"{err1}")
+    lib = torch.view_as_real(library())
+    lib_err = float((lib.permute(0, 5, 1, 2, 3, 4).reshape(y.shape) - y)
+                    .abs().max())
+    check(lib_err <= 10 * tolerance(bank), f"bank K1's einsum yardstick "
+          f"strays {lib_err}")
+    del y, lib
+    b1, by1 = elem_bound([dual])
+    k1_rec = {"ms": time_ms(k1), "plain_ms": time_ms(k1_plain, reps=3),
+              "library_ms": time_ms(library, reps=5),
+              "library_form": sub, "bound_ms": b1, "bound_by": by1,
+              "max_abs_err": err1, "batch": nb, "n": n,
+              "per_element_sides": True}
+    k1_rec["fraction_of_bound"] = b1 / k1_rec["ms"]
+
+    def k2():
+        return fused.apply_window_megastack(bank, group, num_qubits=n)
+
+    def k2_plain():
+        return k2_bank_plain(torch, fused, bank, group, n)
+
+    def k2_via_k1():
+        y = bank
+        for op in group:
+            y = fused.apply_window_stack(
+                y, op[2], op[3], op[6], num_qubits=n, k=op[1],
+                apply_a=op[4], apply_b=op[5])
+        return y
+
+    y2 = k2()
+    check(torch.equal(y2, k2_via_k1()), "bank K2 at the main shape: not "
+          "bank K1 pass by pass")
+    err2 = float((y2 - k2_plain()).abs().max())
+    check(err2 <= len(group) * tolerance(bank), f"bank K2: |err| {err2}")
+    del y2
+    turns = [time_ms(f) for f in (k2_via_k1, k2, k2, k2_via_k1)]
+    b2, by2 = elem_bound(group)
+    k2_rec = {"ms": (turns[1] + turns[2]) / 2,
+              "per_pass_k1_bank_ms": (turns[0] + turns[3]) / 2,
+              "turns_k1_k2_k2_k1_ms": turns,
+              "plain_ms": time_ms(k2_plain, reps=2), "library_ms": None,
+              "bound_ms": b2, "bound_by": by2, "max_abs_err": err2,
+              "passes": len(group), "batch": nb, "n": n}
+    k2_rec["fraction_of_bound"] = b2 / k2_rec["ms"]
+    return k1_rec, k2_rec
+
+
+def phase_batch_main(torch, np, qt, C, fused, fusion, circuits, noise,
+                     batch, calculations, measurement):
+    """The bank slice on the card: (a) randomized compiling of config 2 at
+    26 qubits x 8, (b) the EnsembleScheduler, (c) trajectories, (d) a
+    density bank under a config-4 noise layer (see the module text)."""
+    out = {}
+    counts = {}
+    env = qt.createQuESTEnv()
+
+    # (a) randomized compiling: config 2's structure, each element its own
+    # unitaries (seeds 7 .. 14), the CNOTs shared; by the bench route (the
+    # elements' plans of the gate list, stacked, through
+    # execute_plan on the bank: K1 and K2 bank) and by the API route (a
+    # BatchedQureg drained: its CNOT ladders run as gathers between
+    # one-layer dense runs, so K1 bank only, as the scalar API route)
+    n, nb = N_BATCH_MAIN, B_MAIN
+    cus, us = bank_unitaries(np, circuits, n, nb, DEPTH)
+    t0 = time.perf_counter()
+    bplan = bank_bench_plan(np, C, circuits, us, n)
+    bench_plan_s = time.perf_counter() - t0
+    bst = C.stats(bplan)
+    bops = C.plan_to_device(bplan, torch.float32, DEVICE)
+    fused.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    a = torch.zeros((nb, 2, 1 << n), dtype=torch.float32, device=DEVICE)
+    a[:, 0, 0] = 1.0
+    a = C.execute_plan(a, bops, n)
+    sync()
+    bench_wall = time.perf_counter() - t0
+    got = bank_launches(fused)
+    counts["a_bench"] = got
+    check(got["K1_bank"] == bst["winfused"] and got["K2_bank"] == bst[
+        "megawin"] and got["K1"] == got["K2"] == 0,
+        f"bench-route bank launches {got} != one per pass of {bst}")
+    check(got["K1_bank"] > 0 and got["K2_bank"] > 0,
+          f"the bench-route bank launched no K1 or no K2: {got}")
+    p_bench = [float(calculations.calc_prob_of_outcome_statevec(
+        a[b], num_qubits=n, target=n - 1, outcome=0)) for b in range(nb)]
+    for b in (0, nb - 1):
+        sops = C.plan_to_device(C.plan_circuit(circuits.bench_gate_list(
+            n, DEPTH, us[b]), n, device=DEVICE), torch.float32, DEVICE)
+        z = torch.zeros((2, 1 << n), dtype=torch.float32, device=DEVICE)
+        z[0, 0] = 1.0
+        z = C.execute_plan(z, sops, n)
+        check(torch.equal(z, a[b]), f"bench-route element {b} is not its "
+              "scalar route bit for bit")
+        del z, sops
+    k1_rec, k2_rec = bank_op_cases(torch, fused, a, bops, n, nb)
+    del a, bops
+    torch.cuda.empty_cache()
+    items = bank_items(qt, n, nb, lambda q: apply_bank_gates(qt, q, cus, n))
+    fusion._plan_cache.clear()
+    t0 = time.perf_counter()
+    # a float32 bank on the card may sweep its channels: the drain's plan
+    # key holds that, so the same key is planned here
+    program = fusion.plan_items(items, n, device=DEVICE, sweep_ok=True,
+                                batch_size=nb)
+    plan_s = time.perf_counter() - t0
+    pst = fusion.program_stats(program)
+    seeds = [[MEASURE_SEEDS[0] + b] for b in range(nb)]
+    fused.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    q = qt.createBatchedQureg(n, env, nb, seeds=seeds)
+    apply_bank_gates(qt, q, cus, n)
+    bank = q.amps
+    sync()
+    bank_wall = time.perf_counter() - t0
+    got = bank_launches(fused)
+    counts["a_api"] = got
+    check(got["K1_bank"] == pst.get("winfused", 0)
+          and got["K2_bank"] == pst.get("megawin", 0)
+          and got["K1"] == got["K2"] == 0 and got["K1_bank"] > 0,
+          f"API-route bank launches {got} != one per pass of {pst}")
+    check(tuple(bank.shape) == (nb, 2, 1 << n)
+          and bool(torch.isfinite(bank).all()), "bank: bad state")
+    p_bank = [float(calculations.calc_prob_of_outcome_statevec(
+        bank[b], num_qubits=n, target=n - 1, outcome=0)) for b in range(nb)]
+    # every element's P(top = 0) equals its scalar route's; elements 0
+    # and 7 are their scalar drains bit for bit
+    scalar_walls = []
+    for b in range(nb):
+        sync()
+        t0 = time.perf_counter()
+        s = qt.createQureg(n, env)
+        with qt.gateFusion(s):
+            apply_bench_gates(qt, s, us[b], n)
+        p = qt.calcProbOfOutcome(s, n - 1, 0)
+        sync()
+        scalar_walls.append(time.perf_counter() - t0)
+        check(p == p_bank[b], f"element {b}: P(top = 0) {p} differs from "
+              f"the bank's {p_bank[b]}")
+        check(abs(p - p_bench[b]) <= 1e-5, f"element {b}: the API route's "
+              f"P(top = 0) {p} vs the bench route's {p_bench[b]}")
+        if b in (0, nb - 1):
+            check(torch.equal(s.amps, bank[b]), f"element {b} is not its "
+                  "scalar drain bit for bit")
+        qt.destroyQureg(s, env)
+    # where the API route's time goes: host gate calls, planning (above),
+    # device time by op kind of the bank's program and of one element's
+    t0 = time.perf_counter()
+    bank_items(qt, n, nb, lambda q: apply_bank_gates(qt, q, cus, n))
+    host_calls_s = time.perf_counter() - t0
+    dev_bank = bank_breakdown(torch, C, program, n, nb)
+    dev_one = bank_breakdown(torch, C, fusion.plan_items(
+        capture_items(qt, us[0], n), n, device=DEVICE, sweep_ok=True), n, 0)
+    main = {"n": n, "batch": nb, "depth": DEPTH, "bank_bytes":
+            bank.numel() * bank.element_size(),
+            "bench_route": {"plan": bst,
+                            "plan_seconds_all_elements": bench_plan_s,
+                            "wall_s": bench_wall, "p_top_zero": p_bench,
+                            "launches": counts["a_bench"],
+                            "elements_equal_scalar": [0, nb - 1]},
+            "api_route": {"program": pst,
+                          "plan_seconds_all_elements": plan_s,
+                          "bank_drain_wall_s": bank_wall,
+                          "scalar_drains_wall_s": sum(scalar_walls),
+                          "scalar_drain_wall_s_each": scalar_walls,
+                          "p_top_zero": p_bank, "launches": counts["a_api"],
+                          "elements_equal_scalar": [0, nb - 1],
+                          "host_gate_calls_s": host_calls_s,
+                          "device_ms_by_op_bank": dev_bank,
+                          "device_ms_bank": sum(dev_bank.values()),
+                          "device_ms_by_op_one_element": dev_one,
+                          "device_ms_one_element": sum(dev_one.values())},
+            "k1_bank": k1_rec, "k2_bank": k2_rec}
+    # measureBatched over every qubit, per-element seeds; elements 0 and 7
+    # against measureWithStats loops seeded the same way
+    t0 = time.perf_counter()
+    outs = [qt.measureBatched(q, t) for t in range(n)]
+    sync()
+    main["measure_batched_ms_per_qubit"] = \
+        (time.perf_counter() - t0) * 1e3 / n
+    for b in (0, nb - 1):
+        s = qt.createQureg(n, env)
+        with qt.gateFusion(s):
+            apply_bench_gates(qt, s, us[b], n)
+        measurement.KEYS.seed(seeds[b])
+        for t in range(n):
+            o, p = qt.measureWithStats(s, t)
+            check(o == int(outs[t][0][b]) and p == float(outs[t][1][b]),
+                  f"element {b} qubit {t}: measureBatched ({outs[t][0][b]},"
+                  f" {outs[t][1][b]}) vs measureWithStats ({o}, {p})")
+        check(torch.equal(s.amps, q.amps[b]), f"element {b}: collapsed "
+              "states differ")
+        qt.destroyQureg(s, env)
+    main["outcomes_0_7"] = [[int(o[0][b]) for o in outs] for b in (0, nb - 1)]
+    qt.destroyQureg(q, env)
+    del bank
+    torch.cuda.empty_cache()
+    out["randomized_compiling"] = main
+
+    # (b) the EnsembleScheduler: 64 submissions of config 2's structure at
+    # 20 qubits, one bucket of 64
+    n = N_ENSEMBLE
+    subs = [circuits.bench_gate_list(n, DEPTH, circuits.bench_unitaries(
+        n, DEPTH, seed=100 + s)) for s in range(ENSEMBLE_SUBMISSIONS)]
+    sched = qt.EnsembleScheduler(n, env, max_batch=ENSEMBLE_SUBMISSIONS)
+    for g in subs:
+        sched.submit(g)
+    fusion._plan_cache.clear()
+    items = batch.bank_gate_items(subs, n, False)
+    t0 = time.perf_counter()
+    eprog = fusion.plan_items(items, n, device=DEVICE, sweep_ok=True,
+                              batch_size=ENSEMBLE_SUBMISSIONS)
+    eplan_s = time.perf_counter() - t0
+    fused.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = sched.drain()
+    sync()
+    ens_wall = time.perf_counter() - t0
+    counts["b"] = bank_launches(fused)
+    est = fusion.program_stats(eprog)
+    check(counts["b"]["K1_bank"] == est.get("winfused", 0)
+          and counts["b"]["K2_bank"] == est.get("megawin", 0)
+          and counts["b"]["K1"] == 0, f"ensemble launches {counts['b']}")
+    check(sched.last_drain["buckets"] == 1
+          and sched.last_drain["padded"] == ENSEMBLE_SUBMISSIONS,
+          f"ensemble buckets {sched.last_drain}")
+    # the scalar loop runs last submission first: the plan cache (64
+    # entries, first in first out) holds submissions 1 .. 63 after the
+    # bank's planning, so only submission 0 plans again
+    sync()
+    t0 = time.perf_counter()
+    loop = {}
+    for i in reversed(range(ENSEMBLE_SUBMISSIONS)):
+        s = qt.createQureg(n, env)
+        with qt.gateFusion(s):
+            s._fusion.gates.extend(subs[i])
+        loop[i] = s.amps
+    sync()
+    loop_wall = time.perf_counter() - t0
+    sampled = sorted({0, ENSEMBLE_SUBMISSIONS // 3,
+                      2 * ENSEMBLE_SUBMISSIONS // 3,
+                      ENSEMBLE_SUBMISSIONS - 1})
+    for s in sampled:
+        check(torch.equal(res[s], loop[s]), f"ensemble submission {s} "
+              "differs from its independent run")
+    dev_bank = bank_breakdown(torch, C, eprog, n, ENSEMBLE_SUBMISSIONS)
+    dev_one = bank_breakdown(torch, C, fusion.plan_items(
+        subs[0], n, device=DEVICE, sweep_ok=True), n, 0)
+    out["ensemble"] = {"n": n, "submissions": ENSEMBLE_SUBMISSIONS,
+                       "device_ms_by_op_bank": dev_bank,
+                       "device_ms_bank": sum(dev_bank.values()),
+                       "device_ms_by_op_one_circuit": dev_one,
+                       "device_ms_one_circuit": sum(dev_one.values()),
+                       "program": est, "plan_seconds_all_elements": eplan_s,
+                       "drain_wall_s": ens_wall,
+                       "wall_ms_per_circuit": ens_wall * 1e3
+                       / ENSEMBLE_SUBMISSIONS,
+                       "scalar_loop_wall_s": loop_wall,
+                       "scalar_loop_ms_per_circuit": loop_wall * 1e3
+                       / ENSEMBLE_SUBMISSIONS,
+                       "last_drain": sched.last_drain,
+                       "checked_equal": sampled,
+                       "launches": counts["b"]}
+    del res, loop
+    torch.cuda.empty_cache()
+
+    # (c) trajectories
+    out["trajectories"] = phase_trajectories(torch, np, qt, C, fused,
+                                             circuits, counts)
+
+    # (d) a density bank under one config-4 noise layer
+    nq, nbr = N_RHO_BANK, B_RHO
+    kops = noise.bench_kraus_ops(NOISE_SEED)
+    rng = np.random.default_rng(77)
+    mats = np.stack([random_unitary(rng, 2) for _ in range(nbr)])
+    fused.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    rq = qt.createBatchedQureg(nq, env, nbr, is_density_matrix=True)
+    qt.initPlusState(rq)
+    qt.applyBatchedUnitary(rq, (2,), mats)
+    noise.noise_layer(qt, rq, nq, kops, prob=NOISE_P)
+    rbank = rq.amps
+    sync()
+    rwall = time.perf_counter() - t0
+    counts["d"] = bank_launches(fused)
+    per_layer = k5_launches(fused, layer_program(nq), 2 * nq)
+    check(counts["d"]["K5_bank"] == per_layer and counts["d"]["K5"] == 0,
+          f"density bank: K5 launches {counts['d']}, not {per_layer} bank "
+          "launches")
+    for b in range(nbr):
+        s = qt.createDensityQureg(nq, env)
+        qt.initPlusState(s)
+        with qt.gateFusion(s):
+            qt.unitary(s, 2, mats[b])
+            noise.noise_layer(qt, s, nq, kops, prob=NOISE_P)
+        check(torch.equal(s.amps, rbank[b]), f"density bank element {b} is "
+              "not its scalar drain bit for bit")
+        qt.destroyQureg(s, env)
+    k5_rec = bank_k5_case(torch, fused, rbank, nq)
+    out["density_bank"] = {"n": nq, "batch": nbr, "state_bits": 2 * nq,
+                           "launches": counts["d"],
+                           "k5_bank_launches_per_layer": per_layer,
+                           "drain_wall_s": rwall, "k5_bank": k5_rec}
+    qt.destroyQureg(rq, env)
+    del rbank
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def bank_k5_case(torch, fused, rbank, nq):
+    """Bank K5 on the first launch group of a config-4 layer's first
+    sweep at the density bank's shape: ms, plain ms (element by element),
+    the bound (one read and write of the bank) and the error."""
+    nn = 2 * nq
+    program = layer_program(nq)
+    b0, k, entries = fused.sweep_schedule(program, nn)[0]
+    group = fused.sweep_launch_groups(entries)[0]
+    sub = tuple(program[e[3]] for e in group[0])
+    probs = [NOISE_P] * len(sub)
+    check(k5_launches(fused, sub, nn) == 1, "the timed K5 group is not one "
+          "launch")
+    x = rbank.clone()
+
+    def kern():
+        return fused.apply_pair_channel_sweep(x, sub, probs,
+                                                   num_bits=nn)
+
+    def plain():
+        return torch.stack([fused.pair_channel_sweep_plain(
+            x[b], sub, probs, num_bits=nn) for b in range(x.shape[0])])
+
+    want = plain()
+    err = max_abs_diff(torch, kern(), want)   # in place on the card
+    check(err == 0.0, f"bank K5 at the main shape: |err| {err}")
+    del want
+    nbytes = 2 * x.numel() * x.element_size()
+    return {"ms": time_ms(kern), "plain_ms": time_ms(plain, reps=3),
+            "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "max_abs_err": err,
+            "channels": len(sub), "batch": int(x.shape[0])}
+
+
+def traj_ops(np, C, circuits, n):
+    """A depth-2 config-2 circuit (shared gates) with depolarising
+    p = 0.05 on every qubit after the second layer's unitaries, and
+    damping on qubit 0 at the end.  The insertions sit where each merges
+    with its qubit's unitary: placed after the CNOTs, a trajectory whose
+    insertions on neighbouring qubits are two X's plans a permutation run
+    where another plans a dense pass, and the bank drain refuses the
+    mixed skeletons, in the reference as in the port (ROADMAP Queue 3)."""
+    gates = circuits.bench_gate_list(n, 2, circuits.bench_unitaries(
+        n, 2, seed=SEED, dtype=np.float64))
+    last = max(i for i, g in enumerate(gates) if len(g.targets) == 1)
+    return (gates[:last + 1] + [("depolarising", t, TRAJ_P)
+                                for t in range(n)]
+            + gates[last + 1:] + [("damping", 0, TRAJ_DAMP)])
+
+
+def phase_trajectories(torch, np, qt, C, fused, circuits, counts):
+    """256 trajectories at 20 qubits: every trajectory's norm within 1e-5
+    of 1 and the bank launches; 4096 at 8 qubits: the Z-sum observable's
+    mean within 5 SEM of the density-matrix expectation."""
+    env = qt.createQuESTEnv()
+    out = {}
+    n = N_TRAJ
+    ops = traj_ops(np, C, circuits, n)
+    codes = np.zeros((n, n), np.int32)
+    codes[np.arange(n), np.arange(n)] = 3
+    coeffs = np.ones(n) / n
+    fused.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = qt.run_trajectories(ops, n, env, TRAJ_BIG, seed=SEED)
+    bank = res["amps"]
+    norms = torch.sum(bank.double() ** 2, dim=(1, 2))
+    sync()
+    wall = time.perf_counter() - t0
+    counts["c"] = bank_launches(fused)
+    worst = float((norms - 1).abs().max())
+    check(worst <= 1e-5, f"a trajectory's norm strays {worst}")
+    check(counts["c"]["K1_bank"] + counts["c"]["K2_bank"] > 0
+          and counts["c"]["K1"] == counts["c"]["K2"] == 0,
+          f"trajectories launches {counts['c']}")
+    out["big"] = {"n": n, "trajectories": TRAJ_BIG, "wall_s": wall,
+                  "max_norm_err": worst, "launches": counts["c"]}
+    del bank, res
+    torch.cuda.empty_cache()
+    n = N_TRAJ_SMALL
+    ops = traj_ops(np, C, circuits, n)
+    codes = np.zeros((n, n), np.int32)
+    codes[np.arange(n), np.arange(n)] = 3
+    coeffs = np.ones(n) / n
+    sync()
+    t0 = time.perf_counter()
+    res = qt.run_trajectories(ops, n, env, TRAJ_SMALL,
+                              observable=(codes, coeffs), seed=SEED)
+    wall = time.perf_counter() - t0
+    qt.set_precision(2)
+    try:
+        rho = qt.createDensityQureg(n, env)
+        for op in ops:
+            if isinstance(op, C.Gate):
+                m = np.asarray(op.mat, np.float64)
+                if len(op.targets) == 1:
+                    qt.unitary(rho, op.targets[0], m[0] + 1j * m[1])
+                else:
+                    qt.controlledNot(rho, op.targets[0], op.targets[1])
+            elif op[0] == "depolarising":
+                qt.mixDepolarising(rho, op[1], op[2])
+            else:
+                qt.mixDamping(rho, op[1], op[2])
+        h = qt.createPauliHamil(n, n)
+        qt.initPauliHamil(h, coeffs, codes)
+        exact = qt.calcExpecPauliHamil(rho, h)
+    finally:
+        qt.set_precision(1)
+    check(abs(res["mean"] - exact) <= 5 * res["sem"],
+          f"trajectory mean {res['mean']} vs density {exact} "
+          f"(sem {res['sem']})")
+    out["small"] = {"n": n, "trajectories": TRAJ_SMALL, "wall_s": wall,
+                    "mean": res["mean"], "sem": res["sem"],
+                    "density_expectation": exact,
+                    "mean_minus_exact_over_sem": (res["mean"] - exact)
+                    / res["sem"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The VQE and QAOA models (M14)
+# ---------------------------------------------------------------------------
+
+N_VQE = 20
+VQE_DEPTH, VQE_TERMS, VQE_SEED, VQE_LR = 3, 6, 11, 5e-2
+N_QAOA = 24
+QAOA_DEPTH = 3
+MODEL_STEPS = 10
+
+
+def phase_models_main(torch, np):
+    """VQE as examples/vqe_train.py builds it at 20 qubits (float64): ten
+    Adam steps, the energy falls, the autograd gradient on three
+    parameters within 1e-3 relative of central differences; QAOA as
+    examples/qaoa_maxcut.py builds it at 24 qubits (float32): ten steps,
+    the expected cut rises; the wall per step and the peak memory of
+    both."""
+    from quest_tpu_torch.models import qaoa, vqe
+
+    out = {}
+    codes, coeffs = vqe.random_hamiltonian(N_VQE, VQE_TERMS, seed=VQE_SEED)
+    model = vqe.VQE(N_VQE, VQE_DEPTH, codes, coeffs)
+    gen = torch.Generator().manual_seed(0)
+    p = model.init_params(gen, dtype=torch.float64)
+    # the gradient against central differences at the three parameters
+    # of largest gradient (where a relative error means something)
+    p0 = p.clone().requires_grad_(True)
+    model.energy(p0).backward()
+    grad = p0.grad
+    fd = []
+    for i in torch.argsort(grad.abs(), descending=True)[:3].tolist():
+        h = 1e-5
+        e = torch.zeros_like(p)
+        e[i] = h
+        with torch.no_grad():
+            d = (float(model.energy(p + e)) - float(model.energy(p - e))) \
+                / (2 * h)
+        rel = abs(float(grad[i]) - d) / max(abs(d), 1e-12)
+        check(rel <= 1e-3, f"VQE gradient {i}: autograd {float(grad[i])} "
+              f"vs central difference {d}")
+        fd.append({"param": i, "autograd": float(grad[i]), "central": d,
+                   "rel_err": rel})
+    out["vqe"] = train_record(torch, model, p, model.make_train_step,
+                              falls=True)
+    out["vqe"].update(n=N_VQE, depth=VQE_DEPTH, terms=VQE_TERMS,
+                      dtype="float64", gradient_check=fd)
+    edges = qaoa.random_graph(N_QAOA, 2 * N_QAOA, seed=1)
+    qm = qaoa.QAOA(N_QAOA, edges, QAOA_DEPTH)
+    qp = qm.init_params(gen, dtype=torch.float32)
+    out["qaoa"] = train_record(torch, qm, qp, qm.make_train_step,
+                               falls=False)
+    out["qaoa"].update(n=N_QAOA, depth=QAOA_DEPTH, edges=len(edges),
+                       dtype="float32")
+    return out
+
+
+def train_record(torch, model, p, make_step, falls: bool):
+    """MODEL_STEPS Adam steps at VQE_LR from ``p``: the objective at each
+    step, the wall per step, the peak device memory."""
+    p = p.clone().requires_grad_(True)
+    step = make_step(torch.optim.Adam([p], lr=VQE_LR))
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    vals, walls = [], []
+    for _ in range(MODEL_STEPS):
+        t0 = time.perf_counter()
+        vals.append(float(step(p)))
+        sync()
+        walls.append(time.perf_counter() - t0)
+    moved = vals[-1] < vals[0] if falls else vals[-1] > vals[0]
+    check(moved, f"{type(model).__name__}: the objective did not "
+          f"{'fall' if falls else 'rise'}: {vals}")
+    return {"objective": vals, "wall_s_per_step": statistics.median(walls),
+            "first_step_wall_s": walls[0],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
 def main() -> int:
     import torch
 
@@ -3246,9 +4235,10 @@ def main() -> int:
         from quest_tpu_torch import circuit as C
         from quest_tpu_torch import fusion
         from quest_tpu_torch.models import circuits, hamiltonians, noise
-        from quest_tpu_torch.ops import (bigstate, build, cplx, density, fused,
-                                         kernels, measurement, paulis,
-                                         threefry)
+        from quest_tpu_torch import batch
+        from quest_tpu_torch.ops import (bigstate, build, calculations, cplx,
+                                         density, fused, kernels,
+                                         measurement, paulis, threefry)
     except ImportError as e:
         print(f"chip_smoke: cannot import quest_tpu_torch ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -3610,9 +4600,31 @@ def main() -> int:
     dmain = phase_diagonal_main(torch, np, qt)
     emit({"phase": "diagonal_main", "power": smi, **dmain})
 
-    # 24. kernels
-    def entry(kname, replaces, t, err, source="window.cu"):
-        key = kname.split()[0]
+    # 24. quad precision: config 2 at 26 qubits under set_precision(4)
+    quad = phase_quad_main(torch, np, qt, paulis, hamiltonians, circuits)
+    emit({"phase": "quad_main", "power": smi, **quad})
+
+    # 25. the bank kernels against their scalar launches and plain versions
+    bparity = phase_batch_parity(torch, np, fused)
+    emit({"phase": "batch_parity", **bparity})
+
+    # 26. register banks: randomized compiling at 26 qubits x 8, the
+    # ensemble scheduler, trajectories, a density bank
+    bmain, bcounts = phase_batch_main(torch, np, qt, C, fused, fusion,
+                                      circuits, noise, batch, calculations,
+                                      measurement)
+    emit({"phase": "batch_main", "power": smi, **bmain})
+    for key in ("K1_bank", "K2_bank"):
+        launches[key] = bcounts["a_bench"][key] + bcounts["a_api"][key]
+    launches["K5_bank"] = bcounts["d"]["K5_bank"]
+
+    # 27. the VQE and QAOA models
+    models = phase_models_main(torch, np)
+    emit({"phase": "models_main", "power": smi, **models})
+
+    # 28. kernels
+    def entry(kname, replaces, t, err, source="window.cu", key=None):
+        key = key or kname.split()[0]
         return {"name": kname, "route": "cuda",
                 "source": f"quest_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[key],
@@ -3738,8 +4750,37 @@ def main() -> int:
         if key == "K1":
             for mode, rec in pmodes["modes"].items():
                 e["modes"][mode]["b_only"] = rec["kernels"]["k1_b_only_rank1"]
+    # the bank forms: one launch per pass for a whole register bank, their
+    # launches on randomized compiling's drain (K1, K2) and on the density
+    # bank's (K5), their times at those banks' shapes
+    rc = bmain["randomized_compiling"]
+    k1b = entry("K1 window pass, bank form", "quest_tpu/ops/fused.py:497",
+                rc["k1_bank"], max(rc["k1_bank"]["max_abs_err"],
+                                   bparity["k1_max_abs_err"]),
+                key="K1_bank")
+    k1b["kernel"] = "window_pass_kernel"
+    k1b["batch"] = rc["batch"]
+    k1b["library_form"] = rc["k1_bank"]["library_form"]
+    k2b = entry("K2 window megakernel, bank form",
+                "quest_tpu/ops/fused.py:799", rc["k2_bank"],
+                max(rc["k2_bank"]["max_abs_err"], bparity["k2_max_abs_err"]),
+                key="K2_bank")
+    k2b["kernel"] = "megawin_kernel"
+    k2b["batch"] = rc["batch"]
+    k2b["per_pass_k1_bank_ms"] = rc["k2_bank"]["per_pass_k1_bank_ms"]
+    k2b["library_note"] = "none: no single PyTorch call runs a group"
+    db = bmain["density_bank"]
+    k5b = entry("K5 pair-channel sweep, bank form",
+                "quest_tpu/ops/fused.py:1440", db["k5_bank"],
+                db["k5_bank"]["max_abs_err"], "channels.cu", key="K5_bank")
+    k5b["kernel"] = "chan_sweep_kernel"
+    k5b["batch"] = db["batch"]
+    k5b["library_note"] = ("none: no single PyTorch call applies a "
+                           "pair-channel sweep")
+    for e in (k1b, k2b, k5b):
+        check(e["launches"] > 0, f"{e['name']} never launched on its path")
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
-                      k11e, k12e]})
+                      k11e, k12e, k1b, k2b, k5b]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,12 @@ values of Hamiltonian simulation, the QFT's ladder layers and the fused
 decoherence-channel sweeps of a density matrix run in hand-written CUDA
 kernels (``csrc/*.cu``, built with nvcc at first use).  Measurement draws
 the JAX package's seeded outcome streams: its threefry keys by default,
-its host Mersenne Twister under ``QT_HOST_MEASURE=1``.
+its host Mersenne Twister under ``QT_HOST_MEASURE=1``.  A
+``BatchedQureg`` bank of B registers drains through one program whose
+window passes, megawin groups and channel sweeps are one launch each for
+the whole bank (``batch.py``); ``set_precision(4)`` takes the reductions
+in double-double; ``models.vqe`` and ``models.qaoa`` train through
+``torch.autograd``.
 
 Quick start::
 
@@ -54,6 +59,17 @@ from .debug import (
     compareStates,
 )
 from .optimizer import set_circuit_optimizer, get_circuit_optimizer
+from .batch import (
+    BatchedQureg,
+    EnsembleScheduler,
+    createBatchedQureg,
+    applyBatchedUnitary,
+    measureBatched,
+    calcExpecPauliSumBatched,
+    run_trajectories,
+    run_trajectories as runTrajectories,
+)
+from . import models
 from .ops import phasefunc as _pf
 
 # enum phaseFunc (QuEST.h:231-234)

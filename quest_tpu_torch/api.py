@@ -251,6 +251,7 @@ def initSparseState(qureg: Qureg, indices, amps) -> None:
     arXiv:2504.08705).  State-vectors only; pending fused gates are
     dropped, as by any wholesale initialisation."""
     V.validate_state_vector(qureg, "initSparseState")
+    _guard_batched_eager(qureg, "initSparseState")
     idx = np.asarray(indices, dtype=np.int64).ravel()
     vals = np.asarray(amps, dtype=np.complex128).ravel()
     if idx.size == 0 or idx.size != vals.size:
@@ -471,6 +472,20 @@ def _sv_n(qureg: Qureg) -> int:
     return qureg.num_qubits_in_state_vec
 
 
+def _guard_batched_eager(qureg, what: str) -> None:
+    """A BatchedQureg's (B, 2, 2^n) bank flows only through the fused
+    drain and the batch helpers: the eager single-register ops would
+    misread the leading batch axis, so falling out of the capture path
+    is a structured error, never a wrong answer."""
+    if getattr(qureg, "batch_size", 0):
+        raise V.QuESTError(
+            f"{what}: the operation fell out of the fused capture path, "
+            "and a BatchedQureg bank has no eager scalar dispatch — keep "
+            "gates within fusion limits (<= "
+            f"{_fusion.FUSION_MAX_GATE_QUBITS} qubits) or use the "
+            "quest_tpu_torch.batch helpers")
+
+
 def _shift(qureg: Qureg) -> int:
     return qureg.num_qubits_represented
 
@@ -495,6 +510,7 @@ def _apply_unitary(qureg, matrix, targets, controls=(), control_states=()):
     if _fusion.capture_unitary(qureg, stacked, targets, controls,
                                control_states):
         return
+    _guard_batched_eager(qureg, "_dispatch_matrix")
     for t, c, conj in _twins(qureg, targets, controls):
         m = CX.conj(stacked) if conj else stacked
         qureg.amps = K.apply_matrix(qureg.amps, m, num_qubits=_sv_n(qureg),
@@ -511,6 +527,7 @@ def _apply_diag(qureg, diag, targets, controls=(), control_states=()):
     if _fusion.capture_diag(qureg, stacked, targets, controls,
                             control_states):
         return
+    _guard_batched_eager(qureg, "_apply_diag")
     for t, c, conj in _twins(qureg, targets, controls):
         d = CX.conj(stacked) if conj else stacked
         qureg.amps = K.apply_diagonal(qureg.amps, d, num_qubits=_sv_n(qureg),
@@ -522,6 +539,7 @@ def _apply_not(qureg, targets, controls, control_states=()):
     """NOTs are pure index-bit flips."""
     if _fusion.capture_not(qureg, targets, controls, control_states):
         return
+    _guard_batched_eager(qureg, "_apply_not")
     for t, c, _conj in _twins(qureg, tuple(targets), tuple(controls)):
         qureg.amps = K.apply_multi_qubit_not(
             qureg.amps, num_qubits=_sv_n(qureg), targets=t, controls=c,
@@ -816,6 +834,7 @@ def swapGate(qureg: Qureg, qubit1: int, qubit2: int) -> None:
     if _fusion.capture_unitary(qureg, _SWAP_SOA, (qubit1, qubit2)):
         qureg.qasm_log.gate("swap", (qubit1,), qubit2)
         return
+    _guard_batched_eager(qureg, "swapGate")
     n = _sv_n(qureg)
     perm = list(range(n))
     for t, _c, _conj in _twins(qureg, (qubit1, qubit2), ()):
@@ -923,6 +942,7 @@ def _apply_parity_phase(qureg, angle, qubits, controls):
     """The parity phase on the ket qubits and, on a density matrix, its
     conjugate on the bra qubits.  Reading ``qureg.amps`` drains pending
     fused gates first."""
+    _guard_batched_eager(qureg, "_apply_parity_phase")
     qureg.amps = K.apply_parity_phase(qureg.amps, angle,
                                       num_qubits=_sv_n(qureg),
                                       qubits=qubits, controls=controls)

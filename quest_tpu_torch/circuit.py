@@ -1207,12 +1207,32 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int,
     CPU, their plain versions); the rest are plain PyTorch ops.  The
     window passes run at ``precision`` (None: the mode current at the
     call, ``fused.set_matmul_precision``).  A sigma swap works in place
-    on the card: the input is consumed."""
+    on the card: the input is consumed.
+
+    ``amps`` may be a (B, 2, 2^n) register bank (a BatchedQureg drain:
+    the reference's jax.vmap of its plan executor, quest_tpu/fusion.py
+    _plan_runner), whose ops' arrays are shared or carry a leading B axis
+    per element (``fused.bank_element_op``).  Window passes, megawin
+    groups and cluster passes then take the whole bank in one launch
+    each; the data-movement ops take it as a batch dimension
+    (``torch.vmap``, exact); dense ``apply`` ops, whose batched product
+    would sum in another order, and the swap + cluster (K12) and sigma
+    swap (K10) passes, whose bank forms are later work, run element by
+    element.  Each element's result equals its own drain's bit for
+    bit."""
     n = num_qubits
     precision = fused.resolve_precision(precision)
+    nb = fused.bank_size(amps, n)
     for op in ops:
         kind = op[0]
-        if kind == "fused":
+        if nb and kind in ("apply", "swapfused", "sigma_swap"):
+            amps = torch.stack([execute_plan(
+                amps[b], [fused.bank_element_op(op, b)], n,
+                precision=precision) for b in range(nb)])
+        elif nb and kind in ("segswap", "permute", "xor", "gatherperm"):
+            amps = torch.vmap(lambda a, o=op: execute_plan(
+                a, [o], n, precision=precision))(amps)
+        elif kind == "fused":
             amps = fused.apply_cluster_stack(amps, op[1], op[2],
                                              num_qubits=n,
                                              precision=precision)
@@ -1268,8 +1288,15 @@ def plan_to_device(ops: Sequence[tuple], dtype, device) -> List[tuple]:
     def up_sides(a, b, apply_a=True, apply_b=True):
         # the window kernels' TF32 exactness, decided here on the host,
         # and on the card the sides as the kernels copy them under the
-        # current precision mode (another mode makes its own images)
+        # current precision mode (another mode makes its own images); a
+        # bank's per-element stacks (B, R, 2, 128, 128) element by element
         ta, tb = up(a), up(b)
+        if np.ndim(a) == 5:
+            if ta.dtype == torch.float32:
+                for t, src in ((ta, a), (tb, b)):
+                    fused.note_elem_exact(t, [fused.tf32_exact(src[i])
+                                              for i in range(len(src))])
+            return ta, tb
         if ta.dtype == torch.float32:
             fused.note_tf32_exact(ta, fused.tf32_exact(a))
             fused.note_tf32_exact(tb, fused.tf32_exact(b))

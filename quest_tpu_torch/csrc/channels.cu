@@ -54,6 +54,16 @@
 // call order: a sweep is only its channels applied one after another, so
 // the split is exact.
 //
+// Register banks.  A density bank (a BatchedQureg of B density
+// registers, a contiguous (B, 2, 2^nn) array) under a captured noise
+// layer runs each launch once for the whole bank, as the reference's
+// jax.vmap of _chan_sweep_pass prepends a grid axis (the channel
+// probabilities, hence the weights, are shared across the bank,
+// quest_tpu/fusion.py _plan_runner's in_axes): orbit q of the grid-stride
+// loop is orbit q mod 2^(nn - r) of element q >> (nn - r), whose planes
+// lie 2 * 2^nn floats on per element.  One register is a bank of one.
+// The bound is the scalar launch's times B.
+//
 // Bit identity.  x * w1 and partner * w2 are rounded, then their sum:
 // with --fmad=false (ops/build.py) no multiply and add fuse, and the plain
 // version (ops/fused.py pair_channel_sweep_plain) takes the same three
@@ -142,13 +152,16 @@ struct Dispatch<R, 0> {
 
 template <int R>
 __global__ void __launch_bounds__(CHAN_THREADS)
-chan_sweep_kernel(float* __restrict__ re, float* __restrict__ im,
+chan_sweep_kernel(float* __restrict__ x, u64 num_amps, int orbit_bits,
                   u64 num_orbits, const __grid_constant__ ChanArgs a) {
     constexpr int M = 1 << R;
     const u64 stride = (u64)gridDim.x * blockDim.x;
     for (u64 q = (u64)blockIdx.x * blockDim.x + threadIdx.x; q < num_orbits;
          q += stride) {
-        u64 rep = q;
+        // the bank element and its planes
+        float* re = x + (q >> orbit_bits) * 2 * num_amps;
+        float* im = re + num_amps;
+        u64 rep = q & ((1ull << orbit_bits) - 1ull);
 #pragma unroll
         for (int j = 0; j < R; ++j) {
             const u64 low = (1ull << a.pivots[j]) - 1ull;
@@ -173,10 +186,10 @@ chan_sweep_kernel(float* __restrict__ re, float* __restrict__ im,
 }
 
 template <int R>
-static int launch(float* x, long long num_amps, const ChanArgs& a,
-                  int blocks, void* stream) {
+static int launch(float* x, long long num_amps, int nbits, int nbank,
+                  const ChanArgs& a, int blocks, void* stream) {
     chan_sweep_kernel<R><<<blocks, CHAN_THREADS, 0, (cudaStream_t)stream>>>(
-        x, x + num_amps, (u64)num_amps >> R, a);
+        x, (u64)num_amps, nbits - R, ((u64)num_amps >> R) * (u64)nbank, a);
     return (int)cudaGetLastError();
 }
 
@@ -190,16 +203,16 @@ int qt_chan_max_entries() { return MAX_ENTRIES; }
 
 int qt_chan_threads() { return CHAN_THREADS; }
 
-// x: the state (2 * num_amps floats, in place); pivots: r ascending bit
-// positions; orbit: 2^r offsets; per entry: t, b, s and eight weights
-// (w1[4] then w2[4]).
-int qt_chan_sweep_f32(float* x, long long num_amps, int r,
+// x: the bank (nbank states of 2 * num_amps floats, in place; one
+// register is nbank = 1); pivots: r ascending bit positions; orbit: 2^r
+// offsets; per entry: t, b, s and eight weights (w1[4] then w2[4]).
+int qt_chan_sweep_f32(float* x, long long num_amps, int nbank, int r,
                       const int* pivots, const u64* orbit, int nent,
                       const int* t, const int* b, const int* s,
                       const float* w, int blocks, void* stream) {
     if (x == nullptr || num_amps < 2 || (num_amps & (num_amps - 1)) != 0 ||
-        r < 1 || r > MAX_RANK || nent < 1 || nent > MAX_ENTRIES ||
-        blocks < 1)
+        nbank < 1 || r < 1 || r > MAX_RANK || nent < 1 ||
+        nent > MAX_ENTRIES || blocks < 1)
         return (int)cudaErrorInvalidValue;
     int nbits = 0;
     while ((1LL << nbits) < num_amps) ++nbits;
@@ -228,11 +241,13 @@ int qt_chan_sweep_f32(float* x, long long num_amps, int r,
         }
     }
     switch (r) {
-        case 1: return launch<1>(x, num_amps, a, blocks, stream);
-        case 2: return launch<2>(x, num_amps, a, blocks, stream);
-        case 3: return launch<3>(x, num_amps, a, blocks, stream);
-        default: return launch<4>(x, num_amps, a, blocks, stream);
+        case 1: return launch<1>(x, num_amps, nbits, nbank, a, blocks, stream);
+        case 2: return launch<2>(x, num_amps, nbits, nbank, a, blocks, stream);
+        case 3: return launch<3>(x, num_amps, nbits, nbank, a, blocks, stream);
+        default:
+            return launch<4>(x, num_amps, nbits, nbank, a, blocks, stream);
     }
 }
+
 
 }  // extern "C"

@@ -182,6 +182,33 @@
 // K11's.  It issues the same products in the same order as K11, so it is
 // bit-identical to the segment swap followed by K11.
 
+// Register banks.  A BatchedQureg drain (ops/fused.py
+// apply_window_stack, apply_window_megastack on a (B, 2, 2^n) bank) runs
+// a pass, or a megawin group, over a bank of B registers, a contiguous
+// (B, 2, 2^n) array, in ONE launch: the reference runs its Pallas
+// kernels under jax.vmap (quest_tpu/fusion.py _plan_runner, batch flags
+// 1 and 2), whose batching rule prepends a grid axis; here the element
+// index is folded into the grid, and one register is a bank of one.
+// K1 (and K11, the same kernel at k = 7) takes a register's (slab,
+// chunk) items on blockIdx.x and the element on blockIdx.y (the
+// reference's prepended grid axis); K2 numbers element b's
+// super-blocks b * SB + s, so that its ticket decode, done-counters and
+// slot ring run unchanged over B * SB super-blocks, and mega_operands
+// offsets the state and output by the element (its X-tile tensor maps
+// span the bank).  Where the elements carry their own sides and masks
+// (flag 2: a randomized-compiling bank, trajectories) each pass has one
+// QtPass per element in device memory (`elems`), which the CTA stages in
+// shared memory with the item: its own side images, mask and split (the
+// TF32 split is decided per element, so an element of exact sides takes
+// SPLIT_EXACT beside one of inexact sides taking SPLIT_TF32X3 in the same
+// launch, each with the bits of its own scalar launch).  That staging is
+// the kernels' OWN instantiation; one register, and a bank of shared
+// passes, run the other, which reads the pass where a register's launch
+// always did (K1's parameter, K2's QtMegaArgs), so that the registers'
+// code keeps its registers and spills.  The items run window_item
+// unchanged, so every element is bit-identical to its scalar launch; the
+// bound is the scalar pass's times B.
+
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -311,7 +338,8 @@ struct QtMegaArgs {
     int ipp;        // items per pass of a super-block: G * nchunk
     int window;     // W: super-blocks per window of tickets
     int slots;      // S >= W scratch slots of one super-block each
-    int nsb;        // super-blocks
+    int nsb;        // super-blocks, over the whole bank
+    int nsb_elem;   // super-blocks of one register (nsb / B)
     QtPass p[MAX_MEGA_PASSES];
 };
 
@@ -1230,10 +1258,18 @@ __device__ __forceinline__ void init_ring(uint64_t* bars, int count) {
     __syncthreads();
 }
 
-template <typename T, int FAM>
+// K1 (and K11): one (slab, lane chunk) item per CTA, blockIdx.x; over a
+// bank, of element b = blockIdx.y, whose state and output lie 2 * plane
+// elements on.  The pass is the shared `p`, or with OWN
+// (a bank whose elements carry their own passes) element b's descriptor
+// elems[b] (its sides, mask and split), staged in shared memory; one
+// register, or a bank of shared passes, runs the OWN = false kernel,
+// whose pass stays a kernel parameter.
+template <typename T, int FAM, bool OWN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
-                   long long plane, QtPass p) {
+                   long long plane, QtPass p,
+                   const QtPass* __restrict__ elems) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
     __shared__ uint64_t bars[STAGES];
     T* smem = reinterpret_cast<T*>(smem_raw);
@@ -1242,12 +1278,21 @@ window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
     const long long mid = 1LL << (p.k - 7);
     const long long h = slab / mid, m = slab % mid;
     const long long base = (h * DIM * mid + m) * DIM;
-    const ItemArgs<T, StridedRows> ia{x, x + plane, y, y + plane,
+    const T* xe = x + (long long)blockIdx.y * 2 * plane;
+    T* ye = y + (long long)blockIdx.y * 2 * plane;
+    const ItemArgs<T, StridedRows> ia{xe, xe + plane, ye, ye + plane,
                                       StridedRows{base, mid * DIM}, base,
                                       mid * DIM, chunk * Cfg<T>::LC};
     NoNext none;
-    init_ring(bars, NTHREADS);
-    run_item<T, FAM>(ia, p, smem, bars, 0, false, none);
+    if constexpr (OWN) {
+        __shared__ QtPass ep;
+        if (threadIdx.x == 0) ep = elems[blockIdx.y];
+        init_ring(bars, NTHREADS);      // its barrier publishes `ep`
+        run_item<T, FAM>(ia, ep, smem, bars, 0, false, none);
+    } else {
+        init_ring(bars, NTHREADS);
+        run_item<T, FAM>(ia, p, smem, bars, 0, false, none);
+    }
 }
 
 // K12: one (output slab, lane chunk) item per CTA, the slab's rows
@@ -1320,6 +1365,11 @@ struct MegaLaunch {
     int pass[3];        // per operand slot: the item's pass and
     int sb[3];          // super-block
     ItemArgs<T, StridedRows> ia[3];
+    QtPass ep[3];       // per operand slot, with OWN (a bank whose
+                        // elements carry their own passes), the item's
+                        // element's pass
+    const QtPass* elems;   // bank: B * npass passes (element-major), or
+                           // null when the elements share `a.p`
     const MegaMaps* maps;
     QtMegaArgs a;
 };
@@ -1420,22 +1470,25 @@ __device__ __forceinline__ void mega_wait(const MegaItem& m,
 // super-block G * 128 * 128 apart), and item m.it's slab in the
 // super-block (mid = 2^(k-7) slabs interleaved row by row) and lane
 // chunk.
-template <typename T>
+template <typename T, bool OWN>
 __device__ __forceinline__ void mega_operands(MegaLaunch<T>& L, int s,
                                               const MegaItem& m) {
     const QtMegaArgs& a = L.a;
     const long long sbe = (long long)a.g_rows * DIM * DIM;
+    // the bank element and its own super-block (one element: sb itself)
+    const int eb = m.sb / a.nsb_elem, es = m.sb - eb * a.nsb_elem;
+    const long long ebase = (long long)eb * 2 * L.plane + es * sbe;
     auto place = [&](int pass, long long& pstride) -> T* {
         if (mega_to_out(pass, a.npass)) {
             pstride = L.plane;
-            return L.out + m.sb * sbe;
+            return L.out + ebase;
         }
         pstride = sbe;
         return L.slots + (long long)(m.sb % a.slots) * 2 * sbe;
     };
     ItemArgs<T, StridedRows>& ia = L.ia[s];
     long long ps = L.plane, pd;
-    ia.xr = m.pass > 0 ? place(m.pass - 1, ps) : L.x + m.sb * sbe;
+    ia.xr = m.pass > 0 ? place(m.pass - 1, ps) : L.x + ebase;
     ia.xi = ia.xr + ps;
     ia.yr = place(m.pass, pd);
     ia.yi = ia.yr + pd;
@@ -1457,11 +1510,23 @@ __device__ __forceinline__ void mega_operands(MegaLaunch<T>& L, int s,
         ia.tm_q = (m.sb % a.slots) * 2 * per_sb + hh;
         ia.tm_qp = per_sb;
     } else {
-        ia.tm_q = m.sb * per_sb + hh;
+        // element eb's real plane starts 2 * plane / (128^2 mid) blocks
+        // on
         ia.tm_qp = (int)(L.plane / ((long long)DIM * DIM << shift));
+        ia.tm_q = eb * 2 * ia.tm_qp + es * per_sb + hh;
     }
     L.pass[s] = m.pass;
     L.sb[s] = m.sb;
+    if constexpr (OWN) L.ep[s] = L.elems[eb * a.npass + m.pass];
+}
+
+// The pass an operand slot's item runs: the group's, or with OWN the one
+// staged for the slot.
+template <bool OWN, typename T>
+__device__ __forceinline__ const QtPass& mega_pass(const MegaLaunch<T>& L,
+                                                   int s) {
+    if constexpr (OWN) return L.ep[s];
+    else return L.a.p[L.pass[s]];
 }
 
 // K2's hooks in an item's K-tile stream (window_item).  Their state lies
@@ -1470,7 +1535,7 @@ __device__ __forceinline__ void mega_operands(MegaLaunch<T>& L, int s,
 // as a ticket's first item begins, stays in a register.  The first item
 // of a ticket hands on to the second, which is always ready; the second
 // to the CTA's next ticket, whose inputs thread 0 polls.
-template <typename T>
+template <typename T, bool OWN>
 struct MegaNext {
     static constexpr bool enabled = true;
     MegaLaunch<T>& L;
@@ -1507,7 +1572,7 @@ struct MegaNext {
         mega_needs(m, L.a, need0, need1);
         if (need0) seen0 = ld_relaxed(L.done + m.sb);
         if (need1) seen1 = ld_relaxed(L.done + m.sb - L.a.slots);
-        mega_operands(L, L.slot == 2 ? 0 : L.slot + 1, m);
+        mega_operands<T, OWN>(L, L.slot == 2 ? 0 : L.slot + 1, m);
     }
     // The last tile, before its barrier (thread 0): whether the next
     // item's tile 0 goes out now; for a new ticket, whether its inputs
@@ -1537,7 +1602,7 @@ struct MegaNext {
         if (!L.go) return;
         const int s = L.go_slot;
         const ItemArgs<T, StridedRows>& ia = L.ia[s];
-        const QtPass& p = L.a.p[L.pass[s]];
+        const QtPass& p = mega_pass<OWN>(L, s);
         // a new ticket's inputs, acquired (poll), before the copy
         // engine's reads; the threads' reads of shared memory before its
         // writes
@@ -1558,11 +1623,12 @@ struct MegaNext {
 // for about 64 KB to reach L2 at the SM's share of the write rate).  Any
 // other item first publishes the previous ticket (it may wait on it) and
 // then waits for its inputs.
-template <typename T, int FAM>
+template <typename T, int FAM, bool OWN>
 __global__ void __launch_bounds__(NTHREADS, 1)
 megawin_kernel(const T* __restrict__ x, T* out, T* slots, unsigned* work,
                long long plane, QtMegaArgs args,
-               const __grid_constant__ MegaMaps maps) {
+               const __grid_constant__ MegaMaps maps,
+               const QtPass* __restrict__ elems) {
     // the swizzled X tiles start on 1024 bytes; a base the compiler knows
     // keeps the tiles' addresses out of registers
     extern __shared__ __align__(1024) unsigned char mega_smem[];
@@ -1580,6 +1646,7 @@ megawin_kernel(const T* __restrict__ x, T* out, T* slots, unsigned* work,
         L.done = reinterpret_cast<int*>(work + 1);
         L.plane = plane;
         L.pending = -1;
+        L.elems = elems;
         L.a = args;
         L.ticket = atomicAdd(work, 1u);
     }
@@ -1601,7 +1668,7 @@ megawin_kernel(const T* __restrict__ x, T* out, T* slots, unsigned* work,
                 if (L.ticket >= mega_tickets(L.a)) break;
                 if (tid == 0) {
                     const MegaItem m = mega_decode(L.ticket, L.a);
-                    mega_operands(L, slot, m);
+                    mega_operands<T, OWN>(L, slot, m);
                     mega_wait(m, L);
                 }
             }
@@ -1613,7 +1680,7 @@ megawin_kernel(const T* __restrict__ x, T* out, T* slots, unsigned* work,
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         }
         const int nslot = slot == 2 ? 0 : slot + 1;
-        MegaNext<T> next{L, 0u, 0, 0};
+        MegaNext<T, OWN> next{L, 0u, 0, 0};
         if (tid == 0) {
             L.slot = slot;
             L.first = first;
@@ -1625,8 +1692,9 @@ megawin_kernel(const T* __restrict__ x, T* out, T* slots, unsigned* work,
             L.ia[nslot].l0 += Cfg<T>::LC;
             L.pass[nslot] = L.pass[slot];
             L.sb[nslot] = L.sb[slot];
+            if constexpr (OWN) L.ep[nslot] = L.ep[slot];
         }
-        const QtPass& p = L.a.p[L.pass[slot]];
+        const QtPass& p = mega_pass<OWN>(L, slot);
         ring = run_item<T, FAM>(L.ia[slot], p, smem, bars, ring, primed,
                                 next);
         // every thread reads the flag after the item's last barrier;
@@ -1660,42 +1728,63 @@ static bool pass_ok(const QtPass& p, int n) {
     return true;
 }
 
+// A bank element's pass must match the launch's shape: the same window,
+// rank, sides present and precision family; its own sides, mask and
+// split.
+static bool same_shape(const QtPass& e, const QtPass& p) {
+    return e.k == p.k && e.rank == p.rank && e.apply_a == p.apply_a &&
+           e.apply_b == p.apply_b && (e.mask == nullptr) == (p.mask == nullptr) &&
+           split_family(e.split) == split_family(p.split);
+}
+
 template <typename T, int FAM>
-static int launch_window_pass_as(const T* x, T* y, int n, const QtPass& pass,
+static int launch_window_pass_as(const T* x, T* y, int n, int nbank,
+                                 const QtPass& pass, const QtPass* elems,
                                  void* stream) {
     const size_t smem = smem_bytes<T>();
+    const auto kernel = elems != nullptr ? window_pass_kernel<T, FAM, true>
+                                         : window_pass_kernel<T, FAM, false>;
     cudaError_t err = cudaFuncSetAttribute(
-        window_pass_kernel<T, FAM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long plane = 1LL << n;
-    const long long nslab = 1LL << (n - 14);
-    window_pass_kernel<T, FAM><<<(unsigned)(nslab * nchunk<T>()), NTHREADS,
-                                 smem, (cudaStream_t)stream>>>(x, y, plane,
-                                                               pass);
+    const dim3 grid((unsigned)((1LL << (n - 14)) * nchunk<T>()),
+                    (unsigned)nbank);
+    kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(x, y, plane, pass,
+                                                         elems);
     return (int)cudaGetLastError();
 }
 
+// K1 over a bank of `nbank` registers (x and y: (nbank, 2, 2^n); one
+// register is nbank = 1).  With `elems_host` (nbank passes, host) the
+// elements run their own passes, which the kernel reads from
+// `elems_dev`, a device copy the wrapper made; `pass` is then element
+// 0's, for the launch's shape.
 template <typename T>
-static int launch_window_pass(const T* x, T* y, int n, const QtPass* pass,
-                              void* stream) {
-    if (pass == nullptr || n < 14 || !pass_ok(*pass, n) || !aligned16(x) ||
-        !aligned16(y))
+static int launch_window_pass(const T* x, T* y, int n, int nbank,
+                              const QtPass* pass, const QtPass* elems_host,
+                              const QtPass* elems_dev, void* stream) {
+    if (pass == nullptr || n < 14 || nbank < 1 || nbank > 65535 ||
+        !pass_ok(*pass, n) || !aligned16(x) || !aligned16(y) ||
+        (elems_host == nullptr) != (elems_dev == nullptr))
         return (int)cudaErrorInvalidValue;
+    for (int b = 0; elems_host != nullptr && b < nbank; ++b)
+        if (!pass_ok(elems_host[b], n) || !same_shape(elems_host[b], *pass))
+            return (int)cudaErrorInvalidValue;
     if constexpr (sizeof(T) == 8) {
-        return launch_window_pass_as<T, FAMILY_HIGHEST>(x, y, n, *pass,
-                                                        stream);
+        return launch_window_pass_as<T, FAMILY_HIGHEST>(x, y, n, nbank, *pass,
+                                                        elems_dev, stream);
     } else {
         switch (split_family(pass->split)) {
             case FAMILY_TF32:
-                return launch_window_pass_as<T, FAMILY_TF32>(x, y, n, *pass,
-                                                             stream);
+                return launch_window_pass_as<T, FAMILY_TF32>(
+                    x, y, n, nbank, *pass, elems_dev, stream);
             case FAMILY_BF16:
-                return launch_window_pass_as<T, FAMILY_BF16>(x, y, n, *pass,
-                                                             stream);
+                return launch_window_pass_as<T, FAMILY_BF16>(
+                    x, y, n, nbank, *pass, elems_dev, stream);
             default:
-                return launch_window_pass_as<T, FAMILY_HIGHEST>(x, y, n, *pass,
-                                                                stream);
+                return launch_window_pass_as<T, FAMILY_HIGHEST>(
+                    x, y, n, nbank, *pass, elems_dev, stream);
         }
     }
 }
@@ -1808,7 +1897,7 @@ template <typename T>
 static int megawin_ctas(int* ctas) {
     if (ctas == nullptr) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        megawin_kernel<T, FAMILY_HIGHEST>,
+        megawin_kernel<T, FAMILY_HIGHEST, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)mega_smem_bytes<T>());
     if (err != cudaSuccess) return (int)err;
@@ -1818,7 +1907,7 @@ static int megawin_ctas(int* ctas) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, megawin_kernel<T, FAMILY_HIGHEST>, NTHREADS,
+        &per, megawin_kernel<T, FAMILY_HIGHEST, false>, NTHREADS,
         mega_smem_bytes<T>());
     if (err != cudaSuccess) return (int)err;
     *ctas = sms * per;
@@ -1828,25 +1917,42 @@ static int megawin_ctas(int* ctas) {
 template <typename T, int FAM>
 static int launch_megawin_as(const T* x, T* out, T* slots, unsigned* work,
                              int ctas, int n, const QtMegaArgs& args,
-                             const MegaMaps& maps, void* stream) {
+                             const MegaMaps& maps, const QtPass* elems,
+                             void* stream) {
+    // the elements' own passes (OWN), or the group's
+    const auto kernel = elems != nullptr ? megawin_kernel<T, FAM, true>
+                                         : megawin_kernel<T, FAM, false>;
     cudaError_t err = cudaFuncSetAttribute(
-        megawin_kernel<T, FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)mega_smem_bytes<T>());
     if (err != cudaSuccess) return (int)err;
     const long long plane = 1LL << n;
-    megawin_kernel<T, FAM><<<(unsigned)ctas, NTHREADS, mega_smem_bytes<T>(),
-                             (cudaStream_t)stream>>>(x, out, slots, work,
-                                                     plane, args, maps);
+    kernel<<<(unsigned)ctas, NTHREADS, mega_smem_bytes<T>(),
+             (cudaStream_t)stream>>>(x, out, slots, work, plane, args, maps,
+                                     elems);
     return (int)cudaGetLastError();
 }
 
 // `slots` holds S * 2 * G * 128 * 128 elements (groups of one pass need
-// none); `work` 1 + nsb zeroed counters.  W and S come from the wrapper
-// (ops/fused.py megawin_schedule).
+// none); `work` 1 + nsb zeroed counters, nsb over the whole bank of
+// `nbank` registers (x and out: (nbank, 2, 2^n)).  W and S come from the
+// wrapper (ops/fused.py megawin_schedule).  With `elems_host` (nbank *
+// npass passes, element-major, host) the elements run their own passes
+// from `elems_dev`, the wrapper's device copy; `passes` are then element
+// 0's, for the group's shape.
 template <typename T>
 static int launch_megawin(const T* x, T* out, T* slots, unsigned* work,
                           int ctas, int window, int nslots, int n,
-                          const QtPass* passes, int npass, void* stream) {
+                          const QtPass* passes, int npass, int nbank,
+                          const QtPass* elems_host, const QtPass* elems_dev,
+                          void* stream) {
+    if (nbank < 1 || (elems_host == nullptr) != (elems_dev == nullptr))
+        return (int)cudaErrorInvalidValue;
+    for (int b = 0; elems_host != nullptr && b < nbank; ++b)
+        for (int i = 0; passes != nullptr && i < npass; ++i)
+            if (!pass_ok(elems_host[b * npass + i], n) ||
+                !same_shape(elems_host[b * npass + i], passes[i]))
+                return (int)cudaErrorInvalidValue;
     if (passes == nullptr || n < 14 || npass < 1 ||
         npass > MAX_MEGA_PASSES || ctas < 1 || work == nullptr ||
         ((uintptr_t)work & 3) ||
@@ -1870,7 +1976,7 @@ static int launch_megawin(const T* x, T* out, T* slots, unsigned* work,
     const long long nb = 1LL << (n - 14);
     const long long g = 1LL << (kmax - 7);
     if (g > nb) return (int)cudaErrorInvalidValue;
-    const long long nsb = nb / g;
+    const long long nsb = nb / g * nbank;
     const long long ipp = g * nchunk<T>();
     // the slot ring must span a window (a slot's previous occupant then
     // lies in a lower window), and the tickets fit the 32-bit counter
@@ -1883,7 +1989,9 @@ static int launch_megawin(const T* x, T* out, T* slots, unsigned* work,
     args.window = window;
     args.slots = npass > 1 ? nslots : 1;
     args.nsb = (int)nsb;
+    args.nsb_elem = (int)(nb / g);
     // each pass's source: the state, then where the pass before wrote
+    // (the state and output maps span the bank)
     MegaMaps maps;
     for (int i = 0; i < npass; ++i) {
         const int shift = args.p[i].k - 7;
@@ -1892,26 +2000,27 @@ static int launch_megawin(const T* x, T* out, T* slots, unsigned* work,
             slot ? mega_map<T>(&maps.m[i], slots, (2 * nslots * g) >> shift,
                                shift)
                  : mega_map<T>(&maps.m[i], i == 0 ? x : out,
-                               (2 * nb) >> shift, shift);
+                               (2 * nb * nbank) >> shift, shift);
         if (!ok) return (int)cudaErrorInvalidValue;
     }
     if constexpr (sizeof(T) == 8) {
         return launch_megawin_as<T, FAMILY_HIGHEST>(x, out, slots, work, ctas,
-                                                    n, args, maps, stream);
+                                                    n, args, maps, elems_dev,
+                                                    stream);
     } else {
         switch (fam) {
             case FAMILY_TF32:
                 return launch_megawin_as<T, FAMILY_TF32>(x, out, slots, work,
                                                          ctas, n, args, maps,
-                                                         stream);
+                                                         elems_dev, stream);
             case FAMILY_BF16:
                 return launch_megawin_as<T, FAMILY_BF16>(x, out, slots, work,
                                                          ctas, n, args, maps,
-                                                         stream);
+                                                         elems_dev, stream);
             default:
                 return launch_megawin_as<T, FAMILY_HIGHEST>(x, out, slots, work,
                                                             ctas, n, args, maps,
-                                                            stream);
+                                                            elems_dev, stream);
         }
     }
 }
@@ -1920,14 +2029,22 @@ extern "C" {
 
 int qt_max_mega_passes() { return MAX_MEGA_PASSES; }
 
-int qt_window_pass_f32(const float* x, float* y, int n, const QtPass* pass,
-                       void* stream) {
-    return launch_window_pass<float>(x, y, n, pass, stream);
+// K1 (and K11) over a bank of nbank registers in one launch; one
+// register is nbank = 1 with no element passes.
+int qt_window_pass_f32(const float* x, float* y, int n, int nbank,
+                       const QtPass* pass, const QtPass* elems_host,
+                       const void* elems_dev, void* stream) {
+    return launch_window_pass<float>(x, y, n, nbank, pass, elems_host,
+                                     static_cast<const QtPass*>(elems_dev),
+                                     stream);
 }
 
-int qt_window_pass_f64(const double* x, double* y, int n,
-                       const QtPass* pass, void* stream) {
-    return launch_window_pass<double>(x, y, n, pass, stream);
+int qt_window_pass_f64(const double* x, double* y, int n, int nbank,
+                       const QtPass* pass, const QtPass* elems_host,
+                       const void* elems_dev, void* stream) {
+    return launch_window_pass<double>(x, y, n, nbank, pass, elems_host,
+                                      static_cast<const QtPass*>(elems_dev),
+                                      stream);
 }
 
 int qt_megawin_ctas_f32(int* ctas) { return megawin_ctas<float>(ctas); }
@@ -1936,17 +2053,27 @@ int qt_megawin_ctas_f64(int* ctas) { return megawin_ctas<double>(ctas); }
 
 int qt_megawin_f32(const float* x, float* out, float* slots, unsigned* work,
                    int ctas, int window, int nslots, int n,
-                   const QtPass* passes, int npass, void* stream) {
+                   const QtPass* passes, int npass, int nbank,
+                   const QtPass* elems_host, const void* elems_dev,
+                   void* stream) {
     return launch_megawin<float>(x, out, slots, work, ctas, window, nslots,
-                                 n, passes, npass, stream);
+                                 n, passes, npass, nbank, elems_host,
+                                 static_cast<const QtPass*>(elems_dev),
+                                 stream);
 }
 
 int qt_megawin_f64(const double* x, double* out, double* slots,
                    unsigned* work, int ctas, int window, int nslots, int n,
-                   const QtPass* passes, int npass, void* stream) {
+                   const QtPass* passes, int npass, int nbank,
+                   const QtPass* elems_host, const void* elems_dev,
+                   void* stream) {
     return launch_megawin<double>(x, out, slots, work, ctas, window, nslots,
-                                  n, passes, npass, stream);
+                                  n, passes, npass, nbank, elems_host,
+                                  static_cast<const QtPass*>(elems_dev),
+                                  stream);
 }
+
+int qt_qtpass_size() { return (int)sizeof(QtPass); }
 
 int qt_swap_cluster_stack_f32(const float* x, float* y, int n, int rank,
                               const float* a, const float* b, int split,

@@ -34,6 +34,7 @@ from contextlib import contextmanager
 from typing import List
 
 import numpy as np
+import torch
 
 from . import circuit as C
 from . import optimizer as _opt
@@ -98,13 +99,16 @@ class ChannelItem:
         self.prob = float(prob)
 
 
-def _plan_key(items, nloc: int, sweep_ok: bool, device=None):
+def _plan_key(items, nloc: int, sweep_ok: bool, device=None,
+              bank: tuple = (0, 0)):
     """Content key for an item list: the gate matrices' bytes, each
     channel's (kind, target, bra) (its probability is a run-time value),
     whether channel runs may sweep, the knobs that change the plan (the
-    planner, QT_PLANNER, and megawin grouping) and the window kernels'
+    planner, QT_PLANNER, and megawin grouping), the window kernels'
     precision mode, which the reference's key holds as well
-    (quest_tpu/fusion.py:565)."""
+    (quest_tpu/fusion.py:565), and ``bank``, (batch flag, bank size):
+    a bank's per-element program never replays for another bank or for a
+    single register."""
     parts = []
     for it in items:
         if isinstance(it, ChannelItem):
@@ -116,7 +120,7 @@ def _plan_key(items, nloc: int, sweep_ok: bool, device=None):
         parts.append((it.targets, m.dtype.str, m.shape, m.tobytes()))
     return (nloc, sweep_ok, C.resolve_planner(),
             _fused.megakernel_planning(device),
-            _fused.matmul_precision_name(), tuple(parts))
+            _fused.matmul_precision_name(), tuple(bank), tuple(parts))
 
 
 # minimum adjacent permutation-classified gates worth splitting out of a
@@ -197,15 +201,95 @@ def _split_items(items, nloc: int, sweep_ok: bool, device=None):
     return tuple(program)
 
 
-def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool):
-    """The program of an optimized item list (cached on its content)."""
+def batch_flag(items, batch_size: int) -> int:
+    """The reference's batch flag of a drain (quest_tpu/fusion.py:566):
+    0 for one register, 1 for a bank whose items are all shared, 2 for a
+    bank with a per-element (B, 2, s, s) gate matrix."""
+    if not batch_size:
+        return 0
+    per = any(not isinstance(it, ChannelItem)
+              and getattr(it.mat, "ndim", 0) == 4 for it in items)
+    return 2 if per else 1
+
+
+def _items_for_element(items, b: int):
+    """Item list of bank element ``b``: per-element (B, 2, s, s) matrices
+    sliced to element b's; shared matrices and channels as they are."""
+    out = []
+    for it in items:
+        if isinstance(it, ChannelItem) or getattr(it.mat, "ndim", 0) != 4:
+            out.append(it)
+        else:
+            out.append(C.Gate(it.targets, it.mat[b]))
+    return out
+
+
+def _program_split(program):
+    """(skeleton, arrays) of a program: its planned parts' operands
+    apart (circuit.split_plan), the rest as they are."""
+    skeleton, arrays = [], []
+    for part in program:
+        if part[0] == "plan":
+            sk, arr = C.split_plan(part[1])
+            skeleton.append(("plan", sk))
+            arrays.extend(arr)
+        else:
+            skeleton.append(part)
+    return tuple(skeleton), arrays
+
+
+def _program_rebuild(skeleton, arrays):
+    it = iter(arrays)
+    return tuple(("plan", tuple(C._rebuild_plan_iter(part[1], it)))
+                 if part[0] == "plan" else part for part in skeleton)
+
+
+def _plan_batched_items(items, bsz: int, num_qubits: int, device,
+                        sweep_ok: bool):
+    """The program of a bank drain whose items carry per-element
+    matrices (quest_tpu/fusion.py _plan_batched_items): each element is
+    planned on its own (a controlled gate's decomposition depends on its
+    values; each element's plan is cached as that element's scalar drain
+    would cache it), all must plan to the same skeleton, and each pass
+    array is stacked to a leading (B, ...) axis."""
+    from .validation import QuESTError
+
+    skeleton, per_elem = None, []
+    for b in range(bsz):
+        sk, arrays = _program_split(_plan_optimized(
+            _items_for_element(items, b), num_qubits, device, sweep_ok))
+        if b == 0:
+            skeleton = sk
+        elif sk != skeleton:
+            raise QuESTError(
+                "batched drain: batch element %d's gate stream plans to a "
+                "different program skeleton than element 0 (value-dependent "
+                "decomposition, e.g. a controlled gate of different Schmidt "
+                "rank) — such submissions cannot share one batched program; "
+                "run them in separate ensemble groups" % b)
+        per_elem.append(arrays)
+    stacked = [np.stack([np.asarray(per_elem[b][j]) for b in range(bsz)])
+               for j in range(len(per_elem[0]))]
+    return _program_rebuild(skeleton, stacked)
+
+
+def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool,
+                    batch_size: int = 0):
+    """The program of an optimized item list (cached on its content), of
+    one register or of a bank of ``batch_size`` registers."""
     if not items:
         return ()
-    key = _plan_key(items, num_qubits, sweep_ok, device)
+    flag = batch_flag(items, batch_size)
+    key = _plan_key(items, num_qubits, sweep_ok, device,
+                    (flag, batch_size if flag == 2 else 0))
     hit = _plan_cache.get(key) if key is not None else None
     if hit is not None:
         return hit
-    program = _split_items(items, num_qubits, sweep_ok, device)
+    if flag == 2:
+        program = _plan_batched_items(items, batch_size, num_qubits, device,
+                                      sweep_ok)
+    else:
+        program = _split_items(items, num_qubits, sweep_ok, device)
     if key is not None:
         if len(_plan_cache) >= _PLAN_CACHE_MAX:
             _plan_cache.pop(next(iter(_plan_cache)))
@@ -213,13 +297,15 @@ def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool):
     return program
 
 
-def plan_items(items, num_qubits: int, device=None, sweep_ok: bool = False):
-    """The program a drain of ``items`` on an n-qubit register on
-    ``device`` executes: the optimized stream split into permutation,
-    planned and channel parts (cached on the items' content).  A drain
-    passes ``sweep_ok = fused.channel_sweep_enabled(state)``."""
+def plan_items(items, num_qubits: int, device=None, sweep_ok: bool = False,
+               batch_size: int = 0):
+    """The program a drain of ``items`` on an n-qubit register (or a bank
+    of ``batch_size`` registers) on ``device`` executes: the optimized
+    stream split into permutation, planned and channel parts (cached on
+    the items' content).  A drain passes ``sweep_ok =
+    fused.channel_sweep_enabled(state)``."""
     items, _stats = _opt.optimize_items(items, nloc=num_qubits)
-    return _plan_optimized(items, num_qubits, device, sweep_ok)
+    return _plan_optimized(items, num_qubits, device, sweep_ok, batch_size)
 
 
 def program_stats(program) -> dict:
@@ -238,8 +324,13 @@ def program_stats(program) -> dict:
 def execute_program(amps, program, probs, num_qubits: int):
     """Run a program's parts in order; ``probs`` holds the probability of
     each of its channels, in order.  Returns the new state (a sweep
-    overwrites a float32 state on the card in place)."""
+    overwrites a float32 state on the card in place).  The state may be
+    a (B, 2, 2^n) register bank: its planned parts and sweeps take the
+    whole bank (``circuit.execute_plan``, K5), a channel takes it as a
+    batch dimension, every element under the same probabilities (the
+    reference's vmap in_axes)."""
     n = num_qubits
+    bank = _fused.bank_size(amps, n)
     pi = 0
     for part in program:
         if part[0] == "chansweep":
@@ -249,8 +340,12 @@ def execute_program(amps, program, probs, num_qubits: int):
             pi += len(entries)
         elif part[0] == "chan":
             _, kind, t, b = part
-            amps = _density.apply_pair_channel(amps, kind, probs[pi], nn=n,
-                                               t=t, b=b)
+
+            def chan(a, kind=kind, p=probs[pi], t=t, b=b):
+                return _density.apply_pair_channel(a, kind, p, nn=n, t=t,
+                                                   b=b)
+
+            amps = torch.vmap(chan)(amps) if bank else chan(amps)
             pi += 1
         else:
             amps = C.execute_plan(amps, part[1], n)
@@ -260,13 +355,16 @@ def execute_program(amps, program, probs, num_qubits: int):
 def _run(qureg, items) -> None:
     """Plan with the concrete gate matrices (so controlled gates Schmidt-
     decompose to their true rank), then execute the program on the
-    register's tensor, with the channels' probabilities in stream
-    order."""
+    register's tensor, with the channels' probabilities in stream order.
+    A BatchedQureg (batch.py) drains its whole (B, 2, 2^n) bank through
+    one program: shared plans (flag 1), or per-element plans of one
+    skeleton stacked (flag 2)."""
     n = qureg.num_qubits_in_state_vec
     amps = qureg._amps
+    bsz = int(getattr(qureg, "batch_size", 0) or 0)
     items, _stats = _opt.optimize_items(items, nloc=n)
     program = _plan_optimized(items, n, qureg.device,
-                              _fused.channel_sweep_enabled(amps))
+                              _fused.channel_sweep_enabled(amps), bsz)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
     qureg._amps = execute_program(amps, program, probs, n)
 

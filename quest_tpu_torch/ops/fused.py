@@ -417,6 +417,43 @@ def pass_split(dtype, precision: str, *sides) -> int:
     return int(all(_side_exact(s) for s in sides))
 
 
+def _elem_exact(arr, nbank: int) -> tuple:
+    """``tf32_exact`` of each element of a bank's per-element side stack
+    (B, R, 2, 128, 128), remembered on a tensor until it changes (one
+    read for all elements)."""
+    if not torch.is_tensor(arr):
+        return tuple(tf32_exact(arr[b]) for b in range(nbank))
+    tag = getattr(arr, "_qt_tf32_exact_elems", None)
+    if tag is None or tag[0] != arr._version:
+        t = arr.detach().to(torch.float32).contiguous().view(torch.int32)
+        low = (t & _TF32_LOW).reshape(nbank, -1).any(dim=1).cpu()
+        tag = (arr._version, tuple(not bool(v) for v in low))
+        arr._qt_tf32_exact_elems = tag
+    return tag[1]
+
+
+def note_elem_exact(t, flags) -> None:
+    """Remember on a per-element side stack ``t`` each element's TF32
+    exactness (decided on the host from the NumPy source)."""
+    t._qt_tf32_exact_elems = (t._version, tuple(bool(f) for f in flags))
+
+
+def bank_pass_splits(dtype, precision: str, nbank: int, *sides) -> tuple:
+    """QtPass.split of each element of a bank pass applying ``sides``,
+    each a shared (R, 2, 128, 128) or per-element (B, R, 2, 128, 128)
+    stack: under "highest" an element whose own sides are all TF32
+    values takes SPLIT_EXACT and the others SPLIT_TF32X3, as each
+    element's scalar launch would."""
+    if dtype != torch.float32 or precision != "highest":
+        return (pass_split(dtype, precision),) * nbank
+    exact = [True] * nbank
+    for s in sides:
+        flags = (_elem_exact(s, nbank) if np.ndim(s) == 5
+                 else (_side_exact(s),) * nbank)
+        exact = [e and f for e, f in zip(exact, flags)]
+    return tuple(int(e) for e in exact)
+
+
 def _side_planes(t, split: int):
     """The planes of a float32 side stack (R, 2, 128, 128) as the kernels
     multiply them under ``split``: (re, im), their TF32 roundings, or the
@@ -431,7 +468,7 @@ def _side_planes(t, split: int):
     return torch.cat(bf16_split(t), dim=1).to(torch.bfloat16)
 
 
-def _side_image(arr, dtype, device, split: int):
+def _side_image(arr, dtype, device, split: int, elem=None):
     """A side stack (R, 2, 128, 128) as the window kernels copy it, one
     bulk copy per plane and K tile: per rank r, plane p and K tile j, a
     block of the 128 rows as the kernel's shared memory holds them.
@@ -439,13 +476,19 @@ def _side_image(arr, dtype, device, split: int):
     8-row core matrices of 16-byte rows (4 TF32 or 8 bf16 values),
     [r][p][j][row // 8][16-byte chunk][row % 8][values] (the K-major
     layout wgmma reads).  float64: (re, im), K tiles of 16 columns, rows
-    padded to 20.  Made on ``device``, once per tensor and split."""
+    padded to 20.  Made on ``device``, once per tensor and split.  With
+    ``elem``, the image of element ``elem`` of a bank's per-element stack
+    (B, R, 2, 128, 128), remembered on the stack under the element's own
+    key (the stack's contents, not element 0's)."""
     key = (str(torch.device(device)), dtype, int(split))
+    if elem is not None:
+        key += (int(elem),)
     if torch.is_tensor(arr):
         tag = getattr(arr, "_qt_side_images", None)
         if tag is not None and tag[0] == arr._version and key in tag[1]:
             return tag[1][key]
-    t = torch.as_tensor(arr if torch.is_tensor(arr) else np.asarray(arr),
+    src = arr if elem is None else arr[elem]
+    t = torch.as_tensor(src if torch.is_tensor(src) else np.asarray(src),
                         dtype=dtype, device=device).contiguous()
     rank = t.shape[0]
     if dtype == torch.float32:
@@ -559,16 +602,29 @@ class _QtPass(ctypes.Structure):
 
 # qt_megawin_f32/_f64 (csrc/window.cu): state, output, slots, work
 # (ticket and done-counters), CTAs, window W, slots S, n, passes, pass
-# count, stream
+# count, bank size, the elements' passes on the host and on the card
+# (null for one register or shared passes), stream
 MEGAWIN_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.POINTER(_QtPass),
-                    ctypes.c_int, ctypes.c_void_p)
+                    ctypes.c_int, ctypes.c_int, ctypes.POINTER(_QtPass),
+                    ctypes.c_void_p, ctypes.c_void_p)
+
+# qt_window_pass_f32/_f64: state, output, n, bank size (1: one
+# register), the pass, the elements' passes on the host and on the card
+# (null for one register or shared passes), stream
+WINDOW_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.POINTER(_QtPass),
+                   ctypes.POINTER(_QtPass), ctypes.c_void_p,
+                   ctypes.c_void_p)
 
 _BOUND: dict = {}
 # launches of each kernel, counted where its wrapper launches it
+# (launches over a register bank, one a pass for the whole bank, count
+# under K1_bank, K2_bank, K5_bank and K11_bank)
 LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0,
-            "K11": 0, "K12": 0}
+            "K11": 0, "K12": 0, "K1_bank": 0, "K2_bank": 0, "K5_bank": 0,
+            "K11_bank": 0}
 
 
 def _lib():
@@ -576,15 +632,19 @@ def _lib():
     if "lib" not in _BOUND:
         lib = build.library()
         ptr = ctypes.c_void_p
-        p_pass = ctypes.POINTER(_QtPass)
         for name in ("qt_window_pass_f32", "qt_window_pass_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ctypes.c_int, p_pass, ptr]
+            fn.argtypes = list(WINDOW_ARGTYPES)
             fn.restype = ctypes.c_int
         for name in ("qt_megawin_f32", "qt_megawin_f64"):
             fn = getattr(lib, name)
             fn.argtypes = list(MEGAWIN_ARGTYPES)
             fn.restype = ctypes.c_int
+        lib.qt_qtpass_size.argtypes = []
+        lib.qt_qtpass_size.restype = ctypes.c_int
+        if lib.qt_qtpass_size() != ctypes.sizeof(_QtPass):
+            raise RuntimeError("csrc/window.cu and ops/fused.py disagree on "
+                               "struct QtPass")
         for name in ("qt_megawin_ctas_f32", "qt_megawin_ctas_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -672,41 +732,187 @@ def _pass_struct(op, amps, keep: list, precision: str = "highest") -> _QtPass:
                    None if m is None else m.data_ptr())
 
 
+# ---------------------------------------------------------------------------
+# Register banks
+# ---------------------------------------------------------------------------
+#
+# A BatchedQureg's drain (fusion.py, batch flags 1 and 2) hands the
+# wrappers below a (B, 2, 2^n) register bank in place of one register's
+# state; each runs a window pass (K1, K11) or a megawin group (K2), and
+# apply_pair_channel_sweep a sweep (K5), over the whole bank in ONE
+# launch, as the reference's jax.vmap of its Pallas calls prepends a grid
+# axis (csrc/window.cu and csrc/channels.cu, "Register banks").  A bank
+# op's arrays are shared, or carry a leading B axis per element (flag 2:
+# sides (B, R, 2, 128, 128), masks (B, 2, 128, 128), matrices (B, 2, s,
+# s)).  Each element gets the bits its own launch gives: the same item
+# body, and its own TF32 split (``bank_pass_splits``).  On the CPU a
+# bank runs the plain version element by element.
+
+
+def bank_size(amps, num_qubits: int) -> int:
+    """B of a (B, 2, 2^n) register bank; 0 for one register's state (any
+    full-size view of it: (2, 2^n), the canonical (2, nb, 128, 128))."""
+    if amps.dim() == 3 and tuple(amps.shape[1:]) == (2, 1 << num_qubits):
+        return int(amps.shape[0])
+    return 0
+
+
+def bank_element_op(op, b: int):
+    """Element ``b``'s op of a bank plan op: each array with a leading
+    per-element axis (one more than a register's) sliced to element b's,
+    shared ones as they are."""
+    def pick(x, ndim):
+        return x[b] if x is not None and np.ndim(x) == ndim + 1 else x
+
+    kind, op = op[0], tuple(op)
+    if kind == "winfused":
+        mask = (pick(op[6], 3),) if len(op) > 6 else ()
+        return op[:2] + (pick(op[2], 4), pick(op[3], 4)) + op[4:6] + mask
+    if kind == "megawin":
+        return (kind, [bank_element_op(o, b) for o in op[1]])
+    if kind == "fused":
+        return (kind, pick(op[1], 4), pick(op[2], 4))
+    if kind == "swapfused":
+        return op[:4] + (pick(op[4], 4), pick(op[5], 4))
+    if kind == "apply":
+        return (kind, op[1], pick(op[2], 3)) + op[3:]
+    return op
+
+
+def _by_element(amps, op, run):
+    """``run(element, element's op)`` on each element of a bank, stacked:
+    the plain version of a bank launch."""
+    return torch.stack([run(amps[b], bank_element_op(op, b))
+                        for b in range(amps.shape[0])])
+
+
+def _per_element(op) -> bool:
+    """Whether a bank pass carries an array per element (either side
+    stack, or its mask)."""
+    mask = op[6] if len(op) > 6 else None
+    return (np.ndim(op[2]) == 5 or np.ndim(op[3]) == 5
+            or (mask is not None and np.ndim(mask) == 4))
+
+
+def _bank_descs(op, bank, keep: list, precision: str):
+    """(element 0's QtPass, [QtPass per element]) of a bank pass whose
+    sides or mask are per element; the images and masks are appended to
+    ``keep``.  Each element's pass holds its own side images (made under
+    its own split), mask and split."""
+    nb = int(bank.shape[0])
+    mask = op[6] if len(op) > 6 else None
+    if any(np.ndim(m) == d and np.shape(m)[0] != nb
+           for m, d in ((op[2], 5), (op[3], 5), (mask, 4))):
+        raise ValueError(f"a bank pass's per-element arrays must hold "
+                         f"{nb} elements")
+    sa, sb = (tuple(np.shape(m))[-4:] for m in op[2:4])
+    rank = sa[0]
+    if sa != (rank, 2, CLUSTER_DIM, CLUSTER_DIM) or sb != sa:
+        raise ValueError(f"window pass matrices must be (R, 2, 128, 128) "
+                         f"per element, got {np.shape(op[2])} and "
+                         f"{np.shape(op[3])}")
+    used = [m for m, on in ((op[2], op[4]), (op[3], op[5])) if on]
+    splits = bank_pass_splits(bank.dtype, precision, nb, *used)
+    m = None
+    if mask is not None:
+        m = _as_operand(mask, bank)
+        if tuple(m.shape[-3:]) != (2, CLUSTER_DIM, CLUSTER_DIM):
+            raise ValueError(f"window mask must be (2, 128, 128) per "
+                             f"element, got {tuple(m.shape)}")
+        if m.data_ptr() % 16:
+            m = m.clone()
+        keep.append(m)
+    descs, shared = [], {}
+    for b in range(nb):
+        imgs = []
+        for j, side in enumerate(op[2:4]):
+            if np.ndim(side) == 5:
+                img = _side_image(side, bank.dtype, bank.device, splits[b],
+                                  elem=b)
+            else:
+                # a shared side: one image per split for the whole bank
+                if (j, splits[b]) not in shared:
+                    shared[j, splits[b]] = _side_image(
+                        side, bank.dtype, bank.device, splits[b])
+                img = shared[j, splits[b]]
+            keep.append(img)
+            imgs.append(img.data_ptr())
+        mp = None
+        if m is not None:
+            mp = m[b].data_ptr() if m.dim() == 4 else m.data_ptr()
+        descs.append(_QtPass(int(op[1]), rank, int(bool(op[4])),
+                             int(bool(op[5])), splits[b], imgs[0], imgs[1],
+                             mp))
+    return descs[0], descs
+
+
+def _upload_descs(descs, device, keep: list):
+    """A host array of QtPass descriptors and its copy on ``device`` (a
+    pinned staging copy, so the upload is ordered on the stream)."""
+    host = (_QtPass * len(descs))(*descs)
+    staged = torch.frombuffer(bytearray(host), dtype=torch.uint8)
+    dev = staged.pin_memory().to(device, non_blocking=True)
+    keep += [host, dev]
+    return host, dev.data_ptr()
+
+
+def _launch_window(amps, op, n: int, precision: str, what: str):
+    """One K1 launch of pass ``op`` over one register's state or a whole
+    bank; returns the output."""
+    if amps.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {amps.device}")
+    _check_cuda_state(amps, what)
+    nb = bank_size(amps, n)
+    if amps.numel() != max(nb, 1) * (2 << n):
+        raise ValueError(f"{what}: a state of {amps.numel()} reals is not "
+                         f"one of {n} qubits")
+    keep: list = []
+    if nb and _per_element(op):
+        desc, descs = _bank_descs(op, amps, keep, precision)
+        host, dev = _upload_descs(descs, amps.device, keep)
+    else:
+        desc, host, dev = _pass_struct(op, amps, keep, precision), None, None
+    out = torch.empty_like(amps)
+    fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
+          else _lib().qt_window_pass_f64)
+    stream = torch.cuda.current_stream(amps.device).cuda_stream
+    build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n, max(nb, 1),
+                      ctypes.byref(desc), host, dev, stream), what)
+    return out
+
+
 def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
                        k: int = SUBLANE_QUBITS, apply_a: bool = True,
                        apply_b: bool = True, precision=None):
     """One window pass (K1) under ``precision`` (None: the current mode).
     ``amps`` is any full-size contiguous view of the state ((2, 2^n) or
-    the canonical (2, nb, 128, 128)); the result is a new tensor of the
-    same shape.  CPU tensors take the plain version (the mode's model)."""
+    the canonical (2, nb, 128, 128)), or a (B, 2, 2^n) register bank
+    (``bank_size``), whose sides and mask are shared or per element, in
+    one launch (the reference's vmapped _apply_window_stack_jit).  The
+    result is a new tensor of the same shape.  CPU tensors take the plain
+    version (the mode's model; a bank element by element)."""
     n = num_qubits
     _check_offset(n, k)
     precision = resolve_precision(precision)
+    op = ("winfused", k, mats_a, mats_b, apply_a, apply_b, mask)
+    nb = bank_size(amps, n)
     if amps.device.type == "cpu":
+        if nb:
+            return _by_element(amps, op, lambda x, e: apply_window_stack(
+                x, *e[2:4], e[6], num_qubits=n, k=k, apply_a=apply_a,
+                apply_b=apply_b, precision=precision))
         return window_pass_model(amps, mats_a, mats_b, mask, num_qubits=n,
                                  k=k, apply_a=apply_a, apply_b=apply_b,
                                  precision=precision)
-    if amps.device.type != "cuda":
-        raise RuntimeError(f"apply_window_stack: no kernel for device "
-                           f"{amps.device}")
-    _check_cuda_state(amps, "apply_window_stack")
-    keep: list = []
-    desc = _pass_struct(("winfused", k, mats_a, mats_b, apply_a, apply_b,
-                         mask), amps, keep, precision)
-    out = torch.empty_like(amps)
-    fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
-          else _lib().qt_window_pass_f64)
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n,
-                      ctypes.byref(desc), stream), "apply_window_stack")
-    LAUNCHES["K1"] += 1
+    out = _launch_window(amps, op, n, precision, "apply_window_stack")
+    LAUNCHES["K1_bank" if nb else "K1"] += 1
     return out
 
 
 def _cluster_launch(amps, mats_a, mats_b, n: int, what: str,
                     precision: str):
-    """Checks and uploads shared by K11 and K12: the output buffer, the
-    side stacks on the card, the rank, QtPass.split and the stream."""
+    """K12's checks and uploads: the output buffer, the side stacks on the
+    card, the rank, QtPass.split and the stream."""
     if amps.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {amps.device}")
     _check_cuda_state(amps, what)
@@ -726,25 +932,28 @@ def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
     """The paged planner's cluster pass (K11) under ``precision`` (None:
     the current mode): sum_r B_r X A_r^T on each 128 x 128 slab of the
     canonical view, A_r on the lane qubits [0, 7), B_r on [7, 14);
-    ``mats_a``/``mats_b`` are SoA (R, 2, 128, 128).  ``amps`` is any
-    full-size contiguous view of the state; the result is a new tensor of
-    the same shape.  CPU tensors take the plain version."""
+    ``mats_a``/``mats_b`` are SoA (R, 2, 128, 128), or per element
+    (B, R, 2, 128, 128) on a bank.  ``amps`` is any full-size contiguous
+    view of the state, or a (B, 2, 2^n) register bank (one launch); the
+    result is a new tensor of the same shape.  CPU tensors take the plain
+    version."""
     n = num_qubits
-    _check_cluster(n, mats_a, mats_b, "apply_cluster_stack")
+    op = ("fused", mats_a, mats_b)
+    nb = bank_size(amps, n)
+    e0 = bank_element_op(op, 0) if nb else op
+    _check_cluster(n, e0[1], e0[2], "apply_cluster_stack")
     precision = resolve_precision(precision)
     if amps.device.type == "cpu":
+        if nb:
+            return _by_element(amps, op, lambda x, e: cluster_stack_plain(
+                x, e[1], e[2], num_qubits=n, precision=precision))
         return cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n,
                                    precision=precision)
-    out, a, b, rank, split, stream = _cluster_launch(
-        amps, mats_a, mats_b, n, "apply_cluster_stack", precision)
     # K1's kernel at k = 7, dual-sided, unmasked
-    desc = _QtPass(SUBLANE_QUBITS, rank, 1, 1, split, a.data_ptr(),
-                   b.data_ptr(), None)
-    fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
-          else _lib().qt_window_pass_f64)
-    build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n,
-                      ctypes.byref(desc), stream), "apply_cluster_stack")
-    LAUNCHES["K11"] += 1
+    out = _launch_window(
+        amps, ("winfused", SUBLANE_QUBITS, mats_a, mats_b, True, True),
+        n, precision, "apply_cluster_stack")
+    LAUNCHES["K11_bank" if nb else "K11"] += 1
     return out
 
 
@@ -810,9 +1019,10 @@ def megawin_ctas(device, dtype) -> int:
 
 
 def megawin_schedule(num_qubits: int, g: int, npass: int, dtype,
-                     ctas: int) -> dict:
+                     ctas: int, nbank: int = 1) -> dict:
     """K2's ticket schedule for ``npass`` passes over super-blocks of
-    ``g`` rows: the super-blocks (``super_blocks``), the items of one
+    ``g`` rows, of one register or of each of a bank's ``nbank``: the
+    super-blocks (``super_blocks``, over the whole bank), the items of one
     super-block's pass (``items_per_pass``: the lane chunks of its G
     slabs, MEGA_TICKET_ITEMS to a ticket; ``tickets`` in all),
     the super-blocks of a window (``window``, W: a pass of a window holds
@@ -823,7 +1033,7 @@ def megawin_schedule(num_qubits: int, g: int, npass: int, dtype,
     ``workspace_bytes`` in all)."""
     nchunk = 2 if dtype == torch.float32 else 4
     ipp = g * nchunk
-    nsb = (1 << (num_qubits - CLUSTER_QUBITS)) // g
+    nsb = (1 << (num_qubits - CLUSTER_QUBITS)) // g * nbank
     window = min(nsb, -(-MEGA_ITEMS_PER_CTA * ctas // ipp))
     slots = min(nsb, 2 * window) if npass > 1 else 0
     elem = 4 if dtype == torch.float32 else 8
@@ -876,21 +1086,41 @@ def apply_window_megastack(amps, subops, *, num_qubits: int,
     (``megawin_schedule``: tens of MB), not through a full-size buffer.
     The workspace (slots, a ticket counter and one done-counter per
     super-block) is allocated, and its counters zeroed, for every
-    launch.  CPU tensors take the plain version."""
+    launch.  On a (B, 2, 2^n) register bank the launch takes every
+    element (the reference's vmapped _apply_megawin_jit): element b's
+    super-blocks are b * SB + s of one ticket schedule, each pass shared
+    or per element as in ``apply_window_stack``.  CPU tensors take the
+    plain version (a bank element by element)."""
     n = num_qubits
     g = _megawin_check(subops, n)
     precision = resolve_precision(precision)
+    nb = bank_size(amps, n)
     if amps.device.type == "cpu":
+        if nb:
+            return _by_element(amps, ("megawin", subops),
+                               lambda x, e: megawin_plain(
+                                   x, e[1], num_qubits=n,
+                                   precision=precision))
         return megawin_plain(amps, subops, num_qubits=n, precision=precision)
     if amps.device.type != "cuda":
         raise RuntimeError(f"apply_window_megastack: no kernel for device "
                            f"{amps.device}")
     _check_cuda_state(amps, "apply_window_megastack")
     keep: list = []
-    descs = (_QtPass * len(subops))(
-        *[_pass_struct(op, amps, keep, precision) for op in subops])
+    per = [_bank_descs(op, amps, keep, precision)[1]
+           if nb and _per_element(op) else None for op in subops]
+    shared = [p[0] if p else _pass_struct(op, amps, keep, precision)
+              for p, op in zip(per, subops)]
+    host = dev = None
+    if any(per):
+        host, dev = _upload_descs(
+            [per[i][b] if per[i] else shared[i]
+             for b in range(nb) for i in range(len(subops))],
+            amps.device, keep)
+    descs = (_QtPass * len(subops))(*shared)
     sched = megawin_schedule(n, g, len(subops), amps.dtype,
-                             megawin_ctas(amps.device, amps.dtype))
+                             megawin_ctas(amps.device, amps.dtype),
+                             max(nb, 1))
     out = torch.empty_like(amps)
     slots = None
     if sched["slots"]:
@@ -904,9 +1134,9 @@ def apply_window_megastack(amps, subops, *, num_qubits: int,
     build.raise_on(fn(amps.data_ptr(), out.data_ptr(),
                       None if slots is None else slots.data_ptr(),
                       work.data_ptr(), sched["ctas"], sched["window"],
-                      sched["slots"], n, descs, len(subops), stream),
-                   "apply_window_megastack")
-    LAUNCHES["K2"] += 1
+                      sched["slots"], n, descs, len(subops), max(nb, 1),
+                      host, dev, stream), "apply_window_megastack")
+    LAUNCHES["K2_bank" if nb else "K2"] += 1
     return out
 
 
@@ -1472,8 +1702,8 @@ def _chan_lib():
         lib = build.library()
         ptr = ctypes.c_void_p
         lib.qt_chan_sweep_f32.argtypes = [
-            ptr, ctypes.c_longlong, ctypes.c_int, ptr, ptr, ctypes.c_int,
-            ptr, ptr, ptr, ptr, ctypes.c_int, ptr]
+            ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr, ptr,
+            ctypes.c_int, ptr, ptr, ptr, ptr, ctypes.c_int, ptr]
         lib.qt_chan_sweep_f32.restype = ctypes.c_int
         for name in ("qt_chan_max_rank", "qt_chan_max_entries",
                      "qt_chan_threads"):
@@ -1488,8 +1718,10 @@ def _chan_lib():
     return _BOUND["chan"]
 
 
-def _launch_chan(amps, nn: int, group, wts) -> None:
-    """One K5 launch over ``group`` (sweep_launch_groups), in place."""
+def _launch_chan(amps, nn: int, group, wts, nbank: int = 0) -> None:
+    """One K5 launch over ``group`` (sweep_launch_groups), in place: on
+    one register, or with ``nbank`` on a (B, 2, 2^nn) bank (one launch
+    for every element, the same weights)."""
     entries, pivots, orbit, subsets = group
     lib = _chan_lib()
     r = len(pivots)
@@ -1504,13 +1736,15 @@ def _launch_chan(amps, nn: int, group, wts) -> None:
         for e in entries]), dtype=np.float32)
     threads = _BOUND["chan_threads"]
     sms = torch.cuda.get_device_properties(amps.device).multi_processor_count
-    blocks = max(1, min(-(-(1 << (nn - r)) // threads), 8 * sms))
+    blocks = max(1, min(-(-(max(nbank, 1) << (nn - r)) // threads),
+                        8 * sms))
     stream = torch.cuda.current_stream(amps.device).cuda_stream
     build.raise_on(lib.qt_chan_sweep_f32(
-        amps.data_ptr(), 1 << nn, r, piv.ctypes.data, orb.ctypes.data,
-        len(entries), ts.ctypes.data, bs.ctypes.data, ss.ctypes.data,
-        w.ctypes.data, blocks, stream), "apply_pair_channel_sweep")
-    LAUNCHES["K5"] += 1
+        amps.data_ptr(), 1 << nn, max(nbank, 1), r, piv.ctypes.data,
+        orb.ctypes.data, len(entries), ts.ctypes.data, bs.ctypes.data,
+        ss.ctypes.data, w.ctypes.data, blocks, stream),
+        "apply_pair_channel_sweep")
+    LAUNCHES["K5_bank" if nbank else "K5"] += 1
 
 
 def apply_pair_channel_sweep(amps, program, probs, *, num_bits: int):
@@ -1519,12 +1753,18 @@ def apply_pair_channel_sweep(amps, program, probs, *, num_bits: int):
     every b below 14, under 14, and num_bits >= 15.  On the card the
     kernel overwrites the float32 state in place and returns it, one
     launch per group of sweep_launch_groups in each sweep of
-    sweep_schedule; a CPU tensor takes the plain version (a new
-    tensor)."""
+    sweep_schedule; on a (B, 2, 2^num_bits) bank of density registers
+    each launch takes every element, under the same probabilities (the
+    reference's vmapped _chan_sweep_pass).  A CPU tensor takes the plain
+    version (a new tensor; a bank element by element)."""
     program = tuple(program)
     nn = num_bits
     _check_sweep(program, probs, nn)
+    nb = bank_size(amps, nn)
     if amps.device.type == "cpu":
+        if nb:
+            return torch.stack([pair_channel_sweep_plain(
+                amps[b], program, probs, num_bits=nn) for b in range(nb)])
         return pair_channel_sweep_plain(amps, program, probs, num_bits=nn)
     if amps.device.type != "cuda":
         raise RuntimeError(f"apply_pair_channel_sweep: no kernel for device "
@@ -1535,14 +1775,14 @@ def apply_pair_channel_sweep(amps, program, probs, *, num_bits: int):
     if not amps.is_contiguous():
         raise ValueError("apply_pair_channel_sweep: the state must be "
                          "contiguous")
-    if amps.numel() != 2 << nn:
+    if amps.numel() != max(nb, 1) * (2 << nn):
         raise ValueError(f"apply_pair_channel_sweep: a state of "
                          f"{tuple(amps.shape)} is not (2, 2^{nn})")
     wts = [channel_weights(kind, p, np.float32)
            for (kind, _t, _b), p in zip(program, probs)]
     for _b0, _k, entries in sweep_schedule(program, nn):
         for group in sweep_launch_groups(entries):
-            _launch_chan(amps, nn, group, wts)
+            _launch_chan(amps, nn, group, wts, nbank=nb)
     return amps
 
 

@@ -137,13 +137,21 @@ def _draw_outcome(p0, u):
     return outcome, prob
 
 
-def _measure_once(amps, u, num_qubits: int, target: int, is_density: bool):
+def _measure_once(amps, u, num_qubits: int, target: int, is_density: bool,
+                  quad: bool = False):
     if is_density:
         p0 = C.calc_prob_of_outcome_density(
-            amps, num_qubits=num_qubits, target=target, outcome=0)
+            amps, num_qubits=num_qubits, target=target, outcome=0,
+            quad=quad)
     else:
         p0 = C.calc_prob_of_outcome_statevec(
-            amps, num_qubits=num_qubits, target=target, outcome=0)
+            amps, num_qubits=num_qubits, target=target, outcome=0,
+            quad=quad)
+    if quad:
+        # the double-double probability is combined on the host (one
+        # read of 256 partials); the draw and collapse go on where the
+        # state lies
+        p0 = p0.to(dtype=amps.dtype, device=amps.device)
     outcome, prob = _draw_outcome(p0, u)
     if is_density:
         amps = _collapse_traced_dm(amps, num_qubits, target, outcome, prob)
@@ -153,27 +161,31 @@ def _measure_once(amps, u, num_qubits: int, target: int, is_density: bool):
 
 
 def measure_fused(amps, key, shot: int, *, num_qubits: int, target: int,
-                  is_density: bool):
+                  is_density: bool, quad: bool = False):
     """One measurement shot on the device: probability reduction,
     threshold of shot ``shot``, conditional collapse.  Returns (new amps,
     outcome, outcome probability), the last two 0-d device tensors.
-    ``num_qubits`` is the REPRESENTED count."""
+    ``num_qubits`` is the REPRESENTED count; ``quad`` (precision 4) takes
+    the probability in double-double, as calcProbOfOutcome does."""
     u = thresholds(key, shot, 1, amps.dtype, amps.device)[0]
-    return _measure_once(amps, u, num_qubits, target, is_density)
+    return _measure_once(amps, u, num_qubits, target, is_density, quad)
 
 
 def measure_sequence(amps, key, shot: int, *, num_qubits: int,
-                     targets: Sequence[int], is_density: bool):
+                     targets: Sequence[int], is_density: bool,
+                     quad: bool = False):
     """Measure a sequence of qubits, each step collapsing before the next
     qubit's probability is taken, exactly as a loop of measure_fused
     calls with shots shot .. shot + len(targets) - 1 would: the same
     outcomes and probabilities, bit for bit.  One threshold upload, and
-    no read on the host: returns (new amps, outcomes (k,) int64,
-    probabilities (k,)) as device tensors."""
+    no read on the host (except under ``quad``, whose compensated combine
+    reads 256 partials per qubit): returns (new amps, outcomes (k,)
+    int64, probabilities (k,)) as device tensors."""
     us = thresholds(key, shot, len(targets), amps.dtype, amps.device)
     outs, probs = [], []
     for j, t in enumerate(targets):
-        amps, o, p = _measure_once(amps, us[j], num_qubits, t, is_density)
+        amps, o, p = _measure_once(amps, us[j], num_qubits, t, is_density,
+                                   quad)
         outs.append(o)
         probs.append(p)
     return amps, torch.stack(outs), torch.stack(probs)

@@ -69,36 +69,78 @@ def _term_codes(codes_flat, n: int, t: int):
     return codes_flat[t * n:(t + 1) * n]
 
 
+def _coeff_tensor(coeffs, amps):
+    """The term coefficients as a tensor of the state's type and device
+    (a tensor passes through, so that a gradient can reach it)."""
+    if not torch.is_tensor(coeffs):
+        coeffs = np.asarray(coeffs)
+    return torch.as_tensor(coeffs, dtype=amps.dtype, device=amps.device)
+
+
+def _quad_term(amps, term: "PauliTerm", n: int) -> float:
+    """Re <psi| P |psi> for one term in double-double: the gather form's
+    two product channels in separate compensated sums (the JAX package's
+    quad branch, which never takes K4)."""
+    from . import calculations as _calc
+
+    hi, lo = _split(n)
+    x = amps.reshape(2, 1 << hi, 1 << lo)
+    pr, pi = _signed_partner(amps, term, n)
+    return _calc.quad_sum2(x[0] * pr, x[1] * pi)
+
+
+def _quad_total(coeffs, vals, dtype):
+    """The quad cross-term combine: each term's value times its
+    coefficient in the state's type, then a Neumaier sum."""
+    from . import calculations as _calc
+
+    real = _NUMPY_DTYPE[dtype]
+    return torch.tensor(_calc.neumaier_sum(
+        [real(c) * real(v) for c, v in zip(coeffs, vals)]),
+        dtype=torch.float64)
+
+
 def calc_expec_pauli_sum_statevec(amps, coeffs, *, num_qubits: int,
                                   codes_flat: Tuple[int, ...],
-                                  num_terms: int):
+                                  num_terms: int, quad: bool = False):
     """Re <psi| sum_t c_t P_t |psi> (QuEST_common.c:534-546), each term
-    through the plain K4 form."""
+    through the plain K4 form (``quad``: in double-double, a float64 host
+    tensor)."""
     n = num_qubits
-    coeffs = torch.as_tensor(np.asarray(coeffs), dtype=amps.dtype,
-                             device=amps.device)
-    vals = [coeffs[t] * expec_term_plain(
-        amps, pauli_term(_term_codes(codes_flat, n, t), dtype=amps.dtype),
-        num_qubits=n) for t in range(num_terms)]
+    terms = [pauli_term(_term_codes(codes_flat, n, t), dtype=amps.dtype)
+             for t in range(num_terms)]
+    if quad:
+        return _quad_total(np.asarray(coeffs, np.float64),
+                           [_quad_term(amps, t, n) for t in terms],
+                           amps.dtype)
+    coeffs = _coeff_tensor(coeffs, amps)
+    vals = [coeffs[t] * expec_term_plain(amps, term, num_qubits=n)
+            for t, term in enumerate(terms)]
     return torch.sum(torch.stack(vals))
 
 
 def calc_expec_pauli_sum_density(amps, coeffs, *, num_qubits: int,
                                  codes_flat: Tuple[int, ...],
-                                 num_terms: int):
+                                 num_terms: int, quad: bool = False):
     """Re Tr(rho sum_t c_t P_t): P on the ket qubits of the flattened rho,
-    then the trace of the real part (QuEST_common.c:519-546)."""
+    then the trace of the real part (QuEST_common.c:519-546); ``quad``
+    sums each trace and the terms in double-double."""
+    from . import calculations as _calc
+
     n = num_qubits
     dim = 1 << n
-    coeffs = torch.as_tensor(np.asarray(coeffs), dtype=amps.dtype,
-                             device=amps.device)
-    vals = []
+    traces = []
     for t in range(num_terms):
         pr, _ = _signed_partner(amps, pauli_term(
             _term_codes(codes_flat, n, t), dtype=amps.dtype), 2 * n)
-        vals.append(coeffs[t] * torch.sum(
-            torch.diagonal(pr.reshape(dim, dim))))
-    return torch.sum(torch.stack(vals))
+        d = torch.diagonal(pr.reshape(dim, dim))
+        traces.append(_calc.quad_sum(d) if quad else torch.sum(d))
+    if quad:
+        return _quad_total(np.asarray(coeffs, np.float64), traces,
+                           amps.dtype)
+    coeffs = _coeff_tensor(coeffs, amps)
+    return torch.sum(torch.stack([coeffs[t] * v
+                                  for t, v in enumerate(traces)]))
 
 
 def apply_pauli_sum(amps, coeffs, *, num_qubits: int, num_state_qubits: int,
@@ -213,11 +255,11 @@ def direct_rotation_plain(amps, term: PauliTerm, *, num_qubits: int):
     hi, lo = _split(n)
     x = amps.reshape(2, 1 << hi, 1 << lo)
     pr, pi = _signed_partner(amps, term, n)
-    out = torch.empty_like(x)
-    torch.add(term.co * x[0], term.si * pi, out=out[0])
+    out0 = term.co * x[0] + term.si * pi
     del pi
-    torch.sub(term.co * x[1], term.si * pr, out=out[1])
-    return out.reshape(amps.shape)
+    out1 = term.co * x[1] - term.si * pr
+    # stacked, not written through out=, so that autograd follows it
+    return torch.stack([out0, out1]).reshape(amps.shape)
 
 
 def expec_term_plain(amps, term: PauliTerm, *, num_qubits: int):
@@ -360,10 +402,21 @@ def trotter_scan(amps, codes_seq, angles, *, num_qubits: int,
     return amps
 
 
-def expec_pauli_sum_scan(amps, codes_seq, coeffs, *, num_qubits: int):
+def expec_pauli_sum_scan(amps, codes_seq, coeffs, *, num_qubits: int,
+                         quad: bool = False):
     """Re <psi| sum_t c_t P_t |psi> over a (T, n) code table: one
     expec_term per term, weighted and summed in float64 on the device (one
-    0-d tensor; nothing waits for the card until the caller reads it)."""
+    0-d tensor; nothing waits for the card until the caller reads it).
+    ``quad`` keeps the gather form, as the JAX package does (its
+    channel-split double-double sums need the full product vectors): no
+    K4 launch, each term in double-double and a Neumaier combine, a
+    float64 host tensor."""
+    if quad:
+        return _quad_total(
+            np.asarray(coeffs, np.float64),
+            [_quad_term(amps, pauli_term(codes, dtype=amps.dtype),
+                        num_qubits) for codes in np.asarray(codes_seq)],
+            amps.dtype)
     total = torch.zeros((), dtype=torch.float64, device=amps.device)
     for codes, c in zip(np.asarray(codes_seq),
                         np.asarray(coeffs, np.float64)):

@@ -82,8 +82,10 @@ def _is_gate(it) -> bool:
 
 
 def _concrete(it) -> bool:
+    """A gate whose matrix is host data: a (2, s, s) stack, or a bank's
+    per-element (B, 2, s, s) stack."""
     return _is_gate(it) and isinstance(it.mat, np.ndarray) \
-        and it.mat.ndim == 3
+        and it.mat.ndim in (3, 4)
 
 
 def _bits(it) -> frozenset:
@@ -94,27 +96,41 @@ def _bits(it) -> frozenset:
     return frozenset((it.target, it.bra))
 
 
+def _soa_matmul_any(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Complex SoA product of (2, s, s) and per-element (B, 2, s, s)
+    stacks, a shared operand broadcast across a batched one.  Two (2, s,
+    s) stacks go through circuit.soa_matmul, so a merged gate equals the
+    planner's fold of the same pair bit for bit."""
+    if a.ndim == 3 and b.ndim == 3:
+        return C.soa_matmul(a, b)
+    ar, ai = a[..., 0, :, :], a[..., 1, :, :]
+    br, bi = b[..., 0, :, :], b[..., 1, :, :]
+    return np.stack([ar @ br - ai @ bi, ar @ bi + ai @ br], axis=-3)
+
+
 def _near_identity(m: np.ndarray) -> bool:
     """Identity up to the dtype's diagonal-detection tolerance: the
     ``aggressive`` drop for merged pairs like H.H whose product is the
-    identity only up to rounding."""
+    identity only up to rounding (every element of a per-element
+    stack)."""
     eye = np.eye(m.shape[-1], dtype=m.dtype)
     tol = 1e-5 if m.dtype == np.float32 else 1e-10
-    return bool(np.abs(m[0] - eye).max() <= tol
-                and np.abs(m[1]).max() <= tol)
+    return bool(np.abs(m[..., 0, :, :] - eye).max() <= tol
+                and np.abs(m[..., 1, :, :]).max() <= tol)
 
 
 def _is_diag(it) -> bool:
-    return _concrete(it) and C.is_diag_gate(it.mat)
+    return _concrete(it) and it.mat.ndim == 3 and C.is_diag_gate(it.mat)
 
 
 def _is_perm(it) -> bool:
-    return _concrete(it) and C.classify_permutation_gate(it.mat) is not None
+    return _concrete(it) and it.mat.ndim == 3 \
+        and C.classify_permutation_gate(it.mat) is not None
 
 
 def _mats_commute(a: np.ndarray, b: np.ndarray) -> bool:
-    ab = C.soa_matmul(a, b)
-    ba = C.soa_matmul(b, a)
+    ab = _soa_matmul_any(a, b)
+    ba = _soa_matmul_any(b, a)
     tol = 1e-5 if ab.dtype == np.float32 else 1e-10
     return bool(np.abs(ab - ba).max() <= tol)
 
@@ -130,7 +146,7 @@ def _commutes(a, b, diag_a: bool, diag_b: bool) -> bool:
     if diag_a and diag_b:
         return True
     if (tuple(a.targets) == tuple(b.targets) and _concrete(a)
-            and _concrete(b)):
+            and _concrete(b) and a.mat.ndim == 3 and b.mat.ndim == 3):
         return _mats_commute(a.mat, b.mat)
     return False
 
@@ -153,7 +169,7 @@ def _cancel_merge(items: list, removed: dict, aggressive: bool) -> list:
         while j >= 0:
             prev = out[j]
             if _concrete(prev) and tuple(prev.targets) == tuple(it.targets):
-                merged = C.soa_matmul(it.mat, prev.mat)
+                merged = _soa_matmul_any(it.mat, prev.mat)
                 if C.is_identity_gate(merged) or (
                         aggressive and _near_identity(merged)):
                     out.pop(j)

@@ -9,9 +9,10 @@ unpacked with `git archive` into a git-ignored directory such as
 `_proof/parent`); its own `chip_smoke.py` helpers and `quest_tpu_torch`
 are imported and its kernels built.  Prints one JSON line: per group the
 time through K2 and through K1 pass by pass (chip_smoke.time_k2_group,
-K1, K2, K2, K1 in turns) and the median bench-route wall of five.  To
-compare two commits on one card, run parent, change, change, parent in
-one command, each in a process of its own.
+K1, K2, K2, K1 in turns), the median bench-route wall of five, and the
+registers and spill bytes ptxas gave K1's and K2's kernels.  To compare
+two commits on one card, run parent, change, change, parent (twice, for
+a spread) in one command, each in a process of its own.
 """
 
 import json
@@ -62,6 +63,8 @@ def main() -> int:
         cs.sync()
         walls.append((time.perf_counter() - t0) * 1e3)
     out["bench_route_ms"] = sorted(walls)[2]
+    out["ptxas"] = {k: v for k, v in build.kernel_resources().items()
+                    if "window_pass_kernel" in k or "megawin_kernel" in k}
     print(json.dumps(out), flush=True)
     return 0
 
