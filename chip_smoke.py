@@ -252,9 +252,36 @@ line:
              three largest entries; QAOA (examples/qaoa_maxcut.py's) at
              24 qubits, float32: ten steps, the expected cut rises; wall
              per step and peak memory.
-28. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+28. dist_parity - on an in-process mesh of 8 shards on the card, at 26
+             qubits (nloc = 23), float32: the half-shard swap, the
+             composed shard permute and a remap with every class, each
+             with 1 and 8 exchange chunks, torch.equal to the same bit
+             permutation by gather -> permute_qubits -> split; one
+             shard's K1 on the passes config 2's sharded plan holds there
+             against its plain version (0/1 permutation passes bit for
+             bit) and K2 on its groups bit for bit against K1 pass by pass.
+29. dist_main - config 2 at 26 qubits on 2 and 8 shards of the card: the
+             bench route (the gate list planned into windows and remaps,
+             run from |0>) and the API route under gateFusion, each
+             within 1e-5 of the one-register state and P(top = 0), the
+             bench route within 1e-5 of its plain route; K1 and K2
+             launch shards x the program's passes and groups; exchanges
+             and bytes equal to the cost model (remap_exchange_count and
+             remap_exchange_bytes over the drain's sigmas, plus the
+             canonical read's remap).  Config 4's noise layer on a
+             14-qubit density register at R = 4: K5 on every shard, bit
+             for bit against the plain route, within 1e-6 of one register.
+30. dist_timing - API-route wall per circuit at R = 1, 2 and 8; the bench
+             route's device ms by op kind, kernels against exchange
+             copies, with the bytes the copies move and their GB/s; a
+             30-qubit bench-route circuit on 8 shards with its peak
+             memory.  Where two or more cards are visible, dist_nccl
+             runs two NCCL ranks bit for bit against the in-process mesh;
+             on one card a line says it did not run.
+31. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
-             errors under "modes"; K1, K2 and K5's bank forms).
+             errors under "modes"; K1, K2 and K5's bank forms; K1, K2 and
+             K5 marked as run per shard with their dist launches).
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -4220,6 +4247,721 @@ def train_record(torch, model, p, make_step, falls: bool):
             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
+# ---------------------------------------------------------------------------
+# Registers split over shards (M15a): the exchange layer and the sharded
+# drain on an in-process mesh of R shards on the card
+# ---------------------------------------------------------------------------
+
+N_DIST = 26            # config 2's register, split over R shards
+DIST_MESHES = (2, 8)   # R of dist_main; dist_timing adds R = 1
+N_DIST_PARITY = 26     # dist_parity's state: nloc = 23 at R = 8
+N_DIST_RHO = 14        # config 4's density register (2^28) at R = 4
+R_DIST_RHO = 4
+N_DIST_BIG = 30        # one bench-route circuit at R = 8: 8.59 GB of state
+DIST_SEED = 2024
+
+
+def mesh_env(qt, r: int):
+    """An env of ``r`` shards on the card (an in-process mesh), or the
+    one-card env at r = 1."""
+    if r == 1:
+        return qt.createQuESTEnv()
+    return qt.createQuESTEnv(devices=[DEVICE] * r)
+
+
+@contextmanager
+def plain_window_kernels(fused):
+    """K1's and K2's wrappers replaced by their plain versions, on the card
+    too, for the length of the block: the plain route of a drain."""
+    saved = (fused.apply_window_stack, fused.apply_window_megastack)
+
+    def k1_plain(amps, a, b, mask=None, *, num_qubits, k, apply_a=True,
+                 apply_b=True, precision=None):
+        return fused.window_pass_plain(amps, a, b, mask,
+                                       num_qubits=num_qubits, k=k,
+                                       apply_a=apply_a, apply_b=apply_b)
+
+    def k2_plain(amps, subops, *, num_qubits, precision=None):
+        return fused.megawin_plain(amps, subops, num_qubits=num_qubits)
+
+    fused.apply_window_stack, fused.apply_window_megastack = \
+        k1_plain, k2_plain
+    try:
+        yield
+    finally:
+        fused.apply_window_stack, fused.apply_window_megastack = saved
+
+
+def shards_equal(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.shards, b.shards))
+
+
+def shards_max_diff(torch, a, b) -> float:
+    return max(max_abs_diff(torch, x, y) if x.numel() >= 1 << 25
+               else float((x - y).abs().max())
+               for x, y in zip(a.shards, b.shards))
+
+
+def shards_tolerance(a) -> float:
+    """tolerance() of a sharded state, by its largest amplitude."""
+    return max(tolerance(s) for s in a.shards)
+
+
+def program_passes(program) -> int:
+    """Window passes per shard of a sharded program: each K1 pass and each
+    pass of a K2 group."""
+    return sum(1 if op[0] == "winfused" else len(op[1])
+               for part in program if part[0] == "plan"
+               for op in part[1] if op[0] in ("winfused", "megawin"))
+
+
+def program_counts(fusion, program) -> dict:
+    st = fusion.program_stats(program)
+    return {"winfused": st.get("winfused", 0), "megawin": st.get("megawin", 0),
+            "remap": st.get("remap", 0), "chansweep": st.get("chansweep", 0)}
+
+
+def remap_model(C, PD, program, final_perm, n, nloc, itemsize) -> dict:
+    """The exchange cost model of a drain and its canonical read: counts
+    and per-shard bytes of the program's remaps ("window_remap") and of
+    the read's remap ("remap")."""
+    sigmas = [p[1] for p in program if p[0] == "remap"]
+    out = {"window_remap": [sum(PD.remap_exchange_count(s, nloc, n - nloc)
+                                for s in sigmas),
+                            sum(C.remap_exchange_bytes(s, n, nloc, itemsize)
+                                for s in sigmas)],
+           "remap": [0, 0]}
+    if final_perm is not None and list(final_perm) != list(range(n)):
+        s = PD.canonical_sigma(tuple(final_perm))
+        out["remap"] = [PD.remap_exchange_count(s, nloc, n - nloc),
+                        C.remap_exchange_bytes(s, n, nloc, itemsize)]
+    return out
+
+
+def program_op_counts(program) -> dict:
+    """Ops of a sharded program's planned and permutation parts by kind
+    (a megawin group counts once), and its remaps."""
+    out: dict = {}
+    for part in program:
+        for op in (part[1] if part[0] in ("plan", "perm") else (part,)):
+            out[op[0]] = out.get(op[0], 0) + 1
+    return out
+
+
+def counted(PD) -> dict:
+    return {op: [int(PD.counter_sum("exchanges_total", op=op)),
+                 int(PD.counter_sum("exchange_bytes_total", op=op))]
+            for op in ("window_remap", "remap")}
+
+
+def phase_dist_parity(torch, np, qt, C, fused, fusion, circuits, kernels):
+    """Each exchange primitive on the card, torch.equal to the same bit
+    permutation done by gather -> permute_qubits -> split; one shard's K1
+    and K2 at nloc = 23 against their plain versions."""
+    from quest_tpu_torch.parallel import dist as PD
+    from quest_tpu_torch.parallel import sharded as SH
+
+    n = N_DIST_PARITY
+    R = 8
+    nloc = n - 3
+    env = mesh_env(qt, R)
+    x = random_state(torch, n, DIST_SEED)
+    out = {"n": n, "shards": R, "nloc": nloc, "cases": []}
+
+    def want_of(sigma):
+        # permute_qubits: out bit q <- in bit perm[q]; sigma sends bit p
+        # to sigma[p], so perm = sigma^-1
+        return SH.split(env.mesh, kernels.permute_qubits(
+            x, num_qubits=n, perm=PD.canonical_sigma(tuple(sigma))), nloc,
+            torch.float32)
+
+    def case(label, sigma, run):
+        want = want_of(sigma)
+        for chunks in (1, 8):
+            got = run(SH.split(env.mesh, x, nloc, torch.float32), chunks)
+            sync()
+            check(shards_equal(torch, got, want), f"dist_parity {label} "
+                  f"(chunks {chunks}) is not the bit permutation")
+            del got
+        out["cases"].append({"case": label, "sigma_mixed_local_mesh": [
+            len(p) if p else 0 for p in PD.decompose_sigma(
+                tuple(sigma), nloc, n - nloc)], "bit_identical": True})
+        del want
+        torch.cuda.empty_cache()
+
+    # the half-shard swap of a local and a sharded qubit
+    for lo, hi in ((0, nloc), (nloc - 10, n - 1), (nloc - 1, n - 2)):
+        sigma = list(range(n))
+        sigma[lo], sigma[hi] = hi, lo
+        case(f"swap_{lo}_{hi}", sigma,
+             lambda a, c, lo=lo, hi=hi: PD.swap_sharded(
+                 a, num_qubits=n, qb_low=lo, qb_high=hi, chunks=c))
+    # the composed mesh permute alone, then a remap with every class
+    mesh_only = list(range(nloc)) + [n - 1, nloc, nloc + 1]
+    rng = np.random.default_rng(DIST_SEED)
+    mixed = [int(v) for v in rng.permutation(n)]
+    for label, sigma in (("mesh_permute", mesh_only), ("remap", mixed)):
+        case(label, sigma, lambda a, c, sigma=sigma: PD.remap_sharded(
+            a, num_qubits=n, sigma=tuple(sigma), chunks=(c, c)))
+    del x
+    torch.cuda.empty_cache()
+
+    # one shard's K1 and K2 at nloc = 23: the passes and groups config 2's
+    # sharded bench program plans there
+    us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+    gates = circuits.bench_gate_list(n, DEPTH, us)
+    program, _fp = fusion.plan_items_sharded(gates, n, nloc, device=DEVICE,
+                                             optimize=False)
+    plan_ops = [op for p in program if p[0] == "plan"
+                for op in C.plan_to_device(p[1], torch.float32, DEVICE)]
+    passes = [op for op in plan_ops if op[0] == "winfused"]
+    groups = [op[1] for op in plan_ops if op[0] == "megawin"]
+    check(passes and groups, f"the sharded bench plan at nloc = {nloc} has "
+          f"{len(passes)} window passes and {len(groups)} megawin groups")
+    y = random_state(torch, nloc, DIST_SEED + 1)
+    tol = tolerance(y)
+    k1_err = 0.0
+    for op in passes[:6]:
+        got = fused.apply_window_stack(y, op[2], op[3], op[6], num_qubits=nloc,
+                                       k=op[1], apply_a=op[4],
+                                       apply_b=op[5])
+        want = fused.window_pass_plain(y, op[2], op[3], op[6],
+                                       num_qubits=nloc, k=op[1],
+                                       apply_a=op[4], apply_b=op[5])
+        err = float((got - want).abs().max())
+        check(err <= tol, f"K1 at nloc = {nloc}, k = {op[1]}: |err| {err}")
+        k1_err = max(k1_err, err)
+    k1_perm = 0
+    for k in range(7, nloc - 6, 3):
+        for sides in ("AB", "B", "A"):
+            op = permutation_pass(np.random.default_rng(k), k, sides)
+            got = fused.apply_window_stack(y, op[2], op[3], None,
+                                           num_qubits=nloc, k=k,
+                                           apply_a=op[4], apply_b=op[5])
+            want = fused.window_pass_plain(y, op[2], op[3], None,
+                                           num_qubits=nloc, k=k,
+                                           apply_a=op[4], apply_b=op[5])
+            check(torch.equal(got, want), f"K1 at nloc = {nloc}, k = {k}: a "
+                  "permutation pass is not bit-identical to its plain version")
+            k1_perm += 1
+    k2 = [k2_case(torch, fused, y, g, nloc, tol,
+                  [(op[1], op[2].shape[0]) for op in g]) for g in groups]
+    sync()
+    out.update(k1_passes=min(len(passes), 6), k1_max_abs_err=k1_err,
+               k1_permutation_cases_bit_identical=k1_perm,
+               k2_groups=k2, tolerance=tol)
+    del y
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_noise(qt, noise, env, n, kops):
+    """|+><+|^n on ``env`` through one config-4 noise layer under
+    gateFusion."""
+    rho = qt.createDensityQureg(n, env)
+    qt.initPlusState(rho)
+    with qt.gateFusion(rho):
+        noise.noise_layer(qt, rho, n, kops, prob=NOISE_P)
+    sync()
+    return rho
+
+
+def phase_dist_main(torch, np, qt, C, fused, fusion, circuits, noise, us,
+                    p_one, psi_one):
+    """Config 2's circuit at 26 qubits on R = 2 and 8 shards of the card,
+    by the bench route (the gate list planned into a sharded program, run
+    from |0>) and the API route (gates under gateFusion), each against
+    the one-register drain and its own plain route; then config 4's noise
+    layer on a 14-qubit density register at R = 4."""
+    from quest_tpu_torch.parallel import dist as PD
+    from quest_tpu_torch.parallel import sharded as SH
+
+    n = N_DIST
+    gates = circuits.bench_gate_list(n, DEPTH, us)
+    items = capture_items(qt, us, n)
+    psi_flat = psi_one.reshape(2, -1)
+    out = {"n": n, "depth": DEPTH, "meshes": {}}
+    launches = {"K1": 0, "K2": 0, "K5": 0}
+    for R in DIST_MESHES:
+        nloc = n - (R.bit_length() - 1)
+        env = mesh_env(qt, R)
+        rec = {"shards": R, "nloc": nloc}
+        # the bench route
+        t0 = time.perf_counter()
+        bprog, bfinal = fusion.plan_items_sharded(gates, n, nloc,
+                                                  device=DEVICE,
+                                                  optimize=False)
+        rec["bench_plan_s"] = time.perf_counter() - t0
+        key = ("dist_bench", n, R)
+
+        def bench():
+            a = SH.classical(env.mesh, nloc, torch.float32, 0)
+            a = fusion.execute_sharded_program(a, bprog, (), nloc, key=key)
+            if bfinal is not None and list(bfinal) != list(range(n)):
+                a = PD.remap_sharded(a, num_qubits=n,
+                                     sigma=PD.canonical_sigma(bfinal))
+            return a
+
+        bst = program_counts(fusion, bprog)
+        fused.reset_launch_counts()
+        PD.reset_counters()
+        a = bench()
+        sync()
+        got = {k: fused.LAUNCHES[k] for k in ("K1", "K2")}
+        want = {"K1": R * bst["winfused"], "K2": R * bst["megawin"]}
+        check(got == want, f"bench route at R = {R}: launches {got} != "
+              f"shards x program {want}")
+        check(got["K1"] > 0 and got["K2"] > 0, f"bench route at R = {R}: "
+              f"a kernel never launched: {got}")
+        launches["K1"] += got["K1"]
+        launches["K2"] += got["K2"]
+        model = remap_model(C, PD, bprog, bfinal, n, nloc, 4)
+        check(counted(PD) == model, f"bench route at R = {R}: exchanges "
+              f"{counted(PD)} != cost model {model}")
+        p_b = float(SH.prob_of_outcome_statevec(a, n - 1, 0))
+        err_one = max(float((a.shards[s].cpu()
+                             - psi_flat[:, s << nloc:(s + 1) << nloc])
+                            .abs().max()) for s in range(R))
+        with plain_window_kernels(fused):
+            ap = bench()
+        sync()
+        err_plain = shards_max_diff(torch, a, ap)
+        # each window pass within tolerance() of its plain version, the
+        # errors adding up over the shard's passes
+        tol_plain = program_passes(bprog) * shards_tolerance(ap)
+        check(err_one <= 1e-5 and abs(p_b - p_one) <= 1e-5,
+              f"bench route at R = {R}: |psi - one register| {err_one}, "
+              f"P(top=0) {p_b} vs {p_one}")
+        check(err_plain <= tol_plain, f"bench route at R = {R}: |kernels - "
+              f"plain| {err_plain} > {tol_plain}")
+        del a, ap
+        torch.cuda.empty_cache()
+        rec["bench"] = {"program": bst, "launches": got,
+                        "exchanges": model, "p_top_zero": p_b,
+                        "max_abs_err_vs_one_register": err_one,
+                        "max_abs_err_vs_plain_route": err_plain,
+                        "tolerance_vs_plain_route": tol_plain}
+        # the API route
+        aprog, afinal = fusion.plan_items_sharded(items, n, nloc,
+                                                  device=DEVICE,
+                                                  sweep_ok=True)
+        ast = program_counts(fusion, aprog)
+        fused.reset_launch_counts()
+        PD.reset_counters()
+        t0 = time.perf_counter()
+        q = qt.createQureg(n, env)
+        with qt.gateFusion(q):
+            apply_bench_gates(qt, q, us, n)
+        p_a = qt.calcProbOfOutcome(q, n - 1, 0)
+        total = qt.calcTotalProb(q)
+        sync()
+        rec["api_first_wall_s"] = time.perf_counter() - t0
+        got = {k: fused.LAUNCHES[k] for k in ("K1", "K2")}
+        want = {"K1": R * ast["winfused"], "K2": R * ast["megawin"]}
+        check(got == want, f"API route at R = {R}: launches {got} != "
+              f"shards x program {want}")
+        launches["K1"] += got["K1"]
+        launches["K2"] += got["K2"]
+        model = remap_model(C, PD, aprog, afinal, n, nloc, 4)
+        check(counted(PD) == model, f"API route at R = {R}: exchanges "
+              f"{counted(PD)} != cost model {model}")
+        amps = q.amps
+        err_one = max(float((amps.shards[s].cpu()
+                             - psi_flat[:, s << nloc:(s + 1) << nloc])
+                            .abs().max()) for s in range(R))
+        check(err_one <= 1e-5 and abs(p_a - p_one) <= 1e-5
+              and abs(total - 1) <= 1e-4,
+              f"API route at R = {R}: |psi - one register| {err_one}, "
+              f"P(top=0) {p_a} vs {p_one}, total {total}")
+        qt.destroyQureg(q, env)
+        rec["api"] = {"program": ast, "launches": got, "exchanges": model,
+                      "p_top_zero": p_a, "calc_total_prob": total,
+                      "max_abs_err_vs_one_register": err_one}
+        out["meshes"][str(R)] = rec
+        torch.cuda.empty_cache()
+
+    # config 4's noise layer on a density register split over 4 shards
+    nq, R = N_DIST_RHO, R_DIST_RHO
+    nn = 2 * nq
+    nloc = nn - 2
+    env = mesh_env(qt, R)
+    kops = noise.bench_kraus_ops(NOISE_SEED)
+    shadow_env = qt.createQuESTEnv(device="cpu")
+    from quest_tpu_torch.qureg import Qureg
+
+    shadow = Qureg(nq, shadow_env, True)
+    fusion.start_gate_fusion(shadow)
+    noise.noise_layer(qt, shadow, nq, kops, prob=NOISE_P)
+    nitems = list(shadow._fusion.gates)
+    nprog, _nf = fusion.plan_items_sharded(nitems, nn, nloc, device=DEVICE,
+                                           sweep_ok=True)
+    sweeps = [p[1] for p in nprog if p[0] == "chansweep"]
+    per_shard = sum(k5_launches(fused, e, nloc) for e in sweeps)
+    fused.reset_launch_counts()
+    PD.reset_counters()
+    rho = dist_noise(qt, noise, env, nq, kops)
+    k5 = fused.LAUNCHES["K5"]
+    check(per_shard > 0 and k5 == R * per_shard, f"noise layer at R = {R}: "
+          f"{k5} K5 launches, not {R} shards x {per_shard}")
+    launches["K5"] = k5
+    with plain_channel_kernel(fused):
+        rho_p = dist_noise(qt, noise, env, nq, kops)
+    same = shards_equal(torch, rho._amps, rho_p._amps)
+    check(same, f"noise layer at R = {R}: K5 route not bit-identical to "
+          "its plain route")
+    qt.destroyQureg(rho_p, env)
+    one, _psi = noise_run(qt, noise, nq, kops)
+    a = rho.amps
+    ref = one.amps.reshape(2, -1)
+    m = 1 << nloc
+    err = max(max_abs_diff(torch, a.shards[s], ref[:, s * m:(s + 1) * m])
+              for s in range(R))
+    check(err <= 1e-6, f"noise layer at R = {R}: |rho - one register| "
+          f"{err}")
+    out["noise"] = {"n": nq, "state_bits": nn, "shards": R, "nloc": nloc,
+                    "program": program_counts(fusion, nprog),
+                    "k5_launches_per_shard": per_shard, "k5_launches": k5,
+                    "bit_identical_to_plain_route": same,
+                    "max_abs_err_vs_one_register": err}
+    qt.destroyQureg(rho, env)
+    qt.destroyQureg(one, one.env)
+    torch.cuda.empty_cache()
+    out["eager"] = dist_eager(torch, np, qt)
+    out["launches"] = launches
+    return out, launches
+
+
+def cuda_ms(torch, fn, reps: int = 3):
+    """Median CUDA-event ms of ``fn()`` over ``reps`` calls."""
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        sync()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
+def dist_eager(torch, np, qt):
+    """Config 2's 26 qubits on 8 shards, gate by gate with no fusion: a
+    random one-qubit unitary on every qubit (the local route, then the
+    exchange route on the sharded ones), a 3-target gate on local qubits,
+    a 2-target gate reaching a sharded qubit (relocalization) and a gate
+    under a sharded control, against the same gates on one register.
+    Then the local route's 3-target gate on the shards (a fixed-order
+    sum, sharded.apply_matrix_local) timed against the ordinary
+    kernels.apply_matrix on each 2^23 shard."""
+    from quest_tpu_torch.ops import kernels
+    from quest_tpu_torch.parallel import dist as PD
+    from quest_tpu_torch.parallel import sharded as SH
+    from quest_tpu_torch.parallel.mesh import ShardedAmps
+
+    n, R = N_DIST, 8
+    nloc = n - 3
+    rng = np.random.default_rng(DIST_SEED)
+    u1 = [random_unitary(rng, 2) for _ in range(n)]
+    u2 = random_unitary(rng, 4)
+    u3 = random_unitary(rng, 8)
+    gates = n + 3
+
+    def run(env):
+        q = qt.createQureg(n, env)
+        for t in range(n):
+            qt.unitary(q, t, u1[t])
+        qt.multiQubitUnitary(q, [0, 1, 2], u3)
+        qt.multiQubitUnitary(q, [n - 1, 4], u2)
+        qt.controlledUnitary(q, n - 2, 5, u1[0])
+        sync()
+        return q
+
+    env = mesh_env(qt, R)
+    PD.reset_counters()
+    t0 = time.perf_counter()
+    qm = run(env)
+    wall = time.perf_counter() - t0
+    routes = {r: int(PD.counter_sum("dispatch_route_total", route=r))
+              for r in ("perm_local", "exchange_1q", "relocalize",
+                        "default")}
+    check(all(routes[r] > 0 for r in ("perm_local", "exchange_1q",
+                                      "relocalize")),
+          f"eager gates at R = {R}: a route was not taken: {routes}")
+    one = run(qt.createQuESTEnv())
+    ref = one.amps.reshape(2, -1)
+    a = qm.amps
+    tol = gates * tolerance(ref)
+    m = 1 << nloc
+    err = max(max_abs_diff(torch, a.shards[s], ref[:, s * m:(s + 1) * m])
+              for s in range(R))
+    check(err <= tol, f"eager gates at R = {R}: |psi - one register| "
+          f"{err} > {tol}")
+    qt.destroyQureg(one, one.env)
+    del ref
+    # one 3-target gate on local qubits: both forms on the same shards
+    mat = np.stack([u3.real, u3.imag])
+    targets = (0, 1, 2)
+    base = [sh.clone() for sh in a.shards]
+    got = SH.apply_matrix_local(ShardedAmps(env.mesh, [s.clone()
+                                                       for s in base]),
+                                mat, targets=targets)
+    want = [kernels.apply_matrix(s, mat, num_qubits=nloc, targets=targets)
+            for s in base]
+    gtol = tolerance(base[0])
+    gerr = max(max_abs_diff(torch, x, y) for x, y in zip(got.shards, want))
+    check(gerr <= gtol, f"eager 3-target gate at nloc = {nloc}: fixed-order "
+          f"sum against kernels.apply_matrix {gerr} > {gtol}")
+    del got, want
+    work = ShardedAmps(env.mesh, [s.clone() for s in base])
+    fixed_ms = cuda_ms(torch, lambda: SH.apply_matrix_local(
+        work, mat, targets=targets))
+    del work
+    matmul_ms = cuda_ms(torch, lambda: [kernels.apply_matrix(
+        s, mat, num_qubits=nloc, targets=targets) for s in base])
+    qt.destroyQureg(qm, env)
+    del base, a
+    torch.cuda.empty_cache()
+    return {"n": n, "shards": R, "nloc": nloc, "gates": gates,
+            "routes": routes, "wall_s": wall,
+            "max_abs_err_vs_one_register": err, "tolerance": tol,
+            "three_target_gate": {
+                "targets": list(targets), "shard_amps": m,
+                "max_abs_err_fixed_order_vs_matmul": gerr,
+                "fixed_order_ms_all_shards": fixed_ms,
+                "apply_matrix_ms_all_shards": matmul_ms,
+                "fixed_order_over_apply_matrix": fixed_ms / matmul_ms}}
+
+
+@contextmanager
+def event_timed(torch, targets):
+    """Each (module, name, label) of ``targets``: the function replaced,
+    for the block, by one that records CUDA events around each call.
+    Yields a dict that holds, once the block has ended, the ms of each
+    label summed over its calls (a label's calls include the labelled
+    calls made inside them)."""
+    marks = []
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def wrap(fn, label):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            marks.append((label, start, end))
+            return out
+        return timed
+
+    ms: dict = {}
+    for (mod, name, fn), (_mod, _name, label) in zip(saved, targets):
+        setattr(mod, name, wrap(fn, label))
+    try:
+        yield ms
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    sync()
+    for label, start, end in marks:
+        ms[label] = ms.get(label, 0.0) + start.elapsed_time(end)
+
+
+def timed_drain(torch, PD, fusion, fused, kernels, a, program, nloc, key):
+    """fusion.execute_sharded_program, the drain a user's register runs,
+    with CUDA events around its exchanges (dist._remap_shards), its shard
+    runs (fusion.execute_program) and, inside those, each K1 and K2
+    launch and each gatherperm: (state, ms summed over the shards for
+    "exchange", "K1", "K2", "gatherperm" and "other", the rest of the
+    shard runs)."""
+    with event_timed(torch, [
+            (PD, "_remap_shards", "exchange"),
+            (fusion, "execute_program", "shard_runs"),
+            (fused, "apply_window_stack", "K1"),
+            (fused, "apply_window_megastack", "K2"),
+            (kernels, "apply_index_permutation", "gatherperm")]) as ms:
+        a = fusion.execute_sharded_program(a, program, (), nloc, key=key)
+    out = {kind: ms.get(kind, 0.0)
+           for kind in ("exchange", "K1", "K2", "gatherperm")}
+    out["other"] = (ms.get("shard_runs", 0.0) - out["K1"] - out["K2"]
+                    - out["gatherperm"])
+    return a, out
+
+
+def phase_dist_timing(torch, np, qt, C, fused, fusion, circuits, us,
+                      kernels):
+    """Wall time per circuit at R = 1, 2 and 8 (the API route), the bench
+    route's drain (execute_sharded_program) with its device ms split into
+    K1, K2, gatherperm, the other shard ops and the exchange copies, with
+    the bytes the copies move, and one 30-qubit bench-route circuit at
+    R = 8 with its peak memory."""
+    from quest_tpu_torch.parallel import dist as PD
+    from quest_tpu_torch.parallel import sharded as SH
+
+    n = N_DIST
+    out = {"n": n, "walls": {}, "split": {}}
+    gates = circuits.bench_gate_list(n, DEPTH, us)
+    for R in (1,) + DIST_MESHES:
+        env = mesh_env(qt, R)
+
+        def api_route(env=env):
+            q = qt.createQureg(n, env)
+            with qt.gateFusion(q):
+                apply_bench_gates(qt, q, us, n)
+            p = qt.calcProbOfOutcome(q, n - 1, 0)
+            qt.destroyQureg(q, env)
+            return p
+
+        samples = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            api_route()
+            sync()
+            samples.append(time.perf_counter() - t0)
+        out["walls"][str(R)] = {"api_route_wall_s": statistics.median(
+            samples), "samples_s": samples}
+        if R == 1:
+            continue
+        nloc = n - (R.bit_length() - 1)
+        prog, _final = fusion.plan_items_sharded(gates, n, nloc,
+                                                 device=DEVICE,
+                                                 optimize=False)
+        sigmas = [p[1] for p in prog if p[0] == "remap"]
+        per_shard = sum(C.remap_exchange_bytes(s, n, nloc, 4)
+                        for s in sigmas)
+        splits = []
+        for _ in range(3):
+            a = SH.classical(env.mesh, nloc, torch.float32, 0)
+            a, by_kind = timed_drain(torch, PD, fusion, fused, kernels, a,
+                                     prog, nloc, ("dist_timing", n, R))
+            splits.append(by_kind)
+            del a
+        by_kind = {kind: statistics.median(s[kind] for s in splits)
+                   for kind in splits[0]}
+        x_ms = by_kind["exchange"]
+        moved = per_shard * R
+        out["split"][str(R)] = {
+            "remaps": len(sigmas), "ms_by_part": by_kind,
+            "count_all_shards": {kind: v if kind == "remap" else R * v
+                                 for kind, v in
+                                 program_op_counts(prog).items()},
+            "kernels_ms": by_kind["K1"] + by_kind["K2"],
+            "exchange_ms": x_ms, "device_ms": sum(by_kind.values()),
+            "exchange_bytes_per_shard": per_shard,
+            "exchange_bytes_all_shards": moved,
+            "exchange_gb_per_s": moved / (x_ms * 1e6) if x_ms else None,
+            "exchange_share": x_ms / sum(by_kind.values())}
+        torch.cuda.empty_cache()
+    # one bench-route circuit at 30 qubits on 8 shards
+    nb, R = N_DIST_BIG, 8
+    nloc = nb - 3
+    env = mesh_env(qt, R)
+    ub = circuits.bench_unitaries(nb, DEPTH, seed=SEED)
+    t0 = time.perf_counter()
+    prog, final = fusion.plan_items_sharded(
+        circuits.bench_gate_list(nb, DEPTH, ub), nb, nloc, device=DEVICE,
+        optimize=False)
+    plan_s = time.perf_counter() - t0
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    a = SH.classical(env.mesh, nloc, torch.float32, 0)
+    a, by_kind = timed_drain(torch, PD, fusion, fused, kernels, a, prog,
+                             nloc, ("dist_big", nb, R))
+    if final is not None and list(final) != list(range(nb)):
+        a = PD.remap_sharded(a, num_qubits=nb,
+                             sigma=PD.canonical_sigma(final))
+    p = float(SH.prob_of_outcome_statevec(a, nb - 1, 0))
+    total = float(PD.total_prob_sharded(a))
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    state_bytes = 2 * (1 << nb) * 4
+    check(abs(total - 1) <= 1e-3 and 0 <= p <= 1, f"30-qubit circuit at "
+          f"R = {R}: total {total}, P(top=0) {p}")
+    out["big"] = {"n": nb, "shards": R, "nloc": nloc,
+                  "state_bytes": state_bytes, "plan_s": plan_s,
+                  "program": program_counts(fusion, prog),
+                  "wall_s": wall, "ms_by_part": by_kind,
+                  "kernels_ms": by_kind["K1"] + by_kind["K2"],
+                  "exchange_ms": by_kind["exchange"],
+                  "peak_bytes_beside_start": peak,
+                  "peak_over_state": peak / state_bytes,
+                  "p_top_zero": p, "calc_total_prob": total}
+    del a
+    torch.cuda.empty_cache()
+    return out
+
+
+def _nccl_worker(rank, world, port, n, out_dir):
+    """One torch.distributed rank of phase_dist_nccl: config 2's circuit
+    (depth 4) at ``n`` qubits under gateFusion, one shard per card."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import quest_tpu_torch as qt
+    from quest_tpu_torch.models import circuits
+    from quest_tpu_torch.parallel import sharded as SH
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    qt.initDistributed(f"tcp://localhost:{port}", world, rank, "nccl")
+    try:
+        qt.set_precision(1)
+        env = qt.createQuESTEnv()
+        us = circuits.bench_unitaries(n, 4, seed=SEED)
+        q = qt.createQureg(n, env)
+        with qt.gateFusion(q):
+            apply_bench_gates(qt, q, us, n)
+        whole = SH.gather_host(q.amps)
+        if rank == 0:
+            np.save(os.path.join(out_dir, "nccl.npy"), whole)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_nccl(torch, np, qt, circuits):
+    """The torch.distributed backend over NCCL, one shard per card on two
+    cards: config 2's circuit (depth 4) at 20 qubits, bit for bit against
+    the in-process mesh of two shards on one card."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from quest_tpu_torch.parallel import sharded as SH
+
+    n, world = 20, 2
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_nccl_worker, args=(world, port, n, tmp),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        try:
+            deadline = time.perf_counter() + 300
+            while not ctx.join(timeout=10):
+                check(time.perf_counter() < deadline, "dist_nccl: the ranks "
+                      "did not finish in 300 s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        got = np.load(os.path.join(tmp, "nccl.npy"))
+    env = mesh_env(qt, world)
+    us = circuits.bench_unitaries(n, 4, seed=SEED)
+    q = qt.createQureg(n, env)
+    with qt.gateFusion(q):
+        apply_bench_gates(qt, q, us, n)
+    want = SH.gather_host(q.amps)
+    same = bool(np.array_equal(got, want))
+    check(same, "dist_nccl: the NCCL ranks' state differs from the "
+          "in-process mesh's")
+    return {"n": n, "ranks": world, "bit_identical_to_in_process": same}
+
+
 def main() -> int:
     import torch
 
@@ -4559,7 +5301,6 @@ def main() -> int:
     # 16. config 2 at 26 qubits through the paged planner
     gmain, gops, gprogram, gus = phase_paged_main(
         torch, qt, C, fused, fusion, circuits, p_bench, psi_windowed)
-    del psi_windowed
     emit({"phase": "paged_main", **gmain})
     for key in ("K11", "K12"):
         launches[key] = (gmain["launches_bench"][key]
@@ -4622,7 +5363,33 @@ def main() -> int:
     models = phase_models_main(torch, np)
     emit({"phase": "models_main", "power": smi, **models})
 
-    # 28. kernels
+    # 28. the exchange primitives and one shard's K1 and K2 at nloc = 23
+    dparity = phase_dist_parity(torch, np, qt, C, fused, fusion, circuits,
+                                kernels)
+    emit({"phase": "dist_parity", **dparity})
+
+    # 29. config 2 at 26 qubits on 2 and 8 shards of the card, and config
+    # 4's noise layer on 4: K1, K2 and K5 launched on every shard
+    dmain, dcounts = phase_dist_main(torch, np, qt, C, fused, fusion,
+                                     circuits, noise, us, p_bench,
+                                     psi_windowed)
+    del psi_windowed
+    emit({"phase": "dist_main", **dmain})
+
+    # 30. walls at R = 1, 2, 8, kernels against exchange copies, and a
+    # 30-qubit circuit on 8 shards
+    dtiming = phase_dist_timing(torch, np, qt, C, fused, fusion, circuits,
+                                us, kernels)
+    emit({"phase": "dist_timing", "power": smi, **dtiming})
+    if torch.cuda.device_count() >= 2:
+        emit({"phase": "dist_nccl", **phase_dist_nccl(torch, np, qt,
+                                                       circuits)})
+    else:
+        # nothing was tried: two NCCL ranks on one card are refused
+        print("dist_nccl: not run: NCCL needs one card per rank, and "
+              f"{torch.cuda.device_count()} card is visible", flush=True)
+
+    # 31. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
         key = key or kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -4779,6 +5546,12 @@ def main() -> int:
                            "pair-channel sweep")
     for e in (k1b, k2b, k5b):
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
+    # K1, K2 and K5 run per shard on the dist phases: each shard of a
+    # sharded register launches the same local program
+    for e, key in ((k1e, "K1"), (k2e, "K2"), (k5e, "K5")):
+        e["dist"] = {"run_per_shard": True, "launches": dcounts[key],
+                     "meshes": [*DIST_MESHES, R_DIST_RHO]}
+        check(dcounts[key] > 0, f"{key} never launched on the dist path")
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
                       k11e, k12e, k1b, k2b, k5b]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -28,7 +28,11 @@ Quick start::
     print(qt.calcProbOfOutcome(q, 19, 1))   # 0.5
 
 ``createQuESTEnv(device="cpu")`` runs everything on the CPU, with the
-kernels' plain PyTorch versions.
+kernels' plain PyTorch versions.  ``createQuESTEnv(devices=[...])`` splits
+registers over several shards (``devices=["cuda:0"] * 8``: eight shards
+on one card; ``["cpu"] * 8`` on the CPU), and after ``initDistributed``
+an env holds one shard per torch.distributed rank (``parallel``, ``PAR``:
+the exchange layer, parallel/dist.py).
 """
 
 from .precision import (
@@ -70,6 +74,8 @@ from .batch import (
     run_trajectories as runTrajectories,
 )
 from . import models
+from . import parallel
+from .parallel import dist as PAR
 from .ops import phasefunc as _pf
 
 # enum phaseFunc (QuEST.h:231-234)

@@ -8,10 +8,24 @@ buffer in the active ``gateFusion`` context, or apply eagerly to the ket
 qubits -> on a density matrix, the conjugated twin on the bra qubits
 (+numQubits shift) -> QASM record.  The register re-binds its amplitude
 tensor after each eager operation.
+
+On an env of several shards a register of at least as many amplitudes
+is sharded (qureg.py): its states initialise shard by shard
+(parallel/sharded.py), and an eager dense gate routes as the JAX
+package's ``_dispatch_matrix`` does (quest_tpu/api.py:576-665): targets
+are addressed through the live logical->physical permutation; all-local
+targets run in each shard (``perm_local``), a one-qubit gate on a sharded
+target exchanges with its partner shard (``exchange_1q``), a wider one
+pulls its sharded targets down with half-shard swaps and keeps the
+permutation (``relocalize``), and a gate with too few free local qubits
+gathers the register, runs the ordinary op and splits it again
+(``default``).  Diagonal gates and NOTs run at the physical positions; a
+SWAP is a pure relabel of the permutation.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -25,6 +39,8 @@ from .ops import gatedefs as G
 from .ops import element as E
 from .ops import kernels as K
 from .ops.paulis import PAULI_I, PAULI_X, PAULI_Y, PAULI_Z
+from .parallel import dist as PAR
+from .parallel import sharded as SH
 from .qureg import DiagonalOp, PauliHamil, Qureg
 
 # ---------------------------------------------------------------------------
@@ -32,6 +48,7 @@ from .qureg import DiagonalOp, PauliHamil, Qureg
 # ---------------------------------------------------------------------------
 
 createQuESTEnv = _env.create_quest_env
+initDistributed = _env.init_distributed  # multi-process MPI_Init analogue
 destroyQuESTEnv = _env.destroy_quest_env
 syncQuESTEnv = _env.sync_quest_env
 getEnvironmentString = _env.get_environment_string
@@ -67,28 +84,61 @@ def invalidQuESTInputError(errMsg: str, errFunc: str):
 # ---------------------------------------------------------------------------
 
 
+def _nloc(qureg: Qureg) -> int:
+    return qureg.num_qubits_in_state_vec - qureg.shard_bits
+
+
+def _put(qureg: Qureg, dense, sharded) -> None:
+    """Bind a new state: ``sharded(mesh, nloc, dtype)`` on a sharded
+    register, else ``dense()``."""
+    if qureg.is_sharded:
+        qureg.amps = sharded(qureg.env.mesh, _nloc(qureg), qureg.dtype)
+    else:
+        qureg.amps = dense()
+
+
 def createQureg(numQubits: int, env: _env.QuESTEnv) -> Qureg:
     """Create a state-vector register of numQubits qubits in |0...0>
-    (QuEST.h:529)."""
-    V.validate_num_qubits(numQubits, "createQureg")
+    (QuEST.h:529); on an env of several shards, split over them."""
+    V.validate_num_qubits(numQubits, "createQureg", num_ranks=env.num_ranks)
     q = Qureg(numQubits, env, is_density_matrix=False)
-    q.amps = K.init_zero_state(q.num_amps_total, q.dtype, q.device)
+    _put(q, lambda: K.init_zero_state(q.num_amps_total, q.dtype, q.device),
+         lambda mesh, nloc, dt: SH.classical(mesh, nloc, dt, 0))
     return q
 
 
 def createDensityQureg(numQubits: int, env: _env.QuESTEnv) -> Qureg:
     """Create a density-matrix register (a state-vector of 2N qubits) in
     |0><0| (QuEST.h:623)."""
-    V.validate_num_qubits(numQubits, "createDensityQureg")
+    V.validate_num_qubits(numQubits, "createDensityQureg",
+                          num_ranks=env.num_ranks)
     q = Qureg(numQubits, env, is_density_matrix=True)
-    q.amps = K.init_classical_density(numQubits, 0, q.dtype, q.device)
+    _put(q, lambda: K.init_classical_density(numQubits, 0, q.dtype,
+                                             q.device),
+         lambda mesh, nloc, dt: SH.classical(mesh, nloc, dt, 0))
     return q
+
+
+def _copy_state(target: Qureg, source: Qureg) -> None:
+    """Overwrite ``target``'s state with a canonical-order copy of
+    ``source``'s (the same layout: both on the env's mesh, or both
+    whole)."""
+    amps = source.amps
+    if isinstance(amps, SH.ShardedAmps):
+        if target.env.mesh is not amps.mesh:
+            raise V.QuESTError(
+                "cloneQureg: both registers must live on the same mesh.")
+        target.amps = SH.ShardedAmps(amps.mesh, [
+            s.to(dtype=target.dtype, copy=True) for s in amps.shards])
+    else:
+        target.amps = amps.to(device=target.device, dtype=target.dtype,
+                              copy=True)
 
 
 def createCloneQureg(qureg: Qureg, env: _env.QuESTEnv) -> Qureg:
     """Create a new register cloning an existing one (QuEST.h:644)."""
     q = Qureg(qureg.num_qubits_represented, env, qureg.is_density_matrix)
-    q.amps = qureg.amps.to(device=q.device, dtype=q.dtype, copy=True)
+    _copy_state(q, qureg)
     return q
 
 
@@ -96,6 +146,7 @@ def destroyQureg(qureg: Qureg, env: Optional[_env.QuESTEnv] = None) -> None:
     """Free a register's amplitude storage (QuEST.h:666)."""
     qureg._fusion = None
     qureg.amps = None
+    qureg._last_use = {}
 
 
 def _host_chunks(qureg: Qureg, chunk: int = 1 << 20):
@@ -152,57 +203,75 @@ def getNumAmps(qureg: Qureg) -> int:
 
 def initBlankState(qureg: Qureg) -> None:
     """Set all amplitudes to zero (QuEST.h:1361)."""
-    qureg.amps = K.init_blank_state(qureg.num_amps_total, qureg.dtype,
-                                    qureg.device)
+    _put(qureg, lambda: K.init_blank_state(qureg.num_amps_total, qureg.dtype,
+                                           qureg.device), SH.blank)
 
 
 def initZeroState(qureg: Qureg) -> None:
     """Set the register to |0...0> (QuEST.h:1375)."""
     if qureg.is_density_matrix:
-        qureg.amps = K.init_classical_density(
+        dense = lambda: K.init_classical_density(  # noqa: E731
             qureg.num_qubits_represented, 0, qureg.dtype, qureg.device)
     else:
-        qureg.amps = K.init_zero_state(qureg.num_amps_total, qureg.dtype,
-                                       qureg.device)
+        dense = lambda: K.init_zero_state(  # noqa: E731
+            qureg.num_amps_total, qureg.dtype, qureg.device)
+    _put(qureg, dense, lambda mesh, nloc, dt: SH.classical(mesh, nloc, dt,
+                                                           0))
     qureg.qasm_log.init_zero()
 
 
 def initPlusState(qureg: Qureg) -> None:
     """Set the register to |+>^n (QuEST.h:1394)."""
     if qureg.is_density_matrix:
-        qureg.amps = K.init_plus_density(qureg.num_qubits_represented,
-                                         qureg.dtype, qureg.device)
+        dense = lambda: K.init_plus_density(  # noqa: E731
+            qureg.num_qubits_represented, qureg.dtype, qureg.device)
+        value = 1.0 / (1 << qureg.num_qubits_represented)
     else:
-        qureg.amps = K.init_plus_state(qureg.num_amps_total, qureg.dtype,
-                                       qureg.device)
+        dense = lambda: K.init_plus_state(  # noqa: E731
+            qureg.num_amps_total, qureg.dtype, qureg.device)
+        value = 1.0 / math.sqrt(qureg.num_amps_total)
+    _put(qureg, dense, lambda mesh, nloc, dt: SH.uniform(mesh, nloc, dt,
+                                                         value))
 
 
 def initClassicalState(qureg: Qureg, stateInd: int) -> None:
     """Set the register to a computational basis state (QuEST.h:1431)."""
     V.validate_state_index(qureg, stateInd, "initClassicalState")
     if qureg.is_density_matrix:
-        qureg.amps = K.init_classical_density(
-            qureg.num_qubits_represented, stateInd, qureg.dtype, qureg.device)
+        dense = lambda: K.init_classical_density(  # noqa: E731
+            qureg.num_qubits_represented, stateInd, qureg.dtype,
+            qureg.device)
+        index = stateInd + (stateInd << qureg.num_qubits_represented)
     else:
-        qureg.amps = K.init_classical_state(
+        dense = lambda: K.init_classical_state(  # noqa: E731
             qureg.num_amps_total, stateInd, qureg.dtype, qureg.device)
+        index = stateInd
+    _put(qureg, dense, lambda mesh, nloc, dt: SH.classical(mesh, nloc, dt,
+                                                           index))
 
 
 def initPureState(qureg: Qureg, pure: Qureg) -> None:
     """Initialise a register (or rho = |psi><psi|) from a pure state
-    (QuEST.h:1451)."""
+    (QuEST.h:1451).  On a mesh the density form builds each shard of rho
+    from the whole of psi, gathered once (the JAX package's outer
+    product under GSPMD; the reference's copyVecIntoMatrixPairState)."""
     V.validate_state_vector(pure, "initPureState")
     V.validate_matching_qureg_dims(qureg, pure, "initPureState")
-    if qureg.is_density_matrix:
-        qureg.amps = K.init_pure_density(pure.amps).to(qureg.dtype)
-    else:
-        qureg.amps = pure.amps.clone()
+    if not qureg.is_density_matrix:
+        _copy_state(qureg, pure)
+        return
+    psi = pure.amps
+    if isinstance(psi, SH.ShardedAmps):
+        psi = psi.mesh.gather(psi.shards)
+    _put(qureg, lambda: K.init_pure_density(psi).to(qureg.dtype),
+         lambda mesh, nloc, dt: SH.pure_density(
+             mesh, psi, qureg.num_qubits_represented, nloc, dt))
 
 
 def initDebugState(qureg: Qureg) -> None:
     """amp_k = (2k mod 10)/10 + i(2k+1 mod 10)/10 (QuEST.h:1463)."""
-    qureg.amps = K.init_debug_state(qureg.num_amps_total, qureg.dtype,
-                                    qureg.device)
+    _put(qureg, lambda: K.init_debug_state(qureg.num_amps_total, qureg.dtype,
+                                           qureg.device), SH.debug)
 
 
 def setAmps(qureg: Qureg, startInd: int, reals, imags, numAmps: int) -> None:
@@ -217,7 +286,11 @@ def setAmps(qureg: Qureg, startInd: int, reals, imags, numAmps: int) -> None:
     V.validate_finite(im, "setAmps")
     # written in place, as the reference writes its chunk
     # (ops/element.set_amp_range); pending fused gates drain first
-    E.set_amp_range(qureg.amps, startInd, np.stack([re, im]))
+    amps = qureg.amps
+    if isinstance(amps, SH.ShardedAmps):
+        SH.set_range(amps, startInd, np.stack([re, im]))
+    else:
+        E.set_amp_range(amps, startInd, np.stack([re, im]))
 
 
 def initStateFromAmps(qureg: Qureg, reals, imags) -> None:
@@ -241,8 +314,10 @@ def _set_all_amps(qureg: Qureg, reals, imags, func: str) -> None:
         raise V.QuESTError(f"{func}: Incorrect number of amplitudes.")
     V.validate_finite(re, func)
     V.validate_finite(im, func)
-    qureg.amps = torch.as_tensor(np.stack([re, im]), dtype=qureg.dtype,
-                                 device=qureg.device)
+    full = np.stack([re, im])
+    _put(qureg, lambda: torch.as_tensor(full, dtype=qureg.dtype,
+                                        device=qureg.device),
+         lambda mesh, nloc, dt: SH.split(mesh, full, nloc, dt))
 
 
 def initSparseState(qureg: Qureg, indices, amps) -> None:
@@ -264,8 +339,11 @@ def initSparseState(qureg: Qureg, indices, amps) -> None:
         raise V.QuESTError("initSparseState: duplicate amplitude indices.")
     V.validate_finite(vals.real, "initSparseState")
     V.validate_finite(vals.imag, "initSparseState")
-    qureg.amps = K.init_sparse_state(qureg.num_amps_total, idx, vals.real,
-                                     vals.imag, qureg.dtype, qureg.device)
+    _put(qureg, lambda: K.init_sparse_state(
+        qureg.num_amps_total, idx, vals.real, vals.imag, qureg.dtype,
+        qureg.device),
+        lambda mesh, nloc, dt: SH.sparse(mesh, nloc, dt, idx, vals.real,
+                                         vals.imag))
 
 
 def initSparseClusteredState(qureg: Qureg, bases, blocks) -> None:
@@ -294,8 +372,7 @@ def cloneQureg(targetQureg: Qureg, copyQureg: Qureg) -> None:
     """Overwrite targetQureg with a copy of copyQureg (QuEST.h:1559)."""
     V.validate_matching_qureg_types(targetQureg, copyQureg, "cloneQureg")
     V.validate_matching_qureg_dims(targetQureg, copyQureg, "cloneQureg")
-    targetQureg.amps = copyQureg.amps.to(
-        device=targetQureg.device, dtype=targetQureg.dtype, copy=True)
+    _copy_state(targetQureg, copyQureg)
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +545,15 @@ def createDiagonalOpFromPauliHamilFile(filename: str,
 # ---------------------------------------------------------------------------
 
 
+def _refuse_sharded(qureg, what: str) -> None:
+    """An operation whose sharded form is later work refuses a sharded
+    register before it changes anything."""
+    if qureg.is_sharded:
+        from .parallel.mesh import refusal
+
+        raise refusal(what)
+
+
 def _sv_n(qureg: Qureg) -> int:
     return qureg.num_qubits_in_state_vec
 
@@ -500,6 +586,100 @@ def _twins(qureg, targets, controls):
                tuple(c + sh for c in controls), True)
 
 
+def _dispatch_matrix(qureg, stacked, targets, controls, control_states):
+    """Route an eager dense gate on a sharded register, updating it in
+    place (quest_tpu/api.py:576-665): targets are addressed through the
+    live permutation; all-local targets run in each shard; a one-qubit
+    gate on a sharded target exchanges with its partner shard; a wider
+    gate pulls its sharded targets down to the least recently used free
+    local qubits and keeps the permutation (with the lazy remap off it
+    swaps back at once); with too few free local qubits, or with the
+    explicit routes off, the ``default`` route gathers the register,
+    runs the ordinary op and splits it."""
+    n = _sv_n(qureg)
+    if qureg.is_sharded and n > qureg.shard_bits \
+            and PAR.explicit_dist_enabled():
+        nloc = _nloc(qureg)
+        lazy = PAR.lazy_remap_enabled()
+        if not lazy:
+            _ = qureg.amps  # undo any permutation a lazy phase left
+        amps = qureg._amps_raw()  # drains pending fused gates first
+        perm = qureg._perm
+        ptargets = qureg._phys_bits(targets)
+        pcontrols = qureg._phys_bits(controls)
+        # recency before the eviction order: this gate's qubits are the
+        # hottest
+        for b in (*targets, *controls):
+            qureg._use_clock += 1
+            qureg._last_use[b] = qureg._use_clock
+        if not any(t >= nloc for t in ptargets):
+            PAR.record_route("perm_local")
+            qureg._set_amps_permuted(SH.apply_matrix_local(
+                amps, stacked, targets=ptargets, controls=pcontrols,
+                control_states=control_states), perm)
+            return
+        if len(ptargets) == 1:
+            PAR.record_route("exchange_1q")
+            qureg._set_amps_permuted(PAR.apply_matrix_1q_sharded(
+                amps, stacked, num_qubits=n, target=ptargets[0],
+                controls=pcontrols, control_states=control_states), perm)
+            return
+        # evict the least recently used residents: the free pool ordered
+        # by the occupying logical qubit's last use (never used first)
+        inv = {p: q for q, p in enumerate(perm)} if perm is not None \
+            else None
+        last = qureg._last_use
+        free_order = sorted(
+            range(nloc),
+            key=lambda p: last.get(inv[p] if inv is not None else p, -1))
+        swaps, new_targets = PAR.plan_relocalization(
+            n, nloc, ptargets, pcontrols, free_order=free_order)
+        if swaps is not None:
+            PAR.record_route("relocalize")
+            for lo, hi in swaps:
+                amps = PAR.swap_sharded(amps, num_qubits=n, qb_low=lo,
+                                        qb_high=hi)
+            amps = SH.apply_matrix_local(
+                amps, stacked, targets=new_targets, controls=pcontrols,
+                control_states=control_states)
+            if not lazy:
+                for lo, hi in reversed(swaps):
+                    amps = PAR.swap_sharded(amps, num_qubits=n, qb_low=lo,
+                                            qb_high=hi)
+                qureg.amps = amps
+                return
+            # no swap back: the relocation joins the permutation
+            newperm = list(perm) if perm is not None else list(range(n))
+            inv2 = [0] * n
+            for q, p in enumerate(newperm):
+                inv2[p] = q
+            for lo, hi in swaps:
+                ql, qh = inv2[lo], inv2[hi]
+                newperm[ql], newperm[qh] = hi, lo
+                inv2[lo], inv2[hi] = qh, ql
+            qureg._set_amps_permuted(amps, tuple(newperm))
+            return
+        # too few free local qubits (the reference rejects such ops,
+        # QuEST_validation.c:469-471): the default route
+    _default_route(qureg, lambda a: K.apply_matrix(
+        a, stacked, num_qubits=n, targets=tuple(targets),
+        controls=tuple(controls), control_states=control_states))
+
+
+def _default_route(qureg, op) -> None:
+    """Run ``op`` on the whole state in canonical order; on a sharded
+    register, gather it, run the op and split it again (the JAX package
+    leaves this route to GSPMD: counted as route ``default``, its data
+    motion uncounted as exchanges, as there)."""
+    amps = qureg.amps
+    if isinstance(amps, SH.ShardedAmps):
+        PAR.record_route("default")
+        whole = op(amps.mesh.gather(amps.shards))
+        qureg.amps = SH.split(amps.mesh, whole, amps.nloc, amps.dtype)
+    else:
+        qureg.amps = op(amps)
+
+
 def _apply_unitary(qureg, matrix, targets, controls=(), control_states=()):
     """A dense gate: buffered inside a gateFusion context, else applied
     eagerly (ket, then the conjugated bra twin on a density matrix)."""
@@ -513,13 +693,18 @@ def _apply_unitary(qureg, matrix, targets, controls=(), control_states=()):
     _guard_batched_eager(qureg, "_dispatch_matrix")
     for t, c, conj in _twins(qureg, targets, controls):
         m = CX.conj(stacked) if conj else stacked
+        if qureg.is_sharded:
+            _dispatch_matrix(qureg, m, t, c, control_states)
+            continue
         qureg.amps = K.apply_matrix(qureg.amps, m, num_qubits=_sv_n(qureg),
                                     targets=t, controls=c,
                                     control_states=control_states)
 
 
 def _apply_diag(qureg, diag, targets, controls=(), control_states=()):
-    """A diagonal gate (no amplitude pairing)."""
+    """A diagonal gate (no amplitude pairing); on a sharded register it
+    runs at the physical positions of the live permutation, moving no
+    data."""
     targets = tuple(int(t) for t in targets)
     controls = tuple(int(c) for c in controls)
     control_states = tuple(int(s) for s in control_states)
@@ -530,17 +715,32 @@ def _apply_diag(qureg, diag, targets, controls=(), control_states=()):
     _guard_batched_eager(qureg, "_apply_diag")
     for t, c, conj in _twins(qureg, targets, controls):
         d = CX.conj(stacked) if conj else stacked
+        if qureg.is_sharded:
+            amps = qureg._amps_raw()
+            qureg._set_amps_permuted(SH.apply_diagonal(
+                amps, d, targets=qureg._phys_bits(t),
+                controls=qureg._phys_bits(c),
+                control_states=control_states), qureg._perm)
+            continue
         qureg.amps = K.apply_diagonal(qureg.amps, d, num_qubits=_sv_n(qureg),
                                       targets=t, controls=c,
                                       control_states=control_states)
 
 
 def _apply_not(qureg, targets, controls, control_states=()):
-    """NOTs are pure index-bit flips."""
+    """NOTs are pure index-bit flips; on a sharded register they run at
+    the physical positions of the live permutation."""
     if _fusion.capture_not(qureg, targets, controls, control_states):
         return
     _guard_batched_eager(qureg, "_apply_not")
     for t, c, _conj in _twins(qureg, tuple(targets), tuple(controls)):
+        if qureg.is_sharded:
+            amps = qureg._amps_raw()
+            qureg._set_amps_permuted(SH.apply_not(
+                amps, targets=qureg._phys_bits(t),
+                controls=qureg._phys_bits(c),
+                control_states=control_states), qureg._perm)
+            continue
         qureg.amps = K.apply_multi_qubit_not(
             qureg.amps, num_qubits=_sv_n(qureg), targets=t, controls=c,
             control_states=control_states)
@@ -836,10 +1036,23 @@ def swapGate(qureg: Qureg, qubit1: int, qubit2: int) -> None:
         return
     _guard_batched_eager(qureg, "swapGate")
     n = _sv_n(qureg)
+    if qureg.is_sharded and PAR.lazy_remap_enabled() \
+            and PAR.explicit_dist_enabled():
+        # a pure relabel of the live permutation: no data moves, where
+        # the reference's distributed swap exchanges half the state
+        # (QuEST_cpu_distributed.c:1397-1436; quest_tpu/api.py:1015-1035)
+        amps = qureg._amps_raw()
+        live = list(qureg._perm or range(n))
+        for t, _c, _conj in _twins(qureg, (qubit1, qubit2), ()):
+            live[t[0]], live[t[1]] = live[t[1]], live[t[0]]
+        qureg._set_amps_permuted(amps, tuple(live))
+        qureg.qasm_log.gate("swap", (qubit1,), qubit2)
+        return
     perm = list(range(n))
     for t, _c, _conj in _twins(qureg, (qubit1, qubit2), ()):
         perm[t[0]], perm[t[1]] = perm[t[1]], perm[t[0]]
-    qureg.amps = K.permute_qubits(qureg.amps, num_qubits=n, perm=tuple(perm))
+    _default_route(qureg, lambda a: K.permute_qubits(
+        a, num_qubits=n, perm=tuple(perm)))
     qureg.qasm_log.gate("swap", (qubit1,), qubit2)
 
 
@@ -920,6 +1133,7 @@ def multiControlledMultiQubitUnitary(qureg, ctrls, targs, u) -> None:
 def multiRotateZ(qureg: Qureg, qubits: Sequence[int], angle: float) -> None:
     """Rotation generated by a product of Z operators (parity phase)
     (QuEST.h:3912)."""
+    _refuse_sharded(qureg, "multiRotateZ")
     qubits, angle = [int(q) for q in qubits], float(angle)
     V.validate_multi_targets(qureg, qubits, "multiRotateZ")
     _apply_parity_phase(qureg, angle, tuple(qubits), ())
@@ -930,6 +1144,7 @@ def multiRotateZ(qureg: Qureg, qubits: Sequence[int], angle: float) -> None:
 def multiControlledMultiRotateZ(qureg, controlQubits, targetQubits,
                                 angle) -> None:
     """Multi-controlled Z-product rotation (QuEST.h:4037)."""
+    _refuse_sharded(qureg, "multiControlledMultiRotateZ")
     controls, targets = list(controlQubits), list(targetQubits)
     V.validate_multi_controls_targets(qureg, controls, targets,
                                       "multiControlledMultiRotateZ")
@@ -957,6 +1172,7 @@ def _apply_parity_phase(qureg, angle, qubits, controls):
 def multiRotatePauli(qureg: Qureg, targetQubits, targetPaulis,
                      angle: float) -> None:
     """Rotation generated by a product of Pauli operators (QuEST.h:3967)."""
+    _refuse_sharded(qureg, "multiRotatePauli")
     targets = [int(t) for t in targetQubits]
     paulis = [int(p) for p in targetPaulis]
     V.validate_multi_targets(qureg, targets, "multiRotatePauli")
@@ -969,6 +1185,7 @@ def multiRotatePauli(qureg: Qureg, targetQubits, targetPaulis,
 def multiControlledMultiRotatePauli(qureg, controlQubits, targetQubits,
                                     targetPaulis, angle) -> None:
     """Multi-controlled Pauli-product rotation (QuEST.h:4138)."""
+    _refuse_sharded(qureg, "multiControlledMultiRotatePauli")
     controls = [int(c) for c in controlQubits]
     targets = [int(t) for t in targetQubits]
     paulis = [int(p) for p in targetPaulis]

@@ -20,7 +20,8 @@ from . import circuit as CIRC
 from . import fusion
 from . import optimizer as _optimizer
 from . import validation as V
-from .api import PAULI_I, _shift, _sv_n, hadamard, multiRotatePauli, swapGate
+from .api import (PAULI_I, _refuse_sharded, _shift, _sv_n, hadamard,
+                  multiRotatePauli, swapGate)
 from .ops import calculations as C
 from .ops import cplx as CX
 from .ops import density as D
@@ -31,6 +32,9 @@ from .ops import measurement as M
 from .ops import paulis as P
 from .ops import phasefunc as PF
 from .precision import get_precision, real_eps
+from .parallel import dist as PAR
+from .parallel import sharded as SH
+from .parallel.mesh import refusal
 from .qureg import DiagonalOp, PauliHamil, Qureg
 from .rng import GLOBAL_RNG
 
@@ -38,6 +42,17 @@ from .rng import GLOBAL_RNG
 def _quad() -> bool:
     """Precision 4: route reductions through double-double accumulation."""
     return get_precision() == 4
+
+
+def _sharded_amps(qureg, what: str):
+    """The canonical amplitudes when the register is sharded (None
+    otherwise); a sharded read at quad precision has no form yet."""
+    amps = qureg.amps
+    if not isinstance(amps, SH.ShardedAmps):
+        return None
+    if _quad():
+        raise refusal(f"{what} at quad precision")
+    return amps
 
 
 def _refuse_bank(qureg, what: str) -> None:
@@ -54,7 +69,11 @@ def getAmp(qureg: Qureg, index: int) -> complex:
     """Fetch one complex amplitude (QuEST.h:1987)."""
     V.validate_state_vector(qureg, "getAmp")
     V.validate_num_amps(qureg, index, 1, "getAmp")
-    pair = E.get_amp_pair(qureg.amps, int(index)).cpu()
+    sh = _sharded_amps(qureg, "getAmp")
+    if sh is not None:
+        pair = SH.amp_pair(sh, int(index)).cpu()
+    else:
+        pair = E.get_amp_pair(qureg.amps, int(index)).cpu()
     return complex(float(pair[0]), float(pair[1]))
 
 
@@ -80,7 +99,11 @@ def getDensityAmp(qureg: Qureg, row: int, col: int) -> complex:
     dim = 1 << qureg.num_qubits_represented
     if not (0 <= row < dim and 0 <= col < dim):
         raise V.QuESTError("getDensityAmp: Invalid amplitude index.")
-    pair = E.get_amp_pair(qureg.amps, int(row + col * dim)).cpu()
+    sh = _sharded_amps(qureg, "getDensityAmp")
+    if sh is not None:
+        pair = SH.amp_pair(sh, int(row + col * dim)).cpu()
+    else:
+        pair = E.get_amp_pair(qureg.amps, int(row + col * dim)).cpu()
     return complex(float(pair[0]), float(pair[1]))
 
 
@@ -89,6 +112,12 @@ def calcProbOfOutcome(qureg: Qureg, measureQubit: int, outcome: int) -> float:
     (QuEST.h:3047)."""
     V.validate_target(qureg, measureQubit, "calcProbOfOutcome")
     V.validate_outcome(outcome, "calcProbOfOutcome")
+    sh = _sharded_amps(qureg, "calcProbOfOutcome")
+    if sh is not None:
+        if qureg.is_density_matrix:
+            return float(SH.prob_of_outcome_density(
+                sh, qureg.num_qubits_represented, measureQubit, outcome))
+        return float(SH.prob_of_outcome_statevec(sh, measureQubit, outcome))
     if qureg.is_density_matrix:
         p = C.calc_prob_of_outcome_density(
             qureg.amps, num_qubits=qureg.num_qubits_represented,
@@ -105,6 +134,14 @@ def calcProbOfAllOutcomes(qureg: Qureg, qubits: Sequence[int]) -> np.ndarray:
     (QuEST.h:3136); outcome index bit j <-> qubits[j]."""
     qubits = [int(q) for q in qubits]
     V.validate_multi_targets(qureg, qubits, "calcProbOfAllOutcomes")
+    sh = _sharded_amps(qureg, "calcProbOfAllOutcomes")
+    if sh is not None:
+        if qureg.is_density_matrix:
+            p = SH.all_outcomes_density(sh, qureg.num_qubits_represented,
+                                        tuple(qubits))
+        else:
+            p = SH.all_outcomes_statevec(sh, tuple(qubits))
+        return p.cpu().numpy()
     if qureg.is_density_matrix:
         p = C.calc_prob_of_all_outcomes_density(
             qureg.amps, num_qubits=qureg.num_qubits_represented,
@@ -145,6 +182,7 @@ def _collapse(qureg: Qureg, qubit: int, outcome: int, prob: float) -> None:
 def collapseToOutcome(qureg: Qureg, measureQubit: int, outcome: int) -> float:
     """Project one qubit onto a known outcome and renormalise
     (QuEST.h:3170); returns the outcome's probability."""
+    _refuse_sharded(qureg, "collapseToOutcome")
     V.validate_target(qureg, measureQubit, "collapseToOutcome")
     V.validate_outcome(outcome, "collapseToOutcome")
     prob = calcProbOfOutcome(qureg, measureQubit, outcome)
@@ -160,6 +198,7 @@ def collapseToOutcome(qureg: Qureg, measureQubit: int, outcome: int) -> float:
 
 def measure(qureg: Qureg, measureQubit: int) -> int:
     """Measure one qubit, collapsing the state (QuEST.h:3194)."""
+    _refuse_sharded(qureg, "measure")
     outcome, _ = measureWithStats(qureg, measureQubit)
     return outcome
 
@@ -172,6 +211,7 @@ def measureWithStats(qureg: Qureg, measureQubit: int):
     QT_HOST_MEASURE=1 (or QT_STRICT_VALIDATION=1) takes the reference's
     host Mersenne-Twister stream instead (calcProbOfOutcome ->
     generateMeasurementOutcome -> collapse)."""
+    _refuse_sharded(qureg, "measureWithStats")
     _refuse_bank(qureg, "measureWithStats")
     V.validate_target(qureg, measureQubit, "measureWithStats")
     if M.host_path_enabled():
@@ -200,6 +240,7 @@ def measureSequence(qureg: Qureg, qubits: Sequence[int]):
     sequence (an extension: the reference's measure is one host round
     trip per qubit).  Returns (outcomes, probabilities) lists.  Under
     QT_HOST_MEASURE=1 it is a loop of host-route measureWithStats."""
+    _refuse_sharded(qureg, "measureSequence")
     _refuse_bank(qureg, "measureSequence")
     qubits = [int(q) for q in qubits]
     for q in qubits:
@@ -227,6 +268,12 @@ def measureSequence(qureg: Qureg, qubits: Sequence[int]):
 def calcTotalProb(qureg: Qureg) -> float:
     """Total probability (trace / norm^2) of the register (QuEST.h:2099);
     in double-double under quad precision."""
+    sh = _sharded_amps(qureg, "calcTotalProb")
+    if sh is not None:
+        if qureg.is_density_matrix:
+            return float(SH.total_prob_density(
+                sh, qureg.num_qubits_represented))
+        return float(PAR.total_prob_sharded(sh))
     if qureg.is_density_matrix:
         if _quad():
             return float(C.calc_total_prob_density_quad(
@@ -310,9 +357,42 @@ def _mix_kraus(qureg: Qureg, ops, targets) -> None:
     applied now (QuEST_common.c:630-652)."""
     if _capture_channel(qureg, ops, targets):
         return
+    if qureg.is_sharded:
+        _mix_kraus_sharded(qureg, ops, targets)
+        return
     qureg.amps = D.apply_kraus_map(
         qureg.amps, ops, num_qubits=qureg.num_qubits_represented,
         targets=tuple(targets))
+
+
+def _mix_kraus_sharded(qureg: Qureg, ops, targets) -> None:
+    """An eager Kraus channel on a sharded density register: its
+    superoperator on (T, T+n) as a dense gate.  Judged at the physical
+    positions of the live permutation, a channel reaching a sharded bit
+    routes through the dense-gate dispatcher (relocalization; the
+    reference's distributed multiQubitUnitary strategy,
+    QuEST_common.c:630-652 + QuEST_cpu_distributed.c:1503-1545); else
+    canonical order is restored and each shard applies it
+    (quest_tpu/api_ops.py:244-268)."""
+    from .api import _default_route, _dispatch_matrix
+
+    nq = qureg.num_qubits_represented
+    nloc = 2 * nq - qureg.shard_bits
+    sv_targets = tuple(D.kraus_targets(tuple(targets), nq))
+    sup = D.superoperator_from_kraus(ops)
+    dt = np.float64 if qureg.dtype == torch.float64 else np.float32
+    stacked = CX.soa(sup).astype(dt)
+    if PAR.explicit_dist_enabled() and any(
+            t >= nloc for t in qureg._phys_bits(sv_targets)):
+        _dispatch_matrix(qureg, stacked, sv_targets, (), ())
+        return
+    amps = qureg.amps
+    if all(t < nloc for t in sv_targets):
+        qureg.amps = SH.apply_matrix_local(amps, stacked, targets=sv_targets)
+        return
+    n = qureg.num_qubits_in_state_vec
+    _default_route(qureg, lambda a: K.apply_matrix(
+        a, stacked, num_qubits=n, targets=sv_targets))
 
 
 def mixDephasing(qureg: Qureg, targetQubit: int, prob: float) -> None:
@@ -534,6 +614,7 @@ def calcExpecPauliProd(qureg: Qureg, targetQubits, pauliCodes,
                        workspace: Optional[Qureg] = None) -> float:
     """Expected value of a product of Pauli operators (QuEST.h:4189); the
     workspace register is not needed."""
+    _refuse_sharded(qureg, "calcExpecPauliProd")
     targets = [int(t) for t in targetQubits]
     codes = [int(c) for c in pauliCodes]
     V.validate_multi_targets(qureg, targets, "calcExpecPauliProd")
@@ -551,6 +632,7 @@ def calcExpecPauliSum(qureg: Qureg, allPauliCodes, termCoeffs,
     """Expected value of a weighted sum of Pauli products (QuEST.h:4244).
     A state vector runs one K4 launch per term (expec_pauli_sum_scan); a
     density matrix takes the plain trace form."""
+    _refuse_sharded(qureg, "calcExpecPauliSum")
     n = qureg.num_qubits_represented
     codes = tuple(int(c) for c in np.asarray(allPauliCodes).ravel())
     coeffs = np.asarray(termCoeffs, dtype=np.float64)
@@ -574,6 +656,7 @@ def calcExpecPauliSum(qureg: Qureg, allPauliCodes, termCoeffs,
 def calcExpecPauliHamil(qureg: Qureg, hamil: PauliHamil,
                         workspace: Optional[Qureg] = None) -> float:
     """Expected value of a PauliHamil (QuEST.h:4285)."""
+    _refuse_sharded(qureg, "calcExpecPauliHamil")
     V.validate_pauli_hamil(hamil, "calcExpecPauliHamil")
     V.validate_hamil_matches_qureg(hamil, qureg, "calcExpecPauliHamil")
     return calcExpecPauliSum(qureg, hamil.pauli_codes, hamil.term_coeffs,
@@ -583,6 +666,7 @@ def calcExpecPauliHamil(qureg: Qureg, hamil: PauliHamil,
 def calcExpecDiagonalOp(qureg: Qureg, op: DiagonalOp) -> complex:
     """Expected value of a diagonal operator in the given state
     (QuEST.h:1255)."""
+    _refuse_sharded(qureg, "calcExpecDiagonalOp")
     V.validate_diag_op_matches_qureg(op, qureg, "calcExpecDiagonalOp")
     if qureg.is_density_matrix:
         r = C.calc_expec_diagonal_density(
@@ -599,6 +683,7 @@ def applyPauliSum(inQureg: Qureg, allPauliCodes, termCoeffs,
                   outQureg: Qureg) -> None:
     """Left-multiply a weighted sum of Pauli products, writing outQureg
     (QuEST.h:4995)."""
+    _refuse_sharded(inQureg, "applyPauliSum")
     n = inQureg.num_qubits_represented
     codes = tuple(int(c) for c in np.asarray(allPauliCodes).ravel())
     coeffs = np.asarray(termCoeffs, dtype=np.float64)
@@ -620,6 +705,7 @@ def applyPauliHamil(inQureg: Qureg, hamil: PauliHamil,
                     outQureg: Qureg) -> None:
     """Left-multiply a PauliHamil onto inQureg, writing outQureg
     (QuEST.h:5039)."""
+    _refuse_sharded(inQureg, "applyPauliHamil")
     V.validate_pauli_hamil(hamil, "applyPauliHamil")
     V.validate_hamil_matches_qureg(hamil, inQureg, "applyPauliHamil")
     applyPauliSum(inQureg, hamil.pauli_codes, hamil.term_coeffs, outQureg)
@@ -632,6 +718,7 @@ def applyTrotterCircuit(qureg: Qureg, hamil: PauliHamil, time: float,
     density matrix) through trotter_scan, which overwrites the register's
     tensor in place on the card.  While QASM is recording, the per-term
     multiRotatePauli stream runs instead, so each rotation is logged."""
+    _refuse_sharded(qureg, "applyTrotterCircuit")
     V.validate_pauli_hamil(hamil, "applyTrotterCircuit")
     V.validate_hamil_matches_qureg(hamil, qureg, "applyTrotterCircuit")
     V.validate_trotter_params(order, reps, "applyTrotterCircuit")
@@ -692,6 +779,7 @@ def _trotter_schedule(num_terms: int, time: float, order: int, reps: int):
 def applyDiagonalOp(qureg: Qureg, op: DiagonalOp) -> None:
     """Left-multiplies D onto the state: on rho this is D rho, not
     D rho D^dag (the apply* family; densmatr path QuEST_cpu.c:4042-4082)."""
+    _refuse_sharded(qureg, "applyDiagonalOp")
     V.validate_diag_op_matches_qureg(op, qureg, "applyDiagonalOp")
     if qureg.is_density_matrix:
         qureg.amps = D.apply_diagonal_op_density(
@@ -866,6 +954,7 @@ def applyQFT(qureg: Qureg, qubits: Sequence[int],
              numQubits: Optional[int] = None) -> None:
     """Apply the quantum Fourier transform to the given qubits
     (QuEST.h:6536)."""
+    _refuse_sharded(qureg, "applyQFT")
     qubits = [int(q) for q in qubits]
     V.validate_multi_targets(qureg, qubits, "applyQFT")
     _apply_qft(qureg, qubits)
@@ -873,6 +962,7 @@ def applyQFT(qureg: Qureg, qubits: Sequence[int],
 
 def applyFullQFT(qureg: Qureg) -> None:
     """Apply the quantum Fourier transform to every qubit (QuEST.h:6420)."""
+    _refuse_sharded(qureg, "applyFullQFT")
     _apply_qft(qureg, list(range(qureg.num_qubits_represented)))
 
 

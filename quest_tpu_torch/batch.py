@@ -190,6 +190,10 @@ def createBatchedQureg(numQubits: int, env: QuESTEnv, batchSize: int, *,
     from .ops import kernels as K
 
     V.validate_num_qubits(numQubits, "createBatchedQureg")
+    if env.num_devices > 1:
+        from .parallel.mesh import refusal
+
+        raise refusal("createBatchedQureg: a register bank on a mesh")
     q = BatchedQureg(numQubits, env, batchSize,
                      is_density_matrix=is_density_matrix, seeds=seeds)
     if is_density_matrix:

@@ -34,6 +34,11 @@ high qubits into it:
     ('segswap', a, b, m)      a relocation the peephole could not fuse
     ('apply', targets, mat)   a gate no relocation brings into the window
 
+On a sharded register the drain first groups its items into windows
+whose qubits fit the shard-local space and schedules one batched remap
+per window (``plan_remap_windows``; its exchange cost model is
+``remap_exchange_bytes``); each window then plans as above at nloc.
+
 The module also holds the QFT's planner (``fused_qft``,
 ``_fused_qft_multilayer``) and its bit-reversal decomposition
 (``bit_reversal_ops``, ``_bit_reversal_big``).  The JAX package's native
@@ -47,7 +52,7 @@ import os
 from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -236,6 +241,28 @@ def lower_permutation_run(gates, num_qubits: int):
         gbits |= b
     flush()
     return ops
+
+
+def perm_item_entry(targets, mat):
+    """Window-planner entry of one gate: ``("relabel", pairs)`` when the
+    gate only relabels bits (pairs ``((q, rho(q)), ...)``: qubit q's new
+    content comes from qubit rho(q)), which plan_remap_windows folds into
+    the live permutation with no data motion; else the sorted bit tuple
+    (quest_tpu/circuit.py perm_item_entry, permutation fast paths on)."""
+    cls = classify_permutation_gate(mat)
+    if cls is not None and cls[0] == "relabel":
+        s = cls[1]
+        pairs = tuple(sorted(
+            (targets[j], targets[s[j]])
+            for j in range(len(targets)) if s[j] != j))
+        return ("relabel", pairs) if pairs else ()
+    return tuple(sorted(targets))
+
+
+def _is_relabel_entry(entry) -> bool:
+    """True for the tagged ``("relabel", pairs)`` planner entry."""
+    return len(entry) == 2 and isinstance(entry[0], str) \
+        and entry[0] == "relabel"
 
 
 # ---------------------------------------------------------------------------
@@ -1191,6 +1218,103 @@ def plan_circuit(gates: Sequence[Gate], num_qubits: int, device=None,
     if fused.megakernel_planning(device) and num_qubits >= WINDOW:
         ops = group_megawins(ops, num_qubits)
     return ops
+
+
+# ---------------------------------------------------------------------------
+# Sharded-register relocation: communication at window granularity
+# ---------------------------------------------------------------------------
+
+_REMAP_LOOKAHEAD = 256  # next-use horizon for the eviction choice
+
+
+def remap_exchange_bytes(sigma: Tuple[int, ...], num_qubits: int, nloc: int,
+                         itemsize: int = 8) -> int:
+    """Bytes one shard exchanges for the batched remap ``sigma``: half a
+    shard per mixed local<->mesh transposition, a whole shard for a
+    residual composed mesh permute, nothing for the per-shard axis
+    permutation."""
+    from .parallel import dist as PAR
+
+    r = num_qubits - nloc
+    mixed, _local_perm, mesh_tau = PAR.decompose_sigma(sigma, nloc, r)
+    shard = 2 * (1 << nloc) * itemsize
+    total = len(mixed) * (shard // 2)
+    if mesh_tau is not None:
+        total += shard
+    return total
+
+
+def remap_exchange_bytes_tiers(sigma: Tuple[int, ...], num_qubits: int,
+                               nloc: int, itemsize: int = 8,
+                               topology=None) -> Dict[str, int]:
+    """remap_exchange_bytes split by tier, {"ici": b, "dcn": b}, summing
+    to the flat total."""
+    from .parallel import dist as PAR
+
+    r = num_qubits - nloc
+    tiers = PAR.remap_exchange_tiers(sigma, nloc, r, itemsize, topology)
+    return {tier: b for tier, (_c, b) in tiers.items()}
+
+
+def plan_remap_windows(bit_sets: Sequence[Tuple[int, ...]], num_qubits: int,
+                       nloc: int, perm=None):
+    """Group a logical item stream (``bit_sets[i]``: the state-vector bits
+    item i touches, or a relabel entry) into windows whose distinct
+    qubits fit the shard-local space, one batched remap each; runs of
+    relabel entries fold into the permutation with no remap.  The
+    permutation persists past the last window (``final_perm``).  Returns
+    (segments, final_perm), segments = [((start, end), sigma | None,
+    perm_during_window), ...]; ValueError when one item touches more
+    than ``nloc`` qubits (quest_tpu/circuit.py plan_remap_windows)."""
+    from .parallel import dist as PAR
+
+    n = num_qubits
+    perm = tuple(perm) if perm is not None else tuple(range(n))
+    segments: List[tuple] = []
+    i = 0
+    total = len(bit_sets)
+    while i < total:
+        if _is_relabel_entry(bit_sets[i]):
+            j = i
+            while j < total and _is_relabel_entry(bit_sets[j]):
+                rho = dict(bit_sets[j][1])
+                perm = tuple(perm[rho.get(q, q)] for q in range(n))
+                j += 1
+            segments.append(((i, j), None, perm))
+            i = j
+            continue
+        w: set = set()
+        j = i
+        while j < total:
+            if _is_relabel_entry(bit_sets[j]):
+                break
+            b = set(bit_sets[j])
+            if len(w | b) > nloc:
+                break
+            w |= b
+            j += 1
+        if j == i:
+            raise ValueError(
+                f"plan_remap_windows: item {i} touches {len(set(bit_sets[i]))}"
+                f" qubits but only {nloc} can be shard-local")
+        # next-use distances over the rest of the stream: evict the local
+        # residents needed furthest ahead
+        next_use: dict = {}
+        d = 0
+        for k in range(j, min(total, j + _REMAP_LOOKAHEAD)):
+            if _is_relabel_entry(bit_sets[k]):
+                continue
+            for q in bit_sets[k]:
+                if q not in next_use:
+                    next_use[q] = d
+                d += 1
+        sigma, new_perm = PAR.plan_window_remap(
+            n, nloc, perm, sorted(w), next_use)
+        assert new_perm is not None  # |w| <= nloc makes it feasible
+        perm = new_perm
+        segments.append(((i, j), sigma, perm))
+        i = j
+    return segments, perm
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,23 @@
-"""Execution environment: one device and the seeding bookkeeping.
+"""Execution environment: the shards' devices, the mesh and the seeding.
 
 Analogue of the reference's ``QuESTEnv`` (QuEST.h:361, {rank, numRanks})
-and ``createQuESTEnv`` (GPU probe, QuEST_gpu.cu:446-478) for a single
-device.  ``createQuESTEnv()`` binds the CUDA card and raises when there is
-none; the CPU is used only when the caller asks for it with
-``createQuESTEnv(device="cpu")`` (the tests do).  Multi-device sharding
-arrives with the distributed slice.
+and ``createQuESTEnv`` (MPI_Init + rank discovery,
+QuEST_cpu_distributed.c:129-160; GPU probe, QuEST_gpu.cu:446-478).  An
+env holds R = 2^r shard devices: a register's amplitudes split over them
+by their leading index bits (parallel/mesh.py).  ``createQuESTEnv()``
+takes one shard per visible CUDA card, truncated to a power of two (on a
+one-card machine, a one-shard env), and raises when there is no card; the
+CPU is used only when asked for (``device="cpu"``, or ``devices=["cpu"]
+* R`` for an in-process mesh on the CPU, as the tests do).  After
+``initDistributed`` an env holds one shard per torch.distributed rank.
+A one-shard env holds no mesh, and everything runs on its one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -21,33 +27,145 @@ from .validation import QuESTError
 
 @dataclasses.dataclass
 class QuESTEnv:
-    """One device.  ``rank``/``num_ranks`` are kept for reference-API
-    parity (one process, one device).  ``seeds`` are the measurement
-    streams' keys (seedQuEST)."""
+    """The shard devices and the measurement streams' keys.
+
+    ``device`` is this process's device (shard 0's in process, the rank's
+    own under torch.distributed); ``devices`` lists every shard's device
+    (repeats allowed); ``mesh`` moves data between them (None for one
+    shard); ``rank`` / ``num_ranks`` follow the JAX package's env: the
+    process's rank and the number of shards.  ``topology`` is the hosts x
+    devices arrangement (parallel/topology.py).  ``seeds`` are the
+    measurement streams' keys (seedQuEST)."""
 
     device: torch.device
     rank: int = 0
     num_ranks: int = 1
     seeds: tuple = ()
+    devices: Tuple[torch.device, ...] = ()
+    mesh: Optional[object] = None
+    topology: Optional[object] = None
+
+    def __post_init__(self):
+        if not self.devices:
+            self.devices = (self.device,)
 
     @property
     def num_devices(self) -> int:
-        return 1
+        return len(self.devices)
 
 
-def create_quest_env(device=None) -> QuESTEnv:
-    """createQuESTEnv (QuEST.h:1851).  ``device=None`` means the CUDA card
-    and raises a QuESTError when no CUDA device is present: there is no
-    silent fall-back to the CPU.  Pass ``device="cpu"`` to run on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise QuESTError(
-                "createQuESTEnv: no CUDA device is available; pass "
-                "device=\"cpu\" to run on the CPU explicitly.")
-        device = "cuda"
-    env = QuESTEnv(device=torch.device(device))
+def _pow2_prefix(devs: list) -> list:
+    return devs[:1 << (len(devs).bit_length() - 1)] if devs else devs
+
+
+def create_quest_env(device=None, num_devices: Optional[int] = None,
+                     devices: Optional[Sequence] = None) -> QuESTEnv:
+    """createQuESTEnv (QuEST.h:1851).
+
+    * ``devices=[...]``: one shard per entry (repeats allowed: an
+      in-process mesh of R shards on one device), the counterpart of the
+      JAX package's virtual device count;
+    * ``device=...``: one shard on that device;
+    * neither: after ``initDistributed``, one shard per rank on this
+      rank's device; else one shard per visible CUDA card, and a
+      QuESTError when there is none (no silent fall-back to the CPU).
+
+    ``num_devices`` truncates the list, and the list is truncated to a
+    power of two: shards split the index on its bits (validateNumRanks,
+    QuEST_validation.c:331-343)."""
+    from .parallel import topology as topo
+
+    if devices is None and device is None and _dist_active():
+        return _create_dist_env(num_devices)
+    if devices is None:
+        if device is None:
+            if not torch.cuda.is_available():
+                raise QuESTError(
+                    "createQuESTEnv: no CUDA device is available; pass "
+                    "device=\"cpu\" to run on the CPU explicitly.")
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        else:
+            devices = [device]
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise QuESTError("createQuESTEnv: the device list is empty.")
+    if num_devices is not None:
+        devs = devs[:int(num_devices)]
+    devs = _pow2_prefix(devs)
+    mesh = None
+    if len(devs) > 1:
+        from .parallel.mesh import InProcessMesh
+
+        mesh = InProcessMesh(devs)
+    env = QuESTEnv(device=devs[0], rank=0, num_ranks=len(devs),
+                   devices=tuple(devs), mesh=mesh,
+                   topology=topo.resolve(len(devs)))
     seed_quest_default(env)
     return env
+
+
+def _dist_active() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _create_dist_env(num_devices: Optional[int]) -> QuESTEnv:
+    """One shard per torch.distributed rank, on cuda:<local rank> under
+    NCCL, on the CPU under gloo."""
+    import torch.distributed as dist
+
+    from .parallel import topology as topo
+    from .parallel.mesh import DistMesh
+
+    world = dist.get_world_size()
+    rank = dist.get_rank()
+    if num_devices is not None and int(num_devices) != world:
+        raise QuESTError(
+            "createQuESTEnv: under torch.distributed the env holds one "
+            f"shard per rank ({world}), not {num_devices}.")
+    if world & (world - 1):
+        raise QuESTError(
+            f"createQuESTEnv: {world} ranks is not a power of two.")
+    if dist.get_backend() == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = torch.device(f"cuda:{local}")
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+    mesh = DistMesh(device, world, rank) if world > 1 else None
+    env = QuESTEnv(device=device, rank=rank, num_ranks=world,
+                   devices=tuple(device for _ in range(world)), mesh=mesh,
+                   topology=topo.resolve(world))
+    seed_quest_default(env)
+    return env
+
+
+def init_distributed(init_method: Optional[str] = None,
+                     world_size: Optional[int] = None,
+                     rank: Optional[int] = None,
+                     backend: Optional[str] = None) -> None:
+    """initDistributed: join a multi-process run, the analogue of the
+    reference's ``MPI_Init`` (QuEST_cpu_distributed.c:129-160) and of the
+    JAX package's ``jax.distributed.initialize``.  Call once per process
+    before ``createQuESTEnv``; the env then holds one shard per rank.
+    ``init_method`` (e.g. ``"tcp://localhost:29500"``), ``world_size`` and
+    ``rank`` default to torch.distributed's environment variables;
+    ``backend`` defaults to NCCL when CUDA is available, else gloo."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    kwargs = {}
+    if init_method is not None:
+        kwargs["init_method"] = init_method
+    if world_size is not None:
+        kwargs["world_size"] = int(world_size)
+    if rank is not None:
+        kwargs["rank"] = int(rank)
+    dist.init_process_group(backend=backend, **kwargs)
 
 
 def destroy_quest_env(env: QuESTEnv) -> None:
@@ -55,9 +173,11 @@ def destroy_quest_env(env: QuESTEnv) -> None:
 
 
 def sync_quest_env(env: QuESTEnv) -> None:
-    """syncQuESTEnv (QuEST.h:1875): wait for the device's queued work."""
-    if env.device.type == "cuda":
-        torch.cuda.synchronize(env.device)
+    """syncQuESTEnv (QuEST.h:1875): wait for every shard device's queued
+    work."""
+    for dev in sorted({d for d in env.devices if d.type == "cuda"},
+                      key=str):
+        torch.cuda.synchronize(dev)
 
 
 def sync_quest_success(success_code: int = 1) -> int:
@@ -79,7 +199,9 @@ def get_environment_string(env: QuESTEnv) -> str:
         name = "cpu"
     return (f"EnvType=quest_tpu_torch Backend={env.device.type} "
             f"Device={name} Devices={env.num_devices} "
-            f"Precision={precision.get_precision()} "
+            + (f"Mesh={env.mesh.describe()} " if env.mesh is not None
+               else "")
+            + f"Precision={precision.get_precision()} "
             f"Seeds={','.join(str(s) for s in env.seeds)}"
             + (" DefaultSeed=" + ",".join(str(k) for k in
                                           rng.GLOBAL_RNG._keys)

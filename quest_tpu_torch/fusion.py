@@ -26,6 +26,17 @@ and damping are buffered as ``ChannelItem``s (``capture_pair_channel``),
 and a run of them drains through the K5 sweep kernel on the card
 (``fused.apply_pair_channel_sweep``) or channel by channel
 (``density.apply_pair_channel``).
+
+On a sharded register (``Qureg.is_sharded``) the drain groups the stream
+into windows whose qubits fit the shard-local space, brings each
+window's qubits local with one batched remap (``("remap", sigma)``
+parts, parallel/dist.py) and rewrites the window's items to their
+physical bits; every other part runs shard by shard, each shard running
+the same local program on its ``(2, 2^nloc)`` tensor (so on the card K1,
+K2 and K5 launch once per shard for each pass, group and sweep).  The
+permutation a drain leaves stays on the register (``Qureg._perm``) until
+a read restores canonical order (quest_tpu/fusion.py
+_split_items_sharded and the "remap" parts of its runner).
 """
 
 from __future__ import annotations
@@ -100,7 +111,7 @@ class ChannelItem:
 
 
 def _plan_key(items, nloc: int, sweep_ok: bool, device=None,
-              bank: tuple = (0, 0)):
+              bank: tuple = (0, 0), perm0=None, nsh: int = 0):
     """Content key for an item list: the gate matrices' bytes, each
     channel's (kind, target, bra) (its probability is a run-time value),
     whether channel runs may sweep, the knobs that change the plan (the
@@ -108,7 +119,10 @@ def _plan_key(items, nloc: int, sweep_ok: bool, device=None,
     precision mode, which the reference's key holds as well
     (quest_tpu/fusion.py:565), and ``bank``, (batch flag, bank size):
     a bank's per-element program never replays for another bank or for a
-    single register."""
+    single register.  On a sharded register (``nsh`` shard bits) the key
+    also holds the live permutation the drain starts from, ``perm0``, and
+    the topology's signature: the same items plan to other windows and
+    remaps from another permutation or arrangement."""
     parts = []
     for it in items:
         if isinstance(it, ChannelItem):
@@ -118,9 +132,16 @@ def _plan_key(items, nloc: int, sweep_ok: bool, device=None,
         if not isinstance(m, np.ndarray):
             return None
         parts.append((it.targets, m.dtype.str, m.shape, m.tobytes()))
+    sharded = None
+    if nsh:
+        from .parallel import topology as _topo
+
+        sharded = (nsh, None if perm0 is None else tuple(perm0),
+                   _topo.signature(1 << nsh))
     return (nloc, sweep_ok, C.resolve_planner(),
             _fused.megakernel_planning(device),
-            _fused.matmul_precision_name(), tuple(bank), tuple(parts))
+            _fused.matmul_precision_name(), tuple(bank), sharded,
+            tuple(parts))
 
 
 # minimum adjacent permutation-classified gates worth splitting out of a
@@ -199,6 +220,48 @@ def _split_items(items, nloc: int, sweep_ok: bool, device=None):
     flush_chans()
     flush_gates()
     return tuple(program)
+
+
+def _item_entry(it):
+    """Window-planner entry of one drain item: a channel's (ket, bra)
+    bits; a gate's circuit.perm_item_entry (a relabel entry for a pure
+    bit relabel).  The sharded planner and the optimizer's stream cost
+    both price items through this one function."""
+    if isinstance(it, ChannelItem):
+        return (it.target, it.bra)
+    return C.perm_item_entry(it.targets, it.mat)
+
+
+def _split_items_sharded(items, n: int, nloc: int, perm0, sweep_ok: bool,
+                         device=None):
+    """Windows and one batched remap each for a sharded drain: group the
+    items into windows whose qubits fit the shard-local space
+    (circuit.plan_remap_windows), emit a ("remap", sigma) part bringing
+    the window's qubits local, then rewrite the window's items to their
+    physical bits and split them as one register's items at nloc.  A run
+    of relabel gates folds into the permutation and emits nothing.
+    Returns (program, final_perm) (quest_tpu/fusion.py:286-326)."""
+    entries = [_item_entry(it) for it in items]
+    segments, final_perm = C.plan_remap_windows(entries, n, nloc, perm0)
+    program: List[tuple] = []
+    for (i, j), sigma, perm in segments:
+        if C._is_relabel_entry(entries[i]):
+            continue
+        if sigma is not None:
+            program.append(("remap", sigma))
+        sub = []
+        for it in items[i:j]:
+            if isinstance(it, ChannelItem):
+                pt, pb = perm[it.target], perm[it.bra]
+                # both channel kinds are symmetric in (t, b): a remap that
+                # lands the bra below the ket swaps their roles
+                sub.append(ChannelItem(it.kind, min(pt, pb), max(pt, pb),
+                                       it.prob))
+            else:
+                sub.append(C.Gate(tuple(perm[t] for t in it.targets),
+                                  it.mat))
+        program.extend(_split_items(sub, nloc, sweep_ok, device))
+    return tuple(program), final_perm
 
 
 def batch_flag(items, batch_size: int) -> int:
@@ -310,10 +373,11 @@ def plan_items(items, num_qubits: int, device=None, sweep_ok: bool = False,
 
 def program_stats(program) -> dict:
     """circuit.stats summed over a program's planned parts, plus its
-    channel parts: "chan" (one channel each) and "chansweep" (a run)."""
+    channel parts: "chan" (one channel each) and "chansweep" (a run), and
+    a sharded program's "remap" parts."""
     total: dict = {}
     for part in program:
-        if part[0] in ("chan", "chansweep"):
+        if part[0] in ("chan", "chansweep", "remap"):
             total[part[0]] = total.get(part[0], 0) + 1
             continue
         for k, v in C.stats(part[1]).items():
@@ -358,7 +422,11 @@ def _run(qureg, items) -> None:
     register's tensor, with the channels' probabilities in stream order.
     A BatchedQureg (batch.py) drains its whole (B, 2, 2^n) bank through
     one program: shared plans (flag 1), or per-element plans of one
-    skeleton stacked (flag 2)."""
+    skeleton stacked (flag 2).  A sharded register drains through
+    _run_sharded."""
+    if qureg.is_sharded:
+        _run_sharded(qureg, items)
+        return
     n = qureg.num_qubits_in_state_vec
     amps = qureg._amps
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
@@ -369,10 +437,167 @@ def _run(qureg, items) -> None:
     qureg._amps = execute_program(amps, program, probs, n)
 
 
+# device copies of sharded programs: (plan key, device, dtype) -> program
+_device_programs: dict = {}
+
+
+def plan_items_sharded(items, n: int, nloc: int, perm0=None, device=None,
+                       sweep_ok: bool = False, optimize: bool = True):
+    """The (program, final_perm) a drain of ``items`` on an n-bit register
+    split into shards of nloc bits, starting from the live permutation
+    ``perm0``, executes: the optimized stream (with the sharded
+    reordering; ``optimize=False``: the stream as given) split into
+    remap, permutation, planned and channel parts, cached on the items'
+    content and ``perm0``."""
+    nsh = n - nloc
+    if optimize:
+        items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
+                                            perm0=perm0)
+    return _plan_sharded(items, n, nloc, perm0, device, sweep_ok)[:2]
+
+
+def _plan_sharded(items, n, nloc, perm0, device, sweep_ok):
+    """(program, final_perm, key) of an optimized sharded item list."""
+    nsh = n - nloc
+    key = _plan_key(items, nloc, sweep_ok, device, (0, 0), perm0, nsh)
+    hit = _plan_cache.get(key) if key is not None else None
+    if hit is not None:
+        return hit[0], hit[1], key
+    program, final_perm = _split_items_sharded(items, n, nloc, perm0,
+                                               sweep_ok, device)
+    if key is not None:
+        if len(_plan_cache) >= _PLAN_CACHE_MAX:
+            _plan_cache.pop(next(iter(_plan_cache)))
+        _plan_cache[key] = (program, final_perm)
+    return program, final_perm, key
+
+
+def program_on_device(program, dtype, device, key=None):
+    """The program with every planned part's operands on ``device`` in
+    ``dtype`` (circuit.plan_to_device), made once per program (``key``:
+    the plan key it is cached under; None: not cached), device and type:
+    the shards on one device share one upload, and on the card one side
+    image per pass."""
+    ck = None if key is None else (key, str(device), dtype)
+    hit = _device_programs.get(ck) if ck is not None else None
+    if hit is not None:
+        return hit
+    out = tuple(("plan", tuple(C.plan_to_device(part[1], dtype, device)))
+                if part[0] == "plan" else part for part in program)
+    if ck is not None:
+        if len(_device_programs) >= _PLAN_CACHE_MAX:
+            _device_programs.pop(next(iter(_device_programs)))
+        _device_programs[ck] = out
+    return out
+
+
+def _part_probs(part) -> int:
+    if part[0] == "chansweep":
+        return len(part[1])
+    return 1 if part[0] == "chan" else 0
+
+
+def execute_sharded_program(amps, program, probs, nloc: int, key=None):
+    """Run a sharded program on a ShardedAmps: each ("remap", sigma) part
+    through the exchange layer (dist._remap_shards), counted per tier
+    under op "window_remap" with the cost model's exchanges and bytes
+    (dist.remap_exchange_tiers), every other part through execute_program
+    at nloc bits, one op at a time on every shard in turn (a shard holds
+    at most its input and its output at once), on that shard's device
+    copy of the program (program_on_device, cached under ``key``).
+    Returns the ShardedAmps."""
+    from .parallel import dist as PAR
+    from .parallel import topology as _topo
+
+    nsh = PAR.num_shard_bits(amps.mesh)
+    ck = str(PAR.exchange_config_key() or "auto")
+    topology = _topo.resolve(1 << nsh)
+    progs = {}
+    for sh in amps.shards:
+        dk = (sh.device, sh.dtype)
+        if dk not in progs:
+            progs[dk] = program_on_device(program, sh.dtype, sh.device,
+                                          key)
+    pi = 0
+    for i, part in enumerate(program):
+        if part[0] == "remap":
+            for tier, (cnt, b) in PAR.remap_exchange_tiers(
+                    part[1], nloc, nsh, amps.itemsize, topology).items():
+                if cnt or b:
+                    PAR.record_exchange("window_remap", cnt, b, chunks=ck,
+                                        tier=tier)
+            amps = PAR._remap_shards(amps, part[1])
+            continue
+        count = _part_probs(part)
+        rprobs = probs[pi:pi + count]
+        pi += count
+        planned = part[0] not in ("chan", "chansweep")
+        for j in range(len(part[1]) if planned else 1):
+            for k, sh in enumerate(amps.shards):
+                step = progs[(sh.device, sh.dtype)][i]
+                if planned:
+                    step = (step[0], step[1][j:j + 1])
+                amps.shards[k] = execute_program(sh, (step,), rprobs, nloc)
+    return amps
+
+
+def _run_sharded(qureg, items) -> None:
+    """The drain of a sharded register: optimize (with the reordering the
+    exchange cost model scores), plan windows and remaps from the live
+    permutation, run the program under the exchange guard and leave the
+    final permutation on the register."""
+    from .parallel import dist as PAR
+
+    n = qureg.num_qubits_in_state_vec
+    nsh = qureg.shard_bits
+    nloc = n - nsh
+    perm0 = qureg._perm
+    amps = qureg._amps
+    items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
+                                        perm0=perm0)
+    if not items:
+        return  # everything cancelled: nothing runs, the perm stays
+    sweep_ok = _fused.channel_sweep_enabled(amps.shards[0])
+    program, final_perm, key = _plan_sharded(items, n, nloc, perm0,
+                                             amps.device, sweep_ok)
+    probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
+    qureg._amps = PAR.guarded_dispatch(
+        execute_sharded_program, amps, program, probs, nloc, key,
+        op="drain", shards=qureg.num_chunks)
+    if final_perm is not None and list(final_perm) != list(range(n)):
+        qureg._perm = tuple(final_perm)
+    else:
+        qureg._perm = None
+
+
 def _capturable(qureg, bits) -> bool:
-    """Can a gate on qubit positions ``bits`` be buffered?"""
-    return qureg._fusion is not None and len(tuple(bits)) <= \
-        FUSION_MAX_GATE_QUBITS
+    """Can a gate on qubit positions ``bits`` be buffered?  Size-capped;
+    on a sharded register also no wider than the shard-local space, and
+    a gate reaching a sharded bit only while the explicit exchange and
+    the lazy permutation are on (quest_tpu/fusion.py:919-945)."""
+    if qureg._fusion is None:
+        return False
+    bits = tuple(bits)
+    if len(bits) > FUSION_MAX_GATE_QUBITS:
+        return False
+    nsh = _shard_bits(qureg)
+    if nsh:
+        nloc = qureg.num_qubits_in_state_vec - nsh
+        if len(set(bits)) > nloc:
+            return False
+        if max(bits) >= nloc:
+            from .parallel import dist as PAR
+
+            if not (PAR.explicit_dist_enabled()
+                    and PAR.lazy_remap_enabled()):
+                return False
+    return True
+
+
+def _shard_bits(qureg) -> int:
+    """Leading qubits held as shard-index bits (0 on one shard or for a
+    replicated register)."""
+    return qureg.shard_bits
 
 
 def capture_unitary(qureg, stacked, targets, controls=(),
@@ -435,6 +660,12 @@ def capture_not(qureg, targets, controls=(), control_states=()) -> bool:
         if qureg._fusion is None:
             return False
         sh = qureg.num_qubits_represented
+        bits = list(targets)
+        if qureg.is_density_matrix:
+            bits += [t + sh for t in targets]
+        if not all(_capturable(qureg, (b,)) for b in bits):
+            drain(qureg)
+            return False
         for t in targets:
             qureg._fusion.gates.append(C.Gate((t,), _X))
             if qureg.is_density_matrix:

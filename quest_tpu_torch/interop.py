@@ -5,7 +5,11 @@ A state, plan, PauliHamil or DiagonalOp produced elsewhere (for example by
 the JAX package, handed over as NumPy arrays) becomes the port's objects
 here, so the port can run it; states go back to NumPy for comparison.  The JAX
 package's measurement-stream snapshots (JSON dicts) continue in the port
-through ``rng_state_from_reference``.  This module imports neither
+through ``rng_state_from_reference``.  A register's whole state, held
+in the physical order of its live logical->physical permutation (a
+sharded register's ``_perm``), moves both ways with the permutation
+(``load_register`` / ``register_state``): a sharded register is cut into
+its shards or read back from them.  This module imports neither
 framework of the other side: it only sees NumPy arrays and dicts.
 """
 
@@ -34,6 +38,43 @@ def state_from_numpy(amps_np, device, dtype=None) -> torch.Tensor:
 def state_to_numpy(amps) -> np.ndarray:
     """The inverse of state_from_numpy."""
     return amps.detach().cpu().numpy()
+
+
+def load_register(qureg, amps_np, perm=None) -> None:
+    """Set ``qureg``'s state from a whole (2, 2^n) array (for example a
+    JAX package register's amplitudes as NumPy) held in the physical
+    order of the logical->physical permutation ``perm`` (None: canonical),
+    which the register keeps as its own: a sharded register is cut into
+    its shards, shard s taking indices [s 2^nloc, (s + 1) 2^nloc)."""
+    from .parallel import sharded as SH
+
+    a = np.ascontiguousarray(np.asarray(amps_np))
+    if a.shape != (2, qureg.num_amps_total):
+        raise ValueError(f"expected a (2, {qureg.num_amps_total}) state, "
+                         f"got {a.shape}")
+    if qureg.is_sharded:
+        nloc = qureg.num_qubits_in_state_vec - qureg.shard_bits
+        state = SH.split(qureg.env.mesh, a, nloc, qureg.dtype)
+    else:
+        state = state_from_numpy(a, qureg.device, qureg.dtype)
+    qureg.amps = state
+    if perm is not None:
+        qureg._set_amps_permuted(qureg._amps, tuple(int(p) for p in perm))
+
+
+def register_state(qureg, canonical: bool = False):
+    """``(amps, perm)``: the register's whole state as a host (2, 2^n)
+    array and its live logical->physical permutation (None: canonical).
+    ``canonical=True`` restores canonical order first (one remap on a
+    sharded register), so perm is None; otherwise the state is read in
+    its physical order, pending fused gates drained."""
+    from .parallel import sharded as SH
+
+    amps = qureg.amps if canonical else qureg._amps_raw()
+    perm = None if canonical else qureg._perm
+    if isinstance(amps, SH.ShardedAmps):
+        return SH.gather_host(amps), perm
+    return state_to_numpy(amps), perm
 
 
 def plan_from_numpy(ops: Sequence[tuple], device, dtype) -> List[tuple]:

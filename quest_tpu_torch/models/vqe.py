@@ -35,7 +35,8 @@ def _rz_diag_soa(theta):
 def _model_device(device, mesh):
     if mesh is not None:
         raise NotImplementedError(
-            "a mesh (multi-GPU sharding) is not ported yet; pass mesh=None")
+            "a model on a mesh (multi-GPU sharding) arrives with slice "
+            "M15b; pass mesh=None")
     return torch.device("cuda" if device is None else device)
 
 

@@ -344,6 +344,25 @@ def apply_index_permutation(amps, *, num_qubits: int,
         m[0, np.arange(d), np.asarray(pi, dtype=np.int64)] = 1.0
         return apply_matrix(amps, m, num_qubits=n, targets=tuple(targets))
     d = 1 << (hi + 1 - lo)
+    view = amps.reshape(2, 1 << (n - hi - 1), d, 1 << lo)
+    index = _field_index(amps.device, lo, hi, tuple(targets), tuple(pi))
+    return torch.index_select(view, 2, index).reshape(amps.shape)
+
+
+_FIELD_INDEX: dict = {}
+_FIELD_INDEX_MAX = 256
+
+
+def _field_index(device, lo: int, hi: int, targets, pi):
+    """The gather index of apply_index_permutation over the bit field
+    [lo, hi], on ``device``, made once per (device, field, targets, pi):
+    the shards of a sharded register, and repeated drains, reuse it
+    instead of rebuilding and uploading it every call."""
+    key = (str(device), lo, hi, targets, pi)
+    hit = _FIELD_INDEX.get(key)
+    if hit is not None:
+        return hit
+    d = 1 << (hi + 1 - lo)
     idx = np.arange(d)
     sub = np.zeros(d, dtype=np.int64)
     for b, t in enumerate(targets):
@@ -354,9 +373,11 @@ def apply_index_permutation(amps, *, num_qubits: int,
         lifted &= ~(1 << (t - lo))
     for b, t in enumerate(targets):
         lifted |= ((mapped >> b) & 1) << (t - lo)
-    view = amps.reshape(2, 1 << (n - hi - 1), d, 1 << lo)
-    index = torch.as_tensor(lifted, device=amps.device)
-    return torch.index_select(view, 2, index).reshape(amps.shape)
+    index = torch.as_tensor(lifted, device=device)
+    if len(_FIELD_INDEX) >= _FIELD_INDEX_MAX:
+        _FIELD_INDEX.pop(next(iter(_FIELD_INDEX)))
+    _FIELD_INDEX[key] = index
+    return index
 
 
 def apply_qft_ladder(amps, *, num_qubits: int, target: int, base: int = 0,

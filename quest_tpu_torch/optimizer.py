@@ -18,9 +18,15 @@ unconditionally:
 ``set_circuit_optimizer`` (``setCircuitOptimizer``) overrides it: ``off``
 drains the stream verbatim, ``aggressive`` also drops a merged pair whose
 product is the identity only up to the dtype's rounding (H.H).  The mode
-is part of the rewrite's cache key.  The commutation-aware reordering of
-the reference applies to sharded registers only and arrives with
-multi-device sharding.
+is part of the rewrite's cache key.
+
+On a sharded register every rewrite is a candidate scored by the
+exchange cost model (``_stream_cost``: tier-weighted exchange bytes,
+exchange count, remap windows, the canonical read's remap included),
+program order among them, and the commutation-aware reordering
+(``_reorder``: greedy locality-clustering linearizations of the
+commutation DAG) is tried on each; the cheapest stream drains
+(quest_tpu/optimizer.py:417-509,588-629).
 
 Channels (``fusion.ChannelItem``) are never composed or dropped; a gate
 looks back past one only when their supports are disjoint, so channels
@@ -47,6 +53,9 @@ MAX_GATE_QUBITS = 7
 # memoized rewrites: a hot angle-sweep loop re-drains the same stream
 _CACHE_MAX = 128
 _cache: dict = {}
+
+# longest stream the reordering considers (its DAG is quadratic)
+_REORDER_MAX_ITEMS = 512
 
 
 def mode() -> str:
@@ -266,27 +275,155 @@ def _compose_perm_run(run: Sequence[C.Gate]):
     return C.Gate(tuple(union), mat)
 
 
-def _rewrite(items: list, nloc: int, aggressive: bool) -> tuple:
-    """cancel/merge + diagonal and permutation coalescing to a small
-    fixpoint.  Returns (items, removed)."""
+def _rewrite(items: list, nloc: int, aggressive: bool,
+             coalesce: bool = True) -> tuple:
+    """cancel/merge (+ diagonal and permutation coalescing when
+    ``coalesce``) to a small fixpoint.  Returns (items, removed)."""
     removed = {"cancel": 0, "merge": 0, "diag_coalesce": 0,
                "perm_coalesce": 0}
     out = list(items)
     for _ in range(3):
         before = len(out)
         out = _cancel_merge(out, removed, aggressive)
-        out = _coalesce(out, removed, nloc, _is_diag, _compose_diag_run,
-                        "diag_coalesce")
-        out = _coalesce(out, removed, nloc, _is_perm, _compose_perm_run,
-                        "perm_coalesce")
+        if coalesce:
+            out = _coalesce(out, removed, nloc, _is_diag,
+                            _compose_diag_run, "diag_coalesce")
+            out = _coalesce(out, removed, nloc, _is_perm,
+                            _compose_perm_run, "perm_coalesce")
         if len(out) == before:
             break
     return out, removed
 
 
-def _content_key(items, nloc: int, m: str):
+# ---------------------------------------------------------------------------
+# Commutation-aware reordering (sharded registers)
+# ---------------------------------------------------------------------------
+
+
+def _stream_cost(items: Sequence, n: int, nloc: int, perm0) -> tuple:
+    """The exchange cost of draining ``items`` in this order from the live
+    permutation ``perm0``: (tier-weighted bytes, exchange count, remap
+    windows), the canonical read's remap included, so clustering cannot
+    win by deferring cost to the read."""
+    from . import fusion as F
+    from .parallel import dist as PAR
+    from .parallel import topology as _topo
+
+    nsh = n - nloc
+    weights = _topo.tier_weights()
+    segments, final_perm = C.plan_remap_windows(
+        [F._item_entry(it) for it in items], n, nloc, perm0)
+    sigmas = [s for _ij, s, _p in segments if s is not None]
+    if final_perm is not None and list(final_perm) != list(range(n)):
+        sigmas.append(PAR.canonical_sigma(tuple(final_perm)))
+    count = 0
+    weighted = 0.0
+    for sigma in sigmas:
+        count += PAR.remap_exchange_count(tuple(sigma), nloc, nsh)
+        for tier, b in C.remap_exchange_bytes_tiers(
+                tuple(sigma), n, nloc).items():
+            weighted += weights.get(tier, 1.0) * b
+    return (weighted, count, len(segments))
+
+
+def _greedy_order(items: Sequence, nloc: int, prefer_overlap: bool) -> list:
+    """Greedy linearization of the commutation DAG: schedule the ready
+    item that grows the current window's qubit set least
+    (``prefer_overlap`` breaks ties toward the largest overlap)."""
+    k = len(items)
+    bits = [_bits(it) for it in items]
+    diag = [_is_diag(it) for it in items]
+    preds = [0] * k
+    succs: List[List[int]] = [[] for _ in range(k)]
+    for i in range(k):
+        for j in range(i + 1, k):
+            if not _commutes(items[i], items[j], diag[i], diag[j]):
+                preds[j] += 1
+                succs[i].append(j)
+    ready = [i for i in range(k) if preds[i] == 0]
+    order: list = []
+    window: set = set()
+    while ready:
+        best = None
+        for i in ready:
+            grow = len(bits[i] - window)
+            if len(window | bits[i]) > nloc:
+                grow = len(bits[i]) + nloc  # forces a fresh window
+            key = (grow, -len(bits[i] & window), i) if prefer_overlap \
+                else (grow, i)
+            if best is None or key < best[0]:
+                best = (key, i)
+        i = best[1]
+        if len(window | bits[i]) > nloc:
+            window = set()
+        window |= bits[i]
+        order.append(i)
+        ready.remove(i)
+        for j in succs[i]:
+            preds[j] -= 1
+            if preds[j] == 0:
+                ready.append(j)
+    return order
+
+
+def _reorder(items: list, n: int, nloc: int, perm0,
+             aggressive: bool) -> tuple:
+    """Keep the first greedy linearization the cost model scores strictly
+    cheaper than program order.  Returns (items, reordered, cost_before,
+    cost_after)."""
+    base = _stream_cost(items, n, nloc, perm0)
+    if len(items) < 3 or len(items) > _REORDER_MAX_ITEMS:
+        return items, False, base, base
+    variants = (False, True) if aggressive else (False,)
+    best_items, best_cost = items, base
+    for prefer_overlap in variants:
+        order = _greedy_order(items, nloc, prefer_overlap)
+        if order == list(range(len(items))):
+            continue
+        cand = [items[i] for i in order]
+        cost = _stream_cost(cand, n, nloc, perm0)
+        if cost < best_cost:
+            best_items, best_cost = cand, cost
+    return best_items, best_items is not items, base, best_cost
+
+
+def _optimize_sharded(items: list, n: int, nloc: int, perm0,
+                      aggressive: bool) -> tuple:
+    """The sharded rewrite: the full rewrite and (when it coalesced
+    diagonals) the cancel/merge-only rewrite are candidates, each
+    reordered; the cheapest (cost, gate count) wins over program order
+    only when strictly cheaper.  Returns (items, removed, reordered)."""
+    none = {"cancel": 0, "merge": 0, "diag_coalesce": 0,
+            "perm_coalesce": 0}
+    out, removed = _rewrite(items, nloc, aggressive, True)
+    try:
+        candidates = [(out, removed)]
+        if removed["diag_coalesce"]:
+            candidates.append(_rewrite(items, nloc, aggressive, False))
+        best = None
+        for cand, rem in candidates:
+            cand, reord, _pre, cost = _reorder(cand, n, nloc, perm0,
+                                               aggressive)
+            ngates = sum(1 for it in cand if _is_gate(it))
+            key = (cost, ngates)
+            if best is None or key < best[0]:
+                best = (key, cand, rem, reord)
+        gates_in = sum(1 for it in items if _is_gate(it))
+        if best[0] < (_stream_cost(items, n, nloc, perm0), gates_in):
+            return best[1], best[2], best[3]
+        return list(items), none, False
+    except ValueError:
+        # not plannable in the remap-window model (an item wider than the
+        # shard-local space): keep the rewrite in program order
+        return out, removed, False
+
+
+def _content_key(items, nloc: int, m: str, n: int = 0, nsh: int = 0,
+                 perm0=None):
     """Memoization key: the mode, gate content bytes, and (kind, target,
-    bra) for a channel, whose probability is a run-time value."""
+    bra) for a channel, whose probability is a run-time value; on a
+    sharded register also n, the shard bits, the starting permutation
+    and the topology's signature."""
     parts = []
     for it in items:
         if not _is_gate(it):
@@ -297,7 +434,13 @@ def _content_key(items, nloc: int, m: str):
             return None
         parts.append((tuple(it.targets), mat.dtype.str, mat.shape,
                       mat.tobytes()))
-    return (m, nloc, tuple(parts))
+    sharded = None
+    if nsh:
+        from .parallel import topology as _topo
+
+        sharded = (n, nsh, None if perm0 is None else tuple(perm0),
+                   _topo.signature(1 << nsh))
+    return (m, nloc, sharded, tuple(parts))
 
 
 def _freeze_out(items, out) -> tuple:
@@ -313,25 +456,40 @@ def _thaw_out(items, frozen) -> list:
     return [items[e[1]] if isinstance(e, tuple) else e for e in frozen]
 
 
-def optimize_items(items: Sequence, *, nloc: int) -> Tuple[list, dict]:
+def optimize_items(items: Sequence, *, nloc: int, n: Optional[int] = None,
+                   nsh: int = 0, perm0=None) -> Tuple[list, dict]:
     """Rewrite a drain's item stream under the active mode; returns
-    (items, stats)."""
+    (items, stats).  ``nloc`` is the register's local bits (all of them
+    on one device); a sharded drain passes its ``n``, shard bits ``nsh``
+    and starting permutation ``perm0``, and takes the cost-scored
+    sharded rewrite."""
     m = mode()
     items = list(items)
     gates_in = sum(1 for it in items if _is_gate(it))
     if m == "off" or len(items) < 2:
         return items, {"mode": m, "gates_in": gates_in,
-                       "gates_out": gates_in,
+                       "gates_out": gates_in, "reordered": False,
                        "removed": {"cancel": 0, "merge": 0,
                                    "diag_coalesce": 0, "perm_coalesce": 0}}
-    key = _content_key(items, nloc, m)
+    if nsh and any(_is_gate(it) and not isinstance(it.mat, np.ndarray)
+                   for it in items):
+        return items, {"mode": m, "gates_in": gates_in,
+                       "gates_out": gates_in, "reordered": False,
+                       "removed": {"cancel": 0, "merge": 0,
+                                   "diag_coalesce": 0, "perm_coalesce": 0}}
+    key = _content_key(items, nloc, m, n or 0, nsh, perm0)
     hit = _cache.get(key) if key is not None else None
     if hit is not None:
         return _thaw_out(items, hit[0]), hit[1]
-    out, removed = _rewrite(items, nloc, m == "aggressive")
+    reordered = False
+    if nsh:
+        out, removed, reordered = _optimize_sharded(
+            items, n, nloc, perm0, m == "aggressive")
+    else:
+        out, removed = _rewrite(items, nloc, m == "aggressive")
     stats = {"mode": m, "gates_in": gates_in,
              "gates_out": sum(1 for it in out if _is_gate(it)),
-             "removed": dict(removed)}
+             "removed": dict(removed), "reordered": bool(reordered)}
     if key is not None:
         if len(_cache) >= _CACHE_MAX:
             _cache.pop(next(iter(_cache)))

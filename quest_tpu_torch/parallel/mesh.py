@@ -1,0 +1,275 @@
+"""The amplitude mesh and its transport.
+
+A register on an env of R = 2^r shards holds its amplitudes as R shard
+tensors of shape ``(2, 2^nloc)``, nloc = n - r: shard s holds the global
+amplitude indices ``[s * 2^nloc, (s + 1) * 2^nloc)``, the JAX package's
+leading-bit split (quest_tpu/env.py's NamedSharding over the amplitude
+axis).  A mesh moves data between shards through a handful of
+operations, with two backends:
+
+* ``InProcessMesh``: every shard lives in this process, shard s on
+  ``devices[s]`` (devices may repeat: R shards on one card, or on the
+  CPU).  A permute is a copy of each sent tensor into a receive buffer
+  on the destination's device (a peer copy where the devices differ).
+* ``DistMesh``: one shard per ``torch.distributed`` rank, on the rank's
+  device.  Pairwise exchanges go through ``batch_isend_irecv``, sums
+  through ``all_reduce`` and the gather through ``all_gather``: NCCL
+  carries them between cards, gloo on the CPU.
+
+Shard lists are always aligned with ``mesh.local``, the shard indices this
+process holds (all R in process, its own rank under torch.distributed).
+``ShardedAmps`` is the carrier a sharded register holds; a function that
+has no sharded form and is handed one raises a QuESTError instead of
+gathering the register.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..validation import QuESTError
+
+# the slice that brings the sharded forms a carrier refuses
+PENDING_SLICE = "M15b"
+
+
+def _api_caller() -> Optional[str]:
+    """The outermost public API function on the call stack, if any."""
+    import sys
+
+    f = sys._getframe(2)
+    name = None
+    while f is not None:
+        mod = f.f_globals.get("__name__", "")
+        if mod in ("quest_tpu_torch.api", "quest_tpu_torch.api_ops") \
+                and not f.f_code.co_name.startswith("_"):
+            name = f.f_code.co_name
+        f = f.f_back
+    return name
+
+
+def refusal(what: str) -> QuESTError:
+    """The error an operation without a sharded form raises, naming the
+    API function that reached it."""
+    caller = _api_caller()
+    if caller is not None:
+        what = f"{caller}: {what}"
+    return QuESTError(
+        f"{what}: this operation has no sharded form yet on a register "
+        f"split over several shards; it arrives with slice {PENDING_SLICE}. "
+        "Use a one-shard env (createQuESTEnv(device=...)) for it.")
+
+
+class Mesh:
+    """The interface both backends implement."""
+
+    devices: Tuple[torch.device, ...]
+    local: Tuple[int, ...]
+
+    @property
+    def axis_size(self) -> int:
+        return len(self.devices)
+
+    def device_of(self, shard: int) -> torch.device:
+        return self.devices[shard]
+
+    def permute(self, sends: Sequence[Optional[torch.Tensor]],
+                pairs: Sequence[Tuple[int, int]]) -> List[Optional[torch.Tensor]]:
+        """``sends[k]`` is what local shard ``local[k]`` sends along its
+        (src, dst) pair; returns, per local shard, the tensor it received
+        (None where it is no destination), each a new buffer on the
+        receiver's device."""
+        raise NotImplementedError
+
+    def sum(self, partials: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum over every shard of its partial (the local partials
+        given, aligned with ``local``): one value, the same on every
+        shard, on the first local shard's device."""
+        raise NotImplementedError
+
+    def gather(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The whole register, the shards concatenated along the last
+        axis in shard order, on the first local shard's device."""
+        raise NotImplementedError
+
+    def describe(self) -> str:
+        raise NotImplementedError
+
+
+class InProcessMesh(Mesh):
+    """R shards held by this process, shard s on ``devices[s]``."""
+
+    def __init__(self, devices: Sequence):
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.local = tuple(range(len(self.devices)))
+
+    def permute(self, sends, pairs):
+        out: List[Optional[torch.Tensor]] = [None] * len(self.devices)
+        # every receive buffer is filled before any caller writes a shard:
+        # a shard's own data stays intact until its partner has read it
+        for src, dst in pairs:
+            out[dst] = sends[src].to(self.devices[dst], copy=True)
+        return out
+
+    def sum(self, partials):
+        dev = self.devices[0]
+        total = partials[0].to(dev)
+        for p in partials[1:]:
+            total = total + p.to(dev)
+        return total
+
+    def gather(self, shards):
+        dev = self.devices[0]
+        return torch.cat([s.to(dev) for s in shards], dim=-1)
+
+    def describe(self) -> str:
+        names = sorted({str(d) for d in self.devices})
+        return f"in-process x{len(self.devices)} on {','.join(names)}"
+
+
+class DistMesh(Mesh):
+    """One shard per torch.distributed rank; ``device`` is this rank's."""
+
+    def __init__(self, device, world_size: int, rank: int, group=None):
+        import torch.distributed as dist
+
+        self.device = torch.device(device)
+        self.rank = int(rank)
+        self.group = group
+        # every rank joins one collective first: NCCL leaves a first
+        # batch_isend_irecv that some ranks skip undefined
+        dist.barrier(group=group)
+        # every rank's device is reported as this rank's own kind: a rank
+        # only ever touches its own shard
+        self.devices = tuple(self.device for _ in range(int(world_size)))
+        self.local = (self.rank,)
+
+    def permute(self, sends, pairs):
+        import torch.distributed as dist
+
+        me = self.rank
+        send = sends[0]
+        ops, recv = [], None
+        for src, dst in pairs:
+            if src == me and dst == me:
+                return [send.to(self.device, copy=True)]
+        for src, dst in pairs:
+            if src == me:
+                ops.append(dist.P2POp(dist.isend, send.contiguous(), dst,
+                                      group=self.group))
+            if dst == me:
+                recv = torch.empty(send.shape, dtype=send.dtype,
+                                   device=self.device)
+                ops.append(dist.P2POp(dist.irecv, recv, src,
+                                      group=self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [recv]
+
+    def sum(self, partials):
+        import torch.distributed as dist
+
+        t = partials[0].to(self.device).clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def gather(self, shards):
+        import torch.distributed as dist
+
+        mine = shards[0].contiguous()
+        parts = [torch.empty_like(mine) for _ in self.devices]
+        dist.all_gather(parts, mine, group=self.group)
+        return torch.cat(parts, dim=-1)
+
+    def describe(self) -> str:
+        import torch.distributed as dist
+
+        return (f"torch.distributed x{len(self.devices)} "
+                f"({dist.get_backend(self.group)}) on {self.device}")
+
+
+class _LostShards:
+    """The shard list of a register whose in-place exchange failed part
+    way (some shards or chunks updated, others not): every use raises
+    that failure again, as a donated buffer of the JAX package does once
+    its dispatch has died."""
+
+    __slots__ = ("err",)
+
+    def __init__(self, err: Exception):
+        self.err = err
+
+    def _lost(self, *args, **kwargs):
+        raise self.err
+
+    __getitem__ = __setitem__ = __iter__ = __len__ = _lost
+
+
+class ShardedAmps:
+    """The amplitudes of a register split over a mesh: ``shards`` holds
+    the local shards' ``(2, 2^nloc)`` tensors, aligned with ``mesh.local``.
+
+    It carries the metadata the drain and the reads need (``dtype``,
+    ``device``, ``nloc``) and nothing of a tensor's interface: a torch
+    function, an indexing, a NumPy conversion or any other tensor
+    attribute raises a QuESTError naming the slice that brings the
+    operation's sharded form, so nothing gathers a register silently."""
+
+    __slots__ = ("mesh", "shards")
+
+    def __init__(self, mesh: Mesh, shards: Sequence[torch.Tensor]):
+        self.mesh = mesh
+        self.shards = list(shards)
+
+    def mark_lost(self, err: Exception) -> None:
+        """Refuse every later use of these amplitudes with ``err``."""
+        self.shards = _LostShards(err)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def nloc(self) -> int:
+        return int(self.shards[0].shape[-1]).bit_length() - 1
+
+    @property
+    def itemsize(self) -> int:
+        return self.shards[0].element_size()
+
+    def __getattr__(self, name):
+        raise refusal(f"tensor attribute {name!r} of sharded amplitudes")
+
+    def __getitem__(self, key):
+        raise refusal("indexing sharded amplitudes")
+
+    def __setitem__(self, key, value):
+        raise refusal("writing into sharded amplitudes")
+
+    def __iter__(self):
+        raise refusal("iterating over sharded amplitudes")
+
+    def __len__(self):
+        raise refusal("len() of sharded amplitudes")
+
+    def __array__(self, *args, **kwargs):
+        raise refusal("converting sharded amplitudes to NumPy")
+
+    def __float__(self):
+        raise refusal("float() of sharded amplitudes")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", str(func))
+        raise refusal(f"torch.{name} on sharded amplitudes")
+
+    def __repr__(self) -> str:
+        return (f"ShardedAmps({self.mesh.axis_size} shards of "
+                f"2^{self.nloc}, {self.dtype})")

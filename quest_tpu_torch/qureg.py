@@ -4,9 +4,15 @@
 ``(2, 2^numQubitsInStateVec)`` on the env's device: channel 0/1 = real /
 imaginary, qubit q = bit q of the flat index (little-endian), the JAX
 package's layout.  A density matrix is a 2N-qubit vector, flattened
-column-major (ket = low bits), as in the reference.  ``PauliHamil``
-(QuEST.h:277) is a host-side term table; ``DiagonalOp`` (QuEST.h:297) a
-diagonal operator's real and imaginary (2^n,) vectors on the device.
+column-major (ket = low bits), as in the reference.  On an env of R = 2^r
+shards a register of at least R amplitudes holds a
+``parallel.mesh.ShardedAmps`` instead: R shard tensors of shape
+``(2, 2^nloc)``, shard s holding the global indices
+``[s 2^nloc, (s + 1) 2^nloc)``; a smaller register is replicated (one
+tensor on the env's device, as the JAX package's ``Qureg.sharding()``
+replicates it).  ``PauliHamil`` (QuEST.h:277) is a host-side term table;
+``DiagonalOp`` (QuEST.h:297) a diagonal operator's real and imaginary
+(2^n,) vectors on the device.
 """
 
 from __future__ import annotations
@@ -32,8 +38,18 @@ class Qureg:
         self.env = env
         self.dtype = precision.real_dtype()
         self.qasm_log = QASMLogger(num_qubits)
-        self._amps: Optional[torch.Tensor] = None
+        self._amps = None
         self._fusion = None  # FusionBuffer while a gateFusion context is active
+        # live logical->physical qubit permutation of a sharded register
+        # (None = canonical order): _perm[q] is the physical state-vector
+        # bit holding logical bit q.  The drain and the eager relocations
+        # leave the state permuted; the ``amps`` getter restores
+        # canonical order with one remap (quest_tpu/qureg.py:98-110)
+        self._perm: Optional[tuple] = None
+        # last-use tick per logical state-vector bit: eager relocations
+        # evict the least recently used residents
+        self._last_use: dict = {}
+        self._use_clock: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -44,9 +60,32 @@ class Qureg:
         return 1 << self.num_qubits_in_state_vec
 
     @property
-    def amps(self) -> torch.Tensor:
-        """The (2, 2^n) amplitudes; pending fused gates drain first, so
-        every reader sees reference semantics."""
+    def shard_bits(self) -> int:
+        """Leading state-vector bits held as shard-index bits: 0 on a
+        one-shard env and for a replicated register."""
+        nd = self.env.num_devices
+        if nd <= 1 or self.num_amps_total < nd:
+            return 0
+        return nd.bit_length() - 1
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.shard_bits > 0
+
+    @property
+    def num_chunks(self) -> int:
+        return self.env.num_devices
+
+    @property
+    def num_amps_per_chunk(self) -> int:
+        return self.num_amps_total >> self.shard_bits
+
+    @property
+    def amps(self):
+        """The amplitudes in canonical qubit order: pending fused gates
+        drain first, then a live permutation is undone with one remap, so
+        every reader sees reference semantics.  A (2, 2^n) tensor, or a
+        ShardedAmps on a sharded register."""
         if self._amps is None:
             from .validation import QuESTError
 
@@ -57,15 +96,52 @@ class Qureg:
             from . import fusion
 
             fusion.drain(self)
+        if self._perm is not None:
+            from .parallel import dist
+
+            self._amps = dist.remap_sharded(
+                self._amps, num_qubits=self.num_qubits_in_state_vec,
+                sigma=dist.canonical_sigma(self._perm))
+            self._perm = None
         return self._amps
 
     @amps.setter
-    def amps(self, value: Optional[torch.Tensor]):
+    def amps(self, value):
         if self._fusion is not None and self._fusion.gates:
             # a pure overwrite makes pending gates unobservable: discard
             # them instead of computing a dead result
             self._fusion.gates.clear()
+        # an overwrite is in canonical order; only _set_amps_permuted
+        # carries a permutation
+        self._perm = None
         self._amps = value
+
+    def _amps_raw(self):
+        """The amplitudes without restoring canonical order (pending
+        fused gates still drain first)."""
+        if self._amps is None:
+            return self.amps  # raises the destroyed-register error
+        if self._fusion is not None and self._fusion.gates:
+            from . import fusion
+
+            fusion.drain(self)
+        return self._amps
+
+    def _set_amps_permuted(self, value, perm) -> None:
+        """Rebind amplitudes held under logical->physical ``perm`` (None
+        or the identity: canonical), keeping the permutation."""
+        self._amps = value
+        if perm is not None and tuple(perm) == tuple(
+                range(self.num_qubits_in_state_vec)):
+            perm = None
+        self._perm = None if perm is None else tuple(perm)
+
+    def _phys_bits(self, bits) -> tuple:
+        """Physical positions of logical state-vector bits under the live
+        permutation."""
+        if self._perm is None:
+            return tuple(bits)
+        return tuple(self._perm[b] for b in bits)
 
 
 class PauliHamil:

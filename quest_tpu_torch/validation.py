@@ -80,6 +80,7 @@ ERROR_MESSAGES = {
     "E_INVALID_ELEM_INDEX": "Invalid element index. Must be >=0 and <2^numQubits.",
     "E_INVALID_NUM_ELEMS": "Invalid number of elements. Must be >=0 and <=2^numQubits.",
     "E_INVALID_OFFSET_NUM_ELEMS_DIAG": "More elements given than exist in the diagonal operator from the given starting index.",
+    "E_DISTRIB_QUREG_TOO_SMALL": "Too few qubits. The created qureg must have at least one amplitude per node used in distributed simulation.",
     "E_DISTRIB_DIAG_OP_TOO_SMALL": "Too few qubits. The created DiagonalOp must contain at least one element per node used in distributed simulation.",
     "E_MISMATCHING_QUREG_DIAGONAL_OP_SIZE": "The qureg must represent an equal number of qubits as that in the applied diagonal operator.",
     "E_DIAGONAL_OP_NOT_INITIALISED": "The diagonal operator has not been initialised through createDiagonalOperator().",
@@ -114,8 +115,9 @@ def strict_parity() -> bool:
     E_CANNOT_FIT_MULTI_QUBIT_MATRIX to a QuESTError, so test suites
     ported verbatim from the reference (which require the throw) pass
     unchanged; it also routes measurement through the host RNG
-    (ops/measurement.host_path_enabled).  The JAX package's second
-    escalation, E_DISTRIB_QUREG_TOO_SMALL, cannot arise on one device."""
+    (ops/measurement.host_path_enabled), and E_DISTRIB_QUREG_TOO_SMALL,
+    which a register smaller than the env's shard count raises there and
+    warns about otherwise (such a register is replicated)."""
     import os
 
     return os.environ.get("QT_STRICT_VALIDATION") == "1"
@@ -127,12 +129,17 @@ def _warn(code: str, func: str):
     warnings.warn(f"{func}: {ERROR_MESSAGES[code]}", stacklevel=3)
 
 
-def validate_num_qubits(num_qubits: int, func: str):
-    """validateNumQubitsInQureg (:345-355) for one device."""
+def validate_num_qubits(num_qubits: int, func: str, num_ranks: int = 1):
+    """validateNumQubitsInQureg (:345-355): > 0, fits the index type, and
+    at least one amplitude per shard; a smaller register is replicated,
+    so that check warns with the reference's message (as the JAX
+    package's does) rather than raising."""
     if num_qubits <= 0:
         _raise("E_INVALID_NUM_CREATE_QUBITS", func)
     if num_qubits > 62:
         _raise("E_NUM_AMPS_EXCEED_TYPE", func)
+    if (1 << num_qubits) < num_ranks:
+        _warn("E_DISTRIB_QUREG_TOO_SMALL", func)
 
 
 def validate_state_index(qureg, state_ind: int, func: str):
