@@ -278,10 +278,35 @@ line:
              memory.  Where two or more cards are visible, dist_nccl
              runs two NCCL ranks bit for bit against the in-process mesh;
              on one card a line says it did not run.
-31. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+32. dist_composites_parity - K6-K9 on every shard of the sharded QFT
+             routes, each launch bit for bit against its plain version on
+             the same shard: config 3's 30-qubit QFT on 8 shards (K8 x4
+             and K9 a shard, nloc = 27), applyQFT on the run [0, 25) of 26
+             qubits on 8 shards (K6 x9 and K7 x7 a shard) and applyFullQFT
+             on a 13-qubit density register on 4 (K7 in the ket run).
+33. dist_composites_main - each sharded composite at full width, float32,
+             against the one-register route, the launch counts and the
+             exchange counters reset just before each route: the 30-qubit
+             QFT on 8 shards (within 1e-5 max|psi|, K8 and K9 per shard,
+             exchanges = the reference's model); the run [0, 25) at R = 2
+             (inside a shard) and 8 (K6, K7); the density QFT on 4; config
+             5 on |+>^30 at R = 8 (Trotter and both energies; no K3 / K4);
+             config 4's eager channels on 4 shards, targets 12 and 13
+             (bra bits on the mesh) and 0 and 1, within 1e-6 each;
+             config 2 at 26 qubits on 2 and 8 shards measured in full
+             (the one register's outcomes for seed 1234); DiagonalOp and
+             the phase functions at 30 qubits on 8 shards (sampled against
+             one register) and D rho at 15 qubits on 8.
+34. dist_composites_timing - walls against one register (the 30-qubit
+             QFT, Trotter, the energy, measureSequence, applyDiagonalOp)
+             and every sharded route's device ms split into kernels,
+             exchange copies and plain ops (the QFT also by stage; the
+             run [0, 25), the density QFT and the eager channels on
+             their meshes too); the per-shard launches of K6-K9.
+35. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
-             errors under "modes"; K1, K2 and K5's bank forms; K1, K2 and
-             K5 marked as run per shard with their dist launches).
+             errors under "modes"; K1, K2 and K5's bank forms; K1, K2, K5
+             and K6-K9 marked as run per shard with their dist launches).
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -4962,6 +4987,776 @@ def phase_dist_nccl(torch, np, qt, circuits):
     return {"n": n, "ranks": world, "bit_identical_to_in_process": same}
 
 
+# ---------------------------------------------------------------------------
+# The sharded composites (M15b): the QFT with K6-K9 per shard, Pauli sums
+# and Trotter, eager channels, measurement, DiagonalOp and the phase
+# functions on registers split over shards of the card
+# ---------------------------------------------------------------------------
+
+N_COMP_QFT = 30        # config 3 on 8 shards: nloc = 27, 8.59 GB at float32
+R_COMP_QFT = 8
+N_COMP_RUN = 26        # applyQFT on the run [0, 25) at R = 2 and 8
+COMP_RUN_MESHES = (2, 8)
+N_COMP_QFT_RHO = 13    # applyFullQFT on a density register of 2^26 at R = 4
+R_COMP_QFT_RHO = 4
+N_COMP_PAULI = 30      # config 5 on 8 shards
+R_COMP_PAULI = 8
+N_COMP_NOISE = 14      # config 4's density register (2^28) at R = 4
+R_COMP_NOISE = 4
+N_COMP_MEAS = 26       # config 2's circuit, measured in full, R = 2 and 8
+COMP_MEAS_MESHES = (2, 8)
+N_COMP_DIAG = 30       # a state vector and its operator on 8 shards
+N_COMP_DIAG_RHO = 15   # a density register of 2^30 amplitudes on 8 shards
+R_COMP_DIAG = 8
+COMP_SEED = 4242
+QFT_KERNELS = ("K6", "K7", "K8", "K9")
+
+
+@contextmanager
+def checked_qft_kernels(torch, fused, record):
+    """K6-K9's wrappers replaced, for the block, by ones that run the
+    kernel on the tensor they are given (a shard) and hold its output
+    against the plain version on a copy of the same input, bit for bit;
+    ``record`` collects, per kernel, the calls, the shard sizes and the
+    largest difference."""
+    names = ("apply_qft_multi_hi", "apply_qft_cluster_multi",
+             "apply_qft_ladder_pallas")
+    saved = {name: getattr(fused, name) for name in names}
+
+    def same(key, y, yp, n):
+        sync()
+        rec = record.setdefault(key, {"calls": 0, "shard_bits": [],
+                                      "max_abs_err": 0.0})
+        rec["calls"] += 1
+        if n not in rec["shard_bits"]:
+            rec["shard_bits"].append(n)
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 max_abs_diff(torch, y, yp))
+        check(torch.equal(y, yp), f"{key} on a {n}-bit shard is not "
+              "bit-identical to its plain version")
+
+    def multi_hi(amps, *, num_qubits, t_hi, t_lo, conj=False):
+        x0 = amps.clone()
+        y = saved["apply_qft_multi_hi"](amps, num_qubits=num_qubits,
+                                        t_hi=t_hi, t_lo=t_lo, conj=conj)
+        same("K8", y, fused.qft_multi_hi_plain(
+            x0, num_qubits=num_qubits, t_hi=t_hi, t_lo=t_lo, conj=conj),
+            num_qubits)
+        return y
+
+    def cluster(amps, *, num_qubits, conj=False):
+        x0 = amps.clone()
+        y = saved["apply_qft_cluster_multi"](amps, num_qubits=num_qubits,
+                                             conj=conj)
+        same("K9", y, fused.qft_cluster_multi_plain(
+            x0, num_qubits=num_qubits, conj=conj), num_qubits)
+        return y
+
+    def ladder(amps, *, num_qubits, target, conj=False):
+        x0 = amps.clone()
+        y = saved["apply_qft_ladder_pallas"](amps, num_qubits=num_qubits,
+                                             target=target, conj=conj)
+        lo = target < fused.CLUSTER_QUBITS
+        plain = fused.qft_ladder_lo_plain if lo else fused.qft_ladder_plain
+        same("K7" if lo else "K6", y, plain(
+            x0, num_qubits=num_qubits, target=target, conj=conj), num_qubits)
+        return y
+
+    fused.apply_qft_multi_hi = multi_hi
+    fused.apply_qft_cluster_multi = cluster
+    fused.apply_qft_ladder_pallas = ladder
+    try:
+        yield record
+    finally:
+        for name, fn in saved.items():
+            setattr(fused, name, fn)
+
+
+def sharded_register(qt, SH, env, n, x, density=False):
+    """A register of ``env``'s mesh holding the whole state ``x`` split
+    into its shards (x is left as it was)."""
+    q = (qt.createDensityQureg(n // 2, env) if density
+         else qt.createQureg(n, env))
+    q.amps = SH.split(env.mesh, x, n - (len(env.devices).bit_length() - 1),
+                      x.dtype)
+    return q
+
+
+def sharded_vs_whole(torch, amps, whole) -> float:
+    """max |shard - the same slice of the whole state| over the shards."""
+    whole = whole.reshape(2, -1)
+    m = 1 << amps.nloc
+    return max(max_abs_diff(torch, sh, whole[:, s * m:(s + 1) * m])
+               if sh.numel() >= 1 << 25
+               else float((sh - whole[:, s * m:(s + 1) * m]).abs().max())
+               for s, sh in zip(amps.mesh.local, amps.shards))
+
+
+def whole_tolerance(torch, whole) -> float:
+    return tolerance(whole.reshape(2, -1))
+
+
+def comp_counts(fused) -> dict:
+    return {k: fused.LAUNCHES[k] for k in ("K1", "K2") + QFT_KERNELS}
+
+
+def exchanges_by_op(PD, ops) -> dict:
+    return {op: [int(PD.counter_sum("exchanges_total", op=op)),
+                 int(PD.counter_sum("exchange_bytes_total", op=op))]
+            for op in ops
+            if PD.counter_sum("exchanges_total", op=op)}
+
+
+def qft_model(COMP, n, R, itemsize, runs=None):
+    """The reference's exchange model of a sharded QFT: [count, per-shard
+    bytes] by op family."""
+    nloc = n - (R.bit_length() - 1)
+    payload = 2 * (1 << nloc) * itemsize
+    if runs is None:
+        return {"qft": [R.bit_length() - 1 + 1,
+                        (R.bit_length() - 1) * payload
+                        + payload * (R - 1) // R]}
+    cnt, nbytes = COMP.qft_runs_exchange_model(runs, nloc, itemsize)
+    return {"qft_runs": [cnt, nbytes]} if cnt else {}
+
+
+def phase_dist_composites_parity(torch, np, qt, fused):
+    """K6-K9 on every shard of the sharded QFT routes, each launch held
+    bit for bit against its plain version on the same shard: config 3's
+    30-qubit QFT on 8 shards (K8 and K9), applyQFT on the run [0, 25) of
+    26 qubits on 8 shards (K6 and K7 per layer) and applyFullQFT on a
+    13-qubit density register on 4 shards (K7 in its ket run)."""
+    from quest_tpu_torch.parallel import sharded as SH
+
+    qt.set_precision(1)
+    record: dict = {}
+    out = {"cases": []}
+    cases = ((N_COMP_QFT, R_COMP_QFT, False, None),
+             (N_COMP_RUN, 8, False, list(range(N_COMP_RUN - 1))),
+             (2 * N_COMP_QFT_RHO, R_COMP_QFT_RHO, True, None))
+    for n, R, density, run in cases:
+        env = mesh_env(qt, R)
+        x = random_state(torch, n, COMP_SEED + n)
+        q = sharded_register(qt, SH, env, n, x, density)
+        del x
+        before = {k: dict(v) for k, v in record.items()}
+        with checked_qft_kernels(torch, fused, record):
+            if run is None:
+                qt.applyFullQFT(q)
+            else:
+                qt.applyQFT(q, run)
+        check(bool(all(torch.isfinite(s).all() for s in q.amps.shards)),
+              f"sharded QFT at {n} bits, R = {R}: bad state")
+        calls = {k: v["calls"] - before.get(k, {}).get("calls", 0)
+                 for k, v in record.items()}
+        out["cases"].append({"n_state_bits": n, "shards": R,
+                             "density": density, "run": run and
+                             [run[0], len(run)], "kernel_calls": calls})
+        qt.destroyQureg(q, env)
+        del q
+        torch.cuda.empty_cache()
+    for key in QFT_KERNELS:
+        check(record.get(key, {}).get("calls", 0) > 0,
+              f"{key} was never held against its plain version on a shard")
+    out["kernels"] = record
+    return out
+
+
+def sampled_sharded(torch, np, amps, idx):
+    """The global amplitudes ``idx`` of sharded amplitudes as a complex
+    NumPy array, each read from its shard."""
+    nloc = amps.nloc
+    idx = np.asarray(idx)
+    out = np.zeros(idx.size, dtype=np.complex128)
+    for s, sh in zip(amps.mesh.local, amps.shards):
+        sel = np.nonzero((idx >> nloc) == s)[0]
+        if sel.size:
+            loc = torch.as_tensor(idx[sel] & ((1 << nloc) - 1),
+                                  device=sh.device)
+            a = sh[:, loc].double().cpu().numpy()
+            out[sel] = a[0] + 1j * a[1]
+    return out
+
+
+def phase_dist_composites_main(torch, np, qt, C, fused, paulis, hamiltonians,
+                               circuits, api_ops):
+    """Each sharded composite route against the one-register route at
+    full width, float32, the launch counts reset just before each route
+    and read just after.  Returns (phase record, per-shard launches by
+    kernel over the routes)."""
+    from quest_tpu_torch.parallel import composites as COMP
+    from quest_tpu_torch.parallel import dist as PD
+    from quest_tpu_torch.parallel import sharded as SH
+
+    qt.set_precision(1)
+    env1 = qt.createQuESTEnv()
+    out = {}
+    totals = {k: 0 for k in ("K1", "K2") + QFT_KERNELS}
+
+    def run_counted(fn):
+        fused.reset_launch_counts()
+        PD.reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = comp_counts(fused)
+        for k, v in counts.items():
+            totals[k] += v
+        return counts, wall
+
+    families = ("qft", "qft_runs", "trotter", "expec", "pair_channel",
+                "depol2", "matrix_1q", "swap", "remap", "window_remap",
+                "gather")
+
+    # (a) config 3 on 8 shards: applyFullQFT at 30 qubits
+    n, R = N_COMP_QFT, R_COMP_QFT
+    nloc = n - 3
+    env = mesh_env(qt, R)
+    x = random_state(torch, n, COMP_SEED)
+    q = sharded_register(qt, SH, env, n, x)
+    y = C.fused_qft(x, n, 0, n).reshape(2, -1)
+    del x
+    counts, wall = run_counted(lambda: qt.applyFullQFT(q))
+    err = sharded_vs_whole(torch, q._amps, y)
+    tol = whole_tolerance(torch, y)
+    check(err <= tol, f"sharded QFT at {n} qubits: |err| {err} > {tol}")
+    exch = exchanges_by_op(PD, families)
+    model = qft_model(COMP, n, R, 4)
+    check(exch == model, f"sharded QFT exchanges {exch} != model {model}")
+    per_shard = -(-(nloc - 14) // 4)
+    check(counts["K8"] == R * per_shard and counts["K9"] == R
+          and counts["K6"] == counts["K7"] == 0,
+          f"sharded QFT launches {counts}: want K8 {R * per_shard}, K9 {R}")
+    out["qft_full"] = {"n": n, "shards": R, "nloc": nloc,
+                       "launches": counts,
+                       "launches_per_shard": {k: counts[k] / R
+                                              for k in QFT_KERNELS},
+                       "max_abs_err_vs_one_register": err, "tolerance": tol,
+                       "exchanges": exch, "exchange_model": model,
+                       "first_wall_s": wall}
+    qt.destroyQureg(q, env)
+    del q, y
+    torch.cuda.empty_cache()
+
+    # (b) applyQFT on the run [0, 25) of 26 qubits at R = 2 (inside a
+    # shard: the fused QFT per shard) and R = 8 (reaching mesh bits)
+    n = N_COMP_RUN
+    run = list(range(n - 1))
+    x = random_state(torch, n, COMP_SEED + 1)
+    q1 = qt.createQureg(n, env1)
+    q1.amps = x.clone()
+    qt.applyQFT(q1, run)
+    y = q1.amps
+    tol = whole_tolerance(torch, y)
+    out["qft_run"] = {}
+    for R in COMP_RUN_MESHES:
+        env = mesh_env(qt, R)
+        q = sharded_register(qt, SH, env, n, x)
+        counts, wall = run_counted(lambda: qt.applyQFT(q, run))
+        err = sharded_vs_whole(torch, q._amps, y)
+        check(err <= tol, f"applyQFT run at R = {R}: |err| {err} > {tol}")
+        exch = exchanges_by_op(PD, families)
+        model = qft_model(COMP, n, R, 4, [(0, n - 1, False)])
+        check(exch == model, f"applyQFT run at R = {R}: exchanges {exch} "
+              f"!= model {model}")
+        out["qft_run"][str(R)] = {
+            "n": n, "run": [0, n - 1], "launches": counts,
+            "launches_per_shard": {k: counts[k] / R for k in QFT_KERNELS},
+            "max_abs_err_vs_one_register": err, "tolerance": tol,
+            "exchanges": exch, "exchange_model": model,
+            "first_wall_s": wall}
+        qt.destroyQureg(q, env)
+        del q
+    check(out["qft_run"]["8"]["launches"]["K6"] > 0
+          and out["qft_run"]["8"]["launches"]["K7"] > 0,
+          "the run reaching mesh bits launched no K6 / K7 on its shards")
+    qt.destroyQureg(q1, env1)
+    del q1, x, y
+    torch.cuda.empty_cache()
+
+    # (c) applyFullQFT on a 13-qubit density register at R = 4
+    m, R = N_COMP_QFT_RHO, R_COMP_QFT_RHO
+    x = random_state(torch, 2 * m, COMP_SEED + 2)
+    r1 = qt.createDensityQureg(m, env1)
+    r1.amps = x.clone()
+    qt.applyFullQFT(r1)
+    env = mesh_env(qt, R)
+    r = sharded_register(qt, SH, env, 2 * m, x, density=True)
+    counts, wall = run_counted(lambda: qt.applyFullQFT(r))
+    err = sharded_vs_whole(torch, r._amps, r1.amps)
+    tol = whole_tolerance(torch, r1.amps)
+    check(err <= tol, f"density QFT at R = {R}: |err| {err} > {tol}")
+    exch = exchanges_by_op(PD, families)
+    model = qft_model(COMP, 2 * m, R, 4, [(0, m, False), (m, m, True)])
+    check(exch == model, f"density QFT exchanges {exch} != {model}")
+    out["qft_density"] = {"n": m, "shards": R, "launches": counts,
+                          "launches_per_shard": {k: counts[k] / R
+                                                 for k in QFT_KERNELS},
+                          "max_abs_err_vs_one_register": err,
+                          "tolerance": tol, "exchanges": exch,
+                          "exchange_model": model, "first_wall_s": wall}
+    qt.destroyQureg(r, env)
+    qt.destroyQureg(r1, env1)
+    del r, r1, x
+    torch.cuda.empty_cache()
+
+    # (d) config 5 on 8 shards: the 16-term PauliHamil on |+>^30
+    n, R = N_COMP_PAULI, R_COMP_PAULI
+    coeffs, codes = hamiltonians.bench_pauli_hamil(n, PAULI_TERMS,
+                                                   seed=PAULI_SEED)
+    scale = float(np.abs(coeffs).sum())
+    q1, h, e0_1, e1_1, _total = config5(qt, n, coeffs, codes)
+    env = mesh_env(qt, R)
+    q = qt.createQureg(n, env)
+    qt.initPlusState(q)
+    paulis.reset_launch_counts()
+    PD.reset_counters()
+    sync()
+    t0 = time.perf_counter()
+    e0 = qt.calcExpecPauliHamil(q, h)
+    qt.applyTrotterCircuit(q, h, *TROTTER)
+    e1 = qt.calcExpecPauliHamil(q, h)
+    sync()
+    wall = time.perf_counter() - t0
+    rotations = len(api_ops._trotter_schedule(PAULI_TERMS, *TROTTER))
+    exch = exchanges_by_op(PD, families)
+    payload = 2 * (1 << (n - 3)) * 4
+    model = {"trotter": [rotations, rotations * payload],
+             "expec": [2 * PAULI_TERMS, 2 * PAULI_TERMS * payload]}
+    check(exch == model, f"config 5 sharded exchanges {exch} != {model}")
+    check(dict(paulis.LAUNCHES) == {"K3": 0, "K4": 0},
+          "the sharded Pauli body launched K3 / K4 (it is plain PyTorch)")
+    err = sharded_vs_whole(torch, q._amps, q1.amps)
+    tol = whole_tolerance(torch, q1.amps)
+    check(err <= tol, f"sharded Trotter: |err| {err} > {tol}")
+    for got, want in ((e0, e0_1), (e1, e1_1)):
+        check(abs(got - want) <= 1e-5 * scale,
+              f"sharded energy {got} vs one register {want}")
+    out["pauli"] = {"n": n, "shards": R, "terms": PAULI_TERMS,
+                    "rotations": rotations, "e0": e0, "e1": e1,
+                    "e0_one_register": e0_1, "e1_one_register": e1_1,
+                    "max_abs_err_vs_one_register": err, "tolerance": tol,
+                    "bit_identical_to_one_register": bool(all(
+                        torch.equal(sh, q1.amps[:, s << (n - 3):
+                                                (s + 1) << (n - 3)])
+                        for s, sh in zip(q._amps.mesh.local,
+                                         q._amps.shards))),
+                    "exchanges": exch, "exchange_model": model,
+                    "first_wall_s": wall}
+    qt.destroyQureg(q, env)
+    qt.destroyQureg(q1, env1)
+    del q, q1
+    torch.cuda.empty_cache()
+
+    # (e) config 4's density register at R = 4, eager channels on targets
+    # whose bra bit is a mesh bit (12, 13) and on local ones (0, 1)
+    m, R = N_COMP_NOISE, R_COMP_NOISE
+    x = random_state(torch, 2 * m, COMP_SEED + 3)
+    r1 = qt.createDensityQureg(m, env1)
+    r1.amps = x.clone()
+    env = mesh_env(qt, R)
+    r = sharded_register(qt, SH, env, 2 * m, x, density=True)
+    o1 = qt.createDensityQureg(m, env1)
+    o1.amps = random_state(torch, 2 * m, COMP_SEED + 4)
+    o = sharded_register(qt, SH, env, 2 * m, o1.amps, density=True)
+    del x
+    p = NOISE_P
+    steps = []
+    for a, b in ((m - 2, m - 1), (0, 1)):
+        steps += [("mixDephasing", lambda qq, a=a: qt.mixDephasing(qq, a, p)),
+                  ("mixDepolarising",
+                   lambda qq, a=a: qt.mixDepolarising(qq, a, p)),
+                  ("mixDamping", lambda qq, b=b: qt.mixDamping(qq, b, p)),
+                  ("mixTwoQubitDephasing",
+                   lambda qq, a=a, b=b: qt.mixTwoQubitDephasing(qq, a, b, p)),
+                  ("mixTwoQubitDepolarising",
+                   lambda qq, a=a, b=b: qt.mixTwoQubitDepolarising(qq, a, b,
+                                                                   p))]
+    PD.reset_counters()
+    errs = {}
+    walls = {}
+    for i, (label, fn) in enumerate(steps):
+        fn(r1)
+        sync()
+        t0 = time.perf_counter()
+        fn(r)
+        sync()
+        key = f"{label}_{'mesh' if i < 5 else 'local'}"
+        walls[key] = time.perf_counter() - t0
+        errs[key] = sharded_vs_whole(torch, r._amps, r1.amps)
+        check(errs[key] <= 1e-6, f"{key}: |err| {errs[key]} > 1e-6")
+    qt.mixDensityMatrix(r1, 0.25, o1)
+    qt.mixDensityMatrix(r, 0.25, o)
+    errs["mixDensityMatrix"] = sharded_vs_whole(torch, r._amps, r1.amps)
+    check(errs["mixDensityMatrix"] <= 1e-6, "mixDensityMatrix: |err| "
+          f"{errs['mixDensityMatrix']}")
+    exch = exchanges_by_op(PD, families)
+    payload = 2 * (1 << (2 * m - 2)) * 4
+    model = {"pair_channel": [2, 2 * payload], "depol2": [2, 2 * payload]}
+    check(exch == model, f"eager channels exchanges {exch} != {model}")
+    out["channels"] = {"n": m, "shards": R, "p": p,
+                       "max_abs_err_vs_one_register": errs,
+                       "walls_s": walls, "exchanges": exch,
+                       "exchange_model": model}
+    for qq, e in ((r, env), (o, env), (r1, env1), (o1, env1)):
+        qt.destroyQureg(qq, e)
+    del r, o, r1, o1
+    torch.cuda.empty_cache()
+
+    # (f) config 2's circuit at 26 qubits on R = 2 and 8, measured in full
+    n = N_COMP_MEAS
+    us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+    q1 = qt.createQureg(n, env1)
+    with qt.gateFusion(q1):
+        apply_bench_gates(qt, q1, us, n)
+    qt.seedQuEST(env1, [1234])
+    outs1, probs1 = qt.measureSequence(q1, list(range(n)))
+    qt.destroyQureg(q1, env1)
+    out["measure"] = {"n": n, "outcomes_one_register": outs1}
+    for R in COMP_MEAS_MESHES:
+        env = mesh_env(qt, R)
+        q = qt.createQureg(n, env)
+
+        def measured():
+            with qt.gateFusion(q):
+                apply_bench_gates(qt, q, us, n)
+            qt.seedQuEST(env, [1234])
+            return qt.measureSequence(q, list(range(n)))
+
+        fused.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        outs, probs = measured()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = comp_counts(fused)
+        for k, v in counts.items():
+            totals[k] += v
+        check(outs == outs1, f"measureSequence at R = {R}: outcomes {outs} "
+              f"!= one register's {outs1}")
+        perr = max(abs(a - b) for a, b in zip(probs, probs1))
+        check(perr <= 1e-5, f"measureSequence at R = {R}: probabilities "
+              f"stray {perr}")
+        xo = sum(o << i for i, o in enumerate(outs))
+        amp = abs(qt.getAmp(q, xo))
+        check(abs(amp - 1) <= 1e-5, f"measured state at R = {R}: |amp| {amp}")
+        out["measure"][str(R)] = {"outcomes_equal": True,
+                                  "prob_max_abs_diff": perr,
+                                  "amp_at_outcome": amp,
+                                  "launches": counts,
+                                  "circuit_and_measure_wall_s": wall}
+        qt.destroyQureg(q, env)
+        del q
+    torch.cuda.empty_cache()
+
+    # (g) DiagonalOp and the phase functions at 30 qubits on 8 shards:
+    # the one-register route's sampled amplitudes first, then the sharded
+    n, R = N_COMP_DIAG, R_COMP_DIAG
+    rng = np.random.default_rng(DIAG_SEED)
+    codes, w = maxcut_ring(n, DIAG_SEED)
+    idx = np.concatenate([[0, (1 << n) - 1],
+                          rng.integers(0, 1 << n, DIAG_SAMPLES)])
+    idx_t = torch.as_tensor(idx, device=DEVICE)
+    hamil = qt.createPauliHamil(n, codes.shape[0])
+    qt.initPauliHamil(hamil, w, codes)
+    half = n // 2
+    c1, c2 = 2.0 ** -28, 2.0 ** -58
+    over = {0: 0.5, (1 << n) - 1: -1.0}
+
+    def sample(amps):
+        if isinstance(amps, SH.ShardedAmps):
+            return sampled_sharded(torch, np, amps, idx)
+        a = amps[:, idx_t].double().cpu().numpy()
+        return a[0] + 1j * a[1]
+
+    def diag_route(q, env):
+        op = qt.createDiagonalOp(n, env)
+        qt.initDiagonalOpFromPauliHamil(op, hamil)
+        op.imag = torch.sin(op.real)
+        qt.initPlusState(q)
+        res = {"expec_plus": qt.calcExpecDiagonalOp(q, op)}
+        qt.applyDiagonalOp(q, op)
+        res["expec_after"] = qt.calcExpecDiagonalOp(q, op)
+        del op
+        torch.cuda.empty_cache()
+        res["after_op"] = sample(q.amps)
+        qt.applyPhaseFuncOverrides(q, list(range(n)), qt.UNSIGNED, [c1, c2],
+                                   [1.0, 2.0], list(over),
+                                   list(over.values()))
+        qt.applyParamNamedPhaseFunc(q, list(range(n)), [half, half],
+                                    qt.UNSIGNED, qt.SCALED_DISTANCE,
+                                    [2.0 ** -13])
+        return res
+
+    q1 = qt.createQureg(n, env1)
+    res1 = diag_route(q1, env1)
+    want_op = res1.pop("after_op")
+    want = sample(q1.amps)
+    qt.destroyQureg(q1, env1)
+    del q1
+    torch.cuda.empty_cache()
+    env = mesh_env(qt, R)
+    q = qt.createQureg(n, env)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = diag_route(q, env)
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    amp = 2.0 ** (-n / 2)
+    tol_a = 1e-5 * amp * max(1.0, float(np.abs(w).sum()))
+    err_op = float(np.abs(res.pop("after_op") - want_op).max())
+    err = float(np.abs(sample(q.amps) - want).max())
+    check(err_op <= tol_a and err <= tol_a, f"sharded DiagonalOp / phase "
+          f"functions: |err| {err_op}, {err} > {tol_a}")
+    tol_e = 1e-5 * float(np.abs(w).sum())
+    for key in ("expec_plus", "expec_after"):
+        check(abs(res[key] - res1[key]) <= tol_e,
+              f"sharded {key} {res[key]} vs one register {res1[key]}")
+    qt.destroyQureg(q, env)
+    del q
+    torch.cuda.empty_cache()
+    # a 15-qubit density register (2^30) through apply_diag_op_density_sharded
+    m = N_COMP_DIAG_RHO
+    vals = rng.uniform(-1, 1, 1 << m) + 1j * rng.uniform(-1, 1, 1 << m)
+    x = random_state(torch, 2 * m, COMP_SEED + 5)
+    r1 = qt.createDensityQureg(m, env1)
+    r1.amps = x.clone()
+    dop1 = qt.createDiagonalOp(m, env1)
+    qt.initDiagonalOp(dop1, vals.real, vals.imag)
+    e_r1 = qt.calcExpecDiagonalOp(r1, dop1)
+    qt.applyDiagonalOp(r1, dop1)
+    r = sharded_register(qt, SH, env, 2 * m, x, density=True)
+    del x
+    dop = qt.createDiagonalOp(m, env)
+    qt.initDiagonalOp(dop, vals.real, vals.imag)
+    sync()
+    t0 = time.perf_counter()
+    e_r = qt.calcExpecDiagonalOp(r, dop)
+    qt.applyDiagonalOp(r, dop)
+    sync()
+    wall_rho = time.perf_counter() - t0
+    err_rho = sharded_vs_whole(torch, r._amps, r1.amps)
+    tol_rho = whole_tolerance(torch, r1.amps) * float(np.abs(vals).max())
+    check(err_rho <= tol_rho and abs(e_r - e_r1) <= 1e-5 * float(
+        np.abs(vals).max()), f"sharded D rho: |err| {err_rho}, Tr {e_r} vs "
+          f"{e_r1}")
+    out["diagonal"] = {
+        "n": n, "shards": R, "samples": int(idx.size),
+        "max_abs_err_op_vs_one_register": err_op,
+        "max_abs_err_phase_vs_one_register": err, "tolerance": tol_a,
+        "expec": {k: [res[k].real, res[k].imag] for k in res},
+        "expec_one_register": {k: [res1[k].real, res1[k].imag]
+                               for k in res1},
+        "wall_s": wall, "peak_bytes_beside_start": peak,
+        "density": {"n": m, "shards": R, "max_abs_err": err_rho,
+                    "tolerance": tol_rho, "expec": [e_r.real, e_r.imag],
+                    "expec_one_register": [e_r1.real, e_r1.imag],
+                    "wall_s": wall_rho}}
+    for qq, e in ((r, env), (r1, env1)):
+        qt.destroyQureg(qq, e)
+    del r, r1, dop, dop1
+    torch.cuda.empty_cache()
+    out["launches"] = totals
+    return out, totals
+
+
+def phase_dist_composites_timing(torch, qt, fused, hamiltonians):
+    """Walls of the sharded routes against the one-register routes, and
+    each sharded route's device ms split into the kernels (K6-K9), the
+    exchange copies (the mesh's permute and all_to_all) and the plain ops
+    (the rest), by CUDA events; the per-shard launches of K6-K9."""
+    from quest_tpu_torch.ops import kernels
+    from quest_tpu_torch.parallel import composites as COMP
+
+    qt.set_precision(1)
+    env1 = qt.createQuESTEnv()
+    out = {}
+
+    def walls(fn, reps=3):
+        samples = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            samples.append(time.perf_counter() - t0)
+        return statistics.median(samples)
+
+    def split(env, fn, stages=()):
+        """(total device ms, {kernels, exchange, plain}) of one call, and
+        the ms of each (module, name, label) of ``stages`` (each stage's
+        calls, the kernels and copies inside them included)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with event_timed(torch, [
+                (fused, "apply_qft_multi_hi", "kernels"),
+                (fused, "apply_qft_cluster_multi", "kernels"),
+                (fused, "apply_qft_ladder_pallas", "kernels"),
+                (env.mesh, "permute", "exchange"),
+                (env.mesh, "all_to_all", "exchange"), *stages]) as ms:
+            start.record()
+            fn()
+            end.record()
+        total = start.elapsed_time(end)
+        parts = {k: ms.get(k, 0.0) for k in ("kernels", "exchange")}
+        parts["plain"] = total - parts["kernels"] - parts["exchange"]
+        for _mod, _name, label in stages:
+            parts[label] = ms.get(label, 0.0)
+        return total, parts
+
+    # config 3: the whole-register QFT at 30 qubits, one register and R = 8
+    n, R = N_COMP_QFT, R_COMP_QFT
+    env = mesh_env(qt, R)
+    q = qt.createQureg(n, env)
+    qt.initPlusState(q)
+    fused.reset_launch_counts()
+    # the stages of the sharded QFT: the mesh-bit layers (exchange,
+    # combine, phase), the seven lane layers (plain ladders) and the
+    # per-shard transposes of the reversal
+    total, parts = split(env, lambda: qt.applyFullQFT(q), stages=(
+        (COMP, "_qft_mesh_layer", "stage_mesh_layers"),
+        (kernels, "apply_qft_ladder", "stage_ladders"),
+        (kernels, "permute_qubits", "stage_reversal_permutes")))
+    launches = comp_counts(fused)
+    out["qft_full"] = {"n": n, "shards": R,
+                       "wall_s": walls(lambda: qt.applyFullQFT(q)),
+                       "device_ms": total, "ms_by_part": parts,
+                       "launches_per_shard": {k: launches[k] / R
+                                              for k in QFT_KERNELS}}
+    qt.destroyQureg(q, env)
+    del q
+    torch.cuda.empty_cache()
+    q1 = qt.createQureg(n, env1)
+    qt.initPlusState(q1)
+    out["qft_full"]["one_register_wall_s"] = walls(
+        lambda: qt.applyFullQFT(q1))
+    qt.destroyQureg(q1, env1)
+    del q1
+    torch.cuda.empty_cache()
+
+    # the run [0, 25) of 26 qubits on 8 shards (K6, K7 per shard)
+    n = N_COMP_RUN
+    env = mesh_env(qt, 8)
+    q = qt.createQureg(n, env)
+    qt.initPlusState(q)
+    fused.reset_launch_counts()
+    total, parts = split(env, lambda: qt.applyQFT(q, list(range(n - 1))))
+    launches = comp_counts(fused)
+    out["qft_run_r8"] = {"n": n, "run": [0, n - 1], "shards": 8,
+                         "wall_s": walls(lambda: qt.applyQFT(
+                             q, list(range(n - 1)))),
+                         "device_ms": total, "ms_by_part": parts,
+                         "launches_per_shard": {k: launches[k] / 8
+                                                for k in QFT_KERNELS}}
+    qt.destroyQureg(q, env)
+    del q
+    torch.cuda.empty_cache()
+
+    # config 5 at 30 qubits: Trotter and the energy, one register and R = 8
+    n, R = N_COMP_PAULI, R_COMP_PAULI
+    coeffs, codes = hamiltonians.bench_pauli_hamil(n, PAULI_TERMS,
+                                                   seed=PAULI_SEED)
+    h = qt.createPauliHamil(n, len(coeffs))
+    qt.initPauliHamil(h, coeffs, codes)
+    out["pauli"] = {"n": n, "shards": R}
+    for label, env in (("one_register", env1), ("sharded", mesh_env(qt, R))):
+        q = qt.createQureg(n, env)
+        qt.initPlusState(q)
+        rec = {"trotter_wall_s": walls(
+                   lambda: qt.applyTrotterCircuit(q, h, *TROTTER)),
+               "expec_wall_s": walls(lambda: qt.calcExpecPauliHamil(q, h))}
+        if env is not env1:
+            for key, fn in (("trotter", lambda: qt.applyTrotterCircuit(
+                    q, h, *TROTTER)),
+                            ("expec", lambda: qt.calcExpecPauliHamil(q, h))):
+                total, parts = split(env, fn)
+                rec[f"{key}_device_ms"] = total
+                rec[f"{key}_ms_by_part"] = parts
+        out["pauli"][label] = rec
+        qt.destroyQureg(q, env)
+        del q
+        torch.cuda.empty_cache()
+
+    # measureSequence over 26 qubits at R = 8 against one register
+    n = N_COMP_MEAS
+    out["measure"] = {"n": n}
+    for label, env in (("one_register", env1), ("sharded_r8", mesh_env(qt, 8))):
+        q = qt.createQureg(n, env)
+
+        def seq():
+            qt.initPlusState(q)
+            qt.measureSequence(q, list(range(n)))
+
+        out["measure"][label] = {"ms_per_qubit": walls(seq) * 1e3 / n}
+        if env is not env1:
+            total, parts = split(env, seq)
+            out["measure"][label].update(device_ms=total,
+                                         ms_by_part=parts)
+        qt.destroyQureg(q, env)
+    torch.cuda.empty_cache()
+
+    # config 4's density register at R = 4: one eager channel of each
+    # kind, on a bra bit of the mesh (13) and a local one (0), and the
+    # density register's QFT (13 qubits)
+    m, R = N_COMP_NOISE, R_COMP_NOISE
+    env = mesh_env(qt, R)
+    r = qt.createDensityQureg(m, env)
+    qt.initPlusState(r)
+    out["channels"] = {"n": m, "shards": R}
+    p = NOISE_P
+    for key, fn in (
+            ("mixDephasing_mesh", lambda: qt.mixDephasing(r, m - 1, p)),
+            ("mixDepolarising_mesh", lambda: qt.mixDepolarising(r, m - 1, p)),
+            ("mixDamping_mesh", lambda: qt.mixDamping(r, m - 1, p)),
+            ("mixTwoQubitDepolarising_mesh",
+             lambda: qt.mixTwoQubitDepolarising(r, m - 2, m - 1, p)),
+            ("mixDepolarising_local", lambda: qt.mixDepolarising(r, 0, p)),
+            ("mixTwoQubitDepolarising_local",
+             lambda: qt.mixTwoQubitDepolarising(r, 0, 1, p))):
+        total, parts = split(env, fn)
+        out["channels"][key] = {"wall_s": walls(fn), "device_ms": total,
+                                "ms_by_part": parts}
+    qt.destroyQureg(r, env)
+    m, R = N_COMP_QFT_RHO, R_COMP_QFT_RHO
+    env = mesh_env(qt, R)
+    r = qt.createDensityQureg(m, env)
+    qt.initPlusState(r)
+    fused.reset_launch_counts()
+    total, parts = split(env, lambda: qt.applyFullQFT(r))
+    launches = comp_counts(fused)
+    out["qft_density"] = {"n": m, "shards": R,
+                          "wall_s": walls(lambda: qt.applyFullQFT(r)),
+                          "device_ms": total, "ms_by_part": parts,
+                          "launches_per_shard": {k: launches[k] / R
+                                                 for k in QFT_KERNELS}}
+    qt.destroyQureg(r, env)
+    del r
+    torch.cuda.empty_cache()
+
+    # applyDiagonalOp at 30 qubits, one register and R = 8
+    n, R = N_COMP_DIAG, R_COMP_DIAG
+    out["diagonal"] = {"n": n, "shards": R}
+    for label, env in (("one_register", env1), ("sharded", mesh_env(qt, R))):
+        op = qt.createDiagonalOp(n, env)
+        op.real.fill_(1.0)
+        q = qt.createQureg(n, env)
+        qt.initPlusState(q)
+        out["diagonal"][label] = {"apply_wall_s": walls(
+            lambda: qt.applyDiagonalOp(q, op))}
+        if env is not env1:
+            total, parts = split(env, lambda: qt.applyDiagonalOp(q, op))
+            out["diagonal"][label].update(device_ms=total, ms_by_part=parts)
+        qt.destroyQureg(q, env)
+        del q, op
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5389,7 +6184,23 @@ def main() -> int:
         print("dist_nccl: not run: NCCL needs one card per rank, and "
               f"{torch.cuda.device_count()} card is visible", flush=True)
 
-    # 31. kernels
+    # 32. K6-K9 on every shard of the sharded QFT routes, bit for bit
+    compparity = phase_dist_composites_parity(torch, np, qt, fused)
+    emit({"phase": "dist_composites_parity", **compparity})
+
+    # 33. the sharded composites at full width against one register
+    cmain, ccounts = phase_dist_composites_main(
+        torch, np, qt, C, fused, paulis, hamiltonians, circuits, api_ops)
+    emit({"phase": "dist_composites_main", **cmain})
+    for key in QFT_KERNELS:
+        check(ccounts[key] > 0, f"{key} never launched on the sharded "
+              "composites' path")
+
+    # 34. the sharded routes' walls and device ms by part
+    ctiming = phase_dist_composites_timing(torch, qt, fused, hamiltonians)
+    emit({"phase": "dist_composites_timing", "power": smi, **ctiming})
+
+    # 35. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
         key = key or kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -5552,6 +6363,12 @@ def main() -> int:
         e["dist"] = {"run_per_shard": True, "launches": dcounts[key],
                      "meshes": [*DIST_MESHES, R_DIST_RHO]}
         check(dcounts[key] > 0, f"{key} never launched on the dist path")
+    # K6-K9 run per shard on the sharded QFT routes (dist_composites_main)
+    for e, key in ((k6e, "K6"), (k7e, "K7"), (k8e, "K8"), (k9e, "K9")):
+        e["dist"] = {"run_per_shard": True, "launches": ccounts[key],
+                     "max_abs_err_per_shard":
+                         compparity["kernels"][key]["max_abs_err"],
+                     "shard_bits": compparity["kernels"][key]["shard_bits"]}
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
                       k11e, k12e, k1b, k2b, k5b]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

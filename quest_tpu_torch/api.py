@@ -160,7 +160,13 @@ def _host_chunks(qureg: Qureg, chunk: int = 1 << 20):
 def reportState(qureg: Qureg) -> None:
     """Dump the amplitudes to ``state_rank_0.csv`` in the working
     directory, ``real, imag`` header first (QuEST_common.c:229-245; one
-    device is rank 0's one chunk)."""
+    device is rank 0's one chunk).  A sharded register writes one
+    ``state_rank_<s>.csv`` per shard s, as the reference writes one file
+    per rank."""
+    amps = qureg.amps
+    if isinstance(amps, SH.ShardedAmps):
+        SH.report_files(amps)
+        return
     with open("state_rank_0.csv", "w") as f:
         f.write("real, imag\n")
         for part in _host_chunks(qureg):
@@ -173,6 +179,10 @@ def reportStateToScreen(qureg: Qureg, env=None, reportRank: int = 0) -> None:
     from .debug import guard_host_gather
 
     guard_host_gather(qureg, "reportStateToScreen")
+    amps = qureg.amps
+    if isinstance(amps, SH.ShardedAmps):
+        SH.report_screen(amps)
+        return
     print("Reporting state from rank 0:")
     for part in _host_chunks(qureg):
         for re, im in zip(part[0], part[1]):
@@ -543,15 +553,6 @@ def createDiagonalOpFromPauliHamilFile(filename: str,
 # ---------------------------------------------------------------------------
 # Dispatch helpers (QuEST.c:177-346 twin-op pattern)
 # ---------------------------------------------------------------------------
-
-
-def _refuse_sharded(qureg, what: str) -> None:
-    """An operation whose sharded form is later work refuses a sharded
-    register before it changes anything."""
-    if qureg.is_sharded:
-        from .parallel.mesh import refusal
-
-        raise refusal(what)
 
 
 def _sv_n(qureg: Qureg) -> int:
@@ -1133,7 +1134,6 @@ def multiControlledMultiQubitUnitary(qureg, ctrls, targs, u) -> None:
 def multiRotateZ(qureg: Qureg, qubits: Sequence[int], angle: float) -> None:
     """Rotation generated by a product of Z operators (parity phase)
     (QuEST.h:3912)."""
-    _refuse_sharded(qureg, "multiRotateZ")
     qubits, angle = [int(q) for q in qubits], float(angle)
     V.validate_multi_targets(qureg, qubits, "multiRotateZ")
     _apply_parity_phase(qureg, angle, tuple(qubits), ())
@@ -1144,7 +1144,6 @@ def multiRotateZ(qureg: Qureg, qubits: Sequence[int], angle: float) -> None:
 def multiControlledMultiRotateZ(qureg, controlQubits, targetQubits,
                                 angle) -> None:
     """Multi-controlled Z-product rotation (QuEST.h:4037)."""
-    _refuse_sharded(qureg, "multiControlledMultiRotateZ")
     controls, targets = list(controlQubits), list(targetQubits)
     V.validate_multi_controls_targets(qureg, controls, targets,
                                       "multiControlledMultiRotateZ")
@@ -1156,8 +1155,18 @@ def multiControlledMultiRotateZ(qureg, controlQubits, targetQubits,
 def _apply_parity_phase(qureg, angle, qubits, controls):
     """The parity phase on the ket qubits and, on a density matrix, its
     conjugate on the bra qubits.  Reading ``qureg.amps`` drains pending
-    fused gates first."""
+    fused gates first.  On a sharded register it runs at the physical
+    positions of the live permutation, shard by shard, moving no data
+    (the JAX package's _apply_parity_phase)."""
     _guard_batched_eager(qureg, "_apply_parity_phase")
+    if qureg.is_sharded:
+        for t, c, conj in _twins(qureg, tuple(qubits), tuple(controls)):
+            amps = qureg._amps_raw()
+            qureg._set_amps_permuted(SH.apply_parity_phase(
+                amps, -angle if conj else angle,
+                qubits=qureg._phys_bits(t), controls=qureg._phys_bits(c)),
+                qureg._perm)
+        return
     qureg.amps = K.apply_parity_phase(qureg.amps, angle,
                                       num_qubits=_sv_n(qureg),
                                       qubits=qubits, controls=controls)
@@ -1172,7 +1181,6 @@ def _apply_parity_phase(qureg, angle, qubits, controls):
 def multiRotatePauli(qureg: Qureg, targetQubits, targetPaulis,
                      angle: float) -> None:
     """Rotation generated by a product of Pauli operators (QuEST.h:3967)."""
-    _refuse_sharded(qureg, "multiRotatePauli")
     targets = [int(t) for t in targetQubits]
     paulis = [int(p) for p in targetPaulis]
     V.validate_multi_targets(qureg, targets, "multiRotatePauli")
@@ -1185,7 +1193,6 @@ def multiRotatePauli(qureg: Qureg, targetQubits, targetPaulis,
 def multiControlledMultiRotatePauli(qureg, controlQubits, targetQubits,
                                     targetPaulis, angle) -> None:
     """Multi-controlled Pauli-product rotation (QuEST.h:4138)."""
-    _refuse_sharded(qureg, "multiControlledMultiRotatePauli")
     controls = [int(c) for c in controlQubits]
     targets = [int(t) for t in targetQubits]
     paulis = [int(p) for p in targetPaulis]

@@ -20,7 +20,7 @@ from . import circuit as CIRC
 from . import fusion
 from . import optimizer as _optimizer
 from . import validation as V
-from .api import (PAULI_I, _refuse_sharded, _shift, _sv_n, hadamard,
+from .api import (PAULI_I, _default_route, _shift, _sv_n, hadamard,
                   multiRotatePauli, swapGate)
 from .ops import calculations as C
 from .ops import cplx as CX
@@ -32,6 +32,7 @@ from .ops import measurement as M
 from .ops import paulis as P
 from .ops import phasefunc as PF
 from .precision import get_precision, real_eps
+from .parallel import composites as COMP
 from .parallel import dist as PAR
 from .parallel import sharded as SH
 from .parallel.mesh import refusal
@@ -53,6 +54,29 @@ def _sharded_amps(qureg, what: str):
     if _quad():
         raise refusal(f"{what} at quad precision")
     return amps
+
+
+def _spans_mesh(qureg) -> bool:
+    """The register's amplitudes are split over the env's shards (a
+    register smaller than the mesh is replicated)."""
+    return qureg.is_sharded
+
+
+def _explicit_sharded(qureg) -> bool:
+    """Route to the explicit sharded composites (parallel/composites.py):
+    the register spans the mesh and the explicit exchange routes are on
+    (the default).  Off, the composites that have an explicit form take
+    the default route (gather, the ordinary op, split), as eager gates
+    do (quest_tpu/api_ops.py:533-551)."""
+    return PAR.explicit_dist_enabled() and _spans_mesh(qureg)
+
+
+def _whole(qureg):
+    """A sharded register's canonical state gathered onto one device (the
+    default route's read, counted as that route)."""
+    amps = qureg.amps
+    PAR.record_route("default")
+    return amps.mesh.gather(amps.shards)
 
 
 def _refuse_bank(qureg, what: str) -> None:
@@ -169,6 +193,13 @@ def _generate_measurement_outcome(zero_prob: float) -> int:
 
 
 def _collapse(qureg: Qureg, qubit: int, outcome: int, prob: float) -> None:
+    if qureg.is_sharded:
+        bits = [(qubit, outcome)]
+        if qureg.is_density_matrix:
+            bits.append((qubit + qureg.num_qubits_represented, outcome))
+        qureg.amps = SH.collapse(qureg.amps, float(prob), bits,
+                                 qureg.is_density_matrix)
+        return
     if qureg.is_density_matrix:
         qureg.amps = K.collapse_density(
             qureg.amps, float(prob), num_qubits=qureg.num_qubits_represented,
@@ -182,7 +213,6 @@ def _collapse(qureg: Qureg, qubit: int, outcome: int, prob: float) -> None:
 def collapseToOutcome(qureg: Qureg, measureQubit: int, outcome: int) -> float:
     """Project one qubit onto a known outcome and renormalise
     (QuEST.h:3170); returns the outcome's probability."""
-    _refuse_sharded(qureg, "collapseToOutcome")
     V.validate_target(qureg, measureQubit, "collapseToOutcome")
     V.validate_outcome(outcome, "collapseToOutcome")
     prob = calcProbOfOutcome(qureg, measureQubit, outcome)
@@ -198,7 +228,6 @@ def collapseToOutcome(qureg: Qureg, measureQubit: int, outcome: int) -> float:
 
 def measure(qureg: Qureg, measureQubit: int) -> int:
     """Measure one qubit, collapsing the state (QuEST.h:3194)."""
-    _refuse_sharded(qureg, "measure")
     outcome, _ = measureWithStats(qureg, measureQubit)
     return outcome
 
@@ -211,7 +240,6 @@ def measureWithStats(qureg: Qureg, measureQubit: int):
     QT_HOST_MEASURE=1 (or QT_STRICT_VALIDATION=1) takes the reference's
     host Mersenne-Twister stream instead (calcProbOfOutcome ->
     generateMeasurementOutcome -> collapse)."""
-    _refuse_sharded(qureg, "measureWithStats")
     _refuse_bank(qureg, "measureWithStats")
     V.validate_target(qureg, measureQubit, "measureWithStats")
     if M.host_path_enabled():
@@ -222,6 +250,15 @@ def measureWithStats(qureg: Qureg, measureQubit: int):
         qureg.qasm_log.measure(measureQubit)
         return outcome, prob
     key, shot = M.KEYS.next_shots()
+    sh = _sharded_amps(qureg, "measureWithStats")
+    if sh is not None:
+        u = M.thresholds(key, shot, 1, sh.dtype, sh.device)[0]
+        qureg.amps, outcome, prob = SH.measure_once(
+            sh, u, num_qubits=qureg.num_qubits_represented,
+            target=measureQubit, is_density=qureg.is_density_matrix)
+        qureg.qasm_log.measure(measureQubit)
+        outs, probs = M.to_host(outcome[None], prob[None])
+        return outs[0], probs[0]
     amps, outcome, prob = M.measure_fused(
         qureg.amps, key, shot, num_qubits=qureg.num_qubits_represented,
         target=measureQubit, is_density=qureg.is_density_matrix,
@@ -240,7 +277,6 @@ def measureSequence(qureg: Qureg, qubits: Sequence[int]):
     sequence (an extension: the reference's measure is one host round
     trip per qubit).  Returns (outcomes, probabilities) lists.  Under
     QT_HOST_MEASURE=1 it is a loop of host-route measureWithStats."""
-    _refuse_sharded(qureg, "measureSequence")
     _refuse_bank(qureg, "measureSequence")
     qubits = [int(q) for q in qubits]
     for q in qubits:
@@ -255,6 +291,20 @@ def measureSequence(qureg: Qureg, qubits: Sequence[int]):
             probs.append(p)
         return outs, probs
     key, shot = M.KEYS.next_shots(len(qubits))
+    sh = _sharded_amps(qureg, "measureSequence")
+    if sh is not None:
+        us = M.thresholds(key, shot, len(qubits), sh.dtype, sh.device)
+        outs, probs = [], []
+        for j, q in enumerate(qubits):
+            sh, o, p = SH.measure_once(
+                sh, us[j], num_qubits=qureg.num_qubits_represented,
+                target=q, is_density=qureg.is_density_matrix)
+            outs.append(o)
+            probs.append(p)
+        qureg.amps = sh
+        for q in qubits:
+            qureg.qasm_log.measure(q)
+        return M.to_host(torch.stack(outs), torch.stack(probs))
     amps, outs, probs = M.measure_sequence(
         qureg.amps, key, shot, num_qubits=qureg.num_qubits_represented,
         targets=tuple(qubits), is_density=qureg.is_density_matrix,
@@ -291,6 +341,10 @@ def calcInnerProduct(bra: Qureg, ket: Qureg) -> complex:
     V.validate_state_vector(bra, "calcInnerProduct")
     V.validate_state_vector(ket, "calcInnerProduct")
     V.validate_matching_qureg_dims(bra, ket, "calcInnerProduct")
+    sh = _sharded_amps(bra, "calcInnerProduct")
+    if sh is not None:
+        r = SH.inner_product(sh, ket.amps).cpu()
+        return complex(float(r[0]), float(r[1]))
     ip = C.calc_inner_product_quad if _quad() else C.calc_inner_product
     r = ip(bra.amps, ket.amps).cpu()
     return complex(float(r[0]), float(r[1]))
@@ -302,6 +356,9 @@ def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
     V.validate_density_matrix(rho1, "calcDensityInnerProduct")
     V.validate_density_matrix(rho2, "calcDensityInnerProduct")
     V.validate_matching_qureg_dims(rho1, rho2, "calcDensityInnerProduct")
+    sh = _sharded_amps(rho1, "calcDensityInnerProduct")
+    if sh is not None:
+        return float(SH.density_inner_product(sh, rho2.amps))
     return float(C.calc_density_inner_product(rho1.amps, rho2.amps,
                                               quad=_quad()))
 
@@ -309,6 +366,9 @@ def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
 def calcPurity(qureg: Qureg) -> float:
     """Purity Tr(rho^2) of a density matrix (QuEST.h:3692)."""
     V.validate_density_matrix(qureg, "calcPurity")
+    sh = _sharded_amps(qureg, "calcPurity")
+    if sh is not None:
+        return float(SH.purity(sh))
     return float(C.calc_purity(qureg.amps, quad=_quad()))
 
 
@@ -317,6 +377,13 @@ def calcFidelity(qureg: Qureg, pureState: Qureg) -> float:
     (QuEST.h:3724): <psi|rho|psi>, or |<psi|phi>|^2."""
     V.validate_second_qureg_state_vec(pureState, "calcFidelity")
     V.validate_matching_qureg_dims(qureg, pureState, "calcFidelity")
+    sh = _sharded_amps(qureg, "calcFidelity")
+    if sh is not None:
+        if not qureg.is_density_matrix:
+            r = SH.inner_product(sh, pureState.amps).cpu()
+            return float(r[0] ** 2 + r[1] ** 2)
+        return float(SH.fidelity_density(
+            sh, _replicated(pureState), qureg.num_qubits_represented))
     if qureg.is_density_matrix:
         return float(C.calc_fidelity_density(
             qureg.amps, pureState.amps,
@@ -326,12 +393,26 @@ def calcFidelity(qureg: Qureg, pureState: Qureg) -> float:
     return float(ip[0] ** 2 + ip[1] ** 2)
 
 
+def _replicated(pure: Qureg):
+    """A pure state's whole (2, 2^n) amplitudes on every shard: its shards
+    all-gathered (a register of 2^n amplitudes beside a density
+    register's 4^n), or the replicated tensor of a register smaller than
+    the mesh."""
+    amps = pure.amps
+    if not isinstance(amps, SH.ShardedAmps):
+        return amps
+    return amps.mesh.all_gather([s.t() for s in amps.shards]).t()
+
+
 def calcHilbertSchmidtDistance(a: Qureg, b: Qureg) -> float:
     """Hilbert-Schmidt distance between two density matrices
     (QuEST.h:4911)."""
     V.validate_density_matrix(a, "calcHilbertSchmidtDistance")
     V.validate_density_matrix(b, "calcHilbertSchmidtDistance")
     V.validate_matching_qureg_dims(a, b, "calcHilbertSchmidtDistance")
+    sh = _sharded_amps(a, "calcHilbertSchmidtDistance")
+    if sh is not None:
+        return float(SH.hilbert_schmidt_distance(sh, b.amps))
     return float(C.calc_hilbert_schmidt_distance(a.amps, b.amps,
                                                  quad=_quad()))
 
@@ -405,6 +486,11 @@ def mixDephasing(qureg: Qureg, targetQubit: int, prob: float) -> None:
             [math.sqrt(1 - prob) * G.PAULI_I, math.sqrt(prob) * G.PAULI_Z],
             (targetQubit,)):
         return
+    if qureg.is_sharded:
+        nq = qureg.num_qubits_represented
+        qureg.amps = SH.mix_dephasing(
+            qureg.amps, prob, pairs=[(targetQubit, targetQubit + nq)])
+        return
     qureg.amps = D.mix_dephasing(
         qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
         target=targetQubit)
@@ -424,9 +510,39 @@ def mixTwoQubitDephasing(qureg: Qureg, qubit1: int, qubit2: int,
            math.sqrt(prob / 3) * np.kron(z, z)]
     if _capture_channel(qureg, ops, (qubit1, qubit2)):
         return
+    if qureg.is_sharded:
+        nq = qureg.num_qubits_represented
+        qureg.amps = SH.mix_dephasing(
+            qureg.amps, prob, pairs=[(qubit1, qubit1 + nq),
+                                     (qubit2, qubit2 + nq)])
+        return
     qureg.amps = D.mix_two_qubit_dephasing(
         qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
         qubit1=qubit1, qubit2=qubit2)
+
+
+def _pair_channel_sharded(qureg: Qureg, prob: float, target: int,
+                          kind: str) -> bool:
+    """Depolarise / damping on a sharded register (quest_tpu/api_ops.py:
+    283-300): a bra bit on the mesh takes the exchange form
+    (composites.mix_pair_channel_sharded), a local one the elementwise
+    form in each shard.  False for a register that is not sharded."""
+    if not qureg.is_sharded:
+        return False
+    nq = qureg.num_qubits_represented
+    nloc = 2 * nq - qureg.shard_bits
+    if target + nq >= nloc:
+        if _explicit_sharded(qureg):
+            qureg.amps = COMP.mix_pair_channel_sharded(
+                qureg.amps, prob, num_qubits=nq, target=target, kind=kind)
+        else:
+            _default_route(qureg, lambda a: D.apply_pair_channel(
+                a, kind, prob, nn=2 * nq, t=target, b=target + nq))
+        return True
+    qureg.amps = SH.map_shards(qureg.amps, lambda sh, s, lo:
+                               D.apply_pair_channel(sh, kind, prob, nn=nloc,
+                                                    t=target, b=target + nq))
+    return True
 
 
 def mixDepolarising(qureg: Qureg, targetQubit: int, prob: float) -> None:
@@ -437,6 +553,8 @@ def mixDepolarising(qureg: Qureg, targetQubit: int, prob: float) -> None:
     V.validate_target(qureg, targetQubit, "mixDepolarising")
     V.validate_one_qubit_depol_prob(prob, "mixDepolarising")
     if fusion.capture_pair_channel(qureg, "depol", targetQubit, prob):
+        return
+    if _pair_channel_sharded(qureg, prob, targetQubit, "depol"):
         return
     qureg.amps = D.mix_depolarising(
         qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
@@ -450,6 +568,8 @@ def mixDamping(qureg: Qureg, targetQubit: int, prob: float) -> None:
     V.validate_target(qureg, targetQubit, "mixDamping")
     V.validate_one_qubit_damping_prob(prob, "mixDamping")
     if fusion.capture_pair_channel(qureg, "damping", targetQubit, prob):
+        return
+    if _pair_channel_sharded(qureg, prob, targetQubit, "damping"):
         return
     qureg.amps = D.mix_damping(
         qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
@@ -467,6 +587,17 @@ def mixTwoQubitDepolarising(qureg: Qureg, qubit1: int, qubit2: int,
     V.validate_two_qubit_depol_prob(prob, "mixTwoQubitDepolarising")
     if _capture_channel(qureg, D.two_qubit_depolarising_kraus(prob),
                         (qubit1, qubit2)):
+        return
+    if qureg.is_sharded:
+        nq = qureg.num_qubits_represented
+        nloc = 2 * nq - qureg.shard_bits
+        if max(qubit1, qubit2) + nq >= nloc and not _explicit_sharded(qureg):
+            _default_route(qureg, lambda a: D.mix_two_qubit_depolarising(
+                a, prob, num_qubits=nq, qubit1=qubit1, qubit2=qubit2))
+            return
+        # with both bra bits local it exchanges nothing (and counts nothing)
+        qureg.amps = COMP.mix_two_qubit_depol_sharded(
+            qureg.amps, prob, num_qubits=nq, qubit1=qubit1, qubit2=qubit2)
         return
     qureg.amps = D.mix_two_qubit_depolarising(
         qureg.amps, prob, num_qubits=qureg.num_qubits_represented,
@@ -491,6 +622,11 @@ def mixDensityMatrix(combineQureg: Qureg, prob: float,
     V.validate_matching_qureg_dims(combineQureg, otherQureg,
                                    "mixDensityMatrix")
     V.validate_prob(prob, "mixDensityMatrix")
+    if combineQureg.is_sharded:
+        combineQureg.amps = SH.map_shards(
+            combineQureg.amps, lambda a, s, lo, b: D.mix_density_matrix(
+                a, b.to(a.device), prob), otherQureg.amps)
+        return
     combineQureg.amps = D.mix_density_matrix(combineQureg.amps,
                                              otherQureg.amps, prob)
 
@@ -549,6 +685,13 @@ def setWeightedQureg(fac1, qureg1: Qureg, fac2, qureg2: Qureg, facOut,
     V.validate_matching_qureg_dims(qureg1, out, "setWeightedQureg")
     f = [complex(facOut), complex(fac1), complex(fac2)]
     facs = np.array([[c.real for c in f], [c.imag for c in f]])
+    if out.is_sharded:
+        # every operand in canonical order before any is replaced
+        a1, a2, ao = qureg1.amps, qureg2.amps, out.amps
+        out.amps = SH.map_shards(
+            ao, lambda o, s, lo, x, y: K.set_weighted_qureg(
+                o, x.to(o.device), y.to(o.device), facs), a1, a2)
+        return
     out.amps = K.set_weighted_qureg(out.amps, qureg1.amps, qureg2.amps, facs)
 
 
@@ -614,11 +757,19 @@ def calcExpecPauliProd(qureg: Qureg, targetQubits, pauliCodes,
                        workspace: Optional[Qureg] = None) -> float:
     """Expected value of a product of Pauli operators (QuEST.h:4189); the
     workspace register is not needed."""
-    _refuse_sharded(qureg, "calcExpecPauliProd")
     targets = [int(t) for t in targetQubits]
     codes = [int(c) for c in pauliCodes]
     V.validate_multi_targets(qureg, targets, "calcExpecPauliProd")
     V.validate_pauli_codes(codes, "calcExpecPauliProd")
+    sh = _sharded_amps(qureg, "calcExpecPauliProd")
+    if sh is not None:
+        calc = (COMP.expec_pauli_sum_density_sharded
+                if qureg.is_density_matrix
+                else COMP.expec_pauli_sum_statevec_sharded)
+        return float(calc(sh, np.ones(1),
+                          num_qubits=qureg.num_qubits_represented,
+                          codes_flat=_full_codes(qureg, targets, codes),
+                          num_terms=1))
     calc = (P.calc_expec_pauli_sum_density if qureg.is_density_matrix
             else P.calc_expec_pauli_sum_statevec)
     return float(calc(qureg.amps, np.ones(1),
@@ -632,7 +783,6 @@ def calcExpecPauliSum(qureg: Qureg, allPauliCodes, termCoeffs,
     """Expected value of a weighted sum of Pauli products (QuEST.h:4244).
     A state vector runs one K4 launch per term (expec_pauli_sum_scan); a
     density matrix takes the plain trace form."""
-    _refuse_sharded(qureg, "calcExpecPauliSum")
     n = qureg.num_qubits_represented
     codes = tuple(int(c) for c in np.asarray(allPauliCodes).ravel())
     coeffs = np.asarray(termCoeffs, dtype=np.float64)
@@ -642,6 +792,18 @@ def calcExpecPauliSum(qureg: Qureg, allPauliCodes, termCoeffs,
         raise V.QuESTError("calcExpecPauliSum: Number of Pauli codes doesn't "
                            "match numSumTerms*numQubits.")
     V.validate_pauli_codes(codes, "calcExpecPauliSum")
+    sh = _sharded_amps(qureg, "calcExpecPauliSum")
+    if sh is not None:
+        if qureg.is_density_matrix:
+            return float(COMP.expec_pauli_sum_density_sharded(
+                sh, coeffs, num_qubits=n, codes_flat=codes,
+                num_terms=num_terms))
+        codes_seq = np.asarray(codes, np.int32).reshape(num_terms, n)
+        if _explicit_sharded(qureg):
+            return float(COMP.expec_pauli_sum_scan_sharded(
+                sh, codes_seq, coeffs, num_qubits=n))
+        return float(P.expec_pauli_sum_scan(_whole(qureg), codes_seq,
+                                            coeffs, num_qubits=n))
     if qureg.is_density_matrix:
         val = P.calc_expec_pauli_sum_density(
             qureg.amps, coeffs, num_qubits=n, codes_flat=codes,
@@ -656,7 +818,6 @@ def calcExpecPauliSum(qureg: Qureg, allPauliCodes, termCoeffs,
 def calcExpecPauliHamil(qureg: Qureg, hamil: PauliHamil,
                         workspace: Optional[Qureg] = None) -> float:
     """Expected value of a PauliHamil (QuEST.h:4285)."""
-    _refuse_sharded(qureg, "calcExpecPauliHamil")
     V.validate_pauli_hamil(hamil, "calcExpecPauliHamil")
     V.validate_hamil_matches_qureg(hamil, qureg, "calcExpecPauliHamil")
     return calcExpecPauliSum(qureg, hamil.pauli_codes, hamil.term_coeffs,
@@ -666,8 +827,16 @@ def calcExpecPauliHamil(qureg: Qureg, hamil: PauliHamil,
 def calcExpecDiagonalOp(qureg: Qureg, op: DiagonalOp) -> complex:
     """Expected value of a diagonal operator in the given state
     (QuEST.h:1255)."""
-    _refuse_sharded(qureg, "calcExpecDiagonalOp")
     V.validate_diag_op_matches_qureg(op, qureg, "calcExpecDiagonalOp")
+    sh = _sharded_amps(qureg, "calcExpecDiagonalOp")
+    if sh is not None:
+        if qureg.is_density_matrix:
+            r = SH.expec_diagonal_density(sh, op.real, op.imag,
+                                          qureg.num_qubits_represented)
+        else:
+            r = SH.expec_diagonal_statevec(sh, op.real, op.imag)
+        r = r.cpu()
+        return complex(float(r[0]), float(r[1]))
     if qureg.is_density_matrix:
         r = C.calc_expec_diagonal_density(
             qureg.amps, op.real, op.imag,
@@ -683,7 +852,6 @@ def applyPauliSum(inQureg: Qureg, allPauliCodes, termCoeffs,
                   outQureg: Qureg) -> None:
     """Left-multiply a weighted sum of Pauli products, writing outQureg
     (QuEST.h:4995)."""
-    _refuse_sharded(inQureg, "applyPauliSum")
     n = inQureg.num_qubits_represented
     codes = tuple(int(c) for c in np.asarray(allPauliCodes).ravel())
     coeffs = np.asarray(termCoeffs, dtype=np.float64)
@@ -695,6 +863,11 @@ def applyPauliSum(inQureg: Qureg, allPauliCodes, termCoeffs,
     V.validate_pauli_codes(codes, "applyPauliSum")
     V.validate_matching_qureg_types(inQureg, outQureg, "applyPauliSum")
     V.validate_matching_qureg_dims(inQureg, outQureg, "applyPauliSum")
+    sh = _sharded_amps(inQureg, "applyPauliSum")
+    if sh is not None:
+        outQureg.amps = COMP.apply_pauli_sum_sharded(
+            sh, coeffs, num_qubits=n, codes_flat=codes, num_terms=num_terms)
+        return
     outQureg.amps = P.apply_pauli_sum(
         inQureg.amps, coeffs, num_qubits=n,
         num_state_qubits=inQureg.num_qubits_in_state_vec, codes_flat=codes,
@@ -705,7 +878,6 @@ def applyPauliHamil(inQureg: Qureg, hamil: PauliHamil,
                     outQureg: Qureg) -> None:
     """Left-multiply a PauliHamil onto inQureg, writing outQureg
     (QuEST.h:5039)."""
-    _refuse_sharded(inQureg, "applyPauliHamil")
     V.validate_pauli_hamil(hamil, "applyPauliHamil")
     V.validate_hamil_matches_qureg(hamil, inQureg, "applyPauliHamil")
     applyPauliSum(inQureg, hamil.pauli_codes, hamil.term_coeffs, outQureg)
@@ -718,7 +890,6 @@ def applyTrotterCircuit(qureg: Qureg, hamil: PauliHamil, time: float,
     density matrix) through trotter_scan, which overwrites the register's
     tensor in place on the card.  While QASM is recording, the per-term
     multiRotatePauli stream runs instead, so each rotation is logged."""
-    _refuse_sharded(qureg, "applyTrotterCircuit")
     V.validate_pauli_hamil(hamil, "applyTrotterCircuit")
     V.validate_hamil_matches_qureg(hamil, qureg, "applyTrotterCircuit")
     V.validate_trotter_params(order, reps, "applyTrotterCircuit")
@@ -734,9 +905,20 @@ def applyTrotterCircuit(qureg: Qureg, hamil: PauliHamil, time: float,
         return
     t_idx = np.asarray([t for t, _ in seq])
     facs = np.asarray([f for _, f in seq])
-    qureg.amps = P.trotter_scan(
-        qureg.amps, np.asarray(hamil.pauli_codes)[t_idx].astype(np.int32),
-        2.0 * facs * np.asarray(hamil.term_coeffs, np.float64)[t_idx],
+    codes_seq = np.asarray(hamil.pauli_codes)[t_idx].astype(np.int32)
+    angles = 2.0 * facs * np.asarray(hamil.term_coeffs, np.float64)[t_idx]
+    scan = P.trotter_scan
+    if _explicit_sharded(qureg):
+        # per term one composed exchange at most (two on a density
+        # register): parallel/composites.py
+        scan = COMP.trotter_scan_sharded
+    elif qureg.is_sharded:
+        _default_route(qureg, lambda a: P.trotter_scan(
+            a, codes_seq, angles, num_qubits=qureg.num_qubits_in_state_vec,
+            rep_qubits=qureg.num_qubits_represented))
+        return
+    qureg.amps = scan(
+        qureg.amps, codes_seq, angles,
         num_qubits=qureg.num_qubits_in_state_vec,
         rep_qubits=qureg.num_qubits_represented)
 
@@ -779,15 +961,50 @@ def _trotter_schedule(num_terms: int, time: float, order: int, reps: int):
 def applyDiagonalOp(qureg: Qureg, op: DiagonalOp) -> None:
     """Left-multiplies D onto the state: on rho this is D rho, not
     D rho D^dag (the apply* family; densmatr path QuEST_cpu.c:4042-4082)."""
-    _refuse_sharded(qureg, "applyDiagonalOp")
     V.validate_diag_op_matches_qureg(op, qureg, "applyDiagonalOp")
-    if qureg.is_density_matrix:
+    if qureg.is_sharded:
+        _apply_diagonal_op_sharded(qureg, op)
+    elif qureg.is_density_matrix:
         qureg.amps = D.apply_diagonal_op_density(
             qureg.amps, op.real, op.imag,
             num_qubits=qureg.num_qubits_represented)
     else:
         qureg.amps = K.apply_full_diagonal(qureg.amps, op.real, op.imag)
     qureg.qasm_log.comment("here a diagonal operator was applied")
+
+
+def _apply_diagonal_op_sharded(qureg: Qureg, op: DiagonalOp) -> None:
+    """D psi shard by shard (each with its slice of D); D rho through
+    composites.apply_diag_op_density_sharded when D splits over the shards
+    and its rows are shard-local (quest_tpu/api_ops.py:852-862), else
+    with the whole D on every shard."""
+    amps = qureg.amps
+    if not qureg.is_density_matrix:
+        qureg.amps = SH.apply_full_diagonal(amps, op.real, op.imag)
+        return
+    nq = qureg.num_qubits_represented
+    ndev = amps.mesh.axis_size
+    if _explicit_sharded(qureg) and (1 << nq) >= ndev \
+            and qureg.shard_bits <= nq:
+        m = (1 << nq) // ndev
+        parts = [(op.real[s * m:(s + 1) * m], op.imag[s * m:(s + 1) * m])
+                 for s in amps.mesh.local]
+        qureg.amps = COMP.apply_diag_op_density_sharded(
+            amps, [p[0] for p in parts], [p[1] for p in parts],
+            num_qubits=nq)
+        return
+    qureg.amps = SH.apply_diag_op_density(amps, op.real, op.imag, nq)
+
+
+def _phase_map(qureg: Qureg, fn) -> None:
+    """Apply the elementwise phase ``fn(amps, offset)`` to the canonical
+    state: shard by shard with each shard's first global index on a
+    sharded register."""
+    amps = qureg.amps
+    if isinstance(amps, SH.ShardedAmps):
+        qureg.amps = SH.map_shards(amps, lambda sh, s, lo: fn(sh, lo))
+    else:
+        qureg.amps = fn(amps, 0)
 
 
 def _norm_overrides(overrideInds, overridePhases, num_regs):
@@ -842,11 +1059,11 @@ def applyPhaseFuncOverrides(qureg: Qureg, qubits, encoding, coeffs,
                                 "applyPhaseFunc")
     V.validate_phase_func_overrides([len(qubits)], int(encoding), inds,
                                     "applyPhaseFunc")
-    qureg.amps = PF.apply_phase_func(
-        qureg.amps, np.asarray(coeffs, np.float64),
+    _phase_map(qureg, lambda a, off: PF.apply_phase_func(
+        a, np.asarray(coeffs, np.float64),
         np.asarray(exponents, np.float64), inds, phases,
         num_qubits=_sv_n(qureg), qubits=tuple(qubits),
-        encoding=int(encoding))
+        encoding=int(encoding), offset=off))
     qureg.qasm_log.phase_func(
         qubits, int(encoding), list(np.asarray(coeffs, np.float64).ravel()),
         list(np.asarray(exponents, np.float64).ravel()), inds, phases)
@@ -884,10 +1101,10 @@ def applyMultiVarPhaseFuncOverrides(qureg: Qureg, qubits, numQubitsPerReg,
     inds, phases = _norm_overrides(overrideInds, overridePhases, len(regs))
     V.validate_phase_func_overrides([len(r) for r in regs], int(encoding),
                                     inds, "applyMultiVarPhaseFunc")
-    qureg.amps = PF.apply_multi_var_phase_func(
-        qureg.amps, np.asarray(coeffs, np.float64), exps, inds, phases,
+    _phase_map(qureg, lambda a, off: PF.apply_multi_var_phase_func(
+        a, np.asarray(coeffs, np.float64), exps, inds, phases,
         num_qubits=_sv_n(qureg), reg_qubits=regs, encoding=int(encoding),
-        terms_per_reg=tuple(int(t) for t in numTermsPerReg))
+        terms_per_reg=tuple(int(t) for t in numTermsPerReg), offset=off))
     qureg.qasm_log.multi_var_phase_func(
         regs, int(encoding), list(np.asarray(coeffs, np.float64).ravel()),
         list(exps.ravel()), [int(t) for t in numTermsPerReg], inds, phases)
@@ -935,10 +1152,10 @@ def applyParamNamedPhaseFuncOverrides(qureg: Qureg, qubits, numQubitsPerReg,
     inds, phases = _norm_overrides(overrideInds, overridePhases, len(regs))
     V.validate_phase_func_overrides([len(r) for r in regs], int(encoding),
                                     inds, "applyNamedPhaseFunc")
-    qureg.amps = PF.apply_named_phase_func(
-        qureg.amps, _pad_params(params, len(regs)), inds, phases,
+    _phase_map(qureg, lambda a, off: PF.apply_named_phase_func(
+        a, _pad_params(params, len(regs)), inds, phases,
         num_qubits=_sv_n(qureg), reg_qubits=regs, encoding=int(encoding),
-        func_name=int(functionNameCode))
+        func_name=int(functionNameCode), offset=off))
     qureg.qasm_log.named_phase_func(
         regs, int(encoding), int(functionNameCode),
         [] if params is None else list(np.asarray(params, np.float64).ravel()),
@@ -954,7 +1171,6 @@ def applyQFT(qureg: Qureg, qubits: Sequence[int],
              numQubits: Optional[int] = None) -> None:
     """Apply the quantum Fourier transform to the given qubits
     (QuEST.h:6536)."""
-    _refuse_sharded(qureg, "applyQFT")
     qubits = [int(q) for q in qubits]
     V.validate_multi_targets(qureg, qubits, "applyQFT")
     _apply_qft(qureg, qubits)
@@ -962,7 +1178,6 @@ def applyQFT(qureg: Qureg, qubits: Sequence[int],
 
 def applyFullQFT(qureg: Qureg) -> None:
     """Apply the quantum Fourier transform to every qubit (QuEST.h:6420)."""
-    _refuse_sharded(qureg, "applyFullQFT")
     _apply_qft(qureg, list(range(qureg.num_qubits_represented)))
 
 
@@ -985,17 +1200,17 @@ def _apply_qft(qureg: Qureg, qubits) -> None:
         params = np.array([math.pi / (1 << q), 0.0, 0.0, 0.0])
         inds = np.zeros((0, 2), np.int64)
         phases = np.zeros((0,), np.float64)
-        qureg.amps = PF.apply_named_phase_func(
-            qureg.amps, params, inds, phases, num_qubits=_sv_n(qureg),
+        _phase_map(qureg, lambda a, off: PF.apply_named_phase_func(
+            a, params, inds, phases, num_qubits=_sv_n(qureg),
             reg_qubits=regs, encoding=PF.UNSIGNED,
-            func_name=PF.SCALED_PRODUCT, conj=False)
+            func_name=PF.SCALED_PRODUCT, conj=False, offset=off))
         if qureg.is_density_matrix:
             sh = _shift(qureg)
             sregs = tuple(tuple(x + sh for x in reg) for reg in regs)
-            qureg.amps = PF.apply_named_phase_func(
-                qureg.amps, params, inds, phases, num_qubits=_sv_n(qureg),
+            _phase_map(qureg, lambda a, off: PF.apply_named_phase_func(
+                a, params, inds, phases, num_qubits=_sv_n(qureg),
                 reg_qubits=sregs, encoding=PF.UNSIGNED,
-                func_name=PF.SCALED_PRODUCT, conj=True)
+                func_name=PF.SCALED_PRODUCT, conj=True, offset=off))
         qureg.qasm_log.comment(
             "here a controlled-phase ladder (QFT layer) was applied")
     for i in range(n // 2):
@@ -1019,6 +1234,24 @@ def _qft_fused(qureg: Qureg, qubits) -> bool:
     if not (start == 0 or start >= CIRC.LANE):
         return False
     shifts = [0, _shift(qureg)] if qureg.is_density_matrix else [0]
+    if qureg.is_sharded:
+        # quest_tpu/api_ops.py:1105-1126: the whole state vector when at
+        # least as many bits are local as shard bits, else the runs
+        r = qureg.shard_bits
+        if (not qureg.is_density_matrix and start == 0 and nt == nsv
+                and nsv - r >= r):
+            qureg.amps = COMP.fused_qft_sharded(qureg.amps, num_qubits=nsv)
+        elif PAR.explicit_dist_enabled():
+            runs = [(start, nt, False)]
+            if qureg.is_density_matrix:
+                runs.append((start + _shift(qureg), nt, True))
+            qureg.amps = COMP.fused_qft_runs_sharded(
+                qureg.amps, num_qubits=nsv, runs=tuple(runs))
+        else:
+            _default_route(qureg, lambda a: CIRC.fused_qft(
+                a, nsv, start, nt, shifts=shifts))
+        _qft_qasm_trail(qureg, qubits, nt)
+        return True
     qureg.amps = CIRC.fused_qft(qureg.amps, nsv, start, nt, shifts=shifts)
     _qft_qasm_trail(qureg, qubits, nt)
     return True

@@ -1505,7 +1505,7 @@ def _qft_layer_dense(tr: int, conj: bool, dt) -> np.ndarray:
 
 
 def fused_qft(amps, num_qubits: int, start: int, count: int,
-              shifts: Sequence[int] = (0,)):
+              shifts: Sequence[int] = (0,), conj_first: bool = False):
     """QFT on the contiguous qubits [start, start+count), plus a conjugated
     twin per extra entry of ``shifts`` (the density-matrix bra half), as:
 
@@ -1516,8 +1516,10 @@ def fused_qft(amps, num_qubits: int, start: int, count: int,
         (bit_reversal_ops).
 
     A full or [0, count >= 15) run of a float32 state vector on the card
-    takes the multilayer route (_fused_qft_multilayer).  Requires
-    start == 0 or start >= 7 (callers take the layered path otherwise).
+    takes the multilayer route (_fused_qft_multilayer).  ``conj_first``
+    conjugates the first run too (a sharded density register's bra run,
+    alone in its shard).  Requires start == 0 or start >= 7 (callers take
+    the layered path otherwise).
     The input is consumed: the kernels work in place on the card."""
     n = num_qubits
     if not (start == 0 or start >= LANE):
@@ -1525,10 +1527,10 @@ def fused_qft(amps, num_qubits: int, start: int, count: int,
     dt = np.float64 if amps.dtype == torch.float64 else np.float32
     if (start == 0 and tuple(shifts) == (0,) and count >= 15
             and fused.qft_multilayer_enabled(amps)):
-        return _fused_qft_multilayer(amps, n, count)
+        return _fused_qft_multilayer(amps, n, count, conj=conj_first)
     dense_gates: List[Gate] = []
     for si, sh in enumerate(shifts):
-        conj = si > 0
+        conj = si > 0 or conj_first
         base = start + sh
         for qq in range(count - 1, -1, -1):
             if qq >= LANE:
@@ -1555,7 +1557,8 @@ def fused_qft(amps, num_qubits: int, start: int, count: int,
 
 
 def _fused_qft_multilayer(amps, n: int, count: int,
-                          radix: int = fused.QFT_RADIX_DEFAULT):
+                          radix: int = fused.QFT_RADIX_DEFAULT,
+                          conj: bool = False):
     """Radix-2^k QFT of the run [0, count) of a state vector:
 
       * layers t >= 14 in chunks of ``radix`` layers a pass (K8),
@@ -1569,8 +1572,8 @@ def _fused_qft_multilayer(amps, n: int, count: int,
     QuEST_common.c:836-898)."""
     dt = np.float64 if amps.dtype == torch.float64 else np.float32
     amps = fused.apply_qft_multilayer_ladders(
-        amps, num_qubits=n, t_top=count - 1, radix=radix)
-    dense_gates = [Gate(tuple(range(qq + 1)), _qft_layer_dense(qq, False, dt))
+        amps, num_qubits=n, t_top=count - 1, radix=radix, conj=conj)
+    dense_gates = [Gate(tuple(range(qq + 1)), _qft_layer_dense(qq, conj, dt))
                    for qq in range(LANE - 1, -1, -1)]
     rev7 = _rev_perm_mat(LANE, dt)
     dense_gates.append(Gate(tuple(range(LANE)), rev7))

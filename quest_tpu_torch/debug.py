@@ -16,6 +16,8 @@ from . import precision
 from . import validation as V
 from .checkpoint import readStateFromFile
 from .env import QuESTEnv
+from .parallel.mesh import ShardedAmps
+from .parallel.sharded import compare
 from .qureg import Qureg
 
 
@@ -56,8 +58,12 @@ def guard_host_gather(qureg: Qureg, func: str) -> None:
 def compareStates(qureg1: Qureg, qureg2: Qureg, precision: float) -> bool:
     """|re1 - re2| and |im1 - im2| <= precision on every amplitude
     (statevec_compareStates, QuEST_cpu.c), compared on the device: no
-    host gather, so no message cap."""
+    host gather, so no message cap (shard by shard on a sharded
+    register)."""
     if qureg1.num_qubits_in_state_vec != qureg2.num_qubits_in_state_vec:
         return False
+    a = qureg1.amps
+    if isinstance(a, ShardedAmps):
+        return compare(a, qureg2.amps, precision)
     b = qureg2.amps.to(device=qureg1.device, dtype=qureg1.dtype)
     return bool(torch.all(torch.abs(qureg1.amps - b) <= precision))

@@ -34,9 +34,11 @@ def _rz_diag_soa(theta):
 
 def _model_device(device, mesh):
     if mesh is not None:
+        from ..parallel.mesh import PENDING_SLICE
+
         raise NotImplementedError(
             "a model on a mesh (multi-GPU sharding) arrives with slice "
-            "M15b; pass mesh=None")
+            f"{PENDING_SLICE}; pass mesh=None")
     return torch.device("cuda" if device is None else device)
 
 

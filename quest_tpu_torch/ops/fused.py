@@ -1474,11 +1474,13 @@ def apply_qft_cluster_multi(amps, *, num_qubits: int, conj: bool = False):
 
 
 def apply_qft_multilayer_ladders(amps, *, num_qubits: int, t_top: int,
-                                 radix: int = QFT_RADIX_DEFAULT):
+                                 radix: int = QFT_RADIX_DEFAULT,
+                                 conj: bool = False):
     """Ladder layers t = t_top .. 7 (descending) through the multilayer
     kernels: chunks of ``radix`` layers (clamped to 1..5) for t >= 14 (K8),
-    then one pass of the seven sublane layers (K9).  Requires t_top >= 13
-    and num_qubits >= 15."""
+    then one pass of the seven sublane layers (K9); ``conj`` negates the
+    phases.  Shared by the one-register QFT and the per-shard local layers
+    of the sharded one.  Requires t_top >= 13 and num_qubits >= 15."""
     if t_top < CLUSTER_QUBITS - 1:
         raise ValueError("apply_qft_multilayer_ladders needs t_top >= 13 "
                          "(the cluster pass applies ALL sublane layers)")
@@ -1487,9 +1489,9 @@ def apply_qft_multilayer_ladders(amps, *, num_qubits: int, t_top: int,
     while t >= CLUSTER_QUBITS:
         t_lo = max(CLUSTER_QUBITS, t - radix + 1)
         amps = apply_qft_multi_hi(amps, num_qubits=num_qubits, t_hi=t,
-                                  t_lo=t_lo)
+                                  t_lo=t_lo, conj=conj)
         t = t_lo - 1
-    return apply_qft_cluster_multi(amps, num_qubits=num_qubits)
+    return apply_qft_cluster_multi(amps, num_qubits=num_qubits, conj=conj)
 
 
 # ---------------------------------------------------------------------------

@@ -424,3 +424,139 @@ def expec_pauli_sum_scan(amps, codes_seq, coeffs, *, num_qubits: int,
                        num_qubits=num_qubits)
         total = total + float(c) * r.to(torch.float64)
     return total
+
+
+# ---------------------------------------------------------------------------
+# The rotate-layer body (the JAX package's scan body, paulis.py:144-327):
+# rotate each X/Y qubit onto Z, apply the parity phase, rotate back.  The
+# port's one-register routes take the direct form (K3, K4); a register
+# split over shards takes this body where a shard holds more than
+# _DIRECT_MAX_N bits (parallel/composites.py).
+# ---------------------------------------------------------------------------
+
+# the reference's direct-form cap: its split gather's row index is int32
+# over 2^(n - 12) rows
+_DIRECT_MAX_N = _GATHER_LO_BITS + 31
+
+
+def _rot_tables(dt):
+    """SoA (4, 2, 2, 2) basis-rotation tables indexed by Pauli code
+    (I, Z: identity; X: Ry(-90), Z -> X; Y: Rx(+90), Z -> Y), with their
+    daggers and the conjugated (bra twin) variants, as NumPy arrays of
+    ``dt``."""
+    from . import gatedefs as G
+
+    eye = np.eye(2, dtype=complex)
+    tab = np.stack([eye, G.RY_M90, G.RX_P90, eye])
+    tabd = np.conj(np.transpose(tab, (0, 2, 1)))
+
+    def soa(t):
+        return np.stack([t.real, t.imag], axis=1).astype(dt)
+
+    return soa(tab), soa(tabd), soa(np.conj(tab)), soa(np.conj(tabd))
+
+
+def _parity_phase_mask(amps, theta, zmask: int, n: int, sign=1.0):
+    """exp(-i theta/2 (-1)^parity(idx & zmask)) on a (2, 2^n) tensor
+    (multiRotateZ's parity trick, QuEST_cpu.c:3268-3317); ``sign`` (+-1)
+    multiplies the parity sign: a shard's part of a global parity.
+    ``theta`` is taken in the state's type."""
+    from . import cplx
+
+    theta = torch.as_tensor(float(theta), dtype=amps.dtype)
+    hi, lo = _split(n)
+    s_row, s_lane = parity_sign_factors(
+        n, [b for b in range(n) if (zmask >> b) & 1], amps.dtype,
+        amps.device, lo=lo)
+    ang = -0.5 * theta
+    view = amps.reshape(2, 1 << hi, 1 << lo)
+    return cplx.cmul(view, torch.cos(ang),
+                     torch.sin(ang) * sign * s_row * s_lane).reshape(
+                         amps.shape)
+
+
+def _product_layer(amps, mats, n: int):
+    """The one-qubit product layer (x)_q mats[q] on all n qubits: per-qubit
+    dense gates below 14 qubits, else ceil(n/7) window passes (K1 on the
+    card) whose sides embed the layer's 7-qubit groups."""
+    from . import fused, kernels
+    from .. import circuit as C
+
+    if n < fused.CLUSTER_QUBITS:
+        for q in range(n):
+            amps = kernels.apply_matrix(amps, mats[q], num_qubits=n,
+                                        targets=(q,))
+        return amps
+
+    def side(qs, rel_off):
+        acc = None
+        for q in qs:
+            e = C.embed_in_cluster(mats[q], (q - rel_off,))
+            acc = e if acc is None else C.soa_matmul(e, acc)
+        return acc
+
+    dt = _NUMPY_DTYPE[amps.dtype]
+    a = side(range(fused.LANE_QUBITS), 0).astype(dt)
+    b7 = side(range(fused.LANE_QUBITS, fused.CLUSTER_QUBITS),
+              fused.LANE_QUBITS).astype(dt)
+    amps = fused.apply_window_stack(amps, a[None], b7[None], num_qubits=n,
+                                    k=fused.LANE_QUBITS)
+    eye = C._eye_cluster().astype(dt)[None]
+    s = fused.CLUSTER_QUBITS
+    while s < n:
+        e = min(s + fused.LANE_QUBITS, n)
+        k = min(s, n - fused.LANE_QUBITS)
+        b = side(range(s, e), k).astype(dt)
+        amps = fused.apply_window_stack(amps, eye, b[None], num_qubits=n,
+                                        k=k, apply_a=False)
+        s = e
+    return amps
+
+
+def _zmask(codes, offset: int) -> int:
+    """sum_q [codes_q != I] << (q + offset)."""
+    return sum(1 << (q + offset) for q, c in enumerate(codes) if int(c))
+
+
+def make_trotter_body(dt, nq: int, is_density: bool, layer, parity_phase):
+    """The rotate-layer Trotter term (rotate -> parity phase [+ bra twin]
+    -> unrotate), parameterised by ``layer(state, mats)`` and
+    ``parity_phase(state, theta, zmask)`` so the one-register and the
+    sharded forms share it; an all-identity term's angle is zeroed (only a
+    global phase).  Returns body(state, codes, angle) -> state."""
+    tab, tabd, tabc, tabcd = _rot_tables(dt)
+    real = np.dtype(dt).type
+
+    def mats_for(codes, t, tc):
+        m = t[codes]
+        if is_density:
+            m = np.concatenate([m, tc[codes]], axis=0)
+        return m
+
+    def body(state, codes, ang):
+        codes = np.asarray(codes, np.int64)
+        state = layer(state, mats_for(codes, tab, tabc))
+        zm = _zmask(codes, 0)
+        theta = real(0.0) if zm == 0 else real(ang)
+        state = parity_phase(state, theta, zm)
+        if is_density:
+            state = parity_phase(state, -theta, _zmask(codes, nq))
+        return layer(state, mats_for(codes, tabd, tabcd))
+
+    return body
+
+
+def make_expec_term_value(dt, n: int, layer, signed_norm):
+    """The rotate-layer PauliSum expectation term: basis-rotate a copy of
+    the state (``layer``), then the parity-signed norm
+    (``signed_norm(phi, zmask)``) times the coefficient.  Returns
+    value(state, codes, coeff)."""
+    tab = _rot_tables(dt)[0]
+    real = np.dtype(dt).type
+
+    def value(state, codes, coeff):
+        codes = np.asarray(codes, np.int64)
+        phi = layer(state, tab[codes])
+        return signed_norm(phi, _zmask(codes, 0)) * float(real(coeff))
+
+    return value

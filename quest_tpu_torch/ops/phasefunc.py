@@ -67,20 +67,26 @@ def _index_dtype(num_bits: int):
     return torch.int64 if num_bits > 31 else torch.int32
 
 
-def _phase_inds(num_amps: int, reg_qubits, encoding: int, device):
-    """Per-register decoded integers, each (num_amps,).  A register's
-    value is the sum of what its bits in the index's high half and in its
-    low half contribute, so each is decoded on 2^(n/2) indices and the two
-    halves meet in one broadcast add."""
+def _phase_inds(num_amps: int, reg_qubits, encoding: int, device,
+                offset: int = 0):
+    """Per-register decoded integers, each (num_amps,), of the global
+    indices offset .. offset + num_amps - 1.  A register's value is the
+    sum of what its bits in the index's high half, in its low half and in
+    the offset (a shard's first index, above the local bits) contribute,
+    so each is decoded on 2^(n/2) indices and the parts meet in one
+    broadcast add."""
     n = max(num_amps.bit_length() - 1, 1)
     lo = n // 2
-    dt = _index_dtype(n)
+    dt = _index_dtype(max(n, int(offset).bit_length()))
     hi_idx = torch.arange(1 << (n - lo), dtype=dt, device=device) << lo
     lo_idx = torch.arange(1 << lo, dtype=dt, device=device)
     out = []
     for qs in reg_qubits:
         val = (_decode_subregister(hi_idx, qs, False)[:, None]
                + _decode_subregister(lo_idx, qs, False)[None, :]).reshape(-1)
+        if offset:
+            val = val + sum(((offset >> q) & 1) << j
+                            for j, q in enumerate(qs))
         if encoding == TWOS_COMPLEMENT:
             nb = len(qs)
             val = torch.where(val >= (1 << (nb - 1)), val - (1 << nb), val)
@@ -120,16 +126,17 @@ def apply_named_phase_func(amps, params, override_inds, override_phases, *,
                            num_qubits: int,
                            reg_qubits: Tuple[Tuple[int, ...], ...],
                            encoding: int, func_name: int,
-                           conj: bool = False):
+                           conj: bool = False, offset: int = 0):
     """exp(i theta) on every amplitude of the (2, 2^num_qubits) state, theta
     the named function ``func_name`` of the sub-registers ``reg_qubits``
     (statevec_applyParamNamedPhaseFuncOverrides, QuEST_cpu.c:4406-4564).
     ``params`` holds the scale, the divergence value and the shifts at the
     reference's fixed slots; ``override_inds`` (num_overrides, num_regs)
     and ``override_phases`` replace theta at listed register values.
-    Returns a new tensor."""
+    ``offset`` is the global index of the tensor's first amplitude (a
+    shard's).  Returns a new tensor."""
     num_amps = amps.shape[-1]
-    inds = _phase_inds(num_amps, reg_qubits, encoding, amps.device)
+    inds = _phase_inds(num_amps, reg_qubits, encoding, amps.device, offset)
     rdt = amps.dtype
     params = torch.as_tensor(params, dtype=rdt, device=amps.device)
     find = [x.to(rdt) for x in inds]
@@ -193,13 +200,14 @@ def apply_multi_var_phase_func(amps, coeffs, exponents, override_inds,
                                reg_qubits: Tuple[Tuple[int, ...], ...],
                                encoding: int,
                                terms_per_reg: Tuple[int, ...],
-                               conj: bool = False):
+                               conj: bool = False, offset: int = 0):
     """theta = sum_r sum_t coeff_{r,t} x_r^exp_{r,t}
     (statevec_applyMultiVarPhaseFuncOverrides, QuEST_cpu.c:4305-4404);
     ``coeffs``/``exponents`` are flat over the registers (the reference's
-    layout).  Returns a new tensor."""
+    layout); ``offset`` as in apply_named_phase_func.  Returns a new
+    tensor."""
     num_amps = amps.shape[-1]
-    inds = _phase_inds(num_amps, reg_qubits, encoding, amps.device)
+    inds = _phase_inds(num_amps, reg_qubits, encoding, amps.device, offset)
     rdt = amps.dtype
     coeffs = torch.as_tensor(coeffs, dtype=rdt, device=amps.device)
     exponents = torch.as_tensor(exponents, dtype=rdt, device=amps.device)
@@ -219,12 +227,13 @@ def apply_multi_var_phase_func(amps, coeffs, exponents, override_inds,
 def apply_phase_func(amps, coeffs, exponents, override_inds,
                      override_phases, *, num_qubits: int,
                      qubits: Tuple[int, ...], encoding: int,
-                     conj: bool = False):
+                     conj: bool = False, offset: int = 0):
     """Single-register polynomial theta(x) = sum_i c_i x^{e_i}
-    (statevec_applyPhaseFuncOverrides, QuEST_cpu.c:4228-4303).  Returns
-    a new tensor."""
+    (statevec_applyPhaseFuncOverrides, QuEST_cpu.c:4228-4303); ``offset``
+    as in apply_named_phase_func.  Returns a new tensor."""
     num_amps = amps.shape[-1]
-    (ind,) = _phase_inds(num_amps, (tuple(qubits),), encoding, amps.device)
+    (ind,) = _phase_inds(num_amps, (tuple(qubits),), encoding, amps.device,
+                         offset)
     rdt = amps.dtype
     coeffs = torch.as_tensor(coeffs, dtype=rdt, device=amps.device)
     exponents = torch.as_tensor(exponents, dtype=rdt, device=amps.device)

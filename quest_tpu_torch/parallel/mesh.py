@@ -13,7 +13,8 @@ operations, with two backends:
   on the destination's device (a peer copy where the devices differ).
 * ``DistMesh``: one shard per ``torch.distributed`` rank, on the rank's
   device.  Pairwise exchanges go through ``batch_isend_irecv``, sums
-  through ``all_reduce`` and the gather through ``all_gather``: NCCL
+  through ``all_reduce``, the block transpose through
+  ``all_to_all_single`` and the gathers through ``all_gather``: NCCL
   carries them between cards, gloo on the CPU.
 
 Shard lists are always aligned with ``mesh.local``, the shard indices this
@@ -32,7 +33,7 @@ import torch
 from ..validation import QuESTError
 
 # the slice that brings the sharded forms a carrier refuses
-PENDING_SLICE = "M15b"
+PENDING_SLICE = "M15c"
 
 
 def _api_caller() -> Optional[str]:
@@ -94,6 +95,22 @@ class Mesh:
         axis in shard order, on the first local shard's device."""
         raise NotImplementedError
 
+    def all_to_all(self, blocks: Sequence[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+        """``blocks[k]`` is local shard ``local[k]``'s (R, ...) tensor of R
+        equal blocks; block j goes to shard j.  Returns, per local shard
+        s, a new (R, ...) tensor on its device whose block i is what
+        shard i sent to s (the JAX package's untiled ``lax.all_to_all``).
+        A caller that chunks the exchange calls it once per chunk."""
+        raise NotImplementedError
+
+    def all_gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Every shard's small tensor ``parts[k]`` (equal shapes)
+        concatenated along dim 0 in shard order, on the first local
+        shard's device (a replicated operand or the per-shard partials;
+        never a register)."""
+        raise NotImplementedError
+
     def describe(self) -> str:
         raise NotImplementedError
 
@@ -123,6 +140,16 @@ class InProcessMesh(Mesh):
     def gather(self, shards):
         dev = self.devices[0]
         return torch.cat([s.to(dev) for s in shards], dim=-1)
+
+    def all_to_all(self, blocks):
+        # every output is built before the caller rebinds any shard
+        return [torch.stack([blocks[i][s].to(self.devices[s], copy=True)
+                             for i in range(len(self.devices))])
+                for s in range(len(self.devices))]
+
+    def all_gather(self, parts):
+        dev = self.devices[0]
+        return torch.cat([p.to(dev) for p in parts], dim=0)
 
     def describe(self) -> str:
         names = sorted({str(d) for d in self.devices})
@@ -183,6 +210,24 @@ class DistMesh(Mesh):
         parts = [torch.empty_like(mine) for _ in self.devices]
         dist.all_gather(parts, mine, group=self.group)
         return torch.cat(parts, dim=-1)
+
+    def all_to_all(self, blocks):
+        import torch.distributed as dist
+
+        mine = blocks[0].contiguous()
+        out = torch.empty_like(mine)
+        dist.all_to_all_single(out, mine, group=self.group)
+        return [out]
+
+    def all_gather(self, parts):
+        import torch.distributed as dist
+
+        mine = parts[0].to(self.device).contiguous()
+        out = torch.empty((len(self.devices) * mine.shape[0],)
+                          + tuple(mine.shape[1:]), dtype=mine.dtype,
+                          device=self.device)
+        dist.all_gather_into_tensor(out, mine, group=self.group)
+        return out
 
     def describe(self) -> str:
         import torch.distributed as dist
@@ -264,6 +309,15 @@ class ShardedAmps:
 
     def __float__(self):
         raise refusal("float() of sharded amplitudes")
+
+    def _arith(self, *args):
+        raise refusal("arithmetic on sharded amplitudes")
+
+    # Python finds these on the type, never through __getattr__
+    __add__ = __radd__ = __sub__ = __rsub__ = _arith
+    __mul__ = __rmul__ = __matmul__ = __rmatmul__ = _arith
+    __truediv__ = __rtruediv__ = __pow__ = __rpow__ = _arith
+    __neg__ = __pos__ = __abs__ = _arith
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):

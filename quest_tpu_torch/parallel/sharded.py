@@ -11,6 +11,7 @@ order first, as the JAX package's getter does).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence, Tuple
 
 import numpy as np
@@ -210,19 +211,29 @@ def all_outcomes_statevec(amps: ShardedAmps,
     return _sum(amps, parts)
 
 
-def _diag_entries(amps: ShardedAmps, k: int, lo: int, num_qubits: int):
-    """(values, d) of the density diagonal entries rho[d, d] held by local
-    shard k: flat index d (dim + 1) in [lo, lo + 2^nloc)."""
+def _diag_rows(amps: ShardedAmps, lo: int, num_qubits: int, device):
+    """The rows d of the density diagonal entries rho[d, d] that the shard
+    starting at global index ``lo`` holds: flat index d (dim + 1) in
+    [lo, lo + 2^nloc)."""
     dim = 1 << num_qubits
     m = 1 << amps.nloc
-    sh = amps.shards[k]
     d0 = -(-lo // (dim + 1))
     d1 = (lo + m - 1) // (dim + 1)
-    if d1 < d0:
-        empty = torch.zeros(0, dtype=sh.dtype, device=sh.device)
-        return empty, torch.zeros(0, dtype=torch.long, device=sh.device)
-    d = torch.arange(d0, d1 + 1, device=sh.device)
-    return sh[0, d * (dim + 1) - lo], d
+    return torch.arange(d0, max(d1 + 1, d0), device=device)
+
+
+def _diag_index(amps: ShardedAmps, lo: int, num_qubits: int, device=None):
+    """Local positions of those diagonal entries in the shard."""
+    d = _diag_rows(amps, lo, num_qubits, device)
+    return d * ((1 << num_qubits) + 1) - lo
+
+
+def _diag_entries(amps: ShardedAmps, k: int, lo: int, num_qubits: int):
+    """(values, d) of the density diagonal entries rho[d, d] held by local
+    shard k (real parts)."""
+    sh = amps.shards[k]
+    d = _diag_rows(amps, lo, num_qubits, sh.device)
+    return sh[0, d * ((1 << num_qubits) + 1) - lo], d
 
 
 def total_prob_density(amps: ShardedAmps, num_qubits: int) -> torch.Tensor:
@@ -432,3 +443,318 @@ def apply_not(amps: ShardedAmps, *, targets, controls=(),
             new = torch.where(mask, new, amps.shards[k])
         amps.shards[k] = new
     return amps
+
+
+# ---------------------------------------------------------------------------
+# Elementwise operations and reads in the global index (M15b): each shard
+# decodes its mesh bits from its index, so nothing moves
+# ---------------------------------------------------------------------------
+
+
+def map_shards(amps: ShardedAmps, fn, *others: ShardedAmps) -> ShardedAmps:
+    """New sharded amplitudes whose shard s is ``fn(shard, s, lo, *the
+    other amplitudes' shard s)``, lo its first global index."""
+    m = 1 << amps.nloc
+    out = []
+    for k, s in enumerate(amps.mesh.local):
+        out.append(fn(amps.shards[k], s, s * m,
+                      *(o.shards[k] for o in others)))
+    return ShardedAmps(amps.mesh, out)
+
+
+def _mesh_bit(s: int, pos: int, nloc: int) -> int:
+    return (s >> (pos - nloc)) & 1
+
+
+def shard_parity_sign(s: int, shard_mask: int) -> float:
+    """(-1)^parity(s & shard_mask): shard s's factor of a global parity
+    sign (mesh bit j = bit j of the shard index)."""
+    return -1.0 if bin(s & shard_mask).count("1") & 1 else 1.0
+
+
+def _mesh_mask(bits, nloc: int) -> int:
+    return sum(1 << (b - nloc) for b in bits if b >= nloc)
+
+
+def indicator(nloc: int, s: int, bit_states, dtype, device):
+    """{0, 1} factor of "every (bit, state) of ``bit_states`` holds" over
+    shard s, broadcastable over its (2^hi, 2^lo) = _split2(nloc) view: a
+    mesh bit is a constant of the shard."""
+    from ..ops import kernels as K
+
+    ok = all(_mesh_bit(s, b, nloc) == int(v) for b, v in bit_states
+             if b >= nloc)
+    local = [(b, v) for b, v in bit_states if b < nloc]
+    if not ok:
+        return torch.zeros((1, 1), dtype=dtype, device=device)
+    if not local:
+        return torch.ones((1, 1), dtype=dtype, device=device)
+    return K._bit_indicator_2d(nloc, local, dtype, device)
+
+
+def parity_sign(nloc: int, s: int, bits, dtype, device):
+    """(-1)^parity of the global index bits ``bits`` over shard s, as a
+    (2^hi, 2^lo) factor (the local bits' sign times the shard's)."""
+    from ..ops import kernels as K
+
+    sg = shard_parity_sign(s, _mesh_mask(bits, nloc))
+    return sg * K.parity_sign_2d(nloc, [b for b in bits if b < nloc],
+                                 dtype, device)
+
+
+def apply_parity_phase(amps: ShardedAmps, theta: float, *, qubits,
+                       controls=()) -> ShardedAmps:
+    """exp(-i theta/2 Z..Z) on ``qubits`` at physical positions (multiRotateZ,
+    QuEST_cpu.c:3268-3361).  With a local target, each shard whose mesh
+    controls hold runs the one-register kernel on its local targets and
+    controls, the mesh targets' parity flipping its angle (cos is even,
+    sin odd); with every target a mesh bit the phase is a constant of
+    each shard: a diagonal gate over the mesh targets (apply_diagonal)."""
+    from ..ops import kernels as K
+
+    nloc = amps.nloc
+    lq = tuple(q for q in qubits if q < nloc)
+    if not lq:
+        ang = -0.5 * float(theta)
+        k = len(qubits)
+        sign = [shard_parity_sign(j, (1 << k) - 1) for j in range(1 << k)]
+        diag = np.stack([np.full(1 << k, math.cos(ang)),
+                         math.sin(ang) * np.asarray(sign)])
+        return apply_diagonal(amps, diag, targets=qubits, controls=controls)
+    lc, sc = _split_controls(nloc, controls, ())
+    smask = _mesh_mask(qubits, nloc)
+    for k, s in enumerate(amps.mesh.local):
+        if _live(s, sc):
+            amps.shards[k] = K.apply_parity_phase(
+                amps.shards[k], shard_parity_sign(s, smask) * theta,
+                num_qubits=nloc, qubits=lq,
+                controls=tuple(c for c, _ in lc))
+    return amps
+
+
+def collapse(amps: ShardedAmps, prob: float, bit_states,
+             density: bool) -> ShardedAmps:
+    """Project onto ``bit_states`` and renormalise (the collapse of
+    ops/kernels.py, shard by shard): zero whole shards whose mesh bits
+    differ, a masked part of the others; scale by 1/sqrt(prob) (a state
+    vector) or 1/prob (a density matrix)."""
+    from ..ops import kernels as K
+
+    nloc = amps.nloc
+    hi, lo = K._split2(nloc)
+
+    def fn(sh, s, _lo):
+        ind = indicator(nloc, s, bit_states, sh.dtype, sh.device)
+        view = sh.reshape(2, 1 << hi, 1 << lo)
+        if density:
+            f = ind / torch.tensor(prob, dtype=sh.dtype)
+        else:
+            f = (1.0 / torch.sqrt(torch.tensor(prob, dtype=sh.dtype))) * ind
+        return (view * f[None]).reshape(sh.shape)
+
+    return map_shards(amps, fn)
+
+
+def _bit_factor(nloc: int, s: int, pos: int, outcome, dtype):
+    """Indicator of (global bit ``pos`` == the 0-d tensor ``outcome``)
+    over shard s, broadcastable over its (2, 2^hi, 2^lo) view."""
+    from ..ops import measurement as M
+
+    if pos < nloc:
+        return M._bit_factor(nloc, pos, outcome, dtype)
+    return (outcome == _mesh_bit(s, pos, nloc)).to(dtype).reshape(1, 1, 1)
+
+
+def measure_once(amps: ShardedAmps, u, *, num_qubits: int, target: int,
+                 is_density: bool):
+    """One measurement shot of a sharded register with the threshold
+    ``u`` (a 0-d device tensor): the probability as one sum over the mesh,
+    the outcome drawn on the device (measurement._draw_outcome) and the
+    collapse of ops/measurement.py shard by shard.  Returns (new amps,
+    outcome, probability), the last two 0-d tensors on the first local
+    shard's device; nothing is read on the host."""
+    from ..ops import kernels as K
+    from ..ops import measurement as M
+
+    if is_density:
+        p0 = prob_of_outcome_density(amps, num_qubits, target, 0)
+    else:
+        p0 = prob_of_outcome_statevec(amps, target, 0)
+    outcome, prob = M._draw_outcome(p0, u.to(p0.device))
+    nloc = amps.nloc
+    hi, lo = K._split2(nloc)
+
+    def fn(sh, s, _lo):
+        o, p = outcome.to(sh.device), prob.to(sh.device)
+        v = sh.reshape(2, 1 << hi, 1 << lo)
+        if is_density:
+            ket = _bit_factor(nloc, s, target, o, sh.dtype)
+            bra = _bit_factor(nloc, s, target + num_qubits, o, sh.dtype)
+            out = v * (ket * (1.0 / p))
+            out *= bra
+            return out.reshape(sh.shape)
+        ind = _bit_factor(nloc, s, target, o, sh.dtype)
+        return (v * (ind * torch.rsqrt(p))).reshape(sh.shape)
+
+    return map_shards(amps, fn), outcome, prob
+
+
+def inner_product(bra: ShardedAmps, ket: ShardedAmps) -> torch.Tensor:
+    """<bra|ket> as a stacked (2,) tensor: per-shard partials, one sum."""
+    return _sum(bra, [cplx.vdot(a, b.to(a.device))
+                            for a, b in zip(bra.shards, ket.shards)])
+
+
+def density_inner_product(a: ShardedAmps, b: ShardedAmps) -> torch.Tensor:
+    return _sum(a, [CALC.calc_density_inner_product(x, y)
+                          for x, y in zip(a.shards, b.shards)])
+
+
+def purity(a: ShardedAmps) -> torch.Tensor:
+    return _sum(a, [CALC.calc_purity(x) for x in a.shards])
+
+
+def hilbert_schmidt_distance(a: ShardedAmps, b: ShardedAmps) -> torch.Tensor:
+    """sqrt of the summed per-shard |a - b|^2."""
+    return torch.sqrt(_sum(a, [cplx.abs2(x - y).sum()
+                                     for x, y in zip(a.shards, b.shards)]))
+
+
+def fidelity_density(rho: ShardedAmps, psi: torch.Tensor,
+                     num_qubits: int) -> torch.Tensor:
+    """<psi|rho|psi> with ``psi`` the whole (2, 2^n) pure state: each shard
+    holds whole columns (or a part of one) of the column-major rho, so its
+    partial is sum_c psi_c sum_r rho_rc conj(psi_r) over its rows and
+    columns (calc_fidelity_density's two matrix-vector products)."""
+    dim = 1 << num_qubits
+    m = 1 << rho.nloc
+    rows = min(m, dim)
+    parts = []
+    for k, lo in shard_offsets(rho):
+        sh = rho.shards[k]
+        p = psi.to(device=sh.device, dtype=sh.dtype)
+        r0, c0 = lo % dim, lo // dim
+        mat = sh.reshape(2, -1, rows)            # [channel, col, row]
+        ncol = mat.shape[1]
+        pr0, pr1 = p[0, r0:r0 + rows], p[1, r0:r0 + rows]
+        pc0, pc1 = p[0, c0:c0 + ncol], p[1, c0:c0 + ncol]
+        v_re = torch.matmul(mat[0], pr0) + torch.matmul(mat[1], pr1)
+        v_im = torch.matmul(mat[1], pr0) - torch.matmul(mat[0], pr1)
+        parts.append(torch.sum(pc0 * v_re - pc1 * v_im))
+    return _sum(rho, parts)
+
+
+def expec_diagonal_statevec(amps: ShardedAmps, op_real,
+                            op_imag) -> torch.Tensor:
+    """sum_i |amp_i|^2 d_i as a stacked (2,): each shard with its slice of
+    the operator."""
+    m = 1 << amps.nloc
+    parts = []
+    for k, lo in shard_offsets(amps):
+        sh = amps.shards[k]
+        parts.append(CALC.calc_expec_diagonal_statevec(
+            sh, op_real[lo:lo + m].to(sh.device),
+            op_imag[lo:lo + m].to(sh.device)))
+    return _sum(amps, parts)
+
+
+def expec_diagonal_density(amps: ShardedAmps, op_real, op_imag,
+                           num_qubits: int) -> torch.Tensor:
+    """sum_r d_r rho_rr as a stacked (2,), from each shard's diagonal
+    entries."""
+    parts = []
+    for k, lo in shard_offsets(amps):
+        sh = amps.shards[k]
+        d = _diag_rows(amps, lo, num_qubits, sh.device)
+        v = sh[:, d * ((1 << num_qubits) + 1) - lo]
+        opr = op_real.to(sh.device)[d].to(sh.dtype)
+        opi = op_imag.to(sh.device)[d].to(sh.dtype)
+        parts.append(torch.stack([torch.sum(v[0] * opr - v[1] * opi),
+                                  torch.sum(v[0] * opi + v[1] * opr)]))
+    return _sum(amps, parts)
+
+
+def apply_full_diagonal(amps: ShardedAmps, op_real, op_imag) -> ShardedAmps:
+    """D psi: each shard times its slice of the operator."""
+    from ..ops import kernels as K
+
+    m = 1 << amps.nloc
+    return map_shards(amps, lambda sh, s, lo: K.apply_full_diagonal(
+        sh, op_real[lo:lo + m].to(sh.device),
+        op_imag[lo:lo + m].to(sh.device)))
+
+
+def apply_diag_op_density(amps: ShardedAmps, op_real, op_imag,
+                          num_qubits: int) -> ShardedAmps:
+    """D rho with the whole operator on every shard: element (row, col)
+    times D[row], row = the low n bits of its global index (the
+    elementwise form under any split, r > n included)."""
+    dim = 1 << num_qubits
+
+    def fn(sh, s, lo):
+        rows = (torch.arange(sh.shape[-1], device=sh.device) + lo) % dim
+        return cplx.cmul(sh, op_real.to(sh.device)[rows].to(sh.dtype),
+                         op_imag.to(sh.device)[rows].to(sh.dtype))
+
+    return map_shards(amps, fn)
+
+
+def mix_dephasing(amps: ShardedAmps, prob, *, pairs) -> ShardedAmps:
+    """One- or two-qubit dephasing (ops/density.py's sign forms) over the
+    (ket, bra) bit ``pairs``, each sign decoded per shard."""
+    from ..ops import kernels as K
+    from ..ops.density import _scalar
+
+    nloc = amps.nloc
+    hi, lo = K._split2(nloc)
+
+    def fn(sh, s, _lo):
+        p = _scalar(prob, sh)
+        signs = [parity_sign(nloc, s, pair, sh.dtype, sh.device)
+                 for pair in pairs]
+        if len(signs) == 1:
+            factor = (1 - p) + p * signs[0]
+        else:
+            s1, s2 = signs
+            factor = (1 - p) + (p / 3) * (s1 + s2 + s1 * s2)
+        view = sh.reshape(2, 1 << hi, 1 << lo)
+        return (view * factor[None]).reshape(sh.shape)
+
+    return map_shards(amps, fn)
+
+
+def compare(a: ShardedAmps, b: ShardedAmps, precision: float) -> bool:
+    """Every |a - b| component within ``precision``: per-shard counts of
+    the amplitudes outside it, one sum."""
+    bad = [torch.sum(torch.abs(x - y.to(x.device)) > precision).to(
+        torch.float64) for x, y in zip(a.shards, b.shards)]
+    return float(a.mesh.sum(bad)) == 0.0
+
+
+def report_files(amps: ShardedAmps) -> None:
+    """One ``state_rank_<s>.csv`` per local shard s, the header in shard
+    0's only (the reference's per-rank files, QuEST_common.c:229-245)."""
+    chunk = 1 << 20
+    for k, s in enumerate(amps.mesh.local):
+        sh = amps.shards[k]
+        with open(f"state_rank_{s}.csv", "w") as f:
+            if s == 0:
+                f.write("real, imag\n")
+            for a in range(0, sh.shape[-1], chunk):
+                part = sh[:, a:a + chunk].cpu().numpy()
+                f.writelines(f"{re:.12f}, {im:.12f}\n"
+                             for re, im in zip(part[0], part[1]))
+
+
+def report_screen(amps: ShardedAmps) -> None:
+    """Every amplitude to stdout, shard by shard in shard order, read to
+    the host a slice at a time (nothing is gathered)."""
+    chunk = 1 << 20
+    if 0 in amps.mesh.local:
+        print("Reporting state from rank 0:")
+    for k, _s in enumerate(amps.mesh.local):
+        sh = amps.shards[k]
+        for a in range(0, sh.shape[-1], chunk):
+            part = sh[:, a:a + chunk].cpu().numpy()
+            for re, im in zip(part[0], part[1]):
+                print(f"{re} {im}")

@@ -21,7 +21,7 @@ The reference's sharded path runs at 6 state-vector and 4 density
 qubits (8 state bits), each circuit once per R in a module-scoped memo.
 Also: lazy against eager relocation bit for bit, the fused drain
 against the eager route, reads that restore canonical order mid-circuit
-and inside a fusion context, the exchange guard, the ops left to M15b
+and inside a fusion context, the exchange guard, the ops left to M15c
 refusing a sharded register, a one-shard env behaving as a plain one,
 the interop of a permuted register, and two spawned gloo runs of the
 torch.distributed backend held bit for bit against the in-process mesh.
@@ -896,8 +896,38 @@ def test_drain_failing_part_way_is_not_retried(ref, R, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# What waits for M15b refuses a sharded register
+# What waits for M15c refuses a sharded register (the M15b operations
+# have their sharded forms: tests/test_torch_dist_composites.py)
 # ---------------------------------------------------------------------------
+
+
+def _at_quad(op):
+    """``op`` run at precision 4: reads at quad precision on a mesh wait
+    for M15c."""
+    def run(q):
+        tq.set_precision(4)
+        try:
+            op(q)
+        finally:
+            tq.set_precision(2)
+    return run
+
+
+M15C = {
+    "createBatchedQureg": lambda q: tq.createBatchedQureg(NS, q.env, 2),
+    "quad_calcTotalProb": _at_quad(tq.calcTotalProb),
+    "quad_getAmp": _at_quad(lambda q: tq.getAmp(q, 5)),
+    "quad_calcProbOfOutcome": _at_quad(
+        lambda q: tq.calcProbOfOutcome(q, 5, 0)),
+    "quad_calcInnerProduct": _at_quad(lambda q: tq.calcInnerProduct(q, q)),
+    "quad_measure": _at_quad(lambda q: tq.measure(q, 5)),
+    "quad_calcExpecPauliHamil": _at_quad(lambda q: tq.calcExpecPauliHamil(
+        q, _hamil(), None)),
+}
+M15C_DENSITY = {
+    "quad_calcPurity": _at_quad(tq.calcPurity),
+}
+
 
 def _hamil():
     h = tq.createPauliHamil(NS, 1)
@@ -905,47 +935,16 @@ def _hamil():
     return h
 
 
-M15B = {
-    "applyTrotterCircuit": lambda q: tq.applyTrotterCircuit(q, _hamil(),
-                                                            0.1, 1, 1),
-    "calcExpecPauliHamil": lambda q: tq.calcExpecPauliHamil(
-        q, _hamil(), tq.createQureg(NS, q.env)),
-    "multiRotateZ": lambda q: tq.multiRotateZ(q, [0, 5], 0.3),
-    "multiRotatePauli": lambda q: tq.multiRotatePauli(q, [0, 5], [1, 2],
-                                                      0.3),
-    "applyFullQFT": lambda q: tq.applyFullQFT(q),
-    "applyQFT": lambda q: tq.applyQFT(q, [0, 1, 5]),
-    "measure": lambda q: tq.measure(q, 5),
-    "measureWithStats": lambda q: tq.measureWithStats(q, 0),
-    "collapseToOutcome": lambda q: tq.collapseToOutcome(q, 5, 0),
-    "applyDiagonalOp": lambda q: tq.applyDiagonalOp(
-        q, tq.createDiagonalOp(NS, q.env)),
-    "applyPhaseFunc": lambda q: tq.applyPhaseFunc(q, [0, 5], tq.UNSIGNED,
-                                                  [1.0], [2.0]),
-    "calcInnerProduct": lambda q: tq.calcInnerProduct(q, q),
-    "reportStateToScreen": lambda q: tq.reportStateToScreen(q),
-    "createBatchedQureg": lambda q: tq.createBatchedQureg(NS, q.env, 2),
-}
-M15B_DENSITY = {
-    "mixDepolarising": lambda q: tq.mixDepolarising(q, 3, 0.1),
-    "mixDamping": lambda q: tq.mixDamping(q, 0, 0.1),
-    "mixDephasing": lambda q: tq.mixDephasing(q, 3, 0.1),
-    "mixTwoQubitDepolarising": lambda q: tq.mixTwoQubitDepolarising(
-        q, 0, 3, 0.1),
-    "calcPurity": lambda q: tq.calcPurity(q),
-}
-
-
-@pytest.mark.parametrize("name", sorted(M15B) + sorted(M15B_DENSITY))
+@pytest.mark.parametrize("name", sorted(M15C) + sorted(M15C_DENSITY))
 def test_m15b_ops_refuse_a_sharded_register(name):
     env = tq.createQuESTEnv(devices=["cpu"] * 4)
-    density = name in M15B_DENSITY
+    density = name in M15C_DENSITY
     q = (tq.createDensityQureg(ND, env) if density
          else tq.createQureg(NS, env))
     tq.initDebugState(q)
     before = interop.register_state(q)[0]
-    with pytest.raises(tq.QuESTError, match="M15b"):
-        (M15B_DENSITY if density else M15B)[name](q)
+    with pytest.raises(tq.QuESTError, match="M15c"):
+        (M15C_DENSITY if density else M15C)[name](q)
     np.testing.assert_array_equal(interop.register_state(q)[0], before)
 
 
@@ -961,6 +960,13 @@ def _free_port() -> int:
 
 
 def _dist_circuit(tqm, q):
+    """Gates, a drain, a Trotter step, QFTs and a measured sequence; the
+    returned reads hold the outcomes and probabilities.  Two more
+    registers are returned: 14 qubits after the whole-register QFT (its
+    reversal's all_to_all) and 5 density qubits after a DiagonalOp (the
+    operator's slices all-gathered), with that register's purity and
+    expectation apart (sums of four partials, which gloo adds in its own
+    order)."""
     n = q.num_qubits_represented
     with tqm.gateFusion(q):
         _config2_like(tqm, q, [])
@@ -969,6 +975,33 @@ def _dist_circuit(tqm, q):
     tqm.multiQubitUnitary(q, [n - 2, n - 1], U2)
     tqm.controlledNot(q, n - 1, 0)
     tqm.swapGate(q, 1, n - 1)
+    h = tqm.createPauliHamil(n, 2)
+    tqm.initPauliHamil(h, [0.4, -0.3],
+                       ([1, 2, 3] * n)[:n] + ([3, 0, 1] * n)[:n])
+    tqm.applyTrotterCircuit(q, h, 0.5, 2, 1)
+    tqm.applyQFT(q, [0, 2, n - 1])
+    big = tqm.createQureg(14, q.env)
+    tqm.initStateFromAmps(big, *_initial(14, False, 7))
+    tqm.applyFullQFT(big)
+    rho = tqm.createDensityQureg(5, q.env)
+    tqm.initDebugState(rho)
+    op = tqm.createDiagonalOp(5, q.env)
+    tqm.initDiagonalOp(op, np.linspace(-1, 1, 32), np.linspace(0.5, 2, 32))
+    tqm.applyDiagonalOp(rho, op)
+    tqm.seedQuEST(q.env, [7, 8])
+    outs, probs = tqm.measureSequence(q, [n - 1, 0, n - 2])
+    d = tqm.calcExpecDiagonalOp(rho, op)
+    return big, rho, outs + probs, [tqm.calcPurity(rho), d.real, d.imag]
+
+
+def _dist_record(SHM, tqm, q, n, big, rho, reads):
+    """The bit-exact record: the three states, the reads and q's
+    probability and norm."""
+    return np.concatenate([SHM.gather_host(q.amps).ravel(),
+                           SHM.gather_host(big.amps).ravel(),
+                           SHM.gather_host(rho.amps).ravel(), reads,
+                           [tqm.calcProbOfOutcome(q, n - 1, 0),
+                            tqm.calcTotalProb(q)]])
 
 
 def _dist_worker(rank, world, port, n, out_dir):
@@ -983,12 +1016,10 @@ def _dist_worker(rank, world, port, n, out_dir):
         env = tqm.createQuESTEnv()
         q = tqm.createQureg(n, env)
         tqm.initStateFromAmps(q, *_initial(n, False, 6))
-        _dist_circuit(tqm, q)
-        p = tqm.calcProbOfOutcome(q, n - 1, 0)
-        amps = q.amps
-        whole = SHM.gather_host(amps)
+        big, rho, reads, sums = _dist_circuit(tqm, q)
         np.save(os.path.join(out_dir, f"rank{rank}.npy"),
-                np.concatenate([whole.ravel(), [p, tqm.calcTotalProb(q)]]))
+                _dist_record(SHM, tqm, q, n, big, rho, reads))
+        np.save(os.path.join(out_dir, f"sums{rank}.npy"), np.array(sums))
     finally:
         dist.destroy_process_group()
 
@@ -1013,10 +1044,10 @@ def test_torch_distributed_gloo_matches_in_process(world, tmp_path):
     env = tq.createQuESTEnv(devices=["cpu"] * world)
     q = tq.createQureg(n, env)
     tq.initStateFromAmps(q, *_initial(n, False, 6))
-    _dist_circuit(tq, q)
-    p = tq.calcProbOfOutcome(q, n - 1, 0)
-    want = np.concatenate([SH.gather_host(q.amps).ravel(),
-                           [p, tq.calcTotalProb(q)]])
+    big, rho, reads, sums = _dist_circuit(tq, q)
+    want = _dist_record(SH, tq, q, n, big, rho, reads)
     for rank in range(world):
         got = np.load(tmp_path / f"rank{rank}.npy")
         np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(np.load(tmp_path / f"sums{rank}.npy"),
+                                   sums, rtol=1e-14, atol=1e-14)
