@@ -303,10 +303,44 @@ line:
              exchange copies and plain ops (the QFT also by stage; the
              run [0, 25), the density QFT and the eager channels on
              their meshes too); the per-shard launches of K6-K9.
-35. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+35. dist_batch_parity - K1, K2 and K5's bank forms on one shard's bank
+             as 8 shards of 26 qubits hold it, (8, 2, 2^23) float32: one
+             launch a call, every element bit for bit its own scalar
+             launch, within tolerance of the plain versions (0/1
+             permutation sides and K5 bit for bit).
+36. dist_batch_main - randomized compiling of config 2 (26 qubits x 8)
+             as a bank on 2 and 8 shards, by the bench route (the
+             elements' gate lists as one sharded bank program) and the
+             API route (a BatchedQureg drained): the bank's program
+             planned once (timed apart), the drain's wall and device ms
+             split into K1 bank, K2 bank, gatherperm and exchange
+             copies; K1 and K2 bank launches = shards x the program's
+             passes (not x B);
+             exchanges and bytes = B x the cost model; peak memory;
+             P(top = 0) within 1e-5 of the one-register bank; elements 0
+             and 7 bit for bit their scalar sharded drains; at R = 8
+             config 5's 16 expectations within 1e-5 and measureBatched
+             of qubits 0-2 giving the one-register bank's outcomes.  A
+             13-qubit density bank of 4 under a config-4 layer on 4
+             shards (K5 bank per shard, bit for bit its plain route,
+             within 1e-6 of one register); an EnsembleScheduler bucket of
+             8 config-2 circuits at 20 qubits on 2 shards.
+37. dist_quad_main - precision 4 on 8 shards: config 2 at 26 qubits
+             (float64 drain); calcTotalProb, calcProbOfOutcome,
+             calcInnerProduct and calcExpecPauliHamil (config 5) within
+             1e-12 of the one-register quad route on the same state, and
+             calcPurity of a 13-qubit density register on 4 shards; the
+             cancellation state kept exactly; walls beside one register.
+38. dist_models_main - VQE at 20 qubits (float64) and QAOA at 24
+             (float32) on 8 shards: objective and gradient within 1e-5
+             and 1e-4 |g| of one register on the same parameters; three
+             Adam steps each; wall per step and peak memory beside one
+             register's.
+39. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
-             errors under "modes"; K1, K2 and K5's bank forms; K1, K2, K5
-             and K6-K9 marked as run per shard with their dist launches).
+             errors under "modes"; K1, K2 and K5's bank forms, with their
+             launches on a sharded bank under "dist"; K1, K2, K5 and
+             K6-K9 marked as run per shard with their dist launches).
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -1789,9 +1823,20 @@ def phase_channel_parity(torch, np, fused):
 @contextmanager
 def plain_channel_kernel(fused):
     """K5's wrapper replaced by its plain version, on the card too, for the
-    length of the block: the plain route of a noise drain."""
+    length of the block (a bank's elements one by one): the plain route
+    of a noise drain."""
+    import torch
+
     saved = fused.apply_pair_channel_sweep
-    fused.apply_pair_channel_sweep = fused.pair_channel_sweep_plain
+
+    def plain(amps, program, probs, *, num_bits):
+        if fused.bank_size(amps, num_bits):
+            return torch.stack([fused.pair_channel_sweep_plain(
+                a, program, probs, num_bits=num_bits) for a in amps])
+        return fused.pair_channel_sweep_plain(amps, program, probs,
+                                              num_bits=num_bits)
+
+    fused.apply_pair_channel_sweep = plain
     try:
         yield
     finally:
@@ -3938,6 +3983,12 @@ def phase_batch_main(torch, np, qt, C, fused, fusion, circuits, noise,
                           "device_ms_by_op_one_element": dev_one,
                           "device_ms_one_element": sum(dev_one.values())},
             "k1_bank": k1_rec, "k2_bank": k2_rec}
+    # config 5's 16 terms on every element (dist_batch_main's yardstick)
+    from quest_tpu_torch.models import hamiltonians
+
+    hc, hk = hamiltonians.bench_pauli_hamil(n, PAULI_TERMS, PAULI_SEED)
+    main["expec_config5"] = [float(v) for v in qt.calcExpecPauliSumBatched(
+        q, hk, hc)]
     # measureBatched over every qubit, per-element seeds; elements 0 and 7
     # against measureWithStats loops seeded the same way
     t0 = time.perf_counter()
@@ -3959,6 +4010,12 @@ def phase_batch_main(torch, np, qt, C, fused, fusion, circuits, noise,
               "states differ")
         qt.destroyQureg(s, env)
     main["outcomes_0_7"] = [[int(o[0][b]) for o in outs] for b in (0, nb - 1)]
+    # what dist_batch_main holds the bank on a mesh to: every element's
+    # outcomes and probabilities of the first qubits measured
+    main["measured_first"] = [
+        {"qubit": t, "outcomes": [int(v) for v in outs[t][0]],
+         "probs": [float(v) for v in outs[t][1]]}
+        for t in range(DIST_MEASURED)]
     qt.destroyQureg(q, env)
     del bank
     torch.cuda.empty_cache()
@@ -4251,15 +4308,16 @@ def phase_models_main(torch, np):
     return out
 
 
-def train_record(torch, model, p, make_step, falls: bool):
-    """MODEL_STEPS Adam steps at VQE_LR from ``p``: the objective at each
+def train_record(torch, model, p, make_step, falls: bool,
+                 steps: int = MODEL_STEPS):
+    """``steps`` Adam steps at VQE_LR from ``p``: the objective at each
     step, the wall per step, the peak device memory."""
     p = p.clone().requires_grad_(True)
     step = make_step(torch.optim.Adam([p], lr=VQE_LR))
     sync()
     torch.cuda.reset_peak_memory_stats()
     vals, walls = [], []
-    for _ in range(MODEL_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         vals.append(float(step(p)))
         sync()
@@ -5757,6 +5815,620 @@ def phase_dist_composites_timing(torch, qt, fused, hamiltonians):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The rest of the mesh (M15c): register banks with K1, K2 and K5's bank
+# forms per shard, quad precision and the models on an in-process mesh of
+# shards on the card
+# ---------------------------------------------------------------------------
+
+N_DIST_BATCH = 26      # randomized compiling of config 2 on a mesh: 8 x 2^26
+DIST_BATCH_MESHES = (2, 8)
+N_DIST_BATCH_PARITY = 23   # one shard's bank at R = 8: (8, 2, 2^23)
+DIST_EQUAL_ELEMENTS = (0, 7)   # elements held to their scalar sharded drains
+DIST_MEASURED = 3      # measureBatched of qubits 0 .. 2 at R = 8
+N_DIST_BATCH_RHO = 13  # a density bank of 4 x 2^26 amplitudes at R = 4
+R_DIST_BATCH_RHO = 4
+N_DIST_ENSEMBLE = 20   # an EnsembleScheduler bucket of 8 at R = 2
+DIST_ENSEMBLE = 8
+R_DIST_ENSEMBLE = 2
+N_DIST_QUAD = 26       # config 2 at precision 4 on 8 shards (1 GiB, f64)
+R_DIST_QUAD = 8
+N_DIST_QUAD_RHO = 13   # calcPurity of a density register of 2^26 at R = 4
+R_DIST_QUAD_RHO = 4
+R_DIST_MODELS = 8      # VQE at N_VQE and QAOA at N_QAOA qubits on 8 shards
+DIST_MODEL_STEPS = 3
+
+
+def density_sweeps(qt, fusion, noise, nq, nloc):
+    """The chansweep parts a config-4 noise layer on an nq-qubit density
+    register plans to on shards of nloc bits (the shapes K5's bank form
+    takes per shard), and the layer's items."""
+    from quest_tpu_torch.qureg import Qureg
+
+    shadow = Qureg(nq, qt.createQuESTEnv(device="cpu"), True)
+    fusion.start_gate_fusion(shadow)
+    noise.noise_layer(qt, shadow, nq, noise.bench_kraus_ops(NOISE_SEED),
+                      prob=NOISE_P)
+    items = list(shadow._fusion.gates)
+    program, _fp = fusion.plan_items_sharded(items, 2 * nq, nloc,
+                                             device=DEVICE, sweep_ok=True)
+    return [p[1] for p in program if p[0] == "chansweep"], items
+
+
+def phase_dist_batch_parity(torch, np, qt, fused, fusion, noise):
+    """K1, K2 and K5's bank forms on one shard's bank as a mesh of 8 holds
+    it, (8, 2, 2^23) float32: each call one launch; each element bit for
+    bit its own scalar launch; K1 and K2 with per-element sides within
+    tolerance of their plain versions and, with 0/1 permutation sides
+    (exact TF32 values), bit for bit; K5 over the sweeps a 13-qubit
+    density bank plans per shard at R = 8, bit for bit its plain
+    version."""
+    n, nb = N_DIST_BATCH_PARITY, B_MAIN
+    rng = np.random.default_rng(1357)
+    x = random_bank(torch, np, rng, n, nb, torch.float32)
+    tol = tolerance(x)
+    out = {"nloc": n, "batch": nb, "shard_bank_bytes":
+           x.numel() * x.element_size(), "k1": [], "k2": [],
+           "max_abs_err": {"K1_bank": 0.0, "K2_bank": 0.0, "K5_bank": 0.0}}
+
+    def one_launch(key, fn):
+        before = fused.LAUNCHES[key]
+        y = fn()
+        check(fused.LAUNCHES[key] - before == 1,
+              f"{key}: {fused.LAUNCHES[key] - before} launches, not 1")
+        return y
+
+    def k1(op):
+        return one_launch("K1_bank", lambda: fused.apply_window_stack(
+            x, op[2], op[3], op[6], num_qubits=n, k=op[1], apply_a=op[4],
+            apply_b=op[5]))
+
+    for k, sides, mask, exact in ((10, "AB", False, False),
+                                  (7, "B", True, False),
+                                  (13, "AB", False, True),
+                                  (n - 7, "A", False, True)):
+        op = bank_pass(rng, np, k, 1, sides, mask, True, mask, nb,
+                       exact=range(nb) if exact else None)
+        y = k1(op)
+        for b in range(nb):
+            e = fused.bank_element_op(op, b)
+            check(torch.equal(y[b], k1_scalar(fused, x[b], e, n)),
+                  f"shard bank K1 k={k} {sides} element {b}: not its scalar "
+                  "launch's bits")
+        yp = k1_bank_plain(torch, fused, x, op, n)
+        if exact:
+            check(torch.equal(y, yp), f"shard bank K1 k={k} {sides}: a "
+                  "permutation pass is not its plain version's bits")
+        err = float((y - yp).abs().max())
+        check(err <= tol, f"shard bank K1 k={k} {sides}: |err| {err}")
+        out["max_abs_err"]["K1_bank"] = max(out["max_abs_err"]["K1_bank"],
+                                            err)
+        out["k1"].append({"k": k, "sides": sides, "mask": mask,
+                          "permutation_sides": exact, "max_abs_err": err,
+                          "bit_identical_to_plain": exact or err == 0.0})
+        del y, yp
+    for label, spec, exact in (
+            ("C", K2_BENCH_GROUPS["C"], False),
+            ("permutations", [(7, 1, "AB", False), (10, 1, "B", False),
+                              (13, 1, "AB", False)], True)):
+        group = [bank_pass(rng, np, k, r, s_, m, True, m, nb,
+                           exact=range(nb) if exact else None)
+                 for k, r, s_, m in spec]
+        y2 = one_launch("K2_bank", lambda: fused.apply_window_megastack(
+            x, group, num_qubits=n))
+        y1 = x
+        for op in group:
+            y1 = fused.apply_window_stack(
+                y1, op[2], op[3], op[6], num_qubits=n, k=op[1],
+                apply_a=op[4], apply_b=op[5])
+        check(torch.equal(y2, y1), f"shard bank K2 {label}: not bank K1 "
+              "pass by pass")
+        del y1
+        for b in range(nb):
+            yb = fused.apply_window_megastack(
+                x[b], [fused.bank_element_op(op, b) for op in group],
+                num_qubits=n)
+            check(torch.equal(y2[b], yb), f"shard bank K2 {label} element "
+                  f"{b}: not its own K2 launch's bits")
+        yp = k2_bank_plain(torch, fused, x, group, n)
+        if exact:
+            check(torch.equal(y2, yp), f"shard bank K2 {label}: not its "
+                  "plain version's bits")
+        err = float((y2 - yp).abs().max())
+        check(err <= len(group) * tol, f"shard bank K2 {label}: |err| {err}")
+        out["max_abs_err"]["K2_bank"] = max(out["max_abs_err"]["K2_bank"],
+                                            err)
+        out["k2"].append({"group": label, "passes": len(group),
+                          "permutation_sides": exact, "max_abs_err": err})
+        del y2, yp
+    del x
+    torch.cuda.empty_cache()
+    # K5: the sweeps of a config-4 layer on a 13-qubit density bank's
+    # shard at R = 8 (nloc = 23)
+    sweeps, _items = density_sweeps(qt, fusion, noise, (n + 3) // 2, n)
+    check(sweeps, "the sharded density layer plans no sweep at nloc = 23")
+    xr = random_bank(torch, np, rng, n, nb, torch.float32)
+    k5n = 0
+    for entries in sweeps:
+        probs = [NOISE_P] * len(entries)
+        before = fused.LAUNCHES["K5_bank"]
+        yb = fused.apply_pair_channel_sweep(xr.clone(), entries, probs,
+                                            num_bits=n)
+        got = fused.LAUNCHES["K5_bank"] - before
+        check(got == k5_launches(fused, entries, n), f"shard bank K5: {got} "
+              "launches")
+        k5n += got
+        for b in range(nb):
+            ys = fused.apply_pair_channel_sweep(xr[b].clone(), entries,
+                                                probs, num_bits=n)
+            check(torch.equal(yb[b], ys), f"shard bank K5 element {b}: not "
+                  "its own K5 launches' bits")
+        check(torch.equal(yb, torch.stack([fused.pair_channel_sweep_plain(
+            xr[b], entries, probs, num_bits=n) for b in range(nb)])),
+            "shard bank K5 is not its plain version's bits")
+        del yb
+    out["k5"] = {"sweeps": len(sweeps), "launches": k5n,
+                 "channels": sum(len(e) for e in sweeps),
+                 "bit_identical_to_plain": True}
+    del xr
+    sync()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bank_remap_model(C, PD, program, final_perm, n, nloc, nb) -> dict:
+    """remap_model of a bank's drain: B times a register's counts and
+    bytes (the JAX package's accounting)."""
+    m = remap_model(C, PD, program, final_perm, n, nloc, 4)
+    return {op: [nb * v[0], nb * v[1]] for op, v in m.items()}
+
+
+def bank_split(torch, PD, fused, kernels):
+    """event_timed over a sharded bank's drain: K1 and K2's bank
+    launches, the gatherperms and the exchange copies."""
+    return event_timed(torch, [
+        (PD, "_remap_shards", "exchange"),
+        (fused, "apply_window_stack", "K1_bank"),
+        (fused, "apply_window_megastack", "K2_bank"),
+        (kernels, "apply_index_permutation", "gatherperm")])
+
+
+def progress(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
+
+
+def phase_dist_batch_main(torch, np, qt, C, fused, fusion, circuits, noise,
+                          hamiltonians, kernels, batch, rc_one):
+    """Randomized compiling of config 2 (26 qubits x 8, per-element
+    unitaries, the CNOTs shared) on R = 2 and 8 shards of the card, by the
+    bench route (the elements' gate lists planned into one sharded bank
+    program, run from |0> by execute_sharded_program) and the API route (a
+    BatchedQureg drained): planning apart; the drain's wall and device ms
+    split into K1 bank, K2 bank, gatherperm and exchange copies; K1 and
+    K2's bank forms launched shards x the program's passes (not x B);
+    exchanges and bytes B times the cost model; peak memory; P(top = 0)
+    within 1e-5 of the one-register bank (batch_main); elements 0 and 7
+    bit for bit their scalar sharded drains; at R = 8 config 5's
+    expectations and measureBatched against the one-register bank.  A
+    13-qubit density bank of 4 under a config-4 layer at R = 4 (K5's bank
+    form per shard) within 1e-6 of one register; an EnsembleScheduler
+    bucket of 8 at 20 qubits on R = 2."""
+    from quest_tpu_torch.parallel import dist as PD
+    from quest_tpu_torch.parallel import sharded as SH
+
+    n, nb = N_DIST_BATCH, B_MAIN
+    cus, us = bank_unitaries(np, circuits, n, nb, DEPTH)
+    seeds = [[MEASURE_SEEDS[0] + b] for b in range(nb)]
+    items = bank_items(qt, n, nb, lambda q: apply_bank_gates(qt, q, cus, n))
+    bitems = batch.bank_gate_items(
+        [circuits.bench_gate_list(n, DEPTH, u) for u in us], n, False)
+    p_one = rc_one["api_route"]["p_top_zero"]
+    out = {"n": n, "batch": nb, "depth": DEPTH, "bank_bytes":
+           nb * (2 << n) * 4, "meshes": {}}
+    launches = {"K1_bank": 0, "K2_bank": 0, "K5_bank": 0}
+
+    def p_check(bank, label):
+        p_top = [float(v) for v in SH.prob_of_outcome_bank(bank, n - 1, 0)]
+        dp = max(abs(a - b) for a, b in zip(p_top, p_one))
+        check(dp <= 1e-5, f"{label}: P(top = 0) {p_top} vs one register's "
+              f"{p_one}")
+        check(bank.batch_size == nb and all(
+            bool(torch.isfinite(s).all()) for s in bank.shards),
+            f"{label}: bad state")
+        return p_top, dp
+
+    def launched(program, R, label):
+        pst = program_counts(fusion, program)
+        got = {k: fused.LAUNCHES[k] for k in ("K1", "K2", "K1_bank",
+                                              "K2_bank")}
+        want = {"K1": 0, "K2": 0, "K1_bank": R * pst["winfused"],
+                "K2_bank": R * pst["megawin"]}
+        check(got == want, f"{label}: launches {got} != shards x the "
+              f"program's passes {want}")
+        launches["K1_bank"] += got["K1_bank"]
+        launches["K2_bank"] += got["K2_bank"]
+        return pst, got
+
+    for R in DIST_BATCH_MESHES:
+        nloc = n - (R.bit_length() - 1)
+        env = mesh_env(qt, R)
+        rec = {"shards": R, "nloc": nloc}
+        fusion._plan_cache.clear()
+        # the bench route: the elements' gate lists as one bank program
+        t0 = time.perf_counter()
+        bprog, bfinal = fusion.plan_items_sharded(
+            bitems, n, nloc, device=DEVICE, optimize=False, batch_size=nb)
+        bplan_s = time.perf_counter() - t0
+        progress(f"dist_batch_main R={R}: bench plan {bplan_s:.1f} s")
+        fused.reset_launch_counts()
+        PD.reset_counters()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with bank_split(torch, PD, fused, kernels) as ms:
+            a = SH.broadcast_bank(SH.classical(env.mesh, nloc,
+                                               torch.float32, 0), nb)
+            a = fusion.execute_sharded_program(a, bprog, (), nloc,
+                                               key=("dist_bank", n, R))
+            if bfinal is not None and list(bfinal) != list(range(n)):
+                a = PD.remap_sharded(a, num_qubits=n,
+                                     sigma=PD.canonical_sigma(bfinal))
+        sync()
+        bwall = time.perf_counter() - t0
+        bpeak = torch.cuda.max_memory_allocated()
+        bst, bgot = launched(bprog, R, f"bench-route bank at R = {R}")
+        model = bank_remap_model(C, PD, bprog, bfinal, n, nloc, nb)
+        check(counted(PD) == model, f"bench-route bank at R = {R}: "
+              f"exchanges {counted(PD)} != B x the cost model {model}")
+        bp, bdp = p_check(a, f"bench-route bank at R = {R}")
+        del a
+        torch.cuda.empty_cache()
+        rec["bench_route"] = {
+            "program": bst, "plan_seconds": bplan_s, "wall_s": bwall,
+            "device_ms_by_part": dict(ms), "device_ms": sum(ms.values()),
+            "launches": bgot, "exchanges": model, "peak_mem_bytes": bpeak,
+            "p_top_zero": bp, "max_p_diff_vs_one_register": bdp}
+        progress(f"dist_batch_main R={R}: bench drain {bwall:.2f} s")
+        # the API route: a BatchedQureg drained, its program planned ahead
+        t0 = time.perf_counter()
+        program, final = fusion.plan_items_sharded(
+            items, n, nloc, device=DEVICE, sweep_ok=True, batch_size=nb)
+        plan_s = time.perf_counter() - t0
+        progress(f"dist_batch_main R={R}: API plan {plan_s:.1f} s")
+        fused.reset_launch_counts()
+        PD.reset_counters()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q = qt.createBatchedQureg(n, env, nb, seeds=seeds)
+        apply_bank_gates(qt, q, cus, n)
+        with bank_split(torch, PD, fused, kernels) as ms:
+            bank = q.amps
+        sync()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        pst, got = launched(program, R, f"API-route bank at R = {R}")
+        check(got["K1_bank"] > 0, f"API-route bank at R = {R}: no K1 bank")
+        model = bank_remap_model(C, PD, program, final, n, nloc, nb)
+        check(counted(PD) == model, f"API-route bank at R = {R}: exchanges "
+              f"{counted(PD)} != B x the cost model {model}")
+        p_top, dp = p_check(bank, f"API-route bank at R = {R}")
+        progress(f"dist_batch_main R={R}: API drain {wall:.2f} s")
+        # elements 0 and 7 against their own scalar sharded drains
+        t0 = time.perf_counter()
+        for b in DIST_EQUAL_ELEMENTS:
+            s_ = qt.createQureg(n, env)
+            with qt.gateFusion(s_):
+                apply_bench_gates(qt, s_, us[b], n)
+            sa = s_.amps
+            check(all(torch.equal(x[b], y) for x, y in
+                      zip(bank.shards, sa.shards)), f"bank at R = {R}: "
+                  f"element {b} is not its scalar sharded drain bit for bit")
+            qt.destroyQureg(s_, env)
+            del sa
+        scalar_s = time.perf_counter() - t0
+        rec["api_route"] = {
+            "program": pst, "plan_seconds": plan_s, "drain_wall_s": wall,
+            "device_ms_by_part": dict(ms), "device_ms": sum(ms.values()),
+            "launches": got, "exchanges": model, "peak_mem_bytes": peak,
+            "p_top_zero": p_top, "max_p_diff_vs_one_register": dp,
+            "elements_equal_scalar_sharded": list(DIST_EQUAL_ELEMENTS),
+            "two_scalar_drains_s": scalar_s}
+        if R == max(DIST_BATCH_MESHES):
+            # config 5's expectations, then measureBatched, against the
+            # one-register bank of batch_main
+            hc, hk = hamiltonians.bench_pauli_hamil(n, PAULI_TERMS,
+                                                    PAULI_SEED)
+            sync()
+            t0 = time.perf_counter()
+            ev = [float(v) for v in qt.calcExpecPauliSumBatched(q, hk, hc)]
+            rec["expec_wall_s"] = time.perf_counter() - t0
+            de = max(abs(a - b) for a, b in zip(ev, rc_one["expec_config5"]))
+            check(de <= 1e-5, f"bank at R = {R}: config-5 expectations "
+                  f"{ev} vs one register's {rc_one['expec_config5']}")
+            rec["expec_config5"] = ev
+            rec["max_expec_diff_vs_one_register"] = de
+            t0 = time.perf_counter()
+            meas = [qt.measureBatched(q, t) for t in range(DIST_MEASURED)]
+            sync()
+            rec["measure_batched_ms_per_qubit"] = \
+                (time.perf_counter() - t0) * 1e3 / DIST_MEASURED
+            for t, (o, p) in enumerate(meas):
+                want_o = rc_one["measured_first"][t]["outcomes"]
+                want_p = rc_one["measured_first"][t]["probs"]
+                check([int(v) for v in o] == want_o, f"bank at R = {R}: "
+                      f"qubit {t} outcomes {list(o)} vs one register's "
+                      f"{want_o}")
+                check(max(abs(a - b) for a, b in zip(p, want_p)) <= 1e-5,
+                      f"bank at R = {R}: qubit {t} probabilities {list(p)}"
+                      f" vs {want_p}")
+            rec["measured_first"] = [[int(v) for v in o] for o, _p in meas]
+        qt.destroyQureg(q, env)
+        del bank
+        torch.cuda.empty_cache()
+        out["meshes"][str(R)] = rec
+
+    # a density bank under one config-4 layer at R = 4, K5's bank form on
+    # every shard, against the one-register bank
+    nq, nbr, R = N_DIST_BATCH_RHO, B_RHO, R_DIST_BATCH_RHO
+    nloc = 2 * nq - (R.bit_length() - 1)
+    kops = noise.bench_kraus_ops(NOISE_SEED)
+    mats = np.stack([random_unitary(np.random.default_rng(77 + b), 2)
+                     for b in range(nbr)])
+
+    def rho_bank(env):
+        rq = qt.createBatchedQureg(nq, env, nbr, is_density_matrix=True)
+        qt.initPlusState(rq)
+        qt.applyBatchedUnitary(rq, (2,), mats)
+        noise.noise_layer(qt, rq, nq, kops, prob=NOISE_P)
+        return rq
+
+    sweeps, _ = density_sweeps(qt, fusion, noise, nq, nloc)
+    per_shard = sum(k5_launches(fused, e, nloc) for e in sweeps)
+    fused.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    rq = rho_bank(mesh_env(qt, R))
+    ra = rq.amps
+    sync()
+    rwall = time.perf_counter() - t0
+    k5 = fused.LAUNCHES["K5_bank"]
+    check(per_shard > 0 and k5 == R * per_shard and fused.LAUNCHES["K5"] == 0,
+          f"density bank at R = {R}: {k5} K5 bank launches, not {R} shards "
+          f"x {per_shard}")
+    launches["K5_bank"] = k5
+    one = rho_bank(qt.createQuESTEnv())
+    ob = one.amps
+    m = 1 << nloc
+    err = max(max_abs_diff(torch, ra.shards[s], ob[..., s * m:(s + 1) * m])
+              for s in range(R))
+    check(err <= 1e-6, f"density bank at R = {R}: |rho - one register| "
+          f"{err}")
+    # one shard's bank through K5's plain version, bit for bit
+    with plain_channel_kernel(fused):
+        rp = rho_bank(mesh_env(qt, R))
+        same = all(torch.equal(x, y) for x, y in zip(ra.shards,
+                                                    rp.amps.shards))
+    check(same, f"density bank at R = {R}: the K5 route is not its plain "
+          "route's bits")
+    out["density_bank"] = {"n": nq, "batch": nbr, "shards": R, "nloc": nloc,
+                           "k5_bank_launches_per_shard": per_shard,
+                           "k5_bank_launches": k5, "drain_wall_s": rwall,
+                           "max_abs_err_vs_one_register": err,
+                           "bit_identical_to_plain_route": same}
+    for r in (rq, one, rp):
+        qt.destroyQureg(r, r.env)
+    del ra, ob
+    torch.cuda.empty_cache()
+
+    # an EnsembleScheduler bucket of 8 config-2 circuits at 20 qubits on
+    # R = 2, against the one-shard scheduler
+    n2, R = N_DIST_ENSEMBLE, R_DIST_ENSEMBLE
+    subs = [circuits.bench_gate_list(n2, DEPTH, circuits.bench_unitaries(
+        n2, DEPTH, seed=100 + s)) for s in range(DIST_ENSEMBLE)]
+    results, walls = [], []
+    fused.reset_launch_counts()
+    for env in (mesh_env(qt, R), qt.createQuESTEnv()):
+        sched = qt.EnsembleScheduler(n2, env, max_batch=DIST_ENSEMBLE)
+        for g in subs:
+            sched.submit(g)
+        sync()
+        t0 = time.perf_counter()
+        results.append(sched.drain())
+        sync()
+        walls.append(time.perf_counter() - t0)
+        check(sched.last_drain["buckets"] == 1, f"ensemble buckets "
+              f"{sched.last_drain}")
+        if len(results) == 1:
+            ens_launches = {k: fused.LAUNCHES[k] for k in ("K1_bank",
+                                                           "K2_bank")}
+    check(ens_launches["K1_bank"] > 0, f"the ensemble bucket on R = {R} "
+          f"launched no K1 bank: {ens_launches}")
+    launches["K1_bank"] += ens_launches["K1_bank"]
+    launches["K2_bank"] += ens_launches["K2_bank"]
+    m = 1 << (n2 - (R.bit_length() - 1))
+    eerr = max(max_abs_diff(torch, got.shards[s], want[:, s * m:(s + 1) * m])
+               for got, want in zip(*results) for s in range(R))
+    check(eerr <= 1e-5, f"ensemble on R = {R}: |psi - one shard| {eerr}")
+    out["ensemble"] = {"n": n2, "submissions": DIST_ENSEMBLE, "shards": R,
+                       "drain_wall_s": walls[0], "one_shard_wall_s": walls[1],
+                       "launches": ens_launches,
+                       "max_abs_err_vs_one_shard": eerr}
+    del results
+    torch.cuda.empty_cache()
+    check(launches["K1_bank"] > 0 and launches["K2_bank"] > 0,
+          f"a bank form never launched on a sharded bank: {launches}")
+    out["launches"] = launches
+    return out, launches
+
+
+def phase_dist_quad_main(torch, np, qt, circuits, hamiltonians):
+    """set_precision(4) on a mesh of the card: config 2's circuit at 26
+    qubits on 8 shards (float64); calcTotalProb, calcProbOfOutcome,
+    calcInnerProduct against a clone and calcExpecPauliHamil (config 5's
+    16 terms) each within 1e-12 of the one-register quad route on the
+    same state; calcPurity of a 13-qubit density register on 4 shards
+    likewise; the cancellation state at 2^26 amplitudes kept exactly at
+    quad and lost at precision 2; the wall of each read at R = 8 and on
+    one register."""
+    from quest_tpu_torch import interop
+
+    n, R = N_DIST_QUAD, R_DIST_QUAD
+    us = circuits.bench_unitaries(n, DEPTH, seed=SEED, dtype=np.float64)
+    coeffs, codes = hamiltonians.bench_pauli_hamil(n, PAULI_TERMS,
+                                                   PAULI_SEED)
+    env, one = mesh_env(qt, R), qt.createQuESTEnv()
+    out = {"n": n, "shards": R, "read_outs": {}}
+    qt.set_precision(4)
+    try:
+        q = qt.createQureg(n, env)
+        with qt.gateFusion(q):
+            apply_bench_gates(qt, q, us, n)
+        check(all(s.dtype == torch.float64 for s in q.amps.shards),
+              "a quad register on a mesh is not float64")
+        clone = qt.createCloneQureg(q, env)
+        q1 = qt.createQureg(n, one)
+        interop.load_register(q1, interop.register_state(q, True)[0])
+        c1 = qt.createCloneQureg(q1, one)
+        h = qt.createPauliHamil(n, PAULI_TERMS)
+        qt.initPauliHamil(h, coeffs, codes)
+
+        def reads(reg, cl):
+            return {"calcTotalProb": lambda: qt.calcTotalProb(reg),
+                    "calcProbOfOutcome": lambda: qt.calcProbOfOutcome(
+                        reg, n - 1, 0),
+                    "calcInnerProduct": lambda: qt.calcInnerProduct(reg, cl),
+                    "calcExpecPauliHamil": lambda: qt.calcExpecPauliHamil(
+                        reg, h)}
+
+        for name in reads(q, clone):
+            rec = {}
+            for label, (reg, cl) in (("mesh", (q, clone)), ("one", (q1, c1))):
+                fn = reads(reg, cl)[name]
+                sync()
+                t0 = time.perf_counter()
+                v = fn()
+                sync()
+                rec[f"wall_ms_{label}"] = (time.perf_counter() - t0) * 1e3
+                rec[label] = v
+            err = abs(rec["mesh"] - rec["one"])
+            check(err <= QUAD_TOL, f"quad {name} on {R} shards {rec['mesh']}"
+                  f" vs one register {rec['one']}")
+            rec.update(mesh=repr(rec["mesh"]), one=repr(rec["one"]),
+                       abs_diff=err)
+            out["read_outs"][name] = rec
+        for r, e in ((q, env), (clone, env), (q1, one), (c1, one)):
+            qt.destroyQureg(r, e)
+        torch.cuda.empty_cache()
+        # the cancellation: Z on qubit n - 2 signs the two A quarters apart
+        x = cancel_state(torch, n)
+        qc = qt.createQureg(n, env)
+        interop.load_register(qc, x.cpu().numpy())
+        del x
+        z = [0] * n
+        z[n - 2] = 3
+        want = float(1 << (n - 2))
+        sync()
+        t0 = time.perf_counter()
+        got = qt.calcExpecPauliSum(qc, z, [1.0])
+        quad_ms = (time.perf_counter() - t0) * 1e3
+        qt.set_precision(2)
+        plain = qt.calcExpecPauliSum(qc, z, [1.0])
+        qt.set_precision(4)
+        check(got == want, f"quad on {R} shards lost the cancellation: "
+              f"{got} != {want}")
+        check(abs(plain - want) > 0.5 * want, f"precision 2 kept the "
+              f"cancellation ({plain}): the case tests nothing")
+        out["cancellation"] = {"amps": 1 << n, "want": want, "quad": got,
+                               "plain_f64": plain, "quad_ms": quad_ms}
+        qt.destroyQureg(qc, env)
+        torch.cuda.empty_cache()
+        # calcPurity of a 13-qubit density register on 4 shards
+        nq, R4 = N_DIST_QUAD_RHO, R_DIST_QUAD_RHO
+        env4 = mesh_env(qt, R4)
+        rho = qt.createDensityQureg(nq, env4)
+        qt.initPlusState(rho)
+        with qt.gateFusion(rho):
+            for t in range(nq):
+                qt.rotateY(rho, t, 0.1 * (t + 1))
+            for t in range(nq):
+                qt.mixDepolarising(rho, t, NOISE_P)
+        r1 = qt.createDensityQureg(nq, one)
+        interop.load_register(r1, interop.register_state(rho, True)[0])
+        rec = {}
+        for label, reg in (("mesh", rho), ("one", r1)):
+            sync()
+            t0 = time.perf_counter()
+            rec[label] = qt.calcPurity(reg)
+            sync()
+            rec[f"wall_ms_{label}"] = (time.perf_counter() - t0) * 1e3
+        err = abs(rec["mesh"] - rec["one"])
+        check(err <= QUAD_TOL, f"quad calcPurity on {R4} shards "
+              f"{rec['mesh']} vs one register {rec['one']}")
+        rec.update(mesh=repr(rec["mesh"]), one=repr(rec["one"]),
+                   abs_diff=err, n=nq, shards=R4)
+        out["read_outs"]["calcPurity"] = rec
+        qt.destroyQureg(rho, env4)
+        qt.destroyQureg(r1, one)
+    finally:
+        qt.set_precision(1)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist_models_main(torch, np):
+    """VQE at 20 qubits (float64) and QAOA at 24 qubits (float32) on 8
+    shards of the card: the objective and its autograd gradient on the
+    same parameters within 1e-5 and 1e-4 |g| of the one-register model,
+    three Adam steps moving the objective the right way, the wall per
+    step and the peak memory beside one register's."""
+    import quest_tpu_torch as tq
+    from quest_tpu_torch.models import qaoa, vqe
+
+    mesh = mesh_env(tq, R_DIST_MODELS).mesh
+    codes, coeffs = vqe.random_hamiltonian(N_VQE, VQE_TERMS, seed=VQE_SEED)
+    edges = qaoa.random_graph(N_QAOA, 2 * N_QAOA, seed=1)
+    gen = torch.Generator().manual_seed(0)
+    cases = {
+        "vqe": (vqe.VQE(N_VQE, VQE_DEPTH, codes, coeffs, mesh=mesh),
+                vqe.VQE(N_VQE, VQE_DEPTH, codes, coeffs), torch.float64,
+                True, "energy", N_VQE, VQE_DEPTH),
+        "qaoa": (qaoa.QAOA(N_QAOA, edges, QAOA_DEPTH, mesh=mesh),
+                 qaoa.QAOA(N_QAOA, edges, QAOA_DEPTH), torch.float32,
+                 False, "expected_cut", N_QAOA, QAOA_DEPTH)}
+    out = {"shards": R_DIST_MODELS}
+    for name, (mm, m1, dtype, falls, fn, nq, depth) in cases.items():
+        p = m1.init_params(gen, dtype=dtype)
+        on = mm.init_params(dtype=dtype).device
+        check(on == p.device, f"{name}: the mesh model's parameters are on "
+              f"{on}, not on the card's {p.device}")
+        vals = {}
+        for label, model in (("mesh", mm), ("one", m1)):
+            t = p.clone().requires_grad_(True)
+            v = getattr(model, fn)(t)
+            v.backward()
+            vals[label] = (float(v.detach()), t.grad.double())
+        dv = abs(vals["mesh"][0] - vals["one"][0])
+        gnorm = float(vals["one"][1].norm())
+        dg = float((vals["mesh"][1] - vals["one"][1]).norm()) / max(gnorm,
+                                                                    1e-30)
+        check(dv <= 1e-5, f"{name} on {R_DIST_MODELS} shards: objective "
+              f"{vals['mesh'][0]} vs one register {vals['one'][0]}")
+        check(dg <= 1e-4, f"{name} on {R_DIST_MODELS} shards: |g - g_one| /"
+              f" |g| = {dg}")
+        rec = {"n": nq, "depth": depth, "dtype": str(dtype).split(".")[-1],
+               "objective_mesh": vals["mesh"][0],
+               "objective_one": vals["one"][0], "abs_diff": dv,
+               "grad_rel_diff": dg, "grad_norm": gnorm,
+               "mesh": train_record(torch, mm, p, mm.make_train_step, falls,
+                                    DIST_MODEL_STEPS),
+               "one_register": train_record(torch, m1, p, m1.make_train_step,
+                                            falls, DIST_MODEL_STEPS)}
+        out[name] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6200,7 +6872,27 @@ def main() -> int:
     ctiming = phase_dist_composites_timing(torch, qt, fused, hamiltonians)
     emit({"phase": "dist_composites_timing", "power": smi, **ctiming})
 
-    # 35. kernels
+    # 35. K1, K2 and K5's bank forms on one shard's bank at nloc = 23
+    dbparity = phase_dist_batch_parity(torch, np, qt, fused, fusion, noise)
+    emit({"phase": "dist_batch_parity", **dbparity})
+
+    # 36. randomized compiling of config 2 as a bank on 2 and 8 shards, a
+    # density bank on 4 and an ensemble bucket on 2: K1, K2 and K5's bank
+    # forms launched on every shard
+    dbmain, dbcounts = phase_dist_batch_main(
+        torch, np, qt, C, fused, fusion, circuits, noise, hamiltonians,
+        kernels, batch, bmain["randomized_compiling"])
+    emit({"phase": "dist_batch_main", "power": smi, **dbmain})
+
+    # 37. quad precision on 8 (and 4) shards
+    dquad = phase_dist_quad_main(torch, np, qt, circuits, hamiltonians)
+    emit({"phase": "dist_quad_main", "power": smi, **dquad})
+
+    # 38. VQE and QAOA on 8 shards
+    dmodels = phase_dist_models_main(torch, np)
+    emit({"phase": "dist_models_main", "power": smi, **dmodels})
+
+    # 39. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
         key = key or kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -6363,6 +7055,17 @@ def main() -> int:
         e["dist"] = {"run_per_shard": True, "launches": dcounts[key],
                      "meshes": [*DIST_MESHES, R_DIST_RHO]}
         check(dcounts[key] > 0, f"{key} never launched on the dist path")
+    # the bank forms run per shard on a sharded bank (dist_batch_main):
+    # one launch per pass, group or sweep on each shard for the whole bank
+    for e, key, meshes in (
+            (k1b, "K1_bank", [*DIST_BATCH_MESHES, R_DIST_ENSEMBLE]),
+            (k2b, "K2_bank", [*DIST_BATCH_MESHES, R_DIST_ENSEMBLE]),
+            (k5b, "K5_bank", [R_DIST_BATCH_RHO])):
+        e["dist"] = {"run_per_shard": True, "launches": dbcounts[key],
+                     "meshes": meshes,
+                     "max_abs_err_per_shard": dbparity["max_abs_err"][key],
+                     "shard_shape": [B_MAIN, 2, 1 << N_DIST_BATCH_PARITY]}
+        check(dbcounts[key] > 0, f"{key} never launched on a sharded bank")
     # K6-K9 run per shard on the sharded QFT routes (dist_composites_main)
     for e, key in ((k6e, "K6"), (k7e, "K7"), (k8e, "K8"), (k9e, "K9")):
         e["dist"] = {"run_per_shard": True, "launches": ccounts[key],

@@ -35,7 +35,6 @@ from .precision import get_precision, real_eps
 from .parallel import composites as COMP
 from .parallel import dist as PAR
 from .parallel import sharded as SH
-from .parallel.mesh import refusal
 from .qureg import DiagonalOp, PauliHamil, Qureg
 from .rng import GLOBAL_RNG
 
@@ -45,14 +44,13 @@ def _quad() -> bool:
     return get_precision() == 4
 
 
-def _sharded_amps(qureg, what: str):
+def _sharded_amps(qureg):
     """The canonical amplitudes when the register is sharded (None
-    otherwise); a sharded read at quad precision has no form yet."""
+    otherwise).  At quad precision the sharded reads take each shard's
+    share of the double-double partials (parallel/sharded.py)."""
     amps = qureg.amps
     if not isinstance(amps, SH.ShardedAmps):
         return None
-    if _quad():
-        raise refusal(f"{what} at quad precision")
     return amps
 
 
@@ -93,7 +91,7 @@ def getAmp(qureg: Qureg, index: int) -> complex:
     """Fetch one complex amplitude (QuEST.h:1987)."""
     V.validate_state_vector(qureg, "getAmp")
     V.validate_num_amps(qureg, index, 1, "getAmp")
-    sh = _sharded_amps(qureg, "getAmp")
+    sh = _sharded_amps(qureg)
     if sh is not None:
         pair = SH.amp_pair(sh, int(index)).cpu()
     else:
@@ -123,7 +121,7 @@ def getDensityAmp(qureg: Qureg, row: int, col: int) -> complex:
     dim = 1 << qureg.num_qubits_represented
     if not (0 <= row < dim and 0 <= col < dim):
         raise V.QuESTError("getDensityAmp: Invalid amplitude index.")
-    sh = _sharded_amps(qureg, "getDensityAmp")
+    sh = _sharded_amps(qureg)
     if sh is not None:
         pair = SH.amp_pair(sh, int(row + col * dim)).cpu()
     else:
@@ -136,8 +134,12 @@ def calcProbOfOutcome(qureg: Qureg, measureQubit: int, outcome: int) -> float:
     (QuEST.h:3047)."""
     V.validate_target(qureg, measureQubit, "calcProbOfOutcome")
     V.validate_outcome(outcome, "calcProbOfOutcome")
-    sh = _sharded_amps(qureg, "calcProbOfOutcome")
+    sh = _sharded_amps(qureg)
     if sh is not None:
+        if _quad():
+            return SH.prob_of_outcome_quad(
+                sh, measureQubit, outcome, qureg.is_density_matrix,
+                qureg.num_qubits_represented)
         if qureg.is_density_matrix:
             return float(SH.prob_of_outcome_density(
                 sh, qureg.num_qubits_represented, measureQubit, outcome))
@@ -158,7 +160,7 @@ def calcProbOfAllOutcomes(qureg: Qureg, qubits: Sequence[int]) -> np.ndarray:
     (QuEST.h:3136); outcome index bit j <-> qubits[j]."""
     qubits = [int(q) for q in qubits]
     V.validate_multi_targets(qureg, qubits, "calcProbOfAllOutcomes")
-    sh = _sharded_amps(qureg, "calcProbOfAllOutcomes")
+    sh = _sharded_amps(qureg)
     if sh is not None:
         if qureg.is_density_matrix:
             p = SH.all_outcomes_density(sh, qureg.num_qubits_represented,
@@ -250,12 +252,13 @@ def measureWithStats(qureg: Qureg, measureQubit: int):
         qureg.qasm_log.measure(measureQubit)
         return outcome, prob
     key, shot = M.KEYS.next_shots()
-    sh = _sharded_amps(qureg, "measureWithStats")
+    sh = _sharded_amps(qureg)
     if sh is not None:
         u = M.thresholds(key, shot, 1, sh.dtype, sh.device)[0]
         qureg.amps, outcome, prob = SH.measure_once(
             sh, u, num_qubits=qureg.num_qubits_represented,
-            target=measureQubit, is_density=qureg.is_density_matrix)
+            target=measureQubit, is_density=qureg.is_density_matrix,
+            quad=_quad())
         qureg.qasm_log.measure(measureQubit)
         outs, probs = M.to_host(outcome[None], prob[None])
         return outs[0], probs[0]
@@ -291,14 +294,14 @@ def measureSequence(qureg: Qureg, qubits: Sequence[int]):
             probs.append(p)
         return outs, probs
     key, shot = M.KEYS.next_shots(len(qubits))
-    sh = _sharded_amps(qureg, "measureSequence")
+    sh = _sharded_amps(qureg)
     if sh is not None:
         us = M.thresholds(key, shot, len(qubits), sh.dtype, sh.device)
         outs, probs = [], []
         for j, q in enumerate(qubits):
             sh, o, p = SH.measure_once(
                 sh, us[j], num_qubits=qureg.num_qubits_represented,
-                target=q, is_density=qureg.is_density_matrix)
+                target=q, is_density=qureg.is_density_matrix, quad=_quad())
             outs.append(o)
             probs.append(p)
         qureg.amps = sh
@@ -318,8 +321,11 @@ def measureSequence(qureg: Qureg, qubits: Sequence[int]):
 def calcTotalProb(qureg: Qureg) -> float:
     """Total probability (trace / norm^2) of the register (QuEST.h:2099);
     in double-double under quad precision."""
-    sh = _sharded_amps(qureg, "calcTotalProb")
+    sh = _sharded_amps(qureg)
     if sh is not None:
+        if _quad():
+            return SH.total_prob_quad(sh, qureg.is_density_matrix,
+                                      qureg.num_qubits_represented)
         if qureg.is_density_matrix:
             return float(SH.total_prob_density(
                 sh, qureg.num_qubits_represented))
@@ -341,8 +347,10 @@ def calcInnerProduct(bra: Qureg, ket: Qureg) -> complex:
     V.validate_state_vector(bra, "calcInnerProduct")
     V.validate_state_vector(ket, "calcInnerProduct")
     V.validate_matching_qureg_dims(bra, ket, "calcInnerProduct")
-    sh = _sharded_amps(bra, "calcInnerProduct")
+    sh = _sharded_amps(bra)
     if sh is not None:
+        if _quad():
+            return complex(*SH.inner_product_quad(sh, ket.amps))
         r = SH.inner_product(sh, ket.amps).cpu()
         return complex(float(r[0]), float(r[1]))
     ip = C.calc_inner_product_quad if _quad() else C.calc_inner_product
@@ -356,8 +364,10 @@ def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
     V.validate_density_matrix(rho1, "calcDensityInnerProduct")
     V.validate_density_matrix(rho2, "calcDensityInnerProduct")
     V.validate_matching_qureg_dims(rho1, rho2, "calcDensityInnerProduct")
-    sh = _sharded_amps(rho1, "calcDensityInnerProduct")
+    sh = _sharded_amps(rho1)
     if sh is not None:
+        if _quad():
+            return SH.density_inner_product_quad(sh, rho2.amps)
         return float(SH.density_inner_product(sh, rho2.amps))
     return float(C.calc_density_inner_product(rho1.amps, rho2.amps,
                                               quad=_quad()))
@@ -366,9 +376,9 @@ def calcDensityInnerProduct(rho1: Qureg, rho2: Qureg) -> float:
 def calcPurity(qureg: Qureg) -> float:
     """Purity Tr(rho^2) of a density matrix (QuEST.h:3692)."""
     V.validate_density_matrix(qureg, "calcPurity")
-    sh = _sharded_amps(qureg, "calcPurity")
+    sh = _sharded_amps(qureg)
     if sh is not None:
-        return float(SH.purity(sh))
+        return SH.purity_quad(sh) if _quad() else float(SH.purity(sh))
     return float(C.calc_purity(qureg.amps, quad=_quad()))
 
 
@@ -377,11 +387,17 @@ def calcFidelity(qureg: Qureg, pureState: Qureg) -> float:
     (QuEST.h:3724): <psi|rho|psi>, or |<psi|phi>|^2."""
     V.validate_second_qureg_state_vec(pureState, "calcFidelity")
     V.validate_matching_qureg_dims(qureg, pureState, "calcFidelity")
-    sh = _sharded_amps(qureg, "calcFidelity")
+    sh = _sharded_amps(qureg)
     if sh is not None:
         if not qureg.is_density_matrix:
+            if _quad():
+                re, im = SH.inner_product_quad(sh, pureState.amps)
+                return float(re ** 2 + im ** 2)
             r = SH.inner_product(sh, pureState.amps).cpu()
             return float(r[0] ** 2 + r[1] ** 2)
+        if _quad():
+            return SH.fidelity_density_quad(
+                sh, _replicated(pureState), qureg.num_qubits_represented)
         return float(SH.fidelity_density(
             sh, _replicated(pureState), qureg.num_qubits_represented))
     if qureg.is_density_matrix:
@@ -410,8 +426,10 @@ def calcHilbertSchmidtDistance(a: Qureg, b: Qureg) -> float:
     V.validate_density_matrix(a, "calcHilbertSchmidtDistance")
     V.validate_density_matrix(b, "calcHilbertSchmidtDistance")
     V.validate_matching_qureg_dims(a, b, "calcHilbertSchmidtDistance")
-    sh = _sharded_amps(a, "calcHilbertSchmidtDistance")
+    sh = _sharded_amps(a)
     if sh is not None:
+        if _quad():
+            return SH.hilbert_schmidt_distance_quad(sh, b.amps)
         return float(SH.hilbert_schmidt_distance(sh, b.amps))
     return float(C.calc_hilbert_schmidt_distance(a.amps, b.amps,
                                                  quad=_quad()))
@@ -761,7 +779,7 @@ def calcExpecPauliProd(qureg: Qureg, targetQubits, pauliCodes,
     codes = [int(c) for c in pauliCodes]
     V.validate_multi_targets(qureg, targets, "calcExpecPauliProd")
     V.validate_pauli_codes(codes, "calcExpecPauliProd")
-    sh = _sharded_amps(qureg, "calcExpecPauliProd")
+    sh = _sharded_amps(qureg)
     if sh is not None:
         calc = (COMP.expec_pauli_sum_density_sharded
                 if qureg.is_density_matrix
@@ -769,7 +787,7 @@ def calcExpecPauliProd(qureg: Qureg, targetQubits, pauliCodes,
         return float(calc(sh, np.ones(1),
                           num_qubits=qureg.num_qubits_represented,
                           codes_flat=_full_codes(qureg, targets, codes),
-                          num_terms=1))
+                          num_terms=1, quad=_quad()))
     calc = (P.calc_expec_pauli_sum_density if qureg.is_density_matrix
             else P.calc_expec_pauli_sum_statevec)
     return float(calc(qureg.amps, np.ones(1),
@@ -792,18 +810,19 @@ def calcExpecPauliSum(qureg: Qureg, allPauliCodes, termCoeffs,
         raise V.QuESTError("calcExpecPauliSum: Number of Pauli codes doesn't "
                            "match numSumTerms*numQubits.")
     V.validate_pauli_codes(codes, "calcExpecPauliSum")
-    sh = _sharded_amps(qureg, "calcExpecPauliSum")
+    sh = _sharded_amps(qureg)
     if sh is not None:
         if qureg.is_density_matrix:
             return float(COMP.expec_pauli_sum_density_sharded(
                 sh, coeffs, num_qubits=n, codes_flat=codes,
-                num_terms=num_terms))
+                num_terms=num_terms, quad=_quad()))
         codes_seq = np.asarray(codes, np.int32).reshape(num_terms, n)
         if _explicit_sharded(qureg):
             return float(COMP.expec_pauli_sum_scan_sharded(
-                sh, codes_seq, coeffs, num_qubits=n))
+                sh, codes_seq, coeffs, num_qubits=n, quad=_quad()))
         return float(P.expec_pauli_sum_scan(_whole(qureg), codes_seq,
-                                            coeffs, num_qubits=n))
+                                            coeffs, num_qubits=n,
+                                            quad=_quad()))
     if qureg.is_density_matrix:
         val = P.calc_expec_pauli_sum_density(
             qureg.amps, coeffs, num_qubits=n, codes_flat=codes,
@@ -828,8 +847,14 @@ def calcExpecDiagonalOp(qureg: Qureg, op: DiagonalOp) -> complex:
     """Expected value of a diagonal operator in the given state
     (QuEST.h:1255)."""
     V.validate_diag_op_matches_qureg(op, qureg, "calcExpecDiagonalOp")
-    sh = _sharded_amps(qureg, "calcExpecDiagonalOp")
+    sh = _sharded_amps(qureg)
     if sh is not None:
+        if _quad():
+            if qureg.is_density_matrix:
+                return complex(*SH.expec_diagonal_density_quad(
+                    sh, op.real, op.imag, qureg.num_qubits_represented))
+            return complex(*SH.expec_diagonal_statevec_quad(sh, op.real,
+                                                            op.imag))
         if qureg.is_density_matrix:
             r = SH.expec_diagonal_density(sh, op.real, op.imag,
                                           qureg.num_qubits_represented)
@@ -863,7 +888,7 @@ def applyPauliSum(inQureg: Qureg, allPauliCodes, termCoeffs,
     V.validate_pauli_codes(codes, "applyPauliSum")
     V.validate_matching_qureg_types(inQureg, outQureg, "applyPauliSum")
     V.validate_matching_qureg_dims(inQureg, outQureg, "applyPauliSum")
-    sh = _sharded_amps(inQureg, "applyPauliSum")
+    sh = _sharded_amps(inQureg)
     if sh is not None:
         outQureg.amps = COMP.apply_pauli_sum_sharded(
             sh, coeffs, num_qubits=n, codes_flat=codes, num_terms=num_terms)

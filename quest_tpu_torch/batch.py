@@ -27,6 +27,16 @@ On top of the bank:
   mixDamping as stochastic gate insertion over a trajectory bank, with the
   observable's mean and standard error.
 
+On an env of R shards a bank of at least R amplitudes per element is
+sharded as a register is, the batch axis outermost: each shard holds
+``(B, 2, 2^nloc)``, every element's slice of the same global index range
+(quest_tpu/batch.py:166-175).  Its drain plans one program for the whole
+bank (fusion._run_sharded), each remap moving every element's slice in
+one exchange, and K1, K2 and K5 launch in their bank forms on every
+shard; measurement sums every element's probability over the mesh at
+once, and the expectation values run the sharded scan element by
+element.
+
 The reference's telemetry counters, gauges and spans and the memory
 governor's admission are not ported here (they belong to the platform
 layers, ROADMAP M16), nor is a bank's checkpoint.
@@ -147,9 +157,13 @@ class BatchedQureg(Qureg):
     def _as_bank(self, value):
         """A (2, 2^n) write (the init family writes one state for all
         elements) broadcast to the bank; a (B, 2, 2^n) write binds element
-        by element."""
+        by element.  On a mesh the bank is written shard by shard: a
+        register's ShardedAmps is lifted to every element, and a whole
+        state or bank is cut into the shards."""
         if value is None:
             return None
+        if self.is_sharded:
+            return self._as_sharded_bank(value)
         value = torch.as_tensor(value, dtype=self.dtype, device=self.device)
         if value.dim() == 2:
             return value.unsqueeze(0).expand(
@@ -161,6 +175,30 @@ class BatchedQureg(Qureg):
                 f"{self.num_amps_total}), got {tuple(value.shape)}")
         return value.contiguous()
 
+    def _as_sharded_bank(self, value):
+        from .parallel import sharded as SH
+
+        B = self.batch_size
+        if not isinstance(value, SH.ShardedAmps):
+            if not torch.is_tensor(value):
+                value = torch.from_numpy(np.array(value))
+            if tuple(value.shape[-2:]) != (2, self.num_amps_total) \
+                    or value.dim() not in (2, 3) \
+                    or (value.dim() == 3 and value.shape[0] != B):
+                raise QuESTError(
+                    "BatchedQureg: expected amplitudes of shape (2, "
+                    f"{self.num_amps_total}) or ({B}, 2, "
+                    f"{self.num_amps_total}), got {tuple(value.shape)}")
+            value = SH.split(self.env.mesh, value, self.num_qubits_in_state_vec
+                             - self.shard_bits, self.dtype)
+        if not value.batch_size:
+            return SH.broadcast_bank(value, B)
+        if value.batch_size != B:
+            raise QuESTError(
+                f"BatchedQureg: sharded amplitudes of {value.batch_size} "
+                f"elements for a batch of {B}")
+        return value
+
     @property
     def amps(self):
         return Qureg.amps.fget(self)
@@ -170,13 +208,18 @@ class BatchedQureg(Qureg):
         Qureg.amps.fset(self, self._as_bank(value))
 
     def element(self, i: int):
-        """Element ``i``'s amplitudes as a (2, 2^n) tensor (pending gates
-        drain first)."""
+        """Element ``i``'s amplitudes in canonical order (pending gates
+        drain first): a (2, 2^n) tensor, or on a mesh a ShardedAmps of
+        the element's shards (the reference's ``amps[b]`` stays sharded
+        likewise)."""
         if not 0 <= int(i) < self.batch_size:
             raise QuESTError(
                 f"BatchedQureg.element: index {i} out of range for batch "
                 f"{self.batch_size}")
-        return self.amps[int(i)]
+        amps = self.amps
+        if self.is_sharded:
+            return amps.element(int(i))
+        return amps[int(i)]
 
 
 def createBatchedQureg(numQubits: int, env: QuESTEnv, batchSize: int, *,
@@ -189,14 +232,17 @@ def createBatchedQureg(numQubits: int, env: QuESTEnv, batchSize: int, *,
     from . import validation as V
     from .ops import kernels as K
 
-    V.validate_num_qubits(numQubits, "createBatchedQureg")
-    if env.num_devices > 1:
-        from .parallel.mesh import refusal
-
-        raise refusal("createBatchedQureg: a register bank on a mesh")
+    V.validate_num_qubits(numQubits, "createBatchedQureg",
+                          num_ranks=env.num_ranks)
     q = BatchedQureg(numQubits, env, batchSize,
                      is_density_matrix=is_density_matrix, seeds=seeds)
-    if is_density_matrix:
+    if q.is_sharded:
+        from .parallel import sharded as SH
+
+        # |0...0> and |0><0| are both global index 0
+        q.amps = SH.classical(env.mesh, q.num_qubits_in_state_vec
+                              - q.shard_bits, q.dtype, 0)
+    elif is_density_matrix:
         q.amps = K.init_classical_density(numQubits, 0, q.dtype, q.device)
     else:
         q.amps = K.init_zero_state(q.num_amps_total, q.dtype, q.device)
@@ -230,8 +276,9 @@ def _check_capturable(qureg, bits, what: str) -> None:
                              for b in bits))):
         raise QuESTError(
             f"{what}: the gate does not qualify for the fused path "
-            f"(<= {_fusion.FUSION_MAX_GATE_QUBITS} qubits) — batched "
-            "registers have no eager fallback")
+            f"(<= {_fusion.FUSION_MAX_GATE_QUBITS} qubits, and shard-local "
+            "space for a distributed bank) — batched registers have no "
+            "eager fallback")
 
 
 def applyBatchedUnitary(qureg: BatchedQureg, targets, mats,
@@ -282,6 +329,13 @@ def measureBatched(qureg: BatchedQureg, measureQubit: int):
     V.validate_target(qureg, measureQubit, "measureBatched")
     bank = qureg.amps
     quad = _quad()
+    if qureg.is_sharded:
+        outs, probs = _measure_sharded_bank(qureg, bank, int(measureQubit),
+                                            quad)
+        qureg._mshots = [s + 1 for s in qureg._mshots]
+        qureg.qasm_log.measure(int(measureQubit))
+        o, p = M.to_host(outs, probs)
+        return np.asarray(o, dtype=np.int64), np.asarray(p)
     new, outs, probs = [], [], []
     for b in range(qureg.batch_size):
         u = M.thresholds(tuple(int(k) for k in qureg._mkeys[b]),
@@ -300,12 +354,42 @@ def measureBatched(qureg: BatchedQureg, measureQubit: int):
     return np.asarray(o, dtype=np.int64), np.asarray(p)
 
 
+def _measure_sharded_bank(qureg, bank, target: int, quad: bool):
+    """measureBatched on a mesh: every element's threshold from its own
+    key, every element's P(target = 0) in one sum over the mesh (at quad,
+    element by element in double-double), the outcomes drawn on the
+    device, and every element's collapse in one pass over each shard.
+    Rebinds the bank; returns the (B,) outcomes and probabilities as
+    device tensors."""
+    from .parallel import sharded as SH
+
+    nq = qureg.num_qubits_represented
+    density = qureg.is_density_matrix
+    dev = bank.device
+    us = torch.stack([M.thresholds(tuple(int(k) for k in qureg._mkeys[b]),
+                                   qureg._mshots[b], 1, bank.dtype, dev)[0]
+                      for b in range(qureg.batch_size)])
+    if quad:
+        p0 = torch.tensor([SH.prob_of_outcome_quad(bank.element(b), target,
+                                                   0, density, nq)
+                           for b in range(qureg.batch_size)],
+                          dtype=bank.dtype, device=dev)
+    else:
+        p0 = SH.prob_of_outcome_bank(bank, target, 0, is_density=density,
+                                     num_qubits=nq)
+    outs, probs = M._draw_outcome(p0, us.to(p0.device))
+    qureg.amps = SH.collapse_drawn_bank(bank, outs, probs, num_qubits=nq,
+                                        target=target, is_density=density)
+    return outs, probs
+
+
 def calcExpecPauliSumBatched(qureg: BatchedQureg, codes, coeffs,
                              *, quad: Optional[bool] = None) -> np.ndarray:
     """Per-element <psi_b| sum_t c_t P_t |psi_b> as a (B,) array: each
     element through the scalar route (``expec_pauli_sum_scan``: one K4
-    launch per term on the card, none under quad), so each value equals a
-    lone register's."""
+    launch per term on the card, none under quad; on a mesh the sharded
+    scan, composites.expec_pauli_sum_scan_sharded), so each value equals
+    a lone register's."""
     from .api_ops import _quad as _qd
 
     if not getattr(qureg, "batch_size", 0):
@@ -316,9 +400,16 @@ def calcExpecPauliSumBatched(qureg: BatchedQureg, codes, coeffs,
     coeffs = np.asarray(coeffs, np.float64)
     n = qureg.num_qubits_represented
     bank = qureg.amps
-    vals = [OPS_P.expec_pauli_sum_scan(bank[b], codes, coeffs,
-                                       num_qubits=n, quad=quad)
+    if qureg.is_sharded:
+        from .parallel import composites as COMP
+
+        vals = [COMP.expec_pauli_sum_scan_sharded(
+            bank.element(b), codes, coeffs, num_qubits=n, quad=quad)
             for b in range(qureg.batch_size)]
+    else:
+        vals = [OPS_P.expec_pauli_sum_scan(bank[b], codes, coeffs,
+                                           num_qubits=n, quad=quad)
+                for b in range(qureg.batch_size)]
     return torch.stack([v.to(torch.float64).cpu() for v in vals]).numpy()
 
 
@@ -404,7 +495,7 @@ class EnsembleScheduler:
     group to power-of-two buckets (<= ``max_batch``) with copies of its
     last submission, runs every bucket as ONE BatchedQureg program, and
     returns each submission's final (2, 2^n) amplitudes in submission
-    order.  ``last_drain`` holds the drain's circuits, buckets, real and
+    order (on a mesh env, each a ShardedAmps).  ``last_drain`` holds the drain's circuits, buckets, real and
     padded counts and wall seconds."""
 
     def __init__(self, num_qubits: int, env: QuESTEnv, *,
@@ -451,8 +542,8 @@ class EnsembleScheduler:
                                 self.num_qubits, self.is_density_matrix,
                                 qureg=q)
         q._fusion.gates.extend(items)
-        bank = q.amps
-        return {sub[0]: bank[i] for i, sub in enumerate(group)}, real, B
+        return ({sub[0]: q.element(i) for i, sub in enumerate(group)}, real,
+                B)
 
     def drain(self) -> List[torch.Tensor]:
         """Run every pending submission; returns the final amplitudes in
@@ -516,9 +607,15 @@ def _sample_damping(qureg: BatchedQureg, target: int, prob: float,
     sqrt(1 - p p1)) applies as one per-element gate."""
     B = qureg.batch_size
     bank = qureg.amps
-    p1 = torch.stack([CALC.calc_prob_of_outcome_statevec(
-        bank[b], num_qubits=qureg.num_qubits_represented, target=int(target),
-        outcome=1) for b in range(B)]).to(torch.float64).cpu().numpy()
+    if qureg.is_sharded:
+        from .parallel import sharded as SH
+
+        p1 = SH.prob_of_outcome_bank(bank, int(target), 1)
+    else:
+        p1 = torch.stack([CALC.calc_prob_of_outcome_statevec(
+            bank[b], num_qubits=qureg.num_qubits_represented,
+            target=int(target), outcome=1) for b in range(B)])
+    p1 = p1.to(torch.float64).cpu().numpy()
     pjump = np.clip(prob * p1, 0.0, 1.0)
     u = rng.random(B)
     jump = u < pjump

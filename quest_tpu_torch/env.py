@@ -151,13 +151,20 @@ def init_distributed(init_method: Optional[str] = None,
     before ``createQuESTEnv``; the env then holds one shard per rank.
     ``init_method`` (e.g. ``"tcp://localhost:29500"``), ``world_size`` and
     ``rank`` default to torch.distributed's environment variables;
-    ``backend`` defaults to NCCL when CUDA is available, else gloo."""
+    ``backend`` defaults to NCCL, which needs a CUDA card per rank: with
+    no card it raises rather than fall back to gloo on the CPU (pass
+    ``backend="gloo"`` for that)."""
     import torch.distributed as dist
 
     if dist.is_initialized():
         return
     if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if not torch.cuda.is_available():
+            raise QuESTError(
+                "initDistributed: no CUDA device is available for the "
+                "default NCCL backend; pass backend=\"gloo\" to run on "
+                "the CPU explicitly.")
+        backend = "nccl"
     kwargs = {}
     if init_method is not None:
         kwargs["init_method"] = init_method

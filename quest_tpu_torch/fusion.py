@@ -36,7 +36,12 @@ the same local program on its ``(2, 2^nloc)`` tensor (so on the card K1,
 K2 and K5 launch once per shard for each pass, group and sweep).  The
 permutation a drain leaves stays on the register (``Qureg._perm``) until
 a read restores canonical order (quest_tpu/fusion.py
-_split_items_sharded and the "remap" parts of its runner).
+_split_items_sharded and the "remap" parts of its runner).  A sharded
+register bank (batch.BatchedQureg on a mesh) drains the same way with
+``(B, 2, 2^nloc)`` shards: one program for the whole bank (per-element
+plans of one skeleton and one final permutation, stacked, under batch
+flag 2), one exchange per remap moving every element, and K1, K2 and K5
+in their bank forms, one launch per pass, group or sweep on each shard.
 """
 
 from __future__ import annotations
@@ -307,23 +312,20 @@ def _program_rebuild(skeleton, arrays):
                  if part[0] == "plan" else part for part in skeleton)
 
 
-def _plan_batched_items(items, bsz: int, num_qubits: int, device,
-                        sweep_ok: bool):
-    """The program of a bank drain whose items carry per-element
-    matrices (quest_tpu/fusion.py _plan_batched_items): each element is
-    planned on its own (a controlled gate's decomposition depends on its
-    values; each element's plan is cached as that element's scalar drain
-    would cache it), all must plan to the same skeleton, and each pass
-    array is stacked to a leading (B, ...) axis."""
+def _stack_element_plans(plans):
+    """One bank program from its elements' (program, final_perm) plans
+    (quest_tpu/fusion.py _plan_batched_items): every element must give
+    element 0's skeleton (remaps included) and final permutation, and
+    each pass array is stacked to a leading (B, ...) axis.  Returns
+    (program, final_perm)."""
     from .validation import QuESTError
 
-    skeleton, per_elem = None, []
-    for b in range(bsz):
-        sk, arrays = _program_split(_plan_optimized(
-            _items_for_element(items, b), num_qubits, device, sweep_ok))
+    skeleton, final, per_elem = None, None, []
+    for b, (program, fp) in enumerate(plans):
+        sk, arrays = _program_split(program)
         if b == 0:
-            skeleton = sk
-        elif sk != skeleton:
+            skeleton, final = sk, fp
+        elif sk != skeleton or fp != final:
             raise QuESTError(
                 "batched drain: batch element %d's gate stream plans to a "
                 "different program skeleton than element 0 (value-dependent "
@@ -331,9 +333,21 @@ def _plan_batched_items(items, bsz: int, num_qubits: int, device,
                 "rank) — such submissions cannot share one batched program; "
                 "run them in separate ensemble groups" % b)
         per_elem.append(arrays)
-    stacked = [np.stack([np.asarray(per_elem[b][j]) for b in range(bsz)])
+    stacked = [np.stack([np.asarray(e[j]) for e in per_elem])
                for j in range(len(per_elem[0]))]
-    return _program_rebuild(skeleton, stacked)
+    return _program_rebuild(skeleton, stacked), final
+
+
+def _plan_batched_items(items, bsz: int, num_qubits: int, device,
+                        sweep_ok: bool):
+    """The program of a bank drain whose items carry per-element
+    matrices: each element is planned on its own (a controlled gate's
+    decomposition depends on its values; each element's plan is cached
+    as that element's scalar drain would cache it) and the plans are
+    stacked (``_stack_element_plans``)."""
+    return _stack_element_plans(
+        (_plan_optimized(_items_for_element(items, b), num_qubits, device,
+                         sweep_ok), None) for b in range(bsz))[0]
 
 
 def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool,
@@ -442,29 +456,42 @@ _device_programs: dict = {}
 
 
 def plan_items_sharded(items, n: int, nloc: int, perm0=None, device=None,
-                       sweep_ok: bool = False, optimize: bool = True):
+                       sweep_ok: bool = False, optimize: bool = True,
+                       batch_size: int = 0):
     """The (program, final_perm) a drain of ``items`` on an n-bit register
-    split into shards of nloc bits, starting from the live permutation
-    ``perm0``, executes: the optimized stream (with the sharded
-    reordering; ``optimize=False``: the stream as given) split into
-    remap, permutation, planned and channel parts, cached on the items'
-    content and ``perm0``."""
+    (or a bank of ``batch_size`` registers) split into shards of nloc
+    bits, starting from the live permutation ``perm0``, executes: the
+    optimized stream (with the sharded reordering; ``optimize=False``:
+    the stream as given) split into remap, permutation, planned and
+    channel parts, cached on the items' content and ``perm0``."""
     nsh = n - nloc
     if optimize:
         items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
                                             perm0=perm0)
-    return _plan_sharded(items, n, nloc, perm0, device, sweep_ok)[:2]
+    return _plan_sharded(items, n, nloc, perm0, device, sweep_ok,
+                         batch_size)[:2]
 
 
-def _plan_sharded(items, n, nloc, perm0, device, sweep_ok):
-    """(program, final_perm, key) of an optimized sharded item list."""
+def _plan_sharded(items, n, nloc, perm0, device, sweep_ok, bsz: int = 0):
+    """(program, final_perm, key) of an optimized sharded item list of
+    one register or of a bank of ``bsz``: under batch flag 2 each element
+    planned on its own from the live permutation (cached as its scalar
+    drain would be) and the plans stacked (``_stack_element_plans``),
+    the bank's program cached under its own key."""
     nsh = n - nloc
-    key = _plan_key(items, nloc, sweep_ok, device, (0, 0), perm0, nsh)
+    flag = batch_flag(items, bsz)
+    key = _plan_key(items, nloc, sweep_ok, device,
+                    (flag, bsz if flag == 2 else 0), perm0, nsh)
     hit = _plan_cache.get(key) if key is not None else None
     if hit is not None:
         return hit[0], hit[1], key
-    program, final_perm = _split_items_sharded(items, n, nloc, perm0,
-                                               sweep_ok, device)
+    if flag == 2:
+        program, final_perm = _stack_element_plans(
+            _plan_sharded(_items_for_element(items, b), n, nloc, perm0,
+                          device, sweep_ok)[:2] for b in range(bsz))
+    else:
+        program, final_perm = _split_items_sharded(items, n, nloc, perm0,
+                                                   sweep_ok, device)
     if key is not None:
         if len(_plan_cache) >= _PLAN_CACHE_MAX:
             _plan_cache.pop(next(iter(_plan_cache)))
@@ -501,17 +528,22 @@ def execute_sharded_program(amps, program, probs, nloc: int, key=None):
     """Run a sharded program on a ShardedAmps: each ("remap", sigma) part
     through the exchange layer (dist._remap_shards), counted per tier
     under op "window_remap" with the cost model's exchanges and bytes
-    (dist.remap_exchange_tiers), every other part through execute_program
-    at nloc bits, one op at a time on every shard in turn (a shard holds
-    at most its input and its output at once), on that shard's device
-    copy of the program (program_on_device, cached under ``key``).
-    Returns the ShardedAmps."""
+    (dist.remap_exchange_tiers; a bank's B times a register's, as the
+    JAX package counts them, quest_tpu/fusion.py:525-537), every other
+    part through execute_program at nloc bits, one op at a time on every
+    shard in turn (a shard holds at most its input and its output at
+    once), on that shard's device copy of the program (program_on_device,
+    cached under ``key``: the shards of one device share one upload and
+    one build of each pass's side images).  A bank's (B, 2, 2^nloc)
+    shards take each op whole (execute_plan's bank forms).  Returns the
+    ShardedAmps."""
     from .parallel import dist as PAR
     from .parallel import topology as _topo
 
     nsh = PAR.num_shard_bits(amps.mesh)
     ck = str(PAR.exchange_config_key() or "auto")
     topology = _topo.resolve(1 << nsh)
+    bw = max(amps.batch_size, 1)
     progs = {}
     for sh in amps.shards:
         dk = (sh.device, sh.dtype)
@@ -524,8 +556,8 @@ def execute_sharded_program(amps, program, probs, nloc: int, key=None):
             for tier, (cnt, b) in PAR.remap_exchange_tiers(
                     part[1], nloc, nsh, amps.itemsize, topology).items():
                 if cnt or b:
-                    PAR.record_exchange("window_remap", cnt, b, chunks=ck,
-                                        tier=tier)
+                    PAR.record_exchange("window_remap", cnt * bw, b * bw,
+                                        chunks=ck, tier=tier)
             amps = PAR._remap_shards(amps, part[1])
             continue
         count = _part_probs(part)
@@ -542,10 +574,11 @@ def execute_sharded_program(amps, program, probs, nloc: int, key=None):
 
 
 def _run_sharded(qureg, items) -> None:
-    """The drain of a sharded register: optimize (with the reordering the
-    exchange cost model scores), plan windows and remaps from the live
-    permutation, run the program under the exchange guard and leave the
-    final permutation on the register."""
+    """The drain of a sharded register or bank: optimize (with the
+    reordering the exchange cost model scores), plan windows and remaps
+    from the live permutation (a bank: one program for every element),
+    run the program under the exchange guard and leave the final
+    permutation on the register."""
     from .parallel import dist as PAR
 
     n = qureg.num_qubits_in_state_vec
@@ -553,13 +586,14 @@ def _run_sharded(qureg, items) -> None:
     nloc = n - nsh
     perm0 = qureg._perm
     amps = qureg._amps
+    bsz = int(getattr(qureg, "batch_size", 0) or 0)
     items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
                                         perm0=perm0)
     if not items:
         return  # everything cancelled: nothing runs, the perm stays
     sweep_ok = _fused.channel_sweep_enabled(amps.shards[0])
-    program, final_perm, key = _plan_sharded(items, n, nloc, perm0,
-                                             amps.device, sweep_ok)
+    program, final_perm, key = _plan_sharded(
+        items, n, nloc, perm0, amps.device, sweep_ok, bsz)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
     qureg._amps = PAR.guarded_dispatch(
         execute_sharded_program, amps, program, probs, nloc, key,

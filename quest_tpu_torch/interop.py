@@ -9,7 +9,9 @@ through ``rng_state_from_reference``.  A register's whole state, held
 in the physical order of its live logical->physical permutation (a
 sharded register's ``_perm``), moves both ways with the permutation
 (``load_register`` / ``register_state``): a sharded register is cut into
-its shards or read back from them.  This module imports neither
+its shards or read back from them, and a register bank
+(batch.BatchedQureg, on a mesh or not) moves as its (B, 2, 2^n) array
+under the bank's one permutation.  This module imports neither
 framework of the other side: it only sees NumPy arrays and dicts.
 """
 
@@ -45,13 +47,15 @@ def load_register(qureg, amps_np, perm=None) -> None:
     JAX package register's amplitudes as NumPy) held in the physical
     order of the logical->physical permutation ``perm`` (None: canonical),
     which the register keeps as its own: a sharded register is cut into
-    its shards, shard s taking indices [s 2^nloc, (s + 1) 2^nloc)."""
+    its shards, shard s taking indices [s 2^nloc, (s + 1) 2^nloc).  A
+    bank takes its (B, 2, 2^n) array, every element under ``perm``."""
     from .parallel import sharded as SH
 
     a = np.ascontiguousarray(np.asarray(amps_np))
-    if a.shape != (2, qureg.num_amps_total):
-        raise ValueError(f"expected a (2, {qureg.num_amps_total}) state, "
-                         f"got {a.shape}")
+    bsz = int(getattr(qureg, "batch_size", 0) or 0)
+    want = ((bsz,) if bsz else ()) + (2, qureg.num_amps_total)
+    if a.shape != want:
+        raise ValueError(f"expected a {want} state, got {a.shape}")
     if qureg.is_sharded:
         nloc = qureg.num_qubits_in_state_vec - qureg.shard_bits
         state = SH.split(qureg.env.mesh, a, nloc, qureg.dtype)
@@ -64,7 +68,8 @@ def load_register(qureg, amps_np, perm=None) -> None:
 
 def register_state(qureg, canonical: bool = False):
     """``(amps, perm)``: the register's whole state as a host (2, 2^n)
-    array and its live logical->physical permutation (None: canonical).
+    array (a bank's: (B, 2, 2^n)) and its live logical->physical
+    permutation (None: canonical).
     ``canonical=True`` restores canonical order first (one remap on a
     sharded register), so perm is None; otherwise the state is read in
     its physical order, pending fused gates drained."""

@@ -41,6 +41,15 @@ def neumaier_sum(vals) -> float:
     device, or host numbers), in order: the serial combine of the JAX
     package's ``neumaier_sum`` (a ``lax.scan``), step for step in IEEE
     float64 on the host after one copy."""
+    s, c = neumaier_pair(vals)
+    return float(s + c)
+
+
+def neumaier_pair(vals):
+    """Neumaier's sum of ``vals`` as its (sum, compensation) pair, not
+    yet rounded to one float64: a double-double value that a later
+    combine can carry on (a shard's term value of the sharded quad Pauli
+    scan, parallel/composites.py)."""
     if torch.is_tensor(vals):
         vals = vals.detach().reshape(-1).cpu().numpy()
     vals = np.asarray(vals, dtype=np.float64).reshape(-1)
@@ -49,7 +58,7 @@ def neumaier_sum(vals) -> float:
         t = s + v
         c = c + (((s - t) + v) if abs(s) >= abs(v) else ((v - t) + s))
         s = t
-    return float(s + c)
+    return s, c
 
 
 def _quad_partials(x):
@@ -63,10 +72,50 @@ def _quad_partials(x):
     return partials
 
 
+def quad_layout(total: int) -> Tuple[int, int]:
+    """(values per first-level block, first-level blocks per final
+    partial) of ``_quad_partials`` over ``total`` values: a register
+    split into shards computes each shard's share of the same partials
+    (parallel/sharded.quad_sum_pieces)."""
+    nb = max(1, total // _QUAD_BLOCK)
+    return total // nb, (nb // _QUAD_BLOCK if nb > _QUAD_BLOCK else 1)
+
+
+def quad_partials_piece(piece, total: int):
+    """The share of ``_quad_partials`` of a ``total``-value vector that a
+    contiguous run ``piece`` of it holds, when the run holds whole final
+    partials (a shard of R <= 256: 256 / R of them), each summed as the
+    whole vector's route sums it; a run shorter than one partial's span
+    (a small register split over many shards) is one partial of its
+    own."""
+    piece = piece.reshape(-1)
+    bs, top = quad_layout(total)
+    m = piece.numel()
+    if m == 0:
+        return piece
+    if m % (bs * top):
+        return piece.sum().reshape(1)
+    partials = piece.reshape(-1, bs).sum(dim=1)
+    if top > 1:
+        partials = partials.reshape(-1, top).sum(dim=1)
+    return partials
+
+
+def quad_slots(max_piece: int, total: int) -> int:
+    """The partials of the longest run of ``max_piece`` values."""
+    bs, top = quad_layout(total)
+    return max(1, max_piece // (bs * top))
+
+
 def quad_sum(x) -> float:
     """Double-double compensated sum of a tensor (QuEST_PREC=4): block
     partials on the tensor's device, their Neumaier combine on the host."""
     return neumaier_sum(_quad_partials(x))
+
+
+def quad_sum_dd(x):
+    """quad_sum as its (sum, compensation) pair (neumaier_pair)."""
+    return tuple(float(v) for v in neumaier_pair(_quad_partials(x)))
 
 
 def quad_sum2(x, y) -> float:

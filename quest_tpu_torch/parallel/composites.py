@@ -44,6 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops import calculations as CALC
 from ..ops import cplx, kernels
 from ..ops import paulis as P
 from . import dist as PAR
@@ -234,14 +235,21 @@ def _trotter_scan_sharded(amps, codes_seq, angles, *, num_qubits,
 
 
 def expec_pauli_sum_scan_sharded(amps: ShardedAmps, codes_seq, coeffs, *,
-                                 num_qubits: int,
+                                 num_qubits: int, quad: bool = False,
                                  chunks: Optional[int] = None):
     """Re <psi| sum_t c_t P_t |psi> on a sharded state vector: per term
     Re <psi|P|psi> from the direct form (one composed permute at most) or
     the rotate-layer body (r exchanges), each shard's partial weighted and
     accumulated, and one sum over the mesh at the end (the reference's
     local reduce and MPI_Allreduce, QuEST_cpu_distributed.c:35-51).
-    Counted under "expec".  Returns a 0-d tensor of the state's type."""
+    Counted under "expec".  Returns a 0-d tensor of the state's type.
+    ``quad`` (precision 4): each shard's term values in double-double,
+    one all_gather of the (T,) values and a Neumaier combine over the
+    (T, R) grid in the reference's order (quest_tpu/parallel/dist.py:
+    1134-1144): a float64 host tensor (``quad_term_grid``).  A shard's
+    value travels as its unrounded (sum, compensation) pairs, so a
+    cancellation across shards keeps what one register's route keeps
+    (the reference rounds each shard's value to one float64 first)."""
     mesh = amps.mesh
     r = PAR.num_shard_bits(mesh)
     nloc = num_qubits - r
@@ -264,23 +272,52 @@ def expec_pauli_sum_scan_sharded(amps: ShardedAmps, codes_seq, coeffs, *,
         _expec_pauli_sum_scan_sharded, amps, np.asarray(codes_seq),
         np.asarray(coeffs, np.float64), op="expec",
         shards=PAR.amp_axis_size(mesh), consumes=False,
-        num_qubits=num_qubits, chunks=int(chunks))
+        num_qubits=num_qubits, chunks=int(chunks), quad=bool(quad))
+
+
+def _dd_term(c, *channels):
+    """One shard's double-double value of one term: the coefficient
+    times each channel's (sum, compensation) pair, in order."""
+    return [float(c) * v for x in channels for v in CALC.quad_sum_dd(x)]
+
+
+def quad_term_grid(amps: ShardedAmps, vals) -> torch.Tensor:
+    """The quad combine of per-shard term values: ``vals[k]`` is local
+    shard k's (T, p) values (the coefficient times each channel's
+    double-double pair, ``_dd_term``; p = 1 for plain values); one
+    all_gather gives the (R, T, p) grid in shard order, and a Neumaier
+    sum runs over it term by term, shard by shard (the reference's
+    ``neumaier_sum(g.T.reshape(-1))``).  A float64 host tensor."""
+    mesh = amps.mesh
+    parts = [torch.as_tensor(v, dtype=torch.float64) for v in vals]
+    width = parts[0].reshape(parts[0].shape[0], -1).shape[1]
+    g = mesh.all_gather([p.reshape(1, -1, width).to(
+        mesh.device_of(mesh.local[0])) for p in parts])
+    return torch.tensor(CALC.neumaier_sum(g.transpose(0, 1).reshape(-1)),
+                        dtype=torch.float64)
 
 
 def _expec_pauli_sum_scan_sharded(amps, codes_seq, coeffs, *, num_qubits,
-                                  chunks):
+                                  chunks, quad=False):
     nloc = amps.nloc
     dt = amps.dtype
     real = _np_dtype(amps)
     hi, lo = P._split(nloc)
     acc = [torch.zeros((), dtype=dt, device=s.device) for s in amps.shards]
     if nloc <= P._DIRECT_MAX_N:
+        qvals = [[] for _ in amps.shards]
         for codes, c in zip(codes_seq, coeffs):
             parts = _apply_pauli_sharded(amps, P.pauli_term(codes, dtype=dt))
             for k, (pr, pi) in enumerate(parts):
                 x = amps.shards[k].reshape(2, 1 << hi, 1 << lo)
+                if quad:
+                    qvals[k].append(_dd_term(real(c), x[0] * pr,
+                                             x[1] * pi))
+                    continue
                 v = torch.sum(x[0] * pr + x[1] * pi)
                 acc[k] = acc[k] + float(real(c)) * v
+        if quad:
+            return quad_term_grid(amps, qvals)
         return amps.mesh.sum(acc)
     chunks = min(PAR._pow2_floor(chunks), 1 << nloc)
 
@@ -296,12 +333,21 @@ def _expec_pauli_sum_scan_sharded(amps, codes_seq, coeffs, *, num_qubits,
             s_row, s_lane = kernels.parity_sign_factors(
                 nloc, [b for b in range(nloc) if (zm_loc >> b) & 1], dt,
                 f.device, lo=lo)
-            v = torch.sum(s_row * s_lane * (f[0] * f[0] + f[1] * f[1]))
+            sign = s_row * s_lane
+            if quad:
+                v = torch.tensor(_dd_term(1.0, sign * f[0] * f[0],
+                                          sign * f[1] * f[1]), dtype=dt)
+            else:
+                v = torch.sum(sign * (f[0] * f[0] + f[1] * f[1]))
             out.append(_shard_parity_sign(s, szm) * v.to(acc[0].device))
         return torch.stack(out)
 
     value = P.make_expec_term_value(real, num_qubits, layer=layer,
                                     signed_norm=signed_norm)
+    if quad:
+        grid = torch.stack([value(amps, codes, c)
+                            for codes, c in zip(codes_seq, coeffs)], dim=1)
+        return quad_term_grid(amps, list(grid))
     total = torch.zeros(len(acc), dtype=dt, device=acc[0].device)
     for codes, c in zip(codes_seq, coeffs):
         total = total + value(amps, codes, c)
@@ -329,58 +375,74 @@ def _terms(codes_flat, num_qubits: int, num_terms: int, dt):
 
 def expec_pauli_sum_statevec_sharded(amps: ShardedAmps, coeffs, *,
                                      num_qubits: int, codes_flat,
-                                     num_terms: int):
+                                     num_terms: int, quad: bool = False):
     """calcExpecPauliProd on a sharded state vector (the reference's
     calc_expec_pauli_sum_statevec under GSPMD): per term the direct
-    form's per-shard partials, one sum over the mesh per term."""
+    form's per-shard partials, one sum over the mesh per term (``quad``:
+    per-shard double-double term values and quad_term_grid)."""
     terms = _terms(codes_flat, num_qubits, num_terms, amps.dtype)
     _record_pauli(amps, terms)
     return PAR.guarded_dispatch(_expec_terms_sv, amps, terms,
-                                np.asarray(coeffs, np.float64), op="pauli",
+                                np.asarray(coeffs, np.float64), quad,
+                                op="pauli",
                                 shards=PAR.amp_axis_size(amps.mesh),
                                 consumes=False)
 
 
-def _expec_terms_sv(amps, terms, coeffs):
+def _expec_terms_sv(amps, terms, coeffs, quad=False):
     hi, lo = P._split(amps.nloc)
     real = _np_dtype(amps)
-    vals = []
+    vals, qvals = [], [[] for _ in amps.shards]
     for term, c in zip(terms, coeffs):
         parts = []
         for k, (pr, pi) in enumerate(_apply_pauli_sharded(amps, term)):
             x = amps.shards[k].reshape(2, 1 << hi, 1 << lo)
+            if quad:
+                qvals[k].append(_dd_term(real(c), x[0] * pr, x[1] * pi))
+                continue
             parts.append(torch.sum(x[0] * pr + x[1] * pi))
-        vals.append(float(real(c)) * amps.mesh.sum(parts))
+        if not quad:
+            vals.append(float(real(c)) * amps.mesh.sum(parts))
+    if quad:
+        return quad_term_grid(amps, qvals)
     return torch.sum(torch.stack(vals))
 
 
 def expec_pauli_sum_density_sharded(amps: ShardedAmps, coeffs, *,
                                     num_qubits: int, codes_flat,
-                                    num_terms: int):
+                                    num_terms: int, quad: bool = False):
     """Re Tr(rho sum_t c_t P_t) on a sharded density register: P on the
     ket qubits of each shard (a permute only where a ket bit is a mesh
     bit), then the real part of the diagonal entries each shard holds,
-    one sum over the mesh per term (calc_expec_pauli_sum_density)."""
+    one sum over the mesh per term (calc_expec_pauli_sum_density;
+    ``quad``: per-shard double-double traces and quad_term_grid)."""
     terms = _terms(codes_flat, num_qubits, num_terms, amps.dtype)
     _record_pauli(amps, terms)
     return PAR.guarded_dispatch(_expec_terms_dm, amps, terms,
                                 np.asarray(coeffs, np.float64),
-                                num_qubits, op="pauli",
+                                num_qubits, quad, op="pauli",
                                 shards=PAR.amp_axis_size(amps.mesh),
                                 consumes=False)
 
 
-def _expec_terms_dm(amps, terms, coeffs, nq):
+def _expec_terms_dm(amps, terms, coeffs, nq, quad=False):
     real = _np_dtype(amps)
     offsets = shard_offsets(amps)
     idx = [_diag_index(amps, lo, nq, amps.shards[k].device)
            for k, lo in offsets]
-    vals = []
+    vals, qvals = [], [[] for _ in amps.shards]
     for term, c in zip(terms, coeffs):
         parts = []
         for k, (pr, _pi) in enumerate(_apply_pauli_sharded(amps, term)):
-            parts.append(torch.sum(pr.reshape(-1)[idx[k]]))
-        vals.append(float(real(c)) * amps.mesh.sum(parts))
+            d = pr.reshape(-1)[idx[k]]
+            if quad:
+                qvals[k].append(_dd_term(real(c), d))
+                continue
+            parts.append(torch.sum(d))
+        if not quad:
+            vals.append(float(real(c)) * amps.mesh.sum(parts))
+    if quad:
+        return quad_term_grid(amps, qvals)
     return torch.sum(torch.stack(vals))
 
 

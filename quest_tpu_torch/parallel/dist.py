@@ -303,8 +303,9 @@ def _hypercube_perm(ndev: int, bit: int):
 
 
 def _shard_payload_bytes(amps: ShardedAmps) -> int:
-    """Bytes of one shard: the full-shard exchange payload."""
-    return 2 * (1 << amps.nloc) * amps.itemsize
+    """Bytes of one shard: the full-shard exchange payload (a bank's
+    shard holds every element's slice: B times a register's)."""
+    return 2 * (1 << amps.nloc) * amps.itemsize * max(amps.batch_size, 1)
 
 
 def _backend(amps: ShardedAmps) -> str:
@@ -312,8 +313,9 @@ def _backend(amps: ShardedAmps) -> str:
 
 
 def _chunk(view: torch.Tensor, i: int, chunks: int) -> torch.Tensor:
-    """Chunk ``i`` of ``chunks`` of a (2, hi, lo) view, splitting its
-    flattened (hi, lo) index into equal contiguous ranges."""
+    """Chunk ``i`` of ``chunks`` of a (c, hi, lo) view (c = 2, or 2B for
+    a bank's shard), splitting its flattened (hi, lo) index into equal
+    contiguous ranges."""
     hi, lo = int(view.shape[1]), int(view.shape[2])
     if chunks <= hi:
         step = hi // chunks
@@ -328,7 +330,8 @@ def exchange_pipelined(mesh: Mesh, sends: Sequence[torch.Tensor], pairs,
                        combine, *, chunks: int) -> None:
     """Chunked exchange over the local shards, in place.
 
-    ``sends[k]`` is a (2, hi, lo) view of local shard ``mesh.local[k]``:
+    ``sends[k]`` is a (c, hi, lo) view of local shard ``mesh.local[k]``
+    (c = 2, or 2B: a bank's elements move in the same transfer):
     the data it sends along ``pairs`` and the place its result goes.  For
     each chunk i in order, every shard's chunk i is copied into a receive
     buffer on its destination before any shard writes, then
@@ -364,7 +367,8 @@ def _swap_halves(mesh: Mesh, shards: List[torch.Tensor], lb: int, mb: int,
     _contiguous(shards)
     for k, s in enumerate(mesh.local):
         u = (s >> mb) & 1
-        lv = shards[k].view(2, 1 << (nloc - 1 - lb), 2, 1 << lb)
+        # a bank's (B, 2, 2^nloc) shard: every element's half in one view
+        lv = shards[k].view(-1, 1 << (nloc - 1 - lb), 2, 1 << lb)
         views.append(lv[:, :, 1 - u, :])
     exchange_pipelined(mesh, views, _hypercube_perm(mesh.axis_size, mb),
                        lambda i, k, own, rv: rv, chunks=chunks)
@@ -578,12 +582,24 @@ def remap_exchange_tiers(sigma: Tuple[int, ...], nloc: int, r: int,
 
 
 def remap_chunk_plan(nloc: int, itemsize: int = 8,
-                     backend: Optional[str] = None) -> Tuple[int, int]:
+                     backend: Optional[str] = None,
+                     batch: int = 0) -> Tuple[int, int]:
     """(half-shard chunks, full-shard chunks) for one shard of
-    ``2 * 2^nloc * itemsize`` bytes."""
-    nbytes = 2 * (1 << nloc) * itemsize
+    ``2 * 2^nloc * itemsize`` bytes, or of a bank of ``batch`` elements
+    (B times the bytes: the bank's elements move in one transfer)."""
+    nbytes = 2 * (1 << nloc) * itemsize * max(int(batch), 1)
     return (exchange_chunks(nbytes // 2, backend=backend),
             exchange_chunks(nbytes, backend=backend))
+
+
+def _permute_local(shard: torch.Tensor, nloc: int, perm) -> torch.Tensor:
+    """kernels.permute_qubits on one shard; a bank's (B, 2, 2^nloc) shard
+    with the batch axis kept in front (each element the same relabel,
+    exact)."""
+    if shard.dim() == 3:
+        return torch.vmap(lambda a: kernels.permute_qubits(
+            a, num_qubits=nloc, perm=perm))(shard)
+    return kernels.permute_qubits(shard, num_qubits=nloc, perm=perm)
 
 
 def _remap_shards(amps: ShardedAmps, sigma: Tuple[int, ...],
@@ -591,7 +607,10 @@ def _remap_shards(amps: ShardedAmps, sigma: Tuple[int, ...],
     """Apply ``sigma`` to every shard: the mixed half-shard swaps, the
     per-shard axis permutation, then the composed shard-index permute
     (decompose_sigma).  Shared by remap_sharded and the drain's
-    ("remap", sigma) parts."""
+    ("remap", sigma) parts.  A bank's shards remap every element with the
+    same sigma, each exchange moving all B slices at once (the JAX
+    package's vmap inside one shard_map, quest_tpu/parallel/dist.py
+    _remap_sharded), chunked over the bank's bytes."""
     mesh = amps.mesh
     ndev = mesh.axis_size
     r = num_shard_bits(mesh)
@@ -603,7 +622,8 @@ def _remap_shards(amps: ShardedAmps, sigma: Tuple[int, ...],
         # transpositions touch disjoint bit pairs, so the state is the same
         mixed = tuple(sorted(mixed, key=lambda lm: lm[1] < t.ici_bits))
     if chunks is None:
-        chunks = remap_chunk_plan(nloc, amps.itemsize, _backend(amps))
+        chunks = remap_chunk_plan(nloc, amps.itemsize, _backend(amps),
+                                  amps.batch_size)
     ch_half = min(_pow2_floor(chunks[0]), 1 << max(nloc - 1, 0))
     ch_full = min(_pow2_floor(chunks[1]), 1 << nloc)
     for lb, mb in mixed:
@@ -612,8 +632,8 @@ def _remap_shards(amps: ShardedAmps, sigma: Tuple[int, ...],
         # one shard at a time: a shard's old tensor is freed before the
         # next shard's transpose allocates
         for k in range(len(amps.shards)):
-            amps.shards[k] = kernels.permute_qubits(
-                amps.shards[k], num_qubits=nloc, perm=local_perm)
+            amps.shards[k] = _permute_local(amps.shards[k], nloc,
+                                            local_perm)
     if mesh_tau is not None:
         def dest(i):
             j = 0
@@ -623,7 +643,7 @@ def _remap_shards(amps: ShardedAmps, sigma: Tuple[int, ...],
 
         _contiguous(amps.shards)
         exchange_pipelined(
-            mesh, [s.view(2, 1, -1) for s in amps.shards],
+            mesh, [s.view(-1, 1, 1 << nloc) for s in amps.shards],
             [(i, dest(i)) for i in range(ndev)],
             lambda i, k, own, rv: rv, chunks=ch_full)
     return amps
@@ -633,7 +653,9 @@ def remap_sharded(amps: ShardedAmps, *, num_qubits: int,
                   sigma: Tuple[int, ...],
                   chunks: Optional[Tuple[int, int]] = None) -> ShardedAmps:
     """One batched physical bit permutation of a sharded register, counted
-    per tier under op "remap".  The input is consumed."""
+    per tier under op "remap" (a bank's counts and bytes B times a
+    register's, as the JAX package counts them, though its elements move
+    in one transfer).  The input is consumed."""
     mesh = amps.mesh
     nloc = amps.nloc
     if chunks is None:
@@ -641,9 +663,12 @@ def remap_sharded(amps: ShardedAmps, *, num_qubits: int,
         chunks = (exchange_chunks(nbytes // 2, backend=_backend(amps)),
                   exchange_chunks(nbytes, backend=_backend(amps)))
     assert num_qubits == nloc + num_shard_bits(mesh)
+    bw = max(amps.batch_size, 1)
     tiers = remap_exchange_tiers(tuple(sigma), nloc, num_shard_bits(mesh),
                                  amps.itemsize, mesh_topology(mesh))
-    _record_exchange_tiers("remap", tiers, str(tuple(chunks)))
+    _record_exchange_tiers("remap", {k: (c * bw, b * bw)
+                                     for k, (c, b) in tiers.items()},
+                           str(tuple(chunks)))
     return guarded_dispatch(
         _remap_shards, amps, tuple(sigma),
         (int(chunks[0]), int(chunks[1])), op="remap",

@@ -19,9 +19,16 @@ operations, with two backends:
 
 Shard lists are always aligned with ``mesh.local``, the shard indices this
 process holds (all R in process, its own rank under torch.distributed).
-``ShardedAmps`` is the carrier a sharded register holds; a function that
-has no sharded form and is handed one raises a QuESTError instead of
-gathering the register.
+``ShardedAmps`` is the carrier a sharded register holds, or a sharded
+register bank (``batch.BatchedQureg``), whose shards are ``(B, 2,
+2^nloc)``: every element's slice of the same global index range, the
+batch axis outermost.  It is not a tensor: arithmetic, indexing or a
+NumPy conversion raises a QuESTError naming what to call instead,
+rather than gathering the register.
+
+The models (``models/vqe.py``, ``models/qaoa.py``) differentiate through
+a mesh: ``exchange``, ``sum_grad`` and ``replicate`` are the
+out-of-place, autograd-aware forms of ``permute`` and ``sum``.
 """
 
 from __future__ import annotations
@@ -31,9 +38,6 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..validation import QuESTError
-
-# the slice that brings the sharded forms a carrier refuses
-PENDING_SLICE = "M15c"
 
 
 def _api_caller() -> Optional[str]:
@@ -52,15 +56,17 @@ def _api_caller() -> Optional[str]:
 
 
 def refusal(what: str) -> QuESTError:
-    """The error an operation without a sharded form raises, naming the
-    API function that reached it."""
+    """The error a tensor operation on sharded amplitudes raises, naming
+    the API function that reached it and what to call instead."""
     caller = _api_caller()
     if caller is not None:
         what = f"{caller}: {what}"
     return QuESTError(
-        f"{what}: this operation has no sharded form yet on a register "
-        f"split over several shards; it arrives with slice {PENDING_SLICE}. "
-        "Use a one-shard env (createQuESTEnv(device=...)) for it.")
+        f"{what}: the amplitudes of a register split over several shards "
+        "are a carrier of its shard tensors, not a tensor; read them "
+        "through the API's read functions (calcTotalProb, getAmp, "
+        "calcInnerProduct, ...), or take a host copy of the whole state "
+        "with interop.register_state(qureg, canonical=True).")
 
 
 class Mesh:
@@ -114,6 +120,26 @@ class Mesh:
     def describe(self) -> str:
         raise NotImplementedError
 
+    # -- the differentiable forms (the models' state on a mesh) ----------
+
+    def exchange(self, sends: Sequence[torch.Tensor],
+                 pairs: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+        """``permute`` out of place and under autograd: the gradient of
+        what a shard received flows back to its sender (the reverse
+        exchange)."""
+        raise NotImplementedError
+
+    def sum_grad(self, partials: Sequence[torch.Tensor]) -> torch.Tensor:
+        """``sum`` under autograd: every shard's partial receives the
+        gradient of the (replicated) total."""
+        raise NotImplementedError
+
+    def replicate(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, a tensor every process holds alike (the parameters),
+        as the shards' operand: its gradient is summed over every
+        process's shards."""
+        raise NotImplementedError
+
 
 class InProcessMesh(Mesh):
     """R shards held by this process, shard s on ``devices[s]``."""
@@ -154,6 +180,17 @@ class InProcessMesh(Mesh):
     def describe(self) -> str:
         names = sorted({str(d) for d in self.devices})
         return f"in-process x{len(self.devices)} on {','.join(names)}"
+
+    # one autograd graph holds every shard: .to() and + are differentiable
+
+    def exchange(self, sends, pairs):
+        return self.permute(sends, pairs)
+
+    def sum_grad(self, partials):
+        return self.sum(partials)
+
+    def replicate(self, t):
+        return t
 
 
 class DistMesh(Mesh):
@@ -235,6 +272,61 @@ class DistMesh(Mesh):
         return (f"torch.distributed x{len(self.devices)} "
                 f"({dist.get_backend(self.group)}) on {self.device}")
 
+    # every rank runs the same graph, so the backward passes' collectives
+    # meet in the same order on every rank
+
+    def exchange(self, sends, pairs):
+        return [_DistExchange.apply(sends[0], self, tuple(pairs))]
+
+    def sum_grad(self, partials):
+        return _DistSum.apply(partials[0].to(self.device), self)
+
+    def replicate(self, t):
+        return _DistReplicate.apply(t, self)
+
+
+class _DistExchange(torch.autograd.Function):
+    """A rank's part of a pairwise exchange; backward sends each received
+    gradient back to its sender."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pairs):
+        ctx.mesh, ctx.pairs = mesh, pairs
+        return mesh.permute([x], pairs)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        back = tuple((dst, src) for src, dst in ctx.pairs)
+        return ctx.mesh.permute([g.contiguous()], back)[0], None, None
+
+
+class _DistSum(torch.autograd.Function):
+    """all_reduce of the partials; each rank's partial takes the gradient
+    of the total that every rank holds alike (one loss, seeded on every
+    rank), unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.sum([x])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _DistReplicate(torch.autograd.Function):
+    """Identity forward; backward sums the gradient over the ranks, so
+    every rank's copy of the parameters gets the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.sum([g]), None
+
 
 class _LostShards:
     """The shard list of a register whose in-place exchange failed part
@@ -255,13 +347,15 @@ class _LostShards:
 
 class ShardedAmps:
     """The amplitudes of a register split over a mesh: ``shards`` holds
-    the local shards' ``(2, 2^nloc)`` tensors, aligned with ``mesh.local``.
+    the local shards' ``(2, 2^nloc)`` tensors, aligned with ``mesh.local``
+    (a bank's: ``(B, 2, 2^nloc)``, ``batch_size`` B).
 
     It carries the metadata the drain and the reads need (``dtype``,
-    ``device``, ``nloc``) and nothing of a tensor's interface: a torch
-    function, an indexing, a NumPy conversion or any other tensor
-    attribute raises a QuESTError naming the slice that brings the
-    operation's sharded form, so nothing gathers a register silently."""
+    ``device``, ``nloc``, ``itemsize``, ``batch_size``) and nothing of a
+    tensor's interface: a torch function, an indexing, a NumPy conversion
+    or any other tensor attribute raises a QuESTError naming the read
+    functions and ``interop.register_state``, so nothing gathers a
+    register silently."""
 
     __slots__ = ("mesh", "shards")
 
@@ -287,7 +381,19 @@ class ShardedAmps:
 
     @property
     def itemsize(self) -> int:
+        """Bytes of one real value (an element's shard holds 2 x 2^nloc)."""
         return self.shards[0].element_size()
+
+    @property
+    def batch_size(self) -> int:
+        """B of a bank's (B, 2, 2^nloc) shards; 0 for one register."""
+        sh = self.shards[0]
+        return int(sh.shape[0]) if sh.dim() == 3 else 0
+
+    def element(self, i: int) -> "ShardedAmps":
+        """Bank element ``i`` as a register's ShardedAmps (views of the
+        bank's shards)."""
+        return ShardedAmps(self.mesh, [s[int(i)] for s in self.shards])
 
     def __getattr__(self, name):
         raise refusal(f"tensor attribute {name!r} of sharded amplitudes")
@@ -325,5 +431,6 @@ class ShardedAmps:
         raise refusal(f"torch.{name} on sharded amplitudes")
 
     def __repr__(self) -> str:
+        bank = f"{self.batch_size} x " if self.batch_size else ""
         return (f"ShardedAmps({self.mesh.axis_size} shards of "
-                f"2^{self.nloc}, {self.dtype})")
+                f"{bank}2^{self.nloc}, {self.dtype})")

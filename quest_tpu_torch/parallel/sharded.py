@@ -7,6 +7,18 @@ over the mesh (``Mesh.sum``), the reference's local reduce plus
 MPI_Allreduce (QuEST_cpu_distributed.c:1308-1322).  The reads run on
 canonical-order amplitudes (the register's ``amps`` getter restores the
 order first, as the JAX package's getter does).
+
+At quad precision (``set_precision(4)``) a read takes each shard's share
+of the one-register route's double-double block partials
+(calculations.quad_partials_piece), gathers them in shard order
+(``Mesh.all_gather``) and runs one Neumaier combine on the host, so the
+value is the one-register quad route's (``quad_sum_pieces``).
+
+A register bank on a mesh (batch.BatchedQureg) holds ``(B, 2, 2^nloc)``
+shards: ``broadcast_bank`` lifts one state to every element (the init
+family), ``prob_of_outcome_bank`` takes every element's probability in
+one sum over the mesh, ``collapse_drawn_bank`` collapses each element
+onto its own outcome.
 """
 
 from __future__ import annotations
@@ -94,12 +106,21 @@ def sparse(mesh, nloc, dtype, indices, res, ims) -> ShardedAmps:
 
 
 def split(mesh: Mesh, full, nloc: int, dtype) -> ShardedAmps:
-    """A whole (2, 2^n) state (tensor or NumPy) cut into the local
-    shards, each copied to its device."""
+    """A whole (2, 2^n) state, or (B, 2, 2^n) bank, (tensor or NumPy)
+    cut into the local shards, each copied to its device."""
     if not torch.is_tensor(full):
         full = torch.from_numpy(np.array(full))
     return from_fn(mesh, nloc, dtype, lambda lo, m, dt, dev: full[
-        :, lo:lo + m].to(device=dev, dtype=dt, copy=True))
+        ..., lo:lo + m].to(device=dev, dtype=dt, copy=True))
+
+
+def broadcast_bank(amps: ShardedAmps, batch: int) -> ShardedAmps:
+    """One register's sharded state as the state of every element of a
+    bank of ``batch``: each shard lifted to (B, 2, 2^nloc) (the init
+    family writes one state for all elements, batch.BatchedQureg)."""
+    return ShardedAmps(amps.mesh, [
+        s.unsqueeze(0).expand((int(batch),) + tuple(s.shape)).contiguous()
+        for s in amps.shards])
 
 
 def pure_density(mesh: Mesh, psi: torch.Tensor, num_qubits: int, nloc: int,
@@ -135,6 +156,185 @@ def set_range(amps: ShardedAmps, start: int, vals) -> None:
 
 def _sum(amps: ShardedAmps, partials: Sequence[torch.Tensor]):
     return amps.mesh.sum(list(partials))
+
+
+def quad_sum_pieces(mesh: Mesh, pieces: Sequence[torch.Tensor], total: int,
+                    max_piece: int) -> float:
+    """The double-double sum of a ``total``-value vector whose values the
+    local shards hold as contiguous runs ``pieces`` (in global order,
+    shard after shard; a shard may hold none): each shard's share of the
+    one-register block partials (calculations.quad_partials_piece), zero
+    padded to the partials of the longest run, ``max_piece`` values (the
+    same on every process), all gathered in shard order and combined by
+    one Neumaier sum on the host.  A zero is an exact no-op of the
+    Neumaier step, so the value is the one-register quad route's
+    wherever each shard holds whole partials."""
+    slots = CALC.quad_slots(int(max_piece), int(total))
+    parts = []
+    for p in pieces:
+        q = CALC.quad_partials_piece(p, total)
+        parts.append(torch.nn.functional.pad(q, (0, slots - q.numel())))
+    return CALC.neumaier_sum(mesh.all_gather(parts))
+
+
+def _quad2(amps: ShardedAmps, xs, ys, total: int, max_piece: int) -> float:
+    """quad_sum_pieces of two channels, each its own compensated sum
+    (calculations.quad_sum2)."""
+    return (quad_sum_pieces(amps.mesh, xs, total, max_piece)
+            + quad_sum_pieces(amps.mesh, ys, total, max_piece))
+
+
+def _diag_count(lo: int, m: int, num_qubits: int) -> int:
+    """How many density diagonal entries the shard [lo, lo + m) holds."""
+    dim = 1 << num_qubits
+    d0 = -(-lo // (dim + 1))
+    d1 = (lo + m - 1) // (dim + 1)
+    return max(0, d1 - d0 + 1)
+
+
+def _diag_max(amps: ShardedAmps, num_qubits: int) -> int:
+    """The most diagonal entries any shard of the mesh holds."""
+    m = 1 << amps.nloc
+    return max(_diag_count(s * m, m, num_qubits)
+               for s in range(amps.mesh.axis_size))
+
+
+def total_prob_quad(amps: ShardedAmps, density: bool = False,
+                    num_qubits: int = 0) -> float:
+    """calcTotalProb at quad precision, shard by shard."""
+    if density:
+        return quad_sum_pieces(
+            amps.mesh, [_diag_entries(amps, k, lo, num_qubits)[0]
+                        for k, lo in shard_offsets(amps)],
+            1 << num_qubits, _diag_max(amps, num_qubits))
+    m = 1 << amps.nloc
+    total = m * amps.mesh.axis_size
+    return _quad2(amps, [s[0] * s[0] for s in amps.shards],
+                  [s[1] * s[1] for s in amps.shards], total, m)
+
+
+def prob_of_outcome_quad(amps: ShardedAmps, target: int, outcome: int,
+                         density: bool = False, num_qubits: int = 0) -> float:
+    """calcProbOfOutcome at quad precision: the half of the index space
+    (or of the density diagonal) whose target bit is ``outcome``, each
+    shard's run of it in global order."""
+    nloc = amps.nloc
+    if density:
+        pieces = []
+        for k, lo in shard_offsets(amps):
+            v, d = _diag_entries(amps, k, lo, num_qubits)
+            pieces.append(v[((d >> target) & 1) == outcome])
+        return quad_sum_pieces(amps.mesh, pieces, 1 << (num_qubits - 1),
+                               _diag_max(amps, num_qubits))
+    m = 1 << nloc
+    total = m * amps.mesh.axis_size // 2
+    xs, ys = [], []
+    for k, s in enumerate(amps.mesh.local):
+        sh = amps.shards[k]
+        if target < nloc:
+            half = sh.reshape(2, 1 << (nloc - 1 - target), 2,
+                              1 << target)[:, :, int(outcome), :]
+        elif ((s >> (target - nloc)) & 1) == outcome:
+            half = sh
+        else:
+            half = sh[:, :0]
+        xs.append(half[0] * half[0])
+        ys.append(half[1] * half[1])
+    return _quad2(amps, xs, ys, total, m)
+
+
+def inner_product_quad(bra: ShardedAmps, ket: ShardedAmps):
+    """<bra|ket> at quad precision as (re, im) floats."""
+    m = 1 << bra.nloc
+    total = m * bra.mesh.axis_size
+    pairs = [(a, b.to(a.device)) for a, b in zip(bra.shards, ket.shards)]
+    re = _quad2(bra, [a[0] * b[0] for a, b in pairs],
+                [a[1] * b[1] for a, b in pairs], total, m)
+    im = _quad2(bra, [a[0] * b[1] for a, b in pairs],
+                [-(a[1] * b[0]) for a, b in pairs], total, m)
+    return re, im
+
+
+def density_inner_product_quad(a: ShardedAmps, b: ShardedAmps) -> float:
+    m = 1 << a.nloc
+    total = m * a.mesh.axis_size
+    pairs = [(x, y.to(x.device)) for x, y in zip(a.shards, b.shards)]
+    return _quad2(a, [x[0] * y[0] for x, y in pairs],
+                  [x[1] * y[1] for x, y in pairs], total, m)
+
+
+def purity_quad(a: ShardedAmps) -> float:
+    m = 1 << a.nloc
+    return _quad2(a, [x[0] * x[0] for x in a.shards],
+                  [x[1] * x[1] for x in a.shards], m * a.mesh.axis_size, m)
+
+
+def hilbert_schmidt_distance_quad(a: ShardedAmps, b: ShardedAmps) -> float:
+    m = 1 << a.nloc
+    ds = [x - y.to(x.device) for x, y in zip(a.shards, b.shards)]
+    return math.sqrt(_quad2(a, [d[0] * d[0] for d in ds],
+                            [d[1] * d[1] for d in ds],
+                            m * a.mesh.axis_size, m))
+
+
+def fidelity_density_quad(rho: ShardedAmps, psi: torch.Tensor,
+                          num_qubits: int) -> float:
+    """<psi|rho|psi> at quad precision in the elementwise form of
+    calculations.calc_fidelity_density: every signed term
+    Re[conj(psi_r) rho_rc psi_c] of the shard's entries (flat index
+    r + c dim) in the compensated sum."""
+    dim = 1 << num_qubits
+    m = 1 << rho.nloc
+    xs, ys = [], []
+    for k, lo in shard_offsets(rho):
+        sh = rho.shards[k]
+        p = psi.to(device=sh.device, dtype=sh.dtype)
+        flat = torch.arange(lo, lo + m, device=sh.device)
+        r, c = flat % dim, flat // dim
+        a = p[0, c] * p[0, r] + p[1, c] * p[1, r]
+        b = p[1, c] * p[0, r] - p[0, c] * p[1, r]
+        xs.append(sh[0] * a)
+        ys.append(-(sh[1] * b))
+    return _quad2(rho, xs, ys, m * rho.mesh.axis_size, m)
+
+
+def expec_diagonal_statevec_quad(amps: ShardedAmps, op_real, op_imag):
+    """sum_i |amp_i|^2 d_i at quad precision as (re, im) floats."""
+    m = 1 << amps.nloc
+    total = m * amps.mesh.axis_size
+    cols = []
+    for k, lo in shard_offsets(amps):
+        sh = amps.shards[k]
+        cols.append((sh[0] * sh[0], sh[1] * sh[1],
+                     op_real[lo:lo + m].to(sh.device),
+                     op_imag[lo:lo + m].to(sh.device)))
+    re = _quad2(amps, [a * r for a, _b, r, _i in cols],
+                [b * r for _a, b, r, _i in cols], total, m)
+    im = _quad2(amps, [a * i for a, _b, _r, i in cols],
+                [b * i for _a, b, _r, i in cols], total, m)
+    return re, im
+
+
+def expec_diagonal_density_quad(amps: ShardedAmps, op_real, op_imag,
+                                num_qubits: int):
+    """sum_r d_r rho_rr at quad precision as (re, im) floats."""
+    ents = []
+    for k, lo in shard_offsets(amps):
+        sh = amps.shards[k]
+        d = _diag_rows(amps, lo, num_qubits, sh.device)
+        v = sh[:, d * ((1 << num_qubits) + 1) - lo]
+        ents.append((v, op_real.to(sh.device)[d].to(sh.dtype),
+                     op_imag.to(sh.device)[d].to(sh.dtype)))
+    total, mx = 1 << num_qubits, _diag_max(amps, num_qubits)
+    re = (quad_sum_pieces(amps.mesh, [v[0] * r for v, r, _i in ents],
+                          total, mx)
+          + quad_sum_pieces(amps.mesh, [-(v[1] * i) for v, _r, i in ents],
+                            total, mx))
+    im = (quad_sum_pieces(amps.mesh, [v[0] * i for v, _r, i in ents],
+                          total, mx)
+          + quad_sum_pieces(amps.mesh, [v[1] * r for v, r, _i in ents],
+                            total, mx))
+    return re, im
 
 
 def amp_pair(amps: ShardedAmps, index: int) -> torch.Tensor:
@@ -566,37 +766,101 @@ def _bit_factor(nloc: int, s: int, pos: int, outcome, dtype):
 
 
 def measure_once(amps: ShardedAmps, u, *, num_qubits: int, target: int,
-                 is_density: bool):
+                 is_density: bool, quad: bool = False):
     """One measurement shot of a sharded register with the threshold
-    ``u`` (a 0-d device tensor): the probability as one sum over the mesh,
-    the outcome drawn on the device (measurement._draw_outcome) and the
-    collapse of ops/measurement.py shard by shard.  Returns (new amps,
-    outcome, probability), the last two 0-d tensors on the first local
-    shard's device; nothing is read on the host."""
-    from ..ops import kernels as K
+    ``u`` (a 0-d device tensor): the probability as one sum over the mesh
+    (``quad``: in double-double, combined on the host), the outcome drawn
+    on the device (measurement._draw_outcome) and the collapse of
+    ops/measurement.py shard by shard.  Returns (new amps, outcome,
+    probability), the last two 0-d tensors on the first local shard's
+    device; nothing is read on the host but a quad probability."""
     from ..ops import measurement as M
 
-    if is_density:
+    if quad:
+        p0 = torch.tensor(prob_of_outcome_quad(
+            amps, target, 0, is_density, num_qubits), dtype=amps.dtype,
+            device=amps.device)
+    elif is_density:
         p0 = prob_of_outcome_density(amps, num_qubits, target, 0)
     else:
         p0 = prob_of_outcome_statevec(amps, target, 0)
     outcome, prob = M._draw_outcome(p0, u.to(p0.device))
+    return (collapse_drawn(amps, outcome, prob, num_qubits=num_qubits,
+                           target=target, is_density=is_density),
+            outcome, prob)
+
+
+def collapse_drawn(amps: ShardedAmps, outcome, prob, *, num_qubits: int,
+                   target: int, is_density: bool) -> ShardedAmps:
+    """The collapse of a drawn outcome (0-d device tensors ``outcome`` and
+    ``prob``) shard by shard, as ops/measurement.py collapses one
+    register: new shards (``collapse_drawn_bank`` on a bank of one)."""
+    bank = collapse_drawn_bank(
+        ShardedAmps(amps.mesh, [s[None] for s in amps.shards]),
+        outcome.reshape(1), prob.reshape(1), num_qubits=num_qubits,
+        target=target, is_density=is_density)
+    return ShardedAmps(amps.mesh, [s[0] for s in bank.shards])
+
+
+def collapse_drawn_bank(amps: ShardedAmps, outcomes, probs, *,
+                        num_qubits: int, target: int,
+                        is_density: bool) -> ShardedAmps:
+    """collapse_drawn of every element of a bank at once: element b
+    collapses onto ``outcomes[b]`` with ``probs[b]`` ((B,) device
+    tensors), one pass over each shard (the same factors as one
+    register's collapse, element by element)."""
+    from ..ops import kernels as K
+
     nloc = amps.nloc
     hi, lo = K._split2(nloc)
+    nb = amps.batch_size
+
+    def factor(s, pos, o, dtype, device):
+        # (B, 2^hi, 2^lo)-broadcastable indicator of bit pos == o[b]
+        o = o.to(device).reshape(nb, 1, 1)
+        if pos >= nloc:
+            return (o == _mesh_bit(s, pos, nloc)).to(dtype)
+        return (K.bit_2d(nloc, pos, device)[None] == o).to(dtype)
 
     def fn(sh, s, _lo):
-        o, p = outcome.to(sh.device), prob.to(sh.device)
-        v = sh.reshape(2, 1 << hi, 1 << lo)
+        p = probs.to(sh.device).reshape(nb, 1, 1)
+        v = sh.reshape(nb, 2, 1 << hi, 1 << lo)
+        f = factor(s, target, outcomes, sh.dtype, sh.device)
         if is_density:
-            ket = _bit_factor(nloc, s, target, o, sh.dtype)
-            bra = _bit_factor(nloc, s, target + num_qubits, o, sh.dtype)
-            out = v * (ket * (1.0 / p))
-            out *= bra
-            return out.reshape(sh.shape)
-        ind = _bit_factor(nloc, s, target, o, sh.dtype)
-        return (v * (ind * torch.rsqrt(p))).reshape(sh.shape)
+            f = f * (1.0 / p) * factor(s, target + num_qubits, outcomes,
+                                        sh.dtype, sh.device)
+        else:
+            f = f * torch.rsqrt(p)
+        return (v * f[:, None]).reshape(sh.shape)
 
-    return map_shards(amps, fn), outcome, prob
+    return map_shards(amps, fn)
+
+
+def prob_of_outcome_bank(amps: ShardedAmps, target: int, outcome: int, *,
+                         is_density: bool = False,
+                         num_qubits: int = 0) -> torch.Tensor:
+    """P(target = outcome) of every element of a bank's (B, 2, 2^nloc)
+    shards as a (B,) tensor: per-shard (B,) partials and one sum over the
+    mesh (``num_qubits``: a density bank's represented qubits)."""
+    nloc = amps.nloc
+    parts = []
+    for k, s in enumerate(amps.mesh.local):
+        sh = amps.shards[k]
+        nb = sh.shape[0]
+        if is_density:
+            lo = s << nloc
+            d = _diag_rows(amps, lo, num_qubits, sh.device)
+            v = sh[:, 0, d * ((1 << num_qubits) + 1) - lo]
+            parts.append(v[:, ((d >> target) & 1) == outcome].sum(dim=1))
+        elif target < nloc:
+            half = sh.reshape(nb, 2, 1 << (nloc - 1 - target), 2,
+                              1 << target)[:, :, :, int(outcome), :]
+            parts.append((half * half).sum(dim=(1, 2, 3)))
+        elif ((s >> (target - nloc)) & 1) == outcome:
+            parts.append((sh * sh).sum(dim=(1, 2)))
+        else:
+            parts.append(torch.zeros(nb, dtype=sh.dtype, device=sh.device))
+    return _sum(amps, parts)
 
 
 def inner_product(bra: ShardedAmps, ket: ShardedAmps) -> torch.Tensor:

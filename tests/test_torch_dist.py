@@ -21,8 +21,8 @@ The reference's sharded path runs at 6 state-vector and 4 density
 qubits (8 state bits), each circuit once per R in a module-scoped memo.
 Also: lazy against eager relocation bit for bit, the fused drain
 against the eager route, reads that restore canonical order mid-circuit
-and inside a fusion context, the exchange guard, the ops left to M15c
-refusing a sharded register, a one-shard env behaving as a plain one,
+and inside a fusion context, the exchange guard, a one-shard env
+behaving as a plain one,
 the interop of a permuted register, and two spawned gloo runs of the
 torch.distributed backend held bit for bit against the in-process mesh.
 """
@@ -896,59 +896,6 @@ def test_drain_failing_part_way_is_not_retried(ref, R, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# What waits for M15c refuses a sharded register (the M15b operations
-# have their sharded forms: tests/test_torch_dist_composites.py)
-# ---------------------------------------------------------------------------
-
-
-def _at_quad(op):
-    """``op`` run at precision 4: reads at quad precision on a mesh wait
-    for M15c."""
-    def run(q):
-        tq.set_precision(4)
-        try:
-            op(q)
-        finally:
-            tq.set_precision(2)
-    return run
-
-
-M15C = {
-    "createBatchedQureg": lambda q: tq.createBatchedQureg(NS, q.env, 2),
-    "quad_calcTotalProb": _at_quad(tq.calcTotalProb),
-    "quad_getAmp": _at_quad(lambda q: tq.getAmp(q, 5)),
-    "quad_calcProbOfOutcome": _at_quad(
-        lambda q: tq.calcProbOfOutcome(q, 5, 0)),
-    "quad_calcInnerProduct": _at_quad(lambda q: tq.calcInnerProduct(q, q)),
-    "quad_measure": _at_quad(lambda q: tq.measure(q, 5)),
-    "quad_calcExpecPauliHamil": _at_quad(lambda q: tq.calcExpecPauliHamil(
-        q, _hamil(), None)),
-}
-M15C_DENSITY = {
-    "quad_calcPurity": _at_quad(tq.calcPurity),
-}
-
-
-def _hamil():
-    h = tq.createPauliHamil(NS, 1)
-    tq.initPauliHamil(h, [0.5], [3] * NS)
-    return h
-
-
-@pytest.mark.parametrize("name", sorted(M15C) + sorted(M15C_DENSITY))
-def test_m15b_ops_refuse_a_sharded_register(name):
-    env = tq.createQuESTEnv(devices=["cpu"] * 4)
-    density = name in M15C_DENSITY
-    q = (tq.createDensityQureg(ND, env) if density
-         else tq.createQureg(NS, env))
-    tq.initDebugState(q)
-    before = interop.register_state(q)[0]
-    with pytest.raises(tq.QuESTError, match="M15c"):
-        (M15C_DENSITY if density else M15C)[name](q)
-    np.testing.assert_array_equal(interop.register_state(q)[0], before)
-
-
-# ---------------------------------------------------------------------------
 # The torch.distributed backend: spawned gloo ranks
 # ---------------------------------------------------------------------------
 
@@ -994,6 +941,39 @@ def _dist_circuit(tqm, q):
     return big, rho, outs + probs, [tqm.calcPurity(rho), d.real, d.imag]
 
 
+def _dist_bank_and_vqe(tqm, env, n, q):
+    """A flag-2 bank drain (per-element unitaries, one on the top mesh
+    bit) and one VQE energy and gradient on the env's mesh, and two quad
+    reads of ``q`` (the padded partials' all_gather and the Pauli sum's
+    (T, R) grid): the bank's state (exact) and [energy, *gradient, quad
+    reads] (sums of partials, which gloo adds in its own order)."""
+    from quest_tpu_torch.models import vqe as VQ
+    from quest_tpu_torch.parallel import sharded as SHM
+
+    rng = np.random.default_rng(17)
+    mats = np.stack([oracle.random_unitary(1, rng) for _ in range(2)])
+    bank = tqm.createBatchedQureg(n, env, 2)
+    tqm.hadamard(bank, 0)
+    tqm.applyBatchedUnitary(bank, (n - 1,), mats)
+    tqm.applyBatchedUnitary(bank, (1,), mats)
+    tqm.controlledNot(bank, n - 1, 2)
+    state = SHM.gather_host(bank.amps)
+    codes, coeffs = VQ.random_hamiltonian(n, 3, seed=5)
+    model = VQ.VQE(n, 1, codes, coeffs, mesh=env.mesh)
+    p = torch.tensor(rng.standard_normal(model.num_params) * 0.3,
+                     requires_grad=True)
+    e = model.energy(p)
+    e.backward()
+    tqm.set_precision(4)
+    try:
+        quad = [tqm.calcTotalProb(q),
+                tqm.calcExpecPauliSum(q, codes.ravel(), coeffs)]
+    finally:
+        tqm.set_precision(2)
+    return state, np.concatenate([[float(e.detach())], p.grad.numpy(),
+                                  quad])
+
+
 def _dist_record(SHM, tqm, q, n, big, rho, reads):
     """The bit-exact record: the three states, the reads and q's
     probability and norm."""
@@ -1017,11 +997,24 @@ def _dist_worker(rank, world, port, n, out_dir):
         q = tqm.createQureg(n, env)
         tqm.initStateFromAmps(q, *_initial(n, False, 6))
         big, rho, reads, sums = _dist_circuit(tqm, q)
-        np.save(os.path.join(out_dir, f"rank{rank}.npy"),
-                _dist_record(SHM, tqm, q, n, big, rho, reads))
-        np.save(os.path.join(out_dir, f"sums{rank}.npy"), np.array(sums))
+        bank, vqe = _dist_bank_and_vqe(tqm, env, n, q)
+        np.save(os.path.join(out_dir, f"rank{rank}.npy"), np.concatenate(
+            [_dist_record(SHM, tqm, q, n, big, rho, reads), bank.ravel()]))
+        np.save(os.path.join(out_dir, f"sums{rank}.npy"),
+                np.concatenate([sums, vqe]))
     finally:
         dist.destroy_process_group()
+
+
+def test_init_distributed_without_a_backend_refuses_the_cpu(monkeypatch):
+    """With no backend named and no CUDA card, initDistributed raises
+    instead of falling back to gloo on the CPU, and joins no group."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(tq.QuESTError, match='backend="gloo"'):
+        tq.initDistributed(f"tcp://localhost:{_free_port()}", 1, 0)
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -1045,7 +1038,10 @@ def test_torch_distributed_gloo_matches_in_process(world, tmp_path):
     q = tq.createQureg(n, env)
     tq.initStateFromAmps(q, *_initial(n, False, 6))
     big, rho, reads, sums = _dist_circuit(tq, q)
-    want = _dist_record(SH, tq, q, n, big, rho, reads)
+    bank, vqe = _dist_bank_and_vqe(tq, env, n, q)
+    want = np.concatenate([_dist_record(SH, tq, q, n, big, rho, reads),
+                           bank.ravel()])
+    sums = np.concatenate([sums, vqe])
     for rank in range(world):
         got = np.load(tmp_path / f"rank{rank}.npy")
         np.testing.assert_array_equal(got, want)

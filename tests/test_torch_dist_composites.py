@@ -571,18 +571,9 @@ def test_sharded_amps_arithmetic_refuses(op):
           "add": lambda: x + y, "mul": lambda: 2.0 * x,
           "matmul": lambda: x @ y, "neg": lambda: -x, "abs": lambda: abs(x),
           "truediv": lambda: x / 2.0}[op]
-    with pytest.raises(tq.QuESTError, match="M15c"):
+    with pytest.raises(tq.QuESTError,
+                       match=r"register_state\(qureg, canonical=True\)"):
         do()
-
-
-def test_models_on_a_mesh_refuse_naming_m15c():
-    from quest_tpu_torch.models import qaoa, vqe
-
-    with pytest.raises(NotImplementedError, match="M15c"):
-        vqe.VQE(3, 1, np.zeros((1, 3)), np.ones(1), mesh=object(),
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="M15c"):
-        qaoa.QAOA(3, [(0, 1, 1.0)], 1, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["trotter", "qft_runs", "channels",

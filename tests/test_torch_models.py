@@ -13,8 +13,9 @@
   ``out[sel] = new`` in ``ops/kernels.py``), a diagonal gate, the Pauli
   sum's expectation, the direct rotation (which no longer writes through
   ``out=``) and the QAOA cost phase.
-* ``mesh=`` is accepted only as None, and the parameters land on the
-  device the model names.
+* ``mesh=`` takes only the port's Mesh (an env's mesh; the models on a
+  mesh are tests/test_torch_dist_models.py), and the parameters land on
+  the device the model names, or on the mesh's.
 """
 
 import jax
@@ -121,11 +122,19 @@ def test_training_moves_the_objective():
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """Anything but the port's Mesh is refused as ``mesh=``; an env's
+    mesh is taken, and the parameters live on its device."""
+    with pytest.raises(TypeError, match="mesh"):
         vqe.VQE(3, 1, np.zeros((1, 3)), np.ones(1), mesh=object(),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         qaoa.QAOA(3, [(0, 1, 1.0)], 1, mesh=object(), device="cpu")
+    import quest_tpu_torch as tq
+
+    mesh = tq.createQuESTEnv(devices=["cpu"] * 2).mesh
+    m = qaoa.QAOA(3, [(0, 1, 1.0)], 1, mesh=mesh)
+    assert m.device == torch.device("cpu")
+    assert m.init_params(dtype=torch.float64).device.type == "cpu"
 
 
 def _state(n, seed):
