@@ -336,11 +336,41 @@ line:
              and 1e-4 |g| of one register on the same parameters; three
              Adam steps each; wall per step and peak memory beside one
              register's.
-39. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+39. telemetry_main - config 2 at 26 qubits, f32, by the bench route (one
+             drain of the 770 gates) and the API route, with QT_TELEMETRY
+             off, on and trace in three turns: wall per circuit (medians)
+             and the on/off and trace/off ratios against the 5 % budget
+             (printed, not gated); the counters of one API circuit against
+             its drain (fusion_drains_total, fusion_windows_total,
+             dispatch_total{family=unitary,not}) and its K1/K2 launches;
+             one torch.profiler trace of an API circuit: its fusion.drain
+             and fusion.plan ranges and window_pass_kernel events;
+             reportPerf's line count and memory line.
+40. resilience_main - runResumable over the 770 gates at 26 qubits, f32,
+             every 128 gates (seven windows) on one register: wall against
+             one plain drain and the windows drained without checkpoints;
+             checkpoint_commit_seconds, the copy / write / fsync split and
+             the write rate of the 512 MiB generations, the restore, the
+             watchdog's ms per window (with the wait for the window's
+             kernels) and the health reduction alone; kill@3 then a resume
+             under a
+             wrong seed bit for bit with the same next uniform draw; nan@2
+             under raise, scale@2 under renormalize, corrupt@4 and a resume
+             from the predecessor bit for bit; saveQureg / loadQureg bit
+             for bit.
+41. dist_resilience_main - the same on an in-process mesh of 8 shards:
+             stall@2 absorbed by the exchange guard (exchange_timeouts_total)
+             and shard_loss@3 failing over to 4 shards (failover_{detect,
+             rollback,reshard,resume}_seconds); the result bit for bit
+             against a run killed on 8 shards and resumed on 4, and within
+             tolerance of an uninterrupted 4-shard run (other windows on
+             other meshes: float32 products in another order).
+42. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
              errors under "modes"; K1, K2 and K5's bank forms, with their
              launches on a sharded bank under "dist"; K1, K2, K5 and
-             K6-K9 marked as run per shard with their dist launches).
+             K6-K9 marked as run per shard with their dist launches; K1's
+             and K2's launches on the resumable path under "resumable").
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -6429,6 +6459,480 @@ def phase_dist_models_main(torch, np):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Telemetry and resumable runs (M16a, M16b)
+# ---------------------------------------------------------------------------
+
+N_TELE = 26            # config 2 at 26 qubits, f32, through both routes
+TELE_REPS = 3          # turns of off / on / trace, medians reported
+TELE_BUDGET = 0.05     # the reference's budget: on within 5 % of off
+N_RES = 26             # runResumable over config 2's 770 gates
+RES_EVERY = 128        # seven windows: 6 x 128 + 2
+N_DRES = 26            # the same on an in-process mesh of 8 shards
+R_DRES = 8
+
+
+def window_launches(fused) -> dict:
+    return {k: fused.LAUNCHES[k] for k in ("K1", "K2")}
+
+
+def hist_stats(T, name: str) -> dict:
+    """count, mean and max of a histogram over all its label sets."""
+    series = T.snapshot().get("histograms", {}).get(name, {})
+    n = sum(h["count"] for h in series.values())
+    total = sum(h["sum"] for h in series.values())
+    hi = max((h["max"] for h in series.values() if h["max"] is not None),
+             default=None)
+    return {"count": n, "mean": total / n if n else None, "max": hi}
+
+
+def inject(fusion, q, gates) -> None:
+    """One gateFusion drain of ``gates`` (circuit.Gate) on ``q``."""
+    fusion.start_gate_fusion(q)
+    q._fusion.gates.extend(gates)
+    fusion.stop_gate_fusion(q)
+
+
+def phase_telemetry_main(torch, np, qt, C, fused, fusion, optimizer, us,
+                         gates, tmp):
+    """Config 2 at 26 qubits, f32, by the bench route (one drain of the
+    770 gates) and the API route (770 API calls under gateFusion) with
+    QT_TELEMETRY off, on and trace in turns; the counters of one API
+    circuit against what its drain did; one torch.profiler trace of an
+    API circuit; reportPerf."""
+    from quest_tpu_torch import telemetry as T
+    from quest_tpu_torch import utils
+
+    n = N_TELE
+    qt.set_precision(1)
+    env = mesh_env(qt, 1)
+    q = qt.createQureg(n, env)
+
+    def bench_route():
+        qt.initZeroState(q)
+        inject(fusion, q, gates)
+        sync()
+
+    def api_route():
+        qt.initZeroState(q)
+        with qt.gateFusion(q):
+            apply_bench_gates(qt, q, us, n)
+        sync()
+
+    modes = ("off", "on", "trace")
+    routes = {"bench": bench_route, "api": api_route}
+    samples = {m: {r: [] for r in routes} for m in modes}
+    old = T.mode_name()
+    try:
+        for fn in routes.values():
+            fn()  # warm-up: plans and kernels
+        for _ in range(TELE_REPS):
+            for m in modes:
+                T.configure(m)
+                for r, fn in routes.items():
+                    t0 = time.perf_counter()
+                    fn()
+                    samples[m][r].append((time.perf_counter() - t0) * 1e3)
+        # the counters of one API circuit against what its drain did
+        T.configure("on")
+        T.reset()
+        fused.reset_launch_counts()
+        api_route()
+        launches = window_launches(fused)
+        counters = T.snapshot()["counters"]
+        got = {"fusion_drains_total": T.counter_total("fusion_drains_total"),
+               "fusion_windows_total":
+                   T.counter_total("fusion_windows_total"),
+               "dispatch_unitary": T.counter_value("dispatch_total",
+                                                   family="unitary"),
+               "dispatch_not": T.counter_value("dispatch_total",
+                                               family="not")}
+        # (capturing the items on a shadow register counts its dispatches
+        # too: after the reading above)
+        program = fusion.plan_items(capture_items(qt, us, n), n,
+                                    device=DEVICE)
+        windows = sum(1 for p in program if p[0] == "plan")
+        st = fusion.program_stats(program)
+        nots = sum(len(range(d % 2, n - 1, 2)) for d in range(DEPTH))
+        want = {"fusion_drains_total": 1, "fusion_windows_total": windows,
+                "dispatch_unitary": n * DEPTH, "dispatch_not": nots}
+        check(got == want, f"telemetry counters {got} != the drain's {want}")
+        # one register's drain splits the CNOT ladders out as permutation
+        # ops, so its program holds window passes and no megawin group
+        # (K2 launches on the mesh's drains, dist_resilience_main)
+        check(launches == {"K1": st.get("winfused", 0),
+                           "K2": st.get("megawin", 0)},
+              f"API circuit launched {launches}, its program holds {st}")
+        check(launches["K1"] > 0,
+              f"K1 never launched on the telemetry path: {launches}")
+        # one torch.profiler trace of an API circuit, planned afresh so the
+        # fusion.plan span is in it
+        fusion._plan_cache.clear()
+        fusion._device_programs.clear()
+        optimizer._cache.clear()
+        with utils.profiling.trace(os.path.join(tmp, "trace")) as prof:
+            api_route()
+        # a record_function range shows on the host timeline and, with
+        # CUDA activity, again as a device-side annotation
+        cpu_type = torch.autograd.DeviceType.CPU
+        host_names = [e.name for e in prof.events()
+                      if e.device_type == cpu_type]
+        names = [e.name for e in prof.events()]
+        prof_counts = {
+            "fusion.drain": host_names.count("fusion.drain"),
+            "fusion.plan": host_names.count("fusion.plan"),
+            "fusion.optimize": host_names.count("fusion.optimize"),
+            "fusion.drain_all_timelines": names.count("fusion.drain"),
+            "window_pass_kernel": sum("window_pass_kernel" in s
+                                      for s in names),
+            "megawin_kernel": sum("megawin_kernel" in s for s in names)}
+        check(prof_counts["fusion.drain"] == 1
+              and prof_counts["fusion.plan"] == 1,
+              f"the profiler trace holds {prof_counts} spans")
+        report = T.perf_report(env).splitlines()
+    finally:
+        T.configure(old)
+    qt.destroyQureg(q, env)
+    walls = {m: {r: statistics.median(v) for r, v in samples[m].items()}
+             for m in modes}
+    ratios = {r: {"on_over_off": walls["on"][r] / walls["off"][r],
+                  "trace_over_off": walls["trace"][r] / walls["off"][r]}
+              for r in routes}
+    return {"n": n, "gates": len(gates), "reps": TELE_REPS,
+            "wall_ms": walls, "wall_ms_samples": samples,
+            "ratios": ratios, "budget": TELE_BUDGET,
+            "on_within_budget": {r: ratios[r]["on_over_off"]
+                                 <= 1 + TELE_BUDGET for r in routes},
+            "trace_within_budget": {r: ratios[r]["trace_over_off"]
+                                    <= 1 + TELE_BUDGET for r in routes},
+            "counters_api_circuit": counters, "counters_checked": got,
+            "launches": launches, "profiler": prof_counts,
+            "report_lines": len(report),
+            "report_memory_line": next((s for s in report
+                                        if s.startswith("memory:")), None)}
+
+
+def phase_resilience_main(torch, np, qt, C, fused, fusion, optimizer, us,
+                          gates, tmp):
+    """runResumable over config 2's 770 gates at 26 qubits, f32, every
+    128 gates, on one register: (a) uninterrupted, against one plain
+    drain of the 770 gates and the same windows drained without
+    checkpoints; (b) killed before window 3 and resumed under a wrong
+    seed: bit for bit, and the next uniform draw; (c) nan@2 under raise,
+    scale@2 under renormalize, corrupt@4 then a resume from the
+    predecessor generation; (d) saveQureg / loadQureg bit for bit."""
+    import shutil
+    import warnings
+
+    from quest_tpu_torch import resilience as R
+    from quest_tpu_torch import telemetry as T
+
+    n = N_RES
+    qt.set_precision(1)
+    env = mesh_env(qt, 1)
+    bounds = C.plan_checkpoint_boundaries(len(gates), RES_EVERY)
+    check(len(bounds) == 7, f"{len(bounds)} windows, not seven")
+
+    def fresh(seed=SEED):
+        qt.seedQuEST(env, [seed])
+        return qt.createQureg(n, env)
+
+    def ckdir(name):
+        d = os.path.join(tmp, name)
+        shutil.rmtree(d, ignore_errors=True)
+        return d
+
+    # the plain drains, each timed after a warm-up (plans, kernels)
+    def one_drain():
+        q = fresh()
+        inject(fusion, q, gates)
+        sync()
+        qt.destroyQureg(q, env)
+
+    def window_drains():
+        q = fresh()
+        lo = 0
+        for hi in bounds:
+            inject(fusion, q, gates[lo:hi])
+            lo = hi
+        sync()
+        qt.destroyQureg(q, env)
+
+    one_drain()
+    window_drains()
+    plain_ms = host_ms(one_drain, reps=1)
+    windows_ms = host_ms(window_drains, reps=1)
+
+    # (a) uninterrupted
+    T.configure("on")
+    T.reset()
+    fused.reset_launch_counts()
+    q = fresh()
+    t0 = time.perf_counter()
+    qt.runResumable(q, gates, ckdir("a"), every=RES_EVERY)
+    sync()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = window_launches(fused)
+    check(q._drain_count == 7, f"{q._drain_count} drains, not seven")
+    # the windows' programs, as the drains planned them (optimizer
+    # suppressed, the drain's sweep setting: cache hits)
+    sweep_ok = fused.channel_sweep_enabled(
+        torch.empty(1, dtype=torch.float32, device=DEVICE))
+    lo, st = 0, {}
+    with optimizer.suppressed():
+        for hi in bounds:
+            for k, v in fusion.program_stats(fusion.plan_items(
+                    gates[lo:hi], n, device=DEVICE,
+                    sweep_ok=sweep_ok)).items():
+                st[k] = st.get(k, 0) + v
+            lo = hi
+    check(launches == {"K1": st.get("winfused", 0),
+                       "K2": st.get("megawin", 0)},
+          f"runResumable launched {launches}, its windows hold {st}")
+    check(launches["K1"] > 0,
+          f"K1 never launched on the resumable path: {launches}")
+    want = q.amps.clone()
+    u_a = qt.GLOBAL_RNG.uniform()
+    # the health reduction alone (the run's watchdog_seconds also waits
+    # for the window's kernels, which the readback syncs on)
+    sync()
+    health_ms = host_ms(lambda: R.check_qureg_health(q), reps=5)
+    check(bool(torch.isfinite(want).all())
+          and abs(float(torch.sum(want.double() ** 2)) - 1.0) <= 1e-4,
+          "runResumable: bad final state")
+    commit = hist_stats(T, "checkpoint_commit_seconds")
+    copy = hist_stats(T, "checkpoint_copy_seconds")
+    write = hist_stats(T, "checkpoint_write_seconds")
+    fsync = hist_stats(T, "checkpoint_fsync_seconds")
+    watchdog = hist_stats(T, "watchdog_seconds")
+    payload = want.numel() * want.element_size()
+    qt.destroyQureg(q, env)
+    shutil.rmtree(os.path.join(tmp, "a"), ignore_errors=True)
+
+    # (b) killed before window 3, resumed under a wrong seed
+    plan = qt.FaultPlan("kill@3")
+    q = fresh()
+    killed = False
+    try:
+        qt.runResumable(q, gates, ckdir("b"), every=RES_EVERY, faults=plan)
+    except qt.SimulatedPreemption:
+        killed = True
+    check(killed and plan.log == ["kill@3"], f"kill@3 fired {plan.log}")
+    qt.destroyQureg(q, env)
+    t0 = time.perf_counter()
+    loaded = R.load_latest(os.path.join(tmp, "b"), env)
+    sync()
+    restore_s = time.perf_counter() - t0
+    check(loaded is not None and loaded[1]["cursor"] == 3 * RES_EVERY,
+          "kill@3 left no generation at the end of window 2")
+    del loaded
+    q = fresh(seed=999)
+    qt.runResumable(q, gates, os.path.join(tmp, "b"), every=RES_EVERY)
+    resumed_equal = bool(torch.equal(q.amps, want))
+    u_b = qt.GLOBAL_RNG.uniform()
+    check(resumed_equal, "the killed and resumed run is not bit for bit "
+          "the uninterrupted one")
+    check(u_b == u_a, f"the resumed run's next draw {u_b} != {u_a}")
+    check(q._drain_count == 4, f"the resume drained {q._drain_count} "
+          "windows, not four")
+    qt.destroyQureg(q, env)
+    shutil.rmtree(os.path.join(tmp, "b"), ignore_errors=True)
+
+    # (c) the watchdog and a corrupt generation
+    q = fresh()
+    err = None
+    try:
+        qt.runResumable(q, gates, ckdir("c1"), every=RES_EVERY,
+                        watchdog="raise", faults=qt.FaultPlan("nan@2"))
+    except qt.NumericalHealthError as e:
+        err = e
+    check(err is not None and not err.finite
+          and err.window == (2 * RES_EVERY, 3 * RES_EVERY),
+          f"nan@2 under raise: {err!r}")
+    qt.destroyQureg(q, env)
+    q = fresh()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            qt.runResumable(q, gates, ckdir("c2"), every=RES_EVERY,
+                            watchdog="renormalize",
+                            faults=qt.FaultPlan("scale@2,kill@4"))
+        except qt.SimulatedPreemption:
+            pass
+    renorm = any("renormalized" in str(w.message) for w in caught)
+    norm, finite = qt.checkQuregHealth(q)
+    check(renorm and finite and abs(norm - 1.0) <= 1e-3,
+          f"scale@2 under renormalize: warned={renorm} norm={norm}")
+    qt.destroyQureg(q, env)
+    q = fresh()
+    try:
+        qt.runResumable(q, gates, ckdir("c3"), every=RES_EVERY,
+                        faults=qt.FaultPlan("corrupt@4,kill@5"))
+    except qt.SimulatedPreemption:
+        pass
+    qt.destroyQureg(q, env)
+    q = fresh(seed=999)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        qt.runResumable(q, gates, os.path.join(tmp, "c3"), every=RES_EVERY)
+    fell_back = any("unreadable" in str(w.message) for w in caught)
+    corrupt_equal = bool(torch.equal(q.amps, want))
+    check(fell_back and corrupt_equal, f"corrupt@4: fell back={fell_back}, "
+          f"bit for bit={corrupt_equal}")
+    check(q._drain_count == 3, f"the resume after corrupt@4 drained "
+          f"{q._drain_count} windows, not three (from window 4's start)")
+    qt.destroyQureg(q, env)
+    for d in ("c1", "c2", "c3"):
+        shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
+
+    # (d) saveQureg / loadQureg
+    q = fresh()
+    q.amps = want.clone()
+    t0 = time.perf_counter()
+    qt.saveQureg(q, os.path.join(tmp, "d"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q2 = qt.loadQureg(os.path.join(tmp, "d"), env)
+    sync()
+    load_s = time.perf_counter() - t0
+    round_trip = bool(torch.equal(q2.amps, want))
+    check(round_trip, "saveQureg / loadQureg is not bit for bit")
+    qt.destroyQureg(q, env)
+    qt.destroyQureg(q2, env)
+    shutil.rmtree(os.path.join(tmp, "d"), ignore_errors=True)
+    del want
+    torch.cuda.empty_cache()
+    gens = commit["count"]
+    per_gen = {k: v["mean"] for k, v in (("copy_s", copy), ("write_s", write),
+                                         ("fsync_s", fsync))}
+    return {"n": n, "gates": len(gates), "every": RES_EVERY,
+            "windows": len(bounds), "launches": launches,
+            "window_programs": st,
+            "run_ms": run_ms, "one_plain_drain_ms": plain_ms,
+            "window_drains_ms": windows_ms,
+            "checkpoint_cost_ms": run_ms - windows_ms,
+            "generations": gens, "generation_bytes": payload,
+            "checkpoint_commit_seconds": commit,
+            "per_generation_mean": per_gen,
+            "write_gb_per_s": payload / (write["mean"] + fsync["mean"]) / 1e9,
+            "copy_gb_per_s": payload / copy["mean"] / 1e9,
+            "watchdog_ms_per_window": watchdog["mean"] * 1e3,
+            "health_check_ms": health_ms,
+            "restore_seconds": restore_s,
+            "resume_bit_exact": resumed_equal, "rng_draw_equal": u_b == u_a,
+            "nan_window": list(err.window), "renormalized": renorm,
+            "corrupt_fallback_bit_exact": corrupt_equal,
+            "save_seconds": save_s, "load_seconds": load_s,
+            "save_load_bit_exact": round_trip}
+
+
+def phase_dist_resilience_main(torch, np, qt, C, fused, fusion, us, gates,
+                               tmp):
+    """runResumable over config 2 at 26 qubits on an in-process mesh of 8
+    shards of the card, every 128 gates, with stall@2 (absorbed by the
+    exchange guard) and shard_loss@3 (the failover: rollback, shrink to 4
+    shards, reshard, resume); held bit for bit against a run killed on 8
+    shards and resumed on 4 (the same windows on the same meshes), and
+    within tolerance of an uninterrupted run on 4 shards."""
+    import shutil
+    import warnings
+
+    from quest_tpu_torch import resilience as R
+    from quest_tpu_torch import telemetry as T
+
+    n = N_DRES
+    qt.set_precision(1)
+    env8 = mesh_env(qt, R_DRES)
+    env4 = mesh_env(qt, R_DRES // 2)
+
+    def fresh(env, seed=SEED):
+        qt.seedQuEST(env, [seed])
+        return qt.createQureg(n, env)
+
+    def ckdir(name):
+        d = os.path.join(tmp, name)
+        shutil.rmtree(d, ignore_errors=True)
+        return d
+
+    # an uninterrupted run on 4 shards
+    fused.reset_launch_counts()
+    q4 = fresh(env4)
+    t0 = time.perf_counter()
+    qt.runResumable(q4, gates, ckdir("r4"), every=RES_EVERY)
+    sync()
+    r4_ms = (time.perf_counter() - t0) * 1e3
+    r4_launches = window_launches(fused)
+    ref4 = q4.amps
+    shutil.rmtree(os.path.join(tmp, "r4"), ignore_errors=True)
+
+    # stall@2 and shard_loss@3 on 8 shards
+    T.configure("on")
+    T.reset()
+    R.DEGRADATIONS.pop(f"mesh_failover_{R_DRES}to{R_DRES // 2}", None)
+    fused.reset_launch_counts()
+    q = fresh(env8)
+    plan = qt.FaultPlan("stall@2,shard_loss@3")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        qt.runResumable(q, gates, ckdir("f"), every=RES_EVERY, faults=plan)
+        sync()
+        fo_ms = (time.perf_counter() - t0) * 1e3
+    launches = window_launches(fused)
+    check(plan.log == ["stall@2", "shard_loss@3"], f"faults fired {plan.log}")
+    check(q.env.num_devices == R_DRES // 2, f"the failover left "
+          f"{q.env.num_devices} shards")
+    check(any(f"mesh_failover_{R_DRES}to{R_DRES // 2}" in str(w.message)
+              for w in caught), "the failover recorded no degradation")
+    timeouts = T.counter_total("exchange_timeouts_total")
+    check(timeouts >= 2, f"exchange_timeouts_total {timeouts}: the stall "
+          "and the loss were not counted")
+    # the mesh's window programs hold megawin groups: K2 launches here
+    check(launches["K1"] > 0 and launches["K2"] > 0,
+          f"a kernel of the failover path never launched: {launches}")
+    gauges = T.snapshot()["gauges"]
+    phases = {p: list(gauges.get(f"failover_{p}_seconds", {}).values())
+              for p in ("detect", "rollback", "reshard", "resume")}
+    check(all(len(v) == 1 and v[0] >= 0 for v in phases.values()),
+          f"failover phase gauges {phases}")
+    got = q.amps
+    diff4 = shards_max_diff(torch, got, ref4)
+    tol4 = shards_tolerance(ref4)
+    check(diff4 <= tol4, f"failover vs uninterrupted 4-shard run: |err| "
+          f"{diff4} > {tol4}")
+    shutil.rmtree(os.path.join(tmp, "f"), ignore_errors=True)
+    qt.destroyQureg(q4, env4)
+    del ref4
+
+    # the same windows on the same meshes: killed on 8, resumed on 4
+    q = fresh(env8)
+    try:
+        qt.runResumable(q, gates, ckdir("k"), every=RES_EVERY,
+                        faults=qt.FaultPlan("kill@3"))
+    except qt.SimulatedPreemption:
+        pass
+    qt.destroyQureg(q, env8)
+    q = fresh(env4, seed=999)
+    qt.runResumable(q, gates, os.path.join(tmp, "k"), every=RES_EVERY)
+    elastic_equal = shards_equal(torch, q.amps, got)
+    check(elastic_equal, "the failover is not bit for bit the 8 -> 4 "
+          "elastic resume")
+    shutil.rmtree(os.path.join(tmp, "k"), ignore_errors=True)
+    del got
+    torch.cuda.empty_cache()
+    return {"n": n, "shards": R_DRES, "every": RES_EVERY,
+            "faults": plan.log, "final_shards": R_DRES // 2,
+            "failover_seconds": {p: v[0] for p, v in phases.items()},
+            "exchange_timeouts_total": timeouts,
+            "run_ms": fo_ms, "uninterrupted_4_shards_ms": r4_ms,
+            "launches": launches,
+            "launches_4_shards": r4_launches,
+            "k1_per_shard_4_shards": r4_launches["K1"] / (R_DRES // 2),
+            "k2_per_shard_4_shards": r4_launches["K2"] / (R_DRES // 2),
+            "max_abs_diff_vs_4_shards": diff4, "tolerance": tol4,
+            "bit_exact_vs_elastic_resume": elastic_equal}
+
+
 def main() -> int:
     import torch
 
@@ -6892,7 +7396,24 @@ def main() -> int:
     dmodels = phase_dist_models_main(torch, np)
     emit({"phase": "dist_models_main", "power": smi, **dmodels})
 
-    # 39. kernels
+    # 39-41. telemetry and resumable runs, checkpoints in a temporary
+    # directory removed on exit
+    import tempfile
+
+    from quest_tpu_torch import optimizer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tele = phase_telemetry_main(torch, np, qt, C, fused, fusion,
+                                    optimizer, us, gates, tmp)
+        emit({"phase": "telemetry_main", "power": smi, **tele})
+        res = phase_resilience_main(torch, np, qt, C, fused, fusion,
+                                    optimizer, us, gates, tmp)
+        emit({"phase": "resilience_main", "power": smi, **res})
+        dres = phase_dist_resilience_main(torch, np, qt, C, fused, fusion,
+                                          us, gates, tmp)
+        emit({"phase": "dist_resilience_main", "power": smi, **dres})
+
+    # 42. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
         key = key or kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -7072,6 +7593,13 @@ def main() -> int:
                      "max_abs_err_per_shard":
                          compparity["kernels"][key]["max_abs_err"],
                      "shard_bits": compparity["kernels"][key]["shard_bits"]}
+    # K1 and K2 on the resumable path: the telemetry phase's API circuit,
+    # the uninterrupted runResumable and the failover run on 8 -> 4 shards
+    for e, key in ((k1e, "K1"), (k2e, "K2")):
+        e["resumable"] = {"launches_telemetry_api": tele["launches"][key],
+                          "launches_run": res["launches"][key],
+                          "launches_failover": dres["launches"][key],
+                          "launches_4_shards": dres["launches_4_shards"][key]}
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
                       k11e, k12e, k1b, k2b, k5b]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

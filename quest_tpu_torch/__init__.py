@@ -33,6 +33,13 @@ registers over several shards (``devices=["cuda:0"] * 8``: eight shards
 on one card; ``["cpu"] * 8`` on the CPU), and after ``initDistributed``
 an env holds one shard per torch.distributed rank (``parallel``, ``PAR``:
 the exchange layer, parallel/dist.py).
+
+``runResumable(q, gates, dir, every=...)`` drives a long circuit window
+by window, committing a checkpoint generation after each window and
+resuming bit for bit after a kill; ``saveQureg`` / ``loadQureg`` snapshot
+a register; ``telemetry`` holds the counters, gauges, histograms and
+spans every layer records (``QT_TELEMETRY=off|on|trace``), and
+``reportPerf(env)`` prints them.
 """
 
 from .precision import (
@@ -56,7 +63,22 @@ from .fusion import (
     stop_gate_fusion as stopGateFusion,
 )
 from .rng import GLOBAL_RNG
-from .checkpoint import writeStateToFile, readStateFromFile
+from .checkpoint import (
+    saveQureg,
+    loadQureg,
+    writeStateToFile,
+    readStateFromFile,
+)
+from .resilience import (
+    run_resumable as runResumable,
+    run_resumable,
+    check_qureg_health as checkQuregHealth,
+    FaultPlan,
+    SimulatedPreemption,
+    NumericalHealthError,
+    WindowExecutor,
+    degradation_report,
+)
 from .debug import (
     initStateOfSingleQubit,
     initStateFromSingleFile,
@@ -75,6 +97,9 @@ from .batch import (
 )
 from . import models
 from . import parallel
+from . import telemetry
+from . import utils
+from .telemetry import report_perf as reportPerf, report_perf
 from .parallel import dist as PAR
 from .ops import phasefunc as _pf
 

@@ -33,6 +33,7 @@ import torch
 
 from . import env as _env
 from . import fusion as _fusion
+from . import telemetry as _telemetry
 from . import validation as V
 from .ops import cplx as CX
 from .ops import gatedefs as G
@@ -42,6 +43,21 @@ from .ops.paulis import PAULI_I, PAULI_X, PAULI_Y, PAULI_Z
 from .parallel import dist as PAR
 from .parallel import sharded as SH
 from .qureg import DiagonalOp, PauliHamil, Qureg
+
+# per-family dispatch counters (quest_tpu/api.py:49-54): keys built once,
+# so the per-gate cost is one int test and one dict upsert
+_K_UNITARY = _telemetry.counter_key("dispatch_total", family="unitary")
+_K_DIAG = _telemetry.counter_key("dispatch_total", family="diag")
+_K_NOT = _telemetry.counter_key("dispatch_total", family="not")
+_K_PARITY = _telemetry.counter_key("dispatch_total", family="parity_phase")
+_K_SWAP = _telemetry.counter_key("dispatch_total", family="swap")
+_K_PERM = _telemetry.counter_key("dispatch_total", family="permutation")
+
+
+def _bw(qureg) -> int:
+    """Telemetry weight of one dispatch: a BatchedQureg applies each gate
+    to all B elements, so dispatch_total counts B gate applications."""
+    return int(getattr(qureg, "batch_size", 0) or 0) or 1
 
 # ---------------------------------------------------------------------------
 # Environment (QuEST.h:1851-1939)
@@ -349,6 +365,9 @@ def initSparseState(qureg: Qureg, indices, amps) -> None:
         raise V.QuESTError("initSparseState: duplicate amplitude indices.")
     V.validate_finite(vals.real, "initSparseState")
     V.validate_finite(vals.imag, "initSparseState")
+    _telemetry.inc_key(_K_PERM, _bw(qureg))
+    _telemetry.inc("sparse_inits_total")
+    _telemetry.inc("sparse_init_amps_total", int(idx.size))
     _put(qureg, lambda: K.init_sparse_state(
         qureg.num_amps_total, idx, vals.real, vals.imag, qureg.dtype,
         qureg.device),
@@ -687,6 +706,7 @@ def _apply_unitary(qureg, matrix, targets, controls=(), control_states=()):
     targets = tuple(int(t) for t in targets)
     controls = tuple(int(c) for c in controls)
     control_states = tuple(int(s) for s in control_states)
+    _telemetry.inc_key(_K_UNITARY, _bw(qureg))
     stacked = CX.soa(matrix)
     if _fusion.capture_unitary(qureg, stacked, targets, controls,
                                control_states):
@@ -709,6 +729,7 @@ def _apply_diag(qureg, diag, targets, controls=(), control_states=()):
     targets = tuple(int(t) for t in targets)
     controls = tuple(int(c) for c in controls)
     control_states = tuple(int(s) for s in control_states)
+    _telemetry.inc_key(_K_DIAG, _bw(qureg))
     stacked = CX.soa(diag)
     if _fusion.capture_diag(qureg, stacked, targets, controls,
                             control_states):
@@ -731,6 +752,7 @@ def _apply_diag(qureg, diag, targets, controls=(), control_states=()):
 def _apply_not(qureg, targets, controls, control_states=()):
     """NOTs are pure index-bit flips; on a sharded register they run at
     the physical positions of the live permutation."""
+    _telemetry.inc_key(_K_NOT, _bw(qureg))
     if _fusion.capture_not(qureg, targets, controls, control_states):
         return
     _guard_batched_eager(qureg, "_apply_not")
@@ -1032,6 +1054,7 @@ def swapGate(qureg: Qureg, qubit1: int, qubit2: int) -> None:
     """Swap two qubits' amplitudes (QuEST.h:3768): buffered as a SWAP
     matrix under fusion, else one qubit relabel (covering the bra twin)."""
     V.validate_unique_targets(qureg, qubit1, qubit2, "swapGate")
+    _telemetry.inc_key(_K_SWAP, _bw(qureg))
     if _fusion.capture_unitary(qureg, _SWAP_SOA, (qubit1, qubit2)):
         qureg.qasm_log.gate("swap", (qubit1,), qubit2)
         return
@@ -1052,6 +1075,8 @@ def swapGate(qureg: Qureg, qubit1: int, qubit2: int) -> None:
     perm = list(range(n))
     for t, _c, _conj in _twins(qureg, (qubit1, qubit2), ()):
         perm[t[0]], perm[t[1]] = perm[t[1]], perm[t[0]]
+    _telemetry.inc_key(_K_PERM, _bw(qureg))
+    _telemetry.inc("permutation_gates_total", route="relabel")
     _default_route(qureg, lambda a: K.permute_qubits(
         a, num_qubits=n, perm=tuple(perm)))
     qureg.qasm_log.gate("swap", (qubit1,), qubit2)
@@ -1158,6 +1183,7 @@ def _apply_parity_phase(qureg, angle, qubits, controls):
     fused gates first.  On a sharded register it runs at the physical
     positions of the live permutation, shard by shard, moving no data
     (the JAX package's _apply_parity_phase)."""
+    _telemetry.inc_key(_K_PARITY, _bw(qureg))
     _guard_batched_eager(qureg, "_apply_parity_phase")
     if qureg.is_sharded:
         for t, c, conj in _twins(qureg, tuple(qubits), tuple(controls)):

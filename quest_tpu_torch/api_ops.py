@@ -19,6 +19,7 @@ import torch
 from . import circuit as CIRC
 from . import fusion
 from . import optimizer as _optimizer
+from . import telemetry as _telemetry
 from . import validation as V
 from .api import (PAULI_I, _default_route, _shift, _sv_n, hadamard,
                   multiRotatePauli, swapGate)
@@ -244,6 +245,7 @@ def measureWithStats(qureg: Qureg, measureQubit: int):
     generateMeasurementOutcome -> collapse)."""
     _refuse_bank(qureg, "measureWithStats")
     V.validate_target(qureg, measureQubit, "measureWithStats")
+    _telemetry.inc("measurement_shots_total")
     if M.host_path_enabled():
         zero_prob = calcProbOfOutcome(qureg, measureQubit, 0)
         outcome = _generate_measurement_outcome(zero_prob)
@@ -293,6 +295,8 @@ def measureSequence(qureg: Qureg, qubits: Sequence[int]):
             outs.append(o)
             probs.append(p)
         return outs, probs
+    # (the host path above counts per measureWithStats call)
+    _telemetry.inc("measurement_shots_total", len(qubits))
     key, shot = M.KEYS.next_shots(len(qubits))
     sh = _sharded_amps(qureg)
     if sh is not None:
@@ -714,6 +718,7 @@ def setWeightedQureg(fac1, qureg1: Qureg, fac2, qureg2: Qureg, facOut,
 
 
 def _apply_matrix_raw(qureg: Qureg, m, targets, controls=()) -> None:
+    _telemetry.inc("dispatch_total", family="matrix_raw")
     qureg.amps = K.apply_matrix(
         qureg.amps, CX.soa(m), num_qubits=_sv_n(qureg),
         targets=tuple(int(t) for t in targets),

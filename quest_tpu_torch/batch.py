@@ -37,9 +37,13 @@ shard; measurement sums every element's probability over the mesh at
 once, and the expectation values run the sharded scan element by
 element.
 
-The reference's telemetry counters, gauges and spans and the memory
-governor's admission are not ported here (they belong to the platform
-layers, ROADMAP M16), nor is a bank's checkpoint.
+The banks record the JAX package's telemetry series:
+``dispatch_total{family=unitary}`` weighted by the bank size,
+``measurement_shots_total``, ``batch_occupancy`` and the ``ensemble_*``
+and ``trajectory_*`` series, under the spans ``batch.ensemble_drain`` and
+``batch.trajectories``.  A bank checkpoints with its key bank
+(``saveQureg``, ``run_resumable``).  The memory governor's admission
+(ROADMAP M16c) is not ported.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 
 from . import circuit as C
 from . import fusion as _fusion
+from . import telemetry as _telemetry
 from .env import QuESTEnv
 from .ops import calculations as CALC
 from .ops import cplx as CX
@@ -294,6 +299,9 @@ def applyBatchedUnitary(qureg: BatchedQureg, targets, mats,
     controls = tuple(int(c) for c in controls)
     B = qureg.batch_size
     stacked = _soa_per_element(mats, B)
+    from . import api as _api
+
+    _telemetry.inc_key(_api._K_UNITARY, B)
     if controls:
         stacked = np.stack([
             C.controlled_dense(stacked[b], len(controls), control_states)
@@ -327,6 +335,7 @@ def measureBatched(qureg: BatchedQureg, measureQubit: int):
         raise QuESTError("measureBatched: the register is not a "
                          "BatchedQureg")
     V.validate_target(qureg, measureQubit, "measureBatched")
+    _telemetry.inc("measurement_shots_total", qureg.batch_size)
     bank = qureg.amps
     quad = _quad()
     if qureg.is_sharded:
@@ -541,9 +550,13 @@ class EnsembleScheduler:
         items = bank_gate_items([sub[2] for sub in padded],
                                 self.num_qubits, self.is_density_matrix,
                                 qureg=q)
+        from . import api as _api
+
+        _telemetry.inc_key(_api._K_UNITARY, B * len(group[0][2]))
         q._fusion.gates.extend(items)
-        return ({sub[0]: q.element(i) for i, sub in enumerate(group)}, real,
-                B)
+        out = {sub[0]: q.element(i) for i, sub in enumerate(group)}
+        _telemetry.observe("ensemble_bucket_occupancy", real / B)
+        return out, real, B
 
     def drain(self) -> List[torch.Tensor]:
         """Run every pending submission; returns the final amplitudes in
@@ -557,18 +570,26 @@ class EnsembleScheduler:
             groups.setdefault(sub[1], []).append(sub)
         results: dict = {}
         occ_real = occ_padded = buckets = 0
-        for group in groups.values():
-            for i in range(0, len(group), self.max_batch):
-                res, real, padded = self._run_bucket(
-                    group[i:i + self.max_batch])
-                results.update(res)
-                occ_real += real
-                occ_padded += padded
-                buckets += 1
+        with _telemetry.span("batch.ensemble_drain",
+                             circuits=len(pending), groups=len(groups)):
+            for group in groups.values():
+                for i in range(0, len(group), self.max_batch):
+                    res, real, padded = self._run_bucket(
+                        group[i:i + self.max_batch])
+                    results.update(res)
+                    occ_real += real
+                    occ_padded += padded
+                    buckets += 1
+        dt = time.perf_counter() - t0
+        if occ_padded:
+            _telemetry.set_gauge("batch_occupancy", occ_real / occ_padded)
+        _telemetry.inc("ensemble_circuits_total", len(pending))
+        if dt > 0:
+            _telemetry.set_gauge("ensemble_circuits_per_sec",
+                                 len(pending) / dt)
         self.last_drain = {"circuits": len(pending), "groups": len(groups),
                            "buckets": buckets, "real": occ_real,
-                           "padded": occ_padded,
-                           "seconds": time.perf_counter() - t0}
+                           "padded": occ_padded, "seconds": dt}
         return [results[sub[0]] for sub in pending]
 
 
@@ -653,28 +674,44 @@ def run_trajectories(ops: Sequence, num_qubits: int, env: QuESTEnv,
     if n_traj < 1:
         raise QuESTError(f"run_trajectories: n_traj must be >= 1, got "
                          f"{n_traj}")
+    from . import api as _api
+
     rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
     q = createBatchedQureg(num_qubits, env, n_traj,
                            seeds=[seed + i for i in range(n_traj)])
-    for op in ops:
-        if isinstance(op, C.Gate):
-            q._fusion.gates.append(op)
-            continue
-        kind, target, prob = op
-        if kind not in _NOISE_KINDS:
-            raise QuESTError(
-                f"run_trajectories: unknown noise kind {kind!r} "
-                f"(expected one of {_NOISE_KINDS})")
-        prob = float(prob)
-        if kind == "damping":
-            mats = _sample_damping(q, int(target), prob, rng)
+    nsites = 0
+    with _telemetry.span("batch.trajectories", n_traj=n_traj,
+                         ops=len(ops)):
+        for op in ops:
+            if isinstance(op, C.Gate):
+                _telemetry.inc_key(_api._K_UNITARY, n_traj)
+                q._fusion.gates.append(op)
+                continue
+            kind, target, prob = op
+            if kind not in _NOISE_KINDS:
+                raise QuESTError(
+                    f"run_trajectories: unknown noise kind {kind!r} "
+                    f"(expected one of {_NOISE_KINDS})")
+            nsites += 1
+            prob = float(prob)
+            if kind == "damping":
+                mats = _sample_damping(q, int(target), prob, rng)
+            else:
+                mats = _sample_pauli_insertion(kind, prob,
+                                               rng.random(n_traj))
+            applyBatchedUnitary(q, (int(target),), mats)
+        _telemetry.inc("trajectory_runs_total", n_traj)
+        _telemetry.set_gauge("trajectory_noise_sites", nsites)
+        if observable is None:
+            out = {"amps": q.amps}
         else:
-            mats = _sample_pauli_insertion(kind, prob, rng.random(n_traj))
-        applyBatchedUnitary(q, (int(target),), mats)
-    if observable is None:
-        return {"amps": q.amps}
-    codes, coeffs = observable
-    vals = calcExpecPauliSumBatched(q, codes, coeffs)
-    sem = float(vals.std(ddof=1) / np.sqrt(n_traj)) \
-        if n_traj > 1 else float("nan")
-    return {"values": vals, "mean": float(vals.mean()), "sem": sem}
+            codes, coeffs = observable
+            vals = calcExpecPauliSumBatched(q, codes, coeffs)
+            sem = float(vals.std(ddof=1) / np.sqrt(n_traj)) \
+                if n_traj > 1 else float("nan")
+            out = {"values": vals, "mean": float(vals.mean()), "sem": sem}
+    dt = time.perf_counter() - t0
+    if dt > 0:
+        _telemetry.set_gauge("trajectories_per_sec", n_traj / dt)
+    return out

@@ -1757,3 +1757,18 @@ def _rebuild_plan_iter(skeleton: Sequence[tuple], it) -> List[tuple]:
         else:
             ops.append(sk)
     return ops
+
+
+def plan_checkpoint_boundaries(num_gates: int, every: int,
+                               start: int = 0) -> List[int]:
+    """Gate cursors where a resumable run may checkpoint: every ``every``
+    gates plus the stream end (quest_tpu/circuit.py:1750-1764).
+    ``resilience.run_resumable`` drains one fusion window per span
+    between two boundaries, so a checkpoint never lands mid-window and a
+    resumed run re-plans the same window sequence."""
+    if every < 1:
+        raise ValueError("plan_checkpoint_boundaries: every must be >= 1")
+    out = list(range(start + every, num_gates, every))
+    if num_gates > start:
+        out.append(num_gates)
+    return out

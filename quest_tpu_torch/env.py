@@ -175,6 +175,47 @@ def init_distributed(init_method: Optional[str] = None,
     dist.init_process_group(backend=backend, **kwargs)
 
 
+def shrink_env(env: QuESTEnv, num_devices: int, *,
+               exclude_index: Optional[int] = None,
+               exclude_indices: Optional[Sequence[int]] = None) -> QuESTEnv:
+    """A degraded env over a power-of-two subset of ``env``'s shard
+    devices: the mesh half of the elastic failover (resilience._failover)
+    and of loadQureg's load onto a grown mesh (quest_tpu/env.py
+    shrink_env).  ``exclude_index`` drops one shard (the presumed-dead
+    one) before truncating, ``exclude_indices`` a set (a dead host's
+    whole range, topology.host_range).  On one card an in-process mesh
+    of R shards shrinks to the surviving shards' devices, still on that
+    card.  The seeds are kept without reseeding: the measurement
+    streams belong to the run, and a failover restores them from the
+    checkpoint.  The topology is topology.shrink's."""
+    from .parallel import topology as topo
+    from .parallel.mesh import InProcessMesh
+
+    dead = set() if exclude_indices is None else {
+        int(i) for i in exclude_indices}
+    if exclude_index is not None:
+        dead.add(int(exclude_index))
+    devs = [d for i, d in enumerate(env.devices) if i not in dead]
+    num_devices = int(num_devices)
+    if num_devices < 1 or num_devices & (num_devices - 1):
+        raise ValueError(
+            f"shrink_env: num_devices must be a positive power of two, "
+            f"got {num_devices}")
+    if num_devices > len(devs):
+        raise ValueError(
+            f"shrink_env: asked for {num_devices} devices but only "
+            f"{len(devs)} survive in this environment")
+    if env.mesh is not None and not isinstance(env.mesh, InProcessMesh):
+        raise QuESTError(
+            "shrink_env: an env of torch.distributed ranks cannot shrink "
+            "in process; restart on the surviving ranks")
+    devs = devs[:num_devices]
+    mesh = InProcessMesh(devs) if num_devices > 1 else None
+    return QuESTEnv(device=devs[0], rank=0, num_ranks=num_devices,
+                    seeds=env.seeds, devices=tuple(devs), mesh=mesh,
+                    topology=topo.shrink(env.topology, num_devices))
+
+
 def destroy_quest_env(env: QuESTEnv) -> None:
     """destroyQuESTEnv (QuEST.h:1864): nothing to free."""
 
@@ -197,7 +238,8 @@ def get_environment_string(env: QuESTEnv) -> str:
     """getEnvironmentString (QuEST.h:1912): device, precision and seeds;
     while the measurement streams are on their time+pid default seed, the
     chosen keys as ``DefaultSeed=``, so the run replays with
-    ``seedQuEST(env, <keys>)``."""
+    ``seedQuEST(env, <keys>)``; then the degradations and the telemetry
+    block (``_health_fragment``)."""
     from . import precision
 
     if env.device.type == "cuda":
@@ -212,7 +254,44 @@ def get_environment_string(env: QuESTEnv) -> str:
             f"Seeds={','.join(str(s) for s in env.seeds)}"
             + (" DefaultSeed=" + ",".join(str(k) for k in
                                           rng.GLOBAL_RNG._keys)
-               if rng.GLOBAL_RNG.default_seeded else ""))
+               if rng.GLOBAL_RNG.default_seeded else "")
+            + _health_fragment())
+
+
+def _health_fragment() -> str:
+    """The degradation report and the telemetry block appended to
+    getEnvironmentString (quest_tpu/env.py:340-424): degradations,
+    failovers and exchange timeouts, the peak device-memory watermark,
+    the circuit optimizer, the permutation and megakernel routes, and
+    ``[telemetry: ...]``."""
+    from . import optimizer, resilience, telemetry
+    from .parallel import dist
+
+    s = f" ExchangeChunks={dist.exchange_config_key() or 'auto'}"
+    degraded = resilience.degradation_report()
+    if degraded:
+        s += " Degraded=[" + "; ".join(
+            f"{k}: {v}" for k, v in sorted(degraded.items())) + "]"
+    failovers = telemetry.counter_total("failovers_total")
+    if failovers:
+        s += f" Failovers={int(failovers)}"
+    timeouts = telemetry.counter_total("exchange_timeouts_total")
+    if timeouts:
+        s += f" ExchangeTimeouts={int(timeouts)}"
+    peak = telemetry.gauge_max("hbm_watermark_bytes")
+    if peak is not None:
+        s += f" HbmPeak={int(peak)}"
+    s += f" {optimizer.summary_line()}"
+    for name, label, routes in (
+            ("permutation_gates_total", "PermFast",
+             ("relabel", "gather", "exchange")),
+            ("megakernel_dispatch_total", "Megakernel",
+             ("mega", "fallback"))):
+        if telemetry.counter_total(name):
+            s += f" {label}=" + ",".join(
+                f"{r}:{int(telemetry.counter_sum(name, route=r))}"
+                for r in routes if telemetry.counter_sum(name, route=r))
+    return s + f" [telemetry: {telemetry.summary()}]"
 
 
 def seed_quest(env: QuESTEnv, seeds: Sequence[int]) -> None:

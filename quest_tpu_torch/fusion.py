@@ -46,7 +46,8 @@ in their bank forms, one launch per pass, group or sweep on each shard.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
+import time
+from contextlib import contextmanager, nullcontext
 from typing import List
 
 import numpy as np
@@ -54,6 +55,7 @@ import torch
 
 from . import circuit as C
 from . import optimizer as _opt
+from . import telemetry as _telemetry
 from .ops import cplx as _cplx
 from .ops import density as _density
 from .ops import fused as _fused
@@ -86,19 +88,35 @@ def stop_gate_fusion(qureg) -> None:
 
 def drain(qureg) -> None:
     """Execute buffered gates now (called from the Qureg.amps property).
-    On failure the gates are restored to the buffer."""
+    On failure the gates are restored to the buffer.  Counts
+    ``fusion_drains_total`` and ``_drain_count`` (the resilience layer's
+    window-boundary count), observes ``fusion_drain_gates``, runs under
+    the ``fusion.drain`` span, and samples the memory watermark after the
+    drain (quest_tpu/fusion.py:71-94)."""
     buf = qureg._fusion
     if buf is not None and buf.gates:
         gates, buf.gates = buf.gates, []
+        _telemetry.inc("fusion_drains_total")
+        _telemetry.observe("fusion_drain_gates", len(gates))
         try:
-            _run(qureg, gates)
+            with _telemetry.span("fusion.drain", gates=len(gates)):
+                _run(qureg, gates)
         except BaseException:
             buf.gates = gates + buf.gates
             raise
+        qureg._drain_count += 1
+        if _telemetry.enabled():
+            from .utils import profiling as _prof
+
+            _prof.memory_watermark()
 
 
 _PLAN_CACHE_MAX = 64
 _plan_cache: dict = {}
+
+# > 0 while plan_items / plan_items_sharded plan ahead of a drain: the
+# per-window observations are not recorded (only drains record them)
+_QUIET: List[int] = [0]
 
 
 class ChannelItem:
@@ -195,6 +213,8 @@ def _split_items(items, nloc: int, sweep_ok: bool, device=None):
     chans: list = []
 
     def flush_gates():
+        if seg and not _QUIET[0]:
+            _telemetry.observe("fusion_window_gates", len(seg))
         for kind, sub in _perm_runs(seg):
             if kind == "perm":
                 ops = C.lower_permutation_run(sub, nloc)
@@ -250,6 +270,8 @@ def _split_items_sharded(items, n: int, nloc: int, perm0, sweep_ok: bool,
     segments, final_perm = C.plan_remap_windows(entries, n, nloc, perm0)
     program: List[tuple] = []
     for (i, j), sigma, perm in segments:
+        if not _QUIET[0]:
+            _telemetry.observe("fusion_remap_window_items", j - i)
         if C._is_relabel_entry(entries[i]):
             continue
         if sigma is not None:
@@ -350,23 +372,37 @@ def _plan_batched_items(items, bsz: int, num_qubits: int, device,
                          sweep_ok), None) for b in range(bsz))[0]
 
 
+def _cache_lookup(key, record: bool):
+    """The plan cached under ``key`` (None: a miss); a drain's lookup
+    (``record``) counts fusion_plan_cache_hits_total / _misses_total."""
+    hit = _plan_cache.get(key) if key is not None else None
+    if record:
+        _telemetry.inc("fusion_plan_cache_hits_total" if hit is not None
+                       else "fusion_plan_cache_misses_total")
+    return hit
+
+
 def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool,
-                    batch_size: int = 0):
+                    batch_size: int = 0, record: bool = False):
     """The program of an optimized item list (cached on its content), of
-    one register or of a bank of ``batch_size`` registers."""
+    one register or of a bank of ``batch_size`` registers.  A drain's
+    call (``record``) counts the cache lookup and plans a miss under the
+    ``fusion.plan`` span."""
     if not items:
         return ()
     flag = batch_flag(items, batch_size)
     key = _plan_key(items, num_qubits, sweep_ok, device,
                     (flag, batch_size if flag == 2 else 0))
-    hit = _plan_cache.get(key) if key is not None else None
+    hit = _cache_lookup(key, record)
     if hit is not None:
         return hit
-    if flag == 2:
-        program = _plan_batched_items(items, batch_size, num_qubits, device,
-                                      sweep_ok)
-    else:
-        program = _split_items(items, num_qubits, sweep_ok, device)
+    with _telemetry.span("fusion.plan", items=len(items)) if record \
+            else nullcontext():
+        if flag == 2:
+            program = _plan_batched_items(items, batch_size, num_qubits,
+                                          device, sweep_ok)
+        else:
+            program = _split_items(items, num_qubits, sweep_ok, device)
     if key is not None:
         if len(_plan_cache) >= _PLAN_CACHE_MAX:
             _plan_cache.pop(next(iter(_plan_cache)))
@@ -380,9 +416,16 @@ def plan_items(items, num_qubits: int, device=None, sweep_ok: bool = False,
     of ``batch_size`` registers) on ``device`` executes: the optimized
     stream split into permutation, planned and channel parts (cached on
     the items' content).  A drain passes ``sweep_ok =
-    fused.channel_sweep_enabled(state)``."""
-    items, _stats = _opt.optimize_items(items, nloc=num_qubits)
-    return _plan_optimized(items, num_qubits, device, sweep_ok, batch_size)
+    fused.channel_sweep_enabled(state)``.  Planning ahead records no
+    telemetry: only drains count."""
+    _QUIET[0] += 1
+    try:
+        items, _stats = _opt.optimize_items(items, nloc=num_qubits,
+                                            quiet=True)
+        return _plan_optimized(items, num_qubits, device, sweep_ok,
+                               batch_size)
+    finally:
+        _QUIET[0] -= 1
 
 
 def program_stats(program) -> dict:
@@ -444,11 +487,92 @@ def _run(qureg, items) -> None:
     n = qureg.num_qubits_in_state_vec
     amps = qureg._amps
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
-    items, _stats = _opt.optimize_items(items, nloc=n)
+    with _telemetry.span("fusion.optimize", items=len(items)):
+        items, _stats = _opt.optimize_items(items, nloc=n)
+    if not items:
+        return  # everything cancelled: nothing runs
     program = _plan_optimized(items, n, qureg.device,
-                              _fused.channel_sweep_enabled(amps), bsz)
+                              _fused.channel_sweep_enabled(amps), bsz,
+                              record=True)
+    _record_program(program, items)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
-    qureg._amps = execute_program(amps, program, probs, n)
+    qureg._amps = _timed_group(
+        qureg, program, lambda: execute_program(amps, program, probs, n))
+
+
+def _group_route(program) -> str:
+    """Dominant plan-entry family of a dispatched program, the
+    plan_route_seconds label (quest_tpu/fusion.py:421-441): megawin,
+    winfused, permfast, channel, remap."""
+    saw = set()
+    for part in program:
+        if part[0] == "plan":
+            for op in part[1]:
+                saw.add("megawin" if op[0] == "megawin" else "winfused")
+        elif part[0] == "perm":
+            saw.add("permfast")
+        elif part[0] in ("chan", "chansweep"):
+            saw.add("channel")
+        elif part[0] == "remap":
+            saw.add("remap")
+    for route in ("megawin", "winfused", "permfast", "channel", "remap"):
+        if route in saw:
+            return route
+    return "other"
+
+
+def _record_program(program, items, n: int = 0, nloc: int = 0,
+                    perm0=None) -> None:
+    """A drain's program accounting (quest_tpu/fusion.py:451-505):
+    fusion_windows_total (planned parts), megakernel_dispatch_total
+    {route=mega} (megawin groups), the window_hbm_round_trips gauge
+    (ops per planned part) and permutation_gates_total by route (a
+    lowered permutation op: relabel or gather; on a sharded register a
+    relabel folded into the permutation: exchange when it touches a bit
+    held on the shard axis at the drain's start, else relabel)."""
+    if not _telemetry.enabled():
+        return
+    plans = [part[1] for part in program if part[0] == "plan"]
+    _telemetry.inc("fusion_windows_total", len(plans))
+    mega = sum(1 for ops in plans for op in ops if op[0] == "megawin")
+    if mega:
+        _telemetry.inc("megakernel_dispatch_total", mega, route="mega")
+    if plans:
+        _telemetry.set_gauge("window_hbm_round_trips",
+                             sum(len(ops) for ops in plans) / len(plans))
+    for part in program:
+        if part[0] == "perm":
+            for op in part[1]:
+                _telemetry.inc(
+                    "permutation_gates_total",
+                    route="relabel" if op[0] == "permute" else "gather")
+    if n > nloc:
+        p0 = tuple(perm0) if perm0 is not None else tuple(range(n))
+        for it in items:
+            e = _item_entry(it)
+            if C._is_relabel_entry(e):
+                ex = any(p0[a] >= nloc or p0[b] >= nloc for a, b in e[1])
+                _telemetry.inc("permutation_gates_total",
+                               route="exchange" if ex else "relabel")
+
+
+def _timed_group(qureg, program, dispatch):
+    """Run one dispatched program group, observing its wall time into
+    plan_route_seconds{route} and counting plan_route_dispatch_total
+    (quest_tpu/fusion.py:587-613).  In trace mode the card is
+    synchronised after the group, so the time is the device's; in on
+    mode only the host dispatch is timed (no added sync)."""
+    if not _telemetry.enabled():
+        return dispatch()
+    t0 = time.perf_counter()
+    out = dispatch()
+    if _telemetry.mode_name() == "trace" and qureg.device.type == "cuda":
+        torch.cuda.synchronize(qureg.device)
+    route = _group_route(program)
+    _telemetry.observe("plan_route_seconds", time.perf_counter() - t0,
+                       route=route)
+    _telemetry.inc("plan_route_dispatch_total", route=route)
+    return out
 
 
 # device copies of sharded programs: (plan key, device, dtype) -> program
@@ -463,35 +587,45 @@ def plan_items_sharded(items, n: int, nloc: int, perm0=None, device=None,
     bits, starting from the live permutation ``perm0``, executes: the
     optimized stream (with the sharded reordering; ``optimize=False``:
     the stream as given) split into remap, permutation, planned and
-    channel parts, cached on the items' content and ``perm0``."""
+    channel parts, cached on the items' content and ``perm0``.  Records
+    no telemetry, as plan_items."""
     nsh = n - nloc
-    if optimize:
-        items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
-                                            perm0=perm0)
-    return _plan_sharded(items, n, nloc, perm0, device, sweep_ok,
-                         batch_size)[:2]
+    _QUIET[0] += 1
+    try:
+        if optimize:
+            items, _stats = _opt.optimize_items(items, nloc=nloc, n=n,
+                                                nsh=nsh, perm0=perm0,
+                                                quiet=True)
+        return _plan_sharded(items, n, nloc, perm0, device, sweep_ok,
+                             batch_size)[:2]
+    finally:
+        _QUIET[0] -= 1
 
 
-def _plan_sharded(items, n, nloc, perm0, device, sweep_ok, bsz: int = 0):
+def _plan_sharded(items, n, nloc, perm0, device, sweep_ok, bsz: int = 0,
+                  record: bool = False):
     """(program, final_perm, key) of an optimized sharded item list of
     one register or of a bank of ``bsz``: under batch flag 2 each element
     planned on its own from the live permutation (cached as its scalar
     drain would be) and the plans stacked (``_stack_element_plans``),
-    the bank's program cached under its own key."""
+    the bank's program cached under its own key.  ``record``: a drain's
+    call (_plan_optimized)."""
     nsh = n - nloc
     flag = batch_flag(items, bsz)
     key = _plan_key(items, nloc, sweep_ok, device,
                     (flag, bsz if flag == 2 else 0), perm0, nsh)
-    hit = _plan_cache.get(key) if key is not None else None
+    hit = _cache_lookup(key, record)
     if hit is not None:
         return hit[0], hit[1], key
-    if flag == 2:
-        program, final_perm = _stack_element_plans(
-            _plan_sharded(_items_for_element(items, b), n, nloc, perm0,
-                          device, sweep_ok)[:2] for b in range(bsz))
-    else:
-        program, final_perm = _split_items_sharded(items, n, nloc, perm0,
-                                                   sweep_ok, device)
+    with _telemetry.span("fusion.plan", items=len(items)) if record \
+            else nullcontext():
+        if flag == 2:
+            program, final_perm = _stack_element_plans(
+                _plan_sharded(_items_for_element(items, b), n, nloc, perm0,
+                              device, sweep_ok)[:2] for b in range(bsz))
+        else:
+            program, final_perm = _split_items_sharded(
+                items, n, nloc, perm0, sweep_ok, device)
     if key is not None:
         if len(_plan_cache) >= _PLAN_CACHE_MAX:
             _plan_cache.pop(next(iter(_plan_cache)))
@@ -587,17 +721,19 @@ def _run_sharded(qureg, items) -> None:
     perm0 = qureg._perm
     amps = qureg._amps
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
-    items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
-                                        perm0=perm0)
+    with _telemetry.span("fusion.optimize", items=len(items)):
+        items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
+                                            perm0=perm0)
     if not items:
         return  # everything cancelled: nothing runs, the perm stays
     sweep_ok = _fused.channel_sweep_enabled(amps.shards[0])
     program, final_perm, key = _plan_sharded(
-        items, n, nloc, perm0, amps.device, sweep_ok, bsz)
+        items, n, nloc, perm0, amps.device, sweep_ok, bsz, record=True)
+    _record_program(program, items, n, nloc, perm0)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
-    qureg._amps = PAR.guarded_dispatch(
+    qureg._amps = _timed_group(qureg, program, lambda: PAR.guarded_dispatch(
         execute_sharded_program, amps, program, probs, nloc, key,
-        op="drain", shards=qureg.num_chunks)
+        op="drain", shards=qureg.num_chunks))
     if final_perm is not None and list(final_perm) != list(range(n)):
         qureg._perm = tuple(final_perm)
     else:

@@ -36,11 +36,13 @@ keep their order relative to each other and to every gate they touch.
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from . import circuit as C
+from . import telemetry as _telemetry
 
 _MODES = ("off", "on", "aggressive")
 
@@ -56,6 +58,10 @@ _cache: dict = {}
 
 # longest stream the reordering considers (its DAG is quadratic)
 _REORDER_MAX_ITEMS = 512
+
+# suppression depth (suppressed()): > 0 makes optimize_items return the
+# stream verbatim whatever the mode
+_SUPPRESS: List[int] = [0]
 
 
 def mode() -> str:
@@ -84,6 +90,24 @@ def set_circuit_optimizer(m: Optional[str]) -> None:
 def get_circuit_optimizer() -> str:
     """The active optimizer mode string."""
     return mode()
+
+
+class suppressed:
+    """Context manager making :func:`optimize_items` return the stream
+    verbatim for the drains it encloses (quest_tpu/optimizer.py:123-140).
+    Window-stepped execution (resilience.WindowExecutor) drains one
+    window at a time and its checkpoint cursor indexes the raw gate list;
+    a resumed run may re-enter the stream on another mesh and under
+    another live permutation, on which the cost-scored rewrite depends,
+    so those drains run under ``suppressed()``."""
+
+    def __enter__(self):
+        _SUPPRESS[0] += 1
+        return self
+
+    def __exit__(self, *exc):
+        _SUPPRESS[0] -= 1
+        return False
 
 
 def _is_gate(it) -> bool:
@@ -392,7 +416,9 @@ def _optimize_sharded(items: list, n: int, nloc: int, perm0,
     """The sharded rewrite: the full rewrite and (when it coalesced
     diagonals) the cancel/merge-only rewrite are candidates, each
     reordered; the cheapest (cost, gate count) wins over program order
-    only when strictly cheaper.  Returns (items, removed, reordered)."""
+    only when strictly cheaper.  Returns (items, removed, reordered,
+    windows): ``windows`` is (remap windows before, after), or None when
+    the stream is not plannable in the remap-window model."""
     none = {"cancel": 0, "merge": 0, "diag_coalesce": 0,
             "perm_coalesce": 0}
     out, removed = _rewrite(items, nloc, aggressive, True)
@@ -409,13 +435,15 @@ def _optimize_sharded(items: list, n: int, nloc: int, perm0,
             if best is None or key < best[0]:
                 best = (key, cand, rem, reord)
         gates_in = sum(1 for it in items if _is_gate(it))
-        if best[0] < (_stream_cost(items, n, nloc, perm0), gates_in):
-            return best[1], best[2], best[3]
-        return list(items), none, False
+        base = _stream_cost(items, n, nloc, perm0)
+        if best[0] < (base, gates_in):
+            return (best[1], best[2], best[3],
+                    (int(base[2]), int(best[0][0][2])))
+        return list(items), none, False, (int(base[2]), int(base[2]))
     except ValueError:
         # not plannable in the remap-window model (an item wider than the
         # shard-local space): keep the rewrite in program order
-        return out, removed, False
+        return out, removed, False, None
 
 
 def _content_key(items, nloc: int, m: str, n: int = 0, nsh: int = 0,
@@ -457,41 +485,72 @@ def _thaw_out(items, frozen) -> list:
 
 
 def optimize_items(items: Sequence, *, nloc: int, n: Optional[int] = None,
-                   nsh: int = 0, perm0=None) -> Tuple[list, dict]:
+                   nsh: int = 0, perm0=None,
+                   quiet: bool = False) -> Tuple[list, dict]:
     """Rewrite a drain's item stream under the active mode; returns
     (items, stats).  ``nloc`` is the register's local bits (all of them
     on one device); a sharded drain passes its ``n``, shard bits ``nsh``
     and starting permutation ``perm0``, and takes the cost-scored
-    sharded rewrite."""
-    m = mode()
+    sharded rewrite.  Unless ``quiet``, records optimizer_seconds (on a
+    rewrite, not a memoized hit), optimizer_gates_removed_total{kind}
+    and optimizer_windows_merged_total (quest_tpu/optimizer.py:683-697)."""
+    m = mode() if not _SUPPRESS[0] else "off"
     items = list(items)
     gates_in = sum(1 for it in items if _is_gate(it))
+    none = {"mode": m, "gates_in": gates_in, "gates_out": gates_in,
+            "reordered": False, "windows_before": None,
+            "windows_after": None,
+            "removed": {"cancel": 0, "merge": 0, "diag_coalesce": 0,
+                        "perm_coalesce": 0}}
     if m == "off" or len(items) < 2:
-        return items, {"mode": m, "gates_in": gates_in,
-                       "gates_out": gates_in, "reordered": False,
-                       "removed": {"cancel": 0, "merge": 0,
-                                   "diag_coalesce": 0, "perm_coalesce": 0}}
+        return items, none
     if nsh and any(_is_gate(it) and not isinstance(it.mat, np.ndarray)
                    for it in items):
-        return items, {"mode": m, "gates_in": gates_in,
-                       "gates_out": gates_in, "reordered": False,
-                       "removed": {"cancel": 0, "merge": 0,
-                                   "diag_coalesce": 0, "perm_coalesce": 0}}
+        return items, none
     key = _content_key(items, nloc, m, n or 0, nsh, perm0)
     hit = _cache.get(key) if key is not None else None
     if hit is not None:
-        return _thaw_out(items, hit[0]), hit[1]
-    reordered = False
-    if nsh:
-        out, removed, reordered = _optimize_sharded(
-            items, n, nloc, perm0, m == "aggressive")
+        out, stats = _thaw_out(items, hit[0]), hit[1]
     else:
-        out, removed = _rewrite(items, nloc, m == "aggressive")
-    stats = {"mode": m, "gates_in": gates_in,
-             "gates_out": sum(1 for it in out if _is_gate(it)),
-             "removed": dict(removed), "reordered": bool(reordered)}
-    if key is not None:
-        if len(_cache) >= _CACHE_MAX:
-            _cache.pop(next(iter(_cache)))
-        _cache[key] = (_freeze_out(items, out), stats)
+        t0 = time.perf_counter()
+        reordered = False
+        windows = None
+        if nsh:
+            out, removed, reordered, windows = _optimize_sharded(
+                items, n, nloc, perm0, m == "aggressive")
+        else:
+            out, removed = _rewrite(items, nloc, m == "aggressive")
+        stats = {"mode": m, "gates_in": gates_in,
+                 "gates_out": sum(1 for it in out if _is_gate(it)),
+                 "removed": dict(removed), "reordered": bool(reordered),
+                 "windows_before": None if windows is None else windows[0],
+                 "windows_after": None if windows is None else windows[1]}
+        if not quiet:
+            _telemetry.observe("optimizer_seconds",
+                               time.perf_counter() - t0)
+        if key is not None:
+            if len(_cache) >= _CACHE_MAX:
+                _cache.pop(next(iter(_cache)))
+            _cache[key] = (_freeze_out(items, out), stats)
+    if not quiet and _telemetry.enabled():
+        for kind, v in stats["removed"].items():
+            if v:
+                _telemetry.inc("optimizer_gates_removed_total", v,
+                               kind=kind)
+        wb, wa = stats["windows_before"], stats["windows_after"]
+        if wb is not None and wa is not None and wb > wa:
+            _telemetry.inc("optimizer_windows_merged_total", wb - wa)
     return list(out), stats
+
+
+def summary_line() -> str:
+    """``Optimizer=...`` fragment of getEnvironmentString: the active
+    mode, plus the gates removed and remap windows merged once any were
+    recorded."""
+    m = mode()
+    removed = _telemetry.counter_total("optimizer_gates_removed_total")
+    merged = _telemetry.counter_total("optimizer_windows_merged_total")
+    s = f"Optimizer={m}"
+    if removed or merged:
+        s += f"(removed={int(removed)} windows_merged={int(merged)})"
+    return s

@@ -22,8 +22,8 @@ mesh's ``permute`` / ``sum`` / ``gather`` (parallel/mesh.py):
 Every exchange is chunked (``exchange_pipelined``): the payload splits
 into C pieces along its last axis, moved and combined one piece at a
 time, so the receive buffer is one chunk; the result is the same for any
-C.  The exchanges are counted in this module's counters, by op family,
-tier and chunk setting, as the JAX package's telemetry counts them
+C.  The exchanges are counted in the telemetry registry, by op family,
+tier and chunk setting, as the JAX package counts them
 (``exchanges_total`` / ``exchange_bytes_total``; per-shard bytes).
 """
 
@@ -32,11 +32,11 @@ from __future__ import annotations
 import math
 import os
 import time
-import warnings
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import telemetry as _telemetry
 from ..ops import cplx, kernels
 from . import topology as topo
 from ..validation import QuESTError
@@ -45,43 +45,37 @@ from .mesh import Mesh, ShardedAmps
 _CONFIG = {"explicit": True, "lazy_remap": True}
 
 # ---------------------------------------------------------------------------
-# Exchange accounting (the JAX package's telemetry.record_exchange counters)
+# Exchange accounting: the telemetry registry's series (telemetry.py)
 # ---------------------------------------------------------------------------
-
-_COUNTERS: Dict[tuple, float] = {}
 
 
 def _inc(name: str, value: float, **labels) -> None:
-    key = (name, tuple(sorted(labels.items())))
-    _COUNTERS[key] = _COUNTERS.get(key, 0) + value
+    _telemetry.inc(name, value, **labels)
 
 
 def record_exchange(op: str, count: int = 1, nbytes: int = 0, *,
                     chunks="auto", tier: str = "ici") -> None:
     """One call per exchange program and tier: ``count`` transfers moving
-    ``nbytes`` per-shard bytes (quest_tpu/telemetry.py record_exchange)."""
-    if count:
-        _inc("exchanges_total", count, op=op, chunks=str(chunks), tier=tier)
-    if nbytes:
-        _inc("exchange_bytes_total", nbytes, op=op, tier=tier)
+    ``nbytes`` per-shard bytes (telemetry.record_exchange)."""
+    _telemetry.record_exchange(op, count, nbytes, chunks=str(chunks),
+                               tier=tier)
 
 
 def record_route(route: str) -> None:
     """One eager dispatch on a sharded register, by route (local,
     exchange_1q, relocalize, default)."""
-    _inc("dispatch_route_total", 1, route=route)
+    _telemetry.inc("dispatch_route_total", route=route)
 
 
 def counter_sum(name: str, /, **labels) -> float:
     """Sum of counter ``name`` over every series whose labels hold
-    ``labels`` (quest_tpu/telemetry.py counter_sum)."""
-    want = set(labels.items())
-    return float(sum(v for (n, lab), v in _COUNTERS.items()
-                     if n == name and want <= set(lab)))
+    ``labels`` (telemetry.counter_sum)."""
+    return _telemetry.counter_sum(name, **labels)
 
 
 def reset_counters() -> None:
-    _COUNTERS.clear()
+    """Clear the telemetry registry (telemetry.reset)."""
+    _telemetry.reset()
 
 
 def mesh_topology(mesh: Mesh) -> topo.Topology:
@@ -198,8 +192,10 @@ def guarded_dispatch(fn, *args, op: str = "exchange", shards: int = 1,
                     raise lost from e
                 last = e
             else:
-                if deadline is not None \
-                        and time.perf_counter() - t0 > deadline:
+                elapsed = time.perf_counter() - t0
+                _telemetry.observe("exchange_latency_seconds", elapsed,
+                                   op=op, shards=str(shards))
+                if deadline is not None and elapsed > deadline:
                     _inc("exchange_timeouts_total", 1, op=op)
                 return out
         if k + 1 < attempts:
@@ -273,12 +269,19 @@ def exchange_chunks(payload_bytes: int, limit: int = 1 << 30,
         try:
             c = max(1, int(override))
         except ValueError:
-            warnings.warn(f"exchange_chunks: unparseable {_EXCHANGE_ENV}="
-                          f"{override!r}; monolithic")
+            from .. import resilience
+
+            resilience.record_degradation(
+                "exchange_chunks",
+                f"unparseable {_EXCHANGE_ENV}={override!r}; monolithic")
             return 1
         if c != _pow2_floor(c):
-            warnings.warn(f"exchange_chunks: {_EXCHANGE_ENV}={c} not a "
-                          f"power of two; using {_pow2_floor(c)}")
+            from .. import resilience
+
+            resilience.record_degradation(
+                "exchange_chunks",
+                f"{_EXCHANGE_ENV}={c} not a power of two; "
+                f"using {_pow2_floor(c)}")
         return min(_pow2_floor(c), limit)
     if backend is None:
         backend = _default_backend()

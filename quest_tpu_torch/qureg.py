@@ -40,6 +40,9 @@ class Qureg:
         self.qasm_log = QASMLogger(num_qubits)
         self._amps = None
         self._fusion = None  # FusionBuffer while a gateFusion context is active
+        # fusion drains executed on this register: the resilience layer's
+        # window-boundary count (a checkpoint never lands mid-window)
+        self._drain_count = 0
         # live logical->physical qubit permutation of a sharded register
         # (None = canonical order): _perm[q] is the physical state-vector
         # bit holding logical bit q.  The drain and the eager relocations
@@ -129,12 +132,38 @@ class Qureg:
 
     def _set_amps_permuted(self, value, perm) -> None:
         """Rebind amplitudes held under logical->physical ``perm`` (None
-        or the identity: canonical), keeping the permutation."""
-        self._amps = value
-        if perm is not None and tuple(perm) == tuple(
-                range(self.num_qubits_in_state_vec)):
+        or the identity: canonical), keeping the permutation.  A register
+        on one device keeps no permutation (its drains plan in logical
+        order): a permuted state restored onto it (a checkpoint written
+        on a mesh) is put in canonical order here, one local transpose."""
+        n = self.num_qubits_in_state_vec
+        if perm is not None and tuple(perm) == tuple(range(n)):
             perm = None
+        if perm is not None and not self.is_sharded:
+            from .ops import kernels
+
+            perm = tuple(int(p) for p in perm)
+            if value.dim() == 3:
+                value = torch.stack([kernels.permute_qubits(
+                    v, num_qubits=n, perm=perm) for v in value])
+            else:
+                value = kernels.permute_qubits(value, num_qubits=n,
+                                               perm=perm)
+            perm = None
+        self._amps = value
         self._perm = None if perm is None else tuple(perm)
+
+    def bind_checkpoint_state(self, amps, perm, dtype) -> None:
+        """Rebind to checkpointed state: raw (possibly permuted)
+        amplitudes, the live logical->physical permutation and the type
+        the snapshot was taken at (the restore half of resilience.py's
+        generation protocol).  Unlike the ``amps`` setter this keeps the
+        permutation; pending fused gates are discarded (they predate the
+        snapshot)."""
+        if self._fusion is not None and self._fusion.gates:
+            self._fusion.gates.clear()
+        self.dtype = dtype
+        self._set_amps_permuted(amps, perm)
 
     def _phys_bits(self, bits) -> tuple:
         """Physical positions of logical state-vector bits under the live

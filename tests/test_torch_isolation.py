@@ -21,7 +21,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "quest_tpu_torch"
-_FORBIDDEN = ("jax", "jaxlib", "quest_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "quest_tpu", "orbax", "tensorstore")
 
 
 def test_import_leaves_jax_out():
@@ -33,7 +33,8 @@ def test_import_leaves_jax_out():
             "quest_tpu_torch.ops.density, quest_tpu_torch.models.noise, "
             "quest_tpu_torch.rng, quest_tpu_torch.ops.threefry, "
             "quest_tpu_torch.ops.measurement, quest_tpu_torch.checkpoint, "
-            "quest_tpu_torch.debug\n"
+            "quest_tpu_torch.debug, quest_tpu_torch.resilience, "
+            "quest_tpu_torch.telemetry, quest_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))")
