@@ -365,12 +365,40 @@ line:
              against a run killed on 8 shards and resumed on 4, and within
              tolerance of an uninterrupted 4-shard run (other windows on
              other meshes: float32 products in another order).
-42. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+42. governor_main - the memory governor on the card (the budget it
+             derived beside torch.cuda.mem_get_info), one register,
+             float32: createQureg(34) (128 GiB) refused with nothing
+             allocated; a 33-qubit register admitted and its drain refused
+             under QT_MEM_POLICY=strict, state and buffer intact; config
+             2's drain at 26 and 30 qubits, the modeled peak against
+             max_memory_allocated, the governor's host time against the
+             drain's wall (governor off / on in turns); the spill rung (two
+             30-qubit registers under QT_HBM_BUDGET_BYTES = 20 GiB: the
+             idle one spilled to pinned memory, memory_allocated lower by
+             its bytes, the drain torch.equal to the ungoverned one, the
+             spilled register restored bit for bit, the spill and restore
+             seconds); the OOM net (a set_per_process_memory_fraction cap
+             under which the 30-qubit drain cannot run beside two idle
+             registers: one real torch.cuda.OutOfMemoryError, both idle
+             registers spilled, one retry, torch.equal); config 4's
+             14-qubit noise layer (K5) under FaultPlan("oom@0") bit for bit
+             the unfaulted layer.
+43. introspect_main - explainCircuit on config 2 at 26 qubits before the
+             drain, on one register and on 8 in-process shards: windows,
+             plan windows, megawin windows and exchanges equal to the
+             drain's counters, K1 and K2 launches to the plan's passes and
+             groups per shard; drift 0, and detected on count and bytes
+             under perturb_prediction(scale=2); reportPerf's
+             reconciliation and governor lines; the sharded-contract check
+             on 8 shards of the card; the explain wall against the drain's;
+             the dispatch floor in microseconds.
+44. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
              errors under "modes"; K1, K2 and K5's bank forms, with their
              launches on a sharded bank under "dist"; K1, K2, K5 and
              K6-K9 marked as run per shard with their dist launches; K1's
-             and K2's launches on the resumable path under "resumable").
+             and K2's launches on the resumable path under "resumable";
+             K1's, K2's and K5's under the governor under "governed").
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -6933,6 +6961,492 @@ def phase_dist_resilience_main(torch, np, qt, C, fused, fusion, us, gates,
             "bit_exact_vs_elastic_resume": elastic_equal}
 
 
+N_GOV_ADMIT = 34       # 128 GiB at float32: refused before any allocation
+N_GOV_STRICT = 33      # 64 GiB: admitted; its drain (two states) is not
+N_GOV = 30             # the spill rung and the OOM net: 8 GiB registers
+N_GOV_MODEL = (26, 30)  # config 2's drain: modeled peak against the card
+GOV_SPILL_BUDGET = 20 << 30   # QT_HBM_BUDGET_BYTES of the spill rung
+GOV_TURNS = 3          # turns of the drain with the governor off / on
+N_INTRO = 26           # introspect_main: config 2 at 26 qubits
+R_INTRO = 8
+
+
+@contextmanager
+def env_vars(**values):
+    """Environment variables set for the block (None: unset), restored
+    after it."""
+    prev = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextmanager
+def wrapped(module, name, before=None, after=None):
+    """``module.name`` called through ``before(*args)`` / ``after(out)``
+    hooks for the block."""
+    real = getattr(module, name)
+
+    def hooked(*args, **kwargs):
+        if before is not None:
+            before(*args)
+        out = real(*args, **kwargs)
+        if after is not None:
+            after(out)
+        return out
+
+    setattr(module, name, hooked)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def bench_drain(qt, q, us, n):
+    """Config 2's circuit drained on ``q`` (under gateFusion)."""
+    with qt.gateFusion(q):
+        apply_bench_gates(qt, q, us, n)
+    sync()
+
+
+def reference_state(qt, us, n, env):
+    """Config 2's state at n qubits drained with the governor off on a
+    register that is then destroyed: a tensor the governor does not
+    count."""
+    q = qt.createQureg(n, env)
+    with env_vars(QT_MEM_POLICY="off"):
+        bench_drain(qt, q, us, n)
+    want = q.amps
+    qt.destroyQureg(q, env)
+    return want
+
+
+def phase_governor_main(torch, np, qt, C, fused, fusion, circuits, noise):
+    """The memory governor on the card, one register at full width,
+    float32: (1) a 34-qubit register (128 GiB) refused before any
+    allocation; (2) a 33-qubit register (64 GiB) admitted and its drain
+    (two states) refused under strict before dispatch, state and buffer
+    intact; (3) the spill rung: two 30-qubit registers under a 20 GiB
+    budget, config 2's 770 gates on one spill the other (memory_allocated
+    drops by its bytes), the drain torch.equal to the ungoverned one, the
+    spilled register restored bit for bit; (5) the modeled peak of
+    config 2's drain at 26 and 30 qubits against max_memory_allocated,
+    and the governor's host time against the drain's; (4) a real
+    torch.cuda.OutOfMemoryError under set_per_process_memory_fraction,
+    caught by the net (both idle registers spilled, caches emptied, one
+    retry), torch.equal to the ungoverned drain; (6) config 4's
+    14-qubit noise layer (K5) under FaultPlan("oom@0") bit for bit the
+    unfaulted layer."""
+    import warnings
+
+    from quest_tpu_torch import governor as G
+    from quest_tpu_torch import resilience as R
+    from quest_tpu_torch import telemetry as T
+
+    qt.set_precision(1)
+    env = mesh_env(qt, 1)
+    dev = env.device
+    sync()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    out = {"budget_bytes": G.budget_bytes(env),
+           "mem_get_info": {"free": free, "total": total},
+           "memory_reserved": torch.cuda.memory_reserved(dev),
+           "memory_allocated": torch.cuda.memory_allocated(dev),
+           "resident_at_start": G.resident_bytes(), "policy": G.policy()}
+    check(out["budget_bytes"] is not None and out["budget_bytes"] > 0,
+          f"no budget on the card: {out['budget_bytes']}")
+    check(G.enabled(env), "the governor is not on by default on the card")
+    old_mode = T.mode_name()
+    T.configure("on")
+    T.reset()
+    fused.reset_launch_counts()
+    try:
+        # (1) admission: refused before any allocation
+        a0 = torch.cuda.memory_allocated(dev)
+        try:
+            qt.createQureg(N_GOV_ADMIT, env)
+            check(False, f"createQureg({N_GOV_ADMIT}) was admitted")
+        except qt.MemoryAdmissionError as e:
+            refused = {"predicted": e.predicted_bytes,
+                       "available": e.available_bytes,
+                       "budget": e.budget_bytes}
+        check(torch.cuda.memory_allocated(dev) == a0,
+              "the refused register allocated device memory")
+        check(refused["predicted"] == 2 * 4 << N_GOV_ADMIT,
+              f"refusal {refused}")
+        out["admission"] = {**refused, "allocated_change":
+                            torch.cuda.memory_allocated(dev) - a0}
+
+        # (2) strict: a 64 GiB register admitted, its drain refused
+        q = qt.createQureg(N_GOV_STRICT, env)
+        sync()
+        a1 = torch.cuda.memory_allocated(dev)
+        raw = q._amps
+        mark = (id(raw), raw._version)
+        with env_vars(QT_MEM_POLICY="strict"):
+            try:
+                with qt.gateFusion(q):
+                    qt.hadamard(q, 0)
+                check(False, "the strict drain was not refused")
+            except qt.MemoryAdmissionError as e:
+                strict = {"predicted": e.predicted_bytes,
+                          "available": e.available_bytes,
+                          "budget": e.budget_bytes}
+        sync()
+        check(len(q._fusion.gates) == 1, "the refused gate left the buffer")
+        check((id(q._amps), q._amps._version) == mark
+              and torch.cuda.memory_allocated(dev) == a1,
+              "the refused drain touched the state or allocated")
+        check(float(q._amps[0, 0]) == 1.0, "the refused state changed")
+        strict["state_bytes"] = G.register_bytes_per_device(q)
+        qt.destroyQureg(q, env)
+        del q, raw
+        torch.cuda.empty_cache()
+        out["strict"] = strict
+        progress(f"governor_main: admission {out['admission']}, strict "
+                 f"{strict}")
+
+        # (5) the model against the card: config 2's drain at 26 and 30
+        model = {}
+        for n in N_GOV_MODEL:
+            us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+            q = qt.createQureg(n, env)
+            state = G.register_bytes_per_device(q)
+            with qt.gateFusion(q):
+                apply_bench_gates(qt, q, us, n)
+                t0 = time.perf_counter()
+                rep = qt.explainCircuit(q)
+                explain_s = time.perf_counter() - t0
+                sync()
+                a0 = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                fused.reset_launch_counts()
+                t0 = time.perf_counter()
+            sync()
+            drain_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - (a0 - state)
+            mem = rep["memory"]
+            model[n] = {"state_bytes": state,
+                        "predicted_peak_bytes": mem["predicted_peak_bytes"],
+                        "pass_array_bytes": mem["pass_array_bytes"],
+                        "measured_peak_bytes": peak,
+                        "measured_over_predicted":
+                            peak / mem["predicted_peak_bytes"],
+                        "fits": mem["fits"], "budget": mem["budget_bytes"],
+                        "launches": window_launches(fused),
+                        "explain_s": explain_s, "drain_s": drain_s}
+            check(model[n]["launches"]["K1"] > 0,
+                  f"K1 never launched in the governed drain at {n}")
+            qt.destroyQureg(q, env)
+            del q
+            torch.cuda.empty_cache()
+        out["model"] = model
+        progress(f"governor_main: model {model}")
+
+        # the governor's host time: its calls inside the drain against the
+        # drain's wall, and the wall with the governor off and on in turns
+        n = N_GOV_MODEL[0]
+        us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+        q = qt.createQureg(n, env)
+        bench_drain(qt, q, us, n)  # plans and side images
+        starts, spent = [], []
+        walls = {"off": [], "degrade": []}
+        with wrapped(G, "govern_drain",
+                     lambda *a: starts.append(time.perf_counter()),
+                     lambda _out: G.policy() == "off" or spent.append(
+                         time.perf_counter() - starts[-1])):
+            for pol in ("off", "degrade", "degrade", "off") * GOV_TURNS:
+                with env_vars(QT_MEM_POLICY=pol):
+                    qt.initZeroState(q)
+                    sync()
+                    t0 = time.perf_counter()
+                    bench_drain(qt, q, us, n)
+                    walls[pol].append(time.perf_counter() - t0)
+        qt.destroyQureg(q, env)
+        del q
+        out["host_overhead"] = {
+            "n": n, "wall_s": {k: statistics.median(v)
+                               for k, v in walls.items()},
+            "wall_s_samples": walls,
+            "govern_drain_s_median": statistics.median(spent),
+            "govern_over_wall": statistics.median(spent)
+            / statistics.median(walls["degrade"]),
+            "wall_on_over_off": statistics.median(walls["degrade"])
+            / statistics.median(walls["off"])}
+
+        # (3) the spill rung
+        n = N_GOV
+        us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+        want = reference_state(qt, us, n, env)
+        spills = []
+
+        def before_spill(reg):
+            sync()
+            spills.append({"t0": time.perf_counter(),
+                           "a0": torch.cuda.memory_allocated(dev)})
+
+        def after_spill(freed):
+            sync()
+            spills[-1].update(seconds=time.perf_counter() - spills[-1]["t0"],
+                              drop=spills[-1]["a0"]
+                              - torch.cuda.memory_allocated(dev),
+                              freed=freed)
+
+        with env_vars(QT_HBM_BUDGET_BYTES=GOV_SPILL_BUDGET):
+            idle = qt.createQureg(n, env)
+            qt.initDebugState(idle)
+            idle_copy = idle.amps.clone()
+            active = qt.createQureg(n, env)
+            rungs0 = T.counter_value("governor_degradations_total",
+                                     rung="spill")
+            with wrapped(G, "spill_register", before_spill, after_spill):
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    fused.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    bench_drain(qt, active, us, n)
+                    spill_drain_s = time.perf_counter() - t0
+                    spill_launches = window_launches(fused)
+        check(T.counter_value("governor_degradations_total", rung="spill")
+              == rungs0 + 1, "the spill rung did not fire")
+        check(len(spills) == 1 and idle._amps is None,
+              f"spills {spills}: the idle register was not spilled")
+        state = G.register_bytes_per_device(idle)
+        check(spills[0]["drop"] == state, f"the spill freed "
+              f"{spills[0]['drop']} bytes of the card, not {state}")
+        equal_drain = torch.equal(active.amps, want)
+        check(equal_drain, "the governed drain differs from the ungoverned")
+        sync()
+        t0 = time.perf_counter()
+        restored = idle.amps
+        sync()
+        restore_s = time.perf_counter() - t0
+        equal_restore = torch.equal(restored, idle_copy)
+        check(equal_restore, "the spilled register did not restore bit "
+              "for bit")
+        out["spill"] = {"n": n, "budget": GOV_SPILL_BUDGET,
+                        "state_bytes": state,
+                        "allocated_drop": spills[0]["drop"],
+                        "spill_s": spills[0]["seconds"],
+                        "restore_s": restore_s,
+                        "spill_gb_per_s": state / spills[0]["seconds"] / 1e9,
+                        "restore_gb_per_s": state / restore_s / 1e9,
+                        "drain_s": spill_drain_s,
+                        "launches": spill_launches,
+                        "drain_equal": equal_drain,
+                        "restore_equal": equal_restore}
+        progress(f"governor_main: spill {out['spill']}")
+        del restored, idle_copy
+        for r in (idle, active):
+            qt.destroyQureg(r, env)
+        del idle, active
+        torch.cuda.empty_cache()
+
+        # (4) the real OOM net: a per-process cap under which the drain
+        # cannot run beside two idle registers but can alone
+        extra = model[n]["measured_peak_bytes"] - model[n]["state_bytes"]
+        idles = [qt.createQureg(n, env) for _ in range(2)]
+        for r in idles:
+            qt.initPlusState(r)
+        active = qt.createQureg(n, env)
+        sync()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)   # want + 3 registers
+        cap = resident - 2 * state + extra + state  # room for one spill
+        fraction = cap / total
+        marks = {}
+
+        def on_recover(*_a):
+            marks.setdefault("fail", time.perf_counter())
+
+        retries0 = T.counter_total("oom_retries_total")
+        torch.cuda.set_per_process_memory_fraction(fraction, dev)
+        try:
+            with wrapped(G, "_recover_from_oom", on_recover):
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    fused.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    bench_drain(qt, active, us, n)
+                    t1 = time.perf_counter()
+            oom_launches = window_launches(fused)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        retries = T.counter_total("oom_retries_total") - retries0
+        check(retries == 1 and "fail" in marks,
+              f"the OOM net retried {retries} times")
+        check(all(r._amps is None for r in idles),
+              "the OOM net did not spill both idle registers")
+        equal_oom = torch.equal(active.amps, want)
+        check(equal_oom, "the drain retried after the OOM differs from "
+              "the ungoverned drain")
+        out["oom_net"] = {"n": n, "cap_bytes": cap, "fraction": fraction,
+                          "resident_before": resident,
+                          "drain_extra_bytes": extra,
+                          "oom_retries_total": retries,
+                          "first_attempt_s": marks["fail"] - t0,
+                          "retry_s": t1 - marks["fail"],
+                          "launches": oom_launches, "equal": equal_oom}
+        for r in idles + [active]:
+            qt.destroyQureg(r, env)
+        del idles, active, want
+        torch.cuda.empty_cache()
+
+        # (6) oom@0 on config 4's density drain (K5)
+        nq = N_NOISE
+        kops = noise.bench_kraus_ops(NOISE_SEED)
+        rho_ref, _psi = noise_run(qt, noise, nq, kops)
+        plan = qt.FaultPlan("oom@0")
+        retries0 = T.counter_total("oom_retries_total")
+        fused.reset_launch_counts()
+        R._ACTIVE_FAULTS[0] = plan
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                rho, _psi = noise_run(qt, noise, nq, kops)
+        finally:
+            R._ACTIVE_FAULTS[0] = None
+        k5 = fused.LAUNCHES["K5"]
+        check(plan.log == ["oom@0"], f"oom@0 fired {plan.log}")
+        check(T.counter_total("oom_retries_total") == retries0 + 1,
+              "oom@0 was not retried once")
+        check(k5 > 0, "K5 never launched under oom@0")
+        equal_rho = torch.equal(rho.amps, rho_ref.amps)
+        check(equal_rho, "the faulted noise layer differs from the "
+              "unfaulted one")
+        out["oom_density"] = {"n": nq, "faults": plan.log, "k5_launches": k5,
+                              "equal": equal_rho}
+        del rho, rho_ref, _psi
+        torch.cuda.empty_cache()
+        out["summary_line"] = G.summary_line(env)
+        out["degradations"] = {k: v for k, v in R.degradation_report().items()
+                               if k.startswith("memory_governor")}
+    finally:
+        T.configure(old_mode)
+    out["launches"] = {
+        "K1": sum(m["launches"]["K1"] for m in out["model"].values())
+        + out["spill"]["launches"]["K1"] + out["oom_net"]["launches"]["K1"],
+        "K2": sum(m["launches"]["K2"] for m in out["model"].values())
+        + out["spill"]["launches"]["K2"] + out["oom_net"]["launches"]["K2"],
+        "K5": out["oom_density"]["k5_launches"]}
+    return out
+
+
+def phase_introspect_main(torch, np, qt, C, fused, fusion, circuits):
+    """explainCircuit on config 2 at 26 qubits, one register and 8
+    in-process shards, before the drain: its windows, plan windows,
+    megawin windows and exchanges against the drain's counters and launch
+    counts; drift 0 on 8 shards, and detected on count and bytes under
+    perturb_prediction(scale=2); reportPerf's reconciliation and governor
+    lines; the contract check on the card; the explain wall against the
+    drain's; the dispatch floor."""
+    from quest_tpu_torch import introspect
+    from quest_tpu_torch import telemetry as T
+    from quest_tpu_torch.analysis import contracts_check
+
+    n = N_INTRO
+    qt.set_precision(1)
+    us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+    old_mode = T.mode_name()
+    T.configure("on")
+    out = {"n": n}
+    try:
+        for r in (1, R_INTRO):
+            env = mesh_env(qt, r)
+            q = qt.createQureg(n, env)
+            T.reset()
+            with qt.gateFusion(q):
+                apply_bench_gates(qt, q, us, n)
+                t0 = time.perf_counter()
+                rep = qt.explainCircuit(q)
+                explain_s = time.perf_counter() - t0
+                program = fusion.plan_items_quiet(q, list(q._fusion.gates))[0]
+                fused.reset_launch_counts()
+                t0 = time.perf_counter()
+            sync()
+            drain_s = time.perf_counter() - t0
+            launches = window_launches(fused)
+            st = fusion.program_stats(program)
+            tot = rep["totals"]
+            got = {"windows": int(T.snapshot()["histograms"].get(
+                       "fusion_remap_window_items", {}).get(
+                       "", {}).get("count", 1)) if r > 1 else 1,
+                   "plan_windows": T.counter_total("fusion_windows_total"),
+                   "mega_windows": T.counter_sum("megakernel_dispatch_total",
+                                                 route="mega"),
+                   "exchanges": T.counter_sum("exchanges_total",
+                                              op="window_remap"),
+                   "exchange_bytes": T.counter_sum("exchange_bytes_total",
+                                                   op="window_remap")}
+            predicted = {k: tot[k] for k in got}
+            check(got == predicted, f"R={r}: the drain's counters {got} != "
+                  f"explainCircuit's {predicted}")
+            check(launches == {"K1": r * st.get("winfused", 0),
+                               "K2": r * tot["mega_windows"]},
+                  f"R={r}: launched {launches}, the plan holds {st} and "
+                  f"{tot['mega_windows']} megawin groups a shard")
+            check(launches["K1"] > 0, f"R={r}: K1 never launched")
+            rec = {"report_totals": tot, "counters": got,
+                   "launches": launches, "explain_s": explain_s,
+                   "drain_s": drain_s,
+                   "plan_cache": rep["plan"]["cache"],
+                   "memory": rep["memory"]}
+            if r > 1:
+                check(launches["K2"] > 0, "K2 never launched on the mesh")
+                rec["model_drift_total"] = T.counter_total("model_drift_total")
+                check(rec["model_drift_total"] == 0, "a clean drain drifted")
+                report = T.perf_report(env)
+                rec["report_lines"] = [
+                    s for s in report.splitlines()
+                    if s.startswith("reconciliation")
+                    or s.startswith("memory governor")]
+                check(len(rec["report_lines"]) == 2, "reportPerf lacks the "
+                      f"reconciliation or governor line: {rec['report_lines']}")
+                # a perturbed prediction is caught on count and bytes
+                q2 = qt.createQureg(n, env)
+                T.reset()
+                fused.reset_launch_counts()
+                with introspect.perturb_prediction(scale=2):
+                    bench_drain(qt, q2, us, n)
+                rec["perturbed_launches"] = window_launches(fused)
+                rec["perturbed_drift"] = {
+                    k: T.counter_value("model_drift_total", kind=k)
+                    for k in ("count", "bytes")}
+                check(rec["perturbed_drift"] == {"count": 1, "bytes": 1},
+                      f"drift under scale=2: {rec['perturbed_drift']}")
+                check(shards_equal(torch, q2.amps, q.amps),
+                      "the perturbed drain's state differs")
+                qt.destroyQureg(q2, env)
+            out[f"R{r}"] = rec
+            qt.destroyQureg(q, env)
+            del q
+        errors = contracts_check.verify_sharded_contracts(
+            contracts_check.canonical_env(DEVICE))
+        check(errors == [], f"contract check on the card: {errors}")
+        out["contracts"] = "ok"
+        out["dispatch_floor_us"] = introspect.measure_dispatch_floor(
+            64, torch.device(DEVICE)) * 1e6
+    finally:
+        T.configure(old_mode)
+    torch.cuda.empty_cache()
+    out["launches"] = {k: out["R1"]["launches"][k]
+                       + out[f"R{R_INTRO}"]["launches"][k]
+                       + out[f"R{R_INTRO}"]["perturbed_launches"][k]
+                       for k in ("K1", "K2")}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7413,6 +7927,13 @@ def main() -> int:
                                           us, gates, tmp)
         emit({"phase": "dist_resilience_main", "power": smi, **dres})
 
+    # 42-43. the memory governor and the plan explainer
+    gov = phase_governor_main(torch, np, qt, C, fused, fusion, circuits,
+                              noise)
+    emit({"phase": "governor_main", "power": smi, **gov})
+    intro = phase_introspect_main(torch, np, qt, C, fused, fusion, circuits)
+    emit({"phase": "introspect_main", "power": smi, **intro})
+
     # 42. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
         key = key or kname.split()[0]
@@ -7600,6 +8121,15 @@ def main() -> int:
                           "launches_run": res["launches"][key],
                           "launches_failover": dres["launches"][key],
                           "launches_4_shards": dres["launches_4_shards"][key]}
+    # K1, K2 and K5 under the memory governor: its phase's drains (the
+    # spill rung, the OOM net, the model runs, oom@0 on the density layer)
+    # and the explained drains on one register and on 8 shards
+    for e, key in ((k1e, "K1"), (k2e, "K2"), (k5e, "K5")):
+        e["governed"] = {"launches_governor_main": gov["launches"][key],
+                         "launches_introspect_main":
+                             intro["launches"].get(key, 0)}
+        check(sum(e["governed"].values()) > 0,
+              f"{key} never launched under the governor")
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
                       k11e, k12e, k1b, k2b, k5b]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

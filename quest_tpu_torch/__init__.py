@@ -39,7 +39,12 @@ by window, committing a checkpoint generation after each window and
 resuming bit for bit after a kill; ``saveQureg`` / ``loadQureg`` snapshot
 a register; ``telemetry`` holds the counters, gauges, histograms and
 spans every layer records (``QT_TELEMETRY=off|on|trace``), and
-``reportPerf(env)`` prints them.
+``reportPerf(env)`` prints them.  The memory ``governor`` admits
+registers and drains against a budget per device (the card's free memory,
+or ``QT_HBM_BUDGET_BYTES``) and spills idle registers to pinned host
+memory; ``explainCircuit(q)`` reports what a drain would plan, exchange
+and hold without running it; ``audit`` counts a function's exchange calls
+against a ``CollectiveBudget``.
 """
 
 from .precision import (
@@ -100,6 +105,18 @@ from . import parallel
 from . import telemetry
 from . import utils
 from .telemetry import report_perf as reportPerf, report_perf
+from . import contracts
+from . import governor
+from .governor import MemoryAdmissionError
+from . import introspect
+from .introspect import (
+    explain_circuit,
+    explain_circuit as explainCircuit,
+    report_circuit_plan,
+    report_circuit_plan as reportCircuitPlan,
+    audit,
+    CollectiveBudget,
+)
 from .parallel import dist as PAR
 from .ops import phasefunc as _pf
 

@@ -33,6 +33,7 @@ import torch
 
 from . import env as _env
 from . import fusion as _fusion
+from . import governor as _gov
 from . import telemetry as _telemetry
 from . import validation as V
 from .ops import cplx as CX
@@ -115,9 +116,13 @@ def _put(qureg: Qureg, dense, sharded) -> None:
 
 def createQureg(numQubits: int, env: _env.QuESTEnv) -> Qureg:
     """Create a state-vector register of numQubits qubits in |0...0>
-    (QuEST.h:529); on an env of several shards, split over them."""
+    (QuEST.h:529); on an env of several shards, split over them.  Under
+    a memory budget a register that does not fit beside the resident
+    ones raises MemoryAdmissionError before any allocation
+    (governor.admit_new)."""
     V.validate_num_qubits(numQubits, "createQureg", num_ranks=env.num_ranks)
     q = Qureg(numQubits, env, is_density_matrix=False)
+    _gov.admit_new(q, "createQureg")
     _put(q, lambda: K.init_zero_state(q.num_amps_total, q.dtype, q.device),
          lambda mesh, nloc, dt: SH.classical(mesh, nloc, dt, 0))
     return q
@@ -129,6 +134,7 @@ def createDensityQureg(numQubits: int, env: _env.QuESTEnv) -> Qureg:
     V.validate_num_qubits(numQubits, "createDensityQureg",
                           num_ranks=env.num_ranks)
     q = Qureg(numQubits, env, is_density_matrix=True)
+    _gov.admit_new(q, "createDensityQureg")
     _put(q, lambda: K.init_classical_density(numQubits, 0, q.dtype,
                                              q.device),
          lambda mesh, nloc, dt: SH.classical(mesh, nloc, dt, 0))
@@ -154,12 +160,14 @@ def _copy_state(target: Qureg, source: Qureg) -> None:
 def createCloneQureg(qureg: Qureg, env: _env.QuESTEnv) -> Qureg:
     """Create a new register cloning an existing one (QuEST.h:644)."""
     q = Qureg(qureg.num_qubits_represented, env, qureg.is_density_matrix)
+    _gov.admit_new(q, "createCloneQureg")
     _copy_state(q, qureg)
     return q
 
 
 def destroyQureg(qureg: Qureg, env: Optional[_env.QuESTEnv] = None) -> None:
     """Free a register's amplitude storage (QuEST.h:666)."""
+    _gov.release(qureg)
     qureg._fusion = None
     qureg.amps = None
     qureg._last_use = {}
@@ -350,7 +358,10 @@ def initSparseState(qureg: Qureg, indices, amps) -> None:
     """Initialise from a sparse amplitude list: ``state[indices[k]] =
     amps[k]``, every other amplitude zero (sparse state preparation,
     arXiv:2504.08705).  State-vectors only; pending fused gates are
-    dropped, as by any wholesale initialisation."""
+    dropped, as by any wholesale initialisation.  Under a memory budget
+    the register is admitted at its sparse cost (the indices and values)
+    and made dense at the first touch, under admission
+    (governor.admit_sparse_state)."""
     V.validate_state_vector(qureg, "initSparseState")
     _guard_batched_eager(qureg, "initSparseState")
     idx = np.asarray(indices, dtype=np.int64).ravel()
@@ -368,6 +379,11 @@ def initSparseState(qureg: Qureg, indices, amps) -> None:
     _telemetry.inc_key(_K_PERM, _bw(qureg))
     _telemetry.inc("sparse_inits_total")
     _telemetry.inc("sparse_init_amps_total", int(idx.size))
+    if _gov.enabled(qureg):
+        if qureg._fusion is not None and qureg._fusion.gates:
+            qureg._fusion.gates.clear()
+        _gov.admit_sparse_state(qureg, idx, vals.real, vals.imag)
+        return
     _put(qureg, lambda: K.init_sparse_state(
         qureg.num_amps_total, idx, vals.real, vals.imag, qureg.dtype,
         qureg.device),

@@ -42,8 +42,8 @@ The banks record the JAX package's telemetry series:
 ``measurement_shots_total``, ``batch_occupancy`` and the ``ensemble_*``
 and ``trajectory_*`` series, under the spans ``batch.ensemble_drain`` and
 ``batch.trajectories``.  A bank checkpoints with its key bank
-(``saveQureg``, ``run_resumable``).  The memory governor's admission
-(ROADMAP M16c) is not ported.
+(``saveQureg``, ``run_resumable``).  The memory governor admits a bank
+at its whole footprint, B registers' bytes (``governor.admit_new``).
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ import torch
 
 from . import circuit as C
 from . import fusion as _fusion
+from . import governor as _gov
 from . import telemetry as _telemetry
 from .env import QuESTEnv
 from .ops import calculations as CALC
@@ -241,6 +242,7 @@ def createBatchedQureg(numQubits: int, env: QuESTEnv, batchSize: int, *,
                           num_ranks=env.num_ranks)
     q = BatchedQureg(numQubits, env, batchSize,
                      is_density_matrix=is_density_matrix, seeds=seeds)
+    _gov.admit_new(q, "createBatchedQureg")
     if q.is_sharded:
         from .parallel import sharded as SH
 

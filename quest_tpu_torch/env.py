@@ -255,16 +255,17 @@ def get_environment_string(env: QuESTEnv) -> str:
             + (" DefaultSeed=" + ",".join(str(k) for k in
                                           rng.GLOBAL_RNG._keys)
                if rng.GLOBAL_RNG.default_seeded else "")
-            + _health_fragment())
+            + _health_fragment(env))
 
 
-def _health_fragment() -> str:
+def _health_fragment(env: QuESTEnv) -> str:
     """The degradation report and the telemetry block appended to
     getEnvironmentString (quest_tpu/env.py:340-424): degradations,
     failovers and exchange timeouts, the peak device-memory watermark,
-    the circuit optimizer, the permutation and megakernel routes, and
+    the memory governor's policy and budget on ``env``, the circuit
+    optimizer, the permutation and megakernel routes, and
     ``[telemetry: ...]``."""
-    from . import optimizer, resilience, telemetry
+    from . import governor, optimizer, resilience, telemetry
     from .parallel import dist
 
     s = f" ExchangeChunks={dist.exchange_config_key() or 'auto'}"
@@ -281,6 +282,10 @@ def _health_fragment() -> str:
     peak = telemetry.gauge_max("hbm_watermark_bytes")
     if peak is not None:
         s += f" HbmPeak={int(peak)}"
+    if governor.enabled(env):
+        s += (f" MemGovernor={governor.policy()}"
+              f"(budget={governor.budget_bytes(env)}"
+              f" resident={governor.resident_bytes()})")
     s += f" {optimizer.summary_line()}"
     for name, label, routes in (
             ("permutation_gates_total", "PermFast",

@@ -42,6 +42,13 @@ register bank (batch.BatchedQureg on a mesh) drains the same way with
 plans of one skeleton and one final permutation, stacked, under batch
 flag 2), one exchange per remap moving every element, and K1, K2 and K5
 in their bank forms, one launch per pass, group or sweep on each shard.
+
+Every drain runs under the memory governor (governor.govern_drain: the
+program as it is, or split into dispatch groups, after spilling idle
+registers if need be; each group through governor.oom_net), and a
+sharded drain holds its window-remap counters against the cost model's
+prediction (introspect.reconcile_drain).  ``plan_items_quiet`` plans a
+drain without running it, recording nothing (explainCircuit).
 """
 
 from __future__ import annotations
@@ -117,6 +124,19 @@ _plan_cache: dict = {}
 # > 0 while plan_items / plan_items_sharded plan ahead of a drain: the
 # per-window observations are not recorded (only drains record them)
 _QUIET: List[int] = [0]
+# > 0 while plan_items_quiet dry-runs a drain's planning
+# (explain_circuit, the governor's predictor): nothing is inserted into
+# the plan cache either
+_DRY: List[int] = [0]
+
+
+def _store(key, value) -> None:
+    """Insert a plan into the cache (not during a dry run)."""
+    if key is None or _DRY[0]:
+        return
+    if len(_plan_cache) >= _PLAN_CACHE_MAX:
+        _plan_cache.pop(next(iter(_plan_cache)))
+    _plan_cache[key] = value
 
 
 class ChannelItem:
@@ -403,10 +423,7 @@ def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool,
                                           device, sweep_ok)
         else:
             program = _split_items(items, num_qubits, sweep_ok, device)
-    if key is not None:
-        if len(_plan_cache) >= _PLAN_CACHE_MAX:
-            _plan_cache.pop(next(iter(_plan_cache)))
-        _plan_cache[key] = program
+    _store(key, program)
     return program
 
 
@@ -426,6 +443,56 @@ def plan_items(items, num_qubits: int, device=None, sweep_ok: bool = False,
                                batch_size)
     finally:
         _QUIET[0] -= 1
+
+
+def _sweep_ok(qureg) -> bool:
+    """fused.channel_sweep_enabled for the register's state (its first
+    shard on a mesh; its type and device while it is spilled)."""
+    a = qureg._amps
+    if a is None:
+        a = torch.empty(0, dtype=qureg.dtype, device=qureg.device)
+    elif qureg.is_sharded:
+        a = a.shards[0]
+    return _fused.channel_sweep_enabled(a)
+
+
+def plan_items_quiet(qureg, items):
+    """The program a drain of ``items`` on ``qureg`` would dispatch,
+    planned exactly as the drain plans it (the same optimizer rewrite,
+    the live permutation, the bank) with no telemetry recorded and no
+    plan-cache insertion: a cached plan is read, a miss is not stored.
+    The dry run behind explain_circuit's ``memory`` section and the
+    governor's predictor (quest_tpu/fusion.py:670-714).  Returns
+    (program, final_perm, nloc, nsh)."""
+    n = qureg.num_qubits_in_state_vec
+    nsh = qureg.shard_bits
+    nloc = n - nsh
+    perm0 = qureg._perm if nsh else None
+    if not items:
+        return (), None, nloc, nsh
+    bsz = int(getattr(qureg, "batch_size", 0) or 0)
+    _QUIET[0] += 1
+    _DRY[0] += 1
+    try:
+        if nsh:
+            items, _stats = _opt.optimize_items(items, nloc=nloc, n=n,
+                                                nsh=nsh, perm0=perm0,
+                                                quiet=True)
+        else:
+            items, _stats = _opt.optimize_items(items, nloc=n, quiet=True)
+        if not items:
+            return (), None, nloc, nsh
+        sweep_ok = _sweep_ok(qureg)
+        if nsh:
+            program, final_perm, _key = _plan_sharded(
+                items, n, nloc, perm0, qureg.device, sweep_ok, bsz)
+        else:
+            program = _plan_optimized(items, n, qureg.device, sweep_ok, bsz)
+            final_perm = None
+    finally:
+        _QUIET[0] -= 1
+        _DRY[0] -= 1
+    return program, final_perm, nloc, nsh
 
 
 def program_stats(program) -> dict:
@@ -480,24 +547,53 @@ def _run(qureg, items) -> None:
     A BatchedQureg (batch.py) drains its whole (B, 2, 2^n) bank through
     one program: shared plans (flag 1), or per-element plans of one
     skeleton stacked (flag 2).  A sharded register drains through
-    _run_sharded."""
+    _run_sharded.  A register the governor spilled is restored first;
+    the planned program then runs under the memory governor
+    (governor.govern_drain: as it is, or in the groups the ladder split
+    it into), each group through the OOM net (quest_tpu/fusion.py:342-418,
+    606)."""
+    from . import governor as _gov
+
+    _gov.ensure_resident(qureg)
     if qureg.is_sharded:
         _run_sharded(qureg, items)
         return
     n = qureg.num_qubits_in_state_vec
-    amps = qureg._amps
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
     with _telemetry.span("fusion.optimize", items=len(items)):
         items, _stats = _opt.optimize_items(items, nloc=n)
     if not items:
         return  # everything cancelled: nothing runs
-    program = _plan_optimized(items, n, qureg.device,
-                              _fused.channel_sweep_enabled(amps), bsz,
+    program = _plan_optimized(items, n, qureg.device, _sweep_ok(qureg), bsz,
                               record=True)
-    _record_program(program, items)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
-    qureg._amps = _timed_group(
-        qureg, program, lambda: execute_program(amps, program, probs, n))
+    try:
+        groups = _governed_groups(qureg, program, probs, nloc=n, nsh=0)
+        _record_program(program, items)
+        for group, gprobs in groups:
+            def dispatch(g=group, gp=gprobs):
+                return execute_program(qureg._amps, g, gp, n)
+
+            qureg._amps = _timed_group(
+                qureg, group, lambda d=dispatch: _gov.oom_net(d, qureg))
+    finally:
+        _gov.end_drain()
+
+
+def _governed_groups(qureg, program, probs, *, nloc: int, nsh: int):
+    """[(part group, its channel probabilities)] of a planned drain: the
+    whole program, or the dispatch groups the governor's ladder split it
+    into (governor.govern_drain, which raises MemoryAdmissionError on a
+    refusal)."""
+    from . import governor as _gov
+
+    gov = _gov.govern_drain(qureg, program, nloc=nloc, nsh=nsh)
+    out, pi = [], 0
+    for group in (gov or {}).get("groups") or (program,):
+        cnt = sum(_part_probs(p) for p in group)
+        out.append((group, probs[pi:pi + cnt]))
+        pi += cnt
+    return out
 
 
 def _group_route(program) -> str:
@@ -626,10 +722,7 @@ def _plan_sharded(items, n, nloc, perm0, device, sweep_ok, bsz: int = 0,
         else:
             program, final_perm = _split_items_sharded(
                 items, n, nloc, perm0, sweep_ok, device)
-    if key is not None:
-        if len(_plan_cache) >= _PLAN_CACHE_MAX:
-            _plan_cache.pop(next(iter(_plan_cache)))
-        _plan_cache[key] = (program, final_perm)
+    _store(key, (program, final_perm))
     return program, final_perm, key
 
 
@@ -711,33 +804,79 @@ def _run_sharded(qureg, items) -> None:
     """The drain of a sharded register or bank: optimize (with the
     reordering the exchange cost model scores), plan windows and remaps
     from the live permutation (a bank: one program for every element),
-    run the program under the exchange guard and leave the final
-    permutation on the register."""
+    run the program (or the governor's groups of it) under the exchange
+    guard and the OOM net, reconcile the window remaps' counters with an
+    independent prediction (introspect.reconcile_drain) and leave the
+    final permutation on the register."""
+    from . import governor as _gov
     from .parallel import dist as PAR
 
     n = qureg.num_qubits_in_state_vec
     nsh = qureg.shard_bits
     nloc = n - nsh
     perm0 = qureg._perm
-    amps = qureg._amps
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
     with _telemetry.span("fusion.optimize", items=len(items)):
         items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
                                             perm0=perm0)
     if not items:
         return  # everything cancelled: nothing runs, the perm stays
-    sweep_ok = _fused.channel_sweep_enabled(amps.shards[0])
     program, final_perm, key = _plan_sharded(
-        items, n, nloc, perm0, amps.device, sweep_ok, bsz, record=True)
-    _record_program(program, items, n, nloc, perm0)
+        items, n, nloc, perm0, qureg._amps.device, _sweep_ok(qureg), bsz,
+        record=True)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
-    qureg._amps = _timed_group(qureg, program, lambda: PAR.guarded_dispatch(
-        execute_sharded_program, amps, program, probs, nloc, key,
-        op="drain", shards=qureg.num_chunks))
+    try:
+        groups = _governed_groups(qureg, program, probs, nloc=nloc, nsh=nsh)
+        _record_program(program, items, n, nloc, perm0)
+        before = _remap_counters() if _telemetry.enabled() else None
+        gkey = key if len(groups) == 1 else None
+        for group, gprobs in groups:
+            def dispatch(g=group, gp=gprobs):
+                return PAR.guarded_dispatch(
+                    execute_sharded_program, qureg._amps, g, gp, nloc, gkey,
+                    op="drain", shards=qureg.num_chunks)
+
+            qureg._amps = _timed_group(
+                qureg, group, lambda d=dispatch: _gov.oom_net(d, qureg))
+        if before is not None:
+            _reconcile(qureg, items, before, n=n, nloc=nloc, nsh=nsh,
+                       perm0=perm0, bsz=bsz)
+    finally:
+        _gov.end_drain()
     if final_perm is not None and list(final_perm) != list(range(n)):
         qureg._perm = tuple(final_perm)
     else:
         qureg._perm = None
+
+
+def _remap_counters():
+    """(count, bytes, bytes by tier) of the window remaps counted so far."""
+    from .parallel import topology as _topo
+
+    return (_telemetry.counter_sum("exchanges_total", op="window_remap"),
+            _telemetry.counter_sum("exchange_bytes_total",
+                                   op="window_remap"),
+            {t: _telemetry.counter_sum("exchange_bytes_total",
+                                       op="window_remap", tier=t)
+             for t in _topo.TIERS})
+
+
+def _reconcile(qureg, items, before, *, n, nloc, nsh, perm0, bsz) -> None:
+    """Hold a drain's measured window-remap counters against the
+    independent re-plan of its items (quest_tpu/fusion.py:539-555)."""
+    from . import introspect as _introspect
+    from .parallel import dist as PAR
+
+    after = _remap_counters()
+    _introspect.reconcile_drain(
+        bit_sets=[_item_entry(it) for it in items], n=n, nloc=nloc,
+        nsh=nsh, perm0=perm0,
+        itemsize=torch.empty((), dtype=qureg.dtype).element_size(),
+        batch=bsz, measured_count=after[0] - before[0],
+        measured_bytes=after[1] - before[1],
+        measured_chunks=str(PAR.exchange_config_key() or "auto"),
+        measured_tier_bytes={t: after[2][t] - before[2][t]
+                             for t in after[2]})
 
 
 def _capturable(qureg, bits) -> bool:

@@ -116,6 +116,8 @@ def apply_sigma_swap(amps, *, num_qubits: int, group_bits: int = 7):
         amps.data_ptr(), n, g, ctab.data_ptr(), dtab.data_ptr(),
         int(ctab.numel()), stream), "apply_sigma_swap")
     LAUNCHES["K10"] += 1
+    # written in place through the pointer: bump the tensor's version
+    torch.autograd.graph.increment_version(amps)
     return amps
 
 

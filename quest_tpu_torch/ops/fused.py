@@ -1785,6 +1785,9 @@ def apply_pair_channel_sweep(amps, program, probs, *, num_bits: int):
     for _b0, _k, entries in sweep_schedule(program, nn):
         for group in sweep_launch_groups(entries):
             _launch_chan(amps, nn, group, wts, nbank=nb)
+    # the kernel wrote through the pointer: the tensor's version says so
+    # (the OOM net reads it to refuse a retry on a changed state)
+    torch.autograd.graph.increment_version(amps)
     return amps
 
 

@@ -44,6 +44,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..contracts import sharded_contract
 from ..ops import calculations as CALC
 from ..ops import cplx, kernels
 from ..ops import paulis as P
@@ -494,6 +495,9 @@ def _pair_channel_weights(kind: str, p, ktv, btv):
     return w1, w2
 
 
+@sharded_contract(collectives={"collective-permute": 1},
+                  max_exchange_bytes=1 << 10,
+                  max_tier_bytes={"ici": 1 << 10, "dcn": 1 << 10})
 def mix_pair_channel_sharded(amps: ShardedAmps, prob, *, num_qubits: int,
                              target: int, kind: str,
                              chunks: Optional[int] = None) -> ShardedAmps:

@@ -37,6 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import telemetry as _telemetry
+from ..contracts import sharded_contract
 from ..ops import cplx, kernels
 from . import topology as topo
 from ..validation import QuESTError
@@ -146,9 +147,14 @@ def guarded_dispatch(fn, *args, op: str = "exchange", shards: int = 1,
     consuming dispatch that fails may have left some shards or chunks
     updated and others not, so it is never run again: its operand is
     marked lost (every later use raises the same ShardLossError) and
-    the ShardLossError is raised at once.  Injected stalls come before
-    the dispatch and are retried either way."""
+    the ShardLossError is raised at once, unless it was an allocator
+    failure (``torch.OutOfMemoryError``) that changed no shard: that
+    propagates as it is, the register whole, for the memory governor's
+    OOM net to retry.  Injected stalls come before the dispatch and are
+    retried either way."""
     attempts = max(1, int(os.environ.get(_GUARD_ATTEMPTS_ENV, "3")))
+    operand = args[0] if args and isinstance(args[0], ShardedAmps) \
+        else None
     base_delay = float(os.environ.get("QT_RETRY_BASE_SECONDS", "0.05"))
     deadline = exchange_deadline()
     last = None
@@ -171,6 +177,7 @@ def guarded_dispatch(fn, *args, op: str = "exchange", shards: int = 1,
             _inc("exchange_timeouts_total", 1, op=op)
             last = TimeoutError(f"injected stall during {op} dispatch")
         else:
+            mark = state_mark(operand) if operand is not None else None
             t0 = time.perf_counter()
             try:
                 out = fn(*args, **kwargs)
@@ -181,6 +188,10 @@ def guarded_dispatch(fn, *args, op: str = "exchange", shards: int = 1,
             # below; a consuming one cannot be run again on its half
             # updated operand
             except Exception as e:  # noqa: BLE001
+                if (isinstance(e, torch.OutOfMemoryError)
+                        and mark is not None
+                        and state_mark(operand) == mark):
+                    raise  # nothing changed: the register stays whole
                 if consumes:
                     lost = ShardLossError(
                         f"{op} dispatch failed part-way; the register it "
@@ -205,6 +216,14 @@ def guarded_dispatch(fn, *args, op: str = "exchange", shards: int = 1,
     raise ShardLossError(
         f"{op} dispatch failed after {attempts} attempts "
         f"(last error: {last!r})", op=op) from last
+
+
+def state_mark(amps: ShardedAmps) -> tuple:
+    """The identity and version of each shard tensor of ``amps``: a
+    dispatch after which they are all the same changed nothing (an
+    in-place write bumps a tensor's version; a rebound shard changes its
+    identity)."""
+    return tuple((id(t), t._version) for t in amps.shards)
 
 
 def use_explicit_dist(enabled: bool) -> None:
@@ -241,10 +260,22 @@ PIPELINE_MIN_BYTES = 1 << 21
 _TARGET_CHUNK_BYTES = 1 << 22
 MAX_EXCHANGE_CHUNKS = 8
 
+# the memory governor's chunk escalation for one drain (governor.govern_drain
+# rung 1), cleared in the drain's finally (governor.end_drain): published
+# through exchange_config_key, so the remaps, their counters and the
+# reconciliation's prediction see one chunk policy; QT_EXCHANGE_CHUNKS wins
+_GOVERNOR_CHUNKS: list = [None]
+
+
 def exchange_config_key() -> Optional[str]:
-    """The live chunk-policy override (QT_EXCHANGE_CHUNKS), a key
-    component for anything that bakes a chunk count in."""
-    return os.environ.get(_EXCHANGE_ENV)
+    """The live chunk-policy override, a key component for anything that
+    bakes a chunk count in: QT_EXCHANGE_CHUNKS first, then the memory
+    governor's escalation of the current drain."""
+    v = os.environ.get(_EXCHANGE_ENV)
+    if v is not None:
+        return v
+    g = _GOVERNOR_CHUNKS[0]
+    return None if g is None else str(int(g))
 
 
 def _pow2_floor(x: int) -> int:
@@ -399,6 +430,9 @@ def _local_control_mask(nloc: int, lo: int, count: int, controls,
     return ok
 
 
+@sharded_contract(collectives={"collective-permute": 1},
+                  max_exchange_bytes=1 << 10,
+                  max_tier_bytes={"ici": 1 << 10, "dcn": 1 << 10})
 def apply_matrix_1q_sharded(amps: ShardedAmps, matrix, *, num_qubits: int,
                             target: int, controls: Tuple[int, ...] = (),
                             control_states: Tuple[int, ...] = (),
@@ -462,6 +496,9 @@ def _apply_matrix_1q_sharded(amps, matrix, *, num_qubits, target, controls,
     return amps
 
 
+@sharded_contract(collectives={"collective-permute": 1},
+                  max_exchange_bytes=1 << 9,
+                  max_tier_bytes={"ici": 1 << 9, "dcn": 1 << 9})
 def swap_sharded(amps: ShardedAmps, *, num_qubits: int, qb_low: int,
                  qb_high: int, chunks: Optional[int] = None) -> ShardedAmps:
     """SWAP of local qubit ``qb_low`` and sharded qubit ``qb_high``: only
@@ -495,6 +532,8 @@ def total_prob_sharded(amps: ShardedAmps) -> torch.Tensor:
     return amps.mesh.sum([cplx.abs2(s).sum() for s in amps.shards])
 
 
+@sharded_contract(collectives={"all-gather": 1},
+                  max_exchange_bytes=1 << 13)
 def gather_replicated(amps: ShardedAmps) -> torch.Tensor:
     """The whole state on the first local shard's device (the reference's
     copyVecIntoMatrixPairState, QuEST_cpu_distributed.c:379-423), counted
@@ -652,6 +691,9 @@ def _remap_shards(amps: ShardedAmps, sigma: Tuple[int, ...],
     return amps
 
 
+@sharded_contract(collectives={"collective-permute": 1},
+                  max_exchange_bytes=1 << 9,
+                  max_tier_bytes={"ici": 1 << 9, "dcn": 1 << 9})
 def remap_sharded(amps: ShardedAmps, *, num_qubits: int,
                   sigma: Tuple[int, ...],
                   chunks: Optional[Tuple[int, int]] = None) -> ShardedAmps:

@@ -39,6 +39,9 @@ class Qureg:
         self.dtype = precision.real_dtype()
         self.qasm_log = QASMLogger(num_qubits)
         self._amps = None
+        # governor.SpillHandle while the amplitudes live on the host (the
+        # memory governor spilled the register; the next read restores)
+        self._spill = None
         self._fusion = None  # FusionBuffer while a gateFusion context is active
         # fusion drains executed on this register: the resilience layer's
         # window-boundary count (a checkpoint never lands mid-window)
@@ -87,14 +90,17 @@ class Qureg:
     def amps(self):
         """The amplitudes in canonical qubit order: pending fused gates
         drain first, then a live permutation is undone with one remap, so
-        every reader sees reference semantics.  A (2, 2^n) tensor, or a
-        ShardedAmps on a sharded register."""
+        every reader sees reference semantics; a register the memory
+        governor spilled to the host is restored first.  A (2, 2^n)
+        tensor, or a ShardedAmps on a sharded register."""
         if self._amps is None:
+            from . import governor
             from .validation import QuESTError
 
-            raise QuESTError(
-                "Qureg: the register has been destroyed (destroyQureg) "
-                "or never initialised.")
+            if not governor.restore_register(self):
+                raise QuESTError(
+                    "Qureg: the register has been destroyed (destroyQureg) "
+                    "or never initialised.")
         if self._fusion is not None and self._fusion.gates:
             from . import fusion
 
@@ -117,13 +123,17 @@ class Qureg:
         # an overwrite is in canonical order; only _set_amps_permuted
         # carries a permutation
         self._perm = None
+        self._spill = None  # an overwrite drops any host snapshot
         self._amps = value
 
     def _amps_raw(self):
         """The amplitudes without restoring canonical order (pending
         fused gates still drain first)."""
         if self._amps is None:
-            return self.amps  # raises the destroyed-register error
+            from . import governor
+
+            if not governor.restore_register(self):
+                return self.amps  # raises the destroyed-register error
         if self._fusion is not None and self._fusion.gates:
             from . import fusion
 
@@ -150,6 +160,7 @@ class Qureg:
                 value = kernels.permute_qubits(value, num_qubits=n,
                                                perm=perm)
             perm = None
+        self._spill = None
         self._amps = value
         self._perm = None if perm is None else tuple(perm)
 

@@ -235,8 +235,11 @@ class FaultPlan:
                        run_resumable fails over
     - ``host_loss@W``  a whole host's shards die during window W's
                        dispatch: the failover excludes the host's range
-    - ``oom@W``        the memory governor's OOM net (ROADMAP M16c) is
-                       not ported yet: arming it raises a QuESTError
+    - ``oom@W``        window W's first drain dispatch fails once with
+                       an injected allocator failure, before it runs:
+                       the memory governor's OOM net (governor.oom_net)
+                       evicts idle registers and retries; two events on
+                       one window exhaust the retry
 
     The serving layer's step-keyed kinds (``bank_fault@S``, ``heal@S``,
     ``poison_job@J``) parse; the serving layer that consumes them is not
@@ -259,6 +262,9 @@ class FaultPlan:
         self._stalls_pending = 0
         self._loss_pending = False
         self._host_loss_pending = False
+        # injected allocator failures pending, armed by arm_oom and taken
+        # one per dispatch attempt by governor.oom_net
+        self._oom_pending = 0
         # the payload write runs in a thread beside the metadata write:
         # both may take an injected IO fault
         self._io_lock = threading.Lock()
@@ -318,14 +324,11 @@ class FaultPlan:
         self.arm_oom(window)
 
     def arm_oom(self, window: int) -> None:
-        """``oom@W`` needs the memory governor's OOM net, which is not
-        ported yet (ROADMAP M16c): arming one raises rather than pass
-        the fault over silently."""
-        if self._fire("oom", window):
-            raise QuESTError(
-                f"FaultPlan: oom@{window} needs the memory governor's "
-                "OOM net (ROADMAP M16c), which quest_tpu_torch does not "
-                "have yet")
+        """Move window W's ``oom`` events into the slot governor.oom_net
+        takes from (arm_exchange_window under run_resumable; a drain
+        outside it arms window 0 itself)."""
+        while self._fire("oom", window):
+            self._oom_pending += 1
 
     def take_exchange_fault(self, op: str) -> Optional[str]:
         """The dist.EXCHANGE_FAULT_HOOK body: one pending fault per
@@ -340,6 +343,16 @@ class FaultPlan:
             self._stalls_pending -= 1
             return "stall"
         return None
+
+    def take_oom_fault(self) -> bool:
+        """governor.oom_net's hook: one injected allocator failure per
+        pending ``oom`` event, taken once per dispatch attempt (one event
+        fails the attempt and its retry succeeds; two exhaust the
+        retry)."""
+        if self._oom_pending > 0:
+            self._oom_pending -= 1
+            return True
+        return False
 
     def take_io_fault(self) -> bool:
         with self._io_lock:

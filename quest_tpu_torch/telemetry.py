@@ -929,9 +929,8 @@ def perf_report(env=None) -> str:
             lines.append(
                 f"  dispatch floor: {floor:.3g}s/program "
                 f"(introspect.measure_dispatch_floor)")
-    # the drain's predicted-vs-measured reconciliation: shown once a
-    # drain records predictions (introspect.reconcile_drain, ROADMAP
-    # M16d); until then the measured series stand in "counters:" alone
+    # the sharded drain's predicted-vs-measured reconciliation
+    # (introspect.reconcile_drain records the predictions)
     pred_c = counter_sum("predicted_exchanges_total", op="window_remap")
     meas_c = counter_sum("exchanges_total", op="window_remap")
     pred_b = counter_sum("predicted_exchange_bytes_total", op="window_remap")
@@ -1043,6 +1042,12 @@ def perf_report(env=None) -> str:
     if peak is not None:
         lines.append(f"memory: hbm_watermark_bytes peak={_num(peak)} "
                      f"({peak / (1 << 20):.1f} MiB)")
+    # the memory governor: budget, residency, spill and OOM history
+    from . import governor as _governor
+
+    gov_line = _governor.summary_line(env)
+    if gov_line:
+        lines.append(gov_line)
     return "\n".join(lines)
 
 

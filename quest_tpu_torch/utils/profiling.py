@@ -89,8 +89,10 @@ def memory_watermark() -> dict:
     ``device_peak_bytes_in_use``, ``hbm_watermark_bytes`` and
     ``device_memory_watermark_bytes`` gauges (``{device}``), the peak the
     drain samples after each drain and getEnvironmentString / reportPerf
-    report.  Without a card the host process's peak RSS stands in under
-    ``device="host"``."""
+    report.  Without a card the memory governor's modeled peak per
+    device stands in under ``device="model"`` while a budget is active
+    (so a CPU run's watermark agrees with the predictor), else the host
+    process's peak RSS under ``device="host"``."""
     out: dict = {}
     if torch.cuda.is_available():
         for i in range(torch.cuda.device_count()):
@@ -107,6 +109,15 @@ def memory_watermark() -> dict:
                                  stats["peak_bytes_in_use"], device=dev)
             _telemetry.set_gauge("device_memory_watermark_bytes",
                                  stats["peak_bytes_in_use"], device=dev)
+        return out
+    from .. import governor as _governor
+
+    modeled = _governor.modeled_watermark_bytes()
+    if modeled is not None:
+        out["model"] = {"modeled_peak_bytes_in_use": int(modeled)}
+        _telemetry.set_gauge("hbm_watermark_bytes", modeled, device="model")
+        _telemetry.set_gauge("device_memory_watermark_bytes", modeled,
+                             device="model")
         return out
     rss = _maxrss_bytes()
     out["host"] = {"peak_bytes_in_use": rss}

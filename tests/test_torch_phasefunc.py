@@ -360,15 +360,18 @@ M9B_NAMES = (
 
 
 def test_the_public_names_of_diagonal_ops_and_phase_functions():
-    """The 35 names are exported with the reference's values, and 19 of
+    """The 35 names are exported with the reference's values, and 9 of
     the reference's public names are left, counted in a fresh process
-    (the submodules a test session imports add names to the package);
-    the sharding slice's initDistributed, parallel and PAR are not among
-    them, nor the 15 names of telemetry and resumable runs: saveQureg,
-    loadQureg, runResumable, run_resumable, checkQuregHealth, FaultPlan,
-    SimulatedPreemption, NumericalHealthError, WindowExecutor,
+    (the submodules a test session imports add names to the package):
+    the serving layer's seven (serve, SimServer, Service, SimService,
+    Job, Tenant, QuotaExceededError) and the reference's imports jax and
+    jnp.  The sharding slice's initDistributed, parallel and PAR are not
+    among them, nor the 15 names of telemetry and resumable runs
+    (saveQureg, loadQureg, runResumable, run_resumable, checkQuregHealth,
+    FaultPlan, SimulatedPreemption, NumericalHealthError, WindowExecutor,
     degradation_report, telemetry, reportPerf, report_perf, utils and
-    resilience."""
+    resilience), nor the 10 of the memory governor and the plan
+    explainer."""
     assert len(M9B_NAMES) == 35
     for name in M9B_NAMES:
         assert hasattr(tq, name), name
@@ -392,4 +395,9 @@ def test_the_public_names_of_diagonal_ops_and_phase_functions():
         "checkQuregHealth", "FaultPlan", "SimulatedPreemption",
         "NumericalHealthError", "WindowExecutor", "degradation_report",
         "telemetry", "reportPerf", "report_perf", "utils", "resilience"}
-    assert len(missing) == 19
+    assert not missing & {
+        "governor", "MemoryAdmissionError", "introspect", "explainCircuit",
+        "explain_circuit", "reportCircuitPlan", "report_circuit_plan",
+        "audit", "CollectiveBudget", "contracts"}
+    assert missing == {"serve", "SimServer", "Service", "SimService", "Job",
+                       "Tenant", "QuotaExceededError", "jax", "jnp"}

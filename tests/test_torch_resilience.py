@@ -526,14 +526,33 @@ class TestFaultPlanParsing:
         assert sum(fired) == 500 and plan.io_budget == 0
         assert plan.log.count("io") == 500
 
-    def test_oom_parses_and_arming_it_names_m16c(self, tmp_path):
-        plan = tq.FaultPlan("oom@2")
-        assert plan.events == qt.FaultPlan("oom@2").events
-        plan.arm_exchange_window(1)
-        with pytest.raises(tq.QuESTError, match="M16c"):
+    def test_oom_parses_and_arming_it_names_m16c(self, ref, own, tmp_path):
+        """oom@W fires through the memory governor's OOM net: it parses,
+        arms and is taken as the reference's, and oom@1 under
+        runResumable fails window 1's dispatch once, the net retries and
+        the run ends bit for bit the unfaulted one (the name predates the
+        net, which M16c brought)."""
+        seqs = []
+        for mod in (tq, qt):
+            plan = mod.FaultPlan("oom@2")
+            seq = [plan.take_oom_fault()]
+            plan.arm_exchange_window(1)
+            seq.append(plan.take_oom_fault())
             plan.arm_exchange_window(2)
-        _plan, err = prun(pfresh(penv(1)), tmp_path / "ck", "oom@1")
-        assert isinstance(err, tq.QuESTError) and "M16c" in str(err)
+            seq += [plan.take_oom_fault() for _ in range(2)]
+            seqs.append((plan.events, seq, plan.log))
+        assert seqs[0] == seqs[1]
+        assert seqs[0][1] == [False, False, True, False]
+        before = PT.counter_total("oom_retries_total")
+        q = pfresh(penv(1))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            plan, err = prun(q, tmp_path / "ck", "oom@1")
+        assert err is None
+        assert plan.log == ref(1, "oom@1")[1] == ["oom@1"]
+        assert PT.counter_total("oom_retries_total") == before + 1
+        assert np.array_equal(host(q), own(1, tmp_path)[0])
+        assert np.abs(host(q) - ref(1, "oom@1")[0]).max() < TOL
 
 
 @pytest.fixture

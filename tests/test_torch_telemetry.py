@@ -81,11 +81,11 @@ def _stream(pk, env, n=N, depth=4, seed=3):
     return q, (p, m, p2)
 
 
-# the reference's series the port does not record: XLA's compile cache,
-# the jit retrace count and the drain's model reconciliation (M16d)
+# the reference's series the port does not record: XLA's compile cache
+# and the jit retrace count (the drain's model reconciliation, recorded by
+# both, is compared with the rest)
 _REF_ONLY = {"compile_cache_hits_total", "compile_cache_misses_total",
-             "fusion_retrace_total", "predicted_exchanges_total",
-             "predicted_exchange_bytes_total", "model_drift_total"}
+             "fusion_retrace_total"}
 _REQUIRED = {"dispatch_total", "fusion_drains_total", "fusion_windows_total",
              "fusion_plan_cache_misses_total",
              "optimizer_gates_removed_total", "measurement_shots_total",
@@ -166,9 +166,12 @@ def _sections(report: str) -> set:
 @pytest.mark.parametrize("R", [1, 8])
 def test_report_perf_sections_match(streams, R):
     rep_r, rep_p = (_sections(r) for r in streams(R)[4:])
-    # the reconciliation section reads the reference's predicted_* series
-    rep_r.discard("reconciliation (window remaps, predicted vs measured):")
+    # the sharded drain reconciles (introspect.reconcile_drain): the
+    # reconciliation section is in both reports
     assert rep_r == rep_p
+    if R > 1:
+        assert "reconciliation (window remaps, predicted vs measured):" \
+            in rep_p
     assert {"counters:", "histograms:", "memory: hbm_watermark_bytes"} \
         <= rep_p
 
