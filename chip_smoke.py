@@ -392,13 +392,47 @@ line:
              reconciliation and governor lines; the sharded-contract check
              on 8 shards of the card; the explain wall against the drain's;
              the dispatch floor in microseconds.
-44. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+44. serve_main - config 2 served by quest_tpu_torch.serve.SimServer at
+             26 qubits, depth 20, float32, on one register env: two
+             tenants (weights 1 and 3), 8 batch jobs of config 2's
+             structure, each with its own seeded unitaries, in one bank
+             of 8 (4.3 GB), measure=(0, 25), QT_SERVE_WINDOW=16; after the
+             bank's third window 2 interactive jobs, whose bank preempts
+             the batch bank to a checkpoint (memory_allocated drops by
+             its bytes).  Every job torch.equal to its run under
+             preempt="off", with the same outcomes and key states, and
+             within 1e-5 of its own single-register windowed drain;
+             memory_allocated back at its start after close().  Wall per
+             circuit, per-class queue wait and latency, banks, windows,
+             preemptions, checkpoint and resume seconds, planning seconds
+             against the programs' device ms, the busy share; K1's (and
+             K2's) bank-form launches.
+45. serve_chaos - scripts/chaos_serve.py's trace for seed 12 on 8
+             in-process shards of the card at 20 qubits: a bank fault, IO
+             faults, a host loss under a 2x4 topology then a heal, an OOM
+             and a poisoned job.  Only the poisoned job fails; every other
+             completion torch.equal to the fault-free replay, or, when it
+             ran windows on the shrunk mesh, within tolerance with equal
+             outcomes; the server idle with no resident bank; flight dumps
+             for the quarantine and the failover; complete request traces.
+46. serve_ab - scripts/bench_serve.py's A/B at 20 qubits, recorded only:
+             continuous batching against batch-at-once on one seeded
+             open-loop trace, circuits/s and the interactive p99 beside
+             the reference's budgets (2x and 2x).
+47. f2_main - config 2's 770 gates on a 32-qubit float32 register (34.4
+             GB) under QT_MEM_POLICY=degrade: refused before allocating,
+             or drained to the end with a peak within the governor's
+             two-state model (the drain drops its input after the first
+             op), the norm 1 within 1e-3.
+48. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
              errors under "modes"; K1, K2 and K5's bank forms, with their
              launches on a sharded bank under "dist"; K1, K2, K5 and
              K6-K9 marked as run per shard with their dist launches; K1's
              and K2's launches on the resumable path under "resumable";
-             K1's, K2's and K5's under the governor under "governed").
+             K1's, K2's and K5's under the governor under "governed";
+             the bank forms' launches on the serving path under "serve";
+             K1's on F2's drain under "f2").
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -7447,6 +7481,625 @@ def phase_introspect_main(torch, np, qt, C, fused, fusion, circuits):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The serving layer (M16e) and F2
+# ---------------------------------------------------------------------------
+
+N_SERVE = 26           # config 2 served at its full width, float32
+SERVE_JOBS = 8         # batch jobs: one bank of 8 (4.3 GB)
+SERVE_BURST = 2        # interactive jobs, after the batch bank's 3rd window
+SERVE_BURST_AFTER = 3
+SERVE_WINDOW = 16      # QT_SERVE_WINDOW
+SERVE_WEIGHTS = {"t1": 1.0, "t3": 3.0}
+SERVE_MEASURE = (0, 25)
+N_CHAOS = 20           # the chaos arm: 8 in-process shards of the card
+R_CHAOS = 8
+CHAOS_SEED = 12        # an even seed: host_loss, then heal
+CHAOS_JOBS = 12
+CHAOS_DEPTH = 4
+N_AB = 20              # scripts/bench_serve.py's A/B at 20 qubits
+AB_JOBS, AB_LIVE = 48, 16
+AB_DEPTH, AB_LIVE_DEPTH = 6, 5
+AB_RATE_MULT = 4.0
+N_F2 = 32              # F2: config 2's drain on a 34.4 GB float32 register
+
+
+def drop_plan_caches(fusion, kernels) -> None:
+    """Empty the process's plan caches (their device copies of pass
+    arrays and gather indices), which no register owns."""
+    fusion._plan_cache.clear()
+    fusion._device_programs.clear()
+    kernels._FIELD_INDEX.clear()
+
+
+def serve_gates(circuits, n, depth, seed):
+    """Config 2's structure at n qubits with the unitaries of ``seed``:
+    one randomized-compiling variant, as a served job's gate list."""
+    return circuits.bench_gate_list(
+        n, depth, circuits.bench_unitaries(n, depth, seed=seed))
+
+
+def percentiles(xs) -> dict:
+    import numpy as np
+
+    if not xs:
+        return {"p50_ms": None, "p99_ms": None}
+    return {"p50_ms": 1e3 * float(np.percentile(xs, 50)),
+            "p99_ms": 1e3 * float(np.percentile(xs, 99))}
+
+
+@contextmanager
+def serve_probe(torch, fusion):
+    """Host seconds in the drains' planning (fusion._plan_optimized) and
+    device milliseconds of their programs (CUDA events around
+    fusion.execute_program), summed over the block."""
+    rec = {"plan_s": 0.0, "plans": 0, "events": []}
+    plan_real, exec_real = fusion._plan_optimized, fusion.execute_program
+    depth = [0]
+
+    def plan(*a, **k):
+        # a bank's plan calls itself per element: time the outermost call
+        depth[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return plan_real(*a, **k)
+        finally:
+            depth[0] -= 1
+            if not depth[0]:
+                rec["plan_s"] += time.perf_counter() - t0
+                rec["plans"] += 1
+
+    def execute(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = exec_real(*a, **k)
+        end.record()
+        rec["events"].append((start, end))
+        return out
+
+    fusion._plan_optimized, fusion.execute_program = plan, execute
+    try:
+        yield rec
+    finally:
+        fusion._plan_optimized, fusion.execute_program = plan_real, exec_real
+        sync()
+        rec["device_ms"] = sum(s.elapsed_time(e) for s, e in rec["events"])
+        rec["programs"] = len(rec.pop("events"))
+
+
+def serve_trace(torch, qt, S, fusion, env, jobs, burst, *, preempt, ckpt):
+    """Serve config 2's batch jobs and, after the batch bank's third
+    window, the interactive burst; returns the jobs and the run's record:
+    wall, per-class latencies, counters, the preemption's memory drop and
+    seconds, planning seconds against device ms."""
+    from quest_tpu_torch import telemetry as T
+
+    T.reset()
+    rec = {"preempt": preempt}
+    drops, spans = [], {"checkpoint_s": [], "resume_s": []}
+    with env_vars(QT_SERVE_WINDOW=SERVE_WINDOW):
+        srv = S.SimServer(env, max_batch=SERVE_JOBS, preempt=preempt,
+                          ckpt_dir=ckpt)
+        preempt_real, resume_real = srv._preempt, srv._resume
+
+        def preempt_hook(bank):
+            live = bank.running and not bank.paused
+            sync()
+            a0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+            preempt_real(bank)
+            sync()
+            if live and bank.preempted:
+                spans["checkpoint_s"].append(time.perf_counter() - t0)
+                drops.append(a0 - torch.cuda.memory_allocated())
+
+        def resume_hook(bank):
+            t0 = time.perf_counter()
+            resume_real(bank)
+            sync()
+            spans["resume_s"].append(time.perf_counter() - t0)
+
+        srv._preempt, srv._resume = preempt_hook, resume_hook
+        try:
+            for name, w in SERVE_WEIGHTS.items():
+                srv.register_tenant(name, weight=w)
+            names = list(SERVE_WEIGHTS)
+            with serve_probe(torch, fusion) as probe:
+                sync()
+                t0 = time.perf_counter()
+                handles = [srv.submit(g, num_qubits=N_SERVE, seed=j,
+                                      tenant=names[j % 2],
+                                      measure=SERVE_MEASURE)
+                           for j, g in enumerate(jobs)]
+                for _ in range(SERVE_BURST_AFTER):
+                    srv.step()
+                handles += [srv.submit(g, num_qubits=N_SERVE,
+                                       seed=SERVE_JOBS + j,
+                                       tenant=names[j % 2],
+                                       priority=S.INTERACTIVE,
+                                       measure=SERVE_MEASURE)
+                            for j, g in enumerate(burst)]
+                steps = SERVE_BURST_AFTER + srv.run_until_idle()
+                sync()
+                wall = time.perf_counter() - t0
+            stats = srv.stats()
+        finally:
+            srv.close()
+    for cls in (S.BATCH, S.INTERACTIVE):
+        js = [j for j in handles if j.priority == cls]
+        rec[cls] = {"jobs": len(js),
+                    "queue_wait": percentiles([j.t_start - j.t_submit
+                                               for j in js]),
+                    "e2e": percentiles([j.t_done - j.t_submit for j in js])}
+    rec.update(
+        steps=steps, wall_s=wall, wall_per_circuit_s=wall / len(handles),
+        banks=T.counter_total("serve_banks_total"),
+        windows=T.counter_total("serve_windows_total"),
+        preemptions=T.counter_total("preemptions_total"),
+        resumes=T.counter_total("serve_resumes_total"),
+        admission_stalls=T.counter_total("serve_admission_stalls_total"),
+        memory_drops=drops, **spans,
+        plan_s=probe["plan_s"], plans=probe["plans"],
+        device_ms=probe["device_ms"], programs=probe["programs"],
+        device_busy_share=probe["device_ms"] / (wall * 1e3),
+        plan_share_of_wall=probe["plan_s"] / wall,
+        completed=stats["completed"], banks_left=stats["banks"])
+    return handles, rec
+
+
+def single_register_run(torch, qt, R, env, gates, seed, n):
+    """One job's own run on one register: its gates drained window by
+    window (the serving windows), then its measurement schedule drawn
+    from the stream ``seed`` seeds, as the bank's element draws it."""
+    qt.seedQuEST(env, [seed])
+    q = qt.createQureg(n, env)
+    ex = R.WindowExecutor(q, gates, every=SERVE_WINDOW)
+    while not ex.done:
+        ex.step()
+    outcomes = [int(qt.measure(q, t)) for t in SERVE_MEASURE]
+    amps = q.amps.cpu()
+    qt.destroyQureg(q, env)
+    return amps, outcomes
+
+
+def phase_serve_main(torch, np, qt, fused, fusion, circuits, kernels, tmp):
+    """Config 2 served by SimServer at 26 qubits on the card (see the
+    module text, 44)."""
+    import warnings
+
+    from quest_tpu_torch import governor as G
+    from quest_tpu_torch import resilience as R
+    from quest_tpu_torch import serve as S
+    from quest_tpu_torch import telemetry as T
+
+    n = N_SERVE
+    qt.set_precision(1)
+    env = mesh_env(qt, 1)
+    drop_plan_caches(fusion, kernels)
+    sync()
+    torch.cuda.empty_cache()
+    a_start = torch.cuda.memory_allocated()
+    jobs = [serve_gates(circuits, n, DEPTH, SEED + j)
+            for j in range(SERVE_JOBS)]
+    burst = [serve_gates(circuits, n, DEPTH, SEED + SERVE_JOBS + j)
+             for j in range(SERVE_BURST)]
+    bank_bytes = SERVE_JOBS * 2 * 4 << n
+    old_mode = T.mode_name()
+    T.configure("on")
+    out = {"n": n, "depth": DEPTH, "gates": len(jobs[0]),
+           "batch_jobs": SERVE_JOBS, "interactive_jobs": SERVE_BURST,
+           "window": SERVE_WINDOW, "weights": SERVE_WEIGHTS,
+           "measure": list(SERVE_MEASURE), "bank_bytes": bank_bytes,
+           "budget": G.budget_bytes(env), "allocated_at_start": a_start}
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            # the uninterrupted run: no preemption
+            base, out["uninterrupted"] = serve_trace(
+                torch, qt, S, fusion, env, jobs, burst, preempt="off",
+                ckpt=os.path.join(tmp, "serve_off"))
+            progress(f"serve_main: uninterrupted {out['uninterrupted']}")
+            # the served run: the burst checkpoints the batch bank
+            fused.reset_launch_counts()
+            got, rec = serve_trace(
+                torch, qt, S, fusion, env, jobs, burst,
+                preempt="checkpoint", ckpt=os.path.join(tmp, "serve_ckpt"))
+            launches = bank_launches(fused)
+        out["served"] = rec
+        progress(f"serve_main: served {rec}")
+        check(all(j.state == S.DONE for j in got + base),
+              "a served job did not complete")
+        check(rec["preemptions"] >= 1 and rec["resumes"] >= 1,
+              f"the burst preempted nothing: {rec}")
+        check(rec["memory_drops"] and rec["memory_drops"][0] == bank_bytes,
+              f"the checkpoint freed {rec['memory_drops']} bytes of the "
+              f"card, not the bank's {bank_bytes}")
+        equal = [torch.equal(a.amps, b.amps) for a, b in zip(got, base)]
+        check(all(equal), f"served jobs differ from the uninterrupted "
+              f"run: {equal}")
+        check([j.outcomes for j in got] == [j.outcomes for j in base],
+              "the measured outcomes differ from the uninterrupted run")
+        check([j.key_state for j in got] == [j.key_state for j in base],
+              "the key states differ from the uninterrupted run")
+        check(launches["K1_bank"] > 0, f"K1's bank form never launched "
+              f"on the serving path: {launches}")
+        out["launches"] = launches
+        # every job against its own single-register windowed drain
+        errs, same_outcomes = [], []
+        for j, g in zip(got, jobs + burst):
+            amps, outs = single_register_run(torch, qt, R, env, g, j.seed,
+                                             n)
+            errs.append(float((amps - j.amps).abs().max()))
+            same_outcomes.append(outs == [o for o, _p in j.outcomes])
+        check(max(errs) <= 1e-5 and all(same_outcomes),
+              f"jobs against their single-register drains: {errs}, "
+              f"outcomes equal {same_outcomes}")
+        out["single_register_max_abs_err"] = max(errs)
+        out["jobs_equal_uninterrupted"] = all(equal)
+        del got, base
+        drop_plan_caches(fusion, kernels)
+        sync()
+        torch.cuda.empty_cache()
+        a_end = torch.cuda.memory_allocated()
+        check(a_end == a_start, f"memory_allocated {a_end} after close(), "
+              f"{a_start} at the start")
+        out["allocated_after_close"] = a_end
+        out["resident_after_close"] = G.resident_bytes()
+    finally:
+        T.configure(old_mode)
+    return out
+
+
+def phase_serve_chaos(torch, np, qt, fused, circuits, tmp):
+    """scripts/chaos_serve.py's trace on 8 in-process shards of the card
+    at 20 qubits for one seed: a bank fault, IO faults, a host loss then a
+    heal, an OOM and a poisoned job (see the module text, 45)."""
+    import warnings
+
+    from quest_tpu_torch import governor as G
+    from quest_tpu_torch import resilience as R
+    from quest_tpu_torch import serve as S
+    from quest_tpu_torch import telemetry as T
+
+    n, seed = N_CHAOS, CHAOS_SEED
+    qt.set_precision(1)
+    rng = np.random.RandomState(seed)
+    trace = []
+    for _ in range(CHAOS_JOBS):
+        tenant = ("alice", "bob", "carol")[int(rng.randint(3))]
+        useed = int(rng.randint(1 << 30))
+        prio = S.INTERACTIVE if rng.rand() < 0.25 else S.BATCH
+        trace.append((tenant, useed, prio))
+    rng = np.random.RandomState(seed ^ 0x5EED)
+    loss_at = int(rng.randint(6, 10))
+    heal_at = loss_at + int(rng.randint(4, 8))
+    oom_at = int(rng.randint(2, 5))
+    poison = int(rng.randint(0, CHAOS_JOBS))
+    spec = (f"bank_fault@{int(rng.randint(2, 6))},io@2,host_loss@{loss_at},"
+            f"heal@{heal_at},oom@{oom_at},poison_job@{poison}")
+    gates = {u: serve_gates(circuits, n, CHAOS_DEPTH, u)
+             for _t, u, _p in trace}
+
+    def run(plan_spec, tag):
+        with env_vars(QT_TOPOLOGY="2x4", QT_RETRY_BASE_SECONDS="0.001"):
+            return run_trace(plan_spec, tag)
+
+    def run_trace(plan_spec, tag):
+        R.seed_backoff_jitter([20260805])
+        env = mesh_env(qt, R_CHAOS)
+        qt.seedQuEST(env, [seed])
+        plan = R.FaultPlan(plan_spec) if plan_spec else None
+        T.reset()
+        srv = S.SimServer(env, window=SERVE_WINDOW, max_batch=4, retries=4,
+                          watchdog=1, quarantine=(100, 3600.0), faults=plan,
+                          ckpt_dir=os.path.join(tmp, tag))
+        moved = set()
+
+        def mark(fn):
+            def marked(*args):
+                moved.update(j.id for b in srv._banks if b.started
+                             for j in b.jobs)
+                return fn(*args)
+            return marked
+
+        start_real = srv._start
+
+        def start(bank):
+            start_real(bank)
+            if srv.env is not srv._full_env:
+                moved.update(j.id for j in bank.jobs)
+
+        srv._failover, srv.heal = mark(srv._failover), mark(srv.heal)
+        srv._start = start
+        handles = []
+        fused.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            for i, (tenant, u, prio) in enumerate(trace):
+                handles.append(srv.submit(
+                    gates[u], num_qubits=n, tenant=tenant, priority=prio,
+                    measure=(0, n - 1)))
+                if i % 3 == 2:
+                    for _ in range(2):
+                        srv.step()
+            steps = srv.run_until_idle(max_steps=4000)
+            sync()
+            wall = time.perf_counter() - t0
+            stats = srv.stats()
+            dumps = []
+            for p in srv.flight_dumps:
+                with open(p) as f:
+                    dumps.append(json.load(f)["reason"])
+            traces = {h.id: srv.tracez(h) for h in handles}
+        finally:
+            srv.close()
+        return {"handles": handles, "stats": stats, "steps": steps,
+                "wall_s": wall, "plan": plan, "dumps": dumps,
+                "traces": traces, "moved": moved,
+                "launches": bank_launches(fused),
+                "failovers": T.counter_total("serve_failovers_total"),
+                "heals": T.counter_total("serve_heals_total"),
+                "retries": T.counter_total("serve_bank_retries_total"),
+                "mttr_s": T.gauge_max("serve_failover_mttr_seconds")}
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        base = run("", "chaos_base")
+        chaos = run(spec, "chaos_run")
+    bj = {h.id: h for h in base["handles"]}
+    failed = {h.id for h in chaos["handles"] if h.state != S.DONE}
+    check(chaos["steps"] < 4000 and chaos["stats"]["queued"] == 0
+          and chaos["stats"]["banks"] == 0 and G.resident_bytes() == 0,
+          f"the chaos run did not reach idle: {chaos['stats']}")
+    check(failed == {poison}, f"failed jobs {failed}, poisoned {poison}")
+    exact, close, errs = 0, 0, []
+    for h in chaos["handles"]:
+        if h.id == poison:
+            continue
+        b = bj[h.id]
+        check(h.key_state == b.key_state, f"job {h.id}: key state differs")
+        if torch.equal(h.amps, b.amps) and h.outcomes == b.outcomes:
+            exact += 1
+            continue
+        # a job whose windows ran on the shrunk mesh: planned at another
+        # shard width, its sums run in another order (ROADMAP Queue 3)
+        check(h.id in chaos["moved"], f"job {h.id} never left the full "
+              "mesh but differs from the fault-free replay")
+        err = float((h.amps - b.amps).abs().max())
+        errs.append(err)
+        check(err <= tolerance(b.amps) and [o for o, _ in h.outcomes]
+              == [o for o, _ in b.outcomes], f"job {h.id}: {err}")
+        close += 1
+    fired = {e.split("@")[0] for e in chaos["plan"].log}
+    check({"bank_fault", "host_loss", "heal", "poison_job", "io", "oom"}
+          <= fired, f"faults fired: {chaos['plan'].log}")
+    check("quarantine" in chaos["dumps"] and "failover" in chaos["dumps"],
+          f"flight dumps {chaos['dumps']}")
+    for h in chaos["handles"]:
+        if h.id == poison:
+            continue
+        tz = chaos["traces"][h.id]
+        names = [e["name"] for e in tz["events"]]
+        order = [names.index(k) for k in ("serve.admit", "serve.bank_join",
+                                          "serve.window", "serve.complete")]
+        check(tz["complete"] and order == sorted(order)
+              and (h.attempts == 1 or "serve.retry" in names),
+              f"job {h.id}: trace {names}")
+    check(chaos["launches"]["K1_bank"] > 0,
+          f"K1's bank form never launched per shard: {chaos['launches']}")
+    return {"n": n, "shards": R_CHAOS, "seed": seed, "plan": spec,
+            "fired": chaos["plan"].log, "jobs": CHAOS_JOBS,
+            "poisoned": poison, "failed": sorted(failed),
+            "bit_identical": exact, "within_tolerance_after_moving": close,
+            "moved_max_abs_err": max(errs) if errs else 0.0,
+            "steps": chaos["steps"], "baseline_steps": base["steps"],
+            "wall_s": chaos["wall_s"], "baseline_wall_s": base["wall_s"],
+            "failovers": chaos["failovers"], "heals": chaos["heals"],
+            "bank_retries": chaos["retries"],
+            "failover_mttr_s": chaos["mttr_s"],
+            "flight_dumps": chaos["dumps"],
+            "devices_after": chaos["stats"]["devices"],
+            "launches": chaos["launches"],
+            "baseline_launches": base["launches"]}
+
+
+def ab_circuit(np, C, rng, n, depth):
+    """scripts/bench_serve.py's circuit: depth layers of one random SU(2)
+    on every qubit; one structure, matrices per submission."""
+    gates = []
+    for _d in range(depth):
+        for t in range(n):
+            g = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+            u, _r = np.linalg.qr(g)
+            gates.append(C.Gate((t,), np.stack([u.real, u.imag])))
+    return gates
+
+
+def phase_serve_ab(torch, np, qt, C, batch):
+    """scripts/bench_serve.py's A/B at 20 qubits, recorded only (see the
+    module text, 46)."""
+    from quest_tpu_torch import serve as S
+    from quest_tpu_torch import telemetry as T
+
+    n = N_AB
+    qt.set_precision(1)
+    env = mesh_env(qt, 1)
+    rng = np.random.default_rng(31)
+    batch_circs = [ab_circuit(np, C, rng, n, AB_DEPTH)
+                   for _ in range(AB_JOBS)]
+    live_circs = [ab_circuit(np, C, rng, n, AB_LIVE_DEPTH)
+                  for _ in range(AB_LIVE)]
+
+    def drain_one(gates):
+        sched = batch.EnsembleScheduler(n, env, max_batch=1)
+        sched.submit(gates)
+        sched.drain()
+        sync()
+
+    def baseline(trace):
+        waits, e2e = [], []
+        t0 = time.perf_counter()
+        for gates, due in zip(batch_circs, trace):
+            now = time.perf_counter() - t0
+            if due > now:
+                time.sleep(due - now)
+            start = time.perf_counter() - t0
+            drain_one(gates)
+            done = time.perf_counter() - t0
+            waits.append(start - due)
+            e2e.append(done - due)
+        span = float((time.perf_counter() - t0) - trace[0])
+        return {"circuits_per_s": len(trace) / span, "makespan_s": span,
+                "queue_wait": percentiles(waits), "e2e": percentiles(e2e)}
+
+    def continuous(arrivals, only_live=False):
+        srv = S.SimServer(env, window=SERVE_WINDOW, max_batch=16)
+        srv.register_tenant("batch", max_pending=4096)
+        srv.register_tenant("live", max_pending=4096)
+        jobs = []
+        try:
+            i = 0
+            t0 = time.perf_counter()
+            while i < len(arrivals) or not all(j.done for _d, _p, j in jobs):
+                now = time.perf_counter() - t0
+                while i < len(arrivals) and arrivals[i][0] <= now:
+                    due, gates, prio = arrivals[i]
+                    jobs.append((due, prio, srv.submit(
+                        gates, num_qubits=n, priority=prio, seed=i,
+                        tenant="live" if prio == S.INTERACTIVE
+                        else "batch")))
+                    i += 1
+                if not srv.step() and i < len(arrivals):
+                    time.sleep(min(0.001, max(0.0, arrivals[i][0] - (
+                        time.perf_counter() - t0))))
+            sync()
+            out = {}
+            for prio in ((S.INTERACTIVE,) if only_live
+                         else (S.BATCH, S.INTERACTIVE)):
+                js = [(d, j) for d, p, j in jobs if p == prio]
+                span = float(max(j.t_done - t0 for _d, j in js) - min(
+                    d for d, _j in js))
+                out[prio] = {
+                    "count": len(js), "circuits_per_s": len(js) / span,
+                    "queue_wait": percentiles([j.t_start - j.t_submit
+                                               for _d, j in js]),
+                    "e2e": percentiles([j.t_done - j.t_submit
+                                        for _d, j in js])}
+            return out
+        finally:
+            srv.close()
+
+    # warm the plan and dispatch paths both arms take (the port compiles
+    # nothing: its kernels were built at the start)
+    drain_one(batch_circs[0])
+    continuous([(0.0, batch_circs[1], S.BATCH),
+                (0.0, live_circs[0], S.INTERACTIVE)])
+    t0 = time.perf_counter()
+    drain_one(batch_circs[0])
+    per_circuit = time.perf_counter() - t0
+    rate = AB_RATE_MULT / per_circuit
+    trace = np.cumsum(rng.exponential(1.0 / rate, size=AB_JOBS))
+    base = baseline(trace)
+    live = np.cumsum(rng.exponential(1.0 / (rate / max(6, AB_JOBS // 2)),
+                                     size=AB_LIVE))
+    mixed = sorted([(float(t), g, S.BATCH)
+                    for t, g in zip(trace, batch_circs)]
+                   + [(float(t), g, S.INTERACTIVE)
+                      for t, g in zip(live, live_circs)],
+                   key=lambda a: a[0])
+    T.reset()
+    cont = continuous(mixed)
+    cont["preemptions"] = T.counter_total("preemptions_total")
+    cont["banks"] = T.counter_total("serve_banks_total")
+    unloaded = continuous([(float(t), g, S.INTERACTIVE)
+                           for t, g in zip(live, live_circs)], True)
+    speedup = float(cont[S.BATCH]["circuits_per_s"]
+                    / base["circuits_per_s"])
+    loaded = cont[S.INTERACTIVE]["e2e"]["p99_ms"]
+    alone = unloaded[S.INTERACTIVE]["e2e"]["p99_ms"]
+    return {"n": n, "jobs": AB_JOBS, "depth": AB_DEPTH,
+            "interactive_jobs": AB_LIVE, "interactive_depth": AB_LIVE_DEPTH,
+            "window": SERVE_WINDOW, "max_batch": 16,
+            "baseline_per_circuit_s": per_circuit,
+            "arrival_rate_per_s": float(rate), "baseline": base,
+            "continuous": cont, "interactive_unloaded": unloaded,
+            "speedup": speedup, "speedup_budget": 2.0,
+            "speedup_met": speedup >= 2.0,
+            "interactive_p99_ratio": float(loaded / alone),
+            "interactive_p99_budget": 2.0,
+            "interactive_p99_met": bool(loaded / alone <= 2.0)}
+
+
+def phase_f2_main(torch, np, qt, fused, fusion, circuits, kernels):
+    """F2: config 2's 770 gates on a 32-qubit float32 register (34.4 GB)
+    under QT_MEM_POLICY=degrade: refused before allocating, or drained to
+    the end within the governor's two-state model (see the module text,
+    47)."""
+    import warnings
+
+    from quest_tpu_torch import governor as G
+
+    n = N_F2
+    qt.set_precision(1)
+    env = mesh_env(qt, 1)
+    drop_plan_caches(fusion, kernels)
+    sync()
+    torch.cuda.empty_cache()
+    dev = env.device
+    us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+    out = {"n": n, "state_bytes": 2 * 4 << n,
+           "budget": G.budget_bytes(env)}
+    a0 = torch.cuda.memory_allocated(dev)
+    with env_vars(QT_MEM_POLICY="degrade"):
+        try:
+            q = qt.createQureg(n, env)
+        except qt.MemoryAdmissionError as e:
+            check(torch.cuda.memory_allocated(dev) == a0,
+                  "the refused register allocated")
+            out.update(outcome="refused", predicted=e.predicted_bytes)
+            return out
+        # the drain runs as the fusion context closes: an allocator failure
+        # after the admission raises there and fails the phase
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with qt.gateFusion(q):
+                apply_bench_gates(qt, q, us, n)
+                predicted = qt.explainCircuit(q)["memory"][
+                    "predicted_peak_bytes"]
+                sync()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                fused.reset_launch_counts()
+                t0 = time.perf_counter()
+        sync()
+        drain_s = time.perf_counter() - t0
+        state = G.register_bytes_per_device(q)
+        peak = torch.cuda.max_memory_allocated(dev) - (base - state)
+        launches = window_launches(fused)
+        # the norm and P(top = 0) 2^28 amplitudes at a time: calcTotalProb
+        # squares the whole state in temporaries, 1.5 states more than
+        # the card holds beside a 32-qubit one
+        a, half, step = q.amps, 1 << (n - 1), 1 << 28
+        parts = [float(torch.sum(a[:, i:i + step].double() ** 2))
+                 for i in range(0, 1 << n, step)]
+        total, p0 = sum(parts), sum(parts[:half // step])
+        del a
+        qt.destroyQureg(q, env)
+        del q
+    torch.cuda.empty_cache()
+    check(abs(total - 1.0) <= 1e-3, f"calcTotalProb {total} at {n} qubits")
+    # the two-state model holds: a third live state would be 1.5x
+    check(peak <= 1.05 * predicted, f"the drain peaked at {peak} bytes, "
+          f"above the governor's {predicted}")
+    check(launches["K1"] > 0, "K1 never launched at 32 qubits")
+    out.update(outcome="completed", predicted_peak_bytes=predicted,
+               measured_peak_bytes=peak,
+               measured_over_predicted=peak / predicted,
+               measured_states=peak / state, drain_s=drain_s,
+               calc_total_prob=total, p_top_zero=p0, launches=launches)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7934,6 +8587,19 @@ def main() -> int:
     intro = phase_introspect_main(torch, np, qt, C, fused, fusion, circuits)
     emit({"phase": "introspect_main", "power": smi, **intro})
 
+    # 44-47. the serving layer (checkpoints in a temporary directory
+    # removed on exit) and F2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        serve = phase_serve_main(torch, np, qt, fused, fusion, circuits,
+                                 kernels, tmp)
+        emit({"phase": "serve_main", "power": smi, **serve})
+        chaos = phase_serve_chaos(torch, np, qt, fused, circuits, tmp)
+        emit({"phase": "serve_chaos", "power": smi, **chaos})
+    ab = phase_serve_ab(torch, np, qt, C, batch)
+    emit({"phase": "serve_ab", "power": smi, **ab})
+    f2 = phase_f2_main(torch, np, qt, fused, fusion, circuits, kernels)
+    emit({"phase": "f2_main", "power": smi, **f2})
+
     # 42. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
         key = key or kname.split()[0]
@@ -8130,6 +8796,13 @@ def main() -> int:
                              intro["launches"].get(key, 0)}
         check(sum(e["governed"].values()) > 0,
               f"{key} never launched under the governor")
+    # K1's and K2's bank forms on the serving path: the served run at 26
+    # qubits on one register env, and the chaos arm per shard of 8 (and 4
+    # after the failover); K1 on F2's 32-qubit drain
+    for e, key in ((k1b, "K1_bank"), (k2b, "K2_bank")):
+        e["serve"] = {"launches_serve_main": serve["launches"][key],
+                      "launches_chaos_per_shard": chaos["launches"][key]}
+    k1e["f2"] = {"launches": f2.get("launches", {}).get("K1", 0)}
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
                       k11e, k12e, k1b, k2b, k5b]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

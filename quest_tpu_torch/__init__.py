@@ -44,7 +44,11 @@ registers and drains against a budget per device (the card's free memory,
 or ``QT_HBM_BUDGET_BYTES``) and spills idle registers to pinned host
 memory; ``explainCircuit(q)`` reports what a drain would plan, exchange
 and hold without running it; ``audit`` counts a function's exchange calls
-against a ``CollectiveBudget``.
+against a ``CollectiveBudget``.  ``SimServer`` (``serve``) serves many
+tenants' circuits on one card: continuous batching of same-structure
+circuits into register banks between fusion windows, admission control,
+two priority classes with preemption, and fault isolation; ``Service``
+(``SimService``) is its asyncio front end.
 """
 
 from .precision import (
@@ -83,6 +87,15 @@ from .resilience import (
     NumericalHealthError,
     WindowExecutor,
     degradation_report,
+)
+from . import serve
+from .serve import (
+    SimServer,
+    Service as SimService,
+    Service,
+    Job,
+    Tenant,
+    QuotaExceededError,
 )
 from .debug import (
     initStateOfSingleQubit,

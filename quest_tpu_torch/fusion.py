@@ -509,14 +509,21 @@ def program_stats(program) -> dict:
     return total
 
 
-def execute_program(amps, program, probs, num_qubits: int):
+def execute_program(amps, program, probs, num_qubits: int, release=None):
     """Run a program's parts in order; ``probs`` holds the probability of
     each of its channels, in order.  Returns the new state (a sweep
     overwrites a float32 state on the card in place).  The state may be
     a (B, 2, 2^n) register bank: its planned parts and sweeps take the
     whole bank (``circuit.execute_plan``, K5), a channel takes it as a
     batch dimension, every element under the same probabilities (the
-    reference's vmap in_axes)."""
+    reference's vmap in_axes).
+
+    Plan parts run op by op, so no frame here holds a part's input while
+    its later ops run: with ``release``, called once the first op has
+    produced its output (the caller then drops its own reference to the
+    input), the program holds at most two states at a time, an op's input
+    and its output: the governor's model of a drain (the reference
+    donates the input buffer to its executor)."""
     n = num_qubits
     bank = _fused.bank_size(amps, n)
     pi = 0
@@ -536,7 +543,15 @@ def execute_program(amps, program, probs, num_qubits: int):
             amps = torch.vmap(chan)(amps) if bank else chan(amps)
             pi += 1
         else:
-            amps = C.execute_plan(amps, part[1], n)
+            for op in part[1]:
+                amps = C.execute_plan(amps, (op,), n)
+                if release is not None:
+                    release()
+                    release = None
+            continue
+        if release is not None:
+            release()
+            release = None
     return amps
 
 
@@ -555,6 +570,8 @@ def _run(qureg, items) -> None:
     from . import governor as _gov
 
     _gov.ensure_resident(qureg)
+    if qureg._amps is None:
+        raise qureg._no_state_error()
     if qureg.is_sharded:
         _run_sharded(qureg, items)
         return
@@ -572,12 +589,27 @@ def _run(qureg, items) -> None:
         _record_program(program, items)
         for group, gprobs in groups:
             def dispatch(g=group, gp=gprobs):
-                return execute_program(qureg._amps, g, gp, n)
+                return execute_program(qureg._amps, g, gp, n,
+                                       release=lambda: _consume(qureg))
 
-            qureg._amps = _timed_group(
-                qureg, group, lambda d=dispatch: _gov.oom_net(d, qureg))
+            try:
+                qureg._amps = _timed_group(
+                    qureg, group, lambda d=dispatch: _gov.oom_net(d, qureg))
+            except BaseException as e:
+                if qureg._amps is None:
+                    qureg._consumed_by = f"{type(e).__name__}: {e}"
+                raise
     finally:
         _gov.end_drain()
+
+
+def _consume(qureg) -> None:
+    """A drain's first op has produced its output: the register drops its
+    input, so the input is freed as the program moves on.  The OOM net can
+    then no longer retry the group (its state mark changed), and a failure
+    from here on leaves the register without a state
+    (``Qureg._consumed_by``)."""
+    qureg._amps = None
 
 
 def _governed_groups(qureg, program, probs, *, nloc: int, nsh: int):

@@ -39,6 +39,9 @@ class Qureg:
         self.dtype = precision.real_dtype()
         self.qasm_log = QASMLogger(num_qubits)
         self._amps = None
+        # the error of a drain that failed after it had consumed the state
+        # (fusion._consume): the register holds no state until rewritten
+        self._consumed_by: Optional[str] = None
         # governor.SpillHandle while the amplitudes live on the host (the
         # memory governor spilled the register; the next read restores)
         self._spill = None
@@ -95,12 +98,9 @@ class Qureg:
         tensor, or a ShardedAmps on a sharded register."""
         if self._amps is None:
             from . import governor
-            from .validation import QuESTError
 
             if not governor.restore_register(self):
-                raise QuESTError(
-                    "Qureg: the register has been destroyed (destroyQureg) "
-                    "or never initialised.")
+                raise self._no_state_error()
         if self._fusion is not None and self._fusion.gates:
             from . import fusion
 
@@ -124,7 +124,19 @@ class Qureg:
         # carries a permutation
         self._perm = None
         self._spill = None  # an overwrite drops any host snapshot
+        self._consumed_by = None
         self._amps = value
+
+    def _no_state_error(self):
+        from .validation import QuESTError
+
+        if self._consumed_by is not None:
+            return QuESTError(
+                "Qureg: a drain failed after it had consumed the register's "
+                f"state ({self._consumed_by}); re-initialise the register.")
+        return QuESTError(
+            "Qureg: the register has been destroyed (destroyQureg) or never "
+            "initialised.")
 
     def _amps_raw(self):
         """The amplitudes without restoring canonical order (pending
@@ -161,6 +173,7 @@ class Qureg:
                                                perm=perm)
             perm = None
         self._spill = None
+        self._consumed_by = None
         self._amps = value
         self._perm = None if perm is None else tuple(perm)
 

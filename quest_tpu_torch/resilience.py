@@ -241,9 +241,13 @@ class FaultPlan:
                        evicts idle registers and retries; two events on
                        one window exhaust the retry
 
-    The serving layer's step-keyed kinds (``bank_fault@S``, ``heal@S``,
-    ``poison_job@J``) parse; the serving layer that consumes them is not
-    ported yet (ROADMAP M16e).
+    The serving layer (serve.SimServer) takes the step-keyed kinds,
+    keyed on its global step index: ``bank_fault@S`` (the bank stepped
+    at S raises a transient error), ``heal@S`` (SimServer.heal),
+    ``shard_loss@S`` / ``host_loss@S`` (a failover) through
+    :meth:`take_serve_fault`, and ``poison_job@J`` (job J's element
+    turns NaN after every window it runs, on every retry) through
+    :meth:`poisoned`; ``io`` and ``oom`` reach it as they reach a drain.
 
     Every fired event is appended to :attr:`log`."""
 
@@ -353,6 +357,22 @@ class FaultPlan:
             self._oom_pending -= 1
             return True
         return False
+
+    def take_serve_fault(self, step: int) -> Optional[str]:
+        """SimServer's hook, once per step: fire at most one serve-level
+        fault keyed on the server's global step index (banks interleave,
+        so a bank's window index would be ambiguous).  Infrastructure
+        loss first: it preempts anything else the step could do."""
+        for kind in ("host_loss", "shard_loss", "bank_fault", "heal"):
+            if self._fire(kind, step):
+                return kind
+        return None
+
+    def poisoned(self, job_id: int) -> bool:
+        """Whether ``poison_job@J`` marks this job id.  Not consumed on
+        read: a poisoned job poisons again on every retry, so the
+        bisection converges on it instead of exonerating it."""
+        return int(job_id) in self.poisoned_jobs
 
     def take_io_fault(self) -> bool:
         with self._io_lock:

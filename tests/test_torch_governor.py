@@ -749,7 +749,7 @@ class TestSurfaces:
         q = tq.createQureg(6, env)
         real = PF.execute_program
 
-        def in_place_then_oom(amps, program, probs, n):
+        def in_place_then_oom(amps, program, probs, n, release=None):
             amps.mul_(1.0)
             raise torch.cuda.OutOfMemoryError(
                 "CUDA out of memory. Tried to allocate 8.00 GiB")
@@ -767,3 +767,79 @@ class TestSurfaces:
         with tq.gateFusion(want):
             tq.multiQubitUnitary(want, [0, 1], U2)
         np.testing.assert_array_equal(host(q), host(want))
+
+
+class TestDrainHoldsTwoStates:
+    """The drain keeps the governor's model of two live states (an op's
+    input and its output): the register drops its input once the first op
+    has produced its output, and no frame holds a part's input while the
+    part's later ops run (measured on the card: config 2's drain held four
+    states before, and a 32-qubit float32 drain, admitted, ran out of
+    memory: ROADMAP Queue 3, F2)."""
+
+    def test_every_state_is_freed_one_op_later(self, monkeypatch):
+        env = tq.createQuESTEnv(device="cpu")
+        q = tq.createQureg(6, env)
+        tq.initPlusState(q)
+        first = weakref.ref(q._amps)
+        seen = []
+        real = PC.execute_plan
+
+        def watched(amps, ops, n, precision=None):
+            # every state older than this op's input is already freed
+            seen.append([r() is not None for r in seen_refs])
+            out = real(amps, ops, n, precision)
+            seen_refs.append(weakref.ref(out))
+            return out
+
+        seen_refs = [first]
+        monkeypatch.setattr(PC, "execute_plan", watched)
+        with tq.gateFusion(q):
+            for t in range(6):
+                tq.multiQubitUnitary(q, [t, (t + 1) % 6], U2)
+        assert len(seen) >= 3
+        for alive in seen:
+            # only the newest state (the op's input) is alive
+            assert alive[:-1] == [False] * (len(alive) - 1)
+            assert alive[-1]
+        monkeypatch.setattr(PC, "execute_plan", real)
+        want = tq.createQureg(6, env)
+        tq.initPlusState(want)
+        with tq.gateFusion(want):
+            for t in range(6):
+                tq.multiQubitUnitary(want, [t, (t + 1) % 6], U2)
+        np.testing.assert_array_equal(host(q), host(want))
+
+    def test_oom_after_the_input_was_consumed_propagates(self, monkeypatch):
+        """An allocator failure after the register dropped its input
+        propagates without a retry (one in the first op still finds the
+        state untouched and is retried: the oom@W tests), the gates go
+        back to the buffer, and a read says the state was consumed."""
+        env = tq.createQuESTEnv(device="cpu")
+        q = tq.createQureg(6, env)
+        real = PC.execute_plan
+        calls = {"n": 0}
+
+        def oom_on_second(amps, ops, n, precision=None):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory. Tried to allocate 8.00 GiB")
+            return real(amps, ops, n, precision)
+
+        monkeypatch.setattr(PC, "execute_plan", oom_on_second)
+        retries0 = T.counter_total("oom_retries_total")
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            with tq.gateFusion(q):
+                for t in range(6):
+                    tq.multiQubitUnitary(q, [t, (t + 1) % 6], U2)
+        assert T.counter_total("oom_retries_total") == retries0
+        assert q._amps is None and len(q._fusion.gates) == 6
+        monkeypatch.setattr(PC, "execute_plan", real)
+        with pytest.raises(tq.QuESTError, match="consumed"):
+            q.amps
+        with pytest.raises(tq.QuESTError, match="consumed"):
+            tq.stopGateFusion(q)
+        tq.initZeroState(q)
+        assert q._consumed_by is None
+        assert float(host(q)[0, 0]) == 1.0

@@ -34,7 +34,8 @@ def test_import_leaves_jax_out():
             "quest_tpu_torch.rng, quest_tpu_torch.ops.threefry, "
             "quest_tpu_torch.ops.measurement, quest_tpu_torch.checkpoint, "
             "quest_tpu_torch.debug, quest_tpu_torch.resilience, "
-            "quest_tpu_torch.telemetry, quest_tpu_torch.utils.profiling\n"
+            "quest_tpu_torch.telemetry, quest_tpu_torch.utils.profiling, "
+            "quest_tpu_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))")
