@@ -276,8 +276,10 @@ line:
              copies, with the bytes the copies move and their GB/s; a
              30-qubit bench-route circuit on 8 shards with its peak
              memory.  Where two or more cards are visible, dist_nccl
-             runs two NCCL ranks bit for bit against the in-process mesh;
-             on one card a line says it did not run.
+             runs two NCCL ranks bit for bit against the in-process mesh,
+             saves their register with saveQureg on the ranks and loads
+             it in process onto one register, bit for bit; on one card a
+             line says it did not run.
 32. dist_composites_parity - K6-K9 on every shard of the sharded QFT
              routes, each launch bit for bit against its plain version on
              the same shard: config 3's 30-qubit QFT on 8 shards (K8 x4
@@ -424,7 +426,22 @@ line:
              or drained to the end with a peak within the governor's
              two-state model (the drain drops its input after the first
              op), the norm 1 within 1e-3.
-48. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+48. aot_main - the persistent plan cache (QT_AOT_CACHE) and serving's
+             warm pool, config 2 at 26 qubits, float32: (a) two child
+             processes on one cache directory, the cold one planning and
+             storing, the warm one draining the bench and API routes with
+             no fusion.plan span, no put, its hits the cold one's puts,
+             its states' sha256 and K1/K2 launches the cold one's; (b)
+             serve_main's jobs with the cache on and the warm pool off,
+             then on (the serving thread's and the pool's planning
+             seconds, the served walls), then a fresh child replica
+             booted from the second server's export_warmset() through
+             warm_from, which plans nothing; every job's state the sha256
+             of its run under preempt="off"; (c) explainCircuit's compile
+             status (miss, memory, hit) against the aot counters each
+             drain then moved, drift 0; (d) a truncated entry: one error,
+             the aot_cache_corrupt degradation, a re-plan, torch.equal.
+49. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
              errors under "modes"; K1, K2 and K5's bank forms, with their
              launches on a sharded bank under "dist"; K1, K2, K5 and
@@ -432,7 +449,8 @@ line:
              and K2's launches on the resumable path under "resumable";
              K1's, K2's and K5's under the governor under "governed";
              the bank forms' launches on the serving path under "serve";
-             K1's on F2's drain under "f2").
+             K1's on F2's drain under "f2"; K1's, K2's and their bank
+             forms' with the plan cache on under "aot").
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -1260,10 +1278,12 @@ def device_busy(torch, call, kernel: str):
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # a tiny first launch: the tracer may miss the first kernel of a
-        # window (one QFT's first K8 launch went unseen without it)
-        torch.ones(1, device=DEVICE).add_(1)
-        sync()
+        # tiny first launches: the tracer may miss the first kernels of a
+        # window (one QFT's first K8 launch went unseen with none, and
+        # once with one)
+        for _ in range(3):
+            torch.ones(1, device=DEVICE).add_(1)
+            sync()
         call()
         sync()
     on_card = [e for e in prof.events()
@@ -5092,6 +5112,8 @@ def _nccl_worker(rank, world, port, n, out_dir):
         whole = SH.gather_host(q.amps)
         if rank == 0:
             np.save(os.path.join(out_dir, "nccl.npy"), whole)
+        # a checkpoint written by the ranks together (M16g)
+        qt.saveQureg(q, os.path.join(out_dir, "nccl_ck"))
     finally:
         dist.destroy_process_group()
 
@@ -5099,7 +5121,8 @@ def _nccl_worker(rank, world, port, n, out_dir):
 def phase_dist_nccl(torch, np, qt, circuits):
     """The torch.distributed backend over NCCL, one shard per card on two
     cards: config 2's circuit (depth 4) at 20 qubits, bit for bit against
-    the in-process mesh of two shards on one card."""
+    the in-process mesh of two shards on one card; the ranks' saveQureg
+    loaded in process onto one register, bit for bit too."""
     import socket
     import tempfile
 
@@ -5125,6 +5148,9 @@ def phase_dist_nccl(torch, np, qt, circuits):
                 if proc.is_alive():
                     proc.terminate()
         got = np.load(os.path.join(tmp, "nccl.npy"))
+        qt.set_precision(1)
+        loaded = qt.loadQureg(os.path.join(tmp, "nccl_ck"),
+                              mesh_env(qt, 1)).amps.cpu().numpy()
     env = mesh_env(qt, world)
     us = circuits.bench_unitaries(n, 4, seed=SEED)
     q = qt.createQureg(n, env)
@@ -5134,7 +5160,11 @@ def phase_dist_nccl(torch, np, qt, circuits):
     same = bool(np.array_equal(got, want))
     check(same, "dist_nccl: the NCCL ranks' state differs from the "
           "in-process mesh's")
-    return {"n": n, "ranks": world, "bit_identical_to_in_process": same}
+    restored = bool(np.array_equal(loaded, want))
+    check(restored, "dist_nccl: the ranks' checkpoint loaded in process "
+          "differs from the in-process mesh's state")
+    return {"n": n, "ranks": world, "bit_identical_to_in_process": same,
+            "checkpoint_on_ranks_loaded_in_process": restored}
 
 
 # ---------------------------------------------------------------------------
@@ -6538,9 +6568,13 @@ def window_launches(fused) -> dict:
     return {k: fused.LAUNCHES[k] for k in ("K1", "K2")}
 
 
-def hist_stats(T, name: str) -> dict:
-    """count, mean and max of a histogram over all its label sets."""
-    series = T.snapshot().get("histograms", {}).get(name, {})
+def hist_stats(T, hist: str, /, **labels) -> dict:
+    """count, mean and max of a histogram over all its label sets (those
+    holding ``labels``)."""
+    series = T.snapshot().get("histograms", {}).get(hist, {})
+    want = [f"{k}={v}" for k, v in labels.items()]
+    series = {lab: h for lab, h in series.items()
+              if all(w in lab.split(",") for w in want)}
     n = sum(h["count"] for h in series.values())
     total = sum(h["sum"] for h in series.values())
     hi = max((h["max"] for h in series.values() if h["max"] is not None),
@@ -7506,9 +7540,9 @@ N_F2 = 32              # F2: config 2's drain on a 34.4 GB float32 register
 
 def drop_plan_caches(fusion, kernels) -> None:
     """Empty the process's plan caches (their device copies of pass
-    arrays and gather indices), which no register owns."""
-    fusion._plan_cache.clear()
-    fusion._device_programs.clear()
+    arrays and gather indices), which no register owns; the persistent
+    plan tier's files stay."""
+    fusion.clear_plan_caches()
     kernels._FIELD_INDEX.clear()
 
 
@@ -7530,24 +7564,32 @@ def percentiles(xs) -> dict:
 
 @contextmanager
 def serve_probe(torch, fusion):
-    """Host seconds in the drains' planning (fusion._plan_optimized) and
-    device milliseconds of their programs (CUDA events around
+    """Host seconds in the drains' planning (fusion._plan_optimized, its
+    plan tiers' lookups included) on the thread that opens the block, the
+    serving thread, and on any other (the warm pool's: ``pool_plan_s``),
+    and device milliseconds of the programs (CUDA events around
     fusion.execute_program), summed over the block."""
-    rec = {"plan_s": 0.0, "plans": 0, "events": []}
+    import threading
+
+    rec = {"plan_s": 0.0, "plans": 0, "pool_plan_s": 0.0, "pool_plans": 0,
+           "events": []}
     plan_real, exec_real = fusion._plan_optimized, fusion.execute_program
-    depth = [0]
+    serving = threading.get_ident()
+    local = threading.local()
 
     def plan(*a, **k):
         # a bank's plan calls itself per element: time the outermost call
-        depth[0] += 1
+        depth = getattr(local, "depth", 0)
+        local.depth = depth + 1
         t0 = time.perf_counter()
         try:
             return plan_real(*a, **k)
         finally:
-            depth[0] -= 1
-            if not depth[0]:
-                rec["plan_s"] += time.perf_counter() - t0
-                rec["plans"] += 1
+            local.depth = depth
+            if not depth:
+                pre = "" if threading.get_ident() == serving else "pool_"
+                rec[pre + "plan_s"] += time.perf_counter() - t0
+                rec[pre + "plans"] += 1
 
     def execute(*a, **k):
         start = torch.cuda.Event(enable_timing=True)
@@ -7568,19 +7610,29 @@ def serve_probe(torch, fusion):
         rec["programs"] = len(rec.pop("events"))
 
 
-def serve_trace(torch, qt, S, fusion, env, jobs, burst, *, preempt, ckpt):
+def serve_trace(torch, qt, S, fusion, env, jobs, burst, *, preempt, ckpt,
+                prewarm=False, warmset=None, keep=None):
     """Serve config 2's batch jobs and, after the batch bank's third
     window, the interactive burst; returns the jobs and the run's record:
     wall, per-class latencies, counters, the preemption's memory drop and
-    seconds, planning seconds against device ms."""
+    seconds, planning seconds against device ms.  ``prewarm``: the warm
+    pool on; ``warmset``: another server's export_warmset(), adopted and
+    warmed before the trace (its seconds: ``warm_from_s``); ``keep``
+    receives this server's export_warmset()."""
     from quest_tpu_torch import telemetry as T
 
     T.reset()
-    rec = {"preempt": preempt}
+    rec = {"preempt": preempt, "prewarm": prewarm}
     drops, spans = [], {"checkpoint_s": [], "resume_s": []}
     with env_vars(QT_SERVE_WINDOW=SERVE_WINDOW):
         srv = S.SimServer(env, max_batch=SERVE_JOBS, preempt=preempt,
-                          ckpt_dir=ckpt)
+                          ckpt_dir=ckpt, prewarm=prewarm)
+        if warmset is not None:
+            t0 = time.perf_counter()
+            rec["warm_from_specs"] = srv.warm_from(warmset)
+            check(srv.prewarm_join(timeout=600), "warm_from: the warm "
+                  "pool did not drain in 600 s")
+            rec["warm_from_s"] = time.perf_counter() - t0
         preempt_real, resume_real = srv._preempt, srv._resume
 
         def preempt_hook(bank):
@@ -7623,6 +7675,15 @@ def serve_trace(torch, qt, S, fusion, env, jobs, burst, *, preempt, ckpt):
                 sync()
                 wall = time.perf_counter() - t0
             stats = srv.stats()
+            if prewarm:
+                t0 = time.perf_counter()
+                check(srv.prewarm_join(timeout=600), "the warm pool did "
+                      "not drain in 600 s")
+                rec["pool_tail_s"] = time.perf_counter() - t0
+                rec["prewarm_statuses"] = T.snapshot()["counters"].get(
+                    "serve_prewarm_total", {})
+            if keep is not None:
+                keep["warmset"] = srv.export_warmset()
         finally:
             srv.close()
     for cls in (S.BATCH, S.INTERACTIVE):
@@ -7640,6 +7701,9 @@ def serve_trace(torch, qt, S, fusion, env, jobs, burst, *, preempt, ckpt):
         admission_stalls=T.counter_total("serve_admission_stalls_total"),
         memory_drops=drops, **spans,
         plan_s=probe["plan_s"], plans=probe["plans"],
+        pool_plan_s=probe["pool_plan_s"], pool_plans=probe["pool_plans"],
+        plan_spans=hist_stats(T, "span_seconds", name="fusion.plan")[
+            "count"],
         device_ms=probe["device_ms"], programs=probe["programs"],
         device_busy_share=probe["device_ms"] / (wall * 1e3),
         plan_share_of_wall=probe["plan_s"] / wall,
@@ -7736,6 +7800,9 @@ def phase_serve_main(torch, np, qt, fused, fusion, circuits, kernels, tmp):
               f"outcomes equal {same_outcomes}")
         out["single_register_max_abs_err"] = max(errs)
         out["jobs_equal_uninterrupted"] = all(equal)
+        # the uninterrupted states' digests: aot_main's served runs are
+        # held to them
+        out["uninterrupted_sha256"] = [amps_sha256(j.amps) for j in base]
         del got, base
         drop_plan_caches(fusion, kernels)
         sync()
@@ -8097,6 +8164,358 @@ def phase_f2_main(torch, np, qt, fused, fusion, circuits, kernels):
                measured_over_predicted=peak / predicted,
                measured_states=peak / state, drain_s=drain_s,
                calc_total_prob=total, p_top_zero=p0, launches=launches)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The persistent plan cache and the warm pool (M16f)
+# ---------------------------------------------------------------------------
+
+AOT_CHILD_TIMEOUT = 300
+# QT_AOT_CACHE_MAX_BYTES of the serving arms: the two banks' 98 window
+# plans at 26 qubits, 8 and 2 elements each, with room to spare
+AOT_SERVE_CAP = 4 << 30
+
+
+def amps_sha256(t) -> str:
+    """sha256 of a state's bytes (a tensor, copied to the host)."""
+    import hashlib
+
+    a = t.detach().contiguous().cpu().numpy()
+    return hashlib.sha256(a.data).hexdigest()
+
+
+def run_child(code: str, cache: str, timeout: int = AOT_CHILD_TIMEOUT):
+    """``python3 -c code`` from this script's directory with QT_AOT_CACHE
+    set to ``cache``; the child's last stdout line, parsed as JSON."""
+    here = str(Path(__file__).resolve().parent)
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=here, capture_output=True,
+        text=True, timeout=timeout,
+        env=dict(os.environ, QT_AOT_CACHE=cache,
+                 PYTHONPATH=os.pathsep.join(
+                     [here, os.environ.get("PYTHONPATH", "")]).rstrip(
+                         os.pathsep)))
+    check(res.returncode == 0, f"aot child failed ({res.returncode}): "
+          f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def aot_record(A, T, fused) -> dict:
+    """The plan tiers' counters, planning spans and K1/K2 launches of this
+    process so far."""
+    s = A.stats()
+    spans = hist_stats(T, "span_seconds", name="fusion.plan")
+    return {"aot": {k: s[k] for k in ("hits", "misses", "puts",
+                                      "evictions", "errors", "bytes",
+                                      "saved_seconds")},
+            "plan_spans": spans["count"],
+            "plan_seconds": (spans["mean"] or 0.0) * spans["count"],
+            "plan_cache_hits": T.counter_total(
+                "fusion_plan_cache_hits_total"),
+            "plan_cache_misses": T.counter_total(
+                "fusion_plan_cache_misses_total"),
+            "launches": window_launches(fused)}
+
+
+def aot_child() -> None:
+    """(a)'s child: config 2 at N_MAIN qubits, float32, drained once by
+    the bench route (the gate list as one drain) and once by the API route
+    (the gates under gateFusion), with the parent's QT_AOT_CACHE; prints
+    one JSON line: each route's first-drain wall and state digest, the
+    seconds spent loading plans, the tiers' counters, planning spans and
+    K1/K2 launches."""
+    import torch
+
+    import quest_tpu_torch as qt
+    from quest_tpu_torch import aotcache as A
+    from quest_tpu_torch import fusion
+    from quest_tpu_torch import telemetry as T
+    from quest_tpu_torch.models import circuits
+    from quest_tpu_torch.ops import build, fused
+
+    build.build_kernels()
+    T.configure("on")
+    qt.set_precision(1)
+    n = N_MAIN
+    us = circuits.bench_unitaries(n, DEPTH, seed=SEED)
+    gates = circuits.bench_gate_list(n, DEPTH, us)
+    env = mesh_env(qt, 1)
+    loads = []
+    load_real = A.load
+
+    def load(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return load_real(*a, **k)
+        finally:
+            loads.append(time.perf_counter() - t0)
+
+    A.load = load
+    T.reset()
+    fused.reset_launch_counts()
+    routes = {}
+    for route in ("bench", "api"):
+        q = qt.createQureg(n, env)
+        sync()
+        t0 = time.perf_counter()
+        if route == "bench":
+            inject(fusion, q, gates)
+        else:
+            with qt.gateFusion(q):
+                apply_bench_gates(qt, q, us, n)
+        sync()
+        wall = time.perf_counter() - t0
+        check(bool(torch.isfinite(q.amps).all()), f"{route}: bad state")
+        routes[route] = {"first_drain_wall_s": wall,
+                         "sha256": amps_sha256(q.amps),
+                         "p_top_zero": qt.calcProbOfOutcome(q, n - 1, 0)}
+        qt.destroyQureg(q, env)
+    A.load = load_real
+    rec = aot_record(A, T, fused)
+    rec.update(routes=routes, load_seconds=sum(loads), loads=len(loads),
+               entries=sorted(os.path.getsize(os.path.join(A.cache_dir(), f))
+                              for f in os.listdir(A.cache_dir())
+                              if f.endswith(".qtplan")))
+    print(json.dumps(rec), flush=True)
+
+
+def aot_replica_child(warmset_path: str) -> None:
+    """(b)'s fresh replica: a SimServer that takes the first server's
+    exported warm set through warm_from, then serves the same jobs as
+    serve_main; prints one JSON line with the served record, the state
+    digests and the tiers' counters."""
+    import pickle
+    import tempfile
+    import warnings
+
+    import torch
+
+    import quest_tpu_torch as qt
+    from quest_tpu_torch import aotcache as A
+    from quest_tpu_torch import fusion
+    from quest_tpu_torch import serve as S
+    from quest_tpu_torch import telemetry as T
+    from quest_tpu_torch.models import circuits
+    from quest_tpu_torch.ops import build, fused
+
+    build.build_kernels()
+    T.configure("on")
+    qt.set_precision(1)
+    env = mesh_env(qt, 1)
+    with open(warmset_path, "rb") as f:
+        warmset = pickle.load(f)
+    jobs = [serve_gates(circuits, N_SERVE, DEPTH, SEED + j)
+            for j in range(SERVE_JOBS)]
+    burst = [serve_gates(circuits, N_SERVE, DEPTH, SEED + SERVE_JOBS + j)
+             for j in range(SERVE_BURST)]
+    fused.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_replica_") as tmp, \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got, rec = serve_trace(torch, qt, S, fusion, env, jobs, burst,
+                               preempt="checkpoint", ckpt=tmp,
+                               prewarm=True, warmset=warmset)
+        tiers = aot_record(A, T, fused)
+        digests = [amps_sha256(j.amps) for j in got]
+    rec.update(tiers=tiers, launches=bank_launches(fused),
+               sha256=digests, done=all(j.state == S.DONE for j in got))
+    print(json.dumps(rec), flush=True)
+
+
+def explain_steps(torch, qt, A, fusion, kernels, us, n, env, keep):
+    """(c): explainCircuit's compile status before each of three drains
+    of config 2's API route (cold, warm, a fresh process) and the aot
+    counters each drain then moved; ``keep["amps"]`` the first state."""
+    from quest_tpu_torch import telemetry as T
+
+    steps = []
+    for step in range(3):
+        if step == 2:
+            drop_plan_caches(fusion, kernels)
+        q = qt.createQureg(n, env)
+        qt.startGateFusion(q)
+        apply_bench_gates(qt, q, us, n)
+        t0 = time.perf_counter()
+        rep = qt.explainCircuit(q)
+        explain_s = time.perf_counter() - t0
+        base = A.stats()
+        sync()
+        t0 = time.perf_counter()
+        qt.stopGateFusion(q)
+        sync()
+        wall = time.perf_counter() - t0
+        s = A.stats()
+        moved = [s[k] - base[k] for k in ("hits", "misses", "puts")]
+        steps.append({"predicted": rep["compile"]["aot"],
+                      "moved": dict(zip(("hits", "misses", "puts"), moved)),
+                      "explain_s": explain_s, "drain_wall_s": wall})
+        if step == 0:
+            keep["amps"] = q.amps.clone()
+        qt.destroyQureg(q, env)
+    want = {"miss": [0, 1, 1], "memory": [0, 0, 0], "hit": [1, 0, 0]}
+    drift = sum(1 for st in steps
+                if [st["moved"][k] for k in ("hits", "misses", "puts")]
+                != want.get(st["predicted"]))
+    return {"steps": steps, "drift": drift,
+            "model_drift_total": T.counter_total("model_drift_total")}
+
+
+def phase_aot_main(torch, np, qt, fused, fusion, circuits, kernels, tmp,
+                   served):
+    """The persistent plan cache on the card (see the module text, 48):
+    (a) a cold and a warm child process, (b) serving with the warm pool
+    off and on and a replica booted from its warm set, (c) explain's
+    prediction against the drains' counters, (d) a truncated entry."""
+    import pickle
+    import warnings
+
+    from quest_tpu_torch import aotcache as A
+    from quest_tpu_torch import resilience as R
+    from quest_tpu_torch import serve as S
+    from quest_tpu_torch import telemetry as T
+
+    out = {"n": N_MAIN, "depth": DEPTH}
+    drop_plan_caches(fusion, kernels)
+    sync()
+    torch.cuda.empty_cache()
+    # (a) the cold child plans, stores and drains; the warm child loads
+    cache_a = os.path.join(tmp, "aot_a")
+    code = "import chip_smoke as cs; cs.aot_child()"
+    cold = run_child(code, cache_a)
+    warm = run_child(code, cache_a)
+    for route in ("bench", "api"):
+        check(cold["routes"][route]["sha256"]
+              == warm["routes"][route]["sha256"],
+              f"(a) {route}: the warm child's state differs from the cold "
+              "child's")
+    check(warm["plan_spans"] == 0 and warm["aot"]["puts"] == 0,
+          f"(a) the warm child planned: {warm}")
+    check(warm["aot"]["hits"] == cold["aot"]["puts"] > 0
+          and warm["plan_cache_misses"] == warm["aot"]["hits"],
+          f"(a) the warm child's hits {warm['aot']} against the cold "
+          f"child's puts {cold['aot']}")
+    check(cold["launches"] == warm["launches"]
+          and sum(cold["launches"].values()) > 0,
+          f"(a) launches: cold {cold['launches']}, warm {warm['launches']}")
+    out["a"] = {"cold": cold, "warm": warm,
+                "plan_seconds_cold": cold["plan_seconds"],
+                "load_seconds_warm": warm["load_seconds"],
+                "entry_bytes": cold["entries"],
+                "cache_bytes": sum(cold["entries"])}
+    progress(f"aot_main (a): {out['a']}")
+
+    # (b) serving as serve_main does it, the cache on: the warm pool off,
+    # then on (each from an empty cache and an empty memory tier), then a
+    # replica in a fresh child from the second server's warm set
+    qt.set_precision(1)
+    env = mesh_env(qt, 1)
+    jobs = [serve_gates(circuits, N_SERVE, DEPTH, SEED + j)
+            for j in range(SERVE_JOBS)]
+    burst = [serve_gates(circuits, N_SERVE, DEPTH, SEED + SERVE_JOBS + j)
+             for j in range(SERVE_BURST)]
+    old_mode = T.mode_name()
+    T.configure("on")
+    runs, launches = {}, {}
+    keep = {}
+    try:
+        with warnings.catch_warnings(), \
+                env_vars(QT_AOT_CACHE_MAX_BYTES=AOT_SERVE_CAP):
+            warnings.simplefilter("ignore")
+            for arm, pool in (("pool_off", False), ("pool_on", True)):
+                drop_plan_caches(fusion, kernels)
+                A.reset_stats()
+                fused.reset_launch_counts()
+                with env_vars(QT_AOT_CACHE=os.path.join(tmp, f"aot_{arm}")):
+                    got, rec = serve_trace(
+                        torch, qt, S, fusion, env, jobs, burst,
+                        preempt="checkpoint",
+                        ckpt=os.path.join(tmp, f"serve_{arm}"),
+                        prewarm=pool, keep=keep if pool else None)
+                    rec["tiers"] = aot_record(A, T, fused)
+                launches[arm] = bank_launches(fused)
+                digests = [amps_sha256(j.amps) for j in got]
+                check(all(j.state == S.DONE for j in got),
+                      f"(b) {arm}: a served job did not complete")
+                check(digests == served["uninterrupted_sha256"],
+                      f"(b) {arm}: served jobs differ from their run under "
+                      "preempt='off'")
+                rec["jobs_equal_uninterrupted"] = True
+                runs[arm] = rec
+                del got
+                progress(f"aot_main (b) {arm}: {rec}")
+            drop_plan_caches(fusion, kernels)
+            sync()
+            torch.cuda.empty_cache()
+            ws = os.path.join(tmp, "warmset.pkl")
+            with open(ws, "wb") as f:
+                pickle.dump(keep["warmset"], f)
+            replica = run_child(
+                f"import chip_smoke as cs; cs.aot_replica_child({ws!r})",
+                os.path.join(tmp, "aot_pool_on"))
+        check(replica["done"] and replica["sha256"]
+              == served["uninterrupted_sha256"],
+              "(b) the replica's jobs differ from their run under "
+              "preempt='off'")
+        check(replica["plan_spans"] == 0
+              and replica["tiers"]["aot"]["puts"] == 0,
+              f"(b) the replica planned: {replica['tiers']}")
+        launches["replica"] = replica.pop("launches")
+        for arm, lc in launches.items():
+            check(lc["K1_bank"] > 0, f"(b) {arm}: K1's bank form never "
+                  f"launched: {lc}")
+        out["b"] = {"runs": runs, "replica": replica, "launches": launches,
+                    "cap_bytes": AOT_SERVE_CAP,
+                    "pr16_plan_s": 4.59}
+        progress(f"aot_main (b) replica: {replica}")
+
+        # (c) explain's prediction against the drain's counters, and (d)
+        # a truncated entry
+        cache_c = os.path.join(tmp, "aot_c")
+        us = circuits.bench_unitaries(N_MAIN, DEPTH, seed=SEED)
+        keep_c = {}
+        with env_vars(QT_AOT_CACHE=cache_c):
+            drop_plan_caches(fusion, kernels)
+            A.reset_stats()
+            fused.reset_launch_counts()
+            c = explain_steps(torch, qt, A, fusion, kernels, us, N_MAIN,
+                              env, keep_c)
+            check([s["predicted"] for s in c["steps"]]
+                  == ["miss", "memory", "hit"] and c["drift"] == 0
+                  and c["model_drift_total"] == 0,
+                  f"(c) explain's predictions against the counters: {c}")
+            c["launches"] = window_launches(fused)
+            out["c"] = c
+            entries = [f for f in os.listdir(cache_c)
+                       if f.endswith(".qtplan")]
+            check(len(entries) == 1, f"(d) entries {entries}")
+            path = os.path.join(cache_c, entries[0])
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                f.truncate(size // 2)
+            drop_plan_caches(fusion, kernels)
+            base = A.stats()
+            fused.reset_launch_counts()
+            q = qt.createQureg(N_MAIN, env)
+            with qt.gateFusion(q):
+                apply_bench_gates(qt, q, us, N_MAIN)
+            s = A.stats()
+            same = bool(torch.equal(q.amps, keep_c.pop("amps")))
+            qt.destroyQureg(q, env)
+            d = {"entry_bytes": size, "truncated_to": size // 2,
+                 "errors": s["errors"] - base["errors"],
+                 "puts": s["puts"] - base["puts"],
+                 "hits": s["hits"] - base["hits"],
+                 "degradation": "aot_cache_corrupt" in R.degradation_report(),
+                 "torch_equal": same, "launches": window_launches(fused)}
+            check(d["errors"] == 1 and d["puts"] == 1 and d["hits"] == 0
+                  and d["degradation"] and same,
+                  f"(d) the truncated entry: {d}")
+            R.DEGRADATIONS.pop("aot_cache_corrupt", None)
+            out["d"] = d
+    finally:
+        T.configure(old_mode)
+        drop_plan_caches(fusion, kernels)
     return out
 
 
@@ -8524,7 +8943,8 @@ def main() -> int:
                                                        circuits)})
     else:
         # nothing was tried: two NCCL ranks on one card are refused
-        print("dist_nccl: not run: NCCL needs one card per rank, and "
+        print("dist_nccl: not run (nor its checkpoint on the ranks): NCCL "
+              "needs one card per rank, and "
               f"{torch.cuda.device_count()} card is visible", flush=True)
 
     # 32. K6-K9 on every shard of the sharded QFT routes, bit for bit
@@ -8599,6 +9019,15 @@ def main() -> int:
     emit({"phase": "serve_ab", "power": smi, **ab})
     f2 = phase_f2_main(torch, np, qt, fused, fusion, circuits, kernels)
     emit({"phase": "f2_main", "power": smi, **f2})
+
+    # 48. the persistent plan cache and the warm pool (M16f), caches and
+    # checkpoints in a temporary directory removed on exit
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aot_") as tmp:
+        t_aot = time.perf_counter()
+        aot = phase_aot_main(torch, np, qt, fused, fusion, circuits,
+                             kernels, tmp, serve)
+        aot["seconds"] = time.perf_counter() - t_aot
+    emit({"phase": "aot_main", "power": smi, **aot})
 
     # 42. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
@@ -8803,6 +9232,21 @@ def main() -> int:
         e["serve"] = {"launches_serve_main": serve["launches"][key],
                       "launches_chaos_per_shard": chaos["launches"][key]}
     k1e["f2"] = {"launches": f2.get("launches", {}).get("K1", 0)}
+    # K1 and K2 with the persistent plan cache on: (a)'s cold and warm
+    # children (equal), (c)'s explained drains and (d)'s re-planned one;
+    # their bank forms in (b)'s served runs (the warm pool off and on) and
+    # the replica booted from the warm set
+    for e, key in ((k1e, "K1"), (k2e, "K2")):
+        e["aot"] = {"launches_cold_child": aot["a"]["cold"]["launches"][key],
+                    "launches_warm_child": aot["a"]["warm"]["launches"][key],
+                    "launches_explained": aot["c"]["launches"][key],
+                    "launches_truncated_entry": aot["d"]["launches"][key]}
+    for e, key in ((k1b, "K1_bank"), (k2b, "K2_bank")):
+        e["aot"] = {f"launches_{arm}": lc[key]
+                    for arm, lc in aot["b"]["launches"].items()}
+    check(sum(k1e["aot"].values()) > 0 and sum(k1b["aot"].values()) > 0
+          and sum(k2e["aot"].values()) + sum(k2b["aot"].values()) > 0,
+          "a window kernel never launched on the plan cache's path")
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
                       k11e, k12e, k1b, k2b, k5b]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

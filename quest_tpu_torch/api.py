@@ -296,7 +296,7 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
         return
     psi = pure.amps
     if isinstance(psi, SH.ShardedAmps):
-        psi = psi.mesh.gather(psi.shards)
+        psi = SH.gather_device(psi)
     _put(qureg, lambda: K.init_pure_density(psi).to(qureg.dtype),
          lambda mesh, nloc, dt: SH.pure_density(
              mesh, psi, qureg.num_qubits_represented, nloc, dt))
@@ -710,7 +710,7 @@ def _default_route(qureg, op) -> None:
     amps = qureg.amps
     if isinstance(amps, SH.ShardedAmps):
         PAR.record_route("default")
-        whole = op(amps.mesh.gather(amps.shards))
+        whole = op(SH.gather_device(amps))
         qureg.amps = SH.split(amps.mesh, whole, amps.nloc, amps.dtype)
     else:
         qureg.amps = op(amps)

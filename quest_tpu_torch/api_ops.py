@@ -21,6 +21,7 @@ from . import fusion
 from . import optimizer as _optimizer
 from . import telemetry as _telemetry
 from . import validation as V
+# qlint: allow(layer-violation): api_ops.py is api.py's size-split continuation (one API surface in two files), not a second API composing the first
 from .api import (PAULI_I, _default_route, _shift, _sv_n, hadamard,
                   multiRotatePauli, swapGate)
 from .ops import calculations as C
@@ -75,7 +76,7 @@ def _whole(qureg):
     default route's read, counted as that route)."""
     amps = qureg.amps
     PAR.record_route("default")
-    return amps.mesh.gather(amps.shards)
+    return SH.gather_device(amps)
 
 
 def _refuse_bank(qureg, what: str) -> None:
@@ -421,7 +422,7 @@ def _replicated(pure: Qureg):
     amps = pure.amps
     if not isinstance(amps, SH.ShardedAmps):
         return amps
-    return amps.mesh.all_gather([s.t() for s in amps.shards]).t()
+    return SH.gather_rows(amps)
 
 
 def calcHilbertSchmidtDistance(a: Qureg, b: Qureg) -> float:

@@ -15,6 +15,16 @@ file in chunks of 2^20 amplitudes through one staging buffer (pinned on
 the card), never as a second full-size host copy; the metadata is
 written last, by an atomic rename.
 
+A register split over torch.distributed ranks (a ``DistMesh``) is saved
+by all its ranks together, into one directory that every rank sees: rank
+0 creates the global ``amps.npy``; after a barrier (``Mesh.barrier``)
+every rank writes its own shards' rows at their global offsets and
+fsyncs; after a second barrier rank 0 writes the metadata, and a third
+returns every rank with the snapshot whole.  The payload and the metadata
+are the in-process ones, so a snapshot written on ranks loads onto any
+power-of-two mesh or one register, and the reverse; on ranks each rank
+reads only its own rows.
+
 ``writeStateToFile`` writes one ``re, im`` line per amplitude after a
 ``#`` comment line; ``readStateFromFile`` reads such a file (blank and
 ``#`` lines skipped), as the reference's reportState and
@@ -92,18 +102,32 @@ def _payload_shape(qureg: Qureg) -> tuple:
 
 def _pieces(amps):
     """(global offset, tensor) of every locally held piece of a register's
-    amplitudes: the whole tensor, or each shard of a ShardedAmps (whose
-    shards must all live in this process)."""
-    from .parallel.mesh import InProcessMesh, ShardedAmps
+    amplitudes: the whole tensor, or each local shard of a ShardedAmps
+    (every shard in process; this rank's own under torch.distributed)."""
+    from .parallel.mesh import ShardedAmps
 
     if not isinstance(amps, ShardedAmps):
         return [(0, amps)]
-    if not isinstance(amps.mesh, InProcessMesh):
-        raise QuESTError(
-            "saveQureg/loadQureg: a register split over torch.distributed "
-            "ranks cannot be checkpointed yet (only in-process meshes)")
     m = 1 << amps.nloc
     return [(s * m, sh) for s, sh in zip(amps.mesh.local, amps.shards)]
+
+
+def rank_mesh(amps):
+    """The mesh of amplitudes split over torch.distributed ranks (each
+    process holds only its own shards), else None."""
+    from .parallel.mesh import InProcessMesh, ShardedAmps
+
+    if isinstance(amps, ShardedAmps) \
+            and not isinstance(amps.mesh, InProcessMesh):
+        return amps.mesh
+    return None
+
+
+def is_writer(mesh) -> bool:
+    """Does this process write a snapshot's shared files (the global
+    array's creation, the metadata, the commit)?  The holder of shard 0;
+    every process when ``mesh`` is None."""
+    return mesh is None or 0 in mesh.local
 
 
 def _staging(lead: tuple, dtype: torch.dtype, pin: bool) -> torch.Tensor:
@@ -133,6 +157,29 @@ def _write_amps(path: str, amps, shape: tuple, dtype: torch.dtype) -> None:
     fname = os.path.join(path, _AMPS_NAME)
     mm = np.lib.format.open_memmap(fname, mode="w+", dtype=_np_dtype(dtype),
                                    shape=shape)
+    try:
+        _stream_to_host(amps, mm)
+        mm.flush()
+    finally:
+        del mm
+    _fsync_file(fname)
+
+
+def create_amps(path: str, shape: tuple, dtype: torch.dtype) -> None:
+    """Create ``<path>/amps.npy``, the global array of ``shape``, for the
+    ranks to fill (rank 0's part of a save on ranks)."""
+    mm = np.lib.format.open_memmap(os.path.join(path, _AMPS_NAME),
+                                   mode="w+", dtype=_np_dtype(dtype),
+                                   shape=shape)
+    del mm
+
+
+def write_rows(path: str, amps) -> None:
+    """Write this process's shards of ``amps`` into the existing
+    ``<path>/amps.npy`` at their global offsets, flushed and fsynced
+    (every rank's part of a save on ranks)."""
+    fname = os.path.join(path, _AMPS_NAME)
+    mm = np.load(fname, mmap_mode="r+")
     try:
         _stream_to_host(amps, mm)
         mm.flush()
@@ -233,19 +280,32 @@ def _qureg_from_meta(meta: dict, env: QuESTEnv) -> Qureg:
 def saveQureg(qureg: Qureg, path: str) -> None:
     """Write a snapshot of ``qureg`` (amplitudes and metadata) at
     ``path``, a directory.  State-vectors, density matrices and register
-    banks, on one device or split over shards; the amplitudes are written
-    in canonical qubit order (a live permutation is undone first), the
-    metadata last by atomic rename, and transient IO errors are retried
-    with bounded backoff (resilience.retry_io)."""
+    banks, on one device or split over shards (over torch.distributed
+    ranks: every rank calls it with the same ``path``); the amplitudes are
+    written in canonical qubit order (a live permutation is undone first),
+    the metadata last by atomic rename, and transient IO errors are
+    retried with bounded backoff (resilience.retry_io)."""
     from . import resilience
 
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     amps = qureg.amps
-    resilience.retry_io(_write_amps, path, amps, _payload_shape(qureg),
-                        qureg.dtype, what="saveQureg(amps)")
-    resilience.retry_io(_write_meta, path, _qureg_meta(qureg),
-                        what="saveQureg(meta)")
+    mesh = rank_mesh(amps)
+    if mesh is None:
+        resilience.retry_io(_write_amps, path, amps, _payload_shape(qureg),
+                            qureg.dtype, what="saveQureg(amps)")
+    else:
+        if is_writer(mesh):
+            resilience.retry_io(create_amps, path, _payload_shape(qureg),
+                                qureg.dtype, what="saveQureg(amps)")
+        mesh.barrier()
+        resilience.retry_io(write_rows, path, amps, what="saveQureg(amps)")
+        mesh.barrier()
+    if is_writer(mesh):
+        resilience.retry_io(_write_meta, path, _qureg_meta(qureg),
+                            what="saveQureg(meta)")
+    if mesh is not None:
+        mesh.barrier()
 
 
 def loadQureg(path: str, env: QuESTEnv, *, strict_mesh: bool = False

@@ -255,7 +255,21 @@ def get_environment_string(env: QuESTEnv) -> str:
             + (" DefaultSeed=" + ",".join(str(k) for k in
                                           rng.GLOBAL_RNG._keys)
                if rng.GLOBAL_RNG.default_seeded else "")
+            + _aot_fragment()
             + _health_fragment(env))
+
+
+def _aot_fragment() -> str:
+    """`` AotCache=<dir>(hits= misses= puts= bytes=)`` while the
+    persistent plan tier is on (quest_tpu/env.py:333-339).  A lazy
+    import: env may not import the dist stratum at module level."""
+    from . import aotcache as _aotcache
+
+    if not _aotcache.enabled():
+        return ""
+    a = _aotcache.stats()
+    return (f" AotCache={a['dir']}(hits={a['hits']} misses={a['misses']} "
+            f"puts={a['puts']} bytes={a['bytes']})")
 
 
 def _health_fragment(env: QuESTEnv) -> str:

@@ -53,6 +53,7 @@ drain without running it, recording nothing (explainCircuit).
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager, nullcontext
 from typing import List
@@ -60,6 +61,7 @@ from typing import List
 import numpy as np
 import torch
 
+from . import aotcache as _aot
 from . import circuit as C
 from . import optimizer as _opt
 from . import telemetry as _telemetry
@@ -120,23 +122,53 @@ def drain(qureg) -> None:
 
 _PLAN_CACHE_MAX = 64
 _plan_cache: dict = {}
+# plan key -> its disk digest, for the entries of _plan_cache that the
+# persistent tier (aotcache) loaded or stored
+_plan_digests: dict = {}
+# guards _plan_cache, _plan_digests and _device_programs: the serving
+# layer's warm pool plans in its own thread beside the scheduling thread
+_PLAN_LOCK = threading.RLock()
 
 # > 0 while plan_items / plan_items_sharded plan ahead of a drain: the
 # per-window observations are not recorded (only drains record them)
-_QUIET: List[int] = [0]
+_QUIET = _opt.ThreadCount()
 # > 0 while plan_items_quiet dry-runs a drain's planning
 # (explain_circuit, the governor's predictor): nothing is inserted into
-# the plan cache either
-_DRY: List[int] = [0]
+# the plan cache either, and the disk tier is read but neither written
+# nor counted
+_DRY = _opt.ThreadCount()
+# where the last recorded plan lookup of this thread found its plan:
+# "memory", "disk" or "planned" (the first_request_seconds label)
+_SOURCE = threading.local()
 
 
-def _store(key, value) -> None:
-    """Insert a plan into the cache (not during a dry run)."""
+def _store(key, value, digest=None) -> None:
+    """Insert a plan into the memory tier (not during a dry run);
+    ``digest``: its disk key, when the persistent tier holds it."""
     if key is None or _DRY[0]:
         return
-    if len(_plan_cache) >= _PLAN_CACHE_MAX:
-        _plan_cache.pop(next(iter(_plan_cache)))
-    _plan_cache[key] = value
+    with _PLAN_LOCK:
+        if key not in _plan_cache and len(_plan_cache) >= _PLAN_CACHE_MAX:
+            old = next(iter(_plan_cache))
+            del _plan_cache[old]
+            gone = _plan_digests.pop(old, None)
+            if gone is not None:
+                _aot._MEMORY_KEYS.discard(gone)
+        _plan_cache[key] = value
+        if digest is not None:
+            _plan_digests[key] = digest
+            _aot._MEMORY_KEYS.add(digest)
+
+
+def clear_plan_caches() -> None:
+    """Drop this process's plans and their device copies (the memory
+    tier; the disk tier stays)."""
+    with _PLAN_LOCK:
+        _plan_cache.clear()
+        _device_programs.clear()
+        for d in _plan_digests.values():
+            _aot._MEMORY_KEYS.discard(d)
+        _plan_digests.clear()
 
 
 class ChannelItem:
@@ -158,8 +190,8 @@ def _plan_key(items, nloc: int, sweep_ok: bool, device=None,
     """Content key for an item list: the gate matrices' bytes, each
     channel's (kind, target, bra) (its probability is a run-time value),
     whether channel runs may sweep, the knobs that change the plan (the
-    planner, QT_PLANNER, and megawin grouping), the window kernels'
-    precision mode, which the reference's key holds as well
+    planner, QT_PLANNER, megawin grouping and QT_SIDE_SPLIT), the window
+    kernels' precision mode, which the reference's key holds as well
     (quest_tpu/fusion.py:565), and ``bank``, (batch flag, bank size):
     a bank's per-element program never replays for another bank or for a
     single register.  On a sharded register (``nsh`` shard bits) the key
@@ -182,9 +214,18 @@ def _plan_key(items, nloc: int, sweep_ok: bool, device=None,
         sharded = (nsh, None if perm0 is None else tuple(perm0),
                    _topo.signature(1 << nsh))
     return (nloc, sweep_ok, C.resolve_planner(),
-            _fused.megakernel_planning(device),
+            _fused.megakernel_planning(device), C._side_split_enabled(),
             _fused.matmul_precision_name(), tuple(bank), sharded,
             tuple(parts))
+
+
+def _drain_key(items, nloc: int, sweep_ok: bool, device, bsz: int,
+               perm0=None, nsh: int = 0):
+    """_plan_key of a drain of ``items`` on a register (or a bank of
+    ``bsz``): the bank part is (batch flag, bank size under flag 2)."""
+    flag = batch_flag(items, bsz)
+    return _plan_key(items, nloc, sweep_ok, device,
+                     (flag, bsz if flag == 2 else 0), perm0, nsh)
 
 
 # minimum adjacent permutation-classified gates worth splitting out of a
@@ -389,33 +430,61 @@ def _plan_batched_items(items, bsz: int, num_qubits: int, device,
     stacked (``_stack_element_plans``)."""
     return _stack_element_plans(
         (_plan_optimized(_items_for_element(items, b), num_qubits, device,
-                         sweep_ok), None) for b in range(bsz))[0]
+                         sweep_ok, disk=False), None)
+        for b in range(bsz))[0]
 
 
-def _cache_lookup(key, record: bool):
-    """The plan cached under ``key`` (None: a miss); a drain's lookup
-    (``record``) counts fusion_plan_cache_hits_total / _misses_total."""
-    hit = _plan_cache.get(key) if key is not None else None
+def _cache_lookup(key, record: bool, disk: bool = True):
+    """The plan cached under ``key`` (None: a miss): the memory tier,
+    then (``disk``) the persistent tier, whose hit joins the memory tier
+    (not during a dry run).  A drain's lookup (``record``) counts
+    fusion_plan_cache_hits_total / _misses_total (the memory tier's
+    answer) and the disk tier's aot_cache_hits_total / _misses_total; any
+    other lookup reads the disk tier without counting."""
+    with _PLAN_LOCK:
+        hit = _plan_cache.get(key) if key is not None else None
     if record:
         _telemetry.inc("fusion_plan_cache_hits_total" if hit is not None
                        else "fusion_plan_cache_misses_total")
+        _SOURCE.where = "memory"
+    if hit is None and key is not None and disk and _aot.enabled():
+        digest = _aot.plan_key_digest(key)
+        got = _aot.load(digest, quiet=not record)
+        if got is not None:
+            hit = got[0]
+            _store(key, hit, digest)
+            if record:
+                _SOURCE.where = "disk"
     return hit
 
 
+def _store_planned(key, value, seconds: float, persist: bool) -> None:
+    """Insert a fresh plan into the memory tier and, for a drain's plan
+    (``persist``) with the persistent tier on, onto the disk."""
+    digest = None
+    if persist and key is not None and _aot.enabled():
+        digest = _aot.plan_key_digest(key)
+        if not _aot.store(digest, value, seconds):
+            digest = None
+    _store(key, value, digest)
+
+
 def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool,
-                    batch_size: int = 0, record: bool = False):
+                    batch_size: int = 0, record: bool = False,
+                    disk: bool = True):
     """The program of an optimized item list (cached on its content), of
     one register or of a bank of ``batch_size`` registers.  A drain's
-    call (``record``) counts the cache lookup and plans a miss under the
-    ``fusion.plan`` span."""
+    call (``record``) counts the cache lookup, plans a miss under the
+    ``fusion.plan`` span and persists it.  ``disk=False``: a bank
+    element's plan, which the disk tier holds only inside its bank's."""
     if not items:
         return ()
     flag = batch_flag(items, batch_size)
-    key = _plan_key(items, num_qubits, sweep_ok, device,
-                    (flag, batch_size if flag == 2 else 0))
-    hit = _cache_lookup(key, record)
+    key = _drain_key(items, num_qubits, sweep_ok, device, batch_size)
+    hit = _cache_lookup(key, record, disk)
     if hit is not None:
         return hit
+    t0 = time.perf_counter()
     with _telemetry.span("fusion.plan", items=len(items)) if record \
             else nullcontext():
         if flag == 2:
@@ -423,7 +492,9 @@ def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool,
                                           device, sweep_ok)
         else:
             program = _split_items(items, num_qubits, sweep_ok, device)
-    _store(key, program)
+    if record:
+        _SOURCE.where = "planned"
+    _store_planned(key, program, time.perf_counter() - t0, record and disk)
     return program
 
 
@@ -456,43 +527,134 @@ def _sweep_ok(qureg) -> bool:
     return _fused.channel_sweep_enabled(a)
 
 
-def plan_items_quiet(qureg, items):
-    """The program a drain of ``items`` on ``qureg`` would dispatch,
-    planned exactly as the drain plans it (the same optimizer rewrite,
-    the live permutation, the bank) with no telemetry recorded and no
-    plan-cache insertion: a cached plan is read, a miss is not stored.
-    The dry run behind explain_circuit's ``memory`` section and the
-    governor's predictor (quest_tpu/fusion.py:670-714).  Returns
-    (program, final_perm, nloc, nsh)."""
+def _drain_view(qureg, items) -> dict:
+    """What a drain of ``items`` on ``qureg`` (a register, or a
+    register-shaped stub such as serve._PlanStub) plans from, derived as
+    the drain derives it and recording nothing: the optimized items,
+    their plan key and the register's shape (n, nloc, nsh, perm0, bsz,
+    sweep_ok, device)."""
     n = qureg.num_qubits_in_state_vec
     nsh = qureg.shard_bits
     nloc = n - nsh
     perm0 = qureg._perm if nsh else None
-    if not items:
-        return (), None, nloc, nsh
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
-    _QUIET[0] += 1
-    _DRY[0] += 1
-    try:
+    if items:
         if nsh:
             items, _stats = _opt.optimize_items(items, nloc=nloc, n=n,
                                                 nsh=nsh, perm0=perm0,
                                                 quiet=True)
         else:
             items, _stats = _opt.optimize_items(items, nloc=n, quiet=True)
-        if not items:
-            return (), None, nloc, nsh
-        sweep_ok = _sweep_ok(qureg)
-        if nsh:
-            program, final_perm, _key = _plan_sharded(
-                items, n, nloc, perm0, qureg.device, sweep_ok, bsz)
-        else:
-            program = _plan_optimized(items, n, qureg.device, sweep_ok, bsz)
-            final_perm = None
+    sweep_ok = _sweep_ok(qureg)
+    key = _drain_key(items, nloc, sweep_ok, qureg.device, bsz, perm0,
+                     nsh) if items else None
+    return {"items": items, "key": key, "n": n, "nloc": nloc, "nsh": nsh,
+            "perm0": perm0, "bsz": bsz, "sweep_ok": sweep_ok,
+            "device": qureg.device}
+
+
+def _plan_view(v: dict):
+    """(program, final_perm) of a _drain_view, planned (or found) by the
+    planners a drain calls, without recording."""
+    if v["nsh"]:
+        program, final_perm, _key = _plan_sharded(
+            v["items"], v["n"], v["nloc"], v["perm0"], v["device"],
+            v["sweep_ok"], v["bsz"])
+        return program, final_perm
+    return _plan_optimized(v["items"], v["n"], v["device"], v["sweep_ok"],
+                           v["bsz"]), None
+
+
+def plan_items_quiet(qureg, items):
+    """The program a drain of ``items`` on ``qureg`` would dispatch,
+    planned exactly as the drain plans it (the same optimizer rewrite,
+    the live permutation, the bank) with no telemetry recorded and no
+    plan-cache insertion: a cached plan is read (the persistent tier's
+    too), a miss is not stored.  The dry run behind explain_circuit's
+    ``memory`` section and the governor's predictor
+    (quest_tpu/fusion.py:670-714).  Returns (program, final_perm, nloc,
+    nsh)."""
+    v = _drain_view(qureg, items)
+    if not v["items"]:
+        return (), None, v["nloc"], v["nsh"]
+    program, final_perm = _dry_plan(v)
+    return program, final_perm, v["nloc"], v["nsh"]
+
+
+def _dry_plan(v: dict):
+    """_plan_view as a dry run: nothing recorded, nothing stored."""
+    _QUIET[0] += 1
+    _DRY[0] += 1
+    try:
+        return _plan_view(v)
     finally:
         _QUIET[0] -= 1
         _DRY[0] -= 1
-    return program, final_perm, nloc, nsh
+
+
+def aot_plan_info(qureg, items):
+    """Quiet planning plus the key derivation of the drain ``items`` on
+    ``qureg`` would run (quest_tpu/fusion.py:717): everything the
+    persistent tier needs to name or warm that drain's plan, recording
+    nothing and inserting nothing.  ``qureg`` may be a register-shaped
+    stub (serve._PlanStub).  None for an empty drain."""
+    v = _drain_view(qureg, items)
+    if not v["items"]:
+        return None
+    program, final_perm = _dry_plan(v)
+    return {"program": program, "final_perm": final_perm,
+            "key": v["key"], "nloc": v["nloc"], "nsh": v["nsh"],
+            "batch_size": v["bsz"],
+            "batch_flag": batch_flag(v["items"], v["bsz"])}
+
+
+def aot_probe(qureg, items) -> dict:
+    """Side-effect-free prediction of where the drain of ``items`` finds
+    its plan (quest_tpu/fusion.py:762), explainCircuit's ``compile``
+    section: {"enabled", "status", "key"}, status ``disabled`` /
+    ``uncacheable`` / ``memory`` (the key is in _plan_cache: the disk
+    will not be consulted) / ``hit`` / ``miss`` (the disk tier's
+    answer).  Derives the key without planning."""
+    if not _aot.enabled():
+        return {"enabled": False, "status": "disabled", "key": None}
+    key = _drain_view(qureg, items)["key"]
+    with _PLAN_LOCK:
+        in_mem = key is not None and key in _plan_cache
+    return _aot.probe(key, in_mem)
+
+
+def aot_prewarm(qureg, items):
+    """Put the plan of the drain ``items`` on ``qureg`` (a register or a
+    register-shaped stub) in the memory tier ahead of the drain, from the
+    disk or by planning it and persisting it: the warm pool's unit of
+    work.  Returns (status, final_perm): ``present`` (already in memory),
+    ``hit`` (loaded from the disk, counted), ``compiled`` (planned as a
+    dry run, so a bank's element plans stay out of the memory tier, and
+    stored: a counted miss and put), ``empty`` (nothing to plan) or
+    ``uncacheable``."""
+    v = _drain_view(qureg, items)
+    if not v["items"]:
+        return "empty", None
+    key = v["key"]
+    if key is None:
+        return "uncacheable", None
+    with _PLAN_LOCK:
+        value = _plan_cache.get(key)
+    status = "present"
+    if value is None:
+        digest = _aot.plan_key_digest(key)
+        got = _aot.load(digest)
+        if got is not None:
+            value, status = got[0], "hit"
+        else:
+            t0 = time.perf_counter()
+            planned = _dry_plan(v)
+            value = planned if v["nsh"] else planned[0]
+            if not _aot.store(digest, value, time.perf_counter() - t0):
+                digest = None
+            status = "compiled"
+        _store(key, value, digest)
+    return status, (value[1] if v["nsh"] else None)
 
 
 def program_stats(program) -> dict:
@@ -577,6 +739,7 @@ def _run(qureg, items) -> None:
         return
     n = qureg.num_qubits_in_state_vec
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
+    t0 = time.perf_counter()
     with _telemetry.span("fusion.optimize", items=len(items)):
         items, _stats = _opt.optimize_items(items, nloc=n)
     if not items:
@@ -599,8 +762,28 @@ def _run(qureg, items) -> None:
                 if qureg._amps is None:
                     qureg._consumed_by = f"{type(e).__name__}: {e}"
                 raise
+        _first_request(qureg, t0)
     finally:
         _gov.end_drain()
+
+
+def _first_request(qureg, t0: float) -> None:
+    """first_request_seconds{fingerprint_cached}, with the persistent tier
+    on: the wall, from the optimizer on, of a drain whose plan was not in
+    the memory tier (its plan's first request in this process): "true"
+    when the disk held the plan, "false" when the drain planned it (the
+    reference observes its runners' first calls, quest_tpu/aotcache.py
+    wrap_runner)."""
+    where = getattr(_SOURCE, "where", None)
+    _SOURCE.where = None
+    if where not in ("disk", "planned") or not _aot.enabled() \
+            or not _telemetry.enabled():
+        return
+    if qureg.device.type == "cuda":
+        torch.cuda.synchronize(qureg.device)
+    _telemetry.observe("first_request_seconds", time.perf_counter() - t0,
+                       fingerprint_cached="true" if where == "disk"
+                       else "false")
 
 
 def _consume(qureg) -> None:
@@ -731,30 +914,34 @@ def plan_items_sharded(items, n: int, nloc: int, perm0=None, device=None,
 
 
 def _plan_sharded(items, n, nloc, perm0, device, sweep_ok, bsz: int = 0,
-                  record: bool = False):
+                  record: bool = False, disk: bool = True):
     """(program, final_perm, key) of an optimized sharded item list of
     one register or of a bank of ``bsz``: under batch flag 2 each element
     planned on its own from the live permutation (cached as its scalar
     drain would be) and the plans stacked (``_stack_element_plans``),
     the bank's program cached under its own key.  ``record``: a drain's
-    call (_plan_optimized)."""
+    call (_plan_optimized); ``disk``: as there."""
     nsh = n - nloc
     flag = batch_flag(items, bsz)
-    key = _plan_key(items, nloc, sweep_ok, device,
-                    (flag, bsz if flag == 2 else 0), perm0, nsh)
-    hit = _cache_lookup(key, record)
+    key = _drain_key(items, nloc, sweep_ok, device, bsz, perm0, nsh)
+    hit = _cache_lookup(key, record, disk)
     if hit is not None:
         return hit[0], hit[1], key
+    t0 = time.perf_counter()
     with _telemetry.span("fusion.plan", items=len(items)) if record \
             else nullcontext():
         if flag == 2:
             program, final_perm = _stack_element_plans(
                 _plan_sharded(_items_for_element(items, b), n, nloc, perm0,
-                              device, sweep_ok)[:2] for b in range(bsz))
+                              device, sweep_ok, disk=False)[:2]
+                for b in range(bsz))
         else:
             program, final_perm = _split_items_sharded(
                 items, n, nloc, perm0, sweep_ok, device)
-    _store(key, (program, final_perm))
+    if record:
+        _SOURCE.where = "planned"
+    _store_planned(key, (program, final_perm), time.perf_counter() - t0,
+                   record and disk)
     return program, final_perm, key
 
 
@@ -765,15 +952,18 @@ def program_on_device(program, dtype, device, key=None):
     the shards on one device share one upload, and on the card one side
     image per pass."""
     ck = None if key is None else (key, str(device), dtype)
-    hit = _device_programs.get(ck) if ck is not None else None
+    with _PLAN_LOCK:
+        hit = _device_programs.get(ck) if ck is not None else None
     if hit is not None:
         return hit
     out = tuple(("plan", tuple(C.plan_to_device(part[1], dtype, device)))
                 if part[0] == "plan" else part for part in program)
     if ck is not None:
-        if len(_device_programs) >= _PLAN_CACHE_MAX:
-            _device_programs.pop(next(iter(_device_programs)))
-        _device_programs[ck] = out
+        with _PLAN_LOCK:
+            if ck not in _device_programs \
+                    and len(_device_programs) >= _PLAN_CACHE_MAX:
+                del _device_programs[next(iter(_device_programs))]
+            _device_programs[ck] = out
     return out
 
 
@@ -848,6 +1038,7 @@ def _run_sharded(qureg, items) -> None:
     nloc = n - nsh
     perm0 = qureg._perm
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
+    t0 = time.perf_counter()
     with _telemetry.span("fusion.optimize", items=len(items)):
         items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
                                             perm0=perm0)
@@ -873,6 +1064,7 @@ def _run_sharded(qureg, items) -> None:
         if before is not None:
             _reconcile(qureg, items, before, n=n, nloc=nloc, nsh=nsh,
                        perm0=perm0, bsz=bsz)
+        _first_request(qureg, t0)
     finally:
         _gov.end_drain()
     if final_perm is not None and list(final_perm) != list(range(n)):

@@ -356,10 +356,15 @@ def explain_circuit(qureg, gates=None) -> ExplainReport:
         "retrace_expected": None if not cacheable else not hit,
         "exchange_chunks_key": str(PAR.exchange_config_key() or "auto"),
     }
-    # no AOT tier in the port yet: the reference's report with its AOT
-    # cache off
-    compile_section = {"aot": "disabled", "aot_enabled": False,
-                       "aot_key": None, "plan_cache": plan["cache"]}
+    # the persistent plan tier's prediction on the key the drain will use
+    # (fusion.aot_probe derives it from the original stream, as the
+    # drain does): "memory" = the plan is in this process's memory tier
+    # (no file is read, no counter moves), "hit" / "miss" = what the disk
+    # tier will answer, "disabled" / "uncacheable" otherwise
+    # (quest_tpu/introspect.py:401-413)
+    aot = F.aot_probe(qureg, orig_items)
+    compile_section = {"aot": aot["status"], "aot_enabled": aot["enabled"],
+                       "aot_key": aot["key"], "plan_cache": plan["cache"]}
     read_exch = final_remap["exchanges"] if final_remap else 0
     read_bytes = final_remap["exchange_bytes"] if final_remap else 0
     # the governor's prediction over the program the drain would dispatch

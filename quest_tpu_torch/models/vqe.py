@@ -32,6 +32,7 @@ import torch
 
 from .. import precision
 from ..ops import cplx, kernels, paulis
+from ..parallel import sharded as SH
 from ..parallel.mesh import ShardedAmps
 
 
@@ -93,11 +94,6 @@ def _mesh_zero(mesh, nloc: int, dtype):
     return out
 
 
-def _partners(mesh, xs, mask: int):
-    """Per local shard s, shard s ^ mask's tensor (differentiable)."""
-    if not mask:
-        return list(xs)
-    return mesh.exchange(xs, [(i, i ^ mask) for i in range(mesh.axis_size)])
 
 
 def _cmul(x, re, im):
@@ -113,7 +109,7 @@ def mesh_gate_1q(mesh, xs, m, q: int, nloc: int):
         return [kernels.apply_matrix(x, m, num_qubits=nloc, targets=(q,))
                 for x in xs]
     bit = q - nloc
-    recv = _partners(mesh, xs, 1 << bit)
+    recv = SH.partners(mesh, xs, 1 << bit)
     out = []
     for k, s in enumerate(mesh.local):
         b = (s >> bit) & 1
@@ -171,7 +167,7 @@ def mesh_expec_pauli_sum(mesh, xs, coeffs, codes_flat, n: int, nloc: int):
     parts = [torch.zeros((), dtype=dt, device=x.device) for x in xs]
     for t, c in enumerate(coeffs):
         term = paulis.pauli_term(codes_flat[t * n:(t + 1) * n], dtype=dt)
-        recv = _partners(mesh, xs, term.fm >> nloc)
+        recv = SH.partners(mesh, xs, term.fm >> nloc)
         for k, s in enumerate(mesh.local):
             pr, pi = paulis._signed_partner(
                 recv[k], COMP._local_term(term, s, nloc), nloc)

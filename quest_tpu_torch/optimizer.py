@@ -36,6 +36,7 @@ keep their order relative to each other and to every gate they touch.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -59,9 +60,29 @@ _cache: dict = {}
 # longest stream the reordering considers (its DAG is quadratic)
 _REORDER_MAX_ITEMS = 512
 
+
+
+class ThreadCount:
+    """A depth counter read and written as ``c[0]``, one per thread: the
+    serving layer's warm pool plans in its own thread, and its
+    suppression (or fusion's quiet and dry depths) must not leak into the
+    scheduling thread's drains."""
+
+    __slots__ = ("_local",)
+
+    def __init__(self):
+        self._local = threading.local()
+
+    def __getitem__(self, i: int) -> int:
+        return getattr(self._local, "depth", 0)
+
+    def __setitem__(self, i: int, value: int) -> None:
+        self._local.depth = value
+
+
 # suppression depth (suppressed()): > 0 makes optimize_items return the
 # stream verbatim whatever the mode
-_SUPPRESS: List[int] = [0]
+_SUPPRESS = ThreadCount()
 
 
 def mode() -> str:

@@ -187,7 +187,8 @@ def guarded_dispatch(fn, *args, op: str = "exchange", shards: int = 1,
             # retried and the last failure chained to the ShardLossError
             # below; a consuming one cannot be run again on its half
             # updated operand
-            except Exception as e:  # noqa: BLE001
+            # qlint: allow(oom-swallow): an allocator failure that changed nothing is re-raised at once for governor.oom_net, the guard only tells it from a transport failure
+            except Exception as e:  # qlint: allow(broad-except): a transport failure of any class is retried or turned into a ShardLossError, and the last one is chained
                 if (isinstance(e, torch.OutOfMemoryError)
                         and mark is not None
                         and state_mark(operand) == mark):

@@ -120,6 +120,12 @@ class Mesh:
     def describe(self) -> str:
         raise NotImplementedError
 
+    def barrier(self) -> None:
+        """Return once every process holding shards of this mesh has
+        called it (the ranks of a checkpoint meet here between its
+        phases); one process holds them all in process."""
+        raise NotImplementedError
+
     # -- the differentiable forms (the models' state on a mesh) ----------
 
     def exchange(self, sends: Sequence[torch.Tensor],
@@ -180,6 +186,9 @@ class InProcessMesh(Mesh):
     def describe(self) -> str:
         names = sorted({str(d) for d in self.devices})
         return f"in-process x{len(self.devices)} on {','.join(names)}"
+
+    def barrier(self) -> None:
+        pass
 
     # one autograd graph holds every shard: .to() and + are differentiable
 
@@ -271,6 +280,11 @@ class DistMesh(Mesh):
 
         return (f"torch.distributed x{len(self.devices)} "
                 f"({dist.get_backend(self.group)}) on {self.device}")
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        dist.barrier(group=self.group)
 
     # every rank runs the same graph, so the backward passes' collectives
     # meet in the same order on every rank

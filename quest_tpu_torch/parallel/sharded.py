@@ -154,8 +154,31 @@ def set_range(amps: ShardedAmps, start: int, vals) -> None:
                 device=sh.device)
 
 
-def _sum(amps: ShardedAmps, partials: Sequence[torch.Tensor]):
+def sum_partials(amps: ShardedAmps, partials: Sequence[torch.Tensor]):
+    """The sum over every shard of its partial (the local partials given,
+    aligned with ``mesh.local``): one value, the same on every shard."""
     return amps.mesh.sum(list(partials))
+
+
+def gather_device(amps: ShardedAmps) -> torch.Tensor:
+    """The whole register, the shards concatenated in shard order, on the
+    first local shard's device (it moves the whole state)."""
+    return amps.mesh.gather(amps.shards)
+
+
+def gather_rows(amps: ShardedAmps) -> torch.Tensor:
+    """The whole (2, 2^n) register gathered along its amplitude axis
+    through the mesh's all_gather of the transposed shards, on the first
+    local shard's device."""
+    return amps.mesh.all_gather([s.t() for s in amps.shards]).t()
+
+
+def partners(mesh: Mesh, xs, mask: int):
+    """Per local shard s, shard s ^ mask's tensor, through the mesh's
+    differentiable exchange (the models' state on a mesh)."""
+    if not mask:
+        return list(xs)
+    return mesh.exchange(xs, [(i, i ^ mask) for i in range(mesh.axis_size)])
 
 
 def quad_sum_pieces(mesh: Mesh, pieces: Sequence[torch.Tensor], total: int,
@@ -348,7 +371,7 @@ def amp_pair(amps: ShardedAmps, index: int) -> torch.Tensor:
             parts.append(sh[:, index - lo].clone())
         else:
             parts.append(torch.zeros(2, dtype=sh.dtype, device=sh.device))
-    return _sum(amps, parts)
+    return sum_partials(amps, parts)
 
 
 def prob_of_outcome_statevec(amps: ShardedAmps, target: int,
@@ -366,7 +389,7 @@ def prob_of_outcome_statevec(amps: ShardedAmps, target: int,
             parts.append(CALC.calc_total_prob_statevec(sh))
         else:
             parts.append(torch.zeros((), dtype=sh.dtype, device=sh.device))
-    return _sum(amps, parts)
+    return sum_partials(amps, parts)
 
 
 def _histogram(vals: torch.Tensor, global_idx: torch.Tensor,
@@ -408,7 +431,7 @@ def all_outcomes_statevec(amps: ShardedAmps,
         else:
             full[fixed] = probs.sum()
         parts.append(full)
-    return _sum(amps, parts)
+    return sum_partials(amps, parts)
 
 
 def _diag_rows(amps: ShardedAmps, lo: int, num_qubits: int, device):
@@ -438,7 +461,7 @@ def _diag_entries(amps: ShardedAmps, k: int, lo: int, num_qubits: int):
 
 def total_prob_density(amps: ShardedAmps, num_qubits: int) -> torch.Tensor:
     """Re(trace(rho)) from each shard's diagonal entries."""
-    return _sum(amps, [_diag_entries(amps, k, lo, num_qubits)[0].sum()
+    return sum_partials(amps, [_diag_entries(amps, k, lo, num_qubits)[0].sum()
                        for k, lo in shard_offsets(amps)])
 
 
@@ -448,7 +471,7 @@ def prob_of_outcome_density(amps: ShardedAmps, num_qubits: int,
     for k, lo in shard_offsets(amps):
         v, d = _diag_entries(amps, k, lo, num_qubits)
         parts.append(v[((d >> target) & 1) == outcome].sum())
-    return _sum(amps, parts)
+    return sum_partials(amps, parts)
 
 
 def all_outcomes_density(amps: ShardedAmps, num_qubits: int,
@@ -457,7 +480,7 @@ def all_outcomes_density(amps: ShardedAmps, num_qubits: int,
     for k, lo in shard_offsets(amps):
         v, d = _diag_entries(amps, k, lo, num_qubits)
         parts.append(_histogram(v, d, qubits))
-    return _sum(amps, parts)
+    return sum_partials(amps, parts)
 
 
 def gather_host(amps: ShardedAmps) -> np.ndarray:
@@ -860,27 +883,27 @@ def prob_of_outcome_bank(amps: ShardedAmps, target: int, outcome: int, *,
             parts.append((sh * sh).sum(dim=(1, 2)))
         else:
             parts.append(torch.zeros(nb, dtype=sh.dtype, device=sh.device))
-    return _sum(amps, parts)
+    return sum_partials(amps, parts)
 
 
 def inner_product(bra: ShardedAmps, ket: ShardedAmps) -> torch.Tensor:
     """<bra|ket> as a stacked (2,) tensor: per-shard partials, one sum."""
-    return _sum(bra, [cplx.vdot(a, b.to(a.device))
+    return sum_partials(bra, [cplx.vdot(a, b.to(a.device))
                             for a, b in zip(bra.shards, ket.shards)])
 
 
 def density_inner_product(a: ShardedAmps, b: ShardedAmps) -> torch.Tensor:
-    return _sum(a, [CALC.calc_density_inner_product(x, y)
+    return sum_partials(a, [CALC.calc_density_inner_product(x, y)
                           for x, y in zip(a.shards, b.shards)])
 
 
 def purity(a: ShardedAmps) -> torch.Tensor:
-    return _sum(a, [CALC.calc_purity(x) for x in a.shards])
+    return sum_partials(a, [CALC.calc_purity(x) for x in a.shards])
 
 
 def hilbert_schmidt_distance(a: ShardedAmps, b: ShardedAmps) -> torch.Tensor:
     """sqrt of the summed per-shard |a - b|^2."""
-    return torch.sqrt(_sum(a, [cplx.abs2(x - y).sum()
+    return torch.sqrt(sum_partials(a, [cplx.abs2(x - y).sum()
                                      for x, y in zip(a.shards, b.shards)]))
 
 
@@ -905,7 +928,7 @@ def fidelity_density(rho: ShardedAmps, psi: torch.Tensor,
         v_re = torch.matmul(mat[0], pr0) + torch.matmul(mat[1], pr1)
         v_im = torch.matmul(mat[1], pr0) - torch.matmul(mat[0], pr1)
         parts.append(torch.sum(pc0 * v_re - pc1 * v_im))
-    return _sum(rho, parts)
+    return sum_partials(rho, parts)
 
 
 def expec_diagonal_statevec(amps: ShardedAmps, op_real,
@@ -919,7 +942,7 @@ def expec_diagonal_statevec(amps: ShardedAmps, op_real,
         parts.append(CALC.calc_expec_diagonal_statevec(
             sh, op_real[lo:lo + m].to(sh.device),
             op_imag[lo:lo + m].to(sh.device)))
-    return _sum(amps, parts)
+    return sum_partials(amps, parts)
 
 
 def expec_diagonal_density(amps: ShardedAmps, op_real, op_imag,
@@ -935,7 +958,7 @@ def expec_diagonal_density(amps: ShardedAmps, op_real, op_imag,
         opi = op_imag.to(sh.device)[d].to(sh.dtype)
         parts.append(torch.stack([torch.sum(v[0] * opr - v[1] * opi),
                                   torch.sum(v[0] * opi + v[1] * opr)]))
-    return _sum(amps, parts)
+    return sum_partials(amps, parts)
 
 
 def apply_full_diagonal(amps: ShardedAmps, op_real, op_imag) -> ShardedAmps:

@@ -17,6 +17,9 @@ a numerical-health watchdog (the port of the JAX package's
   the later plans and break bit-exact resume) and both measurement
   streams' state (the host MT19937 and the device key and shot
   counter), so a resumed run is bit-identical to an uninterrupted one.
+  On torch.distributed ranks the ranks write a generation together: each
+  its own shards' rows of one ``amps.npy``, between barriers, and rank 0
+  the metadata and the commit.
 
 * **Fault injection**: a deterministic :class:`FaultPlan`
   (``QT_FAULT_PLAN`` or programmatic): kills between windows and
@@ -152,6 +155,7 @@ def seed_backoff_jitter(seeds: Optional[Sequence[int]] = None) -> None:
         if raw:
             seeds = [int(raw)]
         else:
+            # qlint: allow(nondeterminism): unseeded jitter must decorrelate across processes; QT_CHAOS_SEED pins it
             seeds = [int(time.time() * 1e6), os.getpid()]
     r.seed([int(s) for s in seeds])
     _JITTER_RNG[0] = r
@@ -433,10 +437,11 @@ def _health_vector(amps) -> np.ndarray:
     reduces its own slice, the partials are summed once (mesh.sum), and
     one readback carries all three.  On a bank the worst element is the
     non-finite one first, else the norm farthest from 1."""
+    from .parallel import sharded as SH
     from .parallel.mesh import ShardedAmps
 
     parts = [_health_partial(t) for t in _amp_tensors(amps)]
-    tot = amps.mesh.sum(parts) if isinstance(amps, ShardedAmps) \
+    tot = SH.sum_partials(amps, parts) if isinstance(amps, ShardedAmps) \
         else parts[0]
     norms, bad = tot[0], tot[1]
     if norms.dim():
@@ -571,19 +576,27 @@ def save_generation(qureg, ckpt_dir: str, cursor: int, *,
     streams' state) is written; the commit, a COMMITTED marker and an
     atomic rename of LATEST, follows the thread's join and the fsyncs, so
     a crash at any point before it leaves the previous generation
-    loadable."""
+    loadable.
+
+    On torch.distributed ranks every rank calls it with the same
+    ``ckpt_dir`` (one directory all of them see), and the generation is
+    written by all of them together (``_save_generation_ranks``)."""
     from . import checkpoint as CKPT
-    from . import rng as _rng
-    from .ops import measurement as M
 
     t0 = time.perf_counter()
     ckpt_dir = os.path.abspath(ckpt_dir)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    gen = os.path.join(ckpt_dir, _gen_name(cursor))
-    if os.path.exists(gen):  # a stale uncommitted leftover of a crash
-        shutil.rmtree(gen)
-    os.makedirs(gen)
     amps = qureg._amps_raw()  # drain pending gates; keep the live perm
+    mesh = CKPT.rank_mesh(amps)
+    gen = os.path.join(ckpt_dir, _gen_name(cursor))
+    if CKPT.is_writer(mesh):
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(gen):  # a stale uncommitted leftover of a crash
+            shutil.rmtree(gen)
+        os.makedirs(gen)
+    if mesh is not None:
+        return _save_generation_ranks(qureg, amps, mesh, ckpt_dir, gen,
+                                      cursor, fingerprint=fingerprint,
+                                      faults=faults, window=window, t0=t0)
     host = _host_copy(amps, CKPT._payload_shape(qureg), qureg.dtype)
     _telemetry.observe("checkpoint_copy_seconds", time.perf_counter() - t0)
     err: list = []
@@ -591,27 +604,16 @@ def save_generation(qureg, ckpt_dir: str, cursor: int, *,
     def write():
         try:
             retry_io(_write_npy, gen, host, what="saveQureg(amps)")
-        except BaseException as e:  # noqa: BLE001 - re-raised on join
+        # qlint: allow(broad-except): the writer thread hands every failure to the committing thread, which re-raises it after the join
+        except BaseException as e:
             err.append(e)
 
     writer = threading.Thread(target=write, name="qt-checkpoint-write")
     writer.start()
     try:
-        meta = CKPT._qureg_meta(qureg)
-        meta.update({
-            "cursor": int(cursor),
-            "perm": list(qureg._perm) if qureg._perm is not None else None,
-            "fingerprint": fingerprint,
-            "rng": _rng.GLOBAL_RNG.get_state(),
-            "measure_keys": M.KEYS.get_state(),
-            # a BatchedQureg's per-element measurement key bank
-            "batch_keys": qureg.key_state()
-            if hasattr(qureg, "key_state") else None,
-            # the writing mesh's shard count (load_latest reshards onto
-            # any mesh; strict_mesh=True refuses a difference)
-            "mesh_shards": int(qureg.num_chunks),
-        })
-        retry_io(CKPT._write_meta, gen, meta, what="saveQureg(meta)")
+        retry_io(CKPT._write_meta, gen,
+                 _generation_meta(qureg, cursor, fingerprint),
+                 what="saveQureg(meta)")
     finally:
         writer.join()
     if err:
@@ -619,6 +621,40 @@ def save_generation(qureg, ckpt_dir: str, cursor: int, *,
     # ---- commit point ----
     if faults is not None:
         faults.maybe_kill_mid_save(window)
+    _commit(ckpt_dir, gen, cursor, faults, window)
+    _telemetry.inc("checkpoints_total")
+    _telemetry.observe("checkpoint_commit_seconds", time.perf_counter() - t0)
+    return gen
+
+
+def _generation_meta(qureg, cursor: int, fingerprint: str) -> dict:
+    """saveQureg's metadata extended with the cursor, the raw permutation,
+    the fingerprint and both measurement streams' state."""
+    from . import checkpoint as CKPT
+    from . import rng as _rng
+    from .ops import measurement as M
+
+    meta = CKPT._qureg_meta(qureg)
+    meta.update({
+        "cursor": int(cursor),
+        "perm": list(qureg._perm) if qureg._perm is not None else None,
+        "fingerprint": fingerprint,
+        "rng": _rng.GLOBAL_RNG.get_state(),
+        "measure_keys": M.KEYS.get_state(),
+        # a BatchedQureg's per-element measurement key bank
+        "batch_keys": qureg.key_state()
+        if hasattr(qureg, "key_state") else None,
+        # the writing mesh's shard count (load_latest reshards onto
+        # any mesh; strict_mesh=True refuses a difference)
+        "mesh_shards": int(qureg.num_chunks),
+    })
+    return meta
+
+
+def _commit(ckpt_dir: str, gen: str, cursor: int,
+            faults: Optional[FaultPlan], window: int) -> None:
+    """Commit a written generation: its COMMITTED marker, then the atomic
+    rename of LATEST; then the injected corruption and the pruning."""
     _write_small(os.path.join(gen, _COMMIT), _gen_name(cursor) + "\n")
     tmp = os.path.join(ckpt_dir, _LATEST + ".tmp")
     _write_small(tmp, _gen_name(cursor) + "\n")
@@ -626,6 +662,41 @@ def save_generation(qureg, ckpt_dir: str, cursor: int, *,
     if faults is not None and faults.should_corrupt(window):
         _corrupt_generation(gen)
     _prune_generations(ckpt_dir, keep=_GENS_KEPT)
+
+
+def _save_generation_ranks(qureg, amps, mesh, ckpt_dir: str, gen: str,
+                           cursor: int, *, fingerprint: str,
+                           faults: Optional[FaultPlan], window: int,
+                           t0: float) -> str:
+    """save_generation on torch.distributed ranks: rank 0 (the holder of
+    shard 0) has cleared a stale leftover and made the generation's
+    directory; it creates the global ``amps.npy``; after a barrier every
+    rank writes its own shards' rows at their global offsets and fsyncs
+    them; after a second barrier rank 0 writes the metadata and commits,
+    and a third barrier returns every rank with the generation committed.
+    A kill at the commit point (the same FaultPlan on every rank) leaves
+    the previous generation the newest loadable one."""
+    from . import checkpoint as CKPT
+
+    writer = CKPT.is_writer(mesh)
+    if writer:
+        retry_io(CKPT.create_amps, gen, CKPT._payload_shape(qureg),
+                 qureg.dtype, what="saveQureg(amps)")
+    mesh.barrier()
+    t1 = time.perf_counter()
+    retry_io(CKPT.write_rows, gen, amps, what="saveQureg(amps)")
+    _telemetry.observe("checkpoint_write_seconds", time.perf_counter() - t1)
+    mesh.barrier()
+    if writer:
+        retry_io(CKPT._write_meta, gen,
+                 _generation_meta(qureg, cursor, fingerprint),
+                 what="saveQureg(meta)")
+    # ---- commit point ----
+    if faults is not None:
+        faults.maybe_kill_mid_save(window)
+    if writer:
+        _commit(ckpt_dir, gen, cursor, faults, window)
+    mesh.barrier()
     _telemetry.inc("checkpoints_total")
     _telemetry.observe("checkpoint_commit_seconds", time.perf_counter() - t0)
     return gen
@@ -758,7 +829,8 @@ def load_latest(ckpt_dir: str, env, *, strict_mesh: bool = False):
             return loaded
         except QuESTError:
             raise  # a mismatch of the environment, not corruption
-        except Exception as e:  # noqa: BLE001 - any unreadable generation
+        # qlint: allow(broad-except): corruption shows up as whatever the reader raises (json, numpy, OSError, ...); an unreadable generation falls back to an older one, and the error is warned and chained
+        except Exception as e:
             last_err = e
             warnings.warn(
                 f"run_resumable: checkpoint generation {cursor} at "

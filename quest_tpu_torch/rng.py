@@ -39,6 +39,7 @@ class _MeasurementRNG:
     def seed_default(self) -> None:
         """time + pid default-key seeding (QuEST_common.c:195-217), with
         the chosen keys logged so the run stays replayable."""
+        # qlint: allow(nondeterminism): QuEST's documented default seed (time+pid); the keys are logged below and reported as DefaultSeed= by getEnvironmentString, so the run replays through seedQuEST
         self.seed([int(time.time()), os.getpid()])
         self.default_seeded = True
         print(json.dumps({"event": "quest_tpu_torch.rng.default_seed",

@@ -53,9 +53,10 @@ permutation and the per-element key bank, and drop the device bank) or
 descheduled while resident (``preempt="pause"``).  A resume reloads the
 generation and continues bit for bit as the uninterrupted run.  A bank
 that does not fit beside the resident set checkpoints a resident batch
-bank to make room.  A register split over torch.distributed ranks cannot
-be checkpointed (checkpoint.py), so a server on such an env refuses
-``preempt="checkpoint"`` at construction.
+bank to make room.  On an env of torch.distributed ranks every rank runs
+the same server and the ranks write each generation together
+(checkpoint.py), so they need one checkpoint root that all of them see:
+``ckpt_dir`` or ``QT_SERVE_CKPT_DIR``.
 
 **Fault tolerance.**  A bank hit by a transient fault (ShardLossError
 with nowhere to shrink, an exchange timeout, checkpoint IO failure) is
@@ -102,6 +103,15 @@ Environment knobs (all optional, constructor arguments win):
   ``<ckpt root>/flight``)
 - ``QT_SERVE_PREWARM``      1 = queue the observed bank specs, and their
   shrunk-mesh variants, for the warm pool (default 0)
+
+**Warm pool.**  With ``prewarm`` on and the persistent plan cache on
+(``QT_AOT_CACHE``, aotcache.py), a thread plans every started bank's
+windows ahead of its drains, on the live mesh and on the half mesh a
+failover would shrink onto, into the memory tier and onto the disk, so
+the drains (and a failover's first degraded windows) load their plans
+instead of planning them.  :meth:`SimServer.export_warmset` and
+:meth:`SimServer.warm_from` carry the specs to another replica, which
+then plans nothing its peer planned.
 """
 
 from __future__ import annotations
@@ -419,17 +429,25 @@ class _PlanStub:
     windows ahead of it without allocating amplitudes: the warm pool's
     unit of work."""
 
-    __slots__ = ("env", "num_qubits_in_state_vec", "_perm",
-                 "batch_size", "dtype", "num_amps_total")
+    __slots__ = ("env", "num_qubits_in_state_vec", "_perm", "_amps",
+                 "batch_size", "dtype", "num_amps_total", "shard_bits",
+                 "is_sharded", "device")
 
     def __init__(self, env: QuESTEnv, n: int, batch: int, dtype):
         self.env = env
         self.num_qubits_in_state_vec = n
         self._perm = None  # banks (re)start drains from canonical order
+        self._amps = None
         self.batch_size = batch
         self.dtype = getattr(torch, dtype) if isinstance(dtype, str) \
             else dtype
         self.num_amps_total = 1 << n
+        nd = env.num_devices
+        # Qureg.shard_bits for this width on this env
+        self.shard_bits = 0 if nd <= 1 or self.num_amps_total < nd \
+            else nd.bit_length() - 1
+        self.is_sharded = self.shard_bits > 0
+        self.device = env.device
 
 
 def _job_bytes_per_device(num_qubits: int, env: QuESTEnv,
@@ -504,15 +522,16 @@ class SimServer:
             raise QuESTError(
                 f"SimServer: unknown preempt mode {self.preempt!r} "
                 f"(expected one of {_PREEMPT_MODES})")
-        if self.preempt == "checkpoint" and env.mesh is not None \
-                and not isinstance(env.mesh, InProcessMesh):
-            # saveQureg refuses a register split over torch.distributed
-            # ranks: a preemption could only fail its banks later
-            raise QuESTError(
-                "SimServer: preempt='checkpoint' needs checkpoints, and a "
-                "register split over torch.distributed ranks cannot be "
-                "checkpointed yet; use preempt='pause' or 'off'")
         root = ckpt_dir or os.environ.get(_CKPT_DIR_ENV, "").strip()
+        if self.preempt == "checkpoint" and not root \
+                and env.mesh is not None \
+                and not isinstance(env.mesh, InProcessMesh):
+            # the ranks write each generation together, into one
+            # directory; a temporary one would differ from rank to rank
+            raise QuESTError(
+                "SimServer: preempt='checkpoint' on torch.distributed "
+                "ranks needs a checkpoint root every rank sees: pass "
+                "ckpt_dir= or set QT_SERVE_CKPT_DIR")
         self._own_ckpt_root = not root
         self._ckpt_root = root or tempfile.mkdtemp(prefix="qt_serve_")
         self.retries = retries if retries is not None \
@@ -966,6 +985,7 @@ class SimServer:
             _telemetry.inc("serve_admission_stalls_total")
             if not self._preempt_for_memory(bank):
                 self._fail(bank, e)
+        # qlint: allow(oom-swallow): classification only: the governor's oom_net already spent its evict-and-retry, and the verdict routes the bank to bisection, never to another allocation
         except (QuESTError, OSError, TimeoutError) as e:
             # transient (exhausted IO retries, exchange timeout, injected
             # bank fault): dissolve, and the jobs retry in fresh banks
@@ -975,6 +995,7 @@ class SimServer:
                 self._quarantine_or_bisect(bank, e)
             else:
                 self._dissolve(bank, e, reason="transient")
+        # qlint: allow(oom-swallow): the same classification after the oom_net as above
         except RuntimeError as e:
             # the governor's OOM net retries once and re-raises
             # (torch.OutOfMemoryError is a RuntimeError): a bank that
@@ -1437,7 +1458,8 @@ class SimServer:
                 key, spec = self._prewarm_q.pop(0)
             try:
                 status = self._prewarm_one(spec)
-            except Exception:  # noqa: BLE001 - a failed warm-up only means a cold first drain
+            # qlint: allow(broad-except): a failed warm-up must never hurt the serving thread; the drain then plans its window itself
+            except Exception:
                 status = "error"
             with self._prewarm_lock:
                 self._prewarm_pending -= 1
@@ -1451,11 +1473,55 @@ class SimServer:
             _telemetry.inc("serve_prewarm_total", status=status)
 
     def _prewarm_one(self, spec: dict) -> str:
-        """Warm one bank spec's window plans ahead of its drains.  The
-        port has no persistent plan cache yet (ROADMAP M16f, which builds
-        this warm pool on it), so every spec reports "disabled", the
-        status the JAX package gives when its cache is off."""
-        return "disabled"
+        """Plan one bank spec's windows into the plan tiers ahead of its
+        drains, exactly as a WindowExecutor drains them: the same
+        checkpoint boundaries, the optimizer suppressed, and on a mesh
+        the live permutation carried from window to window; a spec of
+        half the live mesh plans on shrink_env's mesh, the one a failover
+        restores onto (quest_tpu/serve.py:1452).  Returns ``disabled``
+        while QT_AOT_CACHE is unset, else ``compiled`` (a window was
+        planned and stored), ``hit`` (loaded from the disk), ``present``
+        (every window already in memory), ``skipped`` (no such mesh
+        here) or ``empty``."""
+        from . import aotcache as _aotcache
+        from . import fusion as F
+        from . import optimizer as _opt
+        from .parallel.mesh import InProcessMesh
+
+        if not _aotcache.enabled():
+            return "disabled"
+        ndev = int(spec["ndev"])
+        env = self.env
+        if ndev != env.num_devices:
+            if (not isinstance(env.mesh, InProcessMesh) or ndev < 1
+                    or env.num_devices % ndev):
+                return "skipped"
+            env = shrink_env(env, ndev)
+        stub = _PlanStub(env, int(spec["n"]), int(spec["batch"]),
+                         spec["dtype"])
+        items = list(spec["items"])
+        identity = list(range(stub.num_qubits_in_state_vec))
+        statuses = set()
+        cursor = 0
+        with _opt.suppressed():
+            for end in C.plan_checkpoint_boundaries(len(items),
+                                                    self.window):
+                status, final_perm = F.aot_prewarm(stub, items[cursor:end])
+                cursor = end
+                if status in ("empty", "uncacheable"):
+                    continue
+                statuses.add(status)
+                if stub.is_sharded and final_perm is not None \
+                        and list(final_perm) != identity:
+                    stub._perm = tuple(final_perm)
+                else:
+                    stub._perm = None
+        if not statuses:
+            return "empty"
+        for s in ("compiled", "hit", "present"):
+            if s in statuses:
+                return s
+        return statuses.pop()
 
     def prewarm_join(self, timeout: float = 60.0) -> bool:
         """Block until the prewarm queue drains (replica boot, tests).

@@ -658,6 +658,18 @@ def _series():
 
     for nm in list(DEGRADATIONS):
         g[("degradation_active", (("name", nm),))] = 1.0
+    # the persistent plan tier's process-wide accounting, as the
+    # aot_cache_* series (quest_tpu/telemetry.py:686-700)
+    from . import aotcache as _aotcache
+
+    a = _aotcache.stats()
+    if a["enabled"] or any(a[k] for k in ("hits", "misses", "puts",
+                                          "evictions", "errors", "bytes")):
+        for nm in ("hits", "misses", "puts", "evictions", "errors"):
+            c[(f"aot_cache_{nm}_total", ())] = float(a[nm])
+        c[("aot_compile_seconds_saved_total", ())] = float(
+            a["saved_seconds"])
+        g[("aot_cache_bytes", ())] = float(a["bytes"])
     return c, g, h
 
 
@@ -995,8 +1007,9 @@ def perf_report(env=None) -> str:
         mttr = gauge_max("serve_failover_mttr_seconds")
         if mttr is not None:
             lines.append(f"  failover_mttr_seconds={mttr:.4g}")
-    # §31 AOT executable cache + serve warm pool: pure counter reads,
-    # empty until an executable cache records these series
+    # §31 the persistent plan cache (aotcache.py) + serve warm pool: pure
+    # counter reads, the reference's block and names; an entry here is a
+    # plan, and the seconds saved are planning seconds
     aot_h = counter_total("aot_cache_hits_total")
     aot_m = counter_total("aot_cache_misses_total")
     aot_p = counter_total("aot_cache_puts_total")
@@ -1004,7 +1017,7 @@ def perf_report(env=None) -> str:
     if aot_h or aot_m or aot_p or aot_e:
         lines.append("AOT cache / warm pool (§31):")
         lines.append(
-            f"  executables: hits={_num(aot_h)} misses={_num(aot_m)} "
+            f"  plans: hits={_num(aot_h)} misses={_num(aot_m)} "
             f"puts={_num(aot_p)} "
             f"evictions={_num(counter_total('aot_cache_evictions_total'))} "
             f"errors={_num(aot_e)}")
