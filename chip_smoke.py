@@ -441,7 +441,32 @@ line:
              status (miss, memory, hit) against the aot counters each
              drain then moved, drift 0; (d) a truncated entry: one error,
              the aot_cache_corrupt degradation, a re-plan, torch.equal.
-49. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+49. examples_main - each example of examples/torch/ run on the card in
+             this process through runpy (EXAMPLES): shot sampling at 26
+             qubits, 8 shots; phase estimation --fused at 24 counting
+             qubits, an exact phase; Grover --fused and by the API at 16
+             qubits; Trotter at 26 qubits, 10 steps (K3, K4); BV and the
+             tutorial as shipped; VQE and QAOA at 20 qubits.  The lines
+             tests/test_examples.py checks and the examples' asserts; per
+             example the wall, device ms and busy share under
+             torch.profiler, and the launches by kernel.
+50. bank_forms_parity - K12's bank form over PREC_SWAPS at 20 qubits
+             (f32 and f64, shared and per-element sides, a float32 bank
+             mixing 0/1 and inexact sides) and K10's over SIGMA_PARITY, on
+             banks of 3: every element torch.equal to its scalar launch;
+             a K10 bank over the grid's z limit refused before launching.
+51. bank_forms_main - R7a: config 2 at 26 qubits x 8 (randomized
+             compiling, seeds 7..14) under QT_PLANNER=paged, the elements'
+             paged plans stacked through execute_plan on the bank:
+             K11_bank and K12_bank launches equal to the plan's fused and
+             swapfused ops, every element torch.equal to its scalar paged
+             drain.  R7b: the 30-qubit bit reversal (bit_reversal_ops:
+             four K1 passes, one sigma swap) through execute_plan on a
+             float32 bank of 2 x 2^30 (17.2 GB): one K1_bank launch a
+             pass and one K10_bank, each element torch.equal to its
+             scalar route.  K11's, K12's and K10's bank forms timed
+             against B scalar launches and their plain versions.
+52. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
              errors under "modes"; K1, K2 and K5's bank forms, with their
              launches on a sharded bank under "dist"; K1, K2, K5 and
@@ -450,7 +475,8 @@ line:
              K1's, K2's and K5's under the governor under "governed";
              the bank forms' launches on the serving path under "serve";
              K1's on F2's drain under "f2"; K1's, K2's and their bank
-             forms' with the plan cache on under "aot").
+             forms' with the plan cache on under "aot"; K11's, K12's and
+             K10's bank forms).
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -1430,7 +1456,8 @@ def plain_qft_kernels(fused, bigstate):
 
 def qft_launches(fused, bigstate) -> dict:
     return {k: fused.LAUNCHES[k] for k in ("K1", "K2", "K6", "K7", "K8",
-                                           "K9")} | dict(bigstate.LAUNCHES)
+                                           "K9")} | {
+        "K10": bigstate.LAUNCHES["K10"]}
 
 
 def reset_qft_counts(fused, bigstate) -> None:
@@ -3608,11 +3635,17 @@ TRAJ_P = 0.05
 TRAJ_DAMP = 0.1
 N_RHO_BANK = 13        # a density bank of 4 registers of 2^26 amplitudes
 B_RHO = 4
-BANK_KEYS = ("K1_bank", "K2_bank", "K5_bank", "K11_bank")
+BANK_KEYS = ("K1_bank", "K2_bank", "K5_bank", "K11_bank", "K12_bank",
+             "K10_bank")
 
 
 def bank_launches(fused) -> dict:
-    return {k: fused.LAUNCHES[k] for k in ("K1", "K2", "K5", *BANK_KEYS)}
+    """The launch counts of K1, K2, K5 and every bank form (K10's bank
+    form counts in ops/bigstate.py)."""
+    from quest_tpu_torch.ops import bigstate
+
+    counts = {**fused.LAUNCHES, **bigstate.LAUNCHES}
+    return {k: counts[k] for k in ("K1", "K2", "K5", *BANK_KEYS)}
 
 
 def bank_pass(rng, np, k, rank, sides, with_mask, per_sides, per_mask,
@@ -8519,6 +8552,446 @@ def phase_aot_main(torch, np, qt, fused, fusion, circuits, kernels, tmp,
     return out
 
 
+# ---------------------------------------------------------------------------
+# 49-51. The examples on the port (M17), and K12 and K10 on a bank (R7a, R7b)
+# ---------------------------------------------------------------------------
+
+# The port's examples (examples/torch/) at sizes where the card does real
+# work: (script, argv, environment, the lines tests/test_examples.py
+# checks).  phi = 0.3828125 = 98/256 is exact at 24 counting qubits.
+EXAMPLES = (
+    ("shot_sampling.py", [], {"QT_SHOT_QUBITS": 26, "QT_SHOT_COUNT": 8},
+     ("top-2 mass",)),
+    ("phase_estimation.py", ["--fused"],
+     {"QPE_QUBITS": 24, "QPE_PHI": "0.3828125"}, ("estimate",
+                                                   "|error| = 0.0")),
+    ("grovers_search.py", ["--fused"], {"QT_GROVER_QUBITS": 16},
+     ("prob of solution",)),
+    ("grovers_search.py", [], {"QT_GROVER_QUBITS": 16},
+     ("prob of solution",)),
+    ("trotter_evolution.py", [], {"QT_EVOLVE_QUBITS": 26,
+                                  "QT_EVOLVE_STEPS": 10},
+     ("energy drift", "OK")),
+    ("bernstein_vazirani.py", [], {}, ("recovered = 17",)),
+    ("tutorial_example.py", [], {}, ("Probability amplitude of |111>",)),
+    ("vqe_train.py", [], {"QT_VQE_QUBITS": 20}, ("done; final energy",)),
+    ("qaoa_maxcut.py", [], {"QT_QAOA_QUBITS": 20}, ("expected cut",)),
+)
+N_BANK_FORMS_PARITY = 20   # K12 bank's parity state: 3 x 2^20
+B_BANK_PARITY = 3
+N_R7A = 26                 # randomized compiling, paged: 8 x 2^26
+B_R7A = 8
+N_R7B = 30                 # the 30-qubit reversal on a bank of 2: 17.2 GB
+B_R7B = 2
+
+
+def all_launches(fused, paulis, bigstate) -> dict:
+    """Every kernel wrapper's launch count (the zero ones left out)."""
+    return {k: v for d in (fused.LAUNCHES, paulis.LAUNCHES,
+                           bigstate.LAUNCHES) for k, v in d.items() if v}
+
+
+def reset_all(fused, paulis, bigstate) -> None:
+    for m in (fused, paulis, bigstate):
+        m.reset_launch_counts()
+
+
+def run_example(torch, script, argv, env):
+    """One example run in this process through runpy, with ``argv`` and
+    ``env`` set and QT_EXAMPLES_CPU unset (the card), under torch.profiler
+    (kernels and copies on the card only); returns (stdout, wall seconds,
+    device ms or None when the profiler saw nothing on the card)."""
+    import contextlib
+    import io
+    import runpy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    path = str(Path(__file__).resolve().parent / "examples" / "torch"
+               / script)
+    buf = io.StringIO()
+    argv0 = sys.argv
+    sys.argv = [path, *argv]
+    try:
+        with env_vars(QT_EXAMPLES_CPU=None, **env), \
+                contextlib.redirect_stdout(buf):
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                runpy.run_path(path, run_name="__main__")
+                sync()
+                wall = time.perf_counter() - t0
+    finally:
+        sys.argv = argv0
+    # the raw trace (prof.events() builds a Python tree of every event:
+    # minutes over an example's hundred thousand launches)
+    on_card = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    dev = (sum(e.duration_ns() for e in on_card) / 1e6 if on_card
+           else None)
+    return buf.getvalue(), wall, dev
+
+
+def printed_numbers(text: str, key: str) -> list:
+    """The number after ``key`` on each line of ``text`` holding it."""
+    out = []
+    for line in text.splitlines():
+        if key in line:
+            out.append(float(line.split(key)[1].split()[0].strip(",;")))
+    return out
+
+
+def phase_examples_main(torch, np, fused, paulis, bigstate):
+    """Each port example of examples/torch/ run once on the card through
+    runpy (EXAMPLES), at a full-size register where it has one: the lines
+    tests/test_examples.py checks, the examples' own asserts, and sanity
+    on the numbers they print; per example the wall seconds, the device
+    ms and busy share under torch.profiler, and the kernel launches by
+    key."""
+    out = {}
+    for script, argv, env, lines in EXAMPLES:
+        label = script[:-3] + ("_fused" if "--fused" in argv else "")
+        reset_all(fused, paulis, bigstate)
+        text, wall, dev = run_example(torch, script, argv, env)
+        torch.cuda.empty_cache()
+        for want in lines:
+            check(want in text, f"example {label}: no line with {want!r}")
+        rec = {"argv": argv, "env": {k: str(v) for k, v in env.items()},
+               "wall_s": wall, "device_ms": dev,
+               "device_busy_share": None if dev is None
+               else dev / (wall * 1e3),
+               "launches": all_launches(fused, paulis, bigstate),
+               "last_lines": text.strip().splitlines()[-3:]}
+        if script == "grovers_search.py":
+            probs = printed_numbers(text, "= ")
+            check(probs and probs[-1] >= 0.98, f"example {label}: the "
+                  f"search ends at P(solution) {probs[-1:]}")
+            rec["final_prob_of_solution"] = probs[-1]
+        elif script == "vqe_train.py":
+            e = printed_numbers(text, "energy =")
+            check(e[-1] < e[0], f"example {label}: energy {e[0]} -> {e[-1]}")
+            rec["energy_first_last"] = [e[0], e[-1]]
+        elif script == "qaoa_maxcut.py":
+            cut = printed_numbers(text, "expected cut =")
+            total = printed_numbers(text, "total weight")[0]
+            check(cut[-1] > cut[0] and cut[-1] <= total, f"example "
+                  f"{label}: cut {cut[0]} -> {cut[-1]} of {total}")
+            rec["cut_first_last"] = [cut[0], cut[-1]]
+        elif script == "trotter_evolution.py":
+            check(rec["launches"].get("K3", 0) > 0
+                  and rec["launches"].get("K4", 0) > 0,
+                  f"example {label}: K3 or K4 never launched")
+        elif script in ("shot_sampling.py", "phase_estimation.py"):
+            check(rec["launches"].get("K1", 0) > 0, f"example {label}: its "
+                  "gateFusion drains launched no K1")
+        out[label] = rec
+    return out
+
+
+def sides_on(torch, np, rng, nb, per, dtype, exact=None):
+    """Rank-1 cluster side stacks (A, B) on the card: shared (1, 2, 128,
+    128), or per element (B, 1, 2, 128, 128) with the elements in
+    ``exact`` 0/1 permutations (TF32 values)."""
+    def one(b):
+        op = (permutation_pass(rng, 7, "AB") if exact and b in exact
+              else random_pass(rng, 7, 1, "AB", False))
+        return op[2], op[3]
+
+    pairs = [one(b) for b in range(nb if per else 1)]
+    if per:
+        a, bm = (np.stack([p[j] for p in pairs]) for j in (0, 1))
+    else:
+        a, bm = pairs[0]
+    return tuple(torch.as_tensor(m, dtype=dtype, device=DEVICE)
+                 for m in (a, bm))
+
+
+def phase_bank_forms_parity(torch, np, fused, bigstate):
+    """K12's and K10's bank forms on banks of 3 against their scalar
+    launches, element by element, bit for bit, and against their plain
+    versions: K12 over PREC_SWAPS at 20 qubits, float32 and float64,
+    sides shared and per element (a float32 bank mixing 0/1 and inexact
+    sides: two splits in one launch); K10 over SIGMA_PARITY, and a bank
+    whose grid exceeds the z limit refused before any launch."""
+    n, nb = N_BANK_FORMS_PARITY, B_BANK_PARITY
+    rng = np.random.default_rng(8642)
+    out = {"n": n, "batch": nb, "k12_cases": [], "k10_cases": [],
+           "k12_max_abs_err": 0.0, "k10_max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        x = random_bank(torch, np, rng, n, nb, dtype)
+        tol = tolerance(x[0])
+        for per in (False, True):
+            exact = {1} if per and dtype == torch.float32 else None
+            a, bm = sides_on(torch, np, rng, nb, per, dtype, exact)
+            for h, bq, m in PREC_SWAPS:
+                fused.reset_launch_counts()
+                y = fused.apply_swap_cluster_stack(x, a, bm, num_qubits=n,
+                                                   h=h, b=bq, m=m)
+                sync()
+                check(fused.LAUNCHES["K12_bank"] == 1
+                      and fused.LAUNCHES["K12"] == 0,
+                      f"K12 bank: launches {fused.LAUNCHES}")
+                for b in range(nb):
+                    ea, eb = (a[b], bm[b]) if per else (a, bm)
+                    ys = fused.apply_swap_cluster_stack(
+                        x[b], ea, eb, num_qubits=n, h=h, b=bq, m=m)
+                    sync()
+                    check(torch.equal(y[b], ys), f"K12 bank {name} "
+                          f"per={per} {(h, bq, m)} element {b}: not its "
+                          "scalar launch bit for bit")
+                    err = float((y[b] - fused.swap_cluster_stack_plain(
+                        x[b], ea, eb, num_qubits=n, h=h, b=bq,
+                        m=m)).abs().max())
+                    check(err <= tol, f"K12 bank {name} element {b}: "
+                          f"|err| {err} > {tol}")
+                    out["k12_max_abs_err"] = max(out["k12_max_abs_err"], err)
+                out["k12_cases"].append([name, per, h, bq, m])
+        del x
+    for m, g in SIGMA_PARITY:
+        x = torch.stack([random_state(torch, m, 1357 + b)
+                         for b in range(nb)])
+        bigstate.reset_launch_counts()
+        y = bigstate.apply_sigma_swap(x.clone(), num_qubits=m, group_bits=g)
+        sync()
+        check(bigstate.LAUNCHES == {"K10": 0, "K10_bank": 1},
+              f"K10 bank: launches {bigstate.LAUNCHES}")
+        for b in range(nb):
+            ys = bigstate.apply_sigma_swap(x[b].clone(), num_qubits=m,
+                                           group_bits=g)
+            yp = bigstate.sigma_swap_plain(x[b], num_qubits=m, group_bits=g)
+            sync()
+            err = float((y[b] - yp).abs().max())
+            out["k10_max_abs_err"] = max(out["k10_max_abs_err"], err)
+            check(torch.equal(y[b], ys) and torch.equal(y[b], yp),
+                  f"K10 bank n={m} g={g} element {b}: not its scalar "
+                  f"launch and plain version bit for bit (|err| {err})")
+            del ys, yp
+        out["k10_cases"].append([m, g])
+        del x, y
+        torch.cuda.empty_cache()
+    # the grid limit: 16 x 2^(20 - 8) = 65536 blocks on z
+    big = torch.zeros((16, 2, 1 << 20), device=DEVICE)
+    bigstate.reset_launch_counts()
+    try:
+        bigstate.apply_sigma_swap(big, num_qubits=20, group_bits=2)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and bigstate.LAUNCHES["K10_bank"] == 0,
+          "K10 bank: a grid over the z limit was not refused")
+    out["k10_grid_limit_refused"] = [16, 20, 2]
+    del big
+    return out
+
+
+def bank_form_timing(torch, bank_call, scalar_call, plain_call, nb,
+                     bound, bound_by):
+    """One bank-form record: the bank launch's ms against B scalar
+    launches (CUDA events, median), its plain version's ms, the bound."""
+    ms = time_ms(bank_call, reps=5)
+    return {"ms": ms, "scalar_x_b_ms": time_ms(scalar_call, reps=5),
+            "plain_ms": time_ms(plain_call, reps=3, warmup=1),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "batch": nb, "fraction_of_bound": bound / ms}
+
+
+def bank_plain_err(y, x, plain_of, label) -> float:
+    """The largest |y[b] - plain_of(b)| over a bank's elements, each
+    checked against the tolerance on its input x[b]."""
+    worst = 0.0
+    for b in range(y.shape[0]):
+        err = float((y[b] - plain_of(b)).abs().max())
+        tol = tolerance(x[b])
+        check(err <= tol, f"{label} element {b}: |err| {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
+    """R7a: randomized compiling of config 2 at 26 qubits x 8 under
+    QT_PLANNER=paged (each element's paged plan of its own unitaries,
+    stacked, through execute_plan on the bank): K11_bank and K12_bank
+    launches equal to the plan's fused and swapfused ops, and every
+    element torch.equal to its own scalar paged drain.  R7b: execute_plan
+    of the 30-qubit bit reversal (circuit.bit_reversal_ops on the card:
+    four K1 passes and the in-place sigma swap) on a float32 bank of 2 x
+    2^30 (17.2 GB): K1_bank and K10_bank launches, each element
+    torch.equal to its scalar route.  Each form timed against B scalar
+    launches and its plain version."""
+    out = {}
+    # R7a
+    n, nb = N_R7A, B_R7A
+    _cus, us = bank_unitaries(np, circuits, n, nb, DEPTH)
+    with planner_env("paged"):
+        t0 = time.perf_counter()
+        plans = [C.plan_circuit(circuits.bench_gate_list(n, DEPTH, u), n,
+                                planner="paged") for u in us]
+        plan_s = time.perf_counter() - t0
+        skeleton, arrays = C.split_plan(plans[0])
+        per = [arrays]
+        for p in plans[1:]:
+            sk, arr = C.split_plan(p)
+            check(sk == skeleton, "the paged plans' skeletons differ")
+            per.append(arr)
+        bplan = C.rebuild_plan(skeleton, [
+            np.stack([np.asarray(p[j]) for p in per])
+            for j in range(len(per[0]))])
+        pst = C.stats(bplan)
+        bops = C.plan_to_device(bplan, torch.float32, DEVICE)
+        fused.reset_launch_counts()
+        bigstate.reset_launch_counts()
+        a = torch.zeros((nb, 2, 1 << n), dtype=torch.float32, device=DEVICE)
+        a[:, 0, 0] = 1.0
+        sync()
+        t0 = time.perf_counter()
+        a = C.execute_plan(a, bops, n)
+        sync()
+        wall = time.perf_counter() - t0
+        got = {**bank_launches(fused), "K11": fused.LAUNCHES["K11"],
+               "K12": fused.LAUNCHES["K12"]}
+        check(got["K11_bank"] == pst["fused"]
+              and got["K12_bank"] == pst["swapfused"]
+              and got["K11"] == got["K12"] == 0 and got["K11_bank"] > 0
+              and got["K12_bank"] > 0,
+              f"R7a: bank launches {got} != one per pass of {pst}")
+        scalar_walls = []
+        for b in range(nb):
+            sops = C.plan_to_device(plans[b], torch.float32, DEVICE)
+            z = torch.zeros((2, 1 << n), dtype=torch.float32, device=DEVICE)
+            z[0, 0] = 1.0
+            sync()
+            t0 = time.perf_counter()
+            z = C.execute_plan(z, sops, n)
+            sync()
+            scalar_walls.append(time.perf_counter() - t0)
+            check(torch.equal(z, a[b]), f"R7a element {b}: not its scalar "
+                  "paged drain bit for bit")
+            del z, sops
+        launches_a = {k: got[k] for k in ("K11_bank", "K12_bank")}
+        # K12's and K11's bank forms at this bank's shapes: a rank-1
+        # swapfused op with the plan's largest m, and a rank-1 fused op
+        sw = max((op for op in bops if op[0] == "swapfused"
+                  and op[4].shape[1] == 1), key=lambda op: op[3])
+        fu = next(op for op in bops if op[0] == "fused"
+                  and op[1].shape[1] == 1)
+        x = a
+        num_amps = 1 << n
+        state_bytes = 2 * num_amps * 4
+        k12_bound, k12_by = bound_ms(
+            [("winfused", 7, sw[4][0], sw[5][0], True, True, None)],
+            state_bytes, num_amps, "float32")
+        k12 = bank_form_timing(
+            torch,
+            lambda: fused.apply_swap_cluster_stack(
+                x, sw[4], sw[5], num_qubits=n, h=sw[1], b=sw[2], m=sw[3]),
+            lambda: [fused.apply_swap_cluster_stack(
+                x[b], sw[4][b], sw[5][b], num_qubits=n, h=sw[1], b=sw[2],
+                m=sw[3]) for b in range(nb)],
+            lambda: [fused.swap_cluster_stack_plain(
+                x[b], sw[4][b], sw[5][b], num_qubits=n, h=sw[1], b=sw[2],
+                m=sw[3]) for b in range(nb)],
+            nb, nb * k12_bound, k12_by)
+        y = fused.apply_swap_cluster_stack(x, sw[4], sw[5], num_qubits=n,
+                                           h=sw[1], b=sw[2], m=sw[3])
+        k12["max_abs_err"] = bank_plain_err(
+            y, x, lambda b: fused.swap_cluster_stack_plain(
+                x[b], sw[4][b], sw[5][b], num_qubits=n, h=sw[1], b=sw[2],
+                m=sw[3]), "R7a K12 bank")
+        k12["m"] = sw[3]
+        k11_bound, k11_by = bound_ms(
+            [("winfused", 7, fu[1][0], fu[2][0], True, True, None)],
+            state_bytes, num_amps, "float32")
+        k11 = bank_form_timing(
+            torch,
+            lambda: fused.apply_cluster_stack(x, fu[1], fu[2], num_qubits=n),
+            lambda: [fused.apply_cluster_stack(x[b], fu[1][b], fu[2][b],
+                                               num_qubits=n)
+                     for b in range(nb)],
+            lambda: [fused.cluster_stack_plain(x[b], fu[1][b], fu[2][b],
+                                               num_qubits=n)
+                     for b in range(nb)],
+            nb, nb * k11_bound, k11_by)
+        y = fused.apply_cluster_stack(x, fu[1], fu[2], num_qubits=n)
+        k11["max_abs_err"] = bank_plain_err(
+            y, x, lambda b: fused.cluster_stack_plain(
+                x[b], fu[1][b], fu[2][b], num_qubits=n), "R7a K11 bank")
+        del y, x, a, bops
+        torch.cuda.empty_cache()
+    out["r7a"] = {"n": n, "batch": nb, "depth": DEPTH,
+                  "plan": {k: v for k, v in pst.items() if v},
+                  "plan_seconds_all_elements": plan_s,
+                  "bank_drain_wall_s": wall,
+                  "scalar_drains_wall_s": sum(scalar_walls),
+                  "launches": launches_a,
+                  "elements_equal_scalar": list(range(nb)),
+                  "k12_bank": k12, "k11_bank": k11}
+
+    # R7b
+    n, nb = N_R7B, B_R7B
+    ops = C.bit_reversal_ops(n, [(0, n)], np.float32, device=DEVICE)
+    check(ops is not None and [op[0] for op in ops].count("sigma_swap") == 1,
+          f"R7b: the 30-qubit reversal has no sigma swap: {ops}")
+    dops = C.plan_to_device(ops, torch.float32, DEVICE)
+    bank = torch.empty((nb, 2, 1 << n), dtype=torch.float32, device=DEVICE)
+    for b in range(nb):
+        bank[b] = random_state(torch, n, 24680 + b)
+    fused.reset_launch_counts()
+    bigstate.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    bank = C.execute_plan(bank, dops, n)
+    sync()
+    wall = time.perf_counter() - t0
+    got = {**bank_launches(fused), "K10": bigstate.LAUNCHES["K10"]}
+    want_k1 = sum(1 for op in ops if op[0] == "winfused")
+    check(got["K1_bank"] == want_k1 and got["K10_bank"] == 1
+          and got["K1"] == got["K10"] == 0,
+          f"R7b: bank launches {got}, the plan holds {want_k1} window "
+          "passes and one sigma swap")
+    for b in range(nb):
+        z = C.execute_plan(random_state(torch, n, 24680 + b), dops, n)
+        sync()
+        check(torch.equal(z, bank[b]), f"R7b element {b}: not its scalar "
+              "route bit for bit")
+        del z
+        torch.cuda.empty_cache()
+    g = dops[-1][1]
+    num_amps = 1 << n
+    k10 = bank_form_timing(
+        torch,
+        lambda: bigstate.apply_sigma_swap(bank, num_qubits=n, group_bits=g),
+        lambda: [bigstate.apply_sigma_swap(bank[b], num_qubits=n,
+                                           group_bits=g) for b in range(nb)],
+        lambda: bigstate.sigma_swap_plain(bank[0], num_qubits=n,
+                                          group_bits=g),
+        nb, nb * 2 * 2 * num_amps * 4 / HBM_BYTES_PER_S * 1e3, "bytes")
+    # the plain version above is one element's: the bank's is B of them
+    k10["plain_ms"] *= nb
+    k10["plain_note"] = "B x one element's out-of-place relabel"
+    # one bank launch against each element's plain relabel of the same
+    # input: a pure permutation, so exactly equal
+    plains = [bigstate.sigma_swap_plain(bank[b], num_qubits=n, group_bits=g)
+              for b in range(nb)]
+    bigstate.apply_sigma_swap(bank, num_qubits=n, group_bits=g)
+    sync()
+    k10["max_abs_err"] = 0.0
+    for b in range(nb):
+        err = float((bank[b] - plains[b]).abs().max())
+        k10["max_abs_err"] = max(k10["max_abs_err"], err)
+        check(torch.equal(bank[b], plains[b]), f"R7b K10 bank element {b}: "
+              f"not its plain relabel bit for bit (|err| {err})")
+    del plains
+    out["r7b"] = {"n": n, "batch": nb, "bank_bytes": bank.numel() * 4,
+                  "plan": [op[0] for op in ops], "bank_wall_s": wall,
+                  "launches": {k: got[k] for k in ("K1_bank", "K10_bank")},
+                  "elements_equal_scalar": list(range(nb)),
+                  "k10_bank": k10}
+    del bank, dops
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9029,7 +9502,28 @@ def main() -> int:
         aot["seconds"] = time.perf_counter() - t_aot
     emit({"phase": "aot_main", "power": smi, **aot})
 
-    # 42. kernels
+    # 49. the port's examples (examples/torch/) on the card
+    t_ex = time.perf_counter()
+    examples = phase_examples_main(torch, np, fused, paulis, bigstate)
+    emit({"phase": "examples_main", "power": smi, "examples": examples,
+          "seconds": time.perf_counter() - t_ex})
+
+    # 50. K12's and K10's bank forms against their scalar launches
+    bfparity = phase_bank_forms_parity(torch, np, fused, bigstate)
+    emit({"phase": "bank_forms_parity", **bfparity})
+
+    # 51. K11 and K12 on a paged randomized-compiling bank (R7a), K1 and
+    # K10 on the 30-qubit reversal of a bank of 2 (R7b)
+    t_bf = time.perf_counter()
+    bforms = phase_bank_forms_main(torch, np, C, fused, bigstate, circuits)
+    emit({"phase": "bank_forms_main", "power": smi, **bforms,
+          "seconds": time.perf_counter() - t_bf})
+    r7a, r7b = bforms["r7a"], bforms["r7b"]
+    launches.update(K11_bank=r7a["launches"]["K11_bank"],
+                    K12_bank=r7a["launches"]["K12_bank"],
+                    K10_bank=r7b["launches"]["K10_bank"])
+
+    # 52. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
         key = key or kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -9184,8 +9678,34 @@ def main() -> int:
     k5b["batch"] = db["batch"]
     k5b["library_note"] = ("none: no single PyTorch call applies a "
                            "pair-channel sweep")
-    for e in (k1b, k2b, k5b):
+    # K11's, K12's and K10's bank forms: their launches and times on the
+    # paged randomized-compiling bank and the 30-qubit reversal's bank
+    k11b = entry("K11 cluster pass, bank form", "quest_tpu/ops/fused.py:543",
+                 r7a["k11_bank"], r7a["k11_bank"]["max_abs_err"],
+                 key="K11_bank")
+    k11b["kernel"] = "window_pass_kernel"
+    k12b = entry("K12 segment swap + cluster pass, bank form",
+                 "quest_tpu/ops/fused.py:271", r7a["k12_bank"],
+                 max(r7a["k12_bank"]["max_abs_err"],
+                     bfparity["k12_max_abs_err"]), key="K12_bank")
+    k12b["kernel"] = "swap_cluster_kernel"
+    k10b = entry("K10 sigma swap, bank form",
+                 "quest_tpu/ops/bigstate.py:108", r7b["k10_bank"],
+                 max(r7b["k10_bank"]["max_abs_err"],
+                     bfparity["k10_max_abs_err"]), "qft.cu", key="K10_bank")
+    k10b["kernel"] = "sigma_swap_kernel"
+    for e, rec in ((k11b, r7a["k11_bank"]), (k12b, r7a["k12_bank"]),
+                   (k10b, r7b["k10_bank"])):
+        e["batch"] = rec["batch"]
+        e["scalar_x_b_ms"] = rec["scalar_x_b_ms"]
+        e["library_note"] = "none: no single PyTorch call over the bank"
+    for e in (k1b, k2b, k5b, k11b, k12b, k10b):
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
+    # the kernels the examples launched on the card, by example
+    for e, key in ((k1e, "K1"), (k2e, "K2"), (k3e, "K3"), (k4e, "K4")):
+        e["examples"] = {label: rec["launches"][key]
+                         for label, rec in examples.items()
+                         if rec["launches"].get(key)}
     # K1, K2 and K5 run per shard on the dist phases: each shard of a
     # sharded register launches the same local program
     for e, key in ((k1e, "K1"), (k2e, "K2"), (k5e, "K5")):
@@ -9248,7 +9768,7 @@ def main() -> int:
           and sum(k2e["aot"].values()) + sum(k2b["aot"].values()) > 0,
           "a window kernel never launched on the plan cache's path")
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
-                      k11e, k12e, k1b, k2b, k5b]})
+                      k11e, k12e, k1b, k2b, k5b, k11b, k12b, k10b]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

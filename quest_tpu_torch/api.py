@@ -37,10 +37,12 @@ from . import governor as _gov
 from . import telemetry as _telemetry
 from . import validation as V
 from .ops import cplx as CX
+from .ops import density as D
 from .ops import gatedefs as G
 from .ops import element as E
 from .ops import kernels as K
 from .ops.paulis import PAULI_I, PAULI_X, PAULI_Y, PAULI_Z
+from .ops.phasefunc import TWOS_COMPLEMENT, UNSIGNED
 from .parallel import dist as PAR
 from .parallel import sharded as SH
 from .qureg import DiagonalOp, PauliHamil, Qureg
@@ -72,12 +74,8 @@ getEnvironmentString = _env.get_environment_string
 seedQuEST = _env.seed_quest
 seedQuESTDefault = _env.seed_quest_default
 syncQuESTSuccess = _env.sync_quest_success
+reportQuESTEnv = _env.report_quest_env
 QuESTError = V.QuESTError
-
-
-def reportQuESTEnv(env: _env.QuESTEnv) -> None:
-    """Print execution-environment parameters (QuEST.h:1893)."""
-    print(getEnvironmentString(env))
 
 
 def copyStateToGPU(qureg: Qureg) -> None:
@@ -297,7 +295,8 @@ def initPureState(qureg: Qureg, pure: Qureg) -> None:
     psi = pure.amps
     if isinstance(psi, SH.ShardedAmps):
         psi = SH.gather_device(psi)
-    _put(qureg, lambda: K.init_pure_density(psi).to(qureg.dtype),
+    _put(qureg, lambda: D.init_pure_state_density(
+             psi, num_qubits=qureg.num_qubits_represented).to(qureg.dtype),
          lambda mesh, nloc, dt: SH.pure_density(
              mesh, psi, qureg.num_qubits_represented, nloc, dt))
 

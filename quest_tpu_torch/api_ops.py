@@ -220,10 +220,7 @@ def collapseToOutcome(qureg: Qureg, measureQubit: int, outcome: int) -> float:
     V.validate_target(qureg, measureQubit, "collapseToOutcome")
     V.validate_outcome(outcome, "collapseToOutcome")
     prob = calcProbOfOutcome(qureg, measureQubit, outcome)
-    if prob < real_eps():
-        raise V.QuESTError(
-            "collapseToOutcome: Can't collapse to state with zero "
-            "probability.")
+    V.validate_measurement_prob(prob, "collapseToOutcome")
     _collapse(qureg, measureQubit, outcome, prob)
     qureg.qasm_log.comment(
         f"collapseToOutcome({outcome}) on qubit {measureQubit}")
@@ -1304,18 +1301,11 @@ def _qft_qasm_trail(qureg: Qureg, qubits, nt: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def setCircuitOptimizer(mode: Optional[str]) -> None:
-    """Select the circuit optimizer's mode for later fusion drains:
-    ``"off"``, ``"on"`` (cancellation/merging and diagonal and
-    permutation coalescing) or ``"aggressive"`` (also drops merged pairs
-    that are the identity up to rounding).  ``None`` returns control to
-    the ``QT_OPTIMIZER`` environment variable."""
-    _optimizer.set_circuit_optimizer(mode)
-
-
-def getCircuitOptimizer() -> str:
-    """The active circuit-optimizer mode."""
-    return _optimizer.get_circuit_optimizer()
+# "off", "on" (cancellation, merging, diagonal and permutation coalescing)
+# or "aggressive" (also drops merged pairs that are the identity up to
+# rounding); None returns control to QT_OPTIMIZER
+setCircuitOptimizer = _optimizer.setCircuitOptimizer
+getCircuitOptimizer = _optimizer.getCircuitOptimizer
 
 
 # ---------------------------------------------------------------------------

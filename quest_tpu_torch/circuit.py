@@ -1337,19 +1337,20 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int,
     the reference's jax.vmap of its plan executor, quest_tpu/fusion.py
     _plan_runner), whose ops' arrays are shared or carry a leading B axis
     per element (``fused.bank_element_op``).  Window passes, megawin
-    groups and cluster passes then take the whole bank in one launch
-    each; the data-movement ops take it as a batch dimension
-    (``torch.vmap``, exact); dense ``apply`` ops, whose batched product
-    would sum in another order, and the swap + cluster (K12) and sigma
-    swap (K10) passes, whose bank forms are later work, run element by
-    element.  Each element's result equals its own drain's bit for
-    bit."""
+    groups, cluster and swap + cluster passes and sigma swaps then take
+    the whole bank in one launch each (K1, K2, K11, K12, K10); the
+    data-movement ops take it as a batch dimension (``torch.vmap``,
+    exact); only dense ``apply`` ops, whose batched product would sum in
+    another order, run element by element.  Each element's result equals
+    its own drain's bit for bit.  A sigma swap on a bank comes only from
+    a plan of ``bit_reversal_ops`` at n >= 30 run here: no public API
+    sends a QFT into a bank drain."""
     n = num_qubits
     precision = fused.resolve_precision(precision)
     nb = fused.bank_size(amps, n)
     for op in ops:
         kind = op[0]
-        if nb and kind in ("apply", "swapfused", "sigma_swap"):
+        if nb and kind == "apply":
             amps = torch.stack([execute_plan(
                 amps[b], [fused.bank_element_op(op, b)], n,
                 precision=precision) for b in range(nb)])

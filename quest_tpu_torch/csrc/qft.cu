@@ -209,8 +209,11 @@ qft_sublane_kernel(float* __restrict__ x, u64 num_amps, int t_hi, int t_lo,
     }
 }
 
-// grid: (tiles of a slab, unordered pairs c <= d, b); view [ch, G2, G1, b,
-// s, l] with slab (c, d) = (G1 = c, s = d), element (x, y) = (G2, l).
+// grid: (tiles of a slab, unordered pairs c <= d, e * 2^(n-4g) + b);
+// view [ch, G2, G1, b, s, l] with slab (c, d) = (G1 = c, s = d), element
+// (x, y) = (G2, l).  Over a bank of registers (the reference's vmapped
+// _sigma_swap_jit), register e's planes lie e * 2 * num_amps on; one
+// register is a bank of one.
 __global__ void __launch_bounds__(SIG_THREADS)
 sigma_swap_kernel(float* __restrict__ x, u64 num_amps, int n, int g,
                   const int* __restrict__ ctab, const int* __restrict__ dtab) {
@@ -226,7 +229,9 @@ sigma_swap_kernel(float* __restrict__ x, u64 num_amps, int n, int g,
     const u64 sB = (u64)G * G;                  // b stride
     const u64 sG1 = sB << (n - 4 * g);          // G1 stride
     const u64 sG2 = sG1 * G;                    // G2 stride
-    const u64 b = blockIdx.z;
+    const int bbits = n - 4 * g;
+    const u64 b = blockIdx.z & ((1u << bbits) - 1);
+    x += (u64)(blockIdx.z >> bbits) * 2 * num_amps;     // register e
     const u64 base_a = (u64)c * sG1 + b * sB + (u64)d * sS;   // slab (c, d)
     const u64 base_b = (u64)d * sG1 + b * sB + (u64)c * sS;   // slab (d, c)
     const int x0 = ti * T, y0 = tj * T;
@@ -321,16 +326,21 @@ int qt_qft_sublane_f32(float* x, int n, int t_hi, int t_lo, const float* tab,
 }
 
 // K10: sigma over the unordered pairs (ctab[i], dtab[i]), c <= d, on the
-// card (ops/bigstate.py sigma_pair_tables).
+// card (ops/bigstate.py sigma_pair_tables), over a bank of nbank
+// registers (x: (nbank, 2, 2^n); one register is nbank = 1), the
+// register folded into grid z beside the b index: nbank * 2^(n-4g)
+// blocks, at most the z limit of 65535.
 int qt_sigma_swap_f32(float* x, int n, int g, const int* ctab,
-                      const int* dtab, int npairs, void* stream) {
+                      const int* dtab, int npairs, int nbank, void* stream) {
     if (g < 1 || g > 8 || 4 * g > n || n > 40 ||
         npairs != ((1 << g) * ((1 << g) + 1)) / 2 ||
-        (n - 4 * g) > 15)
+        (n - 4 * g) > 15 || nbank < 1 ||
+        ((long long)nbank << (n - 4 * g)) > 65535)
         return (int)cudaErrorInvalidValue;
     const int G = 1 << g;
     const int T = G < SIG_TILE ? G : SIG_TILE;
-    const dim3 grid((G / T) * (G / T), npairs, 1u << (n - 4 * g));
+    const dim3 grid((G / T) * (G / T), npairs,
+                    (unsigned)nbank << (n - 4 * g));
     sigma_swap_kernel<<<grid, SIG_THREADS, 0, (cudaStream_t)stream>>>(
         x, 1ull << n, n, g, ctab, dtab);
     return (int)cudaGetLastError();

@@ -189,8 +189,8 @@
 // kernels under jax.vmap (quest_tpu/fusion.py _plan_runner, batch flags
 // 1 and 2), whose batching rule prepends a grid axis; here the element
 // index is folded into the grid, and one register is a bank of one.
-// K1 (and K11, the same kernel at k = 7) takes a register's (slab,
-// chunk) items on blockIdx.x and the element on blockIdx.y (the
+// K1 (and K11, the same kernel at k = 7) and K12 take a register's
+// (slab, chunk) items on blockIdx.x and the element on blockIdx.y (the
 // reference's prepended grid axis); K2 numbers element b's
 // super-blocks b * SB + s, so that its ticket decode, done-counters and
 // slot ring run unchanged over B * SB super-blocks, and mega_operands
@@ -1258,31 +1258,25 @@ __device__ __forceinline__ void init_ring(uint64_t* bars, int count) {
     __syncthreads();
 }
 
-// K1 (and K11): one (slab, lane chunk) item per CTA, blockIdx.x; over a
-// bank, of element b = blockIdx.y, whose state and output lie 2 * plane
-// elements on.  The pass is the shared `p`, or with OWN
-// (a bank whose elements carry their own passes) element b's descriptor
-// elems[b] (its sides, mask and split), staged in shared memory; one
-// register, or a bank of shared passes, runs the OWN = false kernel,
-// whose pass stays a kernel parameter.
-template <typename T, int FAM, bool OWN>
-__global__ void __launch_bounds__(NTHREADS, 1)
-window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
-                   long long plane, QtPass p,
-                   const QtPass* __restrict__ elems) {
+// One item of K1 or K12 over a bank: element b = blockIdx.y, whose
+// state and output lie 2 * plane elements on, with source rows `src`.
+// The pass is the shared `p`, or with OWN (a bank whose elements carry
+// their own passes) element b's descriptor elems[b] (its sides, mask and
+// split), staged in shared memory; one register, or a bank of shared
+// passes, runs the OWN = false kernel, whose pass stays a kernel
+// parameter.
+template <typename T, int FAM, bool OWN, typename Rows>
+__device__ __forceinline__ void run_bank_item(
+        const T* __restrict__ x, T* __restrict__ y, long long plane,
+        Rows src, long long base, long long wstride, int chunk,
+        const QtPass& p, const QtPass* __restrict__ elems) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
     __shared__ uint64_t bars[STAGES];
     T* smem = reinterpret_cast<T*>(smem_raw);
-    const int chunk = blockIdx.x % nchunk<T>();
-    const long long slab = blockIdx.x / nchunk<T>();
-    const long long mid = 1LL << (p.k - 7);
-    const long long h = slab / mid, m = slab % mid;
-    const long long base = (h * DIM * mid + m) * DIM;
     const T* xe = x + (long long)blockIdx.y * 2 * plane;
     T* ye = y + (long long)blockIdx.y * 2 * plane;
-    const ItemArgs<T, StridedRows> ia{xe, xe + plane, ye, ye + plane,
-                                      StridedRows{base, mid * DIM}, base,
-                                      mid * DIM, chunk * Cfg<T>::LC};
+    const ItemArgs<T, Rows> ia{xe, xe + plane, ye, ye + plane, src, base,
+                               wstride, chunk * Cfg<T>::LC};
     NoNext none;
     if constexpr (OWN) {
         __shared__ QtPass ep;
@@ -1295,25 +1289,37 @@ window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
     }
 }
 
-// K12: one (output slab, lane chunk) item per CTA, the slab's rows
-// gathered across the segment swap (SwappedRows); k = 7, so the output
-// slab is 128 x 128 consecutive amplitudes of each plane.
-template <typename T, int FAM>
+// K1 (and K11): one (slab, lane chunk) item per CTA, blockIdx.x, of the
+// pass's strided slabs; over a bank as run_bank_item says.
+template <typename T, int FAM, bool OWN>
 __global__ void __launch_bounds__(NTHREADS, 1)
-swap_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
-                    long long plane, QtPass p, int hs, int bs, int mask) {
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    __shared__ uint64_t bars[STAGES];
-    T* smem = reinterpret_cast<T*>(smem_raw);
+window_pass_kernel(const T* __restrict__ x, T* __restrict__ y,
+                   long long plane, QtPass p,
+                   const QtPass* __restrict__ elems) {
     const int chunk = blockIdx.x % nchunk<T>();
     const long long slab = blockIdx.x / nchunk<T>();
-    const ItemArgs<T, SwappedRows> ia{x, x + plane, y, y + plane,
-                                      SwappedRows{slab, hs, bs, mask},
-                                      slab * DIM * DIM, DIM,
-                                      chunk * Cfg<T>::LC};
-    NoNext none;
-    init_ring(bars, NTHREADS);
-    run_item<T, FAM>(ia, p, smem, bars, 0, false, none);
+    const long long mid = 1LL << (p.k - 7);
+    const long long h = slab / mid, m = slab % mid;
+    const long long base = (h * DIM * mid + m) * DIM;
+    run_bank_item<T, FAM, OWN>(x, y, plane, StridedRows{base, mid * DIM},
+                               base, mid * DIM, chunk, p, elems);
+}
+
+// K12: one (output slab, lane chunk) item per CTA, the slab's rows
+// gathered across the segment swap (SwappedRows); k = 7, so the output
+// slab is 128 x 128 consecutive amplitudes of each plane.  Over a bank
+// as run_bank_item says.
+template <typename T, int FAM, bool OWN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+swap_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
+                    long long plane, QtPass p,
+                    const QtPass* __restrict__ elems, int hs, int bs,
+                    int mask) {
+    const int chunk = blockIdx.x % nchunk<T>();
+    const long long slab = blockIdx.x / nchunk<T>();
+    run_bank_item<T, FAM, OWN>(x, y, plane,
+                               SwappedRows{slab, hs, bs, mask},
+                               slab * DIM * DIM, DIM, chunk, p, elems);
 }
 
 // ---------------------------------------------------------------------------
@@ -1789,47 +1795,58 @@ static int launch_window_pass(const T* x, T* y, int n, int nbank,
     }
 }
 
-// K12: the segment swap [h, h+m) <-> [bq, bq+m), then K11's operator.
+// K12: the segment swap [h, h+m) <-> [bq, bq+m), then K11's operator,
+// over a bank of `nbank` registers, as K1.
 template <typename T, int FAM>
-static int launch_swap_cluster_as(const T* x, T* y, int n,
-                                  const QtPass& pass, int h, int bq, int m,
-                                  void* stream) {
+static int launch_swap_cluster_as(const T* x, T* y, int n, int nbank,
+                                  const QtPass& pass, const QtPass* elems,
+                                  int h, int bq, int m, void* stream) {
     const size_t smem = smem_bytes<T>();
+    const auto kernel = elems != nullptr ? swap_cluster_kernel<T, FAM, true>
+                                         : swap_cluster_kernel<T, FAM, false>;
     cudaError_t err = cudaFuncSetAttribute(
-        swap_cluster_kernel<T, FAM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long plane = 1LL << n;
     const long long nslab = 1LL << (n - 14);
-    swap_cluster_kernel<T, FAM><<<(unsigned)(nslab * nchunk<T>()), NTHREADS,
-                                  smem, (cudaStream_t)stream>>>(
-        x, y, plane, pass, h - 14, bq - 7, (1 << m) - 1);
+    const dim3 grid((unsigned)(nslab * nchunk<T>()), (unsigned)nbank);
+    kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+        x, y, plane, pass, elems, h - 14, bq - 7, (1 << m) - 1);
     return (int)cudaGetLastError();
 }
 
+// K12 over a bank (one register is nbank = 1): `pass` holds the rank,
+// the side images and the split (element 0's, with `elems_host`, whose
+// device copy `elems_dev` the elements read), k = 7, both sides, no
+// mask.
 template <typename T>
-static int launch_swap_cluster(const T* x, T* y, int n, int rank,
-                               const T* a, const T* b, int split, int h,
-                               int bq, int m, void* stream) {
-    const QtPass pass{7, rank, 1, 1, split, a, b, nullptr};
-    if (n < 14 || !pass_ok(pass, n) || m < 1 || h < 14 || h + m > n ||
-        bq < 7 || bq + m > 14 || !aligned16(x) || !aligned16(y))
+static int launch_swap_cluster(const T* x, T* y, int n, int nbank,
+                               const QtPass* pass, const QtPass* elems_host,
+                               const QtPass* elems_dev, int h, int bq, int m,
+                               void* stream) {
+    if (pass == nullptr || n < 14 || nbank < 1 || nbank > 65535 ||
+        !pass_ok(*pass, n) || pass->k != 7 || !pass->apply_a ||
+        !pass->apply_b || pass->mask != nullptr || m < 1 || h < 14 ||
+        h + m > n || bq < 7 || bq + m > 14 || !aligned16(x) ||
+        !aligned16(y) || (elems_host == nullptr) != (elems_dev == nullptr))
         return (int)cudaErrorInvalidValue;
+    for (int b = 0; elems_host != nullptr && b < nbank; ++b)
+        if (!pass_ok(elems_host[b], n) || !same_shape(elems_host[b], *pass))
+            return (int)cudaErrorInvalidValue;
     if constexpr (sizeof(T) == 8) {
-        return launch_swap_cluster_as<T, FAMILY_HIGHEST>(x, y, n, pass, h,
-                                                         bq, m, stream);
+        return launch_swap_cluster_as<T, FAMILY_HIGHEST>(
+            x, y, n, nbank, *pass, elems_dev, h, bq, m, stream);
     } else {
-        switch (split_family(split)) {
+        switch (split_family(pass->split)) {
             case FAMILY_TF32:
-                return launch_swap_cluster_as<T, FAMILY_TF32>(x, y, n, pass, h,
-                                                              bq, m, stream);
+                return launch_swap_cluster_as<T, FAMILY_TF32>(
+                    x, y, n, nbank, *pass, elems_dev, h, bq, m, stream);
             case FAMILY_BF16:
-                return launch_swap_cluster_as<T, FAMILY_BF16>(x, y, n, pass, h,
-                                                              bq, m, stream);
+                return launch_swap_cluster_as<T, FAMILY_BF16>(
+                    x, y, n, nbank, *pass, elems_dev, h, bq, m, stream);
             default:
-                return launch_swap_cluster_as<T, FAMILY_HIGHEST>(x, y, n, pass,
-                                                                 h, bq, m,
-                                                                 stream);
+                return launch_swap_cluster_as<T, FAMILY_HIGHEST>(
+                    x, y, n, nbank, *pass, elems_dev, h, bq, m, stream);
         }
     }
 }
@@ -2075,18 +2092,24 @@ int qt_megawin_f64(const double* x, double* out, double* slots,
 
 int qt_qtpass_size() { return (int)sizeof(QtPass); }
 
-int qt_swap_cluster_stack_f32(const float* x, float* y, int n, int rank,
-                              const float* a, const float* b, int split,
-                              int h, int bq, int m, void* stream) {
-    return launch_swap_cluster<float>(x, y, n, rank, a, b, split, h, bq, m,
-                                      stream);
+// K12 over a bank of nbank registers in one launch, as qt_window_pass_*
+// (the pass at k = 7), then the segment swap's h, bq and m.
+int qt_swap_cluster_stack_f32(const float* x, float* y, int n, int nbank,
+                              const QtPass* pass, const QtPass* elems_host,
+                              const void* elems_dev, int h, int bq, int m,
+                              void* stream) {
+    return launch_swap_cluster<float>(x, y, n, nbank, pass, elems_host,
+                                      static_cast<const QtPass*>(elems_dev),
+                                      h, bq, m, stream);
 }
 
-int qt_swap_cluster_stack_f64(const double* x, double* y, int n, int rank,
-                              const double* a, const double* b, int split,
-                              int h, int bq, int m, void* stream) {
-    return launch_swap_cluster<double>(x, y, n, rank, a, b, split, h, bq, m,
-                                       stream);
+int qt_swap_cluster_stack_f64(const double* x, double* y, int n, int nbank,
+                              const QtPass* pass, const QtPass* elems_host,
+                              const void* elems_dev, int h, int bq, int m,
+                              void* stream) {
+    return launch_swap_cluster<double>(x, y, n, nbank, pass, elems_host,
+                                       static_cast<const QtPass*>(elems_dev),
+                                       h, bq, m, stream);
 }
 
 const char* qt_error_string(int code) {

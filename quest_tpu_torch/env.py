@@ -234,6 +234,11 @@ def sync_quest_success(success_code: int = 1) -> int:
     return int(success_code)
 
 
+def report_quest_env(env: QuESTEnv) -> None:
+    """Print execution-environment parameters (QuEST.h:1893)."""
+    print(get_environment_string(env))
+
+
 def get_environment_string(env: QuESTEnv) -> str:
     """getEnvironmentString (QuEST.h:1912): device, precision and seeds;
     while the measurement streams are on their time+pid default seed, the

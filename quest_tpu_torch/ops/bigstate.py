@@ -25,6 +25,13 @@ quest_tpu/ops/bigstate.py ``_sigma_swap_jit``).  Its plain version,
 ``sigma_swap_plain``, is the same permutation as one out-of-place qubit
 relabel (``kernels.permute_qubits``); the wrapper runs it for a tensor on
 the CPU and launches the kernel or raises for a tensor on the card.
+
+A (B, 2, 2^n) register bank takes one launch for all its registers (the
+reference's jax.vmap of ``_sigma_swap_jit``), the register folded into
+the grid's z axis beside the kernel's b index.  No public API sends a QFT
+into a bank drain, in either package: the path that reaches the bank
+form is ``circuit.execute_plan`` on a bank (the reference's vmapped plan
+executor) with the plan of ``circuit.bit_reversal_ops`` for n >= 30.
 """
 
 from __future__ import annotations
@@ -34,10 +41,14 @@ import ctypes
 import numpy as np
 import torch
 
-from . import build, kernels
+from . import build, fused, kernels
 
-# launches of the kernel, counted where its wrapper launches it
-LAUNCHES = {"K10": 0}
+# launches of the kernel, counted where its wrapper launches it (over a
+# register bank, one launch for the whole bank, under K10_bank)
+LAUNCHES = {"K10": 0, "K10_bank": 0}
+# the kernel's grid z extent, bank size x 2^(n - 4g), is at most the
+# card's limit on grid z
+SIGMA_GRID_Z_MAX = 65535
 _BOUND: dict = {}
 _PAIR_TABLES: dict = {}
 
@@ -63,9 +74,31 @@ def sigma_perm(num_qubits: int, group_bits: int) -> tuple:
 
 def sigma_swap_plain(amps, *, num_qubits: int, group_bits: int = 7):
     """sigma as a new tensor: the plain version of K10, one qubit relabel
-    out of place."""
-    return kernels.permute_qubits(amps, num_qubits=num_qubits,
-                                  perm=sigma_perm(num_qubits, group_bits))
+    out of place (a (B, 2, 2^n) bank element by element)."""
+    perm = sigma_perm(num_qubits, group_bits)
+    if fused.bank_size(amps, num_qubits):
+        return torch.stack([kernels.permute_qubits(
+            a, num_qubits=num_qubits, perm=perm) for a in amps])
+    return kernels.permute_qubits(amps, num_qubits=num_qubits, perm=perm)
+
+
+def check_sigma_grid(num_qubits: int, group_bits: int, nbank: int) -> None:
+    """Refuse a sigma swap whose grid z extent, max(B, 1) x
+    2^(n - 4g), would exceed SIGMA_GRID_Z_MAX (csrc/qft.cu refuses it
+    too)."""
+    z = max(nbank, 1) << (num_qubits - 4 * group_bits)
+    if z > SIGMA_GRID_Z_MAX:
+        raise ValueError(
+            f"apply_sigma_swap: {max(nbank, 1)} register(s) x "
+            f"2^{num_qubits - 4 * group_bits} blocks exceed the kernel's "
+            f"grid z limit of {SIGMA_GRID_Z_MAX}")
+
+
+# qt_sigma_swap_f32: state, n, g, the pair tables, their length, bank
+# size (1: one register), stream
+SIGMA_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_void_p)
 
 
 def _lib():
@@ -73,8 +106,7 @@ def _lib():
     if "lib" not in _BOUND:
         lib = build.library()
         ptr = ctypes.c_void_p
-        lib.qt_sigma_swap_f32.argtypes = [ptr, ctypes.c_int, ctypes.c_int,
-                                          ptr, ptr, ctypes.c_int, ptr]
+        lib.qt_sigma_swap_f32.argtypes = list(SIGMA_ARGTYPES)
         lib.qt_sigma_swap_f32.restype = ctypes.c_int
         _BOUND["lib"] = lib
     return _BOUND["lib"]
@@ -91,15 +123,19 @@ def _pair_tables_on(device, group_bits: int):
 
 def apply_sigma_swap(amps, *, num_qubits: int, group_bits: int = 7):
     """The involution sigma (K10).  Requires 4 * group_bits <= num_qubits.
-    On the card the kernel overwrites the input in place and returns it
-    (one read and one write of the state, nothing allocated beside it); a
-    CPU tensor takes the plain version, which returns a new tensor."""
+    ``amps`` is one register's state or a (B, 2, 2^n) register bank (one
+    launch for the bank).  On the card the kernel overwrites the input in
+    place and returns it (one read and one write of the state, nothing
+    allocated beside it); a CPU tensor takes the plain version, which
+    returns a new tensor."""
     n, g = num_qubits, group_bits
     if g < 1 or 4 * g > n:
         raise ValueError("sigma swap needs n >= 4*group_bits")
-    if amps.numel() != 2 << n:
+    nb = fused.bank_size(amps, n)
+    if amps.numel() != max(nb, 1) * (2 << n):
         raise ValueError(f"apply_sigma_swap: a state of {tuple(amps.shape)} "
-                         f"is not (2, 2^{n})")
+                         f"is not (2, 2^{n}) or a bank (B, 2, 2^{n})")
+    check_sigma_grid(n, g, nb)
     if amps.device.type == "cpu":
         return sigma_swap_plain(amps, num_qubits=n, group_bits=g)
     if amps.device.type != "cuda":
@@ -114,13 +150,13 @@ def apply_sigma_swap(amps, *, num_qubits: int, group_bits: int = 7):
     stream = torch.cuda.current_stream(amps.device).cuda_stream
     build.raise_on(_lib().qt_sigma_swap_f32(
         amps.data_ptr(), n, g, ctab.data_ptr(), dtab.data_ptr(),
-        int(ctab.numel()), stream), "apply_sigma_swap")
-    LAUNCHES["K10"] += 1
+        int(ctab.numel()), max(nb, 1), stream), "apply_sigma_swap")
+    LAUNCHES["K10_bank" if nb else "K10"] += 1
     # written in place through the pointer: bump the tensor's version
     torch.autograd.graph.increment_version(amps)
     return amps
 
 
 def reset_launch_counts() -> None:
-    """Set the kernel's launch count to 0."""
-    LAUNCHES.update(K10=0)
+    """Set the kernel's launch counts to 0."""
+    LAUNCHES.update(K10=0, K10_bank=0)

@@ -54,6 +54,11 @@ def cmul(s: torch.Tensor, f_re, f_im) -> torch.Tensor:
     return torch.stack([s[0] * f_re - s[1] * f_im, s[0] * f_im + s[1] * f_re])
 
 
+def cmul_s(a, b):
+    """Elementwise product of two stacked arrays."""
+    return torch.stack([a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]])
+
+
 def conj(s):
     if isinstance(s, np.ndarray):
         return np.stack([s[0], -s[1]])
@@ -63,6 +68,11 @@ def conj(s):
 def abs2(s: torch.Tensor) -> torch.Tensor:
     """|z|^2, shape = trailing dims."""
     return s[0] * s[0] + s[1] * s[1]
+
+
+def scale(s, f_re):
+    """Real scaling (applies to both channels)."""
+    return s * f_re
 
 
 def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -258,6 +258,20 @@ def mix_density_matrix(amps, other_amps, prob):
     return (1 - p) * amps + p * other_amps
 
 
+def init_pure_state_density(psi_amps, *, num_qubits: int):
+    """rho = |psi><psi| flattened column-major: kron(conj(psi), psi)
+    (densmatr_initPureStateLocal's outer product, QuEST_cpu.c:1184).  SoA:
+    with u = conj(psi), re = kron(u0, p0) - kron(u1, p1), and so on."""
+    p0, p1 = psi_amps[0].reshape(-1), psi_amps[1].reshape(-1)
+    if p0.numel() != 1 << num_qubits:
+        raise ValueError(f"init_pure_state_density: a state of "
+                         f"{p0.numel()} amplitudes is not one of "
+                         f"{num_qubits} qubits")
+    re = torch.kron(p0, p0) + torch.kron(p1, p1)
+    im = torch.kron(p0, p1) - torch.kron(p1, p0)
+    return torch.stack([re, im])
+
+
 def apply_diagonal_op_density(amps, op_real, op_imag, *, num_qubits: int):
     """Left-multiply D rho: scale each column elementwise by D over the
     ket bits (densmatr_applyDiagonalOpLocal, QuEST_cpu.c:4042-4082).  The

@@ -618,13 +618,19 @@ WINDOW_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.POINTER(_QtPass), ctypes.c_void_p,
                    ctypes.c_void_p)
 
+# qt_swap_cluster_stack_f32/_f64: WINDOW_ARGTYPES's state, output, n,
+# bank size and passes (the pass at k = 7), then the segment swap's h, b
+# and m, and the stream
+SWAP_CLUSTER_ARGTYPES = WINDOW_ARGTYPES[:-1] + (
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
 _BOUND: dict = {}
 # launches of each kernel, counted where its wrapper launches it
 # (launches over a register bank, one a pass for the whole bank, count
-# under K1_bank, K2_bank, K5_bank and K11_bank)
+# under K1_bank, K2_bank, K5_bank, K11_bank and K12_bank)
 LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0, "K9": 0,
             "K11": 0, "K12": 0, "K1_bank": 0, "K2_bank": 0, "K5_bank": 0,
-            "K11_bank": 0}
+            "K11_bank": 0, "K12_bank": 0}
 
 
 def _lib():
@@ -652,9 +658,7 @@ def _lib():
         for name in ("qt_swap_cluster_stack_f32",
                      "qt_swap_cluster_stack_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int, ptr, ptr,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ptr]
+            fn.argtypes = list(SWAP_CLUSTER_ARGTYPES)
             fn.restype = ctypes.c_int
         lib.qt_max_mega_passes.argtypes = []
         lib.qt_max_mega_passes.restype = ctypes.c_int
@@ -738,9 +742,9 @@ def _pass_struct(op, amps, keep: list, precision: str = "highest") -> _QtPass:
 #
 # A BatchedQureg's drain (fusion.py, batch flags 1 and 2) hands the
 # wrappers below a (B, 2, 2^n) register bank in place of one register's
-# state; each runs a window pass (K1, K11) or a megawin group (K2), and
-# apply_pair_channel_sweep a sweep (K5), over the whole bank in ONE
-# launch, as the reference's jax.vmap of its Pallas calls prepends a grid
+# state; each runs a window pass (K1, K11), a swap + cluster pass (K12)
+# or a megawin group (K2), and apply_pair_channel_sweep a sweep (K5), over
+# the whole bank in ONE launch, as the reference's jax.vmap of its Pallas calls prepends a grid
 # axis (csrc/window.cu and csrc/channels.cu, "Register banks").  A bank
 # op's arrays are shared, or carry a leading B axis per element (flag 2:
 # sides (B, R, 2, 128, 128), masks (B, 2, 128, 128), matrices (B, 2, s,
@@ -856,9 +860,11 @@ def _upload_descs(descs, device, keep: list):
     return host, dev.data_ptr()
 
 
-def _launch_window(amps, op, n: int, precision: str, what: str):
+def _launch_window(amps, op, n: int, precision: str, what: str,
+                   swap=None):
     """One K1 launch of pass ``op`` over one register's state or a whole
-    bank; returns the output."""
+    bank, or with ``swap`` = (h, b, m) one K12 launch (``op`` its cluster
+    pass at k = 7); returns the output."""
     if amps.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {amps.device}")
     _check_cuda_state(amps, what)
@@ -873,11 +879,13 @@ def _launch_window(amps, op, n: int, precision: str, what: str):
     else:
         desc, host, dev = _pass_struct(op, amps, keep, precision), None, None
     out = torch.empty_like(amps)
-    fn = (_lib().qt_window_pass_f32 if amps.dtype == torch.float32
-          else _lib().qt_window_pass_f64)
+    entry = "qt_window_pass" if swap is None else "qt_swap_cluster_stack"
+    fn = getattr(_lib(), entry + ("_f32" if amps.dtype == torch.float32
+                                  else "_f64"))
     stream = torch.cuda.current_stream(amps.device).cuda_stream
     build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n, max(nb, 1),
-                      ctypes.byref(desc), host, dev, stream), what)
+                      ctypes.byref(desc), host, dev, *(swap or ()), stream),
+                   what)
     return out
 
 
@@ -907,24 +915,6 @@ def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
     out = _launch_window(amps, op, n, precision, "apply_window_stack")
     LAUNCHES["K1_bank" if nb else "K1"] += 1
     return out
-
-
-def _cluster_launch(amps, mats_a, mats_b, n: int, what: str,
-                    precision: str):
-    """K12's checks and uploads: the output buffer, the side stacks on the
-    card, the rank, QtPass.split and the stream."""
-    if amps.device.type != "cuda":
-        raise RuntimeError(f"{what}: no kernel for device {amps.device}")
-    _check_cuda_state(amps, what)
-    if amps.numel() != 2 << n:
-        raise ValueError(f"{what}: a state of {amps.numel()} reals is not "
-                         f"one of {n} qubits")
-    split = pass_split(amps.dtype, precision, mats_a, mats_b)
-    a = _side_image(mats_a, amps.dtype, amps.device, split)
-    b = _side_image(mats_b, amps.dtype, amps.device, split)
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    return (torch.empty_like(amps), a, b, int(np.shape(mats_a)[0]), split,
-            stream)
 
 
 def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
@@ -970,24 +960,31 @@ def apply_swap_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
     """The segment swap [h, h+m) <-> [b, b+m) followed by the rank-R
     cluster operator, in one pass (K12), under ``precision`` (None: the
     current mode): h >= 14, 7 <= b, b + m <= 14, m <= MAX_FUSED_SWAP_M.
-    The result is a new tensor of the input's shape.  CPU tensors take
-    the plain version."""
+    ``mats_a``/``mats_b`` are SoA (R, 2, 128, 128), or per element
+    (B, R, 2, 128, 128) on a bank.  ``amps`` is any full-size contiguous
+    view of the state, or a (B, 2, 2^n) register bank (one launch, the
+    reference's vmapped _apply_swap_cluster_stack_jit); the result is a
+    new tensor of the input's shape.  CPU tensors take the plain version
+    (a bank element by element)."""
     n = num_qubits
-    _check_cluster(n, mats_a, mats_b, "apply_swap_cluster_stack")
+    op = ("swapfused", h, b, m, mats_a, mats_b)
+    nb = bank_size(amps, n)
+    e0 = bank_element_op(op, 0) if nb else op
+    _check_cluster(n, e0[4], e0[5], "apply_swap_cluster_stack")
     _check_swap(n, h, b, m)
     precision = resolve_precision(precision)
     if amps.device.type == "cpu":
+        if nb:
+            return _by_element(amps, op, lambda x, e: swap_cluster_stack_plain(
+                x, e[4], e[5], num_qubits=n, h=h, b=b, m=m,
+                precision=precision))
         return swap_cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n,
                                         h=h, b=b, m=m, precision=precision)
-    out, a, bm, rank, split, stream = _cluster_launch(
-        amps, mats_a, mats_b, n, "apply_swap_cluster_stack", precision)
-    fn = (_lib().qt_swap_cluster_stack_f32 if amps.dtype == torch.float32
-          else _lib().qt_swap_cluster_stack_f64)
-    build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n, rank,
-                      a.data_ptr(), bm.data_ptr(), split, h, b, m,
-                      stream),
-                   "apply_swap_cluster_stack")
-    LAUNCHES["K12"] += 1
+    # K1's pass descriptor at k = 7, dual-sided, unmasked
+    out = _launch_window(
+        amps, ("winfused", SUBLANE_QUBITS, mats_a, mats_b, True, True),
+        n, precision, "apply_swap_cluster_stack", swap=(h, b, m))
+    LAUNCHES["K12_bank" if nb else "K12"] += 1
     return out
 
 

@@ -294,6 +294,13 @@ def _swap_impl(amps, n: int, qb1: int, qb2: int):
     return view.permute(0, 1, 4, 3, 2, 5).reshape(2, -1)
 
 
+def swap_qubit_amps(amps, *, num_qubits: int, qb1: int, qb2: int):
+    """SWAP gate as an exact transpose of two index axes (reference
+    swapQubitAmps, QuEST_cpu.c:3882-3964): a new tensor of the input's
+    shape."""
+    return _swap_impl(amps, num_qubits, qb1, qb2).reshape(amps.shape)
+
+
 def permute_qubits(amps, *, num_qubits: int, perm: Tuple[int, ...]):
     """Relabel qubits in one transpose pass: output qubit q holds what
     input qubit perm[q] held.  Contiguous bit runs coalesce into single
@@ -514,14 +521,6 @@ def init_plus_density(num_qubits: int, dtype, device):
     out = torch.zeros((2, dim * dim), dtype=dtype, device=device)
     out[0] = 1.0 / dim
     return out
-
-
-def init_pure_density(psi):
-    """rho = |psi><psi| flattened column-major: flat[r + c*dim] =
-    psi_r conj(psi_c)."""
-    z = cplx.to_complex(psi)
-    rho_cr = z[None, :] * z.conj()[:, None]       # [c, r]
-    return cplx.from_complex(rho_cr.reshape(-1))
 
 
 # ---------------------------------------------------------------------------

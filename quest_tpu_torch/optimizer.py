@@ -564,6 +564,12 @@ def optimize_items(items: Sequence, *, nloc: int, n: Optional[int] = None,
     return list(out), stats
 
 
+def clear_cache() -> None:
+    """Drop memoized rewrites (tests; a mode flip does not need this:
+    the mode is part of the key)."""
+    _cache.clear()
+
+
 def summary_line() -> str:
     """``Optimizer=...`` fragment of getEnvironmentString: the active
     mode, plus the gates removed and remap windows merged once any were
@@ -575,3 +581,8 @@ def summary_line() -> str:
     if removed or merged:
         s += f"(removed={int(removed)} windows_merged={int(merged)})"
     return s
+
+
+# the reference's camelCase names (QuEST-style API surface)
+setCircuitOptimizer = set_circuit_optimizer
+getCircuitOptimizer = get_circuit_optimizer

@@ -14,7 +14,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .precision import MAX_NUM_REGS_APPLY_ARBITRARY_PHASE, validation_eps
+from .precision import (MAX_NUM_REGS_APPLY_ARBITRARY_PHASE, real_eps,
+                        validation_eps)
 
 
 class QuESTError(ValueError):
@@ -25,6 +26,10 @@ class QuESTError(ValueError):
 # The reference's error messages for the codes the ported surface raises.
 ERROR_MESSAGES = {
     "E_INVALID_NUM_CREATE_QUBITS": "Invalid number of qubits. Must create >0.",
+    "E_INVALID_NUM_RANKS": "Invalid number of nodes. Distributed simulation can only make use of a power-of-2 number of node.",
+    "E_COLLAPSE_STATE_ZERO_PROB": "Can't collapse to state with zero probability.",
+    "E_UNNORM_PROBS": "Probabilities must sum to ~1.",
+    "E_COMPLEX_MATRIX_NOT_INIT": "The ComplexMatrixN was not successfully created (possibly insufficient memory available).",
     "E_INVALID_QUBIT_INDEX": "Invalid qubit index. Must be >=0 and <numQubits.",
     "E_INVALID_TARGET_QUBIT": "Invalid target qubit. Must be >=0 and <numQubits.",
     "E_INVALID_CONTROL_QUBIT": "Invalid control qubit. Must be >=0 and <numQubits.",
@@ -129,6 +134,12 @@ def _warn(code: str, func: str):
     warnings.warn(f"{func}: {ERROR_MESSAGES[code]}", stacklevel=3)
 
 
+def validate_num_ranks(num_ranks: int, func: str = "createQuESTEnv"):
+    """validateNumRanks (:331-343): power-of-2 node counts only."""
+    if num_ranks < 1 or (num_ranks & (num_ranks - 1)):
+        _raise("E_INVALID_NUM_RANKS", func)
+
+
 def validate_num_qubits(num_qubits: int, func: str, num_ranks: int = 1):
     """validateNumQubitsInQureg (:345-355): > 0, fits the index type, and
     at least one amplitude per shard; a smaller register is replicated,
@@ -140,6 +151,12 @@ def validate_num_qubits(num_qubits: int, func: str, num_ranks: int = 1):
         _raise("E_NUM_AMPS_EXCEED_TYPE", func)
     if (1 << num_qubits) < num_ranks:
         _warn("E_DISTRIB_QUREG_TOO_SMALL", func)
+
+
+def validate_num_qubits_in_matrix(num_qubits: int, func: str):
+    """validateNumQubitsInMatrix (:357-359)."""
+    if num_qubits <= 0:
+        _raise("E_INVALID_NUM_CREATE_QUBITS", func)
 
 
 def validate_state_index(qureg, state_ind: int, func: str):
@@ -305,6 +322,12 @@ def validate_unitary_complex_pair(alpha, beta, func: str):
         _raise("E_NON_UNITARY_COMPLEX_PAIR", func)
 
 
+def validate_matrix_init(matr, func: str):
+    """validateMatrixInit (:482-490)."""
+    if matr is None or (hasattr(matr, "real") and getattr(matr, "real") is None):
+        _raise("E_COMPLEX_MATRIX_NOT_INIT", func)
+
+
 def validate_unit_vector(x, y, z, func: str):
     """validateVector (:507-509): the squared magnitude must exceed
     REAL_EPS^2."""
@@ -363,6 +386,22 @@ def validate_prob(prob: float, func: str):
     """validateProb (:547-549)."""
     if prob < 0 or prob > 1:
         _raise("E_INVALID_PROB", func)
+
+
+def validate_measurement_prob(prob: float, func: str):
+    """validateMeasurementProb (:523-525), on real_eps (not
+    validation_eps): a tiny probability from the compensated precision-4
+    reductions is data, as in the reference's quad build."""
+    if prob < real_eps():
+        _raise("E_COLLAPSE_STATE_ZERO_PROB", func)
+
+
+def validate_norm_probs(prob1: float, prob2: float, func: str):
+    """validateNormProbs (:551-557)."""
+    validate_prob(prob1, func)
+    validate_prob(prob2, func)
+    if abs(1 - (prob1 + prob2)) >= real_eps():
+        _raise("E_UNNORM_PROBS", func)
 
 
 def validate_one_qubit_dephase_prob(prob: float, func: str):

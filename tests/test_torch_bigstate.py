@@ -56,7 +56,7 @@ def test_sigma_swap_wrapper_on_cpu_is_plain_and_launches_nothing():
     y = C.execute_plan(x, [("sigma_swap", g)], n)
     assert torch.equal(y, B.sigma_swap_plain(x, num_qubits=n, group_bits=g))
     assert torch.equal(B.apply_sigma_swap(y, num_qubits=n, group_bits=g), x)
-    assert B.LAUNCHES == {"K10": 0}
+    assert B.LAUNCHES == {"K10": 0, "K10_bank": 0}
     with pytest.raises(ValueError, match="4\\*group_bits"):
         B.apply_sigma_swap(x, num_qubits=n, group_bits=4)
 

@@ -57,7 +57,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) +
-                         [REPO / "chip_smoke.py"],
+                         [REPO / "chip_smoke.py"] +
+                         sorted((REPO / "examples" / "torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_module_imports_jax_or_the_jax_package(path):
     roots = set(_imported_roots(path))
@@ -177,7 +178,7 @@ def test_qft_wrappers_on_cpu_take_the_plain_path_and_launch_nothing():
     tq.applyQFT(q, list(range(7, n)))
     assert C._fused_qft_multilayer(x, n, n).shape == x.shape
     assert all(v == 0 for v in fused.LAUNCHES.values())
-    assert bigstate.LAUNCHES == {"K10": 0}
+    assert bigstate.LAUNCHES == {"K10": 0, "K10_bank": 0}
 
 
 def _one_op_of_each_kind(rng, n):
