@@ -10,9 +10,9 @@ line:
 2. build   - nvcc builds csrc/window.cu (K1, K2, K11, K12: tensor-core
              products, TF32 split at float32 or the lower modes' bf16 and
              TF32 products, DMMA at float64),
-             csrc/paulis.cu (K3, K4), csrc/channels.cu (K5) and
-             csrc/qft.cu (K6-K10) into one library, one nvcc process per
-             source.
+             csrc/paulis.cu (K3, K4), csrc/channels.cu (K5),
+             csrc/qft.cu (K6-K10) and csrc/probes.cu (P1, the HBM stream
+             pass) into one library, one nvcc process per source.
 3. parity  - K1 against its plain PyTorch version at 20 qubits (f32 and
              f64, k in {7, 10, 13}, rank 1 and 4, dual / B-only / A-only,
              with and without a mask; mask-only passes; 0/1 permutation
@@ -465,8 +465,24 @@ line:
              float32 bank of 2 x 2^30 (17.2 GB): one K1_bank launch a
              pass and one K10_bank, each element torch.equal to its
              scalar route.  K11's, K12's and K10's bank forms timed
-             against B scalar launches and their plain versions.
-52. kernels - one JSON object with every kernel's numbers (K1, K2, K11
+             against B scalar launches, their plain versions and one
+             PyTorch call each (the fastest batched torch.einsum for K11
+             and K12, permute(...).contiguous() of the bank's view for
+             K10, each held to the bank launch's output first).
+52. probes_parity - P1 (csrc/probes.cu stream_pass_kernel) torch.equal
+             to its plain version in every (op, R, in place or not) case
+             at 2^20 and 2^26 amplitudes; each probe of
+             quest_tpu_torch/probes/ run through its check() on the card
+             at 20 qubits (K1 and K3 against their plain versions, P1
+             again).
+53. probes_main - the five probes' run() on the card (the TPU probes of
+             scripts/probes/ and their counterparts: profile_dma P1,
+             kernel_microbench K1 at offset k with K11, K12 and the
+             segment swap, probe_kernel_variants K1 given A^T,
+             profile_rank_kernels K1 at k = 7 under "highest" and
+             "bf16_3x", probe_flip_pallas K3 over 16 terms at 24 qubits),
+             every launch count set to 0 before each and read after.
+54. kernels - one JSON object with every kernel's numbers (K1, K2, K11
              and K12 with their per-mode times, bounds, launches and
              errors under "modes"; K1, K2 and K5's bank forms, with their
              launches on a sharded bank under "dist"; K1, K2, K5 and
@@ -476,7 +492,9 @@ line:
              the bank forms' launches on the serving path under "serve";
              K1's on F2's drain under "f2"; K1's, K2's and their bank
              forms' with the plan cache on under "aot"; K11's, K12's and
-             K10's bank forms).
+             K10's bank forms; P1-P8, the probe sites, each with its
+             counterpart kernel, its launches in probes_main and its
+             times there).
 
 The last two lines are the card's `nvidia-smi` name and power limit, and
 {"ok": true, "device": {...}}.
@@ -493,12 +511,24 @@ import time
 from contextlib import contextmanager
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+try:
+    # the peaks, bounds, tolerances, timing and library yardsticks that
+    # judge every kernel here and in the probes: one copy, in the package
+    from quest_tpu_torch.probes.common import (
+        HBM_BYTES_PER_S, MODE_FLOPS, MODE_UNIT, PEAK_FLOPS, WINDOW_FLOPS,
+        bound_ms, cluster_library, emit, flops_of, least_ms, library_time,
+        mode_tolerance, nvidia_smi_line, random_unitary, time_ms, tolerance,
+        window_library)
+except ImportError as e:
+    sys.exit(f"chip_smoke: cannot import quest_tpu_torch ({e}); run from "
+             "the repository root")
+
 N_PARITY = 20          # qubits for the kernel parity checks
 N_MAIN = 26            # the main path's register
 N_MEAS_MAIN = 26       # the measured register (config 2's circuit)
 DEPTH = 20
 SEED = 7               # bench.py config 2's unitary seed
-REPS = 10              # timed launches per kernel
 DEVICE = "cuda"
 N_PAULI = 30           # config 5's register: an 8 GiB float32 state
 N_PAULI_F64 = 26       # the float64 cross-check of the config-5 workload
@@ -522,43 +552,9 @@ NOISE_SEED = 5         # bench.py config 4's Kraus draw
 PAGED_SWAPS = tuple((h, b, m) for h in (14, 16, 17) for b in (7, 9, 11)
                     for m in (1, 2, 3))
 
-# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
-# bandwidth and the highest rate of each type for elementwise work: FP32
-# on the CUDA cores, FP64 on the tensor cores (DMMA; twice the CUDA cores'
-# 34 TFLOP/s).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
-# The window kernels' matrix products (K1, K2, K11, K12): a float32
-# product accurate to float32 costs at least three TF32 tensor-core
-# products (the TF32 split of csrc/window.cu), so the least time is the
-# flops over a third of the dense TF32 rate, 495 TFLOP/s; float64 runs on
-# DMMA at the FP64 tensor-core rate.
-WINDOW_FLOPS = {"float32": 495e12 / 3, "float64": 67e12}
-
-
-def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
-
-
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def random_unitary(rng, dim: int):
-    import numpy as np
-
-    z = rng.standard_normal((dim, dim)) + 1j * rng.standard_normal((dim, dim))
-    q, r = np.linalg.qr(z)
-    return q * (np.diag(r) / np.abs(np.diag(r)))
 
 
 def random_pass(rng, k: int, rank: int, sides: str, with_mask: bool):
@@ -591,36 +587,6 @@ def permutation_pass(rng, k: int, sides: str):
         return m
 
     return ("winfused", k, perm(), perm(), "A" in sides, "B" in sides, None)
-
-
-def flops_of(op, num_amps: int) -> float:
-    """Real flops of one window pass: 8 per complex multiply-add, 128 per
-    output amplitude per side per rank, plus 6 per amplitude for a mask."""
-    rank = int(op[2].shape[0])
-    sides = int(bool(op[4])) + int(bool(op[5]))
-    f = 8.0 * 128 * rank * sides * num_amps
-    if len(op) > 6 and op[6] is not None:
-        f += 6.0 * num_amps
-    return f
-
-
-def bound_ms(ops, state_bytes: int, num_amps: int, dtype_name: str,
-             rate=None):
-    """The least time the card could take for a run of window passes: one
-    read and one write of the state plus each matrix read once, over the
-    memory rate, against the flops over the window products' rate
-    (``rate``, by default WINDOW_FLOPS); and which of the two bounds
-    it."""
-    mat_bytes = sum(op[2].numel() * op[2].element_size()
-                    * (int(bool(op[4])) + int(bool(op[5])))
-                    + (0 if op[6] is None
-                       else op[6].numel() * op[6].element_size())
-                    for op in ops)
-    t_bytes = (2 * state_bytes + mat_bytes) / HBM_BYTES_PER_S
-    t_ops = (sum(flops_of(op, num_amps) for op in ops)
-             / (rate or WINDOW_FLOPS[dtype_name]))
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
-                                       else "operations")
 
 
 def smi_under_load(torch, fn, seconds: float) -> dict:
@@ -681,25 +647,6 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    sync()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def extra_bytes(fn) -> int:
     """Peak device memory that one call of ``fn`` allocates beyond what
     was allocated before it (its output included)."""
@@ -713,19 +660,6 @@ def extra_bytes(fn) -> int:
     peak = torch.cuda.max_memory_allocated() - base
     del y
     return peak
-
-
-def tolerance(x) -> float:
-    """How far a kernel may stray from its plain version on state ``x``
-    (normalised).  float32: sums of 128-term products of unit-scale
-    factors, each rounded at 2^-24 relative, taken in another order than
-    the plain version's library einsum -> 1e-5 of the state's largest
-    amplitude.  float64: the same at 2^-53 -> 1e-12 absolute."""
-    import torch
-
-    if x.dtype == torch.float32:
-        return 1e-5 * float(x.abs().max())
-    return 1e-12
 
 
 def phase_parity(torch, np, fused):
@@ -1344,16 +1278,12 @@ def phase_pauli_timing(torch, qt, paulis, api_ops, hamiltonians, h):
     check(abs(r - rp) <= pauli_tolerance(x), f"K4 at {n} qubits: {r} vs {rp}")
     torch.cuda.empty_cache()
 
-    def bound(nbytes, flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / PEAK_FLOPS["float32"]
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
-                                           else "operations")
-
     # K3: one read and one write of the state, 14 flops an amplitude; K4:
     # one read, 12 flops an amplitude
-    k3_bound, k3_by = bound(2 * state_bytes, 14.0 * amps)
-    k4_bound, k4_by = bound(state_bytes, 12.0 * amps)
+    k3_bound, k3_by = least_ms(2 * state_bytes, 14.0 * amps,
+                               PEAK_FLOPS["float32"])
+    k4_bound, k4_by = least_ms(state_bytes, 12.0 * amps,
+                               PEAK_FLOPS["float32"])
     out = {"device": torch.cuda.get_device_name(0), "n": n,
            "state_bytes_f32": state_bytes, "fm": term.fm, "zm": term.zm,
            "k3": {"max_abs_err": k3_err,
@@ -1738,13 +1668,6 @@ def phase_qft_main(torch, np, qt, C, fused, bigstate, circuits):
     return out, launches, rho_launches
 
 
-def qft_bound(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
-                                       else "operations")
-
-
 def phase_qft_timing(torch, np, qt, C, fused, bigstate):
     n = N_QFT
     x = random_state(torch, n, QFT_SEED + 4)
@@ -1754,7 +1677,7 @@ def phase_qft_timing(torch, np, qt, C, fused, bigstate):
            "state_bytes_f32": state_bytes}
 
     def timed(kernel, plain, nbytes, flops, library=None):
-        b, by = qft_bound(nbytes, flops)
+        b, by = least_ms(nbytes, flops, PEAK_FLOPS["float32"])
         return {"ms": time_ms(kernel),
                 "plain_ms": time_ms(plain, reps=3, warmup=1),
                 "library_ms": (None if library is None
@@ -2462,63 +2385,6 @@ def phase_paged_main(torch, qt, C, fused, fusion, circuits, p_windowed,
     return line, ops, api_program, us
 
 
-def cluster_library(torch, cplx, x, a, b, swap=None):
-    """Single torch.einsum calls computing the same function as K11
-    (``swap`` is None) or K12 (``swap`` = (h, b, m)) on the canonical state
-    ``x``, as {subscripts: call}: yardsticks only, the port never calls
-    them.  The operand order sets the contraction path (B.X first or X.A
-    first), and a size-1 axis before the lanes (K1's view at k = 7)
-    changes how torch lays the products out; the fastest form is the
-    library time.  At rank 1 the forms carry no rank axis.  For K12 the
-    state is viewed with the two swapped m-bit fields as their own axes,
-    so the swap is a relabelling of axes inside the one call."""
-    rank = a.shape[0]
-    ac = torch.complex(a[:, 0], a[:, 1])
-    bc = torch.complex(b[:, 0], b[:, 1])
-    nb = x.shape[1]
-    if swap is None:
-        xc = cplx.to_complex(x)
-        bv, xs, out = "qw", "gwl", "gqp"
-    else:
-        h, bq, m = swap
-        mm = 1 << m
-        glo = 1 << (h - 14)
-        rlo = 1 << (bq - 7)
-        ghi, rhi = nb // (glo * mm), 128 // (mm * rlo)
-        # slab = (ghi, slab field, glo), row = (rhi, row field, rlo)
-        xc = cplx.to_complex(x.reshape(2, ghi, mm, glo, rhi, mm, rlo, 128))
-        bc = bc.reshape(rank, 128, rhi, mm, rlo)
-        bv, xs, out = "qrto", "atcrsol", "ascqp"
-    av = "pl"
-    if rank == 1:
-        ac, bc = ac[0], bc[0]
-    else:
-        av, bv = "k" + av, "k" + bv
-    forms = {}
-    for xv, xo, xt in ((xs, out, xc),
-                       (xs[:-1] + "m" + xs[-1], out[:-1] + "m" + out[-1],
-                        xc.unsqueeze(-2))):
-        bx = f"{bv},{xv},{av}->{xo}"
-        xa = f"{xv},{av},{bv}->{xo}"
-        forms[bx] = lambda bx=bx, xt=xt: torch.einsum(bx, bc, xt, ac)
-        forms[xa] = lambda xa=xa, xt=xt: torch.einsum(xa, xt, ac, bc)
-    return forms
-
-
-def library_time(torch, cplx, y, forms, tol, what):
-    """Checks every einsum form against the kernel's output ``y`` and
-    times each: (fastest ms, its subscripts, {subscripts: ms})."""
-    times = {}
-    for form, fn in forms.items():
-        diff = float((y - cplx.from_complex(fn()).reshape(y.shape))
-                     .abs().max())
-        check(diff <= tol, f"{what}: the einsum yardstick {form} computes "
-              f"another function (|diff| {diff})")
-        times[form] = time_ms(fn, reps=5)
-    best = min(times, key=times.get)
-    return times[best], best, times
-
-
 def phase_paged_timing(torch, qt, C, fused, circuits, cplx, ops, api_program,
                        us):
     n = N_MAIN
@@ -2548,8 +2414,7 @@ def phase_paged_timing(torch, qt, C, fused, circuits, cplx, ops, api_program,
         err = float((y - plain11()).abs().max())
         check(err <= tol, f"K11 R={rank} at {n} qubits: |err| {err}")
         lib_ms, lib_form, lib_forms = library_time(
-            torch, cplx, y, cluster_library(torch, cplx, x, a, b), tol,
-            f"K11 R={rank}")
+            y, cluster_library(x, a, b), tol, f"K11 R={rank}")
         del y
         b_ms, b_by = bound_ms([("winfused", 7, a, b, True, True, None)],
                               state_bytes, num_amps, "float32")
@@ -2581,8 +2446,7 @@ def phase_paged_timing(torch, qt, C, fused, circuits, cplx, ops, api_program,
         err = float((y - plain12()).abs().max())
         check(err <= tol, f"K12 R={rank} at {n} qubits: |err| {err}")
         lib_ms, lib_form, lib_forms = library_time(
-            torch, cplx, y, cluster_library(torch, cplx, x, a, b,
-                                            (h, bq, m)), tol, f"K12 R={rank}")
+            y, cluster_library(x, a, b, (h, bq, m)), tol, f"K12 R={rank}")
         del y
         b_ms, b_by = bound_ms([("winfused", 7, a, b, True, True, None)],
                               state_bytes, num_amps, "float32")
@@ -3006,28 +2870,7 @@ def phase_measure_timing(torch, qt, us, measurement):
 # ---------------------------------------------------------------------------
 
 LOW_MODES = ("bf16_3x", "default")
-# Each mode's per-product error (relative): "bf16_3x" drops x_l m_l and
-# rounds the low parts, about 2^-16; "default" rounds both operands to
-# TF32, about 2^-11.
-MODE_UNIT = {"bf16_3x": 2.0 ** -16, "default": 2.0 ** -11}
-# The least time of a mode's products: three bf16 products at the dense
-# bf16 rate, one TF32 product at the TF32 rate ("highest": WINDOW_FLOPS).
-MODE_FLOPS = {"bf16_3x": 989e12 / 3, "default": 495e12}
 PREC_SWAPS = ((14, 7, 3), (16, 9, 2), (17, 11, 1))   # K12's (h, b, m)
-
-
-def mode_tolerance(x, mode: str, model: bool) -> float:
-    """How far a float32 pass under ``mode`` may stray, per pass, on the
-    normalised state ``x``.  Against the mode's model (``model``,
-    fused.window_pass_split): the products are the same exact products,
-    summed in another order, but a dual pass splits its float32
-    intermediate T again, and where T's kernel and model values straddle
-    a rounding step of the split one low part moves by one unit, a
-    product by the mode's unit: MODE_UNIT max|x|.  Against the full
-    float32 plain version: four per-product errors, 4 MODE_UNIT max|x|
-    (measured on the CPU at 20 qubits: 6.5e-6 and 3.9e-4 max|x| for
-    rank-1 dual passes)."""
-    return (1 if model else 4) * MODE_UNIT[mode] * float(x.abs().max())
 
 
 def phase_precision_parity(torch, np, fused, C):
@@ -4859,20 +4702,6 @@ def phase_dist_main(torch, np, qt, C, fused, fusion, circuits, noise, us,
     return out, launches
 
 
-def cuda_ms(torch, fn, reps: int = 3):
-    """Median CUDA-event ms of ``fn()`` over ``reps`` calls."""
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        sync()
-        samples.append(start.elapsed_time(end))
-    return statistics.median(samples)
-
-
 def dist_eager(torch, np, qt):
     """Config 2's 26 qubits on 8 shards, gate by gate with no fusion: a
     random one-qubit unitary on every qubit (the local route, then the
@@ -4942,11 +4771,12 @@ def dist_eager(torch, np, qt):
           f"sum against kernels.apply_matrix {gerr} > {gtol}")
     del got, want
     work = ShardedAmps(env.mesh, [s.clone() for s in base])
-    fixed_ms = cuda_ms(torch, lambda: SH.apply_matrix_local(
-        work, mat, targets=targets))
+    fixed_ms = time_ms(lambda: SH.apply_matrix_local(
+        work, mat, targets=targets), reps=3, warmup=0)
     del work
-    matmul_ms = cuda_ms(torch, lambda: [kernels.apply_matrix(
-        s, mat, num_qubits=nloc, targets=targets) for s in base])
+    matmul_ms = time_ms(lambda: [kernels.apply_matrix(
+        s, mat, num_qubits=nloc, targets=targets) for s in base], reps=3,
+        warmup=0)
     qt.destroyQureg(qm, env)
     del base, a
     torch.cuda.empty_cache()
@@ -8786,13 +8616,17 @@ def phase_bank_forms_parity(torch, np, fused, bigstate):
 
 
 def bank_form_timing(torch, bank_call, scalar_call, plain_call, nb,
-                     bound, bound_by):
+                     bound, bound_by, library):
     """One bank-form record: the bank launch's ms against B scalar
-    launches (CUDA events, median), its plain version's ms, the bound."""
+    launches (CUDA events, median), its plain version's ms, the bound, and
+    ``library`` = (ms, form) of one PyTorch call computing the same
+    function."""
     ms = time_ms(bank_call, reps=5)
+    lib_ms, lib_form = library
     return {"ms": ms, "scalar_x_b_ms": time_ms(scalar_call, reps=5),
             "plain_ms": time_ms(plain_call, reps=3, warmup=1),
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "library_form": lib_form, "ms_over_library_ms": ms / lib_ms,
             "batch": nb, "fraction_of_bound": bound / ms}
 
 
@@ -8881,6 +8715,11 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
         k12_bound, k12_by = bound_ms(
             [("winfused", 7, sw[4][0], sw[5][0], True, True, None)],
             state_bytes, num_amps, "float32")
+        y = fused.apply_swap_cluster_stack(x, sw[4], sw[5], num_qubits=n,
+                                           h=sw[1], b=sw[2], m=sw[3])
+        k12_lib = library_time(
+            y, cluster_library(x, sw[4], sw[5], sw[1:4], bank=True),
+            10 * tolerance(x), "R7a K12 bank", plane_axis=1)[:2]
         k12 = bank_form_timing(
             torch,
             lambda: fused.apply_swap_cluster_stack(
@@ -8891,9 +8730,7 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
             lambda: [fused.swap_cluster_stack_plain(
                 x[b], sw[4][b], sw[5][b], num_qubits=n, h=sw[1], b=sw[2],
                 m=sw[3]) for b in range(nb)],
-            nb, nb * k12_bound, k12_by)
-        y = fused.apply_swap_cluster_stack(x, sw[4], sw[5], num_qubits=n,
-                                           h=sw[1], b=sw[2], m=sw[3])
+            nb, nb * k12_bound, k12_by, k12_lib)
         k12["max_abs_err"] = bank_plain_err(
             y, x, lambda b: fused.swap_cluster_stack_plain(
                 x[b], sw[4][b], sw[5][b], num_qubits=n, h=sw[1], b=sw[2],
@@ -8902,6 +8739,10 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
         k11_bound, k11_by = bound_ms(
             [("winfused", 7, fu[1][0], fu[2][0], True, True, None)],
             state_bytes, num_amps, "float32")
+        y = fused.apply_cluster_stack(x, fu[1], fu[2], num_qubits=n)
+        k11_lib = library_time(
+            y, cluster_library(x, fu[1], fu[2], bank=True),
+            10 * tolerance(x), "R7a K11 bank", plane_axis=1)[:2]
         k11 = bank_form_timing(
             torch,
             lambda: fused.apply_cluster_stack(x, fu[1], fu[2], num_qubits=n),
@@ -8911,8 +8752,7 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
             lambda: [fused.cluster_stack_plain(x[b], fu[1][b], fu[2][b],
                                                num_qubits=n)
                      for b in range(nb)],
-            nb, nb * k11_bound, k11_by)
-        y = fused.apply_cluster_stack(x, fu[1], fu[2], num_qubits=n)
+            nb, nb * k11_bound, k11_by, k11_lib)
         k11["max_abs_err"] = bank_plain_err(
             y, x, lambda b: fused.cluster_stack_plain(
                 x[b], fu[1][b], fu[2][b], num_qubits=n), "R7a K11 bank")
@@ -8958,6 +8798,23 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
         torch.cuda.empty_cache()
     g = dops[-1][1]
     num_amps = 1 << n
+    # the library yardstick: sigma on the whole bank as one out-of-place
+    # permute(...).contiguous() of its (B, 2, G, G, mid, G, G) view (the
+    # single register's K10 row takes the same call), held to each
+    # element's plain relabel first
+    G = 1 << g
+    bview = bank.view(nb, 2, G, G, 1 << (n - 4 * g), G, G)
+
+    def k10_library():
+        return bview.permute(0, 1, 6, 5, 4, 3, 2).contiguous()
+
+    lib = k10_library().view(bank.shape)
+    for b in range(nb):
+        check(torch.equal(lib[b], bigstate.sigma_swap_plain(
+            bank[b], num_qubits=n, group_bits=g)), f"R7b: the bank's "
+              f"permute yardstick is not sigma on element {b}")
+    del lib
+    torch.cuda.empty_cache()
     k10 = bank_form_timing(
         torch,
         lambda: bigstate.apply_sigma_swap(bank, num_qubits=n, group_bits=g),
@@ -8965,7 +8822,10 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
                                            group_bits=g) for b in range(nb)],
         lambda: bigstate.sigma_swap_plain(bank[0], num_qubits=n,
                                           group_bits=g),
-        nb, nb * 2 * 2 * num_amps * 4 / HBM_BYTES_PER_S * 1e3, "bytes")
+        nb, nb * 2 * 2 * num_amps * 4 / HBM_BYTES_PER_S * 1e3, "bytes",
+        (time_ms(k10_library, reps=3, warmup=1),
+         "permute(0, 1, 6, 5, 4, 3, 2).contiguous() of the bank's "
+         "(B, 2, G, G, mid, G, G) view"))
     # the plain version above is one element's: the bank's is B of them
     k10["plain_ms"] *= nb
     k10["plain_note"] = "B x one element's out-of-place relabel"
@@ -8992,6 +8852,177 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
     return out
 
 
+N_PROBE_PARITY = 20       # each probe's check on the card
+P1_PARITY = (20, 26)      # the stream pass's parity sizes (qubits)
+
+
+def probe_module(probes, name: str):
+    """The probe module ``name`` of the package ``probes``."""
+    import importlib
+
+    return importlib.import_module(f"{probes.__name__}.{name}")
+
+
+def phase_probes_parity(torch, np, stream, probes):
+    """P1 ``torch.equal`` to its plain version in every (op, R, in place
+    or not) case at 2^20 and 2^26 amplitudes; then each probe's check on
+    the card at 20 qubits (K1 and K3 against their plain versions at the
+    tolerances the probes state, P1 again)."""
+    out = {"p1": {}}
+    worst = 0.0
+    rows_cases = probe_module(probes, "profile_dma").ROWS
+    for n in P1_PARITY:
+        gen = torch.Generator(device=DEVICE).manual_seed(n)
+        x0 = torch.randn((2, 1 << n), generator=gen, device=DEVICE)
+        cases = 0
+        for op in stream.OPS:
+            for rows in rows_cases:
+                for inplace in (True, False):
+                    x = x0.clone()
+                    dst = None if inplace else torch.empty_like(x)
+                    y = stream.stream_pass(x, rows=rows, op=op, out=dst)
+                    ref = stream.stream_pass_plain(x0.clone(), rows=rows,
+                                                   op=op)
+                    err = float((y - ref).abs().max())
+                    worst = max(worst, err)
+                    check(torch.equal(y, ref) and (y is x) == inplace,
+                          f"P1 {op} R={rows} in place={inplace} at 2^{n}: "
+                          f"not its plain version (|err| {err})")
+                    cases += 1
+                    del x, y, ref, dst
+        out["p1"][f"2^{n}"] = {"cases": cases, "equal": True}
+        del x0
+        torch.cuda.empty_cache()
+    out["p1_max_abs_err"] = worst
+    out["checks"] = {}
+    for name in probes.PROBES:
+        out["checks"][name] = probe_module(probes, name).check(
+            DEVICE, N_PROBE_PARITY)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_probes_main(torch, fused, paulis, bigstate, stream, probes):
+    """Each probe's run() on the card, every launch count set to 0 just
+    before it and read just after: its kernels must have launched (P1 in
+    profile_dma; K1, K11, K12 in kernel_microbench; K1 in
+    probe_kernel_variants and profile_rank_kernels; K3 in
+    probe_flip_pallas), and as often as the probe's own count of its timed
+    launches or more (the extra ones are its checks against the plain
+    versions)."""
+    want = {"profile_dma": {"P1"}, "kernel_microbench": {"K1", "K11", "K12"},
+            "probe_kernel_variants": {"K1"},
+            "profile_rank_kernels": {"K1"}, "probe_flip_pallas": {"K3"}}
+    out = {}
+    for name in probes.PROBES:
+        reset_all(fused, paulis, bigstate)
+        stream.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = probe_module(probes, name).run(DEVICE)
+        sync()
+        res["seconds"] = time.perf_counter() - t0
+        counted = {**all_launches(fused, paulis, bigstate),
+                   **{k: v for k, v in stream.LAUNCHES.items() if v}}
+        own = res["launches"]
+        check(set(own) == want[name], f"{name}: launches of {set(own)}")
+        for key, n in own.items():
+            check(0 < n <= counted.get(key, 0), f"{name}: {key} counted "
+                  f"{counted.get(key, 0)} launches, the probe {n}")
+        res["counted_launches"] = counted
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_entries(pparity, pmain) -> list:
+    """The kernels line's P1-P8 entries: P1 the stream pass, P2-P8 the
+    probes whose counterparts are K1 and K3, each with its launches in
+    probes_main and its times there."""
+    def entry(label, name, source, replaces, head, launched, err, **extra):
+        return {"name": f"{label} {name}", "route": "cuda",
+                "source": f"quest_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": err, "max_err": err, "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"], **extra}
+
+    checks = pparity["checks"]
+    dma, mb = pmain["profile_dma"], pmain["kernel_microbench"]
+    kv, rk = pmain["probe_kernel_variants"], pmain["profile_rank_kernels"]
+    fl = pmain["probe_flip_pallas"]
+    out = [entry(
+        "P1", "HBM stream pass", "probes.cu",
+        "scripts/probes/profile_dma.py:52", dma["headline"],
+        dma["launches"]["P1"], max(pparity["p1_max_abs_err"],
+                             dma["headline"]["max_abs_err"]),
+        kernel="stream_pass_kernel", case="x2 at R = 8, in place, 2^26",
+        library_form=dma["headline"]["library_form"],
+        ms_by_rows_copy_in_place=dma["ms_by_rows_copy_in_place"],
+        copy_out_of_place_r8=dma["cases"]["stream copy R=8 out of place"],
+        yardstick_mul_flat_ms=dma["cases"]["torch mul_(0.5) flat"]["ms"])]
+    out.append(entry(
+        "P2", "offset-window cluster pass (K1 at offset k)", "window.cu",
+        "scripts/probes/kernel_microbench.py:104", mb["headline"],
+        mb["launches"]["K1"],
+        max(checks["kernel_microbench"]["max_abs_err"],
+            mb["headline"]["max_abs_err"]),
+        kernel="window_pass_kernel", counterpart="K1",
+        case=mb["headline"]["case"],
+        library_form=mb["headline"]["library_form"],
+        ms_by_case={k: c["ms"] for k, c in mb["cases"].items()}))
+    out.append(entry(
+        "P3", "separate-channel window pass (K1 given A^T)", "window.cu",
+        "scripts/probes/probe_kernel_variants.py:93", kv["headline"],
+        kv["launches"]["K1"],
+        max(checks["probe_kernel_variants"]["max_abs_err"],
+            kv["headline"]["max_abs_err"]),
+        kernel="window_pass_kernel", counterpart="K1",
+        case=kv["headline"]["case"],
+        library_form=kv["headline"]["library_form"],
+        ms_by_case={k: c["ms"] for k, c in kv["cases"].items()},
+        lane_side=kv["lane_side"]))
+    # the four sites are two functions: v1 and v3 the "bf16_3x" pass, v2
+    # and v4 the "highest" one, so two sites share each timed run
+    sites = {"v1": ("P4", 106), "v2": ("P5", 156), "v3": ("P6", 206),
+             "v4": ("P7", 333)}
+    first = {}
+    for v, (label, line) in sites.items():
+        prec = rk["variant_precision"][v]
+        head = rk["headline"][prec]
+        extra = ({"accuracy_vs_highest": rk["accuracy"]["bf16_3x_vs_highest"]}
+                 if prec == "bf16_3x" else {})
+        if prec in first:
+            extra["same_run_as"] = first[prec]
+        first.setdefault(prec, label)
+        out.append(entry(
+            label, f"rank-R cluster pass {v} (K1 at k = 7, {prec})",
+            "window.cu", f"scripts/probes/profile_rank_kernels.py:{line}",
+            head, rk["launches_by_precision"][prec],
+            max(head["max_abs_err"],
+                *(e for c, e in checks["profile_rank_kernels"][
+                    "max_abs_err_by_case"].items() if c.startswith(prec))),
+            kernel="window_pass_kernel", counterpart="K1",
+            case=head["case"], library_form=head["library_form"],
+            ms_by_rank={r: rk["cases"][f"{prec} rank{r}"]["ms"]
+                        for r in (1, 2, 4)}, **extra))
+    out.append(entry(
+        "P8", "direct Pauli rotation program (K3)", "paulis.cu",
+        "scripts/probes/probe_flip_pallas.py:109", fl["headline"],
+        fl["launches"]["K3"],
+        max(checks["probe_flip_pallas"]["max_abs_err"],
+            fl["headline"]["max_abs_err"]),
+        kernel="pauli_rotation_kernel", counterpart="K3",
+        case=fl["headline"]["case"], per_16_terms_s={
+            "k3": fl["k3"], "take_take": fl["take_take"]},
+        library_note="none: no single PyTorch call applies a Pauli-string "
+                     "rotation"))
+    for e in out:
+        check(e["launches"] > 0, f"{e['name']} never launched in "
+              "probes_main")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -9010,7 +9041,9 @@ def main() -> int:
         from quest_tpu_torch import batch
         from quest_tpu_torch.ops import (bigstate, build, calculations, cplx,
                                          density, fused, kernels,
-                                         measurement, paulis, threefry)
+                                         measurement, paulis, stream,
+                                         threefry)
+        from quest_tpu_torch import probes
     except ImportError as e:
         print(f"chip_smoke: cannot import quest_tpu_torch ({e}); run from "
               "the repository root", file=sys.stderr)
@@ -9135,31 +9168,6 @@ def main() -> int:
             x, op[2], op[3], op[6], num_qubits=n, k=op[1], apply_a=op[4],
             apply_b=op[5])
 
-    def library(op):
-        """Single torch.einsum calls on the complex views computing the
-        same function as the pass, {subscripts: call}, in both operand
-        orders (B.X first, X.A first) where the pass has both sides:
-        yardsticks only, the port never calls them."""
-        hi = 1 << (n - op[1] - 7)
-        mid = 1 << (op[1] - 7)
-        xc = cplx.to_complex(x.reshape(2, hi, 128, mid, 128))
-        ac = torch.complex(op[2][0, 0], op[2][0, 1])
-        bc = torch.complex(op[3][0, 0], op[3][0, 1])
-        mc = None if op[6] is None else torch.complex(op[6][0], op[6][1])
-        if op[4]:
-            forms = {"qw,hwml,pl": (bc, xc, ac), "hwml,pl,qw": (xc, ac, bc)}
-            out_s, m_s = "hqmp", "qp"
-        else:
-            forms = {"qw,hwml": (bc, xc)}
-            out_s, m_s = "hqml", "ql"
-        calls = {}
-        for sub, args in forms.items():
-            if mc is not None:
-                sub, args = f"{sub},{m_s}", (*args, mc)
-            sub = f"{sub}->{out_s}"
-            calls[sub] = lambda sub=sub, args=args: torch.einsum(sub, *args)
-        return calls
-
     def time_k1(op, dtype_name):
         b_ms, b_by = bound_ms([op], x.numel() * x.element_size(), num_amps,
                               dtype_name)
@@ -9169,7 +9177,9 @@ def main() -> int:
         check(err <= tolerance(x), f"K1 at {n} qubits, {dtype_name}, "
               f"k={op[1]}: |err| {err}")
         lib_ms, lib_form, lib_forms = library_time(
-            torch, cplx, y, library(op), tolerance(x), f"K1 {dtype_name}")
+            y, window_library(x, op[2], op[3], op[6], num_qubits=n,
+                              k=op[1], apply_a=op[4]),
+            tolerance(x), f"K1 {dtype_name}")
         # how far the kernel moves the norm, against the pass in float64
         y64 = fused.window_pass_plain(
             x.double(), *(t.double() if torch.is_tensor(t) else t
@@ -9523,7 +9533,21 @@ def main() -> int:
                     K12_bank=r7a["launches"]["K12_bank"],
                     K10_bank=r7b["launches"]["K10_bank"])
 
-    # 52. kernels
+    # 52. the stream pass (P1) against its plain version, each probe's
+    # check on the card
+    t_pp = time.perf_counter()
+    pparity_probes = phase_probes_parity(torch, np, stream, probes)
+    emit({"phase": "probes_parity", **pparity_probes,
+          "seconds": time.perf_counter() - t_pp})
+
+    # 53. the five probes' timings on the card (P1-P8)
+    t_pm = time.perf_counter()
+    pmain_probes = phase_probes_main(torch, fused, paulis, bigstate, stream,
+                                     probes)
+    emit({"phase": "probes_main", "power": smi, **pmain_probes,
+          "seconds": time.perf_counter() - t_pm})
+
+    # 54. kernels
     def entry(kname, replaces, t, err, source="window.cu", key=None):
         key = key or kname.split()[0]
         return {"name": kname, "route": "cuda",
@@ -9698,7 +9722,8 @@ def main() -> int:
                    (k10b, r7b["k10_bank"])):
         e["batch"] = rec["batch"]
         e["scalar_x_b_ms"] = rec["scalar_x_b_ms"]
-        e["library_note"] = "none: no single PyTorch call over the bank"
+        e["library_form"] = rec["library_form"]
+        e["ms_over_library_ms"] = rec["ms_over_library_ms"]
     for e in (k1b, k2b, k5b, k11b, k12b, k10b):
         check(e["launches"] > 0, f"{e['name']} never launched on its path")
     # the kernels the examples launched on the card, by example
@@ -9768,7 +9793,8 @@ def main() -> int:
           and sum(k2e["aot"].values()) + sum(k2b["aot"].values()) > 0,
           "a window kernel never launched on the plan cache's path")
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
-                      k11e, k12e, k1b, k2b, k5b, k11b, k12b, k10b]})
+                      k11e, k12e, k1b, k2b, k5b, k11b, k12b, k10b,
+                      *probe_entries(pparity_probes, pmain_probes)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ own import DAG, with its rule ids).
 inter-device communication lives in one exchange layer.  Over module-level
 imports of ``quest_tpu_torch``:
 
-    api (api, api_ops, debug, models)          rank 0
+    api (api, api_ops, debug, models, probes)  rank 0
       ↓
     serve (serve)                              rank 1
       ↓
@@ -25,10 +25,12 @@ contracts, qureg, qasm, utils, analysis) importable from every layer but
 itself restricted to shared + env.  The port's extra modules sit where
 their imports put them: ``interop`` (it carries plans and states in, so
 it imports circuit) in orchestration, ``ops/build`` (the kernels' build)
-in ops, ``parallel/mesh`` in dist, ``utils/profiling`` in shared, and
-``aotcache`` in dist, as the reference places it.  Function-scope lazy
-imports are the package's cycle-breaking idiom and are not flagged: the
-rule reads only module-level ``import`` / ``from`` nodes.
+in ops, ``parallel/mesh`` in dist, ``utils/profiling`` in shared,
+``aotcache`` in dist, as the reference places it, and ``probes`` (the
+TPU probes on the card, a tool on top like ``models``) in api.
+Function-scope lazy imports are the package's cycle-breaking idiom and
+are not flagged: the rule reads only module-level ``import`` / ``from``
+nodes.
 
 **Collective confinement.**  A ``torch.distributed`` call other than the
 process group's lifecycle (init, destroy, rank, size, backend), an
@@ -60,6 +62,7 @@ PACKAGE = "quest_tpu_torch"
 # stem) -> layer name.  Keep in sync with the diagram above.
 LAYER_OF = {
     "api": "api", "api_ops": "api", "debug": "api", "models": "api",
+    "probes": "api",
     "serve": "serve",
     "fusion": "orch", "batch": "orch", "circuit": "orch",
     "optimizer": "orch", "resilience": "orch", "checkpoint": "orch",

@@ -1,14 +1,15 @@
 """Build and load the hand-written CUDA kernels.
 
-Every source under ``csrc/`` (``window.cu``: K1, K2; ``paulis.cu``: K3,
-K4; ``channels.cu``: K5; ``qft.cu``: K6-K10) is compiled with nvcc for
+Every source under ``csrc/`` (``window.cu``: K1, K2, K11, K12;
+``paulis.cu``: K3, K4; ``channels.cu``: K5; ``qft.cu``: K6-K10;
+``probes.cu``: P1, the HBM stream pass) is compiled with nvcc for
 ``sm_90a`` into one shared library with a plain C interface, in the git-ignored ``_build/`` directory of the
 package, at first use.  The library's name carries a hash of all sources
 and flags, so an edited source is rebuilt and an unchanged one is not.
 The sources compile in parallel, one nvcc process each, and link in one
 more step.  The kernel modules (``ops/fused.py``, ``ops/paulis.py``,
-``ops/bigstate.py``) load the library from here and declare their own entry points' ctypes
-signatures.
+``ops/bigstate.py``, ``ops/stream.py``) load the library from here and
+declare their own entry points' ctypes signatures.
 """
 
 from __future__ import annotations

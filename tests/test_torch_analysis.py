@@ -249,6 +249,8 @@ class TestLayerViolation:
         ("quest_tpu_torch/parallel/mesh.py",
          "from ..validation import QuESTError"),
         ("quest_tpu_torch/utils/profiling.py", "from .. import telemetry"),
+        ("quest_tpu_torch/probes/profile_dma.py", "from ..ops import stream"),
+        ("quest_tpu_torch/probes/kernel_microbench.py", "from . import common"),
     ])
     def test_the_ports_extra_modules_sit_in_the_dag(self, path, src):
         assert run(src, path=path) == []
@@ -258,6 +260,7 @@ class TestLayerViolation:
         ("quest_tpu_torch/ops/build.py", "from .. import circuit"),
         ("quest_tpu_torch/utils/profiling.py", "from .. import governor"),
         ("quest_tpu_torch/interop.py", "from . import serve"),
+        ("quest_tpu_torch/probes/common.py", "from .. import api"),
     ])
     def test_the_ports_extra_modules_cannot_import_upward(self, path, src):
         assert rule_ids(run(src, path=path)) == ["layer-violation"]

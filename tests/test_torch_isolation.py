@@ -35,7 +35,12 @@ def test_import_leaves_jax_out():
             "quest_tpu_torch.ops.measurement, quest_tpu_torch.checkpoint, "
             "quest_tpu_torch.debug, quest_tpu_torch.resilience, "
             "quest_tpu_torch.telemetry, quest_tpu_torch.utils.profiling, "
-            "quest_tpu_torch.serve\n"
+            "quest_tpu_torch.serve, quest_tpu_torch.ops.stream, "
+            "quest_tpu_torch.probes.profile_dma, "
+            "quest_tpu_torch.probes.kernel_microbench, "
+            "quest_tpu_torch.probes.probe_kernel_variants, "
+            "quest_tpu_torch.probes.profile_rank_kernels, "
+            "quest_tpu_torch.probes.probe_flip_pallas\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r})\n"
             "print(','.join(bad))")
