@@ -1230,9 +1230,12 @@ def phase_pauli_main(torch, np, qt, paulis, kernels, api_ops, hamiltonians):
 
 def device_busy(torch, call, kernel: str):
     """(device ms, launches of ``kernel``) of one call under torch.profiler:
-    the summed time of every kernel and copy the profiler saw on the card,
-    and how many of those kernels were named ``kernel``; (None, None) if it
-    saw nothing on the card."""
+    the union of the intervals of every kernel and copy the profiler saw
+    on the card (two that overlap count once; the card-side images of
+    ``record_function`` ranges, such as the telemetry spans, are no
+    device work and are left out, as in qtbench/trace.py), and how many
+    of those kernels were named ``kernel``; (None, None) if it saw
+    nothing on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -1246,12 +1249,23 @@ def device_busy(torch, call, kernel: str):
             sync()
         call()
         sync()
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = list(prof.profiler.kineto_results.events())
+    annotations = {e.name() for e in events if e.is_user_annotation()}
+    on_card = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+        for e in events if str(e.device_type()).endswith("CUDA")
+        and not e.is_user_annotation() and e.name() not in annotations)
     if not on_card:
         return None, None
-    return (sum(e.time_range.elapsed_us() for e in on_card) / 1e3,
-            sum(1 for e in on_card if kernel in e.name))
+    busy, end = 0, None
+    for s, e, _name in on_card:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e6, sum(1 for _s, _e, name in on_card if kernel in name)
 
 
 def phase_pauli_timing(torch, qt, paulis, api_ops, hamiltonians, h):

@@ -1,0 +1,17 @@
+"""Milliseconds per circuit (a bank element counts as one) in which the
+card idles inside the program's ``fusion.dispatch`` spans (the host
+enqueueing a program group's launches), over the traced window: the host
+falling behind the card while it enqueues.  Nothing where the program
+records no such span."""
+
+from qtbench import spans as SP
+
+LAYER = "optimizer, planner and dispatch"
+UNIT = "ms"
+BETTER = "lower"
+MOVES = "circuits_per_s"
+SOURCE = "device_trace"
+
+
+def read(ctx):
+    return SP.idle_ms_per_circuit(ctx, "fusion.dispatch")

@@ -1,0 +1,16 @@
+"""Milliseconds per circuit in which the card idles inside the program's
+``api.qft`` spans (``applyFullQFT``: planning the QFT's passes and
+enqueueing them), over the traced window.  Nothing where the program
+records no such span."""
+
+from qtbench import spans as SP
+
+LAYER = "optimizer, planner and dispatch"
+UNIT = "ms"
+BETTER = "lower"
+MOVES = "circuits_per_s"
+SOURCE = "device_trace"
+
+
+def read(ctx):
+    return SP.idle_ms_per_circuit(ctx, "api.qft")

@@ -1213,9 +1213,13 @@ def _apply_qft(qureg: Qureg, qubits) -> None:
     """The fused route where it applies, else the layered one: per layer
     a Hadamard and the controlled-phase ladder as one SCALED_PRODUCT phase
     function (and its conjugated bra twin on a density matrix), then the
-    swaps."""
-    if _qft_fused(qureg, qubits):
-        return
+    swaps.  Runs under the ``api.qft`` span."""
+    with _telemetry.span("api.qft", qubits=len(qubits)):
+        if not _qft_fused(qureg, qubits):
+            _qft_layered(qureg, qubits)
+
+
+def _qft_layered(qureg: Qureg, qubits) -> None:
     n = len(qubits)
     for q in range(n - 1, -1, -1):
         hadamard(qureg, qubits[q])

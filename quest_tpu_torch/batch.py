@@ -311,11 +311,11 @@ def applyBatchedUnitary(qureg: BatchedQureg, targets, mats,
     bits = targets + controls
     _check_capturable(qureg, bits, "applyBatchedUnitary")
     buf = qureg._fusion
-    buf.gates.append(C.Gate(bits, stacked))
+    buf.add(C.Gate(bits, stacked))
     if qureg.is_density_matrix:
         sh = qureg.num_qubits_represented
         cstacked = np.stack([stacked[:, 0], -stacked[:, 1]], axis=1)
-        buf.gates.append(C.Gate(tuple(b + sh for b in bits), cstacked))
+        buf.add(C.Gate(tuple(b + sh for b in bits), cstacked))
 
 
 # ---------------------------------------------------------------------------
@@ -555,7 +555,7 @@ class EnsembleScheduler:
         from . import api as _api
 
         _telemetry.inc_key(_api._K_UNITARY, B * len(group[0][2]))
-        q._fusion.gates.extend(items)
+        q._fusion.add(*items)
         out = {sub[0]: q.element(i) for i, sub in enumerate(group)}
         _telemetry.observe("ensemble_bucket_occupancy", real / B)
         return out, real, B
@@ -688,7 +688,7 @@ def run_trajectories(ops: Sequence, num_qubits: int, env: QuESTEnv,
         for op in ops:
             if isinstance(op, C.Gate):
                 _telemetry.inc_key(_api._K_UNITARY, n_traj)
-                q._fusion.gates.append(op)
+                q._fusion.add(op)
                 continue
             kind, target, prob = op
             if kind not in _NOISE_KINDS:

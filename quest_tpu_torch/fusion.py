@@ -75,11 +75,24 @@ FUSION_MAX_GATE_QUBITS = 7
 
 
 class FusionBuffer:
-    __slots__ = ("gates",)
+    __slots__ = ("gates", "t0_ns", "parent")
 
     def __init__(self):
         # C.Gate and ChannelItem entries, executed in order by the drain
         self.gates: List[object] = []
+        # the capture's start (telemetry.now_ns; 0: not stamped) and the
+        # span open when it began: the drain's fusion.capture record
+        self.t0_ns = 0
+        self.parent = None
+
+    def add(self, *items) -> None:
+        """Buffer ``items`` in order: every capture path buffers through
+        here, so the first item into an empty buffer stamps the start of
+        the capture."""
+        if not self.gates:
+            self.t0_ns = _telemetry.now_ns()
+            self.parent = _telemetry.current_span()
+        self.gates.extend(items)
 
 
 def start_gate_fusion(qureg) -> None:
@@ -101,18 +114,38 @@ def drain(qureg) -> None:
     ``fusion_drains_total`` and ``_drain_count`` (the resilience layer's
     window-boundary count), observes ``fusion_drain_gates``, runs under
     the ``fusion.drain`` span, and samples the memory watermark after the
-    drain (quest_tpu/fusion.py:71-94)."""
+    drain (quest_tpu/fusion.py:71-94).
+
+    The drain's spans, each with the ``drain`` attr (the fusion.drain
+    record's id): ``fusion.capture`` (ring only: from the first item
+    buffered to the drain's start; ``gates``), and inside fusion.drain
+    ``fusion.optimize`` (``items_in``, ``items_out``), ``fusion.lookup``
+    (key and plan-cache lookup; ``source``: memory, disk or planned;
+    ``fusion.plan`` inside it on a miss), ``fusion.govern`` (the governor
+    and the program accounting) and one ``fusion.dispatch`` per program
+    group (its host enqueue; attrs: the group's op counts,
+    ``program_stats``)."""
     buf = qureg._fusion
     if buf is not None and buf.gates:
         gates, buf.gates = buf.gates, []
+        t0_ns, buf.t0_ns = buf.t0_ns, 0
         _telemetry.inc("fusion_drains_total")
         _telemetry.observe("fusion_drain_gates", len(gates))
+        outer = getattr(_DRAIN, "id", 0)
         try:
-            with _telemetry.span("fusion.drain", gates=len(gates)):
+            with _telemetry.span("fusion.drain", gates=len(gates)) as sp:
+                sp.attrs["drain"] = _DRAIN.id = sp.id
+                if t0_ns:
+                    _telemetry.record_span(
+                        "fusion.capture", t0_ns, sp.start_ns, buf.parent,
+                        gates=len(gates), drain=sp.id)
                 _run(qureg, gates)
         except BaseException:
             buf.gates = gates + buf.gates
+            buf.t0_ns = t0_ns
             raise
+        finally:
+            _DRAIN.id = outer
         qureg._drain_count += 1
         if _telemetry.enabled():
             from .utils import profiling as _prof
@@ -140,6 +173,19 @@ _DRY = _opt.ThreadCount()
 # where the last recorded plan lookup of this thread found its plan:
 # "memory", "disk" or "planned" (the first_request_seconds label)
 _SOURCE = threading.local()
+# the id of the fusion.drain span running on this thread (0: none): the
+# "drain" attr of every span of that drain
+_DRAIN = threading.local()
+# op counts of dispatched program groups (the fusion.dispatch attrs), made
+# once per group: id(group) -> (group, counts); the entry holds the
+# group, so its id names no other object while it is here
+_GROUP_STATS: dict = {}
+
+
+def _span(name: str, **attrs):
+    """telemetry.span with the running drain's id as its ``drain``
+    attr."""
+    return _telemetry.span(name, drain=getattr(_DRAIN, "id", 0), **attrs)
 
 
 def _store(key, value, digest=None) -> None:
@@ -166,6 +212,7 @@ def clear_plan_caches() -> None:
     with _PLAN_LOCK:
         _plan_cache.clear()
         _device_programs.clear()
+        _GROUP_STATS.clear()
         for d in _plan_digests.values():
             _aot._MEMORY_KEYS.discard(d)
         _plan_digests.clear()
@@ -485,7 +532,7 @@ def _plan_optimized(items, num_qubits: int, device, sweep_ok: bool,
     if hit is not None:
         return hit
     t0 = time.perf_counter()
-    with _telemetry.span("fusion.plan", items=len(items)) if record \
+    with _span("fusion.plan", items=len(items)) if record \
             else nullcontext():
         if flag == 2:
             program = _plan_batched_items(items, batch_size, num_qubits,
@@ -671,6 +718,28 @@ def program_stats(program) -> dict:
     return total
 
 
+def _group_stats(group) -> dict:
+    """program_stats of a dispatched group, made once per group."""
+    with _PLAN_LOCK:
+        hit = _GROUP_STATS.get(id(group))
+    if hit is not None:
+        return hit[1]
+    counts = program_stats(group)
+    with _PLAN_LOCK:
+        if len(_GROUP_STATS) >= _PLAN_CACHE_MAX:
+            del _GROUP_STATS[next(iter(_GROUP_STATS))]
+        _GROUP_STATS[id(group)] = (group, counts)
+    return counts
+
+
+def _dispatch_span(group):
+    """The fusion.dispatch span of one program group, its op counts as
+    attrs."""
+    if not _telemetry.enabled():
+        return nullcontext()
+    return _span("fusion.dispatch", **_group_stats(group))
+
+
 def execute_program(amps, program, probs, num_qubits: int, release=None):
     """Run a program's parts in order; ``probs`` holds the probability of
     each of its channels, in order.  Returns the new state (a sweep
@@ -740,20 +809,25 @@ def _run(qureg, items) -> None:
     n = qureg.num_qubits_in_state_vec
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
     t0 = time.perf_counter()
-    with _telemetry.span("fusion.optimize", items=len(items)):
+    with _span("fusion.optimize", items_in=len(items)) as sp:
         items, _stats = _opt.optimize_items(items, nloc=n)
+        sp.attrs["items_out"] = len(items)
     if not items:
         return  # everything cancelled: nothing runs
-    program = _plan_optimized(items, n, qureg.device, _sweep_ok(qureg), bsz,
-                              record=True)
+    with _span("fusion.lookup") as sp:
+        program = _plan_optimized(items, n, qureg.device, _sweep_ok(qureg),
+                                  bsz, record=True)
+        sp.attrs["source"] = getattr(_SOURCE, "where", None)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
     try:
-        groups = _governed_groups(qureg, program, probs, nloc=n, nsh=0)
-        _record_program(program, items)
+        with _span("fusion.govern"):
+            groups = _governed_groups(qureg, program, probs, nloc=n, nsh=0)
+            _record_program(program, items)
         for group, gprobs in groups:
             def dispatch(g=group, gp=gprobs):
-                return execute_program(qureg._amps, g, gp, n,
-                                       release=lambda: _consume(qureg))
+                with _dispatch_span(g):
+                    return execute_program(qureg._amps, g, gp, n,
+                                           release=lambda: _consume(qureg))
 
             try:
                 qureg._amps = _timed_group(
@@ -928,7 +1002,7 @@ def _plan_sharded(items, n, nloc, perm0, device, sweep_ok, bsz: int = 0,
     if hit is not None:
         return hit[0], hit[1], key
     t0 = time.perf_counter()
-    with _telemetry.span("fusion.plan", items=len(items)) if record \
+    with _span("fusion.plan", items=len(items)) if record \
             else nullcontext():
         if flag == 2:
             program, final_perm = _stack_element_plans(
@@ -1039,25 +1113,37 @@ def _run_sharded(qureg, items) -> None:
     perm0 = qureg._perm
     bsz = int(getattr(qureg, "batch_size", 0) or 0)
     t0 = time.perf_counter()
-    with _telemetry.span("fusion.optimize", items=len(items)):
+    with _span("fusion.optimize", items_in=len(items)) as sp:
         items, _stats = _opt.optimize_items(items, nloc=nloc, n=n, nsh=nsh,
                                             perm0=perm0)
+        sp.attrs["items_out"] = len(items)
     if not items:
         return  # everything cancelled: nothing runs, the perm stays
-    program, final_perm, key = _plan_sharded(
-        items, n, nloc, perm0, qureg._amps.device, _sweep_ok(qureg), bsz,
-        record=True)
+    with _span("fusion.lookup") as sp:
+        program, final_perm, key = _plan_sharded(
+            items, n, nloc, perm0, qureg._amps.device, _sweep_ok(qureg), bsz,
+            record=True)
+        sp.attrs["source"] = getattr(_SOURCE, "where", None)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
     try:
-        groups = _governed_groups(qureg, program, probs, nloc=nloc, nsh=nsh)
-        _record_program(program, items, n, nloc, perm0)
+        with _span("fusion.govern"):
+            groups = _governed_groups(qureg, program, probs, nloc=nloc,
+                                      nsh=nsh)
+            _record_program(program, items, n, nloc, perm0)
+            gkey = key if len(groups) == 1 else None
+            if gkey is not None:
+                # each shard device's copy of the program, made here
+                # (cached under the key) rather than in the dispatch
+                for dk in {(sh.device, sh.dtype)
+                           for sh in qureg._amps.shards}:
+                    program_on_device(program, dk[1], dk[0], gkey)
         before = _remap_counters() if _telemetry.enabled() else None
-        gkey = key if len(groups) == 1 else None
         for group, gprobs in groups:
             def dispatch(g=group, gp=gprobs):
-                return PAR.guarded_dispatch(
-                    execute_sharded_program, qureg._amps, g, gp, nloc, gkey,
-                    op="drain", shards=qureg.num_chunks)
+                with _dispatch_span(g):
+                    return PAR.guarded_dispatch(
+                        execute_sharded_program, qureg._amps, g, gp, nloc,
+                        gkey, op="drain", shards=qureg.num_chunks)
 
             qureg._amps = _timed_group(
                 qureg, group, lambda d=dispatch: _gov.oom_net(d, qureg))
@@ -1147,15 +1233,14 @@ def capture_unitary(qureg, stacked, targets, controls=(),
     if controls:
         mat = C.controlled_dense(stacked, len(controls), control_states)
     buf = qureg._fusion
-    buf.gates.append(C.Gate(tuple(targets) + tuple(controls), mat))
+    buf.add(C.Gate(tuple(targets) + tuple(controls), mat))
     if qureg.is_density_matrix:
         sh = qureg.num_qubits_represented
         cmat = _cplx.conj(stacked)
         if controls:
             cmat = C.controlled_dense(cmat, len(controls), control_states)
-        buf.gates.append(
-            C.Gate(tuple(t + sh for t in targets)
-                   + tuple(c + sh for c in controls), cmat))
+        buf.add(C.Gate(tuple(t + sh for t in targets)
+                       + tuple(c + sh for c in controls), cmat))
     return True
 
 
@@ -1167,7 +1252,7 @@ def capture_raw(qureg, stacked, targets) -> bool:
     if not _capturable(qureg, tuple(targets)):
         drain(qureg)
         return False
-    qureg._fusion.gates.append(C.Gate(tuple(targets), stacked))
+    qureg._fusion.add(C.Gate(tuple(targets), stacked))
     return True
 
 
@@ -1179,7 +1264,7 @@ def capture_pair_channel(qureg, kind: str, target: int, prob) -> bool:
     if not _capturable(qureg, (target, target + sh)):
         drain(qureg)
         return False
-    qureg._fusion.gates.append(ChannelItem(kind, target, target + sh, prob))
+    qureg._fusion.add(ChannelItem(kind, target, target + sh, prob))
     return True
 
 
@@ -1200,9 +1285,9 @@ def capture_not(qureg, targets, controls=(), control_states=()) -> bool:
             drain(qureg)
             return False
         for t in targets:
-            qureg._fusion.gates.append(C.Gate((t,), _X))
+            qureg._fusion.add(C.Gate((t,), _X))
             if qureg.is_density_matrix:
-                qureg._fusion.gates.append(C.Gate((t + sh,), _X))
+                qureg._fusion.add(C.Gate((t + sh,), _X))
         return True
     # size-check BEFORE densifying the 2^nt x 2^nt matrix
     if not _capturable(qureg, tuple(targets) + tuple(controls)):

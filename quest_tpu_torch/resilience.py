@@ -907,8 +907,7 @@ class WindowExecutor:
         with _opt.suppressed():
             _fusion.start_gate_fusion(self.qureg)
             try:
-                self.qureg._fusion.gates.extend(
-                    self.gates[self.cursor:end])
+                self.qureg._fusion.add(*self.gates[self.cursor:end])
             finally:
                 _fusion.stop_gate_fusion(self.qureg)  # the window's drain
         self.last_window = (self.cursor, end)

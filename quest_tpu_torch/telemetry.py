@@ -16,12 +16,20 @@ registry every layer reports into.
   ``failovers_total``).  The degradation registry (resilience.py) is
   folded in at read time as ``degradation_active{name}`` gauges.
 
-* **Spans**: ``with telemetry.span("fusion.drain"):`` observes the
-  duration into ``span_seconds{name}``, appends a Chrome-trace "X" event
-  in trace mode (``write_trace``), and opens
-  ``torch.profiler.record_function(name)``, so the region lands inside
-  a ``torch.profiler`` trace around the kernels it encloses, and, where
-  CUDA is available, an NVTX range.
+* **Spans**: ``with telemetry.span("fusion.drain") as sp:`` observes
+  the duration into ``span_seconds{name}``, appends a record (name,
+  start and end in ns, its id, the id of the span open on the same
+  thread when it began, its attrs) to the bounded span ring in both
+  enabled modes, and opens ``torch.profiler.record_function(name)``, so
+  the region lands inside a ``torch.profiler`` trace around the kernels
+  it encloses, and, where CUDA is available, an NVTX range.
+  ``spans()`` reads the ring; ``write_trace`` writes it as Chrome JSON.
+
+* **One clock**: every timestamp recorded here (spans, request traces,
+  the flight ring) is ``now_ns()``, Unix-epoch nanoseconds: the clock
+  ``torch.profiler`` stamps its events with, so a span's record lies
+  over the profiler's range of the same span and over the kernels the
+  trace shows beside it.
 
 * **Export**: ``snapshot()``, ``prometheus_text()``, ``write_trace()``
   and ``report_perf(env)`` / ``reportPerf``.
@@ -44,6 +52,7 @@ import atexit
 import bisect
 import collections
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -78,14 +87,17 @@ _LOCK = threading.Lock()
 _COUNTERS: dict = {}
 _GAUGES: dict = {}
 _HISTS: dict = {}
-# Chrome-trace span buffer: a BOUNDED ring (a long trace-mode serve
-# session must not grow without bound) — overflow drops the OLDEST
-# event, counts trace_events_dropped_total, and write_trace notes the
-# drop in the emitted JSON.
+# the span ring: a BOUNDED deque of span records (a long serve session
+# must not grow without bound) — overflow drops the OLDEST record,
+# counts trace_events_dropped_total, and write_trace notes the drop in
+# the emitted JSON.  A record is the tuple (name, start_ns, end_ns, id,
+# parent id, thread id, attrs); spans() hands them out as dicts.
 _TRACE_MAX = _env_cap(_TRACE_MAX_ENV, 65536)
 _TRACE_EVENTS: collections.deque = collections.deque()
 _TRACE_DROPPED = [0]  # drops since the last write_trace
-_TRACE_T0 = time.perf_counter()
+_SPAN_IDS = itertools.count(1)
+# per thread: the ids of the spans open on it, innermost last
+_OPEN = threading.local()
 # flight recorder: bounded ring of recent structured events (spans,
 # degradations, watchdog verdicts, drift, admission decisions) dumped
 # as a JSON post-mortem on serve/resilience incidents
@@ -105,6 +117,14 @@ def _resolve_mode() -> int:
 
 
 _mode = _resolve_mode()
+
+
+def now_ns() -> int:
+    """The telemetry's clock: Unix-epoch nanoseconds (``time.time_ns``),
+    the clock ``torch.profiler`` stamps its host and device events
+    with."""
+    # qlint: allow(nondeterminism): a telemetry timestamp IS the recorded value (spans, traces, the flight ring), never program state
+    return time.time_ns()
 
 
 def configure(mode: Optional[str] = None) -> str:
@@ -299,74 +319,171 @@ def record_exchange(op: str, count: int = 1, nbytes: int = 0, *,
 # ---------------------------------------------------------------------------
 
 
-def _chrome_append(ev: dict) -> None:
-    """Append one Chrome-trace event to the BOUNDED ring: overflow drops
-    the oldest event and counts trace_events_dropped_total."""
+def _ring_append(rec: tuple) -> None:
+    # caller holds _LOCK; overflow drops the OLDEST record and counts
+    # trace_events_dropped_total
+    if len(_TRACE_EVENTS) >= _TRACE_MAX:
+        _TRACE_EVENTS.popleft()
+        _TRACE_DROPPED[0] += 1
+        key = ("trace_events_dropped_total", ())
+        _COUNTERS[key] = _COUNTERS.get(key, 0) + 1
+    _TRACE_EVENTS.append(rec)
+
+
+def _open_spans() -> list:
+    stack = getattr(_OPEN, "ids", None)
+    if stack is None:
+        stack = _OPEN.ids = []
+    return stack
+
+
+def current_span() -> Optional[int]:
+    """The id of the innermost span open on this thread (None when none
+    is, or telemetry is off)."""
+    if not _mode:
+        return None
+    stack = _open_spans()
+    return stack[-1] if stack else None
+
+
+class Span:
+    """A span: the context manager ``span()`` returns, and what it yields.
+    The body reads its record's ``id`` and ``start_ns`` (0 when telemetry
+    is off) and may add to its ``attrs`` until it closes.  A class rather
+    than a generator: every drain and QFT opens several."""
+
+    __slots__ = ("name", "attrs", "id", "start_ns", "_parent", "_range")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+        self.id = self.start_ns = 0
+
+    def __enter__(self) -> "Span":
+        if not _mode:
+            return self
+        self.id = next(_SPAN_IDS)
+        stack = _open_spans()
+        self._parent = stack[-1] if stack else None
+        stack.append(self.id)
+        self.start_ns = now_ns()
+        self._range = _Range(self.name).__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if not self.id:
+            return False
+        try:
+            self._range.__exit__(*exc)
+        finally:
+            t1 = now_ns()
+            _open_spans().pop()
+            observe("span_seconds", (t1 - self.start_ns) * 1e-9,
+                    name=self.name)
+            with _LOCK:
+                _ring_append((self.name, self.start_ns, t1, self.id,
+                              self._parent, threading.get_ident(),
+                              self.attrs))
+        return False
+
+
+def span(name: str, **attrs) -> Span:
+    """Host-side named region: observes ``span_seconds{name}``, appends
+    its record to the span ring (both enabled modes), and opens
+    ``torch.profiler.record_function(name)`` (and an NVTX range where
+    CUDA is available) so the region also appears inside a
+    ``torch.profiler`` / Nsight trace.  ``with span(...) as sp`` yields
+    the :class:`Span`.  Records nothing when telemetry is off."""
+    return Span(name, attrs)
+
+
+def record_span(name: str, start_ns: int, end_ns: int,
+                parent: Optional[int] = None, **attrs) -> int:
+    """Append a span timed elsewhere (``start_ns`` / ``end_ns`` on
+    ``now_ns()``'s clock) to the span ring only: no profiler range, no
+    histogram; for a region that opens in one call and closes in another
+    (the fusion buffer's capture).  Returns its id (0 when off)."""
+    if not _mode:
+        return 0
+    sid = next(_SPAN_IDS)
     with _LOCK:
-        if len(_TRACE_EVENTS) >= _TRACE_MAX:
-            _TRACE_EVENTS.popleft()
-            _TRACE_DROPPED[0] += 1
-            key = ("trace_events_dropped_total", ())
-            _COUNTERS[key] = _COUNTERS.get(key, 0) + 1
-        _TRACE_EVENTS.append(ev)
+        _ring_append((name, int(start_ns), int(end_ns), sid, parent,
+                      threading.get_ident(), attrs))
+    return sid
 
 
-def _chrome_event(name: str, t0: float, dt: float, attrs: dict) -> dict:
+def spans(since_ns: int = 0) -> list:
+    """The span ring's records that started at or after ``since_ns``,
+    oldest first by close, as dicts ``{"name", "start_ns", "end_ns",
+    "id", "parent", "tid", "attrs"}``.  Empty when telemetry records
+    nothing."""
+    with _LOCK:
+        recs = list(_TRACE_EVENTS)
+    return [{"name": r[0], "start_ns": r[1], "end_ns": r[2], "id": r[3],
+             "parent": r[4], "tid": r[5], "attrs": dict(r[6])}
+            for r in recs if r[1] >= since_ns]
+
+
+def _chrome_event(rec: tuple) -> dict:
+    name, t0, t1, _sid, _parent, tid, attrs = rec
     return {
         "name": name,
         "cat": "quest_tpu_torch",
         "ph": "X",
-        "ts": (t0 - _TRACE_T0) * 1e6,
-        "dur": dt * 1e6,
+        "ts": t0 / 1e3,
+        "dur": (t1 - t0) / 1e3,
         "pid": os.getpid(),
-        "tid": threading.get_ident(),
+        "tid": tid,
         "args": {k: str(v) for k, v in attrs.items()},
     }
 
 
-@contextlib.contextmanager
-def span(name: str, **attrs) -> Iterator[None]:
-    """Host-side named region: observes ``span_seconds{name}``, appends a
-    Chrome-trace complete event in trace mode, and opens
-    ``torch.profiler.record_function(name)`` (and an NVTX range where
-    CUDA is available) so the region also appears inside a
-    ``torch.profiler`` / Nsight trace.  A no-op (beyond the generator
-    frame) when telemetry is off."""
-    if not _mode:
-        yield
-        return
-    t0 = time.perf_counter()
-    with annotate(name):
+class _Range:
+    """``torch.profiler.record_function(name)`` while a profiler is
+    recording (it records the range then and nothing otherwise, and is
+    most of a span's cost) plus, where CUDA is available, an NVTX range
+    of the same name (a failing NVTX call raises)."""
+
+    __slots__ = ("name", "_rf", "_nvtx")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "_Range":
+        import torch
+
+        self._rf = None
+        if torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self._nvtx = torch.cuda.is_available()
+        if self._nvtx:
+            torch.cuda.nvtx.range_push(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
         try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            observe("span_seconds", dt, name=name)
-            if _mode == TRACE:
-                _chrome_append(_chrome_event(name, t0, dt, attrs))
+            if self._nvtx:
+                import torch
 
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """``torch.profiler.record_function(name)`` plus, where CUDA is
-    available, an NVTX range of the same name (a failing NVTX call
-    raises).  Records nothing in the registry."""
-    import torch
-
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
                 torch.cuda.nvtx.range_pop()
+        finally:
+            if self._rf is not None:
+                self._rf.__exit__(*exc)
+        return False
+
+
+def annotate(name: str) -> _Range:
+    """``with annotate(name):`` a ``torch.profiler.record_function``
+    range plus, where CUDA is available, an NVTX range.  Records nothing
+    in the registry."""
+    return _Range(name)
 
 
 def write_trace(path: Optional[str] = None) -> Optional[str]:
-    """Write buffered spans as Chrome trace-event JSON (loadable in
-    Perfetto / chrome://tracing) and clear the buffer.  Returns the file
+    """Write the span ring as Chrome trace-event JSON (loadable in
+    Perfetto / chrome://tracing; ``ts`` in Unix-epoch microseconds) and
+    clear it.  Returns the file
     path, or None (writing nothing) when no events are buffered — so
     ``QT_TELEMETRY=off`` never creates trace files.  Default path:
     ``$QT_TELEMETRY_TRACE_DIR/qt_trace_<pid>.json`` (cwd when the env
@@ -383,7 +500,8 @@ def write_trace(path: Optional[str] = None) -> Optional[str]:
         events = list(_TRACE_EVENTS)
         _TRACE_EVENTS.clear()
         dropped, _TRACE_DROPPED[0] = _TRACE_DROPPED[0], 0
-    doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+    doc = {"traceEvents": [_chrome_event(r) for r in events],
+           "displayTimeUnit": "ms"}
     if dropped:
         doc["otherData"] = {"trace_events_dropped": dropped}
     with open(path, "w") as f:
@@ -420,7 +538,7 @@ def flight_event(kind: str, /, **fields) -> None:
     over same-named fields."""
     if not _mode:
         return
-    ev = {"ts": round(time.perf_counter() - _TRACE_T0, 6), "kind": kind}
+    ev = {"ts": round(now_ns() * 1e-9, 6), "kind": kind}
     for k, v in fields.items():
         if k not in ("ts", "kind"):
             ev[k] = _jsonable(v)
@@ -491,8 +609,8 @@ def _trace_emit(tid: str, ev: dict) -> None:
     rec["events"].append(ev)
 
 
-def _us(t: float) -> float:
-    return round((t - _TRACE_T0) * 1e6, 1)
+def _us(t_ns: int) -> float:
+    return round(t_ns / 1e3, 1)
 
 
 def trace_begin(tid: str, name: str, **attrs) -> None:
@@ -504,7 +622,7 @@ def trace_begin(tid: str, name: str, **attrs) -> None:
     with _LOCK:
         rec = _trace_rec(tid)
         rec["stack"].append(
-            (name, time.perf_counter(),
+            (name, now_ns(),
              {k: str(v) for k, v in attrs.items()}))
 
 
@@ -515,7 +633,7 @@ def trace_end(tid: str, **attrs) -> None:
     open."""
     if not _mode:
         return
-    now = time.perf_counter()
+    now = now_ns()
     with _LOCK:
         rec = _JOB_TRACES.get(tid)
         if rec is None or not rec["stack"]:
@@ -523,20 +641,14 @@ def trace_end(tid: str, **attrs) -> None:
         name, t0, args = rec["stack"].pop()
         args.update({k: str(v) for k, v in attrs.items()})
         ev = {"name": name, "ph": "X", "ts": _us(t0),
-              "dur": round((now - t0) * 1e6, 1),
+              "dur": round((now - t0) / 1e3, 1),
               "depth": len(rec["stack"]), "args": args}
         _trace_emit(tid, ev)
-        _FLIGHT.append({"ts": round(now - _TRACE_T0, 6), "kind": "span",
+        _FLIGHT.append({"ts": round(now * 1e-9, 6), "kind": "span",
                         "trace": tid, "name": name, **args})
         if _mode == TRACE:
-            chrome = _chrome_event(name, t0, now - t0, args)
-            chrome["args"]["trace_id"] = tid
-            if len(_TRACE_EVENTS) >= _TRACE_MAX:
-                _TRACE_EVENTS.popleft()
-                _TRACE_DROPPED[0] += 1
-                key = ("trace_events_dropped_total", ())
-                _COUNTERS[key] = _COUNTERS.get(key, 0) + 1
-            _TRACE_EVENTS.append(chrome)
+            _ring_append((name, t0, now, next(_SPAN_IDS), None,
+                          threading.get_ident(), {**args, "trace_id": tid}))
 
 
 def trace_point(tid: str, name: str, **attrs) -> None:
@@ -545,33 +657,35 @@ def trace_point(tid: str, name: str, **attrs) -> None:
     flight ring."""
     if not _mode:
         return
-    now = time.perf_counter()
+    now = now_ns()
     args = {k: str(v) for k, v in attrs.items()}
     with _LOCK:
         rec = _trace_rec(tid)
         _trace_emit(tid, {"name": name, "ph": "i", "ts": _us(now),
                           "depth": len(rec["stack"]), "args": args})
-        _FLIGHT.append({"ts": round(now - _TRACE_T0, 6), "kind": "event",
+        _FLIGHT.append({"ts": round(now * 1e-9, 6), "kind": "event",
                         "trace": tid, "name": name, **args})
 
 
 def trace_add(tid: str, name: str, *, t0: float, dur: float,
               **attrs) -> None:
-    """Attach an externally-timed complete span (perf_counter start +
-    duration) to ``tid`` — e.g. one bank window's measured wall time
-    mirrored onto every member job's trace."""
+    """Attach an externally-timed complete span to ``tid`` — e.g. one
+    bank window's measured wall time mirrored onto every member job's
+    trace.  ``t0`` is its start as a ``time.perf_counter()`` reading,
+    ``dur`` its seconds; it is recorded on ``now_ns()``'s clock."""
     if not _mode:
         return
+    start = now_ns() - round((time.perf_counter() - t0) * 1e9)
     args = {k: str(v) for k, v in attrs.items()}
     with _LOCK:
         rec = _trace_rec(tid)
-        _trace_emit(tid, {"name": name, "ph": "X", "ts": _us(t0),
+        _trace_emit(tid, {"name": name, "ph": "X", "ts": _us(start),
                           "dur": round(dur * 1e6, 1),
                           "depth": len(rec["stack"]), "args": args})
-    if _mode == TRACE:
-        chrome = _chrome_event(name, t0, dur, attrs)
-        chrome["args"]["trace_id"] = tid
-        _chrome_append(chrome)
+        if _mode == TRACE:
+            _ring_append((name, start, start + round(dur * 1e9),
+                          next(_SPAN_IDS), None, threading.get_ident(),
+                          {**args, "trace_id": tid}))
 
 
 @contextlib.contextmanager
@@ -614,7 +728,7 @@ def tracez(tid: Optional[str] = None):
     """The request-trace query API (served at ``/tracez``).  With no
     argument: an index ``{"traces": {tid: {events, open, complete}}}``.
     With a ``tid``: that trace's full record — flat ``events`` (ts/dur
-    in microseconds relative to the process trace epoch), the nested
+    in microseconds, ts on ``now_ns()``'s clock), the nested
     ``tree``, still-``open`` span names, and ``complete`` (True when
     every span closed and at least one event was recorded).  Returns
     None for an unknown id."""

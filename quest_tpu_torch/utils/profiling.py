@@ -86,8 +86,8 @@ def memory_watermark() -> dict:
     """Per-card memory statistics ``{"cuda:i": {"bytes_in_use",
     "peak_bytes_in_use"}}`` from ``torch.cuda.memory_allocated`` /
     ``max_memory_allocated``, published as the ``device_bytes_in_use``,
-    ``device_peak_bytes_in_use``, ``hbm_watermark_bytes`` and
-    ``device_memory_watermark_bytes`` gauges (``{device}``), the peak the
+    ``hbm_watermark_bytes`` and ``device_memory_watermark_bytes`` gauges
+    (``{device}``), the peak the
     drain samples after each drain and getEnvironmentString / reportPerf
     report.  Without a card the memory governor's modeled peak per
     device stands in under ``device="model"`` while a budget is active
@@ -103,8 +103,6 @@ def memory_watermark() -> dict:
             out[dev] = stats
             _telemetry.set_gauge("device_bytes_in_use",
                                  stats["bytes_in_use"], device=dev)
-            _telemetry.set_gauge("device_peak_bytes_in_use",
-                                 stats["peak_bytes_in_use"], device=dev)
             _telemetry.set_gauge("hbm_watermark_bytes",
                                  stats["peak_bytes_in_use"], device=dev)
             _telemetry.set_gauge("device_memory_watermark_bytes",

@@ -16,6 +16,7 @@ with the same result.  Reference registers use
 
 import collections
 import json
+import statistics
 import threading
 import time
 
@@ -347,8 +348,11 @@ class TestBoundedTraceRing:
         for i in range(7):
             with T.span("ring", seq=i):
                 pass
-        assert [e["args"]["seq"] for e in T._TRACE_EVENTS] == \
-            ["3", "4", "5", "6"]
+        # the reference's ring holds Chrome events, the port's span
+        # records (telemetry.spans)
+        seqs = ([str(r["attrs"]["seq"]) for r in T.spans()] if T is PT
+                else [e["args"]["seq"] for e in T._TRACE_EVENTS])
+        assert seqs == ["3", "4", "5", "6"]
         assert T.counter_total("trace_events_dropped_total") == 3
 
     def test_write_trace_notes_drops_then_resets(self, T, monkeypatch,
@@ -656,3 +660,237 @@ def test_bank_series():
     assert PT.gauge_max("trajectory_noise_sites") == 1
     assert "name=batch.trajectories" in PT.snapshot()["histograms"][
         "span_seconds"]
+
+
+# ---------------------------------------------------------------------------
+# The span ring on the profiler's clock, and the drain's span tree
+# ---------------------------------------------------------------------------
+
+_DRAIN_TREE = ("fusion.capture", "fusion.optimize", "fusion.lookup",
+               "fusion.govern", "fusion.dispatch")
+
+
+def _rc_gates(pk, q, n, depth=3, seed=5):
+    """Random 1q unitaries and a CNOT ladder on ``q``, under gateFusion
+    by the caller (an rc26-style stream at ``n`` qubits)."""
+    rng = np.random.default_rng(seed)
+    for d in range(depth):
+        for t in range(n):
+            a = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+            pk.unitary(q, t, np.linalg.qr(a)[0])
+        for t in range(d % 2, n - 1, 2):
+            pk.controlledNot(q, t, t + 1)
+
+
+def _drains(recs):
+    """{drain id: {name: [records]}} of the drain spans in ``recs``."""
+    out: dict = {}
+    for r in recs:
+        d = r["attrs"].get("drain")
+        if d:
+            out.setdefault(d, {}).setdefault(r["name"], []).append(r)
+    return out
+
+
+def _check_tree(tree):
+    """A drain's records: one fusion.drain holding the others, each with
+    the drain's id; the capture ends where the drain starts."""
+    (drain,) = tree["fusion.drain"]
+    assert set(_DRAIN_TREE) <= set(tree)
+    (cap,) = tree["fusion.capture"]
+    assert cap["end_ns"] == drain["start_ns"] and cap["start_ns"] <= \
+        cap["end_ns"]
+    for name in _DRAIN_TREE[1:]:
+        for r in tree[name]:
+            assert r["parent"] == drain["id"], name
+            assert drain["start_ns"] <= r["start_ns"] <= r["end_ns"] \
+                <= drain["end_ns"], name
+    return drain
+
+
+def test_span_record_agrees_with_the_profiler_range():
+    """A span's record and the profiler's range of it share one clock:
+    the median gap at either end is under 1 ms (one span alone may be
+    held up between the two stamps by a busy machine's scheduler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(9):
+            with PT.span(f"unit.clock{i}"):
+                time.sleep(0.002)
+    ranges = {e.name(): e for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("unit.clock")}
+    recs = {r["name"]: r for r in PT.spans()}
+    assert len(ranges) == 9
+    starts = [abs(ev.start_ns() - recs[n]["start_ns"])
+              for n, ev in ranges.items()]
+    ends = [abs(ev.start_ns() + ev.duration_ns() - recs[n]["end_ns"])
+            for n, ev in ranges.items()]
+    assert statistics.median(starts) < 1e6
+    assert statistics.median(ends) < 1e6
+
+
+@pytest.mark.parametrize("mode", ["on", "trace"])
+def test_every_timestamp_is_on_the_profiler_clock(mode, tmp_path):
+    """Spans, the Chrome ring, request traces and the flight ring all
+    stamp Unix-epoch time (the profiler's), not a process epoch."""
+    PT.configure(mode)
+    before = time.time_ns()
+    with PT.span("unit.outer", k=1) as sp:
+        with PT.span("unit.inner"):
+            pass
+    PT.trace_begin("t", "job")
+    PT.trace_point("t", "serve.admit")
+    PT.trace_add("t", "serve.window", t0=time.perf_counter(), dur=1e-4)
+    PT.trace_end("t")
+    PT.flight_event("tick")
+    time.sleep(1e-3)  # the window span added above ends 0.1 ms on
+    after = time.time_ns()
+    recs = {r["name"]: r for r in PT.spans(since_ns=before)}
+    inner, outer = recs["unit.inner"], recs["unit.outer"]
+    assert inner["parent"] == outer["id"] == sp.id
+    assert outer["parent"] is None and outer["attrs"] == {"k": 1}
+    for r in recs.values():
+        assert before <= r["start_ns"] <= r["end_ns"] <= after
+    assert PT.spans(since_ns=after + 1) == []
+    for ev in PT.tracez("t")["events"]:
+        assert before / 1e3 - 1 <= ev["ts"] <= after / 1e3 + 1, ev
+    for ev in PT.flight_snapshot():
+        assert before * 1e-9 - 1e-6 <= ev["ts"] <= after * 1e-9 + 1e-6
+    with open(PT.write_trace(str(tmp_path / "t.json"))) as f:
+        events = json.load(f)["traceEvents"]
+    assert {"unit.outer", "unit.inner"} <= {e["name"] for e in events}
+    for e in events:
+        assert before / 1e3 - 1 <= e["ts"] <= after / 1e3 + 1
+    assert not hasattr(PT, "_TRACE_T0")
+
+
+def test_drain_records_its_span_tree(monkeypatch):
+    monkeypatch.delenv("QT_AOT_CACHE", raising=False)
+    PF.clear_plan_caches()
+    PO._cache.clear()
+    env = tq.createQuESTEnv(device="cpu")
+    q = tq.createQureg(8, env)
+    sources = []
+    for _ in range(2):
+        tq.initZeroState(q)
+        with tq.gateFusion(q):
+            _rc_gates(tq, q, 8)
+            items = list(q._fusion.gates)
+            program = PF.plan_items_quiet(q, items)[0]
+            tq.calcTotalProb(q)
+        trees = _drains(PT.spans())
+        drain = _check_tree(trees[max(trees)])
+        tree = trees[max(trees)]
+        assert drain["attrs"]["drain"] == drain["id"]
+        assert tree["fusion.capture"][0]["attrs"]["gates"] == len(items)
+        opt = tree["fusion.optimize"][0]["attrs"]
+        assert opt["items_in"] == len(items) >= opt["items_out"] > 0
+        (look,) = tree["fusion.lookup"]
+        sources.append(look["attrs"]["source"])
+        if "fusion.plan" in tree:
+            (plan,) = tree["fusion.plan"]
+            assert plan["parent"] == look["id"]
+        (disp,) = tree["fusion.dispatch"]
+        counts = {k: v for k, v in disp["attrs"].items() if k != "drain"}
+        assert counts == PF.program_stats(program)
+        assert counts["gatherperm"] > 0
+    assert sources == ["planned", "memory"]
+    assert "fusion.plan" not in tree
+
+
+def test_bank_and_sharded_drains_record_the_same_tree():
+    env = tq.createQuESTEnv(device="cpu")
+    bank = tq.createBatchedQureg(6, env, 3)
+    rng = np.random.default_rng(2)
+    with tq.gateFusion(bank):
+        for t in range(6):
+            us = [np.linalg.qr(rng.normal(size=(2, 2))
+                               + 1j * rng.normal(size=(2, 2)))[0]
+                  for _ in range(3)]
+            tq.applyBatchedUnitary(bank, [t], us)
+        for t in range(5):
+            tq.controlledNot(bank, t, t + 1)
+        assert bank.amps is not None  # a bank stays buffered: a read drains
+    trees = _drains(PT.spans())
+    assert len(trees) == 1
+    _check_tree(trees[max(trees)])
+    sh = tq.createQureg(8, tq.createQuESTEnv(devices=["cpu"] * 4))
+    assert sh.is_sharded
+    with tq.gateFusion(sh):
+        _rc_gates(tq, sh, 6)
+    trees = _drains(PT.spans())
+    assert len(trees) == 2
+    _check_tree(trees[max(trees)])
+
+
+def test_qft_records_its_span():
+    q = tq.createQureg(14, tq.createQuESTEnv(device="cpu"))
+    tq.applyFullQFT(q)
+    (rec,) = [r for r in PT.spans() if r["name"] == "api.qft"]
+    assert rec["attrs"] == {"qubits": 14}
+
+
+def test_off_records_no_span(tmp_path):
+    PT.configure("off")
+    q = tq.createQureg(14, tq.createQuESTEnv(device="cpu"))
+    with tq.gateFusion(q):
+        _rc_gates(tq, q, 14, depth=1)
+    tq.applyFullQFT(q)
+    assert PT.record_span("fusion.capture", 1, 2) == 0
+    assert PT.current_span() is None
+    PT.configure("on")
+    assert PT.spans() == []
+    assert PT.write_trace(str(tmp_path / "t.json")) is None
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_chip_smoke_device_busy_is_a_union_without_annotations(
+        monkeypatch):
+    """chip_smoke.device_busy counts overlapping device events once and
+    leaves out the card-side images of record_function ranges."""
+    import chip_smoke as cs
+
+    class Ev:
+        def __init__(self, name, s, e, cuda=True, ann=False):
+            self._v = (name, s, e, cuda, ann)
+
+        def name(self):
+            return self._v[0]
+
+        def start_ns(self):
+            return self._v[1]
+
+        def duration_ns(self):
+            return self._v[2] - self._v[1]
+
+        def device_type(self):
+            return "DeviceType.CUDA" if self._v[3] else "DeviceType.CPU"
+
+        def is_user_annotation(self):
+            return self._v[4]
+
+    events = [Ev("fusion.drain", 0, 10_000_000, cuda=False, ann=True),
+              Ev("fusion.drain", 0, 9_000_000),          # its card image
+              Ev("window_pass_kernel", 1_000_000, 3_000_000),
+              Ev("gather", 2_000_000, 4_000_000),
+              Ev("window_pass_kernel", 6_000_000, 7_000_000)]
+
+    class Prof:
+        profiler = type("P", (), {"kineto_results": type(
+            "K", (), {"events": staticmethod(lambda: events)})()})()
+
+        def __init__(self, *a, **k):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "profile", Prof)
+    monkeypatch.setattr(cs, "sync", lambda: None)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    ms, seen = cs.device_busy(torch, lambda: None, "window_pass_kernel")
+    assert ms == pytest.approx(4.0) and seen == 2
