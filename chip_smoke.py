@@ -4361,7 +4361,7 @@ def plain_window_kernels(fused):
     saved = (fused.apply_window_stack, fused.apply_window_megastack)
 
     def k1_plain(amps, a, b, mask=None, *, num_qubits, k, apply_a=True,
-                 apply_b=True, precision=None):
+                 apply_b=True, precision=None, staged=None):
         return fused.window_pass_plain(amps, a, b, mask,
                                        num_qubits=num_qubits, k=k,
                                        apply_a=apply_a, apply_b=apply_b)

@@ -1323,7 +1323,7 @@ def plan_remap_windows(bit_sets: Sequence[Tuple[int, ...]], num_qubits: int,
 
 
 def execute_plan(amps, ops: Sequence[tuple], num_qubits: int,
-                 precision: Optional[str] = None):
+                 precision: Optional[str] = None, stage=None):
     """Run a plan on ``amps`` (any full-size contiguous view of the state)
     and return the new state, in the same shape.  Window passes go
     through K1, megawin groups through K2, cluster passes through K11,
@@ -1344,12 +1344,17 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int,
     another order, run element by element.  Each element's result equals
     its own drain's bit for bit.  A sigma swap on a bank comes only from
     a plan of ``bit_reversal_ops`` at n >= 30 run here: no public API
-    sends a QFT into a bank drain."""
+    sends a QFT into a bank drain.
+
+    ``stage``: {id(op): fused.StagedPass} of the window passes among
+    ``ops`` whose operands a drain staged (``fused.stage_ops``, made at
+    ``precision`` for this state's device and dtype)."""
     n = num_qubits
     precision = fused.resolve_precision(precision)
     nb = fused.bank_size(amps, n)
     for op in ops:
         kind = op[0]
+        staged = stage.get(id(op)) if stage else None
         if nb and kind == "apply":
             amps = torch.stack([execute_plan(
                 amps[b], [fused.bank_element_op(op, b)], n,
@@ -1360,16 +1365,17 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int,
         elif kind == "fused":
             amps = fused.apply_cluster_stack(amps, op[1], op[2],
                                              num_qubits=n,
-                                             precision=precision)
+                                             precision=precision,
+                                             staged=staged)
         elif kind == "swapfused":
             amps = fused.apply_swap_cluster_stack(
                 amps, op[4], op[5], num_qubits=n, h=op[1], b=op[2], m=op[3],
-                precision=precision)
+                precision=precision, staged=staged)
         elif kind == "winfused":
             amps = fused.apply_window_stack(
                 amps, op[2], op[3], op[6] if len(op) > 6 else None,
                 num_qubits=n, k=op[1], apply_a=op[4], apply_b=op[5],
-                precision=precision)
+                precision=precision, staged=staged)
         elif kind == "megawin":
             amps = fused.apply_window_megastack(amps, op[1], num_qubits=n,
                                                 precision=precision)

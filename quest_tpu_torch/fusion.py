@@ -43,6 +43,10 @@ plans of one skeleton and one final permutation, stacked, under batch
 flag 2), one exchange per remap moving every element, and K1, K2 and K5
 in their bank forms, one launch per pass, group or sweep on each shard.
 
+A drain of a plan the memory tier holds feeds its window passes from
+their operands staged once in host memory (``_program_stage``,
+``fused.stage_ops``: one pinned block per program, one copy a pass).
+
 Every drain runs under the memory governor (governor.govern_drain: the
 program as it is, or split into dispatch groups, after spilling idle
 registers if need be; each group through governor.oom_net), and a
@@ -56,6 +60,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager, nullcontext
+from functools import partial
 from typing import List
 
 import numpy as np
@@ -171,7 +176,8 @@ _QUIET = _opt.ThreadCount()
 # nor counted
 _DRY = _opt.ThreadCount()
 # where the last recorded plan lookup of this thread found its plan:
-# "memory", "disk" or "planned" (the first_request_seconds label)
+# "memory", "disk" or "planned" (the first_request_seconds label), and
+# the plan key it looked up (``key``)
 _SOURCE = threading.local()
 # the id of the fusion.drain span running on this thread (0: none): the
 # "drain" attr of every span of that drain
@@ -180,6 +186,17 @@ _DRAIN = threading.local()
 # once per group: id(group) -> (group, counts); the entry holds the
 # group, so its id names no other object while it is here
 _GROUP_STATS: dict = {}
+# the window-pass operands of memory-tier plans, staged in host memory
+# (fused.stage_ops): plan key -> {(device, dtype, precision mode): a
+# _Stage, _SEEN after the plan's first drain there, or _OVER for a
+# program whose operands would pass _STAGE_MAX_BYTES}; a plan's entry
+# leaves with the plan
+_stages: dict = {}
+_SEEN, _OVER = "seen", "over"
+# the host bytes (pinned on a card's host) all stages hold together
+_STAGE_MAX_BYTES = 1 << 30
+# the device types whose drains stage their passes
+_STAGE_DEVICES = ("cuda",)
 
 
 def _span(name: str, **attrs):
@@ -197,9 +214,12 @@ def _store(key, value, digest=None) -> None:
         if key not in _plan_cache and len(_plan_cache) >= _PLAN_CACHE_MAX:
             old = next(iter(_plan_cache))
             del _plan_cache[old]
+            _stages.pop(old, None)
             gone = _plan_digests.pop(old, None)
             if gone is not None:
                 _aot._MEMORY_KEYS.discard(gone)
+        if _plan_cache.get(key) is not value:
+            _stages.pop(key, None)
         _plan_cache[key] = value
         if digest is not None:
             _plan_digests[key] = digest
@@ -207,11 +227,12 @@ def _store(key, value, digest=None) -> None:
 
 
 def clear_plan_caches() -> None:
-    """Drop this process's plans and their device copies (the memory
-    tier; the disk tier stays)."""
+    """Drop this process's plans, their device copies and their staged
+    operands (the memory tier; the disk tier stays)."""
     with _PLAN_LOCK:
         _plan_cache.clear()
         _device_programs.clear()
+        _stages.clear()
         _GROUP_STATS.clear()
         for d in _plan_digests.values():
             _aot._MEMORY_KEYS.discard(d)
@@ -494,6 +515,7 @@ def _cache_lookup(key, record: bool, disk: bool = True):
         _telemetry.inc("fusion_plan_cache_hits_total" if hit is not None
                        else "fusion_plan_cache_misses_total")
         _SOURCE.where = "memory"
+        _SOURCE.key = key
     if hit is None and key is not None and disk and _aot.enabled():
         digest = _aot.plan_key_digest(key)
         got = _aot.load(digest, quiet=not record)
@@ -732,15 +754,92 @@ def _group_stats(group) -> dict:
     return counts
 
 
-def _dispatch_span(group):
+def _dispatch_span(group, staged=None):
     """The fusion.dispatch span of one program group, its op counts as
-    attrs."""
+    attrs, and on a device that stages, ``staged``: its window passes fed
+    from a stage."""
     if not _telemetry.enabled():
         return nullcontext()
-    return _span("fusion.dispatch", **_group_stats(group))
+    extra = {} if staged is None else {"staged": staged}
+    return _span("fusion.dispatch", **extra, **_group_stats(group))
 
 
-def execute_program(amps, program, probs, num_qubits: int, release=None):
+class _Stage:
+    """A program's staged window-pass operands on one device, dtype and
+    precision mode: the host block and {id(op): fused.StagedPass}; it
+    holds the program, so no other op takes one of its ops' ids."""
+
+    __slots__ = ("program", "block", "passes")
+
+    def __init__(self, program, block, passes):
+        self.program, self.block, self.passes = program, block, passes
+
+
+def _stage_bytes() -> int:
+    return sum(s.block.numel() for slot in _stages.values()
+               for s in slot.values() if isinstance(s, _Stage))
+
+
+def _program_stage(key, program, amps, num_qubits: int, precision: str):
+    """{id(op): fused.StagedPass} for a drain of ``program``, the plan the
+    memory tier holds under ``key``, on ``amps`` under ``precision``;
+    None: the drain's passes make their operands as a launch does.  A
+    plan's passes are staged at its second drain on a device, dtype and
+    mode (a plan drained once stages nothing), and stay staged while the
+    plan stays in the memory tier, as the ops of the cached program (so
+    any split of it into dispatch groups finds them).  A program whose
+    operands would pass _STAGE_MAX_BYTES is not staged; older stages
+    leave to make room for a new one."""
+    if key is None or amps.device.type not in _STAGE_DEVICES:
+        return None
+    sub = (str(amps.device), amps.dtype, precision)
+    with _PLAN_LOCK:
+        if _plan_cache.get(key) is not program:
+            return None
+        slot = _stages.setdefault(key, {})
+        got = slot.get(sub)
+        if got is None:
+            slot[sub] = _SEEN
+        if got is not _SEEN:
+            return got.passes if isinstance(got, _Stage) else None
+    ops = [op for part in program if part[0] == "plan" for op in part[1]]
+    with _span("fusion.stage") as sp:
+        made = _fused.stage_ops(ops, amps, num_qubits, precision,
+                                _STAGE_MAX_BYTES)
+        sp.attrs["bytes"] = None if made is None else made[0].numel()
+    with _PLAN_LOCK:
+        if _plan_cache.get(key) is not program:
+            return None if made is None else made[1]
+        if made is None:
+            _stages.setdefault(key, {})[sub] = _OVER
+            return None
+        for old in [(k, s) for k, slot in _stages.items()
+                    for s, v in slot.items() if isinstance(v, _Stage)]:
+            if _stage_bytes() + made[0].numel() <= _STAGE_MAX_BYTES:
+                break
+            _stages[old[0]][old[1]] = _SEEN
+        _stages.setdefault(key, {})[sub] = _Stage(program, *made)
+    return made[1]
+
+
+def _window_passes(group, stage) -> tuple:
+    """(window passes, of them fed from ``stage``) of a dispatched group;
+    a megawin group's passes count, never staged."""
+    total = staged = 0
+    for part in group:
+        if part[0] != "plan":
+            continue
+        for op in part[1]:
+            if op[0] == "megawin":
+                total += len(op[1])
+            elif op[0] in _fused.STAGED_KINDS:
+                total += 1
+                staged += bool(stage) and id(op) in stage
+    return total, staged
+
+
+def execute_program(amps, program, probs, num_qubits: int, release=None,
+                    stage=None):
     """Run a program's parts in order; ``probs`` holds the probability of
     each of its channels, in order.  Returns the new state (a sweep
     overwrites a float32 state on the card in place).  The state may be
@@ -754,9 +853,11 @@ def execute_program(amps, program, probs, num_qubits: int, release=None):
     produced its output (the caller then drops its own reference to the
     input), the program holds at most two states at a time, an op's input
     and its output: the governor's model of a drain (the reference
-    donates the input buffer to its executor)."""
+    donates the input buffer to its executor).  ``stage``: the staged
+    window passes of the program's ops (``_program_stage``)."""
     n = num_qubits
     bank = _fused.bank_size(amps, n)
+    run = partial(C.execute_plan, stage=stage) if stage else C.execute_plan
     pi = 0
     for part in program:
         if part[0] == "chansweep":
@@ -775,7 +876,7 @@ def execute_program(amps, program, probs, num_qubits: int, release=None):
             pi += 1
         else:
             for op in part[1]:
-                amps = C.execute_plan(amps, (op,), n)
+                amps = run(amps, (op,), n)
                 if release is not None:
                     release()
                     release = None
@@ -797,7 +898,10 @@ def _run(qureg, items) -> None:
     the planned program then runs under the memory governor
     (governor.govern_drain: as it is, or in the groups the ladder split
     it into), each group through the OOM net (quest_tpu/fusion.py:342-418,
-    606)."""
+    606).  On a card the window passes of a plan drained before take
+    their operands from its stage (``_program_stage``), counted in
+    fusion_staged_passes_total{source="stage"} against those made as a
+    launch makes them ("built")."""
     from . import governor as _gov
 
     _gov.ensure_resident(qureg)
@@ -818,16 +922,28 @@ def _run(qureg, items) -> None:
         program = _plan_optimized(items, n, qureg.device, _sweep_ok(qureg),
                                   bsz, record=True)
         sp.attrs["source"] = getattr(_SOURCE, "where", None)
+    key = getattr(_SOURCE, "key", None)
     probs = tuple(it.prob for it in items if isinstance(it, ChannelItem))
     try:
         with _span("fusion.govern"):
             groups = _governed_groups(qureg, program, probs, nloc=n, nsh=0)
             _record_program(program, items)
+        stage = _program_stage(key, program, qureg._amps, n,
+                               _fused.resolve_precision(None))
+        counted = (_telemetry.enabled()
+                   and qureg._amps.device.type in _STAGE_DEVICES)
         for group, gprobs in groups:
-            def dispatch(g=group, gp=gprobs):
-                with _dispatch_span(g):
+            passes, staged = _window_passes(group, stage) if counted \
+                else (0, None)
+
+            def dispatch(g=group, gp=gprobs, s=staged):
+                # a plain call: the program's frame then holds the only
+                # reference to the state once the register lets it go (a
+                # partial or an unpacked call would keep it alive)
+                with _dispatch_span(g, s):
                     return execute_program(qureg._amps, g, gp, n,
-                                           release=lambda: _consume(qureg))
+                                           release=lambda: _consume(qureg),
+                                           stage=stage)
 
             try:
                 qureg._amps = _timed_group(
@@ -836,6 +952,11 @@ def _run(qureg, items) -> None:
                 if qureg._amps is None:
                     qureg._consumed_by = f"{type(e).__name__}: {e}"
                 raise
+            if counted:
+                _telemetry.inc("fusion_staged_passes_total", staged,
+                               source="stage")
+                _telemetry.inc("fusion_staged_passes_total",
+                               passes - staged, source="built")
         _first_request(qureg, t0)
     finally:
         _gov.end_drain()

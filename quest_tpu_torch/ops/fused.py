@@ -860,11 +860,140 @@ def _upload_descs(descs, device, keep: list):
     return host, dev.data_ptr()
 
 
+# ---------------------------------------------------------------------------
+# Staged passes
+# ---------------------------------------------------------------------------
+#
+# A drain of a cached plan runs the same window passes every time, and a
+# launch makes the side images of NumPy sides anew each time: a pageable
+# upload, which waits for the stream's earlier kernels, then the kernels
+# of ``_side_planes``.  ``stage_ops`` makes a program's pass operands once,
+# on the state's device by ``_pass_struct`` / ``_bank_descs`` (so the
+# bytes are the launch's), and keeps them in one host block, pinned for a
+# card.  A staged pass then reaches the card in one copy into a new device
+# buffer, ordered on the stream behind the kernels before it, and its
+# descriptors point into that buffer: the card holds one pass's operands
+# at a time, as before.
+
+STAGED_KINDS = ("winfused", "fused", "swapfused")
+_STAGE_ALIGN = 256
+
+
+class StagedPass:
+    """One pass's operands in a stage's host block: ``host`` (uint8, the
+    images and mask as the launch copies them), each element's QtPass
+    fields with the operands' byte offsets in ``host`` in place of their
+    pointers (-1: none), and whether they reach the kernel as an array
+    per element (a bank pass with per-element arrays)."""
+
+    __slots__ = ("host", "fields", "per_element")
+
+    def __init__(self, host, fields, per_element: bool):
+        self.host, self.fields, self.per_element = host, fields, per_element
+
+
+def _launch_op(op):
+    """The ("winfused", ...) pass ``_launch_window`` runs for a plan op of
+    STAGED_KINDS: K11 and K12 take K1's pass at k = 7, dual-sided."""
+    if op[0] == "fused":
+        return ("winfused", SUBLANE_QUBITS, op[1], op[2], True, True)
+    if op[0] == "swapfused":
+        return ("winfused", SUBLANE_QUBITS, op[4], op[5], True, True)
+    return op
+
+
+def _align(nbytes: int) -> int:
+    return -(-nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
+
+
+def stageable(op) -> bool:
+    """Whether plan op ``op`` is a window pass whose operands are host
+    arrays (tensor sides keep their images on the tensor)."""
+    if op[0] not in STAGED_KINDS:
+        return False
+    w = _launch_op(op)
+    return not any(torch.is_tensor(x) for x in w[2:4] + w[6:7])
+
+
+def stage_pass(op, amps, num_qubits: int, precision: str) -> StagedPass:
+    """The operands a launch of plan op ``op`` (``stageable``) on ``amps``
+    (a state or a bank: its device, dtype and bank size) under
+    ``precision`` makes, copied into host memory, each on 256 bytes."""
+    w = _launch_op(op)
+    keep: list = []
+    per = bool(bank_size(amps, num_qubits)) and _per_element(w)
+    descs = (_bank_descs(w, amps, keep, precision)[1] if per
+             else [_pass_struct(w, amps, keep, precision)])
+    blocks, size = [], 0
+    for t in keep:
+        if all(t.data_ptr() != b.data_ptr() for b, _ in blocks):
+            blocks.append((t, _align(size)))
+            size = blocks[-1][1] + t.numel() * t.element_size()
+    host = torch.empty(size, dtype=torch.uint8)
+    for t, at in blocks:
+        raw = t.reshape(-1).view(torch.uint8)
+        host[at:at + raw.numel()].copy_(raw)
+
+    def offset(ptr):
+        if ptr is None:
+            return -1
+        for t, at in blocks:
+            if 0 <= ptr - t.data_ptr() < t.numel() * t.element_size():
+                return at + ptr - t.data_ptr()
+        raise RuntimeError("a pass descriptor points outside its operands")
+
+    return StagedPass(host, tuple(
+        (d.k, d.rank, d.apply_a, d.apply_b, d.split, offset(d.a),
+         offset(d.b), offset(d.mask)) for d in descs), per)
+
+
+def stage_ops(ops, amps, num_qubits: int, precision: str, limit: int):
+    """(host block, {id(op): StagedPass}) of the ``stageable`` ops among
+    ``ops`` on ``amps`` under ``precision``: made one pass at a time (the
+    device holds one pass's operands at a time, as a launch does) and
+    packed into one block, pinned where ``amps`` is on a card.  None when
+    the block would pass ``limit`` bytes.  The caller keeps ``ops`` alive
+    while it uses the ids."""
+    staged, at, size = {}, {}, 0
+    for op in ops:
+        if id(op) in staged or not stageable(op):
+            continue
+        sp = stage_pass(op, amps, num_qubits, precision)
+        at[id(op)] = _align(size)
+        size = at[id(op)] + sp.host.numel()
+        if size > limit:
+            return None
+        staged[id(op)] = sp
+    block = torch.empty(size, dtype=torch.uint8,
+                        pin_memory=amps.device.type == "cuda")
+    for key, sp in staged.items():
+        view = block[at[key]:at[key] + sp.host.numel()]
+        view.copy_(sp.host)
+        sp.host = view
+    return block, staged
+
+
+def _staged_descs(staged: StagedPass, device, keep: list):
+    """(QtPass, host array, device array) of a staged pass: its operands
+    in one copy from the pinned block into a new device buffer on the
+    current stream, the descriptors pointing into that buffer."""
+    buf = torch.empty(staged.host.numel(), dtype=torch.uint8, device=device)
+    buf.copy_(staged.host, non_blocking=True)
+    keep.append(buf)
+    base = buf.data_ptr()
+    descs = [_QtPass(*f[:5], *(None if o < 0 else base + o for o in f[5:]))
+             for f in staged.fields]
+    if not staged.per_element:
+        return descs[0], None, None
+    return (descs[0], *_upload_descs(descs, device, keep))
+
+
 def _launch_window(amps, op, n: int, precision: str, what: str,
-                   swap=None):
+                   swap=None, staged=None):
     """One K1 launch of pass ``op`` over one register's state or a whole
     bank, or with ``swap`` = (h, b, m) one K12 launch (``op`` its cluster
-    pass at k = 7); returns the output."""
+    pass at k = 7); with ``staged``, its operands as ``stage_ops`` made
+    them.  Returns the output."""
     if amps.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {amps.device}")
     _check_cuda_state(amps, what)
@@ -873,7 +1002,9 @@ def _launch_window(amps, op, n: int, precision: str, what: str,
         raise ValueError(f"{what}: a state of {amps.numel()} reals is not "
                          f"one of {n} qubits")
     keep: list = []
-    if nb and _per_element(op):
+    if staged is not None:
+        desc, host, dev = _staged_descs(staged, amps.device, keep)
+    elif nb and _per_element(op):
         desc, descs = _bank_descs(op, amps, keep, precision)
         host, dev = _upload_descs(descs, amps.device, keep)
     else:
@@ -891,14 +1022,16 @@ def _launch_window(amps, op, n: int, precision: str, what: str,
 
 def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
                        k: int = SUBLANE_QUBITS, apply_a: bool = True,
-                       apply_b: bool = True, precision=None):
+                       apply_b: bool = True, precision=None, staged=None):
     """One window pass (K1) under ``precision`` (None: the current mode).
     ``amps`` is any full-size contiguous view of the state ((2, 2^n) or
     the canonical (2, nb, 128, 128)), or a (B, 2, 2^n) register bank
     (``bank_size``), whose sides and mask are shared or per element, in
     one launch (the reference's vmapped _apply_window_stack_jit).  The
-    result is a new tensor of the same shape.  CPU tensors take the plain
-    version (the mode's model; a bank element by element)."""
+    result is a new tensor of the same shape.  ``staged``: the pass's
+    operands as ``stage_ops`` made them for this device, dtype and mode.
+    CPU tensors take the plain version (the mode's model; a bank element
+    by element)."""
     n = num_qubits
     _check_offset(n, k)
     precision = resolve_precision(precision)
@@ -912,21 +1045,22 @@ def apply_window_stack(amps, mats_a, mats_b, mask=None, *, num_qubits: int,
         return window_pass_model(amps, mats_a, mats_b, mask, num_qubits=n,
                                  k=k, apply_a=apply_a, apply_b=apply_b,
                                  precision=precision)
-    out = _launch_window(amps, op, n, precision, "apply_window_stack")
+    out = _launch_window(amps, op, n, precision, "apply_window_stack",
+                         staged=staged)
     LAUNCHES["K1_bank" if nb else "K1"] += 1
     return out
 
 
 def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
-                        precision=None):
+                        precision=None, staged=None):
     """The paged planner's cluster pass (K11) under ``precision`` (None:
     the current mode): sum_r B_r X A_r^T on each 128 x 128 slab of the
     canonical view, A_r on the lane qubits [0, 7), B_r on [7, 14);
     ``mats_a``/``mats_b`` are SoA (R, 2, 128, 128), or per element
     (B, R, 2, 128, 128) on a bank.  ``amps`` is any full-size contiguous
     view of the state, or a (B, 2, 2^n) register bank (one launch); the
-    result is a new tensor of the same shape.  CPU tensors take the plain
-    version."""
+    result is a new tensor of the same shape.  ``staged``: as
+    ``apply_window_stack``'s.  CPU tensors take the plain version."""
     n = num_qubits
     op = ("fused", mats_a, mats_b)
     nb = bank_size(amps, n)
@@ -939,10 +1073,8 @@ def apply_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
                 x, e[1], e[2], num_qubits=n, precision=precision))
         return cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n,
                                    precision=precision)
-    # K1's kernel at k = 7, dual-sided, unmasked
-    out = _launch_window(
-        amps, ("winfused", SUBLANE_QUBITS, mats_a, mats_b, True, True),
-        n, precision, "apply_cluster_stack")
+    out = _launch_window(amps, _launch_op(op), n, precision,
+                         "apply_cluster_stack", staged=staged)
     LAUNCHES["K11_bank" if nb else "K11"] += 1
     return out
 
@@ -956,7 +1088,8 @@ def apply_cluster_pair(amps, mat_a, mat_b, *, num_qubits: int,
 
 
 def apply_swap_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
-                             h: int, b: int, m: int, precision=None):
+                             h: int, b: int, m: int, precision=None,
+                             staged=None):
     """The segment swap [h, h+m) <-> [b, b+m) followed by the rank-R
     cluster operator, in one pass (K12), under ``precision`` (None: the
     current mode): h >= 14, 7 <= b, b + m <= 14, m <= MAX_FUSED_SWAP_M.
@@ -964,8 +1097,9 @@ def apply_swap_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
     (B, R, 2, 128, 128) on a bank.  ``amps`` is any full-size contiguous
     view of the state, or a (B, 2, 2^n) register bank (one launch, the
     reference's vmapped _apply_swap_cluster_stack_jit); the result is a
-    new tensor of the input's shape.  CPU tensors take the plain version
-    (a bank element by element)."""
+    new tensor of the input's shape.  ``staged``: as
+    ``apply_window_stack``'s.  CPU tensors take the plain version (a bank
+    element by element)."""
     n = num_qubits
     op = ("swapfused", h, b, m, mats_a, mats_b)
     nb = bank_size(amps, n)
@@ -980,10 +1114,9 @@ def apply_swap_cluster_stack(amps, mats_a, mats_b, *, num_qubits: int,
                 precision=precision))
         return swap_cluster_stack_plain(amps, mats_a, mats_b, num_qubits=n,
                                         h=h, b=b, m=m, precision=precision)
-    # K1's pass descriptor at k = 7, dual-sided, unmasked
-    out = _launch_window(
-        amps, ("winfused", SUBLANE_QUBITS, mats_a, mats_b, True, True),
-        n, precision, "apply_swap_cluster_stack", swap=(h, b, m))
+    out = _launch_window(amps, _launch_op(op), n, precision,
+                         "apply_swap_cluster_stack", swap=(h, b, m),
+                         staged=staged)
     LAUNCHES["K12_bank" if nb else "K12"] += 1
     return out
 

@@ -749,7 +749,8 @@ class TestSurfaces:
         q = tq.createQureg(6, env)
         real = PF.execute_program
 
-        def in_place_then_oom(amps, program, probs, n, release=None):
+        def in_place_then_oom(amps, program, probs, n, release=None,
+                              stage=None):
             amps.mul_(1.0)
             raise torch.cuda.OutOfMemoryError(
                 "CUDA out of memory. Tried to allocate 8.00 GiB")
