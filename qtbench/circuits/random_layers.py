@@ -35,19 +35,22 @@ def _layers(cfg: dict, us: np.ndarray):
     return calls
 
 
-def register_calls(cfg: dict, seed: int) -> list:
-    """The circuit's calls on one register."""
+def register_calls(cfg: dict, seed) -> list:
+    """The circuit's calls on one register (``seed`` an integer, or a
+    sequence of them such as (seed, circuit))."""
     n, depth = cfg["num_qubits"], cfg["depth"]
     return _layers(cfg, haar_unitaries(seed, n * depth))
 
 
-def bank_calls(cfg: dict, seed: int, batch: int):
+def bank_calls(cfg: dict, seed, batch: int):
     """(the bank's calls, each element's calls): element b draws its
-    unitaries from the pair (seed, b), so that runs with neighbouring
-    seeds share no element; the bank applies each layer's unitaries
-    through one applyBatchedUnitary per qubit and shares the CNOTs."""
+    unitaries from (seed, b) (from (*seed, b) where ``seed`` is a
+    sequence), so that runs with neighbouring seeds share no element; the
+    bank applies each layer's unitaries through one applyBatchedUnitary
+    per qubit and shares the CNOTs."""
     n, depth = cfg["num_qubits"], cfg["depth"]
-    per = [haar_unitaries([seed, b], n * depth) for b in range(batch)]
+    head = list(seed) if isinstance(seed, (list, tuple)) else [seed]
+    per = [haar_unitaries(head + [b], n * depth) for b in range(batch)]
     stacked = np.stack(per, axis=1)          # (n * depth, B, 2, 2)
     bank = []
     for name, args in _layers(cfg, np.arange(n * depth)):

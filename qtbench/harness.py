@@ -5,16 +5,23 @@ Everything a cell is made of is found by name: the cell in
 ``BENCHMARK.json`` names its configuration (``configs/<name>.json``, the
 file that ``BENCHMARK.json`` gives) and its traffic
 (``traffic/<name>.json``); the configuration names its circuit family
-(``circuits/<circuit>.py``); the cell's own file (``workloads/<cell>.json``)
-holds the limits of its comparison and its control; each per-layer metric
-is ``metrics/<metric>.py``.  Adding a cell, a mix or a metric adds files
-and entries and edits none.
+(``circuits/<circuit>.py``), its register kind (``register``:
+``statevec``, the default, or ``density``) and its plain reference
+(``reference/<reference>.py``, ``statevec`` by default); the cell's own
+file (``workloads/<cell>.json``) holds the limits of its comparison and
+its control; each per-layer metric is ``metrics/<metric>.py``.  The
+register is split over the cell's ``chips`` cards, and the reference over
+the same cards.  Adding a cell, a mix or a metric adds files and entries
+and edits none.
 
 Every cell is a closed loop with one client: a circuit is the
 re-initialisation of the register (or bank) made at set-up, the circuit's
 calls through the public API under ``gateFusion``, and a read-out that
-returns a float to the host.  The next circuit starts when the read-out
-has returned.
+returns a float to the host (the circuit module's ``readout(cfg)``, a
+QuEST name and its arguments, where it has one).  The next circuit starts
+when the read-out has returned.  The calls are drawn once at set-up, or,
+under a mix's ``"calls": "fresh"``, anew for every circuit from (seed,
+circuit), between circuits.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+
+import numpy as np
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -106,46 +115,106 @@ def forbidden_modules() -> list:
 
 class Cell:
     """The register or bank, the calls and the read-out of one cell, made
-    from the seed at set-up."""
+    from the seed at set-up.  ``devices`` (tests and probes) lists the
+    shards' devices; else a cell on the CPU has one shard there and a cell
+    on cards one shard on each of its ``chips`` cards."""
 
     def __init__(self, qt, torch, cfg, traffic, seed: int, device: str,
-                 matmul_precision: str):
+                 matmul_precision: str, chips: int = 1, devices=None):
         from quest_tpu_torch.ops import fused
 
         self.qt, self.torch = qt, torch
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
         self.n = int(cfg["num_qubits"])
         self.batch = int(traffic.get("batch", 0))
-        self.readout_qubit = self.n - 1
         qt.set_precision(int(cfg["quest_precision"]))
         fused.set_matmul_precision(matmul_precision)
-        self.env = (qt.createQuESTEnv(device="cpu") if device == "cpu"
-                    else qt.createQuESTEnv())
-        circuit = load_module(BENCH / "circuits" / f"{cfg['circuit']}.py")
+        if devices is not None:
+            self.env = qt.createQuESTEnv(devices=devices)
+        elif device == "cpu":
+            self.env = qt.createQuESTEnv(device="cpu")
+        else:
+            self.env = qt.createQuESTEnv(num_devices=chips)
+        self.reference = load_reference(cfg.get("reference", "statevec"))
+        self.circuit = load_module(BENCH / "circuits"
+                                   / f"{cfg['circuit']}.py")
+        calls = traffic.get("calls", "once")
+        if calls not in ("once", "fresh"):
+            raise ValueError(f"unknown calls {calls!r}")
+        self.fresh = calls == "fresh"
+        self.drawn = 0
+        self.draw(self.seed_of(0))
+        register = cfg.get("register", "statevec")
         if self.batch:
-            self.calls, self.element_calls = circuit.bank_calls(
-                cfg, seed, self.batch)
             self.q = qt.createBatchedQureg(self.n, self.env, self.batch)
+        elif register == "statevec":
+            self.q = qt.createQureg(self.n, self.env)
+        elif register == "density":
+            self.q = qt.createDensityQureg(self.n, self.env)
+        else:
+            raise ValueError(f"unknown register {register!r}")
+        self.state_qubits = self.q.num_qubits_in_state_vec
+        self.shard_devices = (list(self.env.devices) if self.q.is_sharded
+                              else [self.q.device])
+        if hasattr(self.circuit, "readout"):
+            self.readout_name, self.readout_args = self.circuit.readout(cfg)
+        elif self.batch:
+            z = [[0] * (self.n - 1) + [3]]
+            self.readout_name, self.readout_args = (
+                "calcExpecPauliSumBatched", (z, [1.0]))
+        else:
+            self.readout_name, self.readout_args = (
+                "calcProbOfOutcome", (self.n - 1, 0))
+        self.readout_fn = getattr(qt, self.readout_name)
+        # before the window: the reference has a form of every call
+        self.reference.check(self.calls if not self.batch
+                             else self.element_calls[0],
+                             self.readout_name, len(self.shard_devices))
+        self.source = None
+        if cfg["init"] == "random":
+            if register != "statevec":
+                raise ValueError("init 'random' draws a state vector")
+            shards, self.norm = random_shards(
+                torch, self.state_qubits, seed, self.shard_devices)
+            self.source = qt.createQureg(self.n, self.env)
+            if self.q.is_sharded:
+                from quest_tpu_torch.parallel.mesh import ShardedAmps
+
+                self.source.amps = ShardedAmps(self.env.mesh, shards)
+            else:
+                self.source.amps = shards[0]
+            del shards
+        elif cfg["init"] != "zero":
+            raise ValueError(f"unknown init {cfg['init']!r}")
+
+    def seed_of(self, circuit: int):
+        """The seed circuit ``circuit``'s calls are drawn from: the run's
+        seed, or (seed, circuit) where every circuit draws anew."""
+        return [int(self.seed), int(circuit)] if self.fresh else self.seed
+
+    def draw(self, seed) -> None:
+        """The circuit's calls (of a bank, and each element's) from
+        ``seed``, resolved to the API's functions."""
+        if self.batch:
+            self.calls, self.element_calls = self.circuit.bank_calls(
+                self.cfg, seed, self.batch)
         else:
             # a mix may name one of the circuit's routes (its other ways
             # of writing the same circuit); the circuit's own default else
-            route = ({"route": traffic["route"]} if "route" in traffic
-                     else {})
-            self.calls = circuit.register_calls(cfg, seed, **route)
+            route = ({"route": self.traffic["route"]}
+                     if "route" in self.traffic else {})
+            self.calls = self.circuit.register_calls(self.cfg, seed,
+                                                     **route)
             self.element_calls = [self.calls]
-            self.q = qt.createQureg(self.n, self.env)
-        self.device = self.q.device
-        self.resolved = [(getattr(qt, name), args)
+        self.resolved = [(getattr(self.qt, name), args)
                          for name, args in self.calls]
-        self.source = None
-        if cfg["init"] == "random":
-            state = random_state(torch, self.n, seed, self.device)
-            self.source = qt.createQureg(self.n, self.env)
-            self.source.amps = state
-            del state
-        elif cfg["init"] != "zero":
-            raise ValueError(f"unknown init {cfg['init']!r}")
-        self.z_codes = [[0] * self.readout_qubit + [3]]
+
+    def next_circuit(self) -> None:
+        """Before every circuit after the first: where every circuit
+        draws anew, the next circuit's calls."""
+        if self.fresh:
+            self.drawn += 1
+            self.draw(self.seed_of(self.drawn))
 
     def init(self) -> None:
         if self.source is None:
@@ -154,12 +223,13 @@ class Cell:
             self.qt.cloneQureg(self.q, self.source)
 
     def readout(self):
-        """P(top qubit = 0) of the register; of a bank, each element's
-        <Z> of the top qubit (= 2 P - 1) through the bank's API."""
+        """The cell's read-out: by default P(top qubit = 0) of the
+        register, and of a bank each element's <Z> of the top qubit (= 2 P
+        - 1) through the bank's API."""
+        value = self.readout_fn(self.q, *self.readout_args)
         if self.batch:
-            return [float(v) for v in self.qt.calcExpecPauliSumBatched(
-                self.q, self.z_codes, [1.0])]
-        return [self.qt.calcProbOfOutcome(self.q, self.readout_qubit, 0)]
+            return [float(v) for v in value]
+        return [float(value)]
 
     def run_once(self):
         """One circuit: (read-outs, wall seconds, seconds in the calls)."""
@@ -196,11 +266,20 @@ class Cell:
         return program
 
     def final_states(self):
-        """The register's (or each bank element's) final state, (2, 2^n)
-        float32 tensors on the device."""
+        """The register's (or each bank element's) final state as a list
+        of (first global index, (2, 2^m) float32 shard) on the device: one
+        chunk at index 0, the register's own tensor, on one shard; the
+        shards of a split register in order."""
         amps = self.q.amps
-        return [amps[b] for b in range(self.batch)] if self.batch \
-            else [amps]
+        if self.q.is_sharded:
+            m = self.state_qubits - self.q.shard_bits
+            parts = [(c << m, sh) for c, sh in enumerate(amps.shards)]
+        else:
+            parts = [(0, amps)]
+        if not self.batch:
+            return [parts]
+        return [[(start, sh[b]) for start, sh in parts]
+                for b in range(self.batch)]
 
     def free_inputs(self) -> None:
         if self.source is not None:
@@ -208,18 +287,67 @@ class Cell:
             self.source = None
 
 
+def load_reference(name: str):
+    """The plain reference module ``reference/<name>.py``."""
+    path = BENCH / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"the configuration's reference {name!r}: no file "
+            f"{path.relative_to(ROOT)}")
+    return load_module(path)
+
+
 def random_state(torch, n: int, seed: int, device):
     """A normalised random state of 2^n amplitudes, (2, 2^n) float32,
     made on ``device`` from ``seed``."""
+    x = _draw(torch, n, seed, device)
+    return x.div_(math.sqrt(_sum_sq(torch, x)))
+
+
+def _draw(torch, n: int, seed: int, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    x = torch.randn((2, 1 << n), generator=gen, device=device,
-                    dtype=torch.float32)
+    return torch.randn((2, 1 << n), generator=gen, device=device,
+                       dtype=torch.float32)
+
+
+def _sum_sq(torch, x, block: int = 1 << 24) -> float:
     flat = x.view(-1)
-    block = 1 << 24
-    total = sum(float(torch.sum(flat[s:s + block].double() ** 2))
-                for s in range(0, flat.numel(), block))
-    return x.div_(math.sqrt(total))
+    return sum(float(torch.sum(flat[s:s + block].double() ** 2))
+               for s in range(0, flat.numel(), block))
+
+
+def shard_seed(seed: int, shard: int) -> int:
+    """The generator seed of shard ``shard`` of a split random state,
+    from the pair (seed, shard)."""
+    state = np.random.SeedSequence([int(seed), int(shard)])
+    return int(state.generate_state(1, np.uint64)[0])
+
+
+def random_shards(torch, n: int, seed: int, devices):
+    """(shards, norm): a normalised random state of 2^n amplitudes split
+    over len(devices) shards, shard c a (2, 2^m) float32 tensor on
+    ``devices[c]`` drawn from (seed, c) and divided by ``norm``, the norm
+    of the whole draw.  One shard is ``random_state`` itself."""
+    if len(devices) == 1:
+        x = random_state(torch, n, seed, devices[0])
+        return [x], None
+    m = n - (len(devices).bit_length() - 1)
+    shards = [_draw(torch, m, shard_seed(seed, c), dev)
+              for c, dev in enumerate(devices)]
+    norm = math.sqrt(sum(_sum_sq(torch, x) for x in shards))
+    for x in shards:
+        x.div_(norm)
+    return shards, norm
+
+
+def random_shard(torch, n: int, seed: int, devices, shard: int, norm):
+    """Shard ``shard`` of ``random_shards``' draw, drawn again alone."""
+    if len(devices) == 1:
+        return random_state(torch, n, seed, devices[0])
+    m = n - (len(devices).bit_length() - 1)
+    return _draw(torch, m, shard_seed(seed, shard), devices[shard]).div_(
+        norm)
 
 
 # ---------------------------------------------------------------------------
@@ -264,58 +392,65 @@ def window_launch_costs(program, num_amps: int) -> list:
 
 def reference_states(torch, cell_like, element: int, tf32: bool = False):
     """Element ``element``'s reference final state (complex128; complex64
-    for the TF32 control) on the device, from the inputs alone."""
-    from qtbench.reference import statevec as R
-
-    dev = cell_like.device
+    for the TF32 control) from the inputs alone, as the reference
+    module's chunks: one on each of the program's shard devices."""
+    R = cell_like.reference
+    devices = cell_like.shard_devices
     dtype = torch.complex64 if tf32 else torch.complex128
-    n = cell_like.n
+    n = cell_like.state_qubits
+    reals = None
     if cell_like.cfg["init"] == "random":
-        x = random_state(torch, n, cell_like.seed, dev)
-        psi = torch.complex(x[0].to(dtype.to_real()),
-                            x[1].to(dtype.to_real()))
-        del x
-    else:
-        psi = torch.zeros(1 << n, dtype=dtype, device=dev)
-        psi[0] = 1.0
-    R.apply_calls(psi, cell_like.element_calls[element], tf32=tf32)
-    return psi
+        reals = (random_shard(torch, n, cell_like.seed, devices, c,
+                              cell_like.norm)
+                 for c in range(len(devices)))
+    chunks = R.initial_chunks(n, devices, dtype, reals)
+    R.apply_calls(chunks, cell_like.element_calls[element], tf32=tf32)
+    return chunks
 
 
 def state_error(torch, prog, ref, block: int = 1 << 24) -> float:
-    """||prog - ref|| / ||ref||, prog a (2, 2^n) real state, ref complex,
-    summed in float64 in blocks."""
+    """||prog - ref|| / ||ref||, prog a list of (first global index, (2,
+    2^m) real shard), ref the reference's complex chunks in the same
+    order, summed in float64 in blocks, chunk by chunk on each chunk's
+    device."""
     num = den = 0.0
-    for s in range(0, ref.numel(), block):
-        r = ref[s:s + block].to(torch.complex128)
-        p = torch.complex(prog[0, s:s + block].double(),
-                          prog[1, s:s + block].double())
-        num += float(torch.sum(torch.abs(p - r) ** 2))
-        den += float(torch.sum(torch.abs(r) ** 2))
+    for c, ((start, p), r) in enumerate(zip(prog, ref, strict=True)):
+        if start != c * r.numel():
+            raise ValueError(f"shard {c} starts at {start}, not at chunk "
+                             f"{c}'s first index")
+        for s in range(0, r.numel(), block):
+            rb = r[s:s + block].to(torch.complex128)
+            pb = torch.complex(p[0, s:s + block].double(),
+                               p[1, s:s + block].double())
+            num += float(torch.sum(torch.abs(pb - rb) ** 2))
+            den += float(torch.sum(torch.abs(rb) ** 2))
+            del rb, pb
     return math.sqrt(num / den)
 
 
-def readout_of(cell_like, psi) -> float:
+def readout_of(cell_like, chunks) -> float:
     """The read-out the cell's circuits return, of a reference state."""
-    from qtbench.reference import statevec as R
-
-    p = R.prob_of_outcome(psi, cell_like.readout_qubit, 0)
-    return 2.0 * p - 1.0 if cell_like.batch else p
+    return cell_like.reference.readout(chunks, cell_like.readout_name,
+                                       cell_like.readout_args)
 
 
 def compare(torch, cell, reads, finals, tf32_control: bool) -> dict:
     """The numbers compared: ``state_err``, the largest relative distance
     of a final state (``finals``) from the reference's, and
-    ``readout_err``, the largest gap of any read-out of the window from
-    the reference's.  With ``tf32_control`` the reference in TF32 stands
-    in the program's place."""
+    ``readout_err``, the largest gap of any read-out of the window (the
+    last circuit's alone where every circuit draws anew) from the
+    reference's.  With ``tf32_control`` the reference in TF32 stands in
+    the program's place."""
+    if cell.fresh:
+        reads = reads[-1:]
     state_err, readout_err = 0.0, 0.0
     for b in range(max(cell.batch, 1)):
         ref = reference_states(torch, cell, b)
         want = readout_of(cell, ref)
         if tf32_control:
             low = reference_states(torch, cell, b, tf32=True)
-            prog = torch.stack([low.real, low.imag])
+            prog = [(c * low[c].numel(), torch.stack([x.real, x.imag]))
+                    for c, x in enumerate(low)]
             got = [readout_of(cell, low)]
             del low
         else:
@@ -341,33 +476,44 @@ def percentile(values, q: float) -> float:
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
-             t_start: float, device: str = "cuda", overrides=None,
-             control: bool = False, log=None):
+             t_start: float, device: str = "cuda", devices=None,
+             overrides=None, traffic_overrides=None, control: bool = False,
+             log=None):
     """One run of ``workload``: (the result's fields, every number the
     comparison reads).  Under ``control`` the cell's control stands in the
     program's place (its ``control`` entry: the program in a lower matmul
-    mode, or the reference in TF32).  ``device="cpu"`` and ``overrides``
-    (configuration keys) are for the tests, which drive the harness at a
-    tiny size on the CPU."""
+    mode, or the reference in TF32).  ``device="cpu"``, ``devices`` (the
+    shards' devices, such as ``["cpu"] * 4`` or ``["cuda:0"] * 4``),
+    ``overrides`` (configuration keys) and ``traffic_overrides`` (keys of
+    the mix) are for the tests and probes, which drive the harness at a
+    tiny size on the CPU or split a register over one card."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
-    spec, _entry, cfg, traffic, cell_file = load_cell(workload, overrides)
+    spec, entry, cfg, traffic, cell_file = load_cell(workload, overrides)
+    traffic.update(traffic_overrides or {})
     import torch
     import quest_tpu_torch as qt
     from qtbench import trace as TR
 
     build_s = 0.0
-    if device != "cpu":
+    if any(torch.device(d).type == "cuda" for d in devices or [device]):
         from quest_tpu_torch.ops import build
         build_s = build.build_kernels()
     ctl = cell_file["control"] if control else {}
     mode = ctl.get("matmul_precision", cfg["matmul_precision"])
     tf32_control = ctl.get("kind") == "reference_tf32"
-    cell = Cell(qt, torch, cfg, traffic, seed, device, mode)
+    cell = Cell(qt, torch, cfg, traffic, seed, device, mode,
+                chips=int(entry["chips"]), devices=devices)
+    cards = sorted({d for d in cell.env.devices if d.type == "cuda"},
+                   key=lambda d: d.index or 0)
 
-    sync = (torch.cuda.synchronize if device != "cpu" else (lambda: None))
+    def sync():
+        for card in cards:
+            torch.cuda.synchronize(card)
+
     t0 = time.perf_counter()
     cell.run_once()
     first_circuit_s = time.perf_counter() - t0
+    cell.next_circuit()
     cell.run_once()
     sync()
     setup_s = time.perf_counter() - t_start
@@ -379,6 +525,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     w0 = time.perf_counter()
     deadline = w0 + seconds
     while True:
+        cell.next_circuit()
         out, dt, tg = cell.run_once()
         lat.append(dt)
         reads.append(out)
@@ -388,7 +535,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     window_s = time.perf_counter() - w0
     if prof is not None:
         prof.stop()
-    peak = (torch.cuda.max_memory_allocated() if device != "cpu" else 0)
+    peaks = {str(card): torch.cuda.max_memory_allocated(card)
+             for card in cards}
+    peak = max(peaks.values(), default=0)
     width = max(cell.batch, 1)
     circuits = len(lat) * width
 
@@ -401,17 +550,20 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     result = {"correct": False, "attempted": circuits, "failed": 0}
     log(f"qtbench: {workload} seed {seed}: {len(lat)} circuits in "
         f"{window_s:.3f} s, setup {setup_s:.3f} s (build {build_s:.3f} s, "
-        f"first circuit {first_circuit_s:.3f} s), peak {peak} bytes")
+        f"first circuit {first_circuit_s:.3f} s), peak {peak} bytes "
+        f"({len(cell.shard_devices)} shards on {peaks or 'the cpu'})")
     tr = None
     if trace:
         tr = TR.read(prof, window_s)
         del prof
-        num_amps = width << cell.n
+        # the amplitudes one window launch covers: one shard's
+        num_amps = width << (cell.state_qubits - cell.q.shard_bits)
         costs = window_launch_costs(cell.program_plan(), num_amps)
         ctx = SimpleNamespace(
             circuits=circuits, drains=len(lat), trace=tr,
             gate_calls_s=gate_s, first_circuit_s=first_circuit_s,
             window_costs=costs, num_amps=num_amps,
+            shards=len(cell.shard_devices),
             port_kernels=TR.port_kernel_functions(
                 Path(qt.__file__).resolve().parent),
             log=log)
@@ -426,10 +578,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         result["metrics"] = {
             m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
             for m in cell_metrics(spec, "end_to_end", workload)}
-    result["device"] = device_info(torch, device, peak)
+    result["device"] = device_info(torch, cards, peaks)
     if tr is not None:
-        result["device"]["busy_s"] = TR.busy_s(tr)
+        by_card = {str(card): TR.busy_s(tr, card.index or 0)
+                   for card in cards}
+        result["device"]["busy_s"] = (sum(by_card.values()) / len(by_card)
+                                      if by_card else TR.busy_s(tr))
         result["device"]["window_s"] = window_s
+        result["device"]["busy_s_by_card"] = by_card
         result["breakdown"] = {"device_ops": TR.top_device_ops(tr),
                                "idle_gaps": TR.idle_gaps(tr)}
 
@@ -437,23 +593,28 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     finals = cell.final_states()
     cell.free_inputs()
     gc.collect()
-    if device != "cpu":
+    if cards:
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     checks = compare(torch, cell, reads, finals, tf32_control=tf32_control)
+    log(f"qtbench: the comparison took {time.perf_counter() - t0:.3f} s")
     limits = cell_file["limits"]
     result["checks"] = {k: {"value": checks[k], "limit": limits[k]}
                         for k in limits}
     result["correct"] = all(checks[k] <= limits[k] for k in limits)
     del finals, cell
     gc.collect()
-    if device != "cpu":
+    if cards:
         torch.cuda.empty_cache()
     return result, checks
 
 
-def device_info(torch, device: str, peak: int) -> dict:
-    if device == "cpu":
+def device_info(torch, cards, peaks: dict) -> dict:
+    """The result's ``device``: the cards the run used (none: the CPU),
+    and the peak of the fullest."""
+    if not cards:
         return {"platform": "cpu", "kind": "cpu", "count": 1,
-                "memory_peak_bytes": peak}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": 1, "memory_peak_bytes": peak}
+                "memory_peak_bytes": 0}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(cards[0]),
+            "count": len(cards), "memory_peak_bytes": max(peaks.values()),
+            "memory_peak_bytes_by_card": peaks}

@@ -8,6 +8,17 @@ device it lives on.  Nothing here imports the program under test: the
 reference takes the inputs the benchmark makes (matrices, angles, the
 seeded state) and works out every result again.
 
+A state too large for one device is a list of R = 2^r complex chunks,
+chunk c holding the indices [c 2^m, (c + 1) 2^m) with m = n - r, each on
+its own device: the split the program's registers use, so that chunk c
+lies beside the program's shard c.  A call runs the functions above on
+blocks of at most ``BLOCK`` amplitudes: in place on each block where its
+qubits lie below the block's bits, and else on the 2 or 4 blocks that
+differ in its higher qubits (of one chunk, or of chunks that differ in a
+shard bit), copied end to end onto the first one's device and back.  One
+chunk is the whole state, and runs the functions above on it unchanged.  The harness calls ``initial_chunks``,
+``check``, ``apply_calls`` and ``readout``.
+
 ``tf32=True`` rounds every operand of a product to TF32 (10 explicit
 mantissa bits, round to nearest even) and the result back to float32
 after each step, as a float32 product on the tensor cores with TF32 on
@@ -145,6 +156,83 @@ def prob_of_outcome(psi: torch.Tensor, qubit: int, outcome: int) -> float:
     return float(torch.sum(v.real.double() ** 2 + v.imag.double() ** 2))
 
 
+# ---------------------------------------------------------------------------
+# the state in chunks, one a device
+# ---------------------------------------------------------------------------
+
+BLOCK = 1 << 24     # amplitudes in a block: the most a call copies at once
+
+
+def _on_blocks(chunks, qubits, fn) -> None:
+    """Run ``fn(mini, where)`` over the chunked state block by block: a
+    block is BLOCK amplitudes (or a chunk, where smaller) of one chunk,
+    and ``mini`` is a small state of the blocks that differ only in the
+    bits of ``qubits`` at or above the block's, laid end to end (one
+    block, in place, where there are none).  ``where[q]`` is qubit q's
+    bit in ``mini``: q itself below the block's bits, the next bits above
+    them for the others, in order.  ``mini`` is copied back to its
+    blocks on their own devices."""
+    size = chunks[0].numel()
+    step = min(BLOCK, size)
+    low = step.bit_length() - 1
+    high = sorted(q for q in set(qubits) if q >= low)
+    where = {q: q if q < low else low + high.index(q) for q in qubits}
+    blocks = (len(chunks) * size) // step
+    for g in range(blocks):
+        if any(g >> (q - low) & 1 for q in high):
+            continue
+        members = []
+        for k in range(1 << len(high)):
+            gk = g
+            for j, q in enumerate(high):
+                gk |= (k >> j & 1) << (q - low)
+            c, s = divmod(gk * step, size)
+            members.append(chunks[c][s:s + step])
+        if len(members) == 1:
+            fn(members[0], where)
+            continue
+        dev = members[0].device
+        mini = torch.cat([x.to(dev) for x in members])
+        fn(mini, where)
+        for k, x in enumerate(members):
+            x.copy_(mini[k * step:(k + 1) * step].to(x.device))
+        del mini
+
+
+def chunked_prob_of_outcome(chunks, qubit: int, outcome: int) -> float:
+    """P(qubit = outcome) of the chunked state, summed in float64 block
+    by block."""
+    if len(chunks) == 1:
+        return prob_of_outcome(chunks[0], qubit, outcome)
+    size = chunks[0].numel()
+    step = min(BLOCK, size)
+    low = step.bit_length() - 1
+    total = 0.0
+    for c, psi in enumerate(chunks):
+        for s in range(0, size, step):
+            x = psi[s:s + step]
+            if qubit < low:
+                total += prob_of_outcome(x, qubit, outcome)
+            elif ((c * size + s) >> qubit & 1) == outcome:
+                total += float(torch.sum(x.real.double() ** 2
+                                         + x.imag.double() ** 2))
+    return total
+
+
+def expec_z_sum(chunks, codes, coeffs) -> float:
+    """sum_t coeffs[t] <Z_q> for terms that are one Z each (Pauli codes 0
+    = I, 3 = Z), <Z_q> = 2 P(q = 0) - 1."""
+    total = 0.0
+    for term, coeff in zip(codes, coeffs):
+        zs = [q for q, code in enumerate(term) if code]
+        if len(zs) != 1 or term[zs[0]] != 3:
+            raise NotImplementedError(
+                f"the reference reads a Pauli term of one Z only, not {term}")
+        total += coeff * (2.0 * chunked_prob_of_outcome(chunks, zs[0], 0)
+                          - 1.0)
+    return total
+
+
 CALLS = {
     "unitary": unitary,
     "hadamard": hadamard,
@@ -154,9 +242,75 @@ CALLS = {
     "applyFullQFT": full_qft,
 }
 
+# the calls a state of several chunks takes, and how many of each call's
+# leading arguments are qubits
+CHUNKED = {
+    "unitary": 1,
+    "hadamard": 1,
+    "controlledNot": 2,
+    "controlledPhaseShift": 2,
+    "swapGate": 2,
+}
 
-def apply_calls(psi: torch.Tensor, calls, tf32: bool = False) -> None:
+# the read-outs, by QuEST name, of one register (a bank's, of one element)
+READOUTS = {
+    "calcProbOfOutcome": chunked_prob_of_outcome,
+    "calcExpecPauliSumBatched": expec_z_sum,
+}
+
+
+def initial_chunks(n: int, devices, dtype, reals=None) -> list:
+    """The initial state of ``n`` qubits as len(devices) chunks, chunk c
+    on ``devices[c]``: |0...0>, or the benchmark's draw where ``reals``
+    yields each chunk's (2, 2^m) real and imaginary parts in turn (each
+    converted and released before the next is drawn)."""
+    size = (1 << n) // len(devices)
+    chunks = []
+    if reals is None:
+        for dev in devices:
+            chunks.append(torch.zeros(size, dtype=dtype, device=dev))
+        chunks[0][0] = 1.0
+        return chunks
+    real = dtype.to_real()
+    for x in reals:
+        chunks.append(torch.complex(x[0].to(real), x[1].to(real)))
+        del x
+    return chunks
+
+
+def check(calls, readout: str, num_chunks: int) -> None:
+    """Raise, naming it, where a call or the read-out has no form here
+    for a state of ``num_chunks`` chunks (before the window opens)."""
+    table = CALLS if num_chunks == 1 else CHUNKED
+    for name, _args in calls:
+        if name not in table:
+            raise NotImplementedError(
+                f"the reference has no {name!r} for a state in "
+                f"{num_chunks} chunks")
+    if readout not in READOUTS:
+        raise NotImplementedError(
+            f"the reference has no read-out {readout!r}")
+
+
+def apply_calls(psi, calls, tf32: bool = False) -> None:
     """Apply the benchmark's calls [(QuEST name, args after the
-    register)] to ``psi`` in order."""
+    register)] in order to ``psi``: one tensor, or a list of chunks."""
+    chunks = [psi] if isinstance(psi, torch.Tensor) else psi
+    if len(chunks) == 1:
+        for name, args in calls:
+            CALLS[name](chunks[0], *args, tf32=tf32)
+        return
     for name, args in calls:
-        CALLS[name](psi, *args, tf32=tf32)
+        qubits, rest = args[:CHUNKED[name]], args[CHUNKED[name]:]
+
+        def call(mini, where):
+            CALLS[name](mini, *[where[q] for q in qubits], *rest,
+                        tf32=tf32)
+
+        _on_blocks(chunks, qubits, call)
+
+
+def readout(chunks, name: str, args) -> float:
+    """The read-out ``name`` (a QuEST name, with its arguments after the
+    register) of the chunked state."""
+    return READOUTS[name](chunks, *args)

@@ -4,7 +4,8 @@ nearest below the configurations' "highest", or the reference in TF32
 where the program's path has no lower mode), and the timed path broken
 underneath in each way the cell can be: a step that returns its state
 unchanged, half of a bank left out, and an answer altered where it is
-produced.  (No cell spans chips, so none can leave out an exchange.)"""
+produced.  The faults of a register split over shards (an exchange left
+out, one shard's state off) are ``test_harness.py``'s."""
 
 import time
 
@@ -67,7 +68,7 @@ def test_step_returning_its_state_unchanged(cell, tiny, monkeypatch):
 def test_half_the_bank_left_out(cell, tiny, monkeypatch):
     real = fusion.execute_program
 
-    def half(amps, program, probs, n, release=None):
+    def half(amps, program, probs, n, release=None, stage=None):
         h = amps.shape[0] // 2
         done = real(amps[:h].contiguous(), program, probs, n)
         return torch.cat([done, amps[h:]])

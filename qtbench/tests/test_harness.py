@@ -5,9 +5,11 @@ last line of a run holds the contract's keys alone."""
 import io
 import json
 import re
+import time
 from contextlib import redirect_stdout
 
 import pytest
+import torch
 
 from qtbench import harness
 
@@ -33,7 +35,10 @@ def test_benchmark_json_shape():
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
     for w in SPEC["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    # at most a quarter of the cells, rounded down, on four chips, or one
+    four = sum(w["chips"] == 4 for w in SPEC["workloads"])
+    assert four <= max(1, len(SPEC["workloads"]) // 4)
     assert 1 <= SPEC["run_seconds"] <= 51
 
 
@@ -121,3 +126,129 @@ def test_idle_within_a_region_is_its_span_less_busy_time():
     assert TR.idle_within(tr, "fusion.drain") == pytest.approx(2.5)
     assert TR.idle_within(tr, "qtbench.gate_calls") == pytest.approx(3.0)
     assert TR.busy_s(tr) == pytest.approx(3.5)
+
+
+# ---------------------------------------------------------------------------
+# a register split over shards, and the names a cell's files may give
+# ---------------------------------------------------------------------------
+
+SEED = 2 ** 31 + 2424
+
+
+@pytest.fixture
+def plans(monkeypatch, tmp_path):
+    from quest_tpu_torch import fusion
+
+    monkeypatch.setenv("QT_AOT_CACHE", str(tmp_path))
+    fusion.clear_plan_caches()
+    yield
+    fusion.clear_plan_caches()
+
+
+def _cpu_run(cell, overrides, **kw):
+    return harness.run_cell(cell, SEED, 0.2, False,
+                            t_start=time.perf_counter(), device="cpu",
+                            overrides=overrides, **kw)
+
+
+def test_split_register_reads_as_one(tiny, plans):
+    """rc26.api at the tiny size on four shards is correct, and its
+    error is of the unsplit run's size at the same seed."""
+    whole, whole_err = _cpu_run("rc26.api", tiny["rc26"])
+    split, split_err = _cpu_run("rc26.api", tiny["rc26"],
+                                devices=["cpu"] * 4)
+    assert whole["correct"] is True and split["correct"] is True
+    assert whole_err["state_err"] / 2 <= split_err["state_err"] \
+        <= 2 * whole_err["state_err"]
+
+
+def _perturbed_shard(monkeypatch):
+    from quest_tpu_torch import fusion
+
+    real = fusion.execute_sharded_program
+
+    def perturbed(amps, *a, **k):
+        out = real(amps, *a, **k)
+        out.shards[1].mul_(1.0 + 1e-3)
+        return out
+
+    monkeypatch.setattr(fusion, "execute_sharded_program", perturbed)
+
+
+def _exchange_left_out(monkeypatch):
+    from quest_tpu_torch.parallel import mesh
+
+    def permute(self, sends, pairs):
+        out = [None] * len(self.devices)
+        for _src, dst in pairs:
+            out[dst] = sends[dst].to(self.devices[dst], copy=True)
+        return out
+
+    monkeypatch.setattr(mesh.InProcessMesh, "permute", permute)
+    monkeypatch.setattr(mesh.InProcessMesh, "all_to_all",
+                        lambda self, blocks: [b.clone() for b in blocks])
+
+
+@pytest.mark.parametrize("fault", ["perturbed_shard", "exchange_left_out",
+                                   "control"])
+def test_split_register_faults(fault, monkeypatch, plans):
+    """Four shards at 16 qubits (14 local bits: the drain's window passes
+    run, and with them the control's lower matmul mode; at 15 qubits the
+    shards are too small for a window and the mode acts on nothing): one
+    shard's final state off by 1e-3, the exchanges between shards left
+    out, and the cell's control each read ``correct`` false."""
+    if fault == "perturbed_shard":
+        _perturbed_shard(monkeypatch)
+    elif fault == "exchange_left_out":
+        _exchange_left_out(monkeypatch)
+    result, readings = _cpu_run("rc26.api", {"num_qubits": 16},
+                                devices=["cpu"] * 4,
+                                control=fault == "control")
+    assert result["correct"] is False, readings
+
+
+def test_density_register_kind(plans):
+    import quest_tpu_torch as qt
+
+    _spec, _entry, cfg, traffic, _file = harness.load_cell(
+        "rc26.api", {"num_qubits": 5, "register": "density"})
+    cell = harness.Cell(qt, torch, cfg, traffic, SEED, "cpu", "highest")
+    assert cell.q.is_density_matrix and cell.state_qubits == 10
+    cell.run_once()
+    assert cell.final_states()[0][0][1].shape == (2, 1 << 10)
+
+
+def test_missing_reference_fails_at_set_up(plans):
+    with pytest.raises(FileNotFoundError, match="qtbench/reference/nosuch.py"):
+        _cpu_run("rc26.api", {"num_qubits": 8, "reference": "nosuch"})
+
+
+def test_fresh_calls_draw_each_circuit_and_compare_the_last(tiny, plans,
+                                                            monkeypatch):
+    import quest_tpu_torch as qt
+
+    _spec, _entry, cfg, traffic, _file = harness.load_cell(
+        "rc26.api", tiny["rc26"])
+    cell = harness.Cell(qt, torch, cfg, dict(traffic, calls="fresh"), SEED,
+                        "cpu", "highest")
+    first = cell.calls
+    cell.next_circuit()
+    assert cell.drawn == 1 and cell.calls[0][0] == "unitary"
+    assert not (first[0][1][1] == cell.calls[0][1][1]).all()
+
+    seen = {}
+    real = harness.compare
+
+    def compare(torch_, cell_, reads, finals, tf32_control):
+        seen["drawn"] = cell_.drawn
+        fresh = cell_.circuit.register_calls(cfg, [SEED, cell_.drawn])
+        seen["last"] = all((a[1][1] == b[1][1]).all()
+                           for a, b in zip(cell_.calls, fresh)
+                           if a[0] == "unitary")
+        return real(torch_, cell_, reads, finals, tf32_control)
+
+    monkeypatch.setattr(harness, "compare", compare)
+    result, _readings = _cpu_run("rc26.api", tiny["rc26"],
+                                 traffic_overrides={"calls": "fresh"})
+    assert result["correct"] is True
+    assert seen["drawn"] >= 2 and seen["last"]

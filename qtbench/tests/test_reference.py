@@ -61,3 +61,65 @@ def test_tf32_round():
     got = R.tf32_round(x).tolist()
     # ties to even: 1 + 2^-11 -> 1, 1 + 3 * 2^-11 -> 1 + 2^-9
     assert got == [1.0, 1.0, 1.0 + 2 ** -9, -1.0, 1.0 + 2 ** -10]
+
+
+def _haar(rng):
+    z = rng.standard_normal((2, 2)) + 1j * rng.standard_normal((2, 2))
+    q, r = np.linalg.qr(z)
+    return q * (np.diag(r) / np.abs(np.diag(r)))
+
+
+def _every_placement(n, rng):
+    """Each gate the chunked form has, on every qubit and every ordered
+    pair of qubits, in a random order."""
+    calls = []
+    for q in range(n):
+        calls += [("unitary", (q, _haar(rng))), ("hadamard", (q,))]
+    for a in range(n):
+        for b in range(n):
+            if a != b:
+                calls += [("controlledNot", (a, b)),
+                          ("controlledPhaseShift",
+                           (a, b, float(rng.uniform(0, 2 * math.pi)))),
+                          ("swapGate", (a, b))]
+    return [calls[i] for i in rng.permutation(len(calls))]
+
+
+@pytest.mark.parametrize("block", [1 << 24, 8])
+@pytest.mark.parametrize("tf32", [False, True])
+@pytest.mark.parametrize("chunks,n", [(2, 8), (2, 9), (2, 10), (4, 8),
+                                      (4, 9), (4, 10)])
+def test_chunked_equals_whole(chunks, n, tf32, block, monkeypatch):
+    """The state in 2 or 4 chunks against the whole state: every gate in
+    every placement of control and target around the shard bits, and the
+    probability of each outcome of every qubit.  Blocks of 8 amplitudes
+    (below the chunk's size) take the pairings' paths by block."""
+    monkeypatch.setattr(R, "BLOCK", block)
+    rng = np.random.default_rng([n, chunks])
+    dtype = torch.complex64 if tf32 else torch.complex128
+    x = rng.standard_normal((2, 1 << n))
+    psi = torch.complex(torch.from_numpy(x[0]), torch.from_numpy(x[1]))
+    psi = (psi / torch.linalg.vector_norm(psi)).to(dtype)
+    whole = psi.clone()
+    parts = R.initial_chunks(
+        n, ["cpu"] * chunks, dtype,
+        (torch.stack([c.real, c.imag]) for c in psi.chunk(chunks)))
+    calls = _every_placement(n, rng)
+    R.check(calls, "calcProbOfOutcome", chunks)
+    R.apply_calls(whole, calls, tf32=tf32)
+    R.apply_calls(parts, calls, tf32=tf32)
+    tol = 1e-6 if tf32 else 1e-12
+    err = torch.linalg.vector_norm(torch.cat(parts) - whole)
+    assert float(err / torch.linalg.vector_norm(whole)) <= tol
+    for q in range(n):
+        for outcome in (0, 1):
+            assert R.readout(parts, "calcProbOfOutcome", (q, outcome)) \
+                == pytest.approx(R.prob_of_outcome(whole, q, outcome),
+                                 abs=tol)
+
+
+def test_chunked_form_names_a_call_it_lacks():
+    with pytest.raises(NotImplementedError, match="applyFullQFT"):
+        R.check([("hadamard", (0,)), ("applyFullQFT", ())],
+                "calcProbOfOutcome", 4)
+    R.check([("applyFullQFT", ())], "calcProbOfOutcome", 1)

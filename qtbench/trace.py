@@ -4,7 +4,9 @@ the program annotate, and the reductions the per-layer metrics and the
 result's ``breakdown`` take from them.
 
 Times are in seconds.  Busy time is the union of the device events'
-intervals, never their sum: two events that overlap count once.
+intervals, never their sum: two events that overlap count once.  Each
+device event carries the index of the card it ran on; ``Trace.device``
+holds the events of every card.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ class DeviceEvent:
     name: str
     start: float
     end: float
+    card: int = 0
 
     @property
     def seconds(self) -> float:
@@ -79,7 +82,8 @@ def read(prof, window_s: float) -> Trace:
         on_card = str(ev.device_type()).endswith("CUDA")
         if on_card and not ev.is_user_annotation() \
                 and ev.name() not in annotations:
-            out.device.append(DeviceEvent(ev.name(), start, end))
+            out.device.append(DeviceEvent(ev.name(), start, end,
+                                          ev.device_index()))
         elif not on_card and ev.name() in HOST_REGIONS:
             out.host.append((ev.name(), start, end))
     out.device.sort(key=lambda e: e.start)
@@ -98,8 +102,11 @@ def busy_intervals(events) -> list:
     return merged
 
 
-def busy_s(trace: Trace) -> float:
-    return sum(e - s for s, e in busy_intervals(trace.device))
+def busy_s(trace: Trace, card=None) -> float:
+    """Seconds in which something ran on the card ``card`` (an index;
+    None: on any card)."""
+    events = [ev for ev in trace.device if card is None or ev.card == card]
+    return sum(e - s for s, e in busy_intervals(events))
 
 
 def idle_within(trace: Trace, region: str) -> float:
