@@ -1173,7 +1173,10 @@ def execute_sharded_program(amps, program, probs, nloc: int, key=None):
     through the exchange layer (dist._remap_shards), counted per tier
     under op "window_remap" with the cost model's exchanges and bytes
     (dist.remap_exchange_tiers; a bank's B times a register's, as the
-    JAX package counts them, quest_tpu/fusion.py:525-537), every other
+    JAX package counts them, quest_tpu/fusion.py:525-537) and covered by
+    one ``mesh.remap`` span (attrs ``bytes``: the bytes it counts,
+    ``swaps``: its mixed half-shard swaps, ``local``: whether a shard
+    permutes its own axes, ``tier``), every other
     part through execute_program at nloc bits, one op at a time on every
     shard in turn (a shard holds at most its input and its output at
     once), on that shard's device copy of the program (program_on_device,
@@ -1197,12 +1200,20 @@ def execute_sharded_program(amps, program, probs, nloc: int, key=None):
     pi = 0
     for i, part in enumerate(program):
         if part[0] == "remap":
+            moved, tiers = 0, []
             for tier, (cnt, b) in PAR.remap_exchange_tiers(
                     part[1], nloc, nsh, amps.itemsize, topology).items():
                 if cnt or b:
                     PAR.record_exchange("window_remap", cnt * bw, b * bw,
                                         chunks=ck, tier=tier)
-            amps = PAR._remap_shards(amps, part[1])
+                    moved += b * bw
+                    tiers.append(tier)
+            mixed, local, _tau = PAR.decompose_sigma(part[1], nloc, nsh)
+            PAR.settle_traced(amps.mesh)
+            with _span("mesh.remap", bytes=moved, swaps=len(mixed),
+                       local=local is not None, tier="+".join(tiers)):
+                amps = PAR._remap_shards(amps, part[1])
+                PAR.settle_traced(amps.mesh)
             continue
         count = _part_probs(part)
         rprobs = probs[pi:pi + count]

@@ -147,10 +147,10 @@ def apply_sigma_swap(amps, *, num_qubits: int, group_bits: int = 7):
     if not amps.is_contiguous():
         raise ValueError("apply_sigma_swap: the state must be contiguous")
     ctab, dtab = _pair_tables_on(amps.device, g)
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(_lib().qt_sigma_swap_f32(
-        amps.data_ptr(), n, g, ctab.data_ptr(), dtab.data_ptr(),
-        int(ctab.numel()), max(nb, 1), stream), "apply_sigma_swap")
+    with build.launch_stream(amps) as stream:
+        build.raise_on(_lib().qt_sigma_swap_f32(
+            amps.data_ptr(), n, g, ctab.data_ptr(), dtab.data_ptr(),
+            int(ctab.numel()), max(nb, 1), stream), "apply_sigma_swap")
     LAUNCHES["K10_bank" if nb else "K10"] += 1
     # written in place through the pointer: bump the tensor's version
     torch.autograd.graph.increment_version(amps)

@@ -14,6 +14,7 @@ declare their own entry points' ctypes signatures.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -119,6 +120,19 @@ def library():
     if "lib" not in _LIB:
         build_kernels()
     return _LIB["lib"]
+
+
+@contextlib.contextmanager
+def launch_stream(tensor):
+    """``with launch_stream(t) as stream:`` the raw CUDA stream of ``t``'s
+    card to launch a kernel over ``t`` into, with that card the current
+    device until the block ends: CUDA refuses a launch into a stream of
+    another device, so a shard on ``cuda:1`` must not be launched with
+    ``cuda:0`` current.  On the current card the guard changes nothing."""
+    import torch
+
+    with torch.cuda.device(tensor.device):
+        yield torch.cuda.current_stream(tensor.device).cuda_stream
 
 
 def raise_on(code: int, what: str) -> None:

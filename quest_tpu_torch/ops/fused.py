@@ -1013,10 +1013,10 @@ def _launch_window(amps, op, n: int, precision: str, what: str,
     entry = "qt_window_pass" if swap is None else "qt_swap_cluster_stack"
     fn = getattr(_lib(), entry + ("_f32" if amps.dtype == torch.float32
                                   else "_f64"))
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n, max(nb, 1),
-                      ctypes.byref(desc), host, dev, *(swap or ()), stream),
-                   what)
+    with build.launch_stream(amps) as stream:
+        build.raise_on(fn(amps.data_ptr(), out.data_ptr(), n, max(nb, 1),
+                          ctypes.byref(desc), host, dev, *(swap or ()),
+                          stream), what)
     return out
 
 
@@ -1260,12 +1260,12 @@ def apply_window_megastack(amps, subops, *, num_qubits: int,
                        device=amps.device)
     fn = (_lib().qt_megawin_f32 if amps.dtype == torch.float32
           else _lib().qt_megawin_f64)
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(fn(amps.data_ptr(), out.data_ptr(),
-                      None if slots is None else slots.data_ptr(),
-                      work.data_ptr(), sched["ctas"], sched["window"],
-                      sched["slots"], n, descs, len(subops), max(nb, 1),
-                      host, dev, stream), "apply_window_megastack")
+    with build.launch_stream(amps) as stream:
+        build.raise_on(fn(amps.data_ptr(), out.data_ptr(),
+                          None if slots is None else slots.data_ptr(),
+                          work.data_ptr(), sched["ctas"], sched["window"],
+                          sched["slots"], n, descs, len(subops), max(nb, 1),
+                          host, dev, stream), "apply_window_megastack")
     LAUNCHES["K2_bank" if nb else "K2"] += 1
     return out
 
@@ -1529,11 +1529,11 @@ def _launch_hi(amps, n: int, t_hi: int, t_lo: int, conj: bool, what: str):
     ctab, mlo, mhi = _tables_on(
         _multi_hi_tables, (t_hi, t_lo, conj, np.float32), amps.device)
     cre, cim = _block_consts(t_hi - t_lo + 1, conj, np.float32)
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(_lib().qt_qft_hi_f32(
-        amps.data_ptr(), n, t_hi, t_lo, ctab.data_ptr(), mlo.data_ptr(),
-        int(mlo.shape[-1]), mhi.data_ptr(), int(mhi.shape[-1]),
-        cre.ctypes.data, cim.ctypes.data, stream), what)
+    with build.launch_stream(amps) as stream:
+        build.raise_on(_lib().qt_qft_hi_f32(
+            amps.data_ptr(), n, t_hi, t_lo, ctab.data_ptr(), mlo.data_ptr(),
+            int(mlo.shape[-1]), mhi.data_ptr(), int(mhi.shape[-1]),
+            cre.ctypes.data, cim.ctypes.data, stream), what)
 
 
 def _launch_sublane(amps, n: int, t_hi: int, t_lo: int, tab,
@@ -1542,10 +1542,10 @@ def _launch_sublane(amps, n: int, t_hi: int, t_lo: int, tab,
     ``tab`` holds layer t_hi's table, the next layer's ``layer_stride``
     floats on, the imaginary half ``chan_stride`` floats on."""
     _qft_cuda_state(amps, n, what)
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(_lib().qt_qft_sublane_f32(
-        amps.data_ptr(), n, t_hi, t_lo, tab.data_ptr(), layer_stride,
-        chan_stride, stream), what)
+    with build.launch_stream(amps) as stream:
+        build.raise_on(_lib().qt_qft_sublane_f32(
+            amps.data_ptr(), n, t_hi, t_lo, tab.data_ptr(), layer_stride,
+            chan_stride, stream), what)
 
 
 def apply_qft_ladder_pallas(amps, *, num_qubits: int, target: int,
@@ -1870,12 +1870,12 @@ def _launch_chan(amps, nn: int, group, wts, nbank: int = 0) -> None:
     sms = torch.cuda.get_device_properties(amps.device).multi_processor_count
     blocks = max(1, min(-(-(max(nbank, 1) << (nn - r)) // threads),
                         8 * sms))
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(lib.qt_chan_sweep_f32(
-        amps.data_ptr(), 1 << nn, max(nbank, 1), r, piv.ctypes.data,
-        orb.ctypes.data, len(entries), ts.ctypes.data, bs.ctypes.data,
-        ss.ctypes.data, w.ctypes.data, blocks, stream),
-        "apply_pair_channel_sweep")
+    with build.launch_stream(amps) as stream:
+        build.raise_on(lib.qt_chan_sweep_f32(
+            amps.data_ptr(), 1 << nn, max(nbank, 1), r, piv.ctypes.data,
+            orb.ctypes.data, len(entries), ts.ctypes.data, bs.ctypes.data,
+            ss.ctypes.data, w.ctypes.data, blocks, stream),
+            "apply_pair_channel_sweep")
     LAUNCHES["K5_bank" if nbank else "K5"] += 1
 
 

@@ -344,11 +344,11 @@ def direct_rotation(amps, term: PauliTerm, *, num_qubits: int):
         return direct_rotation_plain(amps, term, num_qubits=num_qubits)
     suffix = _cuda_state(amps, "direct_rotation")
     fn = getattr(_lib(), f"qt_pauli_rotation_{suffix}")
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(fn(amps.data_ptr(), num_amps, term.fm, term.zm,
-                      term.c_re, term.c_im, term.co, term.si,
-                      _grid(amps, term, num_amps), stream),
-                   "direct_rotation")
+    with build.launch_stream(amps) as stream:
+        build.raise_on(fn(amps.data_ptr(), num_amps, term.fm, term.zm,
+                          term.c_re, term.c_im, term.co, term.si,
+                          _grid(amps, term, num_amps), stream),
+                       "direct_rotation")
     LAUNCHES["K3"] += 1
     return amps
 
@@ -364,10 +364,10 @@ def expec_term(amps, term: PauliTerm, *, num_qubits: int):
     fn = getattr(_lib(), f"qt_pauli_expec_{suffix}")
     blocks = _grid(amps, term, num_amps)
     partials = torch.empty(blocks, dtype=torch.float64, device=amps.device)
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(fn(amps.data_ptr(), num_amps, term.fm, term.zm,
-                      term.c_re, term.c_im, partials.data_ptr(), blocks,
-                      stream), "expec_term")
+    with build.launch_stream(amps) as stream:
+        build.raise_on(fn(amps.data_ptr(), num_amps, term.fm, term.zm,
+                          term.c_re, term.c_im, partials.data_ptr(), blocks,
+                          stream), "expec_term")
     LAUNCHES["K4"] += 1
     return torch.sum(partials)
 

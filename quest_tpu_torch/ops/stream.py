@@ -127,9 +127,10 @@ def stream_pass(amps, *, rows: int, op: str, scale: float = 2.0, out=None):
     if amps.data_ptr() % 16 or dst.data_ptr() % 16:
         raise ValueError(f"{what}: the kernel moves 16-byte vectors; the "
                          "state and out must start on 16 bytes")
-    stream = torch.cuda.current_stream(amps.device).cuda_stream
-    build.raise_on(_lib().qt_stream_pass(amps.data_ptr(), dst.data_ptr(),
-                                         hi, rows, k, scale, stream), what)
+    with build.launch_stream(amps) as stream:
+        build.raise_on(_lib().qt_stream_pass(amps.data_ptr(),
+                                             dst.data_ptr(), hi, rows, k,
+                                             scale, stream), what)
     LAUNCHES["P1"] += 1
     # written through the pointer: bump the tensor's version
     torch.autograd.graph.increment_version(dst)

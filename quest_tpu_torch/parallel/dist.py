@@ -361,6 +361,19 @@ def _chunk(view: torch.Tensor, i: int, chunks: int) -> torch.Tensor:
     return view[:, h:h + 1, j * step:(j + 1) * step]
 
 
+def settle_traced(mesh: Mesh) -> None:
+    """Under a recording ``torch.profiler``, wait until every card of
+    ``mesh`` has run all it was given; nothing otherwise.  The
+    ``mesh.remap`` and ``mesh.exchange`` spans call it before they open
+    and before they close, so that in a trace the device work inside such
+    a span on a card's timeline is the span's own: the host otherwise
+    runs ahead of the cards, by whole circuits."""
+    if not torch.autograd._profiler_enabled():
+        return
+    for dev in {d for d in mesh.devices if d.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
 def exchange_pipelined(mesh: Mesh, sends: Sequence[torch.Tensor], pairs,
                        combine, *, chunks: int) -> None:
     """Chunked exchange over the local shards, in place.
@@ -373,15 +386,21 @@ def exchange_pipelined(mesh: Mesh, sends: Sequence[torch.Tensor], pairs,
     ``combine(i, k, own_chunk, recv_chunk)`` gives local shard k's new
     chunk i, written back into its view.  The combines are elementwise on
     disjoint chunks, so the result is the same for any chunk count
-    (quest_tpu/parallel/dist.py exchange_pipelined)."""
+    (quest_tpu/parallel/dist.py exchange_pipelined).  One ``mesh.exchange``
+    span covers it: attrs ``bytes`` (what each shard sends) and
+    ``chunks``."""
     m = int(sends[0].shape[1]) * int(sends[0].shape[2])
     if chunks <= 1 or m % chunks or m // chunks == 0:
         chunks = 1
-    for i in range(chunks):
-        own = [_chunk(v, i, chunks) for v in sends]
-        recv = mesh.permute(own, pairs)
-        for k, v in enumerate(own):
-            v.copy_(combine(i, k, v, recv[k]))
+    settle_traced(mesh)
+    with _telemetry.span("mesh.exchange", chunks=chunks,
+                         bytes=sends[0].numel() * sends[0].element_size()):
+        for i in range(chunks):
+            own = [_chunk(v, i, chunks) for v in sends]
+            recv = mesh.permute(own, pairs)
+            for k, v in enumerate(own):
+                v.copy_(combine(i, k, v, recv[k]))
+        settle_traced(mesh)
 
 
 def _contiguous(shards: List[torch.Tensor]) -> None:
