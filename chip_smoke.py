@@ -68,12 +68,15 @@ line:
              version: K8 over ten layer chunks (k = 1..5, with H = 1 and
              M = 1 among them), K9, K6 for t = 14..19, K7 for t = 7..13,
              all in both conj values; K10 at (n, g) = (20, 2), (20, 4),
-             (28, 7).  K1 on every window pass of the 30-qubit QFT's plan
-             at 2^30 amplitudes (bit for bit where the pass is a
-             permutation, within 1e-5 max|psi| otherwise).
+             (28, 7), its reversal form at REV_PARITY.  K1 on every window
+             pass of the 30-qubit QFT's plan and of the old route's (the
+             lane fold, three B-only reversal passes) at 2^30 amplitudes
+             (bit for bit where the pass is a permutation, within 1e-5
+             max|psi| otherwise).
 10. qft_main - bench.py config 3 at 30 qubits, float32: two
              circuit.fused_qft from |0...0> (amp_0 back at 1 within 1e-5;
-             launches per QFT as the plan says: K8 4, K9 1, K1 4, K10 1);
+             launches per QFT as the plan says: K8 4, K9 1, K1 1 (the
+             A-only lane pass), K10's reversal form 1, sigma 0);
              QFT|x> against e^{2 pi i x y / 2^n} / 2^{n/2} at 4096 sampled
              y; applyFullQFT on a random state against torch.fft.ifft
              within 1e-5 max|psi|; the route bit for bit against the same
@@ -82,10 +85,23 @@ line:
              register (K6 once, K7 seven times) bit for bit against its
              plain route, calcTotalProb within 1e-4 of 1.
 11. qft_timing - CUDA-event medians of K8 (each chunk), K9, K6, K7, K10
-             and K1's two QFT pass kinds at 2^30 amplitudes against their
-             bounds, plain versions and library yardsticks (torch.fft for
-             the whole QFT); wall time and busy share of fused_qft and
-             applyFullQFT.
+             and K1's A-only lane pass and the old route's two pass kinds
+             at 2^30 amplitudes against their bounds, plain versions and
+             library yardsticks (torch.fft for the whole QFT); wall time
+             and busy share of fused_qft and applyFullQFT (a trace whose
+             K8 count is not 4 is taken again, at most three times; each
+             try's count is reported).
+11b. qft_reversal - K10's reversal form torch.equal to the old route's
+             plan (four K1 passes and sigma, launched once each from
+             counts of 0) at 30 and 31 qubits and on a bank of 2 x
+             30 (one K10_rev_bank launch); applyFullQFT at 30 qubits (K8
+             4, K9 1, K1 1, K10_rev 1) bit for bit against K8, K9, the
+             lane pass and the old plan, and within 1e-5 max|psi| of the
+             old route; CUDA-event medians of the reversal form beside its
+             bytes bound, sigma, its plain version, one torch.index_select
+             by the reversed index (held to it first) and the old plan;
+             the A-only lane pass beside the dual lane fold; the whole
+             QFT by both routes.
 12. channel_parity - K5 against its plain version, bit for bit: at 2^20
              amplitudes over its program shapes (lane and sublane ket bits,
              in-block and grid channels in one sweep of rank 7 = two
@@ -461,10 +477,10 @@ line:
              K11_bank and K12_bank launches equal to the plan's fused and
              swapfused ops, every element torch.equal to its scalar paged
              drain.  R7b: the 30-qubit bit reversal (bit_reversal_ops:
-             four K1 passes, one sigma swap) through execute_plan on a
-             float32 bank of 2 x 2^30 (17.2 GB): one K1_bank launch a
-             pass and one K10_bank, each element torch.equal to its
-             scalar route.  K11's, K12's and K10's bank forms timed
+             K10's reversal form) through execute_plan on a float32 bank
+             of 2 x 2^30 (17.2 GB): one K10_rev_bank launch, each element
+             torch.equal to its scalar route; then one K10_bank (sigma) on
+             the same bank.  K11's, K12's and K10's bank forms timed
              against B scalar launches, their plain versions and one
              PyTorch call each (the fastest batched torch.einsum for K11
              and K12, permute(...).contiguous() of the bank's view for
@@ -537,6 +553,9 @@ N_QFT = 30             # bench.py config 3: a full QFT at 30 qubits, f32
 N_QFT_F64 = 26         # the float64 cross-check of the QFT
 N_QFT_RHO = 15         # a density register of 2^30 amplitudes (K6, K7)
 SIGMA_PARITY = ((20, 2), (20, 4), (28, 7))   # K10's (n, g) parity cases
+# K10's reversal form: (n, g) parity cases, n - 4g from 0 to 12
+REV_PARITY = ((20, 2), (17, 3), (19, 4), (28, 7), (29, 7))
+N_REV_OLD = (30, 31)   # the reversal form against the old route's plan
 N_QFT_KNOWN = 4096     # sampled amplitudes of each QFT known answer
 QFT_SEED = 11
 PAULI_TERMS = 16       # bench.py config 5's Hamiltonian: 16 terms, seed 7
@@ -1386,22 +1405,25 @@ def plain_qft_kernels(fused, bigstate):
         return plain(amps, num_qubits=num_qubits, target=target, conj=conj)
 
     saved = (fused.apply_qft_multi_hi, fused.apply_qft_cluster_multi,
-             fused.apply_qft_ladder_pallas, bigstate.apply_sigma_swap)
+             fused.apply_qft_ladder_pallas, bigstate.apply_sigma_swap,
+             bigstate.apply_bit_reversal)
     fused.apply_qft_multi_hi = fused.qft_multi_hi_plain
     fused.apply_qft_cluster_multi = fused.qft_cluster_multi_plain
     fused.apply_qft_ladder_pallas = ladder
     bigstate.apply_sigma_swap = bigstate.sigma_swap_plain
+    bigstate.apply_bit_reversal = bigstate.bit_reversal_plain
     try:
         yield
     finally:
         (fused.apply_qft_multi_hi, fused.apply_qft_cluster_multi,
-         fused.apply_qft_ladder_pallas, bigstate.apply_sigma_swap) = saved
+         fused.apply_qft_ladder_pallas, bigstate.apply_sigma_swap,
+         bigstate.apply_bit_reversal) = saved
 
 
 def qft_launches(fused, bigstate) -> dict:
     return {k: fused.LAUNCHES[k] for k in ("K1", "K2", "K6", "K7", "K8",
                                            "K9")} | {
-        "K10": bigstate.LAUNCHES["K10"]}
+        k: bigstate.LAUNCHES[k] for k in ("K10", "K10_rev")}
 
 
 def reset_qft_counts(fused, bigstate) -> None:
@@ -1409,20 +1431,42 @@ def reset_qft_counts(fused, bigstate) -> None:
     bigstate.reset_launch_counts()
 
 
-def qft_k1_ops(torch, np, C, n):
-    """The K1 passes of one n-qubit QFT on the card: the lane-layer fold
-    (the seven lane layers with both low rev7 reversals) and the high
-    groups' reversal passes, uploaded."""
+def qft_plan_np(np, C, n, old=False):
+    """The ops after K9 of one n-qubit QFT on the card, as NumPy operands.
+    The route: the seven lane layers in one A-only window pass, then the
+    reversal (at 30-34 qubits K10's reversal form).  ``old``: the route
+    before the reversal form, the lane-layer fold (the seven lane layers
+    with both low rev7 reversals) and the reference's in-place plan's
+    three B-only reversal passes and sigma."""
     dt = np.float32
     gates = [C.Gate(tuple(range(qq + 1)), C._qft_layer_dense(qq, False, dt))
              for qq in range(6, -1, -1)]
-    rev7 = C._rev_perm_mat(7, dt)
-    gates += [C.Gate(tuple(range(7)), rev7),
-              C.Gate(tuple(range(7, 14)), rev7)]
+    if old:
+        rev7 = C._rev_perm_mat(7, dt)
+        gates += [C.Gate(tuple(range(7)), rev7),
+                  C.Gate(tuple(range(7, 14)), rev7)]
     ops = C.plan_circuit(gates, n, device=DEVICE)
-    ops += C.bit_reversal_ops(n, [(0, n)], dt, skip_low_group=True,
-                              device=DEVICE)
-    return C.plan_to_device(ops, torch.float32, DEVICE)
+    if old:
+        return ops + C._bit_reversal_big(n, dt, skip_low_group=True)
+    return ops + C.bit_reversal_ops(n, [(0, n)], dt, device=DEVICE)
+
+
+def qft_k1_ops(torch, np, C, n, old=False):
+    """qft_plan_np's ops, uploaded."""
+    return C.plan_to_device(qft_plan_np(np, C, n, old), torch.float32,
+                            DEVICE)
+
+
+def old_route_qft(np, C, fused, amps, n, ops=None):
+    """The n-qubit QFT by the route before K10's reversal form: K8, K9,
+    then qft_plan_np(old=True)'s ops (the lane fold, three B-only
+    reversal passes, sigma), as _fused_qft_multilayer ran them; or K8, K9
+    and ``ops``."""
+    amps = fused.apply_qft_multilayer_ladders(amps, num_qubits=n,
+                                              t_top=n - 1)
+    if ops is None:
+        ops = qft_plan_np(np, C, n, old=True)
+    return C.execute_plan(amps, ops, n)
 
 
 def is_permutation_pass(op) -> bool:
@@ -1472,6 +1516,7 @@ def phase_qft_parity(torch, np, fused, bigstate, C):
                  lambda a: plain(a, num_qubits=n, target=t, conj=conj),
                  f"{'K7' if t < 14 else 'K6'} t={t} conj={conj}")
             out["k7_targets" if t < 14 else "k6_targets"].append(t)
+    k10_before = bigstate.LAUNCHES["K10"]
     for m, g in SIGMA_PARITY:
         y = x if m == n else random_state(torch, m, 1357)
         same(lambda a: bigstate.apply_sigma_swap(a, num_qubits=m,
@@ -1481,14 +1526,27 @@ def phase_qft_parity(torch, np, fused, bigstate, C):
              f"K10 n={m} g={g}", state=y)
         out["k10_cases"].append([m, g])
         del y
+    out["k10_launches"] = bigstate.LAUNCHES["K10"] - k10_before
+    out["k10_rev_cases"] = []
+    for m, g in REV_PARITY:
+        y = x if m == n else random_state(torch, m, 1358)
+        same(lambda a: bigstate.apply_bit_reversal(a, num_qubits=m,
+                                                   group_bits=g),
+             lambda a: bigstate.bit_reversal_plain(a, num_qubits=m,
+                                                   group_bits=g),
+             f"K10 reversal form n={m} g={g}", state=y)
+        out["k10_rev_cases"].append([m, g])
+        del y
     torch.cuda.empty_cache()
 
-    # K1 on each pass of the QFT's plan at the main path's size
+    # K1 on each pass of the QFT's plan at the main path's size, the old
+    # route's passes and the route's A-only lane pass
     m = N_QFT
     x = random_state(torch, m, 97531)
     tol = tolerance(x)
     out["k1"] = []
-    for op in qft_k1_ops(torch, np, C, m):
+    for op in (qft_k1_ops(torch, np, C, m, old=True)
+               + qft_k1_ops(torch, np, C, m)):
         if op[0] != "winfused":
             continue
         y = fused.apply_window_stack(x, op[2], op[3], op[6], num_qubits=m,
@@ -1515,11 +1573,13 @@ def phase_qft_parity(torch, np, fused, bigstate, C):
 def qft_want(torch, np, C, n):
     """Launches of one n-qubit state-vector QFT by the multilayer route:
     K8 per chunk of 4 layers above 13, one K9, K1 per window pass of the
-    fold and the reversal, K2 per megawin group, one K10."""
+    lane layers and the reversal, K2 per megawin group, K10 (sigma) none
+    and one K10 reversal form."""
     ops = qft_k1_ops(torch, np, C, n)
     st = C.stats(ops)
     return {"K1": st["winfused"], "K2": st["megawin"], "K6": 0, "K7": 0,
-            "K8": -(-(n - 14) // 4), "K9": 1, "K10": st["sigma_swap"]}
+            "K8": -(-(n - 14) // 4), "K9": 1, "K10": st["sigma_swap"],
+            "K10_rev": st["sigma_rev"]}
 
 
 def phase_qft_main(torch, np, qt, C, fused, bigstate, circuits):
@@ -1528,7 +1588,9 @@ def phase_qft_main(torch, np, qt, C, fused, bigstate, circuits):
     out = {"n": n}
     qt.set_precision(1)
     want = qft_want(torch, np, C, n)
-    check(want["K10"] == 1, f"the {n}-qubit plan has no sigma swap")
+    check(want["K10_rev"] == 1 and want["K1"] == 1,
+          f"the {n}-qubit plan is not one lane pass and one reversal: "
+          f"{want}")
 
     # (a) the bench route: two QFTs from |0...0> (bench.py:238-258)
     sync()
@@ -1619,7 +1681,8 @@ def phase_qft_main(torch, np, qt, C, fused, bigstate, circuits):
     sync()
     check(torch.equal(y, yp), f"the {n}-qubit QFT route is not the plain "
           "route's bit for bit")
-    check(all(plain_launches[k] == 0 for k in ("K8", "K9", "K10")),
+    check(all(plain_launches[k] == 0
+              for k in ("K8", "K9", "K10", "K10_rev")),
           f"the plain route launched {plain_launches}")
     out["plain_route"] = {"n": n, "bit_identical": True,
                           "max_abs_err": max_abs_diff(torch, y, yp),
@@ -1739,10 +1802,13 @@ def phase_qft_timing(torch, np, qt, C, fused, bigstate):
         2 * state_bytes, 0.0,
         library=lambda: view.permute(0, 5, 4, 3, 2, 1).contiguous())
     torch.cuda.empty_cache()
-    # K1 on the QFT's two pass kinds at 2^30 amplitudes
+    # K1 at 2^30 amplitudes on the route's A-only lane pass and the old
+    # route's two pass kinds (the dual lane fold, a B-only reversal pass)
     ops = [op for op in qft_k1_ops(torch, np, C, n) if op[0] == "winfused"]
+    old = [op for op in qft_k1_ops(torch, np, C, n, old=True)
+           if op[0] == "winfused"]
     out["k1"] = []
-    for op in (ops[0], ops[-1]):
+    for op in (ops[0], old[0], old[-1]):
         b, by = bound_ms([op], state_bytes, num_amps, "float32")
         hi, mid = 1 << (n - op[1] - 7), 1 << (op[1] - 7)
         ac = torch.complex(op[2][0, 0], op[2][0, 1])
@@ -1806,12 +1872,22 @@ def phase_qft_timing(torch, np, qt, C, fused, bigstate):
             if res is not None:
                 a = res
         walls[label] = statistics.median(samples)
-        dev, seen = device_busy(torch, fn, "qft_hi_kernel")
-        check(seen in (None, 4), f"the profiler saw {seen} K8 launches in "
-              "one QFT, not 4")
+        # the tracer can still drop a kernel behind the warm-up launches
+        # (one K8 of four went unseen once in a whole run, and none in
+        # 200 traces of a fresh process): a trace that misses one is
+        # taken again, up to three times, and each try's count reported
+        seen_per_try = []
+        while len(seen_per_try) < 3:
+            dev, seen = device_busy(torch, fn, "qft_hi_kernel")
+            seen_per_try.append(seen)
+            if seen in (None, 4):
+                break
+        check(seen in (None, 4), f"the profiler saw {seen_per_try} K8 "
+              "launches in one QFT's traces, not 4")
         out[f"{label}_wall_ms"] = walls[label] * 1e3
         out[f"{label}_busy"] = {
             "device_ms": dev, "k8_launches_seen": seen,
+            "k8_seen_per_try": seen_per_try,
             "device_busy_share": (None if dev is None
                                   else dev / (walls[label] * 1e3))}
     del q, a, x
@@ -1860,6 +1936,177 @@ def layer_program(n):
     """The channel run of one config-4 layer: mixDepolarising on every
     qubit of an n-qubit density register."""
     return tuple(("depol", t, t + n) for t in range(n))
+
+
+def phase_qft_reversal(torch, np, qt, C, fused, bigstate):
+    """K10's reversal form against the route it replaces, which ran the
+    reference's in-place plan (three B-only K1 passes and sigma after the
+    lane fold): the reversal alone at 30 and 31 qubits and on a bank of 2
+    x 30 against that plan, bit for bit; applyFullQFT at 30 qubits bit
+    for bit against K8, K9, the A-only lane pass and that plan (its four
+    0/1 passes exact), and within the tolerance of the old route, whose
+    dual lane fold took its exact 0/1 B side in 3xTF32 products that drop
+    the low bits of X A^T; the launches of one applyFullQFT; the reversal
+    form's time (CUDA events) beside its bytes bound and the old plan's,
+    and the A-only lane pass beside the dual lane fold it replaces."""
+    dt = np.float32
+    out = {"device": torch.cuda.get_device_name(0), "old_route": {}}
+    g = 7
+    for n in N_REV_OLD:
+        x = random_state(torch, n, 4242 + n)
+        old = C.plan_to_device(C._bit_reversal_big(n, dt), torch.float32,
+                               DEVICE)
+        reset_qft_counts(fused, bigstate)
+        y_old = C.execute_plan(x.clone(), old, n)
+        sync()
+        old_launches = qft_launches(fused, bigstate)
+        check(old_launches["K1"] == C.stats(old)["winfused"] == 4
+              and old_launches["K10"] == 1,
+              f"the old route's plan at {n} qubits launched {old_launches}, "
+              "not four K1 passes and sigma")
+        bigstate.reset_launch_counts()
+        y = bigstate.apply_bit_reversal(x, num_qubits=n, group_bits=g)
+        sync()
+        check(bigstate.LAUNCHES["K10_rev"] == 1 and y.data_ptr()
+              == x.data_ptr(), f"the reversal form at {n} qubits did not "
+              f"run once in place: {bigstate.LAUNCHES}")
+        check(torch.equal(y, y_old), f"the reversal form at {n} qubits is "
+              "not the old route's plan bit for bit")
+        out["old_route"][n] = {"bit_identical": True,
+                               "old_plan": [op[0] for op in old],
+                               "old_plan_launches": old_launches}
+        del x, y, y_old, old
+        torch.cuda.empty_cache()
+
+    # a bank of 2 x 30 through execute_plan, one launch for the bank
+    n, nb = N_QFT, 2
+    bank = torch.stack([random_state(torch, n, 4300 + b) for b in range(nb)])
+    old = C.plan_to_device(C._bit_reversal_big(n, dt), torch.float32, DEVICE)
+    want = C.execute_plan(bank.clone(), old, n)
+    ops = C.bit_reversal_ops(n, [(0, n)], dt, device=DEVICE)
+    bigstate.reset_launch_counts()
+    got = C.execute_plan(bank, ops, n)
+    sync()
+    check(ops == [("sigma_rev", g)] and bigstate.LAUNCHES["K10_rev_bank"]
+          == 1, f"the bank's reversal: {ops}, {bigstate.LAUNCHES}")
+    check(torch.equal(got, want), "the reversal form on a bank of 2 x 30 "
+          "is not the old route's plan bit for bit")
+    out["bank"] = {"n": n, "batch": nb, "bit_identical": True,
+                   "launches": dict(bigstate.LAUNCHES),
+                   "ms": time_ms(lambda: bigstate.apply_bit_reversal(
+                       bank, num_qubits=n, group_bits=g), reps=5),
+                   "old_plan_ms": time_ms(lambda: C.execute_plan(
+                       bank, old, n), reps=3, warmup=1),
+                   "bound_ms": nb * 2 * 2 * (1 << n) * 4
+                   / HBM_BYTES_PER_S * 1e3}
+    del bank, want, got, old
+    torch.cuda.empty_cache()
+
+    # applyFullQFT at 30 qubits against the old route, same input
+    env = qt.createQuESTEnv()
+    q = qt.createQureg(n, env)
+    src = random_state(torch, n, QFT_SEED + 7)
+    q.amps = src.clone()
+    reset_qft_counts(fused, bigstate)
+    qt.applyFullQFT(q)
+    sync()
+    api_launches = qft_launches(fused, bigstate)
+    want_launches = {"K1": 1, "K2": 0, "K6": 0, "K7": 0,
+                     "K8": -(-(n - 14) // 4), "K9": 1, "K10": 0,
+                     "K10_rev": 1}
+    check(api_launches == want_launches, f"applyFullQFT launches "
+          f"{api_launches} != {want_launches}")
+    y = q.amps.reshape(2, -1)
+    lane_then_old_plan = (qft_plan_np(np, C, n)[:-1]
+                          + C._bit_reversal_big(n, dt))
+    y_mid = old_route_qft(np, C, fused, src.clone(), n,
+                          lane_then_old_plan).reshape(2, -1)
+    sync()
+    check(torch.equal(y, y_mid), f"applyFullQFT at {n} qubits is not K8, "
+          "K9, the lane pass and the old reversal plan bit for bit "
+          f"(|err| {max_abs_diff(torch, y, y_mid)})")
+    del y_mid
+    y_old = old_route_qft(np, C, fused, src.clone(), n).reshape(2, -1)
+    sync()
+    err, tol = max_abs_diff(torch, y, y_old), tolerance(src)
+    check(err <= tol, f"applyFullQFT at {n} qubits against the old route: "
+          f"|err| {err} > {tol}")
+    out["apply_full_qft"] = {
+        "n": n, "launches": api_launches,
+        "bit_identical_to_lane_pass_then_old_reversal": True,
+        "bit_identical_to_old_route": bool(torch.equal(y, y_old)),
+        "max_abs_err_vs_old_route": err, "tolerance": tol,
+        "max_abs_amp": float(y.abs().max())}
+    del y, y_old, q
+    torch.cuda.empty_cache()
+
+    # times at 2^30: the reversal form, sigma, the old plan, the plain
+    # version, the library's one call; the whole QFT by both routes
+    x = src
+    old = C.plan_to_device(C._bit_reversal_big(n, dt), torch.float32, DEVICE)
+    bound, by = least_ms(2 * x.numel() * 4, 0.0, PEAK_FLOPS["float32"])
+    # the library yardstick: one torch.index_select of the amplitude axis
+    # by the n-bit reversal of the index (int32, built once on the card),
+    # held to the reversal form first
+    idx = torch.arange(1 << n, dtype=torch.int32, device=DEVICE)
+    rev = torch.zeros_like(idx)
+    for b in range(n):
+        rev.bitwise_or_(((idx >> b) & 1) << (n - 1 - b))
+    del idx
+    check(torch.equal(torch.index_select(x, 1, rev),
+                      bigstate.apply_bit_reversal(x.clone(), num_qubits=n,
+                                                  group_bits=g)),
+          "index_select by the reversed index is not the reversal form")
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: bigstate.apply_bit_reversal(x, num_qubits=n,
+                                                     group_bits=g))
+    out["k10_rev"] = {
+        "n": n, "ms": ms, "bound_ms": bound, "bound_by": by,
+        "fraction_of_bound": bound / ms,
+        "sigma_ms": time_ms(lambda: bigstate.apply_sigma_swap(
+            x, num_qubits=n, group_bits=g)),
+        "plain_ms": time_ms(lambda: bigstate.bit_reversal_plain(
+            x, num_qubits=n, group_bits=g), reps=3, warmup=1),
+        "library_ms": time_ms(lambda: torch.index_select(x, 1, rev), reps=3,
+                              warmup=1),
+        "library_form": "torch.index_select(x, 1, rev) with an int32 "
+                        "bit-reversal index",
+        "old_plan_ms": time_ms(lambda: C.execute_plan(x, old, n), reps=3,
+                               warmup=1)}
+    del rev
+    m = N_REV_OLD[-1]
+    x31 = random_state(torch, m, 4343)
+    ms31 = time_ms(lambda: bigstate.apply_bit_reversal(x31, num_qubits=m,
+                                                       group_bits=g), reps=5)
+    b31 = least_ms(2 * x31.numel() * 4, 0.0, PEAK_FLOPS["float32"])[0]
+    out["k10_rev_31"] = {"n": m, "ms": ms31, "bound_ms": b31,
+                         "fraction_of_bound": b31 / ms31}
+    del x31
+    torch.cuda.empty_cache()
+    # the lane layers' pass: A-only now, dual (with both rev7) before
+    lane_new = [op for op in qft_k1_ops(torch, np, C, n)
+                if op[0] == "winfused"]
+    lane_old = [op for op in qft_k1_ops(torch, np, C, n, old=True)
+                if op[0] == "winfused"][0]
+    check(len(lane_new) == 1 and lane_new[0][4] and not lane_new[0][5],
+          f"the lane pass is not A-only: {[op[4:6] for op in lane_new]}")
+
+    def lane(op):
+        return time_ms(lambda: fused.apply_window_stack(
+            x, op[2], op[3], None, num_qubits=n, k=op[1], apply_a=op[4],
+            apply_b=op[5]))
+
+    out["lane_pass"] = {"a_only_ms": lane(lane_new[0]),
+                        "dual_ms": lane(lane_old),
+                        "bound_ms_bytes": bound}
+    a = x.view(2, -1, 128, 128)
+    out["qft_ms"] = {
+        "route": time_ms(lambda: C.fused_qft(a, n, 0, n), reps=3, warmup=1),
+        "old_route": time_ms(lambda: old_route_qft(np, C, fused, a, n),
+                             reps=3, warmup=1)}
+    del x, a, src, old
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_channel_parity(torch, np, fused):
@@ -8598,7 +8845,8 @@ def phase_bank_forms_parity(torch, np, fused, bigstate):
         bigstate.reset_launch_counts()
         y = bigstate.apply_sigma_swap(x.clone(), num_qubits=m, group_bits=g)
         sync()
-        check(bigstate.LAUNCHES == {"K10": 0, "K10_bank": 1},
+        check(bigstate.LAUNCHES == {"K10": 0, "K10_bank": 1, "K10_rev": 0,
+                                    "K10_rev_bank": 0},
               f"K10 bank: launches {bigstate.LAUNCHES}")
         for b in range(nb):
             ys = bigstate.apply_sigma_swap(x[b].clone(), num_qubits=m,
@@ -8663,10 +8911,10 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
     launches equal to the plan's fused and swapfused ops, and every
     element torch.equal to its own scalar paged drain.  R7b: execute_plan
     of the 30-qubit bit reversal (circuit.bit_reversal_ops on the card:
-    four K1 passes and the in-place sigma swap) on a float32 bank of 2 x
-    2^30 (17.2 GB): K1_bank and K10_bank launches, each element
-    torch.equal to its scalar route.  Each form timed against B scalar
-    launches and its plain version."""
+    K10's reversal form, in place) on a float32 bank of 2 x 2^30 (17.2
+    GB): one K10_rev_bank launch, each element torch.equal to its scalar
+    route; then K10's sigma bank form on the same bank.  Each form timed
+    against B scalar launches and its plain version."""
     out = {}
     # R7a
     n, nb = N_R7A, B_R7A
@@ -8784,8 +9032,8 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
     # R7b
     n, nb = N_R7B, B_R7B
     ops = C.bit_reversal_ops(n, [(0, n)], np.float32, device=DEVICE)
-    check(ops is not None and [op[0] for op in ops].count("sigma_swap") == 1,
-          f"R7b: the 30-qubit reversal has no sigma swap: {ops}")
+    check(ops == [("sigma_rev", 7)],
+          f"R7b: the 30-qubit reversal is not K10's reversal form: {ops}")
     dops = C.plan_to_device(ops, torch.float32, DEVICE)
     bank = torch.empty((nb, 2, 1 << n), dtype=torch.float32, device=DEVICE)
     for b in range(nb):
@@ -8797,12 +9045,10 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
     bank = C.execute_plan(bank, dops, n)
     sync()
     wall = time.perf_counter() - t0
-    got = {**bank_launches(fused), "K10": bigstate.LAUNCHES["K10"]}
-    want_k1 = sum(1 for op in ops if op[0] == "winfused")
-    check(got["K1_bank"] == want_k1 and got["K10_bank"] == 1
-          and got["K1"] == got["K10"] == 0,
-          f"R7b: bank launches {got}, the plan holds {want_k1} window "
-          "passes and one sigma swap")
+    got = {**bank_launches(fused), **bigstate.LAUNCHES}
+    check(got["K10_rev_bank"] == 1 and got["K1"] == got["K1_bank"] == 0
+          and got["K10"] == got["K10_bank"] == got["K10_rev"] == 0,
+          f"R7b: bank launches {got}, the plan holds one reversal")
     for b in range(nb):
         z = C.execute_plan(random_state(torch, n, 24680 + b), dops, n)
         sync()
@@ -8856,9 +9102,11 @@ def phase_bank_forms_main(torch, np, C, fused, bigstate, circuits):
         check(torch.equal(bank[b], plains[b]), f"R7b K10 bank element {b}: "
               f"not its plain relabel bit for bit (|err| {err})")
     del plains
+    got["K10_bank"] = bigstate.LAUNCHES["K10_bank"]
     out["r7b"] = {"n": n, "batch": nb, "bank_bytes": bank.numel() * 4,
                   "plan": [op[0] for op in ops], "bank_wall_s": wall,
-                  "launches": {k: got[k] for k in ("K1_bank", "K10_bank")},
+                  "launches": {k: got[k] for k in ("K10_rev_bank",
+                                                   "K10_bank")},
                   "elements_equal_scalar": list(range(nb)),
                   "k10_bank": k10}
     del bank, dops
@@ -9320,9 +9568,10 @@ def main() -> int:
     qmain, qft_counts, rho_counts = phase_qft_main(torch, np, qt, C, fused,
                                                    bigstate, circuits)
     emit({"phase": "qft_main", **qmain})
-    for key in ("K8", "K9", "K10"):
+    for key in ("K8", "K9", "K10_rev"):
         check(qft_counts[key] > 0, f"{key} never launched on the QFT path")
         launches[key] = qft_counts[key]
+    launches["K10"] = qft_counts["K10"]
     for key in ("K6", "K7"):
         check(rho_counts[key] > 0, f"{key} never launched on the density "
               "QFT path")
@@ -9331,6 +9580,11 @@ def main() -> int:
     # 11. QFT timing at 30 qubits
     qtiming = phase_qft_timing(torch, np, qt, C, fused, bigstate)
     emit({"phase": "qft_timing", "power": smi, **qtiming})
+
+    # 11b. K10's reversal form against the old route's plan, bit for bit,
+    # and its time beside its bound
+    qrev = phase_qft_reversal(torch, np, qt, C, fused, bigstate)
+    emit({"phase": "qft_reversal", "power": smi, **qrev})
 
     # 12. K5 against its plain version
     cparity = phase_channel_parity(torch, np, fused)
@@ -9638,9 +9892,24 @@ def main() -> int:
                 qtiming["k9"], qerr, "qft.cu")
     k10e = entry("K10 sigma swap", "quest_tpu/ops/bigstate.py:108",
                  qtiming["k10"], qerr, "qft.cu")
+    k10r = entry("K10 reversal form", "none: the reference reverses by "
+                 "window passes and sigma (quest_tpu/circuit.py "
+                 "_bit_reversal_big)", qrev["k10_rev"], qerr, "qft.cu",
+                 key="K10_rev")
+    k10r["kernel"] = "sigma_swap_kernel"
+    k10r["library_form"] = qrev["k10_rev"]["library_form"]
+    k10r["old_plan_ms"] = qrev["k10_rev"]["old_plan_ms"]
+    k10r["old_plan_note"] = ("the reference's in-place plan it replaces: "
+                             "four K1 passes and sigma")
     k6e["kernel"] = k8e["kernel"] = "qft_hi_kernel"
     k7e["kernel"] = k9e["kernel"] = "qft_sublane_kernel"
     k10e["kernel"] = "sigma_swap_kernel"
+    # sigma runs on no main path since the reversal form (its launches
+    # above: 0, the QFT's); counted apart, each from 0: one in the old
+    # route's plan at 30 qubits, one per parity case
+    k10e["old_plan_launches"] = (
+        qrev["old_route"][N_QFT]["old_plan_launches"]["K10"])
+    k10e["parity_launches"] = qparity["k10_launches"]
     for e in (k6e, k7e, k8e, k9e):
         e["library_note"] = "none: no single PyTorch call computes a ladder"
     k10e["library_note"] = ("the same permutation by permute(...)"
@@ -9807,7 +10076,7 @@ def main() -> int:
           and sum(k2e["aot"].values()) + sum(k2b["aot"].values()) > 0,
           "a window kernel never launched on the plan cache's path")
     emit({"kernels": [k1e, k2e, k3e, k4e, k5e, k6e, k7e, k8e, k9e, k10e,
-                      k11e, k12e, k1b, k2b, k5b, k11b, k12b, k10b,
+                      k10r, k11e, k12e, k1b, k2b, k5b, k11b, k12b, k10b,
                       *probe_entries(pparity_probes, pmain_probes)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

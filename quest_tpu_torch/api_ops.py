@@ -1213,10 +1213,14 @@ def _apply_qft(qureg: Qureg, qubits) -> None:
     """The fused route where it applies, else the layered one: per layer
     a Hadamard and the controlled-phase ladder as one SCALED_PRODUCT phase
     function (and its conjugated bra twin on a density matrix), then the
-    swaps.  Runs under the ``api.qft`` span."""
-    with _telemetry.span("api.qft", qubits=len(qubits)):
-        if not _qft_fused(qureg, qubits):
+    swaps.  Runs under the ``api.qft`` span, whose attr ``rev_launches``
+    counts the reversal's ops: 1 where K10's reversal form does it all,
+    the swaps on the layered path (none where a split register's route
+    reverses across the mesh)."""
+    with _telemetry.span("api.qft", qubits=len(qubits)) as sp:
+        if not _qft_fused(qureg, qubits, sp.attrs):
             _qft_layered(qureg, qubits)
+            sp.attrs["rev_launches"] = len(qubits) // 2
 
 
 def _qft_layered(qureg: Qureg, qubits) -> None:
@@ -1249,13 +1253,14 @@ def _qft_layered(qureg: Qureg, qubits) -> None:
         swapGate(qureg, qubits[i], qubits[n - i - 1])
 
 
-def _qft_fused(qureg: Qureg, qubits) -> bool:
+def _qft_fused(qureg: Qureg, qubits, attrs: Optional[dict] = None) -> bool:
     """The fused QFT (circuit.fused_qft): ladder passes, one scheduled
     low-qubit window pass and one bit reversal for the whole swap network
     (both halves at once on a density matrix).  Applies when the qubits
     are a contiguous ascending run starting at 0 or >= 7 and the state
     vector is window-sized (>= 14 qubits); otherwise returns False and the
-    layered path runs."""
+    layered path runs.  ``attrs``: the span's, for fused_qft's
+    ``rev_launches``."""
     nsv = _sv_n(qureg)
     if nsv < CIRC.WINDOW:
         return False
@@ -1281,10 +1286,11 @@ def _qft_fused(qureg: Qureg, qubits) -> bool:
                 qureg.amps, num_qubits=nsv, runs=tuple(runs))
         else:
             _default_route(qureg, lambda a: CIRC.fused_qft(
-                a, nsv, start, nt, shifts=shifts))
+                a, nsv, start, nt, shifts=shifts, attrs=attrs))
         _qft_qasm_trail(qureg, qubits, nt)
         return True
-    qureg.amps = CIRC.fused_qft(qureg.amps, nsv, start, nt, shifts=shifts)
+    qureg.amps = CIRC.fused_qft(qureg.amps, nsv, start, nt, shifts=shifts,
+                                attrs=attrs)
     _qft_qasm_trail(qureg, qubits, nt)
     return True
 

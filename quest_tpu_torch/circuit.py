@@ -20,6 +20,9 @@ plan is a list of tuples:
     ('sigma_swap', g)         the QFT bit reversal's in-place double
                               bit-block swap (ops/bigstate.py
                               apply_sigma_swap, kernel K10)
+    ('sigma_rev', g)          the whole bit reversal of the state in one
+                              in-place pass (ops/bigstate.py
+                              apply_bit_reversal, K10's reversal form)
 
 The paged planner (``plan_circuit_py``; ``planner="paged"`` or
 ``QT_PLANNER=paged``) instead pins the window to [7, 14) and relocates
@@ -1327,24 +1330,25 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int,
     """Run a plan on ``amps`` (any full-size contiguous view of the state)
     and return the new state, in the same shape.  Window passes go
     through K1, megawin groups through K2, cluster passes through K11,
-    swap + cluster passes through K12 and sigma swaps through K10 (on the
-    CPU, their plain versions); the rest are plain PyTorch ops.  The
-    window passes run at ``precision`` (None: the mode current at the
-    call, ``fused.set_matmul_precision``).  A sigma swap works in place
-    on the card: the input is consumed.
+    swap + cluster passes through K12 and sigma swaps and whole bit
+    reversals through K10 (on the CPU, their plain versions); the rest
+    are plain PyTorch ops.  The window passes run at ``precision`` (None:
+    the mode current at the call, ``fused.set_matmul_precision``).  A
+    sigma swap or a reversal works in place on the card: the input is
+    consumed.
 
     ``amps`` may be a (B, 2, 2^n) register bank (a BatchedQureg drain:
     the reference's jax.vmap of its plan executor, quest_tpu/fusion.py
     _plan_runner), whose ops' arrays are shared or carry a leading B axis
     per element (``fused.bank_element_op``).  Window passes, megawin
-    groups, cluster and swap + cluster passes and sigma swaps then take
-    the whole bank in one launch each (K1, K2, K11, K12, K10); the
-    data-movement ops take it as a batch dimension (``torch.vmap``,
+    groups, cluster and swap + cluster passes, sigma swaps and reversals
+    then take the whole bank in one launch each (K1, K2, K11, K12, K10);
+    the data-movement ops take it as a batch dimension (``torch.vmap``,
     exact); only dense ``apply`` ops, whose batched product would sum in
     another order, run element by element.  Each element's result equals
-    its own drain's bit for bit.  A sigma swap on a bank comes only from
-    a plan of ``bit_reversal_ops`` at n >= 30 run here: no public API
-    sends a QFT into a bank drain.
+    its own drain's bit for bit.  A sigma swap or a reversal on a bank
+    comes only from a plan of ``bit_reversal_ops`` at n >= 30 run here:
+    no public API sends a QFT into a bank drain.
 
     ``stage``: {id(op): fused.StagedPass} of the window passes among
     ``ops`` whose operands a drain staged (``fused.stage_ops``, made at
@@ -1396,6 +1400,9 @@ def execute_plan(amps, ops: Sequence[tuple], num_qubits: int,
         elif kind == "sigma_swap":
             amps = bigstate.apply_sigma_swap(amps, num_qubits=n,
                                              group_bits=op[1])
+        elif kind == "sigma_rev":
+            amps = bigstate.apply_bit_reversal(amps, num_qubits=n,
+                                               group_bits=op[1])
         else:
             raise ValueError(f"unknown op {kind}")
     return amps
@@ -1485,6 +1492,7 @@ def stats(ops: Sequence[tuple]) -> dict:
             "xor": c.get("xor", 0),
             "gatherperm": c.get("gatherperm", 0),
             "sigma_swap": c.get("sigma_swap", 0),
+            "sigma_rev": c.get("sigma_rev", 0),
             "total_passes": sum(c.values())}
 
 
@@ -1512,7 +1520,8 @@ def _qft_layer_dense(tr: int, conj: bool, dt) -> np.ndarray:
 
 
 def fused_qft(amps, num_qubits: int, start: int, count: int,
-              shifts: Sequence[int] = (0,), conj_first: bool = False):
+              shifts: Sequence[int] = (0,), conj_first: bool = False,
+              attrs: Optional[dict] = None):
     """QFT on the contiguous qubits [start, start+count), plus a conjugated
     twin per extra entry of ``shifts`` (the density-matrix bra half), as:
 
@@ -1526,7 +1535,9 @@ def fused_qft(amps, num_qubits: int, start: int, count: int,
     takes the multilayer route (_fused_qft_multilayer).  ``conj_first``
     conjugates the first run too (a sharded density register's bra run,
     alone in its shard).  Requires start == 0 or start >= 7 (callers take
-    the layered path otherwise).
+    the layered path otherwise).  ``attrs`` (a span's attributes) gets
+    ``rev_launches``, the launches of the reversal's ops (1 where K10's
+    reversal form does it all).
     The input is consumed: the kernels work in place on the card."""
     n = num_qubits
     if not (start == 0 or start >= LANE):
@@ -1534,7 +1545,8 @@ def fused_qft(amps, num_qubits: int, start: int, count: int,
     dt = np.float64 if amps.dtype == torch.float64 else np.float32
     if (start == 0 and tuple(shifts) == (0,) and count >= 15
             and fused.qft_multilayer_enabled(amps)):
-        return _fused_qft_multilayer(amps, n, count, conj=conj_first)
+        return _fused_qft_multilayer(amps, n, count, conj=conj_first,
+                                     attrs=attrs)
     dense_gates: List[Gate] = []
     for si, sh in enumerate(shifts):
         conj = si > 0 or conj_first
@@ -1560,34 +1572,44 @@ def fused_qft(amps, num_qubits: int, start: int, count: int,
                 perm[b + i], perm[b + c - 1 - i] = (
                     perm[b + c - 1 - i], perm[b + i])
         rev_ops = [("permute", tuple(perm))] if perm != list(range(n)) else []
+    if attrs is not None:
+        attrs["rev_launches"] = len(rev_ops)
     return execute_plan(amps, rev_ops, n)
 
 
 def _fused_qft_multilayer(amps, n: int, count: int,
                           radix: int = fused.QFT_RADIX_DEFAULT,
-                          conj: bool = False):
+                          conj: bool = False, attrs: Optional[dict] = None):
     """Radix-2^k QFT of the run [0, count) of a state vector:
 
       * layers t >= 14 in chunks of ``radix`` layers a pass (K8),
       * all seven sublane layers (t = 13..7) in one pass (K9),
-      * the seven lane layers (t = 6..0) folded with the lane and sublane
-        within-group bit reversals into window passes,
-      * then the high groups' reversal passes and the group-order
-        reversal from bit_reversal_ops(skip_low_group=True).
+      * the seven lane layers (t = 6..0) in one window pass,
+      * then the reversal: where it runs in place (a full run at 30-34
+        qubits, _in_place_reversal) K10's reversal form, one pass;
+        elsewhere the lane and sublane within-group reversals fold into
+        the lane layers' window pass, and the high groups' reversal
+        passes and the group-order reversal come from
+        bit_reversal_ops(skip_low_group=True).
 
-    The reference's per-gate dispatch is ~2.5n sweeps (agnostic_applyQFT,
-    QuEST_common.c:836-898)."""
+    ``attrs`` as fused_qft's.  The reference's per-gate dispatch is ~2.5n
+    sweeps (agnostic_applyQFT, QuEST_common.c:836-898)."""
     dt = np.float64 if amps.dtype == torch.float64 else np.float32
     amps = fused.apply_qft_multilayer_ladders(
         amps, num_qubits=n, t_top=count - 1, radix=radix, conj=conj)
     dense_gates = [Gate(tuple(range(qq + 1)), _qft_layer_dense(qq, conj, dt))
                    for qq in range(LANE - 1, -1, -1)]
-    rev7 = _rev_perm_mat(LANE, dt)
-    dense_gates.append(Gate(tuple(range(LANE)), rev7))
-    dense_gates.append(Gate(tuple(range(LANE, 2 * LANE)), rev7))
+    runs = [(0, count)]
+    in_place = _in_place_reversal(n, runs, dt, amps.device)
+    if not in_place:
+        rev7 = _rev_perm_mat(LANE, dt)
+        dense_gates.append(Gate(tuple(range(LANE)), rev7))
+        dense_gates.append(Gate(tuple(range(LANE, 2 * LANE)), rev7))
     ops = plan_circuit(dense_gates, n, device=amps.device)
-    rev_ops = bit_reversal_ops(n, [(0, count)], dt, skip_low_group=True,
+    rev_ops = bit_reversal_ops(n, runs, dt, skip_low_group=not in_place,
                                device=amps.device)
+    if attrs is not None:
+        attrs["rev_launches"] = len(rev_ops)
     return execute_plan(amps, list(ops) + rev_ops, n)
 
 
@@ -1625,6 +1647,17 @@ def _bit_reversal_big(n: int, dt, skip_low_group: bool = False) -> List[tuple]:
     return ops
 
 
+def _in_place_reversal(n: int, runs: Sequence[Tuple[int, int]], dt,
+                       device) -> bool:
+    """Whether the reversal of ``runs`` takes the in-place route: a single
+    full run at 30 <= n < 35 of a float32 state on the card (``device``),
+    where an out-of-place transpose would need a second full-state
+    buffer."""
+    return (len(runs) == 1 and tuple(runs[0]) == (0, n) and 30 <= n < 35
+            and np.dtype(dt) == np.float32 and device is not None
+            and torch.device(device).type == "cuda")
+
+
 def bit_reversal_ops(n: int, runs: Sequence[Tuple[int, int]], dt,
                      skip_low_group: bool = False,
                      device=None) -> Optional[List[tuple]]:
@@ -1638,8 +1671,9 @@ def bit_reversal_ops(n: int, runs: Sequence[Tuple[int, int]], dt,
     reversal of all runs is one axis permutation.
 
     A single full run at 30 <= n < 35 of a float32 state on the card
-    (``device``) takes the in-place route instead (_bit_reversal_big):
-    the transpose would need a second full-state buffer.
+    (``device``, _in_place_reversal) takes the in-place route instead:
+    the transpose would need a second full-state buffer.  There the whole
+    reversal is one op, ``('sigma_rev', 7)`` (K10's reversal form).
 
     ``skip_low_group=True`` omits the merged lane+sublane within-group
     reversal pass (the caller folds those two reversals into its own dense
@@ -1648,10 +1682,8 @@ def bit_reversal_ops(n: int, runs: Sequence[Tuple[int, int]], dt,
     if skip_low_group and not (
             len(runs) == 1 and runs[0][0] == 0 and runs[0][1] >= 14):
         raise ValueError("skip_low_group needs one run = (0, count >= 14)")
-    if (len(runs) == 1 and runs[0] == (0, n) and 30 <= n < 35
-            and np.dtype(dt) == np.float32 and device is not None
-            and torch.device(device).type == "cuda"):
-        return _bit_reversal_big(n, dt, skip_low_group=skip_low_group)
+    if not skip_low_group and _in_place_reversal(n, runs, dt, device):
+        return [("sigma_rev", LANE)]
     ops: List[tuple] = []
     perm = list(range(n))
     eye = _eye_cluster().astype(dt)

@@ -14,7 +14,11 @@
 //                        K7: replaces _qft_ladder_lo_jit (pallas_call at
 //                        fused.py:1003), the same kernel with one layer.
 //   sigma_swap_kernel    K10: replaces quest_tpu/ops/bigstate.py
-//                        _sigma_swap_jit (pallas_call at bigstate.py:108).
+//                        _sigma_swap_jit (pallas_call at bigstate.py:108)
+//                        (sigma_swap_kernel<false>); its reversal form
+//                        sigma_swap_kernel<true> runs the QFT's whole bit
+//                        reversal (no TPU counterpart: the reference runs
+//                        window passes and sigma).
 //
 // What they compute.  The state is a real SoA array, the real plane x[0 ..
 // 2^n) then the imaginary plane x[2^n .. 2^(n+1)); qubit q is bit q of the
@@ -35,10 +39,12 @@
 //   * 7 <= t <= 13: the pair bit is row bit t - 7 of a 128 x 128 block (rows
 //     = bits [7, 14), lanes = bits [0, 7)) and ph = tab[row mod 2^(t-7)]
 //     [lane].
-// sigma swaps amp bits [0, g) <-> [n-g, n) and [g, 2g) <-> [n-2g, n-g).
+// sigma swaps amp bits [0, g) <-> [n-g, n) and [g, 2g) <-> [n-2g, n-g);
+// the reversal form maps amp index i to rev_n(i), bit q to bit n-1-q.
 //
 // What bounds them on this card.  Each reads and writes the state once and
-// does tens of flops an amplitude: all three are bound by bytes.  At 30
+// does tens of flops an amplitude (K10, either form, none): all three are
+// bound by bytes.  At 30
 // qubits in float32 (8.59 GB) a pass takes at least 2 * 8.59 GB /
 // 3.35 TB/s = 5.13 ms.  The tables (<= 896 KB) stay in L2.
 //
@@ -67,6 +73,19 @@
 //     buffer.  A diagonal tile (c == d, x0 == y0) swaps with its own
 //     transpose: both halves are loaded before the barrier and the two
 //     stores write the same values.
+//   * sigma_swap_kernel<true>, the full reversal i <-> rev_n(i) over the
+//     split (g, g, n-4g, g, g): element (G2, G1, b, s, l) pairs with
+//     (rev l, rev s, rev b, rev G1, rev G2), so slab (c, b, d) maps onto
+//     slab (rev d, rev b, rev c), element (x, y) onto (rev y, rev x).  Over
+//     the row coordinate x~ = rev_g(G2) that is sigma's transpose again,
+//     (x~, y) -> (y, x~): the same 32 x 32 tiles, whose 32 rows G2 =
+//     rev_g(x~) lie 2^g / 32 apart (each a 128-byte run of 32 lanes).  The
+//     grid enumerates the pairs c <= rev d (host tables) and every b; where
+//     c == rev d the pair slab has b' = rev b, so b > rev b is left to its
+//     partner CTA and b == rev b (a slab paired with itself) takes only
+//     tiles x0 <= y0, as sigma's diagonal slabs do.  Each element pair is
+//     again moved by exactly one CTA, in place; the index arithmetic is
+//     two bit reversals a row.
 //
 // Bit identity.  The products are taken in the order of the plain versions
 // (ops/fused.py _hi_layers_plain, _sublane_layer) and the file is compiled
@@ -209,11 +228,20 @@ qft_sublane_kernel(float* __restrict__ x, u64 num_amps, int t_hi, int t_lo,
     }
 }
 
-// grid: (tiles of a slab, unordered pairs c <= d, e * 2^(n-4g) + b);
-// view [ch, G2, G1, b, s, l] with slab (c, d) = (G1 = c, s = d), element
-// (x, y) = (G2, l).  Over a bank of registers (the reference's vmapped
-// _sigma_swap_jit), register e's planes lie e * 2 * num_amps on; one
-// register is a bank of one.
+// rev_bits(v, bits): the low ``bits`` bits of v in reverse order
+__device__ __forceinline__ unsigned rev_bits(unsigned v, int bits) {
+    return bits ? __brev(v) >> (32 - bits) : 0u;
+}
+
+// grid: (tiles of a slab, unordered slab pairs, e * 2^(n-4g) + b); view
+// [ch, G2, G1, b, s, l] with slab (c, d) = (G1 = c, s = d), element
+// (x, y) = (G2, l).  REV false (sigma): pairs c <= d, slab (c, b, d) <->
+// (d, b, c), element (x, y) <-> (y, x).  REV true (the full reversal):
+// pairs c <= rev d, slab (c, b, d) <-> (rev d, rev b, rev c), element
+// (x, y) <-> (rev y, rev x), rows addressed through x~ = rev x.  Over a
+// bank of registers (the reference's vmapped _sigma_swap_jit), register
+// e's planes lie e * 2 * num_amps on; one register is a bank of one.
+template <bool REV>
 __global__ void __launch_bounds__(SIG_THREADS)
 sigma_swap_kernel(float* __restrict__ x, u64 num_amps, int n, int g,
                   const int* __restrict__ ctab, const int* __restrict__ dtab) {
@@ -224,16 +252,23 @@ sigma_swap_kernel(float* __restrict__ x, u64 num_amps, int n, int g,
     const int nt = G / T;
     const int ti = blockIdx.x / nt, tj = blockIdx.x % nt;
     const int c = ctab[blockIdx.y], d = dtab[blockIdx.y];
-    if (c == d && ti > tj) return;              // its partner CTA moves it
+    const int bbits = n - 4 * g;
+    const unsigned b = blockIdx.z & ((1u << bbits) - 1);
+    // the partner slab's (G1, b, s)
+    const int pc = REV ? (int)rev_bits(d, g) : d;
+    const unsigned pb = REV ? rev_bits(b, bbits) : b;
+    const int pd = REV ? (int)rev_bits(c, g) : c;
+    if (c == pc) {
+        if (pb < b) return;                     // its partner CTA moves it
+        if (pb == b && ti > tj) return;         // a slab paired with itself
+    }
     const u64 sS = (u64)G;                      // s stride
     const u64 sB = (u64)G * G;                  // b stride
-    const u64 sG1 = sB << (n - 4 * g);          // G1 stride
+    const u64 sG1 = sB << bbits;                // G1 stride
     const u64 sG2 = sG1 * G;                    // G2 stride
-    const int bbits = n - 4 * g;
-    const u64 b = blockIdx.z & ((1u << bbits) - 1);
     x += (u64)(blockIdx.z >> bbits) * 2 * num_amps;     // register e
-    const u64 base_a = (u64)c * sG1 + b * sB + (u64)d * sS;   // slab (c, d)
-    const u64 base_b = (u64)d * sG1 + b * sB + (u64)c * sS;   // slab (d, c)
+    const u64 base_a = (u64)c * sG1 + (u64)b * sB + (u64)d * sS;
+    const u64 base_b = (u64)pc * sG1 + (u64)pb * sB + (u64)pd * sS;
     const int x0 = ti * T, y0 = tj * T;
     const int tx = threadIdx.x % SIG_TILE;
     const int ty = threadIdx.x / SIG_TILE;
@@ -242,8 +277,10 @@ sigma_swap_kernel(float* __restrict__ x, u64 num_amps, int n, int g,
         for (int ch = 0; ch < 2; ++ch) {
             float* plane = x + ch * num_amps;
             for (int r = ty; r < T; r += rows_step) {
-                ta[ch][r][tx] = plane[base_a + (u64)(x0 + r) * sG2 + y0 + tx];
-                tb[ch][r][tx] = plane[base_b + (u64)(y0 + r) * sG2 + x0 + tx];
+                const u64 ra = REV ? rev_bits(x0 + r, g) : x0 + r;
+                const u64 rb = REV ? rev_bits(y0 + r, g) : y0 + r;
+                ta[ch][r][tx] = plane[base_a + ra * sG2 + y0 + tx];
+                tb[ch][r][tx] = plane[base_b + rb * sG2 + x0 + tx];
             }
         }
     }
@@ -252,12 +289,33 @@ sigma_swap_kernel(float* __restrict__ x, u64 num_amps, int n, int g,
         for (int ch = 0; ch < 2; ++ch) {
             float* plane = x + ch * num_amps;
             for (int r = ty; r < T; r += rows_step) {
-                // new slab (c, d)[x][y] = old slab (d, c)[y][x], and back
-                plane[base_a + (u64)(x0 + r) * sG2 + y0 + tx] = tb[ch][tx][r];
-                plane[base_b + (u64)(y0 + r) * sG2 + x0 + tx] = ta[ch][tx][r];
+                const u64 ra = REV ? rev_bits(x0 + r, g) : x0 + r;
+                const u64 rb = REV ? rev_bits(y0 + r, g) : y0 + r;
+                // new slab A[x~][y] = old slab B[y][x~], and back (sigma:
+                // x~ = x)
+                plane[base_a + ra * sG2 + y0 + tx] = tb[ch][tx][r];
+                plane[base_b + rb * sG2 + x0 + tx] = ta[ch][tx][r];
             }
         }
     }
+}
+
+template <bool REV>
+static int launch_sigma(float* x, int n, int g, const int* ctab,
+                        const int* dtab, int npairs, int nbank,
+                        cudaStream_t stream) {
+    if (g < 1 || g > 8 || 4 * g > n || n > 40 ||
+        npairs != ((1 << g) * ((1 << g) + 1)) / 2 ||
+        (n - 4 * g) > 15 || nbank < 1 ||
+        ((long long)nbank << (n - 4 * g)) > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int G = 1 << g;
+    const int T = G < SIG_TILE ? G : SIG_TILE;
+    const dim3 grid((G / T) * (G / T), npairs,
+                    (unsigned)nbank << (n - 4 * g));
+    sigma_swap_kernel<REV><<<grid, SIG_THREADS, 0, stream>>>(
+        x, 1ull << n, n, g, ctab, dtab);
+    return (int)cudaGetLastError();
 }
 
 template <int K>
@@ -332,18 +390,17 @@ int qt_qft_sublane_f32(float* x, int n, int t_hi, int t_lo, const float* tab,
 // blocks, at most the z limit of 65535.
 int qt_sigma_swap_f32(float* x, int n, int g, const int* ctab,
                       const int* dtab, int npairs, int nbank, void* stream) {
-    if (g < 1 || g > 8 || 4 * g > n || n > 40 ||
-        npairs != ((1 << g) * ((1 << g) + 1)) / 2 ||
-        (n - 4 * g) > 15 || nbank < 1 ||
-        ((long long)nbank << (n - 4 * g)) > 65535)
-        return (int)cudaErrorInvalidValue;
-    const int G = 1 << g;
-    const int T = G < SIG_TILE ? G : SIG_TILE;
-    const dim3 grid((G / T) * (G / T), npairs,
-                    (unsigned)nbank << (n - 4 * g));
-    sigma_swap_kernel<<<grid, SIG_THREADS, 0, (cudaStream_t)stream>>>(
-        x, 1ull << n, n, g, ctab, dtab);
-    return (int)cudaGetLastError();
+    return launch_sigma<false>(x, n, g, ctab, dtab, npairs, nbank,
+                               (cudaStream_t)stream);
+}
+
+// K10's reversal form: the whole bit reversal i <-> rev_n(i) over the
+// pairs (ctab[i], dtab[i]), c <= rev_g d (ops/bigstate.py
+// rev_pair_tables); the bank and the grid as qt_sigma_swap_f32's.
+int qt_sigma_rev_f32(float* x, int n, int g, const int* ctab,
+                     const int* dtab, int npairs, int nbank, void* stream) {
+    return launch_sigma<true>(x, n, g, ctab, dtab, npairs, nbank,
+                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

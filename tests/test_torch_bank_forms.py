@@ -172,7 +172,7 @@ def test_sigma_swap_refuses_a_grid_over_the_z_limit():
         bank = torch.zeros((8, 2, 1 << n), device=device)
         with pytest.raises(ValueError, match="grid z limit"):
             bigstate.apply_sigma_swap(bank, num_qubits=n, group_bits=g)
-    assert bigstate.LAUNCHES == {"K10": 0, "K10_bank": 0}
+    assert not any(bigstate.LAUNCHES.values())
     ok = bigstate.apply_sigma_swap(torch.zeros((7, 2, 1 << n)),
                                    num_qubits=n, group_bits=g)
     assert ok.shape == (7, 2, 1 << n)
@@ -193,10 +193,65 @@ def test_bank_forms_refuse_a_device_without_kernels():
 
 def test_launch_keys():
     assert {"K12", "K12_bank", "K11_bank"} <= set(fused.LAUNCHES)
-    assert set(bigstate.LAUNCHES) == {"K10", "K10_bank"}
+    assert set(bigstate.LAUNCHES) == {"K10", "K10_bank", "K10_rev",
+                                      "K10_rev_bank"}
     fused.LAUNCHES["K12_bank"] = 3
     bigstate.LAUNCHES["K10_bank"] = 2
+    bigstate.LAUNCHES["K10_rev_bank"] = 1
     fused.reset_launch_counts()
     bigstate.reset_launch_counts()
     assert fused.LAUNCHES["K12_bank"] == 0
-    assert bigstate.LAUNCHES == {"K10": 0, "K10_bank": 0}
+    assert bigstate.LAUNCHES == {"K10": 0, "K10_bank": 0, "K10_rev": 0,
+                                 "K10_rev_bank": 0}
+
+
+@pytest.mark.parametrize("entry", ["qt_sigma_swap_f32", "qt_sigma_rev_f32"])
+def test_k10_entries_share_the_signature(entry):
+    """Both K10 entries (sigma and the reversal form) take the state, n,
+    g, the pair tables, their length, the bank size and the stream."""
+    src = (CSRC / "qft.cu").read_text()
+    assert list(bigstate.SIGMA_ARGTYPES) == _declared(src, entry, None)
+
+
+def test_bit_reversal_refuses_what_sigma_refuses():
+    """The reversal form's wrapper refuses a grid over the z limit before
+    any launch, a device without kernels and a state of the wrong shape,
+    naming itself."""
+    n, g = 17, 1
+    bigstate.reset_launch_counts()
+    for device in ("cpu", "meta"):
+        bank = torch.zeros((8, 2, 1 << n), device=device)
+        with pytest.raises(ValueError, match="apply_bit_reversal: .*grid z "
+                                             "limit of 65535"):
+            bigstate.apply_bit_reversal(bank, num_qubits=n, group_bits=g)
+    assert not any(bigstate.LAUNCHES.values())
+    with pytest.raises(RuntimeError, match="apply_bit_reversal: no kernel"):
+        bigstate.apply_bit_reversal(torch.zeros((2, 2, 1 << N),
+                                                device="meta"),
+                                    num_qubits=N, group_bits=4)
+    with pytest.raises(ValueError, match=r"\(B, 2, 2\^16\)"):
+        bigstate.apply_bit_reversal(torch.zeros((2, 3, 1 << N)),
+                                    num_qubits=N, group_bits=4)
+    with pytest.raises(ValueError, match="4\\*group_bits"):
+        bigstate.apply_bit_reversal(torch.zeros((2, 1 << N)), num_qubits=N,
+                                    group_bits=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_execute_plan_runs_the_reversal_bank_form_once(monkeypatch, dtype):
+    """A sigma_rev op on a bank is one wrapper call for the whole bank,
+    and each element equals its own scalar execute_plan."""
+    calls = []
+    real = bigstate.apply_bit_reversal
+
+    def k10r(amps, *a, **k):
+        calls.append(fused.bank_size(amps, k["num_qubits"]))
+        return real(amps, *a, **k)
+
+    monkeypatch.setattr(bigstate, "apply_bit_reversal", k10r)
+    bank = _bank(np.random.default_rng(9), N, NB, dtype)
+    out = C.execute_plan(bank, [("sigma_rev", 4)], N)
+    assert calls == [NB]
+    for b in range(NB):
+        assert torch.equal(out[b], C.execute_plan(bank[b],
+                                                  [("sigma_rev", 4)], N))

@@ -183,7 +183,8 @@ def test_qft_wrappers_on_cpu_take_the_plain_path_and_launch_nothing():
     tq.applyQFT(q, list(range(7, n)))
     assert C._fused_qft_multilayer(x, n, n).shape == x.shape
     assert all(v == 0 for v in fused.LAUNCHES.values())
-    assert bigstate.LAUNCHES == {"K10": 0, "K10_bank": 0}
+    assert bigstate.LAUNCHES == {"K10": 0, "K10_bank": 0, "K10_rev": 0,
+                                 "K10_rev_bank": 0}
 
 
 def _one_op_of_each_kind(rng, n):
@@ -202,6 +203,7 @@ def _one_op_of_each_kind(rng, n):
         "xor": ("xor", (0, 14)),
         "gatherperm": ("gatherperm", (1, 2), (1, 0, 3, 2)),
         "sigma_swap": ("sigma_swap", 3),
+        "sigma_rev": ("sigma_rev", 3),
     }
 
 

@@ -828,7 +828,9 @@ def test_qft_records_its_span():
     q = tq.createQureg(14, tq.createQuESTEnv(device="cpu"))
     tq.applyFullQFT(q)
     (rec,) = [r for r in PT.spans() if r["name"] == "api.qft"]
-    assert rec["attrs"] == {"qubits": 14}
+    # the reversal of 14 qubits on the CPU: one window pass (both 7-bit
+    # groups) and the group-order permute
+    assert rec["attrs"] == {"qubits": 14, "rev_launches": 2}
 
 
 def test_off_records_no_span(tmp_path):
